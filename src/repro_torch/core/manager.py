@@ -1,0 +1,902 @@
+"""GuardianManager — the ``grdManager`` analogue (Guardian §4.2), trusted
+subset.
+
+The manager is the **only entity with device access**: it owns the arena
+tensors (on its ``device``), the partition bounds table, and the symbol
+table of registered kernels.  Tenants reach it exclusively through
+:class:`~repro_torch.core.interception.GuardianClient`.
+
+Responsibilities (paper section in parentheses):
+
+* **Memory partitioning** (§4.2.1): buddy-allocated pow2 partitions out of
+  the reserved arena; per-tenant intra-partition allocator serves malloc().
+* **Transfer validation** (§4.2.2): every host-initiated copy is checked
+  against the bounds table; violations raise :class:`GuardianViolation`
+  without touching the device.
+* **Kernel invocation** (§4.2.3): ``pointer_to_symbol`` maps kernel name →
+  entry.  This port registers *trusted* kernels — framework-plane steps
+  such as the serving engine's prefill/decode, internally fenced per row
+  from :meth:`GuardianManager.fence_table` — which run eagerly on the
+  device.  Sandboxed tenant kernels (``register_kernel``, the sandboxer
+  and the static verifier) are not ported yet.
+* **Spatial multiplexing** (§4.2.4): per-tenant queues drained
+  round-robin; the selected launches go to the
+  :class:`BatchedLaunchScheduler`, which coalesces compatible trusted
+  steps of different engines into one batch per cycle.
+* **Fault containment**: a device-side per-tenant
+  :class:`~repro_torch.core.violations.ViolationLog` polled by the
+  :class:`~repro_torch.core.quarantine.QuarantineManager` at drain-cycle
+  boundaries drives the tenant lifecycle (ACTIVE → QUARANTINED → EVICTED |
+  READMITTED); eviction scrubs and frees the partition.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import enum
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.arena import Arena, ArenaSpec, PoolArena, \
+    make_flat_arena
+from repro_torch.core.elastic import ElasticManager, ElasticPolicy
+from repro_torch.core.fence import FencePolicy, FenceTable
+from repro_torch.core.interception import DevicePtr, GuardianClient
+from repro_torch.core.partition import (
+    IntraPartitionAllocator,
+    OutOfArenaMemory,
+    Partition,
+    PartitionBoundsTable,
+    UnknownTenant,
+)
+from repro_torch.core.quarantine import (
+    QuarantineError,
+    QuarantineManager,
+    QuarantinePolicy,
+)
+from repro_torch.core.scheduler import (
+    BatchedLaunchScheduler,
+    LaunchRequest,
+    LRUCache,
+)
+from repro_torch.core.telemetry import DRAIN_TRACK, Telemetry
+from repro_torch.core.tenantclass import ClassSpec, TenantClassPolicy, \
+    as_class_policy
+from repro_torch.core.violations import ViolationLog
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device on a machine without
+    one raises instead of running elsewhere."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} needs a CUDA device; pass device='cpu' to "
+            "run on the CPU")
+    return dev
+
+
+class GuardianViolation(Exception):
+    """An operation strayed outside the tenant's partition and was fenced at
+    the call level (transfers) or detected by CHECK mode (kernels)."""
+
+
+class SharingMode(enum.Enum):
+    TIME_SHARE = "time_share"   # paper baseline: one tenant at a time + sync
+    SPATIAL = "spatial"         # concurrent streams, round-robin issue
+
+
+@dataclasses.dataclass
+class LaunchStats:
+    """Table 5 analogue: cycles -> nanoseconds on the host."""
+
+    lookup_ns: List[int] = dataclasses.field(default_factory=list)
+    augment_ns: List[int] = dataclasses.field(default_factory=list)
+    dispatch_ns: List[int] = dataclasses.field(default_factory=list)
+
+    def summary(self) -> Dict[str, float]:
+        def avg(xs):
+            return float(np.mean(xs)) if xs else 0.0
+        return {
+            "lookup_ns": avg(self.lookup_ns),
+            "augment_ns": avg(self.augment_ns),
+            "dispatch_ns": avg(self.dispatch_ns),
+        }
+
+
+@dataclasses.dataclass
+class _KernelEntry:
+    name: str
+    fn: Callable
+    arena_argnums: Tuple[int, ...]
+    #: framework-plane kernels (serving-engine steps): already fenced
+    #: internally via a GuardSpec built from the manager's fence table
+    trusted: bool = False
+    #: name of a manager :class:`PoolArena` threaded through the step as
+    #: its second argument — ``fn(arena, pool, *args) -> (arena, pool,
+    #: out)``.  The manager reads the live pool at dispatch and commits
+    #: the returned one, so N engines sharing the pool (and fused rows of
+    #: one batch) always see each other's updates.
+    pool_arena: Optional[str] = None
+    #: per-kernel specializations (none while every kernel runs eagerly;
+    #: kept LRU-bounded for the flight recorder's jit-cache view)
+    jit_cache: Dict[Tuple, Callable] = dataclasses.field(
+        default_factory=dict)
+
+
+@dataclasses.dataclass
+class _QueuedOp:
+    tenant_id: str
+    kind: str                 # "launch" | "h2d" | "d2d"
+    payload: Tuple
+
+
+class GuardianManager:
+    """Sole owner of device arenas; executes validated calls for tenants."""
+
+    def __init__(
+        self,
+        total_slots: int = 1 << 20,
+        dtype=torch.float32,
+        policy: FencePolicy = FencePolicy.BITWISE,
+        mode: SharingMode = SharingMode.SPATIAL,
+        standalone_fast_path: bool = True,
+        extra_arenas: Sequence[ArenaSpec] = (),
+        batch_launches: bool = True,
+        max_fuse: int = 8,
+        max_tenants: int = 64,
+        quarantine_policy: Optional[QuarantinePolicy] = None,
+        quarantine_poll_every: int = 1,
+        jit_cache_capacity: int = 64,
+        lookahead_cycles: int = 0,
+        adaptive_lookahead: bool = False,
+        adaptive_lookahead_cap: int = 8,
+        elastic_policy: Optional[ElasticPolicy] = None,
+        readmit_after: Optional[int] = None,
+        telemetry: bool = True,
+        device="cuda",
+    ):
+        """``device`` is where the arenas and fence tables live: the card
+        by default, the CPU only when the caller asks for it."""
+        self.device = require_device(device)
+        self.policy = policy
+        self.mode = mode
+        self.standalone_fast_path = standalone_fast_path
+        self.batch_launches = batch_launches
+        #: LRU capacity of each kernel entry's specialization cache
+        self.jit_cache_capacity = jit_cache_capacity
+        self.scheduler = BatchedLaunchScheduler(
+            self, max_fuse=max_fuse, lookahead_cycles=lookahead_cycles,
+            adaptive_lookahead=adaptive_lookahead,
+            adaptive_lookahead_cap=adaptive_lookahead_cap)
+
+        # Flight recorder (core/telemetry.py): per-tenant metrics registry
+        # + lifecycle event trace, fed from host state at drain-cycle
+        # boundaries — never a device sync.  ``telemetry=False`` turns
+        # every record path into a single-branch no-op (asserted
+        # byte-identical in tests/test_telemetry.py).
+        self.telemetry = Telemetry(self, enabled=telemetry)
+
+        # Fault containment: device-side per-tenant violation telemetry
+        # (filled by CHECK launches, in-kernel, no host sync) + the host-side
+        # lifecycle driver that polls it at drain-cycle boundaries.
+        self.violog = ViolationLog(capacity=max_tenants, device=self.device)
+        self.quarantine = QuarantineManager(
+            self, policy=quarantine_policy, poll_every=quarantine_poll_every,
+            readmit_after=readmit_after)
+
+        # §4.2.1 — reserve all device memory up front.
+        self.arena = Arena(make_flat_arena(total_slots, dtype),
+                           device=self.device)
+        self.arenas: Dict[str, Any] = {"device_dram": self.arena}
+        for spec in extra_arenas:
+            self.arenas[spec.name] = Arena(spec, device=self.device)
+
+        self.bounds = PartitionBoundsTable(total_slots)
+        self._suballoc: Dict[str, IntraPartitionAllocator] = {}
+        self._clients: Dict[str, GuardianClient] = {}
+
+        # Elastic partitions: admission waitlist, watermark-driven
+        # grow/shrink, on-device compaction (core/elastic.py).  Pointer
+        # translation maps an outstanding DevicePtr's minted address to
+        # its post-relocation home — composed per move, resolved at the
+        # next validated use, so tenants never observe their extent
+        # moving.  Maps are keyed per *relocation epoch* (the epoch the
+        # ptr was minted in): an address reused by a later extent never
+        # aliases a stale handle's translation.
+        self.elastic = ElasticManager(self, policy=elastic_policy)
+        self._ptr_remap: Dict[str, Dict[int, Dict[int, int]]] = {}
+        self._ptr_epoch: Dict[str, int] = {}
+        # compute-aware admission reads the scheduler's total arrival-rate
+        # EWMA; turn the (otherwise adaptive-lookahead-only) tracking on
+        # up front so the signal is warm by the first admission decision
+        if self.elastic.policy.compute_watermark is not None:
+            self.scheduler.enable_arrival_tracking()
+
+        # §4.2.3 — pointerToSymbol: kernel name -> kernel entry.
+        self.pointer_to_symbol: Dict[str, _KernelEntry] = {}
+        # partition scalars pre-staged on device for the raw-launch augment
+        # path (not ported yet; elastic resizes drop stale entries)
+        self._part_scalars: Dict[str, Tuple[Any, Any, Any]] = {}
+        # per-tenant fence-policy overrides (None -> manager default); lets
+        # one arena mix e.g. MODULO and CHECK tenants — each policy group
+        # fuses separately (the policy is part of the batch signature)
+        self._tenant_policy: Dict[str, Optional[FencePolicy]] = {}
+        # per-tenant weighted-round-robin weights: a weight-w tenant
+        # drains up to w ops per cycle and divides the lookahead hold
+        # budget of any batch its ops join (priority against starvation)
+        self._tenant_weight: Dict[str, int] = {}
+        # per-tenant SLO class policies (core/tenantclass.py).  Empty
+        # until some tenant registers with one — and while empty, every
+        # class code path in the scheduler stays cold (class-less
+        # behavior is bit-identical to the pre-class manager).
+        self._tenant_class: Dict[str, TenantClassPolicy] = {}
+        # all-tenant fence table for the serving plane (one (T,2) bitwise +
+        # (T,4) magic row staging, rebuilt only when the partition set
+        # changes — the engine-side twin of the scheduler's batch tables)
+        self._fence_table: Optional[FenceTable] = None
+        self._fence_table_key: Tuple = ()
+        self._fence_table_row: Dict[str, int] = {}
+
+        self._queues: "collections.OrderedDict[str, collections.deque]" = (
+            collections.OrderedDict())
+        self.launch_stats = LaunchStats()
+        self.violations: List[str] = []
+        self._export_tables: Dict[int, Dict[str, Any]] = {
+            # minimal cudaGetExportTable implementation (§4.1): enough
+            # entries for the simulated "closed-source" libraries to run.
+            7: {"contextLocalStorageInterface": lambda: None},
+            11: {"memcpyAsyncDispatch": lambda: None},
+        }
+
+    # ------------------------------------------------------------------ #
+    # Tenant lifecycle                                                   #
+    # ------------------------------------------------------------------ #
+    def register_tenant(self, tenant_id: str, requested_slots: int,
+                        policy: Optional[FencePolicy] = None,
+                        weight: int = 1,
+                        tenant_class: Optional[ClassSpec] = None,
+                        ) -> GuardianClient:
+        """Tenants declare memory needs at init (§4.2.1: "normal in cloud
+        environments, where users buy instances with specific resources").
+
+        Returns the tenant's :class:`GuardianClient` — the only handle
+        through which the tenant may touch the device.
+
+        ``policy`` overrides the manager default for this tenant's
+        launches (e.g. a CHECK canary beside MODULO production tenants);
+        the standalone fast path still applies when eligible.  NONE is
+        refused: an unfenced per-tenant override would bypass isolation
+        against co-tenants (the native fast path is granted automatically
+        — and revoked at drain time — by ``standalone_fast_path``).
+
+        ``weight`` (>= 1) is the tenant's weighted-round-robin share: up
+        to ``weight`` of its ops drain per cycle, and the scheduler's
+        cross-cycle lookahead divides its hold budget by the weight, so a
+        priority tenant is never starved waiting for a fuller batch.
+
+        ``tenant_class`` attaches an SLO class: a
+        :class:`~repro_torch.core.tenantclass.TenantClassPolicy`, a bare
+        :class:`~repro_torch.core.tenantclass.TenantClass` (or its string
+        value ``"latency_critical"`` / ``"best_effort"``) for that
+        class's factory defaults, or None for the class-less pre-class
+        behavior (bit-identical by regression test).  The policy carries
+        the queue-age SLO budget, a per-class lookahead override, and
+        optional per-tenant quarantine thresholds — see
+        :mod:`repro_torch.core.tenantclass`.
+
+        An EVICTED tenant id is refused until explicitly readmitted
+        (``manager.quarantine.readmit``) — eviction must survive a
+        re-registration attempt."""
+        cls_policy = as_class_policy(tenant_class)
+        if weight < 1:
+            raise ValueError(f"tenant weight must be >= 1, got {weight}")
+        if policy is FencePolicy.NONE:
+            raise ValueError(
+                "per-tenant policy NONE would run unfenced beside "
+                "co-tenants; the standalone fast path is automatic "
+                "(standalone_fast_path=True), never a grantable override")
+        # log row before partition: a capacity failure here must not leak
+        # an allocated partition under an id that can never register again.
+        # Roll back only state THIS call created — a failed duplicate
+        # registration must not release a live tenant's row or record
+        # (that would let a rogue tenant reset its own violation counters).
+        new_record = self.quarantine.machine.record_of(tenant_id) is None
+        self.quarantine.admit(tenant_id)
+        new_row = self.violog.row_of(tenant_id) is None
+        try:
+            self.violog.assign(tenant_id)
+            part = self.bounds.create(tenant_id, requested_slots)
+        except Exception:
+            if new_row and self.violog.row_of(tenant_id) is not None:
+                self.violog.release(tenant_id)
+            if new_record:
+                self.quarantine.forget(tenant_id)
+            raise
+        self._suballoc[tenant_id] = IntraPartitionAllocator(part)
+        self._queues[tenant_id] = collections.deque()
+        self._tenant_policy[tenant_id] = policy
+        self._tenant_weight[tenant_id] = weight
+        if cls_policy is not None:
+            self._tenant_class[tenant_id] = cls_policy
+            # class machinery feeds on arrival-rate + queue-age EWMAs;
+            # start collecting from this tenant's first submit on
+            self.scheduler.enable_arrival_tracking()
+        client = GuardianClient(self, tenant_id)
+        self._clients[tenant_id] = client
+        if self.telemetry.enabled:
+            self.telemetry.registry.inc("tenants_registered")
+            extra = {}
+            if cls_policy is not None:
+                extra["tenant_class"] = cls_policy.tenant_class.value
+            self.telemetry.event("register", tenant_id,
+                                 slots=part.size, weight=weight,
+                                 policy=self.policy_of(tenant_id).value,
+                                 **extra)
+        return client
+
+    def remove_tenant(self, tenant_id: str) -> None:
+        """Voluntary teardown of a healthy tenant (quarantine eviction goes
+        through :meth:`_evict_tenant`, which keeps the lifecycle record).
+
+        Refused for a quarantined tenant: teardown + re-registration would
+        otherwise launder the quarantine into a fresh ACTIVE record with
+        zeroed counters.  The operator must evict (ban) or readmit first.
+        """
+        state = self.quarantine.state_of(tenant_id)
+        if state is not None and not state.admissible:
+            raise QuarantineError(
+                f"remove_tenant: tenant {tenant_id!r} is {state.name}; "
+                "evict or readmit it instead (teardown must not launder "
+                "the quarantine)")
+        if self.telemetry.enabled:
+            self.telemetry.registry.inc("tenants_removed")
+            self.telemetry.event("remove", tenant_id)
+        self._reclaim_partition(tenant_id)
+        self.quarantine.forget(tenant_id)
+        # a departure frees slots: re-drive admission from the waitlist
+        self.elastic.notify_capacity_freed()
+
+    def _reclaim_partition(self, tenant_id: str) -> None:
+        """Scrub + free a tenant's partition and drop every per-tenant
+        artifact that could outlive it — including compiled symbol-cache
+        entries (a removed tenant's cached unfenced binary must never be
+        launchable again)."""
+        part = self.bounds.lookup(tenant_id)
+        # Scrub before the slots can be re-issued to another tenant.
+        self.arena.zero_range(part.base, part.size)
+        self.bounds.destroy(tenant_id)
+        self._purge_symbol_caches(part)
+        self.scheduler.invalidate_tenant_rows(tenant_id)
+        self.violog.release(tenant_id)
+        self._suballoc.pop(tenant_id, None)
+        self._queues.pop(tenant_id, None)
+        self._clients.pop(tenant_id, None)
+        self._part_scalars.pop(tenant_id, None)
+        self._tenant_policy.pop(tenant_id, None)
+        self._tenant_weight.pop(tenant_id, None)
+        self._tenant_class.pop(tenant_id, None)
+        self._ptr_remap.pop(tenant_id, None)
+        self._ptr_epoch.pop(tenant_id, None)
+        self.elastic.forget(tenant_id)
+        self.telemetry.forget_tenant(tenant_id)
+
+    def _purge_symbol_caches(self, part: Partition) -> None:
+        """Evict per-partition compiled state when a partition dies or
+        moves.  The port compiles nothing per partition yet (trusted
+        kernels run eagerly), so there is nothing to purge; the elastic
+        plane calls this hook on every resize."""
+
+    # -- quarantine/eviction hooks (driven by QuarantineManager) -------- #
+    def _drop_tenant_ops(self, tenant_id: str) -> None:
+        """Quarantine: discard everything queued or pending for the tenant
+        (its in-flight work must not keep landing)."""
+        q = self._queues.get(tenant_id)
+        if q is not None:
+            q.clear()
+        self.scheduler.drop_tenant(tenant_id)
+
+    def _evict_tenant(self, tenant_id: str) -> None:
+        """Eviction: drop ops, then scrub + reclaim the partition."""
+        self._drop_tenant_ops(tenant_id)
+        self._reclaim_partition(tenant_id)
+
+    def policy_of(self, tenant_id: str) -> FencePolicy:
+        """The tenant's configured fence policy (override or default) —
+        before standalone fast-path resolution."""
+        return self._tenant_policy.get(tenant_id) or self.policy
+
+    def weight_of(self, tenant_id: str) -> int:
+        """The tenant's weighted-round-robin share (1 = plain RR)."""
+        return self._tenant_weight.get(tenant_id, 1)
+
+    def class_policy_of(self, tenant_id: str
+                        ) -> Optional[TenantClassPolicy]:
+        """The tenant's SLO class policy, or None for a class-less tenant
+        (which sees exactly the pre-class scheduler behavior)."""
+        return self._tenant_class.get(tenant_id)
+
+    def class_policies(self) -> Dict[str, TenantClassPolicy]:
+        """All classed tenants' policies, keyed by tenant id — the
+        scheduler's preemption scan and elastic admission's LC-presence
+        check both iterate this.  The live dict (do not mutate)."""
+        return self._tenant_class
+
+    @property
+    def has_class_tenants(self) -> bool:
+        """True when any registered tenant carries a class policy — the
+        master switch for the scheduler's class bookkeeping (flush-time
+        EWMA samples, per-class histograms, preemption checks)."""
+        return bool(self._tenant_class)
+
+    def fence_table(self) -> Tuple[FenceTable, Dict[str, int]]:
+        """Stacked fence rows for every registered tenant, magic table
+        included — the serving plane's per-row guard source (§4.2.4).
+
+        Rebuilt only when the partition set changes (the key includes the
+        bounds: a tenant destroyed and re-registered under the same name
+        may land on a different partition).  Returns ``(table, row_of)``
+        where ``row_of[tenant] -> table row`` feeds tenant-id columns for
+        :meth:`FenceTable.gather`.  Pow2 sizes are validated on the host
+        before staging — a traced FenceParams.mask cannot
+        (fence.require_pow2_sizes contract).
+        """
+        ids = tuple(sorted(self.bounds.tenants()))
+        parts = [self.bounds.lookup(t) for t in ids]
+        key = tuple((t, p.base, p.size) for t, p in zip(ids, parts))
+        if self._fence_table is None or self._fence_table_key != key:
+            self._fence_table = FenceTable.from_partitions(
+                parts, with_magic=True, device=self.device)
+            self._fence_table_key = key
+            self._fence_table_row = {t: i for i, t in enumerate(ids)}
+        return self._fence_table, self._fence_table_row
+
+    @property
+    def standalone(self) -> bool:
+        return len(self.bounds) <= 1
+
+    def _effective_policy(self, tenant_id: Optional[str] = None
+                          ) -> FencePolicy:
+        policy = self._tenant_policy.get(tenant_id) or self.policy
+        if (self.standalone and self.standalone_fast_path
+                and policy is not FencePolicy.CHECK):
+            return FencePolicy.NONE  # §4.2.3 native fast path
+        return policy
+
+    # ------------------------------------------------------------------ #
+    # Memory management (§4.2.1, §4.2.2)                                 #
+    # ------------------------------------------------------------------ #
+    def malloc(self, tenant_id: str, n_slots: int) -> DevicePtr:
+        self.quarantine.check_admission(tenant_id, "cudaMalloc")
+        sub = self._suballoc.get(tenant_id)
+        if sub is None:
+            raise UnknownTenant(tenant_id)
+        try:
+            rel = sub.alloc(n_slots)
+            self.elastic.pressure.note_alloc(tenant_id)
+        except OutOfArenaMemory:
+            # the partition is hard full: record the pressure event and —
+            # when the elastic policy allows — grow it right here (an
+            # in-place grow is free; a relocation runs only if the tenant
+            # is idle) so the tenant's malloc succeeds instead of failing
+            self.elastic.pressure.note_failure(tenant_id)
+            if not self.elastic.policy.grow_on_failure:
+                raise
+            from repro_torch.core.elastic import ElasticError
+            while True:
+                try:
+                    self.elastic.grow(tenant_id)
+                except (ElasticError, OutOfArenaMemory):
+                    raise OutOfArenaMemory(
+                        f"tenant {tenant_id!r}: no {n_slots} contiguous "
+                        "free slots and the partition cannot grow")
+                try:
+                    rel = sub.alloc(n_slots)
+                    # handled inline: the poll must not grow a second time
+                    self.elastic.pressure.clear_failures(tenant_id)
+                    break
+                except OutOfArenaMemory:
+                    continue
+        part = self.bounds.lookup(tenant_id)
+        return DevicePtr(tenant_id=tenant_id, addr=part.base + rel,
+                         length=n_slots,
+                         epoch=self._ptr_epoch.get(tenant_id, 0))
+
+    def free(self, tenant_id: str, ptr: DevicePtr) -> None:
+        sub = self._suballoc.get(tenant_id)
+        if sub is None:
+            raise UnknownTenant(tenant_id)
+        part = self.bounds.lookup(tenant_id)
+        addr = self._resolve_ptr(tenant_id, ptr)
+        self._validate_range(tenant_id, addr, ptr.length, "cudaFree")
+        sub.free(addr - part.base)
+        self._ptr_remap.get(tenant_id, {}).get(ptr.epoch, {}).pop(
+            ptr.addr, None)
+        self.elastic.pressure.note_free(tenant_id)
+
+    # -- elastic pointer translation ------------------------------------ #
+    def _resolve_ptr(self, tenant_id: str, ptr: DevicePtr) -> int:
+        """Translate a DevicePtr minted before an elastic relocation to
+        its current home.  Identity for never-moved tenants (one dict
+        miss).  The lookup is keyed by the ptr's mint epoch, so a ptr
+        minted *after* a move never aliases a stale entry even when a
+        later extent reuses the address; forged/interior addresses
+        translate only on an exact mint-base match — anything else is
+        validated as-is and fails closed like before."""
+        return self._ptr_remap.get(tenant_id, {}).get(
+            ptr.epoch, {}).get(ptr.addr, ptr.addr)
+
+    def _compose_ptr_remap(self, tenant_id: str,
+                           mapping: Dict[int, int]) -> None:
+        """Fold a relocation's ``current_abs -> new_abs`` map into every
+        epoch's translation table (chasing prior entries so a ptr minted
+        N moves ago still resolves in one lookup) and open a fresh epoch
+        for post-move mints.
+
+        The fold hits EVERY epoch up to and including the current one: a
+        ptr minted in an old epoch at an address no intermediate move
+        touched has no entry there — its block sat still until now, so
+        the current move's ``old -> new`` applies to it verbatim
+        (setdefault: chained entries, already composed above, win)."""
+        maps = self._ptr_remap.setdefault(tenant_id, {})
+        epoch = self._ptr_epoch.get(tenant_id, 0)
+        maps.setdefault(epoch, {})
+        for em in maps.values():
+            for k in list(em):
+                em[k] = mapping.get(em[k], em[k])
+            for old, new in mapping.items():
+                em.setdefault(old, new)
+        self._ptr_epoch[tenant_id] = epoch + 1
+
+    def _validate_range(self, tenant_id: str, addr: int, length: int,
+                        api: str) -> Partition:
+        """§4.2.2: every host-initiated transfer is checked against the
+        partition bounds table.  Fail-closed on any mismatch — and on a
+        quarantined/evicted caller (fault containment extends to the
+        transfer plane)."""
+        self.quarantine.check_admission(tenant_id, api)
+        part = self.bounds.lookup(tenant_id)
+        if length < 0 or not part.contains(addr, addr + max(length, 0)):
+            msg = (f"{api}: tenant {tenant_id!r} range [{addr},"
+                   f"{addr + length}) outside partition "
+                   f"[{part.base},{part.end})")
+            self.violations.append(msg)
+            raise GuardianViolation(msg)
+        return part
+
+    def memcpy_h2d(self, tenant_id: str, ptr: DevicePtr,
+                   host: np.ndarray) -> None:
+        flat = torch.as_tensor(np.asarray(host).reshape(-1)).to(
+            self.arena.spec.dtype)
+        addr = self._resolve_ptr(tenant_id, ptr)
+        self._validate_range(tenant_id, addr, flat.size, "cudaMemcpyH2D")
+        if self.mode is SharingMode.SPATIAL:
+            self._enqueue(tenant_id, "h2d", (addr, flat))
+        else:
+            self.arena.unsafe_write_range(addr, flat)
+
+    def memcpy_d2h(self, tenant_id: str, ptr: DevicePtr,
+                   n_slots: Optional[int] = None) -> np.ndarray:
+        n = ptr.length if n_slots is None else n_slots
+        addr = self._resolve_ptr(tenant_id, ptr)
+        self._validate_range(tenant_id, addr, n, "cudaMemcpyD2H")
+        self.run_queued()  # reads are synchronizing, like cudaMemcpy
+        addr = self._resolve_ptr(tenant_id, ptr)   # the drain may move
+        return self.arena.unsafe_read_range(addr, n).cpu().numpy()
+
+    def memcpy_d2d(self, tenant_id: str, dst: DevicePtr, src: DevicePtr,
+                   n_slots: int) -> None:
+        # check destination AND source (§4.2.2: "we check the destination
+        # and/or the source pointers")
+        src_addr = self._resolve_ptr(tenant_id, src)
+        dst_addr = self._resolve_ptr(tenant_id, dst)
+        self._validate_range(tenant_id, src_addr, n_slots, "cudaMemcpyD2D")
+        self._validate_range(tenant_id, dst_addr, n_slots, "cudaMemcpyD2D")
+        if self.mode is SharingMode.SPATIAL:
+            self._enqueue(tenant_id, "d2d", (dst_addr, src_addr, n_slots))
+        else:
+            data = self.arena.unsafe_read_range(src_addr, n_slots)
+            self.arena.unsafe_write_range(dst_addr, data)
+
+    # ------------------------------------------------------------------ #
+    # Kernel registration & launch (§4.2.3)                              #
+    # ------------------------------------------------------------------ #
+    def register_pool(self, name: str, buf: Any) -> PoolArena:
+        """Adopt a framework-plane pool (a pytree of slot-indexed device
+        tensors — a serving engine's KV/state pool) as a manager-owned
+        arena.  Idempotent by name: engines sharing a manager and a model
+        shape converge on one live pool, which is what lets their fused
+        steps address one KV slot space (§4.2.1 applied to the serving
+        plane).  Returns the (possibly pre-existing) :class:`PoolArena`.
+        """
+        pool = self.arenas.get(name)
+        if pool is None:
+            pool = PoolArena(buf)
+            self.arenas[name] = pool
+        return pool
+
+    def register_trusted_kernel(self, name: str, fn: Callable,
+                                arena_argnums: Sequence[int] = (0,),
+                                pool_arena: Optional[str] = None,
+                                ) -> None:
+        """Register a *framework-plane* kernel — an engine step that is
+        already fenced internally (per-row GuardSpec built from this
+        manager's :meth:`fence_table`).
+
+        Trusted kernels ride the queues and the scheduler drain —
+        ordering, quarantine drops and launch telemetry are shared — run
+        eagerly on the manager's device, and are never batched with
+        tenant kernels (the signature includes the kernel name).
+        Compatible trusted steps of different engines fuse into one batch
+        (the sequential composition of their solo steps).
+
+        ``pool_arena`` names a manager pool (see :meth:`register_pool`)
+        threaded through the step: the contract becomes
+        ``fn(arena, pool, *args) -> (arena, pool, out)``; the manager
+        supplies the live pool at dispatch and commits the returned one
+        (the pool is never a caller operand — the manager stays the only
+        entity with device access, §4.2).
+
+        Only engine code may register trusted kernels."""
+        if name in self.pointer_to_symbol:
+            return
+        if pool_arena is not None and pool_arena not in self.arenas:
+            raise ValueError(f"pool arena {pool_arena!r} not registered "
+                             "(register_pool first)")
+        self.pointer_to_symbol[name] = _KernelEntry(
+            name=name, fn=fn, arena_argnums=tuple(arena_argnums),
+            trusted=True, pool_arena=pool_arena,
+            jit_cache=LRUCache(self.jit_cache_capacity))
+
+    def launch_kernel(self, tenant_id: str, name: str,
+                      ptrs: Sequence[DevicePtr] = (),
+                      args: Sequence[Any] = (),
+                      enqueue: bool = False) -> Any:
+        # -- lookup (Table 5 "Lookup GPU kernel") ------------------------
+        t0 = time.perf_counter_ns()
+        self.quarantine.check_admission(tenant_id, "cudaLaunchKernel")
+        entry = self.pointer_to_symbol.get(name)
+        if entry is None:
+            raise GuardianViolation(
+                f"unknown kernel {name!r}: symbol not in grdLib "
+                "(application would fail to start, §4.1)")
+        part = self.bounds.lookup(tenant_id)
+        t1 = time.perf_counter_ns()
+        self.launch_stats.lookup_ns.append(t1 - t0)
+
+        remap = self._ptr_remap.get(tenant_id)
+        ptr_args = tuple(
+            p.addr_device if not remap
+            or p.addr not in remap.get(p.epoch, ())
+            else torch.tensor(remap[p.epoch][p.addr], dtype=torch.int32)
+            for p in ptrs)
+        req = LaunchRequest(tenant_id=tenant_id, name=name,
+                            policy=self._effective_policy(tenant_id),
+                            entry=entry, part=part,
+                            call_args=(*ptr_args, *args),
+                            trusted_fusable=entry.trusted)
+        if enqueue or self.mode is SharingMode.SPATIAL:
+            self._enqueue(tenant_id, "launch", (req,))
+            # the request doubles as the result handle: req.result holds
+            # the kernel output once a drain dispatches it
+            return req
+        self._execute_request(req)
+        return req.result
+
+    def _dispatch_trusted_direct(self, tenant_id: str, name: str) -> Any:
+        """Dispatch a trusted kernel *now* through the scheduler's
+        execution path, outside the queue discipline — the elastic
+        relocation path, which runs at drain-cycle boundaries when the
+        moving tenant has nothing queued (so interleaving with tenant
+        work is impossible by construction).  ``_execute`` is entered
+        directly rather than submit+flush: a relocation is maintenance,
+        not traffic — it must neither count as a tenant arrival for the
+        adaptive-lookahead EWMA nor force-drain batches the lookahead is
+        deliberately holding.  Same trusted execution path and stats as
+        any scheduled step."""
+        entry = self.pointer_to_symbol[name]
+        part = self.bounds.lookup(tenant_id)
+        req = LaunchRequest(
+            tenant_id=tenant_id, name=name,
+            policy=self._effective_policy(tenant_id),
+            entry=entry, part=part, call_args=(),
+            trusted_fusable=entry.trusted)
+        self.scheduler._execute([req])
+        return req.result
+
+    def _execute_request(self, req: LaunchRequest) -> Any:
+        """Per-launch (unbatched) dispatch of one request — width-1
+        scheduler batches, TIME_SHARE and ``batch_launches=False`` land
+        here.  A trusted step is internally fenced: it runs as is, with
+        the arena (and its pool arena) threaded through; its pool writes
+        land in place and the step hands the same tensors back."""
+        entry = req.entry
+        if not entry.trusted:
+            raise NotImplementedError(
+                "raw tenant-kernel launches are not ported yet")
+        t1 = time.perf_counter_ns()
+        if entry.pool_arena is None:
+            new_arena, out = entry.fn(self.arena.buf, *req.call_args)
+        else:
+            pool = self.arenas[entry.pool_arena]
+            new_arena, new_pool, out = entry.fn(self.arena.buf, pool.buf,
+                                                *req.call_args)
+            pool.buf = new_pool
+        self.arena.buf = new_arena
+        self.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t1)
+        req.result = out
+        return out
+
+    # ------------------------------------------------------------------ #
+    # Spatial multiplexing (§4.2.4)                                      #
+    # ------------------------------------------------------------------ #
+    def _enqueue(self, tenant_id: str, kind: str, payload) -> None:
+        self._queues[tenant_id].append(_QueuedOp(tenant_id, kind, payload))
+
+    def _run_op(self, op: _QueuedOp) -> None:
+        if op.kind == "launch":
+            (req,) = op.payload
+            # the tenant set may have changed since enqueue — a stale NONE
+            # (native) policy must not run against a now-shared arena.
+            # (Fusability never needs forcing here: BITWISE/CHECK/MODULO
+            # all fuse natively now.)
+            req.repolicy(self._effective_policy(req.tenant_id))
+            if self.batch_launches and self.mode is SharingMode.SPATIAL:
+                # selection: the fused execution happens at the cycle-end
+                # scheduler flush, preserving round-robin selection order
+                self.scheduler.submit(req)
+            else:
+                self._execute_request(req)
+        elif op.kind == "h2d":
+            addr, flat = op.payload
+            self.arena.unsafe_write_range(addr, flat)
+        elif op.kind == "d2d":
+            dst, src, n = op.payload
+            data = self.arena.unsafe_read_range(src, n)
+            self.arena.unsafe_write_range(dst, data)
+        else:  # pragma: no cover
+            raise ValueError(op.kind)
+
+    def run_queued(self) -> None:
+        """Drain queues per the sharing mode.
+
+        SPATIAL: weighted round-robin — up to ``weight`` ops per tenant
+        per cycle ("selects GPU calls from different applications in a
+        round-robin fashion", grown with per-tenant shares); ops within a
+        tenant stay in-order, tenants interleave.  The launches selected
+        in a cycle are submitted to the batched scheduler and flushed at
+        the end of the cycle — compatible launches from different tenants
+        fuse into one device step (one binary, per-row dynamic bounds).
+        With ``lookahead_cycles`` the cycle-boundary flush may hold an
+        under-filled batch for later cycles — classed tenants resolve
+        their own hold budget (a latency-critical tenant is never held
+        past ``min(lookahead, queue_age_budget)``), and a flush that
+        starts with a latency-critical tenant's EWMA queue age at or
+        above its budget defers all-best-effort batches to the next
+        cycle (DESIGN.md §Performance isolation).  The final flush of
+        the drain (``drain=True``) always executes everything —
+        preemption included — so every result handle is filled when
+        this returns.
+        TIME_SHARE: drain each tenant fully then block (context switch).
+        """
+        if self.mode is SharingMode.SPATIAL:
+            tel = self.telemetry
+            # hoisted bindings: this loop runs once per drain cycle and
+            # the attribute chains below would re-resolve every cycle.
+            # The GLOBAL drain-time histogram handle stays valid across
+            # the drain (forget_tenant only drops tenant series).
+            recording = tel.enabled
+            if recording:
+                reg, trace = tel.registry, tel.trace
+                drain_hist = reg.hist("drain_cycle_us", timing=True)
+                n_cycles = 0
+            pending = True
+            while pending:
+                t0 = time.perf_counter_ns() if recording else 0
+                pending = False
+                for t, q in self._queues.items():
+                    for _ in range(min(self.weight_of(t), len(q))):
+                        self._run_op(q.popleft())
+                    pending = pending or bool(q)
+                self.scheduler.flush(drain=not pending)
+                # containment check at the cycle boundary: a tenant crossing
+                # the violation threshold here has its remaining queued ops
+                # dropped while co-tenants keep draining (skipped entirely
+                # while the log is clean — no sync on fenced-only traffic)
+                self.quarantine.maybe_poll()
+                # elastic boundary work: pressure-driven grow/shrink and
+                # waitlist admission (one flag read when nothing changed —
+                # host arithmetic only, never a device sync).  A drain
+                # with no remaining work is an *idle* cycle — the window
+                # background compaction is allowed to use.
+                self.elastic.maybe_poll(idle=not pending)
+                if recording:
+                    # dispatch wall time, not completion: nothing here
+                    # blocks on the device (async dispatch stays async)
+                    dur_us = (time.perf_counter_ns() - t0) / 1000.0
+                    n_cycles += 1
+                    drain_hist.observe(dur_us)
+                    trace.emit(
+                        "drain_cycle", DRAIN_TRACK,
+                        self.scheduler._cycle,
+                        dur_us=dur_us,
+                        ts_us=trace.now_us() - dur_us)
+            if recording and n_cycles:
+                reg.inc("drain_cycles", n_cycles)
+        else:
+            for q in self._queues.values():
+                while q:
+                    self._run_op(q.popleft())
+                # context switch: full device sync between tenants
+                self._device_sync()
+            self.quarantine.maybe_poll()
+            self.elastic.maybe_poll()
+
+    def synchronize(self, tenant_id: Optional[str] = None) -> None:
+        """Drain all queues (:meth:`run_queued`) and block until the
+        device arena is ready — the result-handle barrier."""
+        self.run_queued()
+        self._device_sync()
+
+    def _device_sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------ #
+    # Introspection                                                      #
+    # ------------------------------------------------------------------ #
+    def export_table(self, table_id: int) -> Dict[str, Any]:
+        if table_id not in self._export_tables:
+            raise GuardianViolation(
+                f"cudaGetExportTable: unknown table {table_id}")
+        return self._export_tables[table_id]
+
+    def violation_report(self) -> Dict[str, Any]:
+        """Operator-facing fault-containment report (synchronizing).
+
+        Per-tenant per-kind OOB counts from the device-side ViolationLog,
+        the lifecycle state of every tenant the quarantine machine knows
+        (evicted tenants report the counts snapshotted at eviction), the
+        host-side transfer-violation strings, and the quarantine event
+        trail.  A thin view over the flight recorder
+        (:meth:`Telemetry.violation_view`) — same shape as ever.
+        """
+        return self.telemetry.violation_view()
+
+    def jit_cache_stats(self) -> Dict[str, Any]:
+        """Occupancy + eviction counters of every LRU-bounded compiled
+        cache: per-kernel fenced specializations (``entries``) and the
+        scheduler's fused-step binaries (``fused_entries``).  ``evictions``
+        count cold binaries dropped at capacity — each costs one recompile
+        on next use, never correctness (ROADMAP: symbol-cache growth under
+        many-kernel churn).  A thin view over the flight recorder
+        (:meth:`Telemetry.jit_cache_view`)."""
+        return self.telemetry.jit_cache_view()
+
+    def metrics_report(self) -> Dict[str, Any]:
+        """The unified flight-recorder report: per-tenant rows (state,
+        policy, SLO class, weight, extent, utilization, queue-age
+        p50/p90/p99, violation counts), scheduler/launch/drain summaries
+        (including per-class queue-age percentiles and the best-effort
+        preemption count), jit-cache and elastic stats, registry
+        counters/gauges, trace occupancy.
+        Subsumes the five legacy surfaces (which remain as views).
+        Synchronizing — an operator surface, never a hot-path call."""
+        return self.telemetry.report()
+
+    def memory_usage(self) -> Dict[str, Any]:
+        """§2.2 memory-footprint claim: one context/arena overall vs one per
+        client — report arena bytes + per-tenant live bytes."""
+        per_tenant = {
+            t: self._suballoc[t].live_bytes() for t in self.bounds.tenants()
+        }
+        return {
+            "arena_bytes": self.arena.nbytes,
+            "n_tenants": len(self.bounds),
+            "tenant_live_slots": per_tenant,
+            "free_slots": self.bounds.free_slots(),
+        }
