@@ -4,28 +4,36 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout, needs one CUDA card and the CUDA toolkit
-(``nvcc``), and imports nothing of JAX or of the JAX package.  Phases, in
-order (any failure exits non-zero):
+(``nvcc``), and imports nothing of JAX or of the JAX package.  Two serve
+paths run, each at full width: the dense stablelm-3b and the MoE
+qwen3-moe-30b-a3b.  Phases, in order (any failure exits non-zero):
 
 1. device and build — the card's name and power limit, the torch version,
    and the build of every kernel of ``src/repro_torch/kernels/csrc`` for
-   ``sm_90a`` (into ``build/repro_torch/``);
-2. each kernel against its plain PyTorch version at the main path's shapes
-   (stablelm-3b: H = KH = 32, D = 80, 64-token pages, a 50,304-row vocab
-   under a 65,536 fence, a ragged prefill length), forged ids included,
-   with its time, the plain version's, the library call's where one
-   exists, and the bound — the least time the card could take for the
+   ``sm_90a`` (into ``build/repro_torch/``, one ``nvcc`` per source, all
+   started together);
+2. each kernel against its plain PyTorch version at each path's shapes —
+   stablelm-3b (H = KH = 32, D = 80, a 50,304-row vocab under a 65,536
+   fence) and qwen3-moe-30b-a3b (H = 32 over KH = 4, so G = 8, D = 128, a
+   151,936-row vocab under a 262,144 fence, and K5 on (512, 8) router ids
+   over 128 experts), 64-token pages, a ragged prefill length — forged ids
+   included, with its time, the plain version's, the library call's where
+   one exists, and the bound: the least time the card could take for the
    same bytes or operations;
-3. full width against the CPU at two layers: stablelm-3b at full width,
-   2 layers, float32, prefill + 4 decode steps on the card through the
-   kernels and on the CPU through the plain versions, from the same
-   weights — greedy ids equal, logits within a stated tolerance;
-4. the main path at full width and full depth: stablelm-3b (bf16 weights
-   from a seeded generator, float32 page pool) through
-   ``make_shared_manager(paged=True)``, ``ServeEngine(paged=True)`` and
-   ``serve_continuous``, 3 tenants and 8 staggered requests — every request
-   served with its token count, every kernel launched, no plain version
-   run.
+3. full width against the CPU at two layers, for each path: float32,
+   prefill + 4 decode steps on the card through the kernels and on the CPU
+   through the plain versions, from the same weights — greedy ids equal,
+   logits within a stated tolerance (the MoE path also prints the smallest
+   top-k routing margin it met, so a routing tie can be told from a fault);
+4. each main path at full width and full depth (bf16 weights from a seeded
+   generator, float32 page pool) through ``make_shared_manager(paged=True)``,
+   ``ServeEngine(paged=True)`` and ``serve_continuous``, 3 tenants and 8
+   staggered requests x 16 tokens — every request served with its token
+   count, every kernel of the path launched (counts set to 0 just before
+   the path and read just after), no plain version run.  stablelm-3b runs
+   first and is freed before qwen3-moe-30b-a3b (61 GB of weights) is
+   built; the MoE path also prints its decode-step time against the bytes
+   floor, its peak memory and the (token, k) assignments capacity dropped.
 
 The last three lines of standard output are the kernel table as one JSON
 object, the card's ``name, power.limit``, and the result object.
@@ -34,7 +42,9 @@ object, the card's ``name, power.limit``, and the result object.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -49,11 +59,15 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
-STABLELM_FENCE_VOCAB = 65_536      # pow2(50,304): the serve path's fence
+PATHS = ("stablelm-3b", "qwen3-moe-30b-a3b")
 
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+def pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
 
 
 def smi_line() -> str:
@@ -100,6 +114,8 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 # --------------------------------------------------------------------- #
 
 def check_kernels(torch, cfg):
+    """Rows of the kernel table at ``cfg``'s serve shapes (max_batch 8,
+    64-token pages, a 64-page pool, a ragged 57-token prefill)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels._build import per_id
@@ -112,20 +128,27 @@ def check_kernels(torch, cfg):
     gen = torch.Generator(device=dev).manual_seed(1234)
     H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     B, S, page, P = 8, 57, 64, 64          # max_batch 8, ragged prefill
+    fence_vocab = pow2(cfg.vocab)
     i32 = dict(dtype=torch.int32, device=dev)
+    tag = f" [{cfg.name}]"
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     rows = []
 
+    def row(name, source, replaces, **kw):
+        rows.append(dict(kernel=name, path=cfg.name, route="cuda",
+                         source=f"src/repro_torch/kernels/csrc/{source}",
+                         replaces=f"src/repro/kernels/{replaces}", **kw))
+
     # ---- K3 gather_rows: prefill token ids under the vocab fence ------ #
     table = randn(cfg.vocab, cfg.d_model, dtype=torch.bfloat16)
     ids = torch.randint(0, cfg.vocab, (B * S,), generator=gen, **i32)
-    ids[::7] = torch.randint(cfg.vocab, STABLELM_FENCE_VOCAB, ids[::7].shape,
+    ids[::7] = torch.randint(cfg.vocab, fence_vocab, ids[::7].shape,
                              generator=gen, **i32)    # forged: past the table
     ids[3::11] -= 1 << 20                              # forged: negative
-    mask = STABLELM_FENCE_VOCAB - 1
+    mask = fence_vocab - 1
     out = gather_rows(table, ids, 0, mask)
     want = ref.gather_rows_ref(table, ids, per_id(0, ids.numel(), dev),
                                per_id(mask, ids.numel(), dev))
@@ -143,10 +166,7 @@ def check_kernels(torch, cfg):
     # bytes: the in-table rows read, every output row written, the ids read
     n_bytes = ((int(in_table.sum()) + ids.numel()) * cfg.d_model * 2
                + ids.numel() * 4)
-    rows.append(dict(
-        name="gather_rows", route="cuda",
-        source="src/repro_torch/kernels/csrc/gather_rows.cu",
-        replaces="src/repro/kernels/fenced_gather.py:48",
+    row("gather_rows", "gather_rows.cu", "fenced_gather.py:48",
         max_abs_err=err, tolerance="exact (NaN rows where the fenced id "
                                    "is past the table)",
         ms=cuda_ms(torch, lambda: gather_rows(table, ids, 0, mask)),
@@ -157,9 +177,10 @@ def check_kernels(torch, cfg):
         library_call="Tensor.index_select of the in-table rows",
         shape=f"table {tuple(table.shape)} bf16, {ids.numel()} ids",
         **dict(zip(("bound_ms", "bound_by"),
-                   bound_ms(n_bytes, 0.0, "bfloat16")))))
-    log(f"K3 gather_rows ok: {nan_rows} NaN rows for ids past the "
-        f"{cfg.vocab}-row table under the {STABLELM_FENCE_VOCAB} fence")
+                   bound_ms(n_bytes, 0.0, "bfloat16"))))
+    log(f"K3 gather_rows ok{tag}: {nan_rows} NaN rows for ids past the "
+        f"{cfg.vocab}-row table under the {fence_vocab} fence")
+    del table
 
     # ---- K2 scatter_pages: prefill page write, forged + parked rows --- #
     k_pool = randn(P, page, KH, D)
@@ -206,10 +227,7 @@ def check_kernels(torch, cfg):
     pages2 = torch.stack([F.pad(k_src, (0, 0, 0, 0, 0, page - S)),
                           F.pad(v_src, (0, 0, 0, 0, 0, page - S))]
                          )[:, rows_kept]
-    rows.append(dict(
-        name="scatter_pages", route="cuda",
-        source="src/repro_torch/kernels/csrc/scatter_pages.cu",
-        replaces="src/repro/kernels/fenced_scatter.py:53",
+    row("scatter_pages", "scatter_pages.cu", "fenced_scatter.py:53",
         max_abs_err=err, tolerance="exact (a copy)",
         ms=cuda_ms(torch, lambda: scatter_pages(
             kk, vv, k_src, v_src, page_ids, base, msk, page_map)),
@@ -219,8 +237,8 @@ def check_kernels(torch, cfg):
         library_call="Tensor.index_copy_ of the kept padded K and V pages",
         shape=f"pools ({P},{page},{KH},{D}) f32, src ({B},{S},{KH},{D})",
         **dict(zip(("bound_ms", "bound_by"),
-                   bound_ms(n_bytes, 0.0, "float32")))))
-    log(f"K2 scatter_pages ok: {len(written)} distinct pages written, "
+                   bound_ms(n_bytes, 0.0, "float32"))))
+    log(f"K2 scatter_pages ok{tag}: {len(written)} distinct pages written, "
         f"forged id wrapped into its extent, {len(untouched)} pages "
         "untouched")
 
@@ -235,23 +253,20 @@ def check_kernels(torch, cfg):
     # a few V rows of N(0, 1) values
     if not err <= 2e-2:
         raise AssertionError(f"flash_attention error {err} > 2e-2")
-    n_bytes = 4 * B * S * H * D * 2
+    n_bytes = 2 * B * S * (2 * H + 2 * KH) * D
     flops = 4 * B * H * D * S * (S + 1) / 2
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    rows.append(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:84",
+    row("flash_attention", "flash_attention.cu", "flash_attention.py:84",
         max_abs_err=err, tolerance="2e-2 (bf16 output, one ulp at |out| < 4)",
         ms=cuda_ms(torch, lambda: flash_attention(q, k, v)),
         plain_ms=cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v)),
         library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)),
+            qt, kt, vt, is_causal=True, enable_gqa=KH != H)),
         library_call="F.scaled_dot_product_attention(is_causal=True)",
-        shape=f"q/k/v ({B},{S},{H},{D}) bf16",
+        shape=f"q ({B},{S},{H},{D}), k/v ({B},{S},{KH},{D}) bf16",
         **dict(zip(("bound_ms", "bound_by"),
-                   bound_ms(n_bytes, flops, "bfloat16")))))
-    log(f"K4 flash_attention ok: max |err| {err:.3g} (tolerance 2e-2)")
+                   bound_ms(n_bytes, flops, "bfloat16"))))
+    log(f"K4 flash_attention ok{tag}: max |err| {err:.3g} (tolerance 2e-2)")
 
     # ---- K1 paged_attention: decode over the f32 pool, bf16 query ----- #
     qd = randn(B, H, D, dtype=torch.bfloat16)
@@ -293,10 +308,8 @@ def check_kernels(torch, cfg):
     n_bytes = (2 * int(lens.sum()) * KH * D * 4 + 2 * B * H * D * 2
                + table_ids.numel() * 4 + 3 * B * 4)
     flops = 4 * int(lens.sum()) * H * D
-    rows.append(dict(
-        name="paged_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/paged_attention.cu",
-        replaces="src/repro/kernels/fenced_paged_attention.py:173",
+    row("paged_attention", "paged_attention.cu",
+        "fenced_paged_attention.py:173",
         max_abs_err=err, tolerance=f"{tol} (bf16 output; the control "
                                    f"without K/V rounding: {ctrl_err:.3g})",
         ms=cuda_ms(torch, lambda: paged_attention(
@@ -306,18 +319,76 @@ def check_kernels(torch, cfg):
         library_ms=None, library_call=None,
         shape=f"q ({B},{H},{D}) bf16, pool ({P},{page},{KH},{D}) f32",
         **dict(zip(("bound_ms", "bound_by"),
-                   bound_ms(n_bytes, flops, "float32")))))
-    log(f"K1 paged_attention ok: max |err| {err:.3g} (tolerance {tol}; "
-        f"the control without K/V rounding errs by {ctrl_err:.3g}); "
+                   bound_ms(n_bytes, flops, "float32"))))
+    log(f"K1 paged_attention ok{tag}: max |err| {err:.3g} (tolerance {tol};"
+        f" the control without K/V rounding errs by {ctrl_err:.3g}); "
         f"{len(foreign)} foreign pages clobbered, output unchanged")
+
+    if cfg.moe is not None:
+        check_moe_histogram(torch, cfg, gen, row)
     for r in rows:
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms ({r['library_call']})"
-        log(f"  {r['name']}, {r['shape']}: max |err| {r['max_abs_err']:.3g}"
+        log(f"  {r['kernel']} [{r['path']}], {r['shape']}: max |err| "
+            f"{r['max_abs_err']:.3g}"
             f" (tolerance {r['tolerance']}); kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
+
+
+def check_moe_histogram(torch, cfg, gen, row):
+    """K5 at the MoE path's prefill shape: (512, 8) router ids over E
+    experts, forged past E and negative, under the serve path's fence
+    ``(0, pow2(E) - 1)``, the identity fence and a fence whose base is E
+    (every id pinned past the experts: all counts zero).  Adds its row
+    through ``row``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_histogram import moe_histogram
+
+    E, K, T = cfg.moe.num_experts, cfg.moe.top_k, 512
+    ids = torch.randint(0, E, (T, K), generator=gen, dtype=torch.int32,
+                        device="cuda")
+    ids[::5, 0] = torch.randint(E, 1 << 20, ids[::5, 0].shape, generator=gen,
+                                dtype=torch.int32, device="cuda")
+    ids[1::7, 1] = -torch.randint(1, 1 << 20, ids[1::7, 1].shape,
+                                  generator=gen, dtype=torch.int32,
+                                  device="cuda")
+    serve = (0, pow2(E) - 1)
+    for name, (base, mask) in (("serve", serve), ("identity", (0, -1)),
+                               ("past the experts", (E, E - 1))):
+        out = moe_histogram(ids, E, base, mask)
+        want = ref.moe_histogram_ref(ids, E, base, mask)
+        if not torch.equal(out, want):
+            raise AssertionError(f"moe_histogram disagrees with its plain "
+                                 f"version under the {name} fence")
+        fenced = (ids & mask) | base
+        n_in = int(((fenced >= 0) & (fenced < E)).sum())
+        if int(out.sum()) != n_in:
+            raise AssertionError(f"moe_histogram under the {name} fence "
+                                 f"counts {int(out.sum())}, want {n_in}")
+    if int(moe_histogram(ids, E, E, E - 1).sum()) != 0:
+        raise AssertionError("moe_histogram counted past the experts")
+    base, mask = serve
+    fenced = (ids & mask) | base
+    in_range = fenced[(fenced >= 0) & (fenced < E)].reshape(-1)
+    # bytes: the ids read once, the counts written once
+    n_bytes = ids.numel() * 4 + E * 4
+    row("moe_histogram", "moe_histogram.cu", "moe_dispatch.py:50",
+        max_abs_err=0.0, tolerance="exact (integer counts)",
+        ms=cuda_ms(torch, lambda: moe_histogram(ids, E, base, mask)),
+        plain_ms=cuda_ms(torch, lambda: ref.moe_histogram_ref(
+            ids, E, base, mask)),
+        library_ms=cuda_ms(torch, lambda: torch.bincount(in_range,
+                                                         minlength=E)),
+        library_call="torch.bincount of the in-range fenced ids",
+        shape=f"ids ({T},{K}) int32, E = {E}",
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound_ms(n_bytes, 0.0, "float32"))))
+    log(f"K5 moe_histogram ok [{cfg.name}]: equal to its plain version "
+        f"under the serve fence {serve}, the identity fence and the "
+        f"base = {E} fence (all counts 0); {int((ids >= E).sum())} forged "
+        f"ids past E, {int((ids < 0).sum())} negative")
 
 
 # --------------------------------------------------------------------- #
@@ -328,18 +399,22 @@ def check_full_width(torch, cfg):
     from repro_torch.core.fence import FenceParams, FencePolicy
     from repro_torch.models import get_model
     from repro_torch.models import kvcache as KV
+    from repro_torch.models import moe as MT
     from repro_torch.models.guard import GuardSpec
 
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
     api = get_model(cfg2)
     gen = torch.Generator(device="cuda").manual_seed(7)
     params = api.init(gen, "cuda")
-    cpu_params = {
-        "embed": {k: v.cpu() for k, v in params["embed"].items()},
-        "layers": [{g: {k: v.cpu() for k, v in sub.items()}
-                    for g, sub in lp.items()} for lp in params["layers"]],
-        "norm_f": {k: v.cpu() for k, v in params["norm_f"].items()},
-    }
+
+    def to_cpu(x):
+        if isinstance(x, dict):
+            return {k: to_cpu(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to_cpu(v) for v in x]
+        return x.cpu()
+
+    cpu_params = to_cpu(params)
     B, S, P, max_len = 2, 24, 16, 128
     page_map = torch.zeros(P, dtype=torch.int32)
     page_map[4:8] = torch.tensor([1, 2, 3, 4])
@@ -348,14 +423,28 @@ def check_full_width(torch, cfg):
     toks = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator()
                          .manual_seed(3), dtype=torch.int32)
 
+    # the smallest gap between the K-th and (K+1)-th router probability
+    # met on the card: a routing decision closer than float error could
+    # flip between the card and the CPU
+    margins = []
+    top_k = MT._top_k
+
+    def top_k_margin(probs, k):
+        vals, idx = top_k(probs, k + 1)
+        if probs.is_cuda:
+            margins.append((vals[:, k - 1] - vals[:, k]).min())
+        return vals[:, :k], idx[:, :k]
+
     def run(device, p):
         guard = GuardSpec(
             policy=FencePolicy.BITWISE,
-            vocab=FenceParams(0, STABLELM_FENCE_VOCAB),
+            vocab=FenceParams(0, pow2(cfg.vocab)),
             kv=FenceParams(base=torch.tensor([4, 8], dtype=torch.int32,
                                              device=device),
                            size=torch.tensor([4, 4], dtype=torch.int32,
                                              device=device)),
+            expert=(FenceParams(0, pow2(cfg.moe.num_experts))
+                    if cfg.moe else None),
             page=FenceParams(0, P), page_map=page_map.to(device))
         cache = KV.init_global_kv_cache(cfg2, B, max_len, P, device=device)
         cache = dataclasses.replace(cache, page_table=table.to(device))
@@ -370,28 +459,98 @@ def check_full_width(torch, cfg):
             nxt = logits.argmax(-1).to(torch.int32)
         return torch.stack(outs), torch.stack(ids)
 
-    logits_gpu, ids_gpu = run("cuda", params)
-    logits_cpu, ids_cpu = run("cpu", cpu_params)
+    MT._top_k = top_k_margin
+    try:
+        logits_gpu, ids_gpu = run("cuda", params)
+        logits_cpu, ids_cpu = run("cpu", cpu_params)
+    finally:
+        MT._top_k = top_k
     err = (logits_gpu - logits_cpu).abs().max().item()
     tol = 2e-3
+    margin = f"; smallest top-{cfg.moe.top_k} routing margin " \
+        f"{min(float(m) for m in margins):.3g}" if margins else ""
     if not torch.equal(ids_gpu, ids_cpu):
-        raise AssertionError(f"greedy ids differ card vs CPU: "
+        raise AssertionError(f"greedy ids differ card vs CPU{margin}: "
                              f"{ids_gpu.tolist()} vs {ids_cpu.tolist()}")
     if not err <= tol:
-        raise AssertionError(f"full-width logits differ by {err} > {tol}")
-    log(f"full width x 2 layers (f32): card vs CPU greedy ids equal over "
-        f"prefill + 4 decodes, max |logit err| {err:.3g} (tolerance {tol})")
+        raise AssertionError(f"full-width logits differ by {err} > {tol}"
+                             f"{margin}")
+    log(f"full width x 2 layers (f32) [{cfg.name}]: card vs CPU greedy ids "
+        f"equal over prefill + 4 decodes, max |logit err| {err:.3g} "
+        f"(tolerance {tol}){margin}")
 
 
 # --------------------------------------------------------------------- #
-# Phase 4: the main path at full width and depth                        #
+# Phase 4: the main paths at full width and depth                       #
 # --------------------------------------------------------------------- #
+
+def decode_floor_bytes(params) -> int:
+    """Bytes one decode step must read from device memory at least: every
+    layer weight (the capacity dispatch multiplies every expert, tokens or
+    not), the final norm and the LM head; the embedding table only for its
+    8 rows, which are left out."""
+    def size(x):
+        if isinstance(x, dict):
+            return sum(size(v) for v in x.values())
+        if isinstance(x, list):
+            return sum(size(v) for v in x)
+        return x.numel() * x.element_size()
+
+    head = params["embed"].get("head", params["embed"]["table"])
+    return size(params["layers"]) + size(params["norm_f"]) + size(head)
+
+
+class RouteTally:
+    """Within ``with``: wraps the MoE router (``models.moe.route``) to add
+    up, with no host sync, every call's routed and capacity-dropped
+    (token, k) assignments, and for a prefill (T > B tokens) the split
+    between rows serving a request and parked rows — rows whose kv fence
+    is the engine's scratch extent.  :meth:`read` syncs once."""
+
+    def __init__(self, torch, eng):
+        from repro_torch.models import moe as MT
+        self.torch, self.MT, self.route = torch, MT, MT.route
+        self.B, self.scratch = eng.max_batch, eng._scratch.base
+        self.sums, self.routed = [], 0
+
+    def _route(self, cfg, p, xf, guard=None, capacity_factor=2.0):
+        torch, B = self.torch, self.B
+        r = self.route(cfg, p, xf, guard, capacity_factor)
+        dropped = (~r.keep).reshape(B, -1).sum(dim=1)
+        prefill = xf.shape[0] > B
+        parked = (guard.kv.base == self.scratch) & prefill
+        served = ~parked & prefill
+        per_row = r.keep[0].numel() * xf.shape[0] // B
+        self.sums.append(torch.stack([
+            dropped.sum(), torch.where(served, dropped, 0).sum(),
+            torch.where(parked, dropped, 0).sum(),
+            served.sum() * per_row, parked.sum() * per_row]))
+        self.routed += r.keep.numel()
+        return r
+
+    def __enter__(self):
+        self.MT.route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.MT.route = self.route
+
+    def read(self) -> dict:
+        names = ("dropped", "served_dropped", "parked_dropped", "served",
+                 "parked")
+        sums = self.torch.stack(self.sums).sum(dim=0).tolist() \
+            if self.sums else [0] * len(names)
+        return dict(zip(names, sums), routed=self.routed)
+
 
 def run_main_path(torch, cfg):
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import ServeEngine, make_shared_manager, \
         serve_continuous
+    from repro_torch.models import moe as MT
+    from repro_torch.models import transformer as TF
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mgr = make_shared_manager(1, max_batch=8, max_len=256, paged=True)
     eng = ServeEngine(cfg, max_batch=8, max_len=256, manager=mgr,
@@ -408,14 +567,35 @@ def run_main_path(torch, cfg):
         want[rid] = 16
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    log(f"main path set-up: {setup_s:.1f} s (weights, pool, manager); "
-        f"pool {eng._pool.buf['k'].numel() * 8 / 1e9:.2f} GB")
+    log(f"main path set-up [{cfg.name}]: {setup_s:.1f} s (weights, pool, "
+        f"manager); pool {eng._pool.buf['k'].numel() * 8 / 1e9:.2f} GB, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
 
+    # CUDA events around each decode step: device-side step intervals,
+    # recorded on the stream (no host sync)
+    model = MT if cfg.moe else TF
+    decode = model.decode
+    steps = []
+
+    def timed_decode(*a, **kw):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = decode(*a, **kw)
+        e.record()
+        steps.append((s, e))
+        return out
+
+    model.decode = timed_decode
     _build.reset_counts()
-    t0 = time.perf_counter()
-    outs = serve_continuous([eng], max_new_tokens=16)[0]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    try:
+        with RouteTally(torch, eng) as tally:
+            t0 = time.perf_counter()
+            outs = serve_continuous([eng], max_new_tokens=16)[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        model.decode = decode
     launches = {k.name: k.launches for k in _build.KERNELS.values()}
     plain = {k.name: k.plain_calls for k in _build.KERNELS.values()}
 
@@ -425,18 +605,102 @@ def run_main_path(torch, cfg):
         if len(toks) != want[rid] or not all(0 <= t < cfg.vocab
                                              for t in toks):
             raise AssertionError(f"request {rid}: bad tokens {toks}")
-    if any(n == 0 for n in launches.values()):
+    path_kernels = {"gather_rows", "scatter_pages", "flash_attention",
+                    "paged_attention"} | ({"moe_histogram"} if cfg.moe
+                                          else set())
+    if any(launches[k] == 0 for k in path_kernels):
         raise AssertionError(f"a kernel never launched: {launches}")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the card: {plain}")
     n_tok = sum(len(t) for t in outs.values())
     stats = mgr.scheduler.stats
     cycles = eng.manager.telemetry.registry.counter("drain_cycles")
-    log(f"main path: {len(outs)} requests x 16 tokens in {wall:.2f} s "
-        f"({n_tok / wall:.1f} tokens/s); {cycles} drain cycles, "
-        f"{int(stats.total_launches)} scheduler launches, "
-        f"{eng.decode_steps} decode steps; kernel launches {launches}")
-    return launches
+    n_dec = eng.decode_steps
+    n_pre = int(stats.total_launches) - n_dec
+    L = cfg.n_layers
+    per_step = {"gather_rows": n_pre + n_dec, "scatter_pages": L * n_pre,
+                "flash_attention": L * n_pre, "paged_attention": L * n_dec,
+                "moe_histogram": L * (n_pre + n_dec) if cfg.moe else 0}
+    if launches != per_step:
+        raise AssertionError(f"launches {launches} differ from the "
+                             f"per-step count {per_step}")
+    log(f"main path [{cfg.name}]: {len(outs)} requests x 16 tokens in "
+        f"{wall:.2f} s ({n_tok / wall:.1f} tokens/s); {cycles} drain "
+        f"cycles, {n_pre} prefills, {n_dec} decode steps; kernel launches "
+        f"{launches} (per prefill: K3 1, K2 {L}, K4 {L}"
+        f"{f', K5 {L}' if cfg.moe else ''}; per decode step: K3 1, K1 {L}"
+        f"{f', K5 {L}' if cfg.moe else ''})")
+    ms = sorted(s.elapsed_time(e) for s, e in steps)
+    floor = decode_floor_bytes(eng.params)
+    floor_ms = floor / HBM_BYTES_PER_S * 1e3
+    log(f"decode step [{cfg.name}]: median {statistics.median(ms):.2f} ms, "
+        f"min {ms[0]:.2f} ms, max {ms[-1]:.2f} ms over {len(ms)} steps; "
+        f"floor {floor / 1e9:.2f} GB read = {floor_ms:.2f} ms at 3.35 TB/s "
+        f"({floor_ms / statistics.median(ms):.1%} of the median); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if cfg.moe is not None:
+        t = tally.read()
+        log(f"capacity [{cfg.name}]: dropped {t['dropped']} of {t['routed']}"
+            f" (token, k) assignments; in prefills {t['served_dropped']} of "
+            f"{t['served']} in rows serving a request (their right-padding "
+            f"included) and {t['parked_dropped']} of {t['parked']} in "
+            f"parked rows; {t['dropped'] - t['served_dropped'] - t['parked_dropped']}"
+            " in decode steps")
+    solo_rerun(torch, cfg, eng, outs)
+    return {"launches": launches, "tokens_per_s": n_tok / wall}
+
+
+def solo_rerun(torch, cfg, eng, outs):
+    """The longer prompt of the last wave (requests 6 and 7 join rows 6
+    and 7 in one prefill, padded to the longer, while rows 0-5 hold
+    earlier requests and sit parked for that step) served again alone —
+    in row 0, the other 7 rows parked, the prefill the same length —
+    under ``torch.profiler`` for the device's share of the wall time.  A
+    dense model's tokens cannot depend on the other rows; an MoE model's
+    can, through the expert capacity the step's tokens share: ranks are
+    given in (row, position) order, so the 6 parked rows ahead of row 6
+    claim their experts' slots first."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import serve_continuous
+
+    reqs = {r.rid: r for r in eng._requests}
+    first = max((6, 7), key=lambda rid: len(reqs[rid].prompt))
+    rid = eng.submit(reqs[first].tenant, reqs[first].prompt.tolist(),
+                     max_new=16)
+    with RouteTally(torch, eng) as tally, profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solo = serve_continuous([eng], max_new_tokens=16)[0][rid]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    same = solo == outs[first]
+    diff = "" if same else ", first differing token " + str(next(
+        i for i, (a, b) in enumerate(zip(solo, outs[first])) if a != b))
+    drops = ""
+    if cfg.moe is not None:
+        t = tally.read()
+        drops = f"; capacity dropped {t['dropped']} of {t['routed']} " \
+            "assignments"
+    log(f"solo rerun [{cfg.name}]: request {first} ({len(reqs[first].prompt)}"
+        f"-token prompt) alone gives {'the same' if same else 'other'} "
+        f"tokens as co-batched{diff}{drops}")
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in kern) / 1e3
+    if not busy_ms:
+        log(f"profile [{cfg.name}]: the profiler saw no device time: "
+            "device share not measured")
+        return
+    top = sorted(kern, key=dev_us, reverse=True)[:6]
+    log(f"profile [{cfg.name}]: 1 prefill + 15 decode steps in {wall * 1e3:.0f}"
+        f" ms of wall time under the profiler, device busy {busy_ms:.1f} ms "
+        f"({busy_ms / (wall * 1e3):.1%}); top device time: " + "; ".join(
+            f"{e.key[:60]} {dev_us(e) / 1e3:.1f} ms x{e.count}" for e in top))
 
 
 def main() -> int:
@@ -467,17 +731,38 @@ def main() -> int:
     log(f"build: {len(built)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s ({', '.join(sorted(built))})")
 
-    cfg = get_config("stablelm-3b")
-    rows = check_kernels(torch, cfg)
+    cfgs = [get_config(name) for name in PATHS]
+    rows = []
+    for cfg in cfgs:
+        rows += check_kernels(torch, cfg)
+    # a kernel's first row carries its name, a later path's row is
+    # named kernel@path
+    seen = set()
+    for r in rows:
+        r["name"] = r["kernel"] if r["kernel"] not in seen \
+            else f"{r['kernel']}@{r['path']}"
+        seen.add(r["kernel"])
     log("kernels: " + ", ".join(r["name"] for r in rows))
-    check_full_width(torch, cfg)
-    launches = run_main_path(torch, cfg)
+    for cfg in cfgs:
+        check_full_width(torch, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+    paths = {}
+    for cfg in cfgs:
+        # each path's engine, manager and pool are freed before the next
+        # is built (qwen3-moe's 61 GB of weights need the room)
+        paths[cfg.name] = run_main_path(torch, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"after [{cfg.name}]: {torch.cuda.memory_allocated() / 1e9:.2f}"
+            " GB still allocated")
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    table = [{k: (launches[r["name"]] if k == "launches" else r[k])
-              for k in keys} for r in rows]
+    table = [{k: (paths[r["path"]]["launches"][r["kernel"]]
+                  if k == "launches" else r[k]) for k in keys}
+             for r in rows]
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -103,6 +103,18 @@ def gather_rows_ref(table, idx, fence_base, fence_mask):
                                   device=table.device))
 
 
+def moe_histogram_ref(expert_ids, num_experts, fence_base, fence_mask):
+    """Fenced expert histogram: ids (T, K) -> int32 counts (num_experts,)
+    of ``(id & mask) | base``; fenced ids outside ``[0, num_experts)`` are
+    dropped, as the TPU kernel's one-hot against ``iota(E)`` drops them.
+    (``repro/kernels/ref.py``'s scatter-add wraps ids in ``[-E, 0)``
+    NumPy-style instead; no fence the serve path builds yields one.)"""
+    fenced = fence_ref(expert_ids, fence_base, fence_mask).reshape(-1, 1)
+    experts = torch.arange(num_experts, dtype=torch.int32,
+                           device=fenced.device)
+    return (fenced == experts).sum(dim=0, dtype=torch.int32)
+
+
 def flash_attention_ref(q, k, v):
     """Causal attention: q (B,S,H,D), k/v (B,S,KH,D) -> (B,S,H,D), float32
     math."""

@@ -1,9 +1,10 @@
 """Multi-tenant serving engine — Guardian's spatial sharing applied to a
 shared LM server, on the GuardianManager launch path (paged branch).
 
-One model, one KV page pool, many mutually-untrusting tenants.  The pool's
-virtual page space is carved into contiguous pow2 partitions by the
-engine's :class:`~repro_torch.core.manager.GuardianManager` (the same
+One model (a dense or MoE transformer), one KV page pool, many
+mutually-untrusting tenants.  The pool's virtual page space is carved
+into contiguous pow2 partitions by the engine's
+:class:`~repro_torch.core.manager.GuardianManager` (the same
 buddy allocator, bounds table and quarantine lifecycle that fence raw
 launches).  The engine owns **no fence table and no row-assignment policy
 of its own**:
@@ -468,6 +469,10 @@ class ServeEngine:
             policy=self.policy,
             vocab=FenceParams(base=0, size=_pow2(self.cfg.vocab)),
             kv=slot_params,
+            # expert ids are dispatch addresses (MoE family): fenced into
+            # the pow2 expert extent, as the reference does
+            expert=(FenceParams(base=0, size=_pow2(
+                self.cfg.moe.num_experts)) if self.cfg.moe else None),
             page=FenceParams(base=0, size=self._n_phys),
             row_policy=row_policy,
             # a copy: the host map is rewritten in place at later cycle

@@ -1,5 +1,4 @@
-"""Model API — the dense family's surface (other families are not ported
-yet).
+"""Model API — the surface of the families the port serves (dense, moe).
 
 ``get_model(cfg)`` returns a :class:`ModelAPI` with:
 
@@ -7,6 +6,9 @@ yet).
     init_cache(batch, max_len, total_pages, **kw) -> global paged cache
     prefill(params, cache, batch, ...) -> (cache, last_logits)
     decode(params, cache, tokens, ...) -> (cache, logits)
+
+Every other family raises ``NotImplementedError`` with what it lacks
+(:data:`UNPORTED`).
 """
 
 from __future__ import annotations
@@ -16,7 +18,19 @@ from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import kvcache as KV
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as TF
+
+#: family -> what the port lacks to build it
+UNPORTED = {
+    "vlm": "the vision family (models/vlm.py: M-RoPE and the 'patches' "
+           "input) is not ported yet",
+    "hybrid": "the hybrid family (models/hybrid.py over the Mamba2/SSD "
+              "blocks) is not ported yet",
+    "ssm": "the xLSTM family (models/xlstm.py) is not ported yet",
+    "encdec": "the encoder-decoder family (models/encdec.py) is not "
+              "ported yet",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,9 +43,16 @@ class ModelAPI:
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (dense only)")
+    if cfg.family == "dense":
+        return _dense_api(cfg)
+    if cfg.family == "moe":
+        return _moe_api(cfg)
+    if cfg.family in UNPORTED:
+        raise NotImplementedError(UNPORTED[cfg.family])
+    raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def _dense_api(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         init=lambda generator, device="cuda": TF.init(cfg, generator,
@@ -41,5 +62,19 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         prefill=lambda params, cache, batch, **kw: TF.prefill(
             cfg, params, cache, batch["tokens"], **kw),
         decode=lambda params, cache, tokens, **kw: TF.decode(
+            cfg, params, cache, tokens, **kw),
+    )
+
+
+def _moe_api(cfg: ModelConfig) -> ModelAPI:
+    """The dense cache and serving loop with the expert block swapped in
+    (``repro/models/api.py``'s ``_moe_api``)."""
+    return dataclasses.replace(
+        _dense_api(cfg),
+        init=lambda generator, device="cuda": MOE.init(cfg, generator,
+                                                       device),
+        prefill=lambda params, cache, batch, **kw: MOE.prefill(
+            cfg, params, cache, batch["tokens"], **kw),
+        decode=lambda params, cache, tokens, **kw: MOE.decode(
             cfg, params, cache, tokens, **kw),
     )

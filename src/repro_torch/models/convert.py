@@ -31,8 +31,10 @@ def _tree(x, device):
 
 
 def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
-    """Reference dense-model params (stacked layers) -> port params
-    (``{"embed", "layers": [per-layer dict, ...], "norm_f"}``)."""
+    """Reference dense- or MoE-model params (stacked layers) -> port
+    params (``{"embed", "layers": [per-layer dict, ...], "norm_f"}``).
+    Every leaf keeps its dtype (the MoE router stays float32 beside a
+    bfloat16 expert bank)."""
     stacked = tree["layers"]
     n_layers = int(np.asarray(
         next(iter(next(iter(stacked.values())).values()))).shape[0])

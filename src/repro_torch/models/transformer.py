@@ -6,12 +6,13 @@ loops over the list (see :func:`repro_torch.models.convert.params_from_jax`).
 Prefill and decode run over the global paged KV pool with Guardian fencing
 on every data-dependent index; the four hand-written kernels carry the
 embedding gather (K3), the prefill page write (K2), prefill attention (K4)
-and decode attention (K1).
+and decode attention (K1).  The MoE family (:mod:`repro_torch.models.moe`)
+runs the same loop with its expert block as the feed-forward (``ffn=``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -38,15 +39,24 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     }
 
 
-def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+#: a layer's feed-forward block: ``ffn(cfg, layer_params, x, guard)`` ->
+#: the residual update of ``x`` (B, S, d)
+FFN = Callable[[ModelConfig, Params, torch.Tensor, Optional[GuardSpec]],
+               torch.Tensor]
+
+
+def mlp_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
+            guard: Optional[GuardSpec] = None) -> torch.Tensor:
+    """The dense feed-forward block (no data-dependent index: no fence)."""
     return L.mlp_apply(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
 
 
 def prefill(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
-            tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None
-            ) -> Tuple[KV.PagedKVCache, torch.Tensor]:
+            tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None,
+            ffn: FFN = mlp_ffn) -> Tuple[KV.PagedKVCache, torch.Tensor]:
     """Process the prompt, fill the KV pages (in place), return the
-    last-position logits (B, V)."""
+    last-position logits (B, V).  ``ffn`` is the layers' feed-forward
+    block (the MoE family passes its expert block)."""
     B, S = tokens.shape
     x = L.embed_tokens(params["embed"], tokens, guard)
     positions = torch.arange(S, dtype=torch.int32,
@@ -58,15 +68,15 @@ def prefill(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
         KV.write_prefill_kv(cache, lidx, k, v, guard)
         o = L.prefill_attention(cfg, q, k, v)
         x = x + L.out_proj(cfg, p["attn"], o)
-        x = x + _mlp(cfg, p, x)
+        x = x + ffn(cfg, p, x, guard)
     cache = KV.advance(cache, S)
     x = L.apply_norm(cfg, params["norm_f"], x[:, -1:])
     return cache, L.lm_logits(cfg, params["embed"], x)[:, 0]
 
 
 def decode(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
-           tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None
-           ) -> Tuple[KV.PagedKVCache, torch.Tensor]:
+           tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None,
+           ffn: FFN = mlp_ffn) -> Tuple[KV.PagedKVCache, torch.Tensor]:
     """One decode step: tokens (B,) -> logits (B, V); appends to the pool
     in place.  Attention covers each row's ``seq_lens + 1`` tokens."""
     x = L.embed_tokens(params["embed"], tokens[:, None], guard)
@@ -89,7 +99,7 @@ def decode(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
         else:
             o = KV.paged_decode_attention(cache, lidx, q, kv_len, guard)
         x = x + L.out_proj(cfg, p["attn"], o)
-        x = x + _mlp(cfg, p, x)
+        x = x + ffn(cfg, p, x, guard)
     cache = KV.advance(cache, 1)
     x = L.apply_norm(cfg, params["norm_f"], x)
     return cache, L.lm_logits(cfg, params["embed"], x)[:, 0]

@@ -1,4 +1,5 @@
-"""The plain PyTorch versions of the port's kernels (K1-K4) against the
+"""The plain PyTorch versions of the port's kernels (K1-K4; K5 in
+``tests/test_torch_moe.py``) against the
 JAX oracles (``repro.kernels.ref``) and the Pallas kernels in interpret
 mode (``repro.kernels.ops``), on identical numpy inputs; plus the per-row
 fences against the reference's jnp serve path.
@@ -28,7 +29,7 @@ from repro.models.guard import GuardSpec as GSJ  # noqa: E402
 from repro_torch.core.fence import FenceParams as FPT, \
     FencePolicy as PT  # noqa: E402
 from repro_torch.kernels import _build, flash_attention, gather_rows, \
-    paged_attention, scatter_pages  # noqa: E402
+    moe_histogram, paged_attention, scatter_pages  # noqa: E402
 from repro_torch.models import kvcache as KVT, layers as LT  # noqa: E402
 from repro_torch.models.guard import GuardSpec as GST  # noqa: E402
 
@@ -320,7 +321,9 @@ def test_wrappers_take_plain_versions_only_for_cpu_tensors():
     paged_attention(torch.zeros((1, 2, 8)), pool, pool,
                     torch.zeros((1, 2), dtype=torch.int32),
                     torch.ones(1, dtype=torch.int32), 0, 3)
+    moe_histogram(torch.zeros((3, 2), dtype=torch.int32), 4, 0, 3)
     assert {k.name: (k.launches, k.plain_calls)
             for k in _build.KERNELS.values()} == {
         "flash_attention": (0, 1), "gather_rows": (0, 1),
-        "scatter_pages": (0, 1), "paged_attention": (0, 1)}
+        "scatter_pages": (0, 1), "paged_attention": (0, 1),
+        "moe_histogram": (0, 1)}
