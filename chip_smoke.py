@@ -9,17 +9,19 @@ paths run, each at full width: the dense stablelm-3b and the MoE
 qwen3-moe-30b-a3b.  Phases, in order (any failure exits non-zero):
 
 1. device and build — the card's name and power limit, the torch version,
-   and the build of every kernel of ``src/repro_torch/kernels/csrc`` for
+   the build of every kernel of ``src/repro_torch/kernels/csrc`` for
    ``sm_90a`` (into ``build/repro_torch/``, one ``nvcc`` per source, all
-   started together);
+   started together) and K4's ``-Xptxas -v`` report (registers, spills);
 2. each kernel against its plain PyTorch version at each path's shapes —
    stablelm-3b (H = KH = 32, D = 80, a 50,304-row vocab under a 65,536
    fence) and qwen3-moe-30b-a3b (H = 32 over KH = 4, so G = 8, D = 128, a
    151,936-row vocab under a 262,144 fence, and K5 on (512, 8) router ids
    over 128 experts), 64-token pages, a ragged prefill length — forged ids
-   included, with its time, the plain version's, the library call's where
-   one exists, and the bound: the least time the card could take for the
-   same bytes or operations;
+   included; K4 in bf16 (tensor cores) and f32 (CUDA cores) at one key
+   tile (S = 57) and four (S = 193), K3 under a scalar, the identity and
+   a per-id fence — with its time, the plain version's, the library
+   call's where one exists, and the bound: the least time the card could
+   take for the same bytes or operations;
 3. full width against the CPU at two layers, for each path: float32,
    prefill + 4 decode steps on the card through the kernels and on the CPU
    through the plain versions, from the same weights — greedy ids equal,
@@ -43,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import json
 import statistics
 import subprocess
@@ -84,6 +87,24 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_report(build, source: str, keep) -> str:
+    """Registers, spills and shared memory of each kernel in ``source``
+    whose mangled name holds one of ``keep``, from the ``-Xptxas -v`` log
+    kept beside its library."""
+    text = build._lib_path(source).with_suffix(".so.log").read_text()
+    found, name = {}, None
+    for line in text.splitlines():
+        if "Performance Loss" in line:      # e.g. wgmma serialized
+            found.setdefault(line.split("'")[-2], []).append(
+                line.split(":", 1)[-1].split(" in the function")[0].strip())
+        elif "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("spill" in line or "Used" in line):
+            found.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    return "; ".join(f"{n}: {', '.join(v)}" for n, v in found.items()
+                     if any(k in n for k in keep))
+
+
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` calls, timed with CUDA
     events around each call.  Before each call the 50 MB L2 is flushed (the
@@ -118,7 +139,6 @@ def check_kernels(torch, cfg):
     64-token pages, a 64-page pool, a ragged 57-token prefill)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels._build import per_id
     from repro_torch.kernels.gather_rows import gather_rows
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.scatter_pages import scatter_pages
@@ -132,8 +152,13 @@ def check_kernels(torch, cfg):
     i32 = dict(dtype=torch.int32, device=dev)
     tag = f" [{cfg.name}]"
 
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    # inputs of the checks added later (K3's per-id fences, K4 at S = 193
+    # and in f32) come from their own generator, so every other check
+    # keeps the inputs ``gen`` has always given it
+    more = torch.Generator(device=dev).manual_seed(4321)
+
+    def randn(*shape, dtype=torch.float32, generator=gen):
+        return torch.randn(*shape, generator=generator, device=dev).to(dtype)
 
     rows = []
 
@@ -149,18 +174,34 @@ def check_kernels(torch, cfg):
                              generator=gen, **i32)    # forged: past the table
     ids[3::11] -= 1 << 20                              # forged: negative
     mask = fence_vocab - 1
-    out = gather_rows(table, ids, 0, mask)
-    want = ref.gather_rows_ref(table, ids, per_id(0, ids.numel(), dev),
-                               per_id(mask, ids.numel(), dev))
-    nan_rows = int(out.isnan().all(dim=1).sum())
+    # The fence in both of the kernel's forms, each held exactly against
+    # the plain version: the serve path's scalar vocab fence (by value),
+    # the identity fence (negative ids wrap once), and one (base, mask) per
+    # id — a quarter of the fence each, the last quarter reaching past the
+    # table, so NaN rows come from both forms.
+    quarter = fence_vocab // 4
+    per_base = torch.tensor([0, 2 * quarter, 3 * quarter], **i32)[
+        torch.randint(0, 3, (B * S,), generator=more, device=dev)]
+    per_mask = torch.full((B * S,), quarter - 1, **i32)
+    nan_rows, err = {}, 0.0
+    for form, (fb, fm) in (("scalar", (0, mask)), ("identity", (0, -1)),
+                           ("per-id", (per_base, per_mask))):
+        out = gather_rows(table, ids, fb, fm)
+        want = ref.gather_rows_ref(table, ids, fb, fm)
+        if not torch.equal(out.isnan(), want.isnan()) or not torch.equal(
+                torch.nan_to_num(out), torch.nan_to_num(want)):
+            raise AssertionError(f"gather_rows disagrees with its plain "
+                                 f"version under the {form} fence")
+        err = max(err, (torch.nan_to_num(out).float()
+                        - torch.nan_to_num(want).float()).abs().max().item())
+        row_ids = ref.fence_ref(ids, fb, fm)
+        row_ids = torch.where(row_ids < 0, row_ids + cfg.vocab, row_ids)
+        nan_rows[form] = int(out.isnan().all(dim=1).sum())
+        if nan_rows[form] != int(((row_ids < 0) | (row_ids >= cfg.vocab))
+                                 .sum()):
+            raise AssertionError(f"gather_rows under the {form} fence: "
+                                 "ids outside the table not NaN rows")
     fenced = (ids & mask)
-    if not torch.equal(out.isnan(), want.isnan()) or not torch.equal(
-            torch.nan_to_num(out), torch.nan_to_num(want)):
-        raise AssertionError("gather_rows disagrees with its plain version")
-    if nan_rows != int((fenced >= cfg.vocab).sum()):
-        raise AssertionError("gather_rows: past-the-table ids not NaN rows")
-    err = (torch.nan_to_num(out).float()
-           - torch.nan_to_num(want).float()).abs().max().item()
     in_table = fenced < cfg.vocab
     ok_ids = fenced[in_table]
     # bytes: the in-table rows read, every output row written, the ids read
@@ -171,15 +212,17 @@ def check_kernels(torch, cfg):
                                    "is past the table)",
         ms=cuda_ms(torch, lambda: gather_rows(table, ids, 0, mask)),
         plain_ms=cuda_ms(torch, lambda: ref.gather_rows_ref(
-            table, ids, per_id(0, ids.numel(), dev),
-            per_id(mask, ids.numel(), dev))),
+            table, ids, 0, mask)),
         library_ms=cuda_ms(torch, lambda: table.index_select(0, ok_ids)),
         library_call="Tensor.index_select of the in-table rows",
         shape=f"table {tuple(table.shape)} bf16, {ids.numel()} ids",
         **dict(zip(("bound_ms", "bound_by"),
                    bound_ms(n_bytes, 0.0, "bfloat16"))))
-    log(f"K3 gather_rows ok{tag}: {nan_rows} NaN rows for ids past the "
-        f"{cfg.vocab}-row table under the {fence_vocab} fence")
+    log(f"K3 gather_rows ok{tag}: equal to its plain version under the "
+        f"scalar {fence_vocab} fence ({nan_rows['scalar']} NaN rows for ids "
+        f"past the {cfg.vocab}-row table), the identity fence "
+        f"({nan_rows['identity']}) and per-id fences of {quarter} rows "
+        f"({nan_rows['per-id']})")
     del table
 
     # ---- K2 scatter_pages: prefill page write, forged + parked rows --- #
@@ -243,21 +286,37 @@ def check_kernels(torch, cfg):
         "untouched")
 
     # ---- K4 flash_attention: ragged prefill --------------------------- #
-    q = randn(B, S, H, D, dtype=torch.bfloat16)
-    k = randn(B, S, KH, D, dtype=torch.bfloat16)
-    v = randn(B, S, KH, D, dtype=torch.bfloat16)
-    out = flash_attention(q, k, v)
-    want = ref.flash_attention_ref(q, k, v)
-    err = (out.float() - want.float()).abs().max().item()
-    # one bf16 ulp at outputs in [2, 4): an early causal row averages only
-    # a few V rows of N(0, 1) values
-    if not err <= 2e-2:
-        raise AssertionError(f"flash_attention error {err} > 2e-2")
+    # bf16 (the tensor-core kernel) and f32 (the CUDA-core kernel), at one
+    # key tile (S = 57) and at four (S = 193, ragged: the online-softmax
+    # rescale across tiles), each against the plain version.  bf16: one
+    # bf16 ulp at outputs in [2, 4) (an early causal row averages only a
+    # few V rows of N(0, 1) values), which also covers the kernel's bf16
+    # rounding of P (tests/test_torch_kernels.py emulates it); f32: the
+    # sums run in another order than the plain version's.
+    tols = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {(bf16, S): tuple(randn(B, S, h, D, dtype=bf16)
+                              for h in (H, KH, KH))}
+    for dt, s_len in ((bf16, 193), (f32, S), (f32, 193)):
+        cases[(dt, s_len)] = tuple(randn(B, s_len, h, D, dtype=dt,
+                                         generator=more)
+                                   for h in (H, KH, KH))
+    errs = {}
+    for (dt, s_len), (q, k, v) in cases.items():
+        got = flash_attention(q, k, v)
+        want = ref.flash_attention_ref(q, k, v)
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= tols[dt]:
+            raise AssertionError(f"flash_attention {dt} S={s_len}: "
+                                 f"error {err} > {tols[dt]}")
+        errs[(dt, s_len)] = err
+    q, k, v = cases[(bf16, S)]
     n_bytes = 2 * B * S * (2 * H + 2 * KH) * D
     flops = 4 * B * H * D * S * (S + 1) / 2
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     row("flash_attention", "flash_attention.cu", "flash_attention.py:84",
-        max_abs_err=err, tolerance="2e-2 (bf16 output, one ulp at |out| < 4)",
+        max_abs_err=max(errs[(bf16, S)], errs[(bf16, 193)]),
+        tolerance="2e-2 (bf16 output, one ulp at |out| < 4)",
         ms=cuda_ms(torch, lambda: flash_attention(q, k, v)),
         plain_ms=cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v)),
         library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -266,7 +325,17 @@ def check_kernels(torch, cfg):
         shape=f"q ({B},{S},{H},{D}), k/v ({B},{S},{KH},{D}) bf16",
         **dict(zip(("bound_ms", "bound_by"),
                    bound_ms(n_bytes, flops, "bfloat16"))))
-    log(f"K4 flash_attention ok{tag}: max |err| {err:.3g} (tolerance 2e-2)")
+    # four key tiles, timed for the log only
+    q4, k4, v4 = cases[(bf16, 193)]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q4, k4, v4))
+    ms_193 = cuda_ms(torch, lambda: flash_attention(q4, k4, v4))
+    sdpa_193 = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=KH != H))
+    log(f"K4 flash_attention ok{tag}: max |err| bf16 "
+        f"{errs[(bf16, S)]:.3g} (S={S}) / {errs[(bf16, 193)]:.3g} (S=193), "
+        f"tolerance 2e-2; f32 {errs[(f32, S)]:.3g} / {errs[(f32, 193)]:.3g},"
+        f" tolerance 1e-4; bf16 at S=193: kernel {ms_193:.5f} ms, "
+        f"scaled_dot_product_attention {sdpa_193:.5f} ms")
 
     # ---- K1 paged_attention: decode over the f32 pool, bf16 query ----- #
     qd = randn(B, H, D, dtype=torch.bfloat16)
@@ -543,6 +612,37 @@ class RouteTally:
         return dict(zip(names, sums), routed=self.routed)
 
 
+class GreedyGap:
+    """Within ``with``: wraps the LM head (``models.layers.lm_logits``) to
+    keep, with no host sync, the gap between the two largest logits of
+    every row at every step — the margin by which each greedy token beat
+    its runner-up, so a token that moves with a kernel's rounding can be
+    told from a fault.  :meth:`read` syncs once."""
+
+    def __init__(self, torch):
+        from repro_torch.models import layers
+        self.torch, self.layers, self.head = torch, layers, layers.lm_logits
+        self.gaps = []
+
+    def _head(self, cfg, p, x):
+        logits = self.head(cfg, p, x)
+        top = logits.float().topk(2, dim=-1).values
+        self.gaps.append((top[..., 0] - top[..., 1]).reshape(-1))
+        return logits
+
+    def __enter__(self):
+        self.layers.lm_logits = self._head
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.lm_logits = self.head
+
+    def read(self):
+        """(smallest gap, 1st percentile, number of row-steps)"""
+        g = self.torch.cat(self.gaps)
+        return g.min().item(), g.quantile(0.01).item(), g.numel()
+
+
 def run_main_path(torch, cfg):
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import ServeEngine, make_shared_manager, \
@@ -589,7 +689,7 @@ def run_main_path(torch, cfg):
     model.decode = timed_decode
     _build.reset_counts()
     try:
-        with RouteTally(torch, eng) as tally:
+        with RouteTally(torch, eng) as tally, GreedyGap(torch) as gap:
             t0 = time.perf_counter()
             outs = serve_continuous([eng], max_new_tokens=16)[0]
             torch.cuda.synchronize()
@@ -630,6 +730,13 @@ def run_main_path(torch, cfg):
         f"{launches} (per prefill: K3 1, K2 {L}, K4 {L}"
         f"{f', K5 {L}' if cfg.moe else ''}; per decode step: K3 1, K1 {L}"
         f"{f', K5 {L}' if cfg.moe else ''})")
+    served = json.dumps([[int(t) for t in outs[r]] for r in sorted(outs)])
+    smallest, pct1, n_gaps = gap.read()
+    log(f"tokens [{cfg.name}]: sha256 "
+        f"{hashlib.sha256(served.encode()).hexdigest()[:16]} of the served "
+        f"tokens in request order; greedy top-1 over top-2 logit gap "
+        f"smallest {smallest:.3g}, 1st percentile {pct1:.3g} over {n_gaps} "
+        "row-steps")
     ms = sorted(s.elapsed_time(e) for s, e in steps)
     floor = decode_floor_bytes(eng.params)
     floor_ms = floor / HBM_BYTES_PER_S * 1e3
@@ -730,6 +837,9 @@ def main() -> int:
     built = _build.build_all()
     log(f"build: {len(built)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s ({', '.join(sorted(built))})")
+    # the bf16 instantiations the paths run (D / 16 = 5 and 8), and f32
+    log("K4 ptxas: " + ptxas_report(_build, "flash_attention.cu",
+                                    ("ILi5E", "ILi8E", "f32")))
 
     cfgs = [get_config(name) for name in PATHS]
     rows = []

@@ -6,23 +6,49 @@
 //
 // What it computes: out[b, i, h] = softmax_{j <= i} (q[b,i,h] . k[b,j,kh]
 // / sqrt(D)) applied to v[b,j,kh], kh = h / (H / KH) (GQA), accumulated in
-// float32 and stored in the inputs' type.
+// float32 and stored in the inputs' type.  Prompts are right-padded to the
+// longest joiner, so S is arbitrary: keys at or past S are masked (-1e30)
+// and rows at or past S are never stored; there is no S % tile
+// requirement.
 //
 // What bounds it on the H100: at serve prefill shapes (S <= a few hundred
-// tokens, D = 80) the attention FLOPs (~2 * B * H * S^2 * D) are small and
-// the kernel reads q, k, v and writes out once, so it is bound by bytes and
-// launch latency; this first version computes with CUDA-core FMAs, not
-// tensor cores (wgmma is later work).
+// tokens) the attention FLOPs (~2 * B * H * S^2 * D) are small and the
+// kernel reads q, k, v and writes out once, so it is bound by bytes and,
+// at these sizes, by latency: how many blocks run at once and how long
+// each waits on its loads.
 //
-// Design: one block per (64-query tile, head, batch).  Blocks run in no
-// order, so the sequential KV grid of the TPU kernel becomes a loop inside
-// the block over 64-key tiles up to the diagonal (tiles above it are never
-// loaded).  The query tile, the K/V tile, the 64 x 64 score tile and the
-// float32 accumulator live in shared memory (K rows at the odd stride
-// D + 1, free of bank conflicts in the score loop); per-row max and sum
-// carry the online softmax.  Prompts are right-padded to the longest joiner, so S is
-// arbitrary: rows and keys at or past S are masked inside the kernel and
-// there is no S % tile requirement.
+// Two kernels, chosen by dtype (never a fallback):
+//
+// bfloat16 (the serve path) runs on the tensor cores.  One warpgroup (128
+// threads) per (64-query tile, head, batch): the query tile is exactly
+// wgmma's M = 64.  Q, K and V tiles stay bf16 in shared memory in the
+// 128-byte-swizzled layout wgmma's descriptors read, D padded to 128 as two
+// 64-column chunks (16 KB a tile); K/V tiles are double-buffered, so tile
+// j + 1 loads while tile j computes.  Tiles are staged with cp.async (16
+// bytes a thread, the swizzle XOR computed here; rows at or past S use the
+// zero-fill form and read nothing), which keeps the library a plain .so:
+// no tensor map to encode per prefill S and no libcuda link.
+//   S = Q K^T: wgmma m64n64k16, D / 16 k-steps (a template parameter, so
+//   the loop unrolls), both operands K-major in shared memory; the scores
+//   stay in registers, where the causal/ragged mask, the 1/sqrt(D) scale
+//   (applied to the f32 scores, folded with log2 e for exp2) and the
+//   online softmax run (a row lives in the four threads of a quad: max by
+//   __shfl_xor_sync over offsets 1 and 2).
+//   O += P V: P is rounded to bf16 in registers and is wgmma's register A
+//   operand (the S accumulator fragment of a k16 key slice is exactly the
+//   A fragment); V, stored (key, d), is the shared-memory B operand read
+//   MN-major (the descriptor's transpose bit); m64n128k16, so D = 80 runs
+//   N = 128 against V columns 80-127 zeroed once per block, and output
+//   columns >= D are dropped.  The row sum adds the rounded P, so the
+//   weights applied to V are normalised exactly; the epilogue divides by
+//   max(l, 1e-30) and stores through shared memory in 16-byte rows.
+//   81 KB of shared memory a block: two blocks per SM.
+//
+// float32 (chip_smoke's card-against-CPU check of the whole model) keeps
+// the CUDA-core kernel: tensor cores would round its operands to TF32 or
+// bf16, and that check holds logits within 2e-3.  It stages tiles widened
+// to float in shared memory (K rows at the odd stride D + 1, free of bank
+// conflicts in the score loop) and carries the online softmax per row.
 
 #include "common.cuh"
 
@@ -30,15 +56,15 @@ constexpr int kThreads = 128;
 constexpr int kBQ = 64;  // query rows per block
 constexpr int kBK = 64;  // keys per tile
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int S, int H, int KH,
-    int D, float scale) {
+// ------------------------------------------------------------------------
+// float32: CUDA-core kernel
+// ------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out, int S, int H,
+    int KH, int D, float scale) {
   extern __shared__ float smem[];
-  // K rows are padded to an odd stride: the score loop reads one column
-  // of 32 consecutive keys per warp, which a stride of D = 80 would put in
-  // two banks (a 16-way conflict).
   const int ks = D + 1;
   float* q_s = smem;                // kBQ * D
   float* k_s = q_s + kBQ * D;       // kBK * ks
@@ -57,8 +83,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int i = e / D, d = e % D, s = q0 + i;
-    q_s[e] =
-        s < S ? to_f32<T>(q[(((size_t)b * S + s) * H + h) * D + d]) : 0.f;
+    q_s[e] = s < S ? q[(((size_t)b * S + s) * H + h) * D + d] : 0.f;
     acc_s[e] = 0.f;
   }
   for (int i = tid; i < kBQ; i += kThreads) {
@@ -74,8 +99,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int j = e / D, d = e % D, s = k0 + j;
       const size_t off = (((size_t)b * S + s) * KH + kvh) * D + d;
-      k_s[j * ks + d] = s < S ? to_f32<T>(k[off]) : 0.f;
-      v_s[e] = s < S ? to_f32<T>(v[off]) : 0.f;
+      k_s[j * ks + d] = s < S ? k[off] : 0.f;
+      v_s[e] = s < S ? v[off] : 0.f;
     }
     __syncthreads();
     for (int e = tid; e < kBQ * kBK; e += kThreads) {
@@ -117,24 +142,382 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const int i = e / D, d = e % D, s = q0 + i;
     if (s < S)
       out[(((size_t)b * S + s) * H + h) * D + d] =
-          from_f32<T>(acc_s[e] / fmaxf(l_s[i], 1e-30f));
+          acc_s[e] / fmaxf(l_s[i], 1e-30f);
   }
 }
 
-template <typename T>
-static int launch(const void* q, const void* k, const void* v, void* out,
-                  int B, int S, int H, int KH, int D, cudaStream_t stream) {
+static int launch_f32(const void* q, const void* k, const void* v, void* out,
+                      int B, int S, int H, int KH, int D,
+                      cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * (size_t)kBQ * D +
                                        (size_t)kBK * (2 * D + 1) +
                                        (size_t)kBQ * kBK + 3 * (size_t)kBQ);
-  auto kernel = flash_attention_kernel<T>;
-  int rc = allow_smem(kernel, smem);
+  int rc = allow_smem(flash_attention_f32_kernel, smem);
   if (rc) return rc;
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>((const T*)q, (const T*)k,
-                                           (const T*)v, (T*)out, S, H, KH, D,
-                                           rsqrtf((float)D));
+  flash_attention_f32_kernel<<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, S, H,
+      KH, D, rsqrtf((float)D));
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------------
+// bfloat16: tensor-core kernel (wgmma)
+// ------------------------------------------------------------------------
+
+// A tile is 64 rows x 128 bf16 columns, stored as two 64-column chunks;
+// each chunk is 8 swizzle atoms of 8 rows x 128 bytes (1024 bytes, 1024-
+// byte aligned), with 16-byte column chunk c of row r at c ^ (r % 8).
+constexpr int kChunkBytes = 64 * 128;
+constexpr int kTileBytes = 2 * kChunkBytes;
+constexpr int kMaxD = 128;  // D padded to this in shared memory
+// Q, two K buffers, two V buffers, and slack to align the base to 1024.
+constexpr int kTcSmem = 5 * kTileBytes + 1024;
+// Output staging row stride (bytes): 128 columns + 16, conflict-free for
+// the fragment's 4-byte stores and 16-byte aligned for the row copy.
+constexpr int kOStride = 2 * kMaxD + 16;
+
+// Byte offset of 16-byte column chunk c (0..15) of tile row r.
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return (c >> 3) * kChunkBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; src_bytes = 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory writes by threads (generic proxy) made visible to wgmma's
+// operand reads (async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle.  K-major
+// operands (Q, K): leading offset unused (16), stride 1024 = one 8-row
+// atom.  MN-major V: leading offset = the step between 64-column chunks,
+// stride 1024 = one 8-key atom.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x 64 f32 fragment) (+)= A (smem, K-major) * B (smem, K-major)^T.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128 f32 fragment) += A (registers, bf16) * B (smem, MN-major).
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    uint32_t a0, uint32_t a1,
+                                                    uint32_t a2, uint32_t a3,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// Stage rows [row0, row0 + 64) of one head of a (B, S, NH, D) tensor
+// (`src` points at that head's row 0; rows are `stride` elements apart)
+// into the swizzled tile at `dst`: NC = D / 8 16-byte chunks a row, rows
+// at or past S zero-filled.
+template <int NC>
+__device__ __forceinline__ void stage_tile(uint32_t dst,
+                                           const __nv_bfloat16* src,
+                                           int row0, int S, int stride,
+                                           int tid) {
+#pragma unroll
+  for (int i = 0; i < kBK * NC / kThreads; ++i) {
+    const int e = tid + i * kThreads;
+    const int r = e / NC, c = e % NC, s = row0 + r;
+    const bool ok = s < S;
+    cp_async16(dst + swizzled(r, c), src + (size_t)(ok ? s : 0) * stride +
+                                         c * 8, ok ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+template <int KSTEPS>  // D / 16
+__global__ void __launch_bounds__(kThreads, 2) flash_attention_bf16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    int S, int H, int KH, float scale_log2) {
+  constexpr int D = KSTEPS * 16;
+  constexpr int nc = D / 8;  // 16-byte chunks a row
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t sQ = smem_addr(smem);
+  const uint32_t sK = sQ + kTileBytes;      // two buffers
+  const uint32_t sV = sK + 2 * kTileBytes;  // two buffers
+
+  // the longest (last) query tiles start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KH);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const __nv_bfloat16* qh = q + ((size_t)b * S * H + h) * D;
+  const __nv_bfloat16* kh = k + ((size_t)b * S * KH + kvh) * D;
+  const __nv_bfloat16* vh = v + ((size_t)b * S * KH + kvh) * D;
+
+  // V columns D..127 of both buffers: zero once (P V runs N = 128; the
+  // loads below never write these chunks).
+  constexpr int pad_c = 16 - nc;
+  if constexpr (pad_c > 0) {
+    for (int e = tid; e < 2 * kBK * pad_c; e += kThreads) {
+      const int buf = e / (kBK * pad_c), rc = e - buf * kBK * pad_c;
+      const int r = rc / pad_c, c = nc + rc % pad_c;
+      *reinterpret_cast<uint4*>(smem + 3 * kTileBytes + buf * kTileBytes +
+                                swizzled(r, c)) = make_uint4(0, 0, 0, 0);
+    }
+  }
+
+  const int last = min(q0 + kBQ, S) - 1;  // last query row of the tile
+  const int n_tiles = last / kBK + 1;     // key tiles up to the diagonal
+
+  // cp.async group t holds key tile t (group 0 also Q).
+  stage_tile<nc>(sQ, qh, q0, S, H * D, tid);
+  stage_tile<nc>(sK, kh, 0, S, KH * D, tid);
+  stage_tile<nc>(sV, vh, 0, S, KH * D, tid);
+  cp_async_commit();
+  if (n_tiles > 1) {
+    stage_tile<nc>(sK + kTileBytes, kh, kBK, S, KH * D, tid);
+    stage_tile<nc>(sV + kTileBytes, vh, kBK, S, KH * D, tid);
+  }
+  cp_async_commit();
+
+  // Fragment rows of this thread: row0 and row0 + 8 of the query tile;
+  // columns 8 i + cq + {0, 1} of each n8 block i.
+  const int row0 = q0 + warp * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float m0 = NEG_INF_F, m1 = NEG_INF_F;  // running max (log2 units)
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the sum
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const uint32_t kbuf = sK + (j & 1) * kTileBytes;
+    const uint32_t vbuf = sV + (j & 1) * kTileBytes;
+    cp_async_wait<1>();  // tile j has landed (tile j + 1 may be in flight)
+    fence_proxy_async();
+    __syncthreads();
+
+    // ---- S = Q K^T ---------------------------------------------------
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const uint32_t off = (kk >> 2) * kChunkBytes + (kk & 3) * 32;
+      wgmma_m64n64k16_ss(s, sw128_desc(sQ + off, 16, 1024),
+                         sw128_desc(kbuf + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+
+    // ---- mask, scale, online softmax ---------------------------------
+    const int k0 = j * kBK;
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + (e >> 1) * 8;
+        const int key = k0 + 8 * i + cq + (e & 1);
+        const float x = s[4 * i + e] * scale_log2;
+        s[4 * i + e] = (key <= row && key < S) ? x : NEG_INF_F;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    // P rounded to bf16: p[4 kk .. 4 kk + 3] is the A fragment of key
+    // slice kk (rows row0 / row0 + 8, keys 16 kk + cq and 16 kk + 8 + cq)
+    uint32_t p[16];
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(
+          exp2f(s[4 * i] - mx0), exp2f(s[4 * i + 1] - mx0));
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(
+          exp2f(s[4 * i + 2] - mx1), exp2f(s[4 * i + 3] - mx1));
+      const float2 flo = __bfloat1622float2(lo);
+      const float2 fhi = __bfloat1622float2(hi);
+      sum0 += flo.x + flo.y;
+      sum1 += fhi.x + fhi.y;
+      p[2 * i] = bf16x2_bits(lo);
+      p[2 * i + 1] = bf16x2_bits(hi);
+    }
+    l0 = l0 * a0 + sum0;
+    l1 = l1 * a1 + sum1;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      o[4 * i] *= a0;
+      o[4 * i + 1] *= a0;
+      o[4 * i + 2] *= a1;
+      o[4 * i + 3] *= a1;
+    }
+
+    // ---- O += P V ----------------------------------------------------
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n128k16_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                          p[4 * kk + 3],
+                          sw128_desc(vbuf + kk * 2048, kChunkBytes, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+
+    __syncthreads();  // every warp is done with this K/V buffer
+    if (j + 2 < n_tiles) {
+      stage_tile<nc>(kbuf, kh, (j + 2) * kBK, S, KH * D, tid);
+      stage_tile<nc>(vbuf, vh, (j + 2) * kBK, S, KH * D, tid);
+    }
+    cp_async_commit();
+  }
+
+  // ---- epilogue: O / l, staged through the (free) K buffers ----------
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  uint8_t* so = smem + kTileBytes;
+  const int lr = warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {  // n8 blocks of the D real columns
+    const int col = 8 * i + cq;
+    *reinterpret_cast<__nv_bfloat162*>(so + lr * kOStride + col * 2) =
+        __floats2bfloat162_rn(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+    *reinterpret_cast<__nv_bfloat162*>(so + (lr + 8) * kOStride + col * 2) =
+        __floats2bfloat162_rn(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+  }
+  __syncthreads();
+  __nv_bfloat16* oh = out + ((size_t)b * S * H + h) * D;
+  for (int e = tid; e < kBQ * nc; e += kThreads) {
+    const int r = e / nc, c = e - r * nc, srow = q0 + r;
+    if (srow < S)
+      *reinterpret_cast<uint4*>(oh + (size_t)srow * H * D + c * 8) =
+          *reinterpret_cast<const uint4*>(so + r * kOStride + c * 16);
+  }
+}
+
+template <int KSTEPS>
+static int launch_bf16(const void* q, const void* k, const void* v,
+                       void* out, int B, int S, int H, int KH,
+                       cudaStream_t stream) {
+  auto kernel = flash_attention_bf16_kernel<KSTEPS>;
+  int rc = allow_smem(kernel, kTcSmem);
+  if (rc) return rc;
+  dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  kernel<<<grid, kThreads, kTcSmem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, H, KH,
+      rsqrtf((float)(KSTEPS * 16)) * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+static int launch_bf16(const void* q, const void* k, const void* v,
+                       void* out, int B, int S, int H, int KH, int D,
+                       cudaStream_t s) {
+  if (KH <= 0 || H % KH != 0) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 16: return launch_bf16<1>(q, k, v, out, B, S, H, KH, s);
+    case 32: return launch_bf16<2>(q, k, v, out, B, S, H, KH, s);
+    case 48: return launch_bf16<3>(q, k, v, out, B, S, H, KH, s);
+    case 64: return launch_bf16<4>(q, k, v, out, B, S, H, KH, s);
+    case 80: return launch_bf16<5>(q, k, v, out, B, S, H, KH, s);
+    case 96: return launch_bf16<6>(q, k, v, out, B, S, H, KH, s);
+    case 112: return launch_bf16<7>(q, k, v, out, B, S, H, KH, s);
+    case 128: return launch_bf16<8>(q, k, v, out, B, S, H, KH, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -142,9 +525,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int H, int KH, int D, int dtype,
                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DT_F32) return launch<float>(q, k, v, out, B, S, H, KH, D, s);
-  if (dtype == DT_BF16)
-    return launch<__nv_bfloat16>(q, k, v, out, B, S, H, KH, D, s);
+  if (dtype == DT_F32) return launch_f32(q, k, v, out, B, S, H, KH, D, s);
+  if (dtype == DT_BF16) return launch_bf16(q, k, v, out, B, S, H, KH, D, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,7 +3,9 @@
 Replaces ``repro/kernels/flash_attention.py``'s ``flash_attention``.  A CPU
 query takes the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`); a CUDA query launches
-the kernel or raises.
+the kernel or raises.  On the card a bfloat16 query runs the tensor-core
+(``wgmma``) kernel and a float32 query the CUDA-core one; both take a head
+dim that is a multiple of 16 up to 128 and whole GQA groups.
 """
 
 from __future__ import annotations
@@ -34,6 +36,16 @@ def flash_attention(q, k, v):
     check_cuda("flash_attention", q, k, v)
     B, S, H, D = q.shape
     KH = k.shape[2]
+    if k.shape != (B, S, KH, D) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if D % 16 or D > 128 or KH == 0 or H % KH:
+        raise ValueError(f"flash_attention: head dim {D} (a multiple of 16,"
+                         f" at most 128) or {H} heads over {KH} KV heads "
+                         "not supported")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: operands must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     if B and S:
         KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(out), B, S, H, KH, D,

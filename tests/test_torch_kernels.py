@@ -8,7 +8,11 @@ The CUDA kernels themselves do not run in these CPU tests: on a CPU
 tensor each wrapper takes its plain version, which ``chip_smoke.py``
 holds every kernel against on the card."""
 
+import ctypes
 import dataclasses
+import importlib
+import math
+import re
 
 import numpy as np
 import pytest
@@ -269,6 +273,49 @@ def test_gather_rows_non_pow2_vocab_gives_nan_rows(V):
     assert_same(gather_rows(t_of(table), t_of(raw), 0, -1), want)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("V,base,mask", [
+    (300, 0, 511),       # pow2 fence wider than the table: NaN rows
+    (256, 128, 127),     # half the table
+    (300, 0, -1),        # identity: negative ids wrap, others NaN rows
+])
+def test_gather_rows_scalar_fence_equals_per_id_tensors(dtype, V, base,
+                                                        mask):
+    """A scalar fence (passed by value to the kernel, no per-id operands)
+    gives exactly the rows of the same fence given as (N,) tensors, or as
+    a tensor base beside a scalar mask — NaN rows and negative wraps
+    included — and the JAX oracle's."""
+    rng = np.random.default_rng(V + base)
+    N = 64
+    tj, tt = _both(rng.normal(size=(V, 16)), dtype)
+    idx = rng.integers(-2 * V, 2 * V, size=(N,)).astype(np.int32)
+    idx[:4] = [V, -1, -V, V - 1]
+    got = gather_rows(tt, t_of(idx), base, mask)
+    fenced = (idx & mask) | base
+    assert np.isnan(np_of(got)[(fenced >= V) | (fenced < -V)]).all()
+    assert_same(got, RJ.gather_rows_ref(tj, jnp.asarray(idx), base, mask))
+    full = [torch.full((N,), x, dtype=torch.int32) for x in (base, mask)]
+    assert_same(gather_rows(tt, t_of(idx), *full), got)
+    assert_same(gather_rows(tt, t_of(idx), full[0], mask), got)
+
+
+def test_gather_rows_scalar_fence_builds_no_per_id_operands(monkeypatch):
+    """Only a tensor fence is broadcast to per-id operands."""
+    K3 = importlib.import_module("repro_torch.kernels.gather_rows")
+
+    def refuse(*a, **kw):
+        raise AssertionError("per_id called for a scalar fence")
+
+    table = torch.arange(32.0).reshape(8, 4)
+    want = gather_rows(table, torch.tensor([1, 9, -3], dtype=torch.int32),
+                       torch.zeros(3, dtype=torch.int32),
+                       torch.full((3,), 7, dtype=torch.int32))
+    monkeypatch.setattr(K3, "per_id", refuse)
+    assert_same(gather_rows(table, torch.tensor([1, 9, -3],
+                                                dtype=torch.int32), 0, 7),
+                want)
+
+
 # --------------------------------------------------------------------- #
 # K4 flash_attention                                                    #
 # --------------------------------------------------------------------- #
@@ -277,6 +324,11 @@ def test_gather_rows_non_pow2_vocab_gives_nan_rows(V):
     (1, 128, 4, 4, 32, 128),
     (2, 256, 4, 2, 32, 128),
     (2, 64, 8, 1, 16, 32),
+    # the main paths' head shapes at a ragged prefill length (one 57-row
+    # block divides S for the Pallas kernel): stablelm-3b D = 80, G = 1;
+    # qwen3-moe-30b-a3b D = 128, G = 8
+    (1, 57, 8, 8, 80, 57),
+    (1, 57, 8, 1, 128, 57),
 ])
 def test_flash_attention_plain_matches_oracle_and_pallas(dtype, B, S, H, KH,
                                                          D, blk):
@@ -305,6 +357,86 @@ def test_flash_attention_ragged_length_matches_chunked_attention(S):
     got = flash_attention(qt, kt, vt)
     assert_close(got, RJ.flash_attention_ref(qj, kj, vj), TOL_F32)
     assert_close(got, LJ.chunked_attention(qj, kj, vj, causal=True), 1e-5)
+
+
+def _k4_tensor_core_algorithm(q, k, v, round_p=True):
+    """K4's bfloat16 tensor-core algorithm (``csrc/flash_attention.cu``)
+    in plain PyTorch, float32 out: 64-key tiles, f32 scores scaled by
+    log2(e) / sqrt(D), a running max, unnormalised exp2 weights P rounded
+    to bf16 (``round_p``), f32 sums of P V and of the (rounded) P, and one
+    division by max(l, 1e-30) at the end."""
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    qf = q.float().reshape(B, S, KH, H // KH, D)
+    kf, vf = k.float(), v.float()
+    scale = math.log2(math.e) / math.sqrt(D)
+    m = torch.full((B, KH, H // KH, S), -1e30)
+    l = torch.zeros((B, KH, H // KH, S))
+    o = torch.zeros((B, KH, H // KH, S, D))
+    rows = torch.arange(S)
+    for k0 in range(0, S, 64):
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf[:, k0:k0 + 64]) * scale
+        keys = torch.arange(k0, min(k0 + 64, S))
+        s = torch.where(keys[None, :] <= rows[:, None], s,
+                        torch.tensor(-1e30))
+        mx = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - mx)
+        p = torch.exp2(s - mx[..., None])
+        if round_p:
+            p = p.to(torch.bfloat16).float()
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p,
+                                                vf[:, k0:k0 + 64])
+        m = mx
+    out = o / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+
+
+@pytest.mark.parametrize("S", [57, 193])
+@pytest.mark.parametrize("H,KH,D", [(32, 32, 80), (32, 4, 128)])
+def test_flash_attention_tensor_core_numerics_within_tolerance(S, H, KH, D):
+    """The card's bf16 K4 rounds P to bf16 before P V; the plain version
+    keeps P in f32.  Emulated at chip_smoke's shapes (B 8, one and four key
+    tiles, both main paths' heads), the rounding stays within the 2e-2
+    chip_smoke holds K4 to, in f32 and after the bf16 store; without the
+    rounding the same algorithm matches the plain version within 1e-5, so
+    the whole deviation comes from rounding P."""
+    rng = np.random.default_rng(1234)
+    q, k, v = (t_of(rng.normal(size=(8, S, h, D)), torch.bfloat16)
+               for h in (H, KH, KH))
+    want = flash_attention(q.float(), k.float(), v.float())
+    tc = _k4_tensor_core_algorithm(q, k, v)
+    exact_p = _k4_tensor_core_algorithm(q, k, v, round_p=False)
+    err = (tc - want).abs().max().item()
+    assert 1e-5 < err <= 2e-2
+    assert (exact_p - want).abs().max().item() <= 1e-5
+    stored = tc.to(torch.bfloat16).float()
+    assert (stored - flash_attention(q, k, v).float()).abs().max() <= 2e-2
+
+
+#: every kernel of the port, by the name of its source and C entry point
+KERNEL_NAMES = ["flash_attention", "gather_rows", "moe_histogram",
+                "paged_attention", "scatter_pages"]
+
+
+def test_kernel_list_covers_every_source():
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == KERNEL_NAMES
+    assert sorted(_build.KERNELS) == KERNEL_NAMES
+
+
+@pytest.mark.parametrize("name", KERNEL_NAMES)
+def test_ctypes_argtypes_match_the_c_entry_point(name):
+    """Each wrapper's ctypes argument list matches its source's ``extern
+    "C" int <name>_launch(...)`` parameter by parameter: a pointer is a
+    ``c_void_p`` (64 bits) and an int a ``c_int``.  A mismatch would pass
+    a pointer as a 32-bit int (or an int as a pointer) without error."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    sig = re.search(r'extern "C" int ' + name + r"_launch\(([^)]*)\)", src)
+    assert sig, f"no C entry point {name}_launch"
+    params = [" ".join(p.split()) for p in sig.group(1).split(",")]
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+    assert all("*" in p or p.split()[0] == "int" for p in params), params
+    assert _build.KERNELS[name].argtypes == want
 
 
 def test_wrappers_take_plain_versions_only_for_cpu_tensors():
