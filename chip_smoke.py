@@ -11,17 +11,24 @@ qwen3-moe-30b-a3b.  Phases, in order (any failure exits non-zero):
 1. device and build — the card's name and power limit, the torch version,
    the build of every kernel of ``src/repro_torch/kernels/csrc`` for
    ``sm_90a`` (into ``build/repro_torch/``, one ``nvcc`` per source, all
-   started together) and K4's ``-Xptxas -v`` report (registers, spills);
+   started together) and K4's, K1's and K5's ``-Xptxas -v`` reports
+   (registers, spills);
 2. each kernel against its plain PyTorch version at each path's shapes —
    stablelm-3b (H = KH = 32, D = 80, a 50,304-row vocab under a 65,536
    fence) and qwen3-moe-30b-a3b (H = 32 over KH = 4, so G = 8, D = 128, a
-   151,936-row vocab under a 262,144 fence, and K5 on (512, 8) router ids
-   over 128 experts), 64-token pages, a ragged prefill length — forged ids
-   included; K4 in bf16 (tensor cores) and f32 (CUDA cores) at one key
-   tile (S = 57) and four (S = 193), K3 under a scalar, the identity and
-   a per-id fence — with its time, the plain version's, the library
-   call's where one exists, and the bound: the least time the card could
-   take for the same bytes or operations;
+   151,936-row vocab under a 262,144 fence), 64-token pages, a ragged
+   prefill length — forged ids included; K4 in bf16 (tensor cores) and
+   f32 (CUDA cores) at one key tile (S = 57) and four (S = 193), K3 under a
+   scalar, the identity and a per-id fence; K1 in bf16 and f32 at 17-80
+   held tokens and at max_len 256 (a full row, seq_len 0, page boundaries,
+   lengths inside a tile and a cluster rank's share), at every cluster
+   size, and under the identity fence by value; K5 at decode (8, 8),
+   prefill (512, 8) and past one CTA (2,048 and 8,192 tokens) under three
+   fences — with its time, the plain version's, the library call's where
+   one exists, the bound (the least time the card could take for the same
+   bytes or operations), the card's launch floor (a one-element fill_,
+   timed the same way) and, for K1 and K5, the device operations a call
+   puts on the card, counted by ``torch.profiler``;
 3. full width against the CPU at two layers, for each path: float32,
    prefill + 4 decode steps on the card through the kernels and on the CPU
    through the plain versions, from the same weights — greedy ids equal,
@@ -35,10 +42,18 @@ qwen3-moe-30b-a3b.  Phases, in order (any failure exits non-zero):
    the path and read just after), no plain version run.  stablelm-3b runs
    first and is freed before qwen3-moe-30b-a3b (61 GB of weights) is
    built; the MoE path also prints its decode-step time against the bytes
-   floor, its peak memory and the (token, k) assignments capacity dropped.
+   floor, its peak memory and the (token, k) assignments capacity dropped;
+   a solo rerun under ``torch.profiler`` gives the device's busy share and
+   each of the port's kernels' device time.
 
 The last three lines of standard output are the kernel table as one JSON
 object, the card's ``name, power.limit``, and the result object.
+
+    python3 chip_smoke.py --ab PARENT
+
+builds both trees' kernels and prints phase 2's kernel times of the
+checkout at PARENT and of this one, run in the order parent, this, this,
+parent on this card (a same-card A/B), with no result line.
 """
 
 from __future__ import annotations
@@ -63,6 +78,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 PATHS = ("stablelm-3b", "qwen3-moe-30b-a3b")
+KERNEL_NAMES = ("paged_attention", "scatter_pages", "gather_rows",
+                "flash_attention", "moe_histogram")
 
 
 def log(*a) -> None:
@@ -105,6 +122,14 @@ def ptxas_report(build, source: str, keep) -> str:
                      if any(k in n for k in keep))
 
 
+def launch_floor_ms(torch) -> float:
+    """The card's launch floor: the time of the smallest device operation
+    a call can be (an in-place fill of one element), measured with
+    :func:`cuda_ms` like every kernel row."""
+    x = torch.zeros(1, device="cuda")
+    return cuda_ms(torch, lambda: x.fill_(1.0))
+
+
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` calls, timed with CUDA
     events around each call.  Before each call the 50 MB L2 is flushed (the
@@ -133,6 +158,93 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 # --------------------------------------------------------------------- #
 # Phase 2: each kernel against its plain version                        #
 # --------------------------------------------------------------------- #
+
+#: K1's float32 ordering slack: the kernel sums each row's scores, its
+#: P.V and the cluster's partials in another order than the plain
+#: version; an f32 query measures that difference directly (K1_F32_TOL
+#: holds it)
+K1_SLACK = 1e-5
+K1_F32_TOL = 1e-4
+
+
+def device_ops_per_call(torch, fn, calls: int = 10) -> float:
+    """Device operations (kernels, memsets, copies) one call of ``fn``
+    puts on the card: those ``torch.profiler`` records over ``calls``
+    calls, divided by ``calls``.  The count is taken in a second profiling
+    session: the first one of a process can start recording late."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / calls
+
+
+def half_ulp_bf16(torch, x):
+    """Half a bfloat16 ulp at each |x| (float32): 2^(e - 9) for |x| in
+    [2^(e-1), 2^e); 0 at x = 0."""
+    x = x.float().abs()
+    _, e = torch.frexp(x)
+    return torch.where(x > 0, torch.ldexp(torch.ones_like(x), e - 9),
+                       torch.zeros_like(x))
+
+
+def check_paged_attention(torch, q, k_pool, v_pool, table, lens, base, msk,
+                          page_map):
+    """K1 on one case, against the plain version in float32 on K/V
+    rounded to q's type: a bf16 output within half a bf16 ulp (of the
+    larger of the two values) plus K1_SLACK, and the control without K/V
+    rounding must break that bound; an f32 output within K1_F32_TOL.
+    Then every page the fence does not reach is clobbered and the output
+    must not move.  Returns the output, its worst error and error/bound,
+    the control's error/bound and the number of pages clobbered."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    bf16 = q.dtype == torch.bfloat16
+    out = paged_attention(q, k_pool, v_pool, table, lens, base, msk,
+                          page_map)
+    want = ref.paged_attention_ref(
+        q.float(), k_pool.to(q.dtype).float(), v_pool.to(q.dtype).float(),
+        table, lens, base, msk, page_map)
+
+    def err_ratio(got):
+        err = (got.float() - want).abs()
+        bound = (half_ulp_bf16(torch, torch.maximum(want.abs(),
+                                                    got.float().abs()))
+                 + K1_SLACK) if bf16 else K1_F32_TOL
+        return err.max().item(), (err / bound).max().item()
+
+    err, ratio = err_ratio(out)
+    if not ratio <= 1.0:
+        raise AssertionError(f"paged_attention ({q.dtype}) error {err} "
+                             f"exceeds its bound ({ratio:.3f}x)")
+    ctrl_ratio = None
+    if bf16:
+        ctrl = ref.paged_attention_ref(q.float(), k_pool, v_pool, table,
+                                       lens, base, msk, page_map).to(q.dtype)
+        ctrl_ratio = err_ratio(ctrl)[1]
+        if not ctrl_ratio > 1.0:
+            raise AssertionError(
+                f"paged_attention control (no K/V rounding) within the "
+                f"bound ({ctrl_ratio:.3f}x): the bound cannot see the "
+                "rounding")
+    P = k_pool.shape[0]
+    phys = ref.resolve_pages(table, base[:, None], msk[:, None], page_map, P)
+    own = set(int(p) for p in phys.reshape(-1)) | {0}
+    k2, v2 = k_pool.clone(), v_pool.clone()
+    foreign = [p for p in range(P) if p not in own]
+    k2[foreign], v2[foreign] = 12345.0, -999.0
+    if not torch.equal(out, paged_attention(q, k2, v2, table, lens, base,
+                                            msk, page_map)):
+        raise AssertionError("paged_attention read outside the fence")
+    return dict(out=out, err=err, ratio=ratio, ctrl_ratio=ctrl_ratio,
+                foreign=len(foreign))
+
 
 def check_kernels(torch, cfg):
     """Rows of the kernel table at ``cfg``'s serve shapes (max_batch 8,
@@ -337,127 +449,209 @@ def check_kernels(torch, cfg):
         f" tolerance 1e-4; bf16 at S=193: kernel {ms_193:.5f} ms, "
         f"scaled_dot_product_attention {sdpa_193:.5f} ms")
 
-    # ---- K1 paged_attention: decode over the f32 pool, bf16 query ----- #
+    # ---- K1 paged_attention: decode over the f32 pool ----------------- #
+    # The main row: a bf16 query, the inputs ``gen`` has always given K1
+    # (17-80 held tokens a row, forged table ids, per-row fences).  More
+    # cases from ``more``: a (8, 4) table at the main path's max_len 256
+    # with a full row (all four pages), a row with seq_len 0, lengths on a
+    # page boundary and lengths ending inside a 32-token tile and inside a
+    # cluster rank's share; each in bf16 and in f32.
     qd = randn(B, H, D, dtype=torch.bfloat16)
     table_ids = torch.randint(0, 64, (B, 4), generator=gen, **i32)  # forged
     lens = torch.randint(17, 81, (B,), generator=gen, **i32)
     base = torch.tensor([16, 16, 32, 32, 16, 32, 0, 0], **i32)
     msk = torch.tensor([15, 15, 15, 15, 15, 15, 3, 3], **i32)
-    out = paged_attention(qd, k_pool, v_pool, table_ids, lens, base, msk,
-                          page_map)
-    want = ref.paged_attention_ref(qd, k_pool, v_pool, table_ids, lens,
-                                   base, msk, page_map)
-    err = (out.float() - want.float()).abs().max().item()
-    # Both sides round K/V to bf16 and accumulate in f32, so they differ
-    # only where accumulation order flips an output's last bf16 bit.  The
-    # control skips that rounding (f32 K/V under the bf16 query): it moves
-    # about half the outputs by one bf16 ulp, up to ~8e-3 at these values,
-    # and must fail the tolerance, or the check could not see the fault.
-    tol = 1e-3
-    ctrl = ref.paged_attention_ref(qd.float(), k_pool, v_pool, table_ids,
-                                   lens, base, msk, page_map).to(qd.dtype)
-    ctrl_err = (ctrl.float() - want.float()).abs().max().item()
-    if not err <= tol:
-        raise AssertionError(f"paged_attention error {err} > {tol}")
-    if not ctrl_err > tol:
-        raise AssertionError(f"paged_attention control (no K/V rounding) "
-                             f"error {ctrl_err} <= {tol}: the tolerance "
-                             "cannot see the rounding")
+    cov_table = torch.randint(0, 64, (B, 4), generator=more, **i32)
+    cov_lens = torch.tensor([256, 0, 64, 128, 100, 17, 211, 255], **i32)
+    k1_cases = {
+        ("bf16", "main"): (qd, table_ids, lens),
+        ("bf16", "max_len 256"): (randn(B, H, D, dtype=torch.bfloat16,
+                                        generator=more), cov_table, cov_lens),
+        ("f32", "main"): (randn(B, H, D, generator=more), table_ids, lens),
+        ("f32", "max_len 256"): (randn(B, H, D, generator=more), cov_table,
+                                 cov_lens),
+    }
+    k1 = {case: check_paged_attention(torch, q_, k_pool, v_pool, t_, l_,
+                                      base, msk, page_map)
+          for case, (q_, t_, l_) in k1_cases.items()}
+    # the fence by value: the identity fence on the resolved physical
+    # pages gives the per-row fenced result bit for bit
     phys = ref.resolve_pages(table_ids, base[:, None], msk[:, None],
                              page_map, P)
-    own = set(int(p) for p in phys.reshape(-1)) | {0}
-    k2, v2 = k_pool.clone(), v_pool.clone()
-    foreign = [p for p in range(P) if p not in own]
-    k2[foreign], v2[foreign] = 12345.0, -999.0
-    out2 = paged_attention(qd, k2, v2, table_ids, lens, base, msk, page_map)
-    if not torch.equal(out, out2):
-        raise AssertionError("paged_attention read outside the fence")
+    if not torch.equal(paged_attention(qd, k_pool, v_pool, phys, lens, 0,
+                                       -1),
+                       k1[("bf16", "main")]["out"]):
+        raise AssertionError("paged_attention under the scalar identity "
+                             "fence differs from the per-row fence")
+    main = k1[("bf16", "main")]
     # bytes: each held K and V token row read once (f32), q read and out
     # written (bf16), the page table and the per-row lens/base/mask read
     n_bytes = (2 * int(lens.sum()) * KH * D * 4 + 2 * B * H * D * 2
                + table_ids.numel() * 4 + 3 * B * 4)
     flops = 4 * int(lens.sum()) * H * D
+    call = (lambda: paged_attention(qd, k_pool, v_pool, table_ids, lens,
+                                    base, msk, page_map))
+    ops = device_ops_per_call(torch, call)
+    if ops != 1:
+        raise AssertionError(f"paged_attention: {ops:g} device operations "
+                             "a call, want 1")
     row("paged_attention", "paged_attention.cu",
         "fenced_paged_attention.py:173",
-        max_abs_err=err, tolerance=f"{tol} (bf16 output; the control "
-                                   f"without K/V rounding: {ctrl_err:.3g})",
-        ms=cuda_ms(torch, lambda: paged_attention(
-            qd, k_pool, v_pool, table_ids, lens, base, msk, page_map)),
+        max_abs_err=main["err"],
+        tolerance=f"1/2 bf16 ulp + {K1_SLACK:g} of the f32 plain version "
+                  f"on bf16-rounded K/V (worst error/bound "
+                  f"{main['ratio']:.3f}; the control without K/V rounding "
+                  f"{main['ctrl_ratio']:.3g})",
+        ms=cuda_ms(torch, call),
         plain_ms=cuda_ms(torch, lambda: ref.paged_attention_ref(
             qd, k_pool, v_pool, table_ids, lens, base, msk, page_map)),
         library_ms=None, library_call=None,
+        device_ops=ops,
         shape=f"q ({B},{H},{D}) bf16, pool ({P},{page},{KH},{D}) f32",
         **dict(zip(("bound_ms", "bound_by"),
                    bound_ms(n_bytes, flops, "float32"))))
-    log(f"K1 paged_attention ok{tag}: max |err| {err:.3g} (tolerance {tol};"
-        f" the control without K/V rounding errs by {ctrl_err:.3g}); "
-        f"{len(foreign)} foreign pages clobbered, output unchanged")
+    # K1's bytes alone: one index_select of the held K and V token rows
+    # (every KV head), the same bytes the kernel reads, with no chain of
+    # lookups before them and no math after
+    held = torch.cat([phys[r, t // page] * page + t % page
+                      for r in range(B)
+                      for t in [torch.arange(int(lens[r]), device=dev)]])
+    kv_rows = torch.stack([k_pool, v_pool]).view(2, P * page, KH * D)
+    bytes_ms = cuda_ms(torch, lambda: kv_rows.index_select(1, held))
+    log(f"K1's bytes alone{tag}: one index_select of the {held.numel()} "
+        f"held K and V token rows takes {bytes_ms:.5f} ms")
+    q256 = k1_cases[("bf16", "max_len 256")][0]
+    call_256 = (lambda: paged_attention(q256, k_pool, v_pool, cov_table,
+                                        cov_lens, base, msk, page_map))
+    ms_256 = cuda_ms(torch, call_256)
+    # every cluster size the kernel can launch, each checked as above and
+    # timed on the main row's inputs and on the max_len 256 lengths
+    K1 = sys.modules["repro_torch.kernels.paged_attention"]
+    chosen, sweep = K1.cluster_size, []
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    try:
+        for c in (1, 2, 4, 8):
+            K1.cluster_size = lambda pairs, n_sm, c=c: c
+            for q_, t_, l_ in (k1_cases[("bf16", "main")],
+                               k1_cases[("bf16", "max_len 256")]):
+                check_paged_attention(torch, q_, k_pool, v_pool, t_, l_,
+                                      base, msk, page_map)
+            sweep.append(f"C={c} {cuda_ms(torch, call):.5f} / "
+                         f"{cuda_ms(torch, call_256):.5f} ms")
+    finally:
+        K1.cluster_size = chosen
+    log(f"K1 cluster sizes{tag} (main inputs / max_len 256 lengths; the "
+        f"path runs C={chosen(B * KH, n_sm)}): " + ", ".join(sweep))
+    log(f"K1 paged_attention ok{tag}: " + "; ".join(
+        f"{dt} {name}: max |err| {r['err']:.3g}, error/bound {r['ratio']:.3f}"
+        + (f", control without K/V rounding {r['ctrl_ratio']:.3g}"
+           if dt == "bf16" else "")
+        + f", {r['foreign']} foreign pages clobbered, output unchanged"
+        for (dt, name), r in k1.items())
+        + f"; bound 1/2 bf16 ulp + {K1_SLACK:g} (bf16), {K1_F32_TOL:g} (f32);"
+        f" the identity fence by value equals the per-row fence; lengths "
+        f"{cov_lens.tolist()}: kernel {ms_256:.5f} ms; "
+        f"{ops:g} device operation(s) a call")
 
     if cfg.moe is not None:
-        check_moe_histogram(torch, cfg, gen, row)
+        check_moe_histogram(torch, cfg, gen, more, row)
     for r in rows:
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms ({r['library_call']})"
         log(f"  {r['kernel']} [{r['path']}], {r['shape']}: max |err| "
             f"{r['max_abs_err']:.3g}"
-            f" (tolerance {r['tolerance']}); kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f" (tolerance {r['tolerance']}); kernel {r['ms']:.5f} ms, plain "
+            f"{r['plain_ms']:.5f} ms, library {lib}, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']})"
+            + (f", {r['device_ops']:g} device operation(s) a call"
+               if "device_ops" in r else ""))
     return rows
 
 
-def check_moe_histogram(torch, cfg, gen, row):
-    """K5 at the MoE path's prefill shape: (512, 8) router ids over E
-    experts, forged past E and negative, under the serve path's fence
-    ``(0, pow2(E) - 1)``, the identity fence and a fence whose base is E
-    (every id pinned past the experts: all counts zero).  Adds its row
-    through ``row``."""
+def check_moe_histogram(torch, cfg, gen, more, row):
+    """K5 at the MoE path's shapes: router ids over E experts, forged past
+    E and negative, under the serve path's fence ``(0, pow2(E) - 1)``, the
+    identity fence and a fence whose base is E (every id pinned past the
+    experts: all counts zero), each held exactly against the plain
+    version.  The prefill's (512, 8) ids come from ``gen`` (the row's
+    original inputs); from ``more``, the decode's (8, 8) and two sizes
+    past the one-CTA threshold, so the cluster route (2 and 8 CTAs) is
+    checked too.  Adds its row through ``row``."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.moe_histogram import moe_histogram
+    from repro_torch.kernels.moe_histogram import cluster_ctas, \
+        moe_histogram
 
-    E, K, T = cfg.moe.num_experts, cfg.moe.top_k, 512
-    ids = torch.randint(0, E, (T, K), generator=gen, dtype=torch.int32,
-                        device="cuda")
-    ids[::5, 0] = torch.randint(E, 1 << 20, ids[::5, 0].shape, generator=gen,
-                                dtype=torch.int32, device="cuda")
-    ids[1::7, 1] = -torch.randint(1, 1 << 20, ids[1::7, 1].shape,
-                                  generator=gen, dtype=torch.int32,
-                                  device="cuda")
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+
+    def draw(T, g):
+        ids = torch.randint(0, E, (T, K), generator=g, dtype=torch.int32,
+                            device="cuda")
+        ids[::5, 0] = torch.randint(E, 1 << 20, ids[::5, 0].shape,
+                                    generator=g, dtype=torch.int32,
+                                    device="cuda")
+        ids[1::7, 1] = -torch.randint(1, 1 << 20, ids[1::7, 1].shape,
+                                      generator=g, dtype=torch.int32,
+                                      device="cuda")
+        return ids
+
+    T = 512
+    ids = draw(T, gen)
+    cases = {"prefill": ids}
+    for name, t in (("decode", 8), ("2 CTAs", 2048), ("8 CTAs", 8192)):
+        cases[name] = draw(t, more)
     serve = (0, pow2(E) - 1)
-    for name, (base, mask) in (("serve", serve), ("identity", (0, -1)),
-                               ("past the experts", (E, E - 1))):
-        out = moe_histogram(ids, E, base, mask)
-        want = ref.moe_histogram_ref(ids, E, base, mask)
-        if not torch.equal(out, want):
-            raise AssertionError(f"moe_histogram disagrees with its plain "
-                                 f"version under the {name} fence")
-        fenced = (ids & mask) | base
-        n_in = int(((fenced >= 0) & (fenced < E)).sum())
-        if int(out.sum()) != n_in:
-            raise AssertionError(f"moe_histogram under the {name} fence "
-                                 f"counts {int(out.sum())}, want {n_in}")
-    if int(moe_histogram(ids, E, E, E - 1).sum()) != 0:
-        raise AssertionError("moe_histogram counted past the experts")
+    for case, c_ids in cases.items():
+        for name, (base, mask) in (("serve", serve), ("identity", (0, -1)),
+                                   ("past the experts", (E, E - 1))):
+            out = moe_histogram(c_ids, E, base, mask)
+            want = ref.moe_histogram_ref(c_ids, E, base, mask)
+            if not torch.equal(out, want):
+                raise AssertionError(
+                    f"moe_histogram ({case}, {tuple(c_ids.shape)}) "
+                    f"disagrees with its plain version under the {name} "
+                    "fence")
+            fenced = (c_ids & mask) | base
+            n_in = int(((fenced >= 0) & (fenced < E)).sum())
+            if int(out.sum()) != n_in:
+                raise AssertionError(
+                    f"moe_histogram ({case}) under the {name} fence counts "
+                    f"{int(out.sum())}, want {n_in}")
+        if int(moe_histogram(c_ids, E, E, E - 1).sum()) != 0:
+            raise AssertionError("moe_histogram counted past the experts")
     base, mask = serve
     fenced = (ids & mask) | base
     in_range = fenced[(fenced >= 0) & (fenced < E)].reshape(-1)
     # bytes: the ids read once, the counts written once
     n_bytes = ids.numel() * 4 + E * 4
+    call = (lambda: moe_histogram(ids, E, base, mask))
+    ops = device_ops_per_call(torch, call)
+    if ops != 1:
+        raise AssertionError(f"moe_histogram: {ops:g} device operations "
+                             "a call, want 1")
     row("moe_histogram", "moe_histogram.cu", "moe_dispatch.py:50",
         max_abs_err=0.0, tolerance="exact (integer counts)",
-        ms=cuda_ms(torch, lambda: moe_histogram(ids, E, base, mask)),
+        ms=cuda_ms(torch, call),
         plain_ms=cuda_ms(torch, lambda: ref.moe_histogram_ref(
             ids, E, base, mask)),
         library_ms=cuda_ms(torch, lambda: torch.bincount(in_range,
                                                          minlength=E)),
         library_call="torch.bincount of the in-range fenced ids",
-        shape=f"ids ({T},{K}) int32, E = {E}",
+        device_ops=ops, shape=f"ids ({T},{K}) int32, E = {E}",
         **dict(zip(("bound_ms", "bound_by"),
                    bound_ms(n_bytes, 0.0, "float32"))))
+    times = {case: cuda_ms(torch, lambda c=c: moe_histogram(c, E, base,
+                                                             mask))
+             for case, c in cases.items() if case != "prefill"}
     log(f"K5 moe_histogram ok [{cfg.name}]: equal to its plain version "
         f"under the serve fence {serve}, the identity fence and the "
-        f"base = {E} fence (all counts 0); {int((ids >= E).sum())} forged "
-        f"ids past E, {int((ids < 0).sum())} negative")
+        f"base = {E} fence (all counts 0), at " + ", ".join(
+            f"{case} {tuple(c.shape)} ({cluster_ctas(c.numel())} CTA"
+            f"{'s' if cluster_ctas(c.numel()) > 1 else ''})"
+            for case, c in cases.items())
+        + f"; {int((ids >= E).sum())} forged ids past E, "
+        f"{int((ids < 0).sum())} negative in the prefill's; "
+        f"{ops:g} device operation(s) a call; kernel "
+        + ", ".join(f"{case} {ms:.5f} ms" for case, ms in times.items()))
 
 
 # --------------------------------------------------------------------- #
@@ -804,10 +998,59 @@ def solo_rerun(torch, cfg, eng, outs):
             "device share not measured")
         return
     top = sorted(kern, key=dev_us, reverse=True)[:6]
+    ours = [e for e in kern if any(f"{k}_" in e.key for k in KERNEL_NAMES)]
     log(f"profile [{cfg.name}]: 1 prefill + 15 decode steps in {wall * 1e3:.0f}"
         f" ms of wall time under the profiler, device busy {busy_ms:.1f} ms "
         f"({busy_ms / (wall * 1e3):.1%}); top device time: " + "; ".join(
-            f"{e.key[:60]} {dev_us(e) / 1e3:.1f} ms x{e.count}" for e in top))
+            f"{e.key[:60]} {dev_us(e) / 1e3:.1f} ms x{e.count}" for e in top)
+        + "; the port's kernels: " + "; ".join(
+            f"{e.key.split('(')[0][:40]} {dev_us(e) / 1e3:.2f} ms x{e.count}"
+            for e in sorted(ours, key=dev_us, reverse=True)))
+
+
+# A worker of the same-card A/B: phase 2 of the checkout at argv[1], run
+# with that checkout's own chip_smoke.py and kernels; prints each row's
+# (kernel, path, ms) as one JSON line.
+_AB_WORKER = """
+import json, sys
+tree = sys.argv[1]
+sys.path[:0] = [tree, tree + "/src"]
+import torch
+import chip_smoke as cs
+from repro_torch.configs import get_config
+from repro_torch.kernels import _build
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.build_all()
+rows = []
+for name in cs.PATHS:
+    rows += cs.check_kernels(torch, get_config(name))
+print("AB " + json.dumps([[r["kernel"], r["path"], r["ms"]] for r in rows]))
+"""
+
+
+def same_card_ab(parent: Path) -> int:
+    """``python3 chip_smoke.py --ab PARENT``: phase 2's kernel times of a
+    checkout of another tree (``PARENT``, e.g. the parent commit unpacked
+    with ``git archive``) and of this one, on this card in one call, in
+    the order parent, this, this, parent, each in a process of its own.
+    Prints a row per kernel and path with the four times."""
+    order = [("parent", parent), ("this", ROOT), ("this", ROOT),
+             ("parent", parent)]
+    runs = []
+    for label, tree in order:
+        proc = subprocess.run([sys.executable, "-c", _AB_WORKER, str(tree)],
+                              capture_output=True, text=True, cwd=tree)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        line = [x for x in proc.stdout.splitlines() if x.startswith("AB ")]
+        runs.append({(k, p): ms for k, p, ms in json.loads(line[-1][3:])})
+        log(f"A/B run {len(runs)} ({label}, {tree}) done")
+    log("A/B (ms, in the order " + ", ".join(lb for lb, _ in order) + "):")
+    for key in runs[0]:
+        log(f"  {key[0]} [{key[1]}]: " + ", ".join(
+            f"{r[key]:.5f}" for r in runs))
+    return 0
 
 
 def main() -> int:
@@ -840,11 +1083,23 @@ def main() -> int:
     # the bf16 instantiations the paths run (D / 16 = 5 and 8), and f32
     log("K4 ptxas: " + ptxas_report(_build, "flash_attention.cu",
                                     ("ILi5E", "ILi8E", "f32")))
+    log("K1 ptxas: " + ptxas_report(_build, "paged_attention.cu",
+                                    ("paged_attention_kernel",)))
+    log("K5 ptxas: " + ptxas_report(_build, "moe_histogram.cu",
+                                    ("moe_histogram_kernel",)))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        return same_card_ab(Path(sys.argv[2]).resolve())
 
     cfgs = [get_config(name) for name in PATHS]
+    floor = launch_floor_ms(torch)
+    log(f"launch floor: {floor:.5f} ms (one-element fill_, the smallest "
+        "device operation a call can be, timed as the kernels are)")
     rows = []
     for cfg in cfgs:
         rows += check_kernels(torch, cfg)
+    for r in rows:
+        log(f"  {r['kernel']} [{r['path']}]: {r['ms']:.5f} ms = "
+            f"{r['ms'] / floor:.2f}x the launch floor")
     # a kernel's first row carries its name, a later path's row is
     # named kernel@path
     seen = set()

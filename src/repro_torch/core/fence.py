@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
 from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
@@ -136,10 +137,12 @@ class FenceParams:
         if isinstance(self.size, int) and self.size <= 0:
             raise ValueError("partition size must be positive")
 
-    @property
+    @functools.cached_property
     def mask(self):
         """``size - 1``; static sizes are checked for pow2, dynamic ones
-        are validated by their builders (:func:`require_pow2_sizes`)."""
+        are validated by their builders (:func:`require_pow2_sizes`).
+        Computed once per instance: a serve step builds its kv params once
+        and every layer's fenced-page kernels reuse the same mask tensor."""
         if isinstance(self.size, int):
             if not is_pow2(self.size):
                 raise ValueError("mask only defined for pow2 partitions")

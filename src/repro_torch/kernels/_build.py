@@ -171,6 +171,20 @@ def per_id(v, n: int, device) -> torch.Tensor:
     return v.to(device=device, dtype=torch.int32).expand(n).contiguous()
 
 
+def fence_operand(v, n: int, device):
+    """A fence operand as the kernels take it: an int stays an int, passed
+    by value (nothing is allocated or launched for it); a tensor becomes
+    one ``(n,)`` int32 value per id or row on ``device``."""
+    return per_id(v, n, device) if isinstance(v, torch.Tensor) else int(v)
+
+
+def fence_args(v):
+    """The C arguments ``(pointer, scalar)`` of a :func:`fence_operand`:
+    a tensor's pointer and 0, or NULL and the int."""
+    return (ptr(v), 0) if isinstance(v, torch.Tensor) \
+        else (ctypes.c_void_p(None), v)
+
+
 def check_cuda(name: str, *tensors) -> None:
     """A kernel's operands must all be contiguous tensors on one CUDA
     device."""

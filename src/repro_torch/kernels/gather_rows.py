@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import Kernel, check_cuda, dtype_code, \
-    per_id, ptr, stream_of
+    fence_args, fence_operand, ptr, stream_of
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("gather_rows", "gather_rows.cu",
@@ -30,8 +30,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, fence_base,
     allocated but the output); a tensor fence is broadcast to one int32
     operand per id."""
     N = idx.shape[0]
-    base, mask = (per_id(v, N, table.device)
-                  if isinstance(v, torch.Tensor) else int(v)
+    base, mask = (fence_operand(v, N, table.device)
                   for v in (fence_base, fence_mask))
     if table.device.type == "cpu":
         KERNEL.plain_calls += 1
@@ -44,10 +43,8 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor, fence_base,
     V, D = table.shape
     out = torch.empty((N, D), dtype=table.dtype, device=table.device)
     if N:
-        def split(v):   # (per-id pointer or NULL, scalar)
-            return (ptr(v), 0) if isinstance(v, torch.Tensor) \
-                else (ctypes.c_void_p(None), v)
-        (base_ids, base_val), (mask_ids, mask_val) = split(base), split(mask)
+        (base_ids, base_val), (mask_ids, mask_val) = fence_args(base), \
+            fence_args(mask)
         KERNEL.launch(ptr(table), ptr(idx), base_ids, mask_ids, base_val,
                       mask_val, ptr(out), N, V, D, dtype_code(table.dtype),
                       stream_of(table))

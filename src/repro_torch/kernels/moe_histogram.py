@@ -16,7 +16,22 @@ from repro_torch.kernels._build import Kernel, check_cuda, ptr, stream_of
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("moe_histogram", "moe_histogram.cu",
-                [_P, _I, _I, _I, _I, _P, _P])
+                [_P, _I, _I, _I, _I, _P, _I, _P])
+
+#: threads of one CTA (``kThreads`` in the source)
+THREADS = 1024
+#: ids one CTA takes before the launch becomes a cluster
+IDS_PER_CTA = 8192
+#: the largest cluster (``kMaxCluster``, the portable size)
+MAX_CLUSTER = 8
+
+
+def cluster_ctas(n: int) -> int:
+    """CTAs of the one launch for ``n`` ids: 1 up to :data:`IDS_PER_CTA`
+    (every serve-path call: T * K <= 4,096), then one for each further
+    :data:`IDS_PER_CTA`, at most :data:`MAX_CLUSTER`; rank r of the
+    cluster takes ids ``i`` with ``(i // THREADS) % ctas == r``."""
+    return min(MAX_CLUSTER, max(1, -(-n // IDS_PER_CTA)))
 
 
 def moe_histogram(expert_ids: torch.Tensor, num_experts: int,
@@ -36,5 +51,5 @@ def moe_histogram(expert_ids: torch.Tensor, num_experts: int,
     check_cuda("moe_histogram", ids)
     counts = torch.empty((num_experts,), dtype=torch.int32, device=ids.device)
     KERNEL.launch(ptr(ids), ids.numel(), base, mask, num_experts,
-                  ptr(counts), stream_of(ids))
+                  ptr(counts), cluster_ctas(ids.numel()), stream_of(ids))
     return counts

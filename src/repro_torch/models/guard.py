@@ -119,7 +119,9 @@ def kernel_fence(spec: Optional[GuardSpec], ids: torch.Tensor):
     ``fence_pages(spec, fence(spec, "kv", ids))``.
 
     A BITWISE guard hands its per-row ``(base, size - 1)`` straight to the
-    kernel, which fences on the address.  Any other policy (MODULO, CHECK,
+    kernel, which fences on the address; ``size - 1`` is the params'
+    cached :attr:`FenceParams.mask`, computed once per guard (per serve
+    step), not once per layer.  Any other policy (MODULO, CHECK,
     row-mixed) is fenced here in torch first and the kernel gets the
     identity fence ``base = 0, mask = -1``; it still translates through
     the page map and clamps to the pool."""
@@ -130,5 +132,5 @@ def kernel_fence(spec: Optional[GuardSpec], ids: torch.Tensor):
         return fence_pages(spec, fence(spec, "kv", ids)), 0, -1, None
     if kv is not None and spec.policy is FencePolicy.BITWISE \
             and spec.row_policy is None:
-        return ids, kv.base, kv.size - 1, spec.page_map
+        return ids, kv.base, kv.mask, spec.page_map
     return fence(spec, "kv", ids), 0, -1, spec.page_map

@@ -34,6 +34,7 @@ from repro_torch.core.fence import FenceParams as FPT, \
     FencePolicy as PT  # noqa: E402
 from repro_torch.kernels import _build, flash_attention, gather_rows, \
     moe_histogram, paged_attention, scatter_pages  # noqa: E402
+from repro_torch.kernels import ref as RT  # noqa: E402
 from repro_torch.models import kvcache as KVT, layers as LT  # noqa: E402
 from repro_torch.models.guard import GuardSpec as GST  # noqa: E402
 
@@ -131,6 +132,185 @@ def test_paged_attention_empty_row_is_uniform_mean():
     got = paged_attention(qt, kt, vt, *(t_of(a) for a in (pt, lens, base,
                                                           mask)))
     assert_close(got, want, TOL_F32)
+
+
+def _k1_cluster_algorithm(q, k_pages, v_pages, table, lens, base, mask,
+                          page_map, cluster, tile=32):
+    """K1's cluster algorithm (``csrc/paged_attention.cu``) in plain
+    PyTorch, float32: each (sequence, KV head) splits its n_tok positions
+    (the held tokens, or all max_pages * page when seq_len <= 0) into
+    ``cluster`` contiguous shares of ceil(n_tok / cluster); each share runs
+    an online softmax over 32-token tiles from (m = -1e30, l = 0, acc = 0)
+    and leaves its partial (m, l, acc); the partials merge in rank order
+    against their largest m, and the output is acc / max(l, 1e-30)."""
+    B, H, D = q.shape
+    P, page, KH, _ = k_pages.shape
+    G = H // KH
+    cap = table.shape[1] * page
+    phys = RT.resolve_pages(table, base[:, None], mask[:, None], page_map,
+                            P).long()
+    k = k_pages[phys].reshape(B, cap, KH, D).to(q.dtype).float()
+    v = v_pages[phys].reshape(B, cap, KH, D).to(q.dtype).float()
+    scale = float(np.float32(1.0 / math.sqrt(D)))
+    neg = torch.tensor(-1e30)
+    out = torch.empty((B, H, D))
+    for b in range(B):
+        n = int(lens[b])
+        n_tok = min(n, cap) if n > 0 else cap
+        chunk = -(-n_tok // cluster)
+        for kh in range(KH):
+            qg = q[b, kh * G:(kh + 1) * G].float()
+            parts = []
+            for r in range(cluster):
+                t0 = min(r * chunk, n_tok)
+                t1 = min(t0 + chunk, n_tok)
+                m, l = torch.full((G,), -1e30), torch.zeros(G)
+                acc = torch.zeros((G, D))
+                for tb in range(t0, t1, tile):
+                    te = min(tb + tile, t1)
+                    s = (qg @ k[b, tb:te, kh].T) * scale
+                    s = torch.where(torch.arange(tb, te)[None] < n, s, neg)
+                    m_new = torch.maximum(m, s.amax(1))
+                    w = torch.exp(s - m_new[:, None])
+                    alpha = torch.exp(m - m_new)
+                    l = l * alpha + w.sum(1)
+                    acc = acc * alpha[:, None] + w @ v[b, tb:te, kh]
+                    m = m_new
+                parts.append((m, l, acc))
+            big_m = torch.stack([p[0] for p in parts]).amax(0)
+            big_l, big_acc = torch.zeros(G), torch.zeros((G, D))
+            for m, l, acc in parts:
+                w = torch.exp(m - big_m)
+                big_l = big_l + l * w
+                big_acc = big_acc + acc * w[:, None]
+            out[b, kh * G:(kh + 1) * G] = big_acc / big_l.clamp_min(
+                1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+#: chip_smoke's K1 coverage lengths at max_len 256 (four 64-token pages):
+#: a full row, seq_len 0, page boundaries, and lengths ending inside a
+#: 32-token tile and inside a cluster rank's share
+K1_LENS = [256, 0, 64, 128, 100, 17, 211, 255]
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("H,KH,D", [(4, 4, 80), (32, 4, 128)])
+def test_paged_attention_cluster_split_matches_plain_and_pallas(
+        H, KH, D, cluster):
+    """K1's split of each row over a cluster and the rank-order merge
+    (modelled in plain PyTorch) give the plain version within 1e-6 in
+    float32, and the Pallas kernel in interpret mode, at both main paths'
+    head shapes (G = 1 / D = 80, G = 8 / D = 128): a (8, 4) table of forged
+    ids over a page map, a full row, an empty row (the uniform mean over
+    all positions), page-boundary and mid-share lengths; a rank whose
+    share is empty (cluster 8 on a 17-token row) adds nothing."""
+    rng = np.random.default_rng(D + cluster)
+    B, page, P = 8, 64, 64
+    qj, qt = _both(rng.normal(size=(B, H, D)), "float32")
+    kj, kt = _both(rng.normal(size=(P, page, KH, D)), "float32")
+    vj, vt = _both(rng.normal(size=(P, page, KH, D)), "float32")
+    pmap = np.zeros(64, np.int32)
+    pmap[16:32], pmap[32:48] = np.arange(1, 17), np.arange(17, 33)
+    pt = rng.integers(0, 64, size=(B, 4)).astype(np.int32)
+    lens = np.array(K1_LENS, np.int32)
+    base = np.array([16, 16, 32, 32, 16, 32, 0, 0], np.int32)
+    mask = np.array([15, 15, 15, 15, 15, 15, 3, 3], np.int32)
+    args_t = [t_of(a) for a in (pt, lens, base, mask, pmap)]
+    got = _k1_cluster_algorithm(qt, kt, vt, *args_t, cluster=cluster)
+    assert_close(got, paged_attention(qt, kt, vt, *args_t), 1e-6)
+    pallas = OPS.paged_attention(qj, kj, vj, *(jnp.asarray(a) for a in
+                                               (pt, lens, base, mask, pmap)))
+    assert_close(got, pallas, 1e-6)
+
+
+def test_paged_attention_cluster_size_fills_the_card():
+    """The cluster size is a power of two up to 8 and fills at most one
+    wave of one CTA an SM: qwen3-moe's 32 (sequence, KV head) pairs on
+    132 SMs take 4 CTAs each, stablelm-3b's 256 pairs one."""
+    K1 = importlib.import_module("repro_torch.kernels.paged_attention")
+    assert K1.cluster_size(32, 132) == 4
+    assert K1.cluster_size(256, 132) == 1
+    for pairs in range(1, 300):
+        c = K1.cluster_size(pairs, 132)
+        assert c in (1, 2, 4, 8)
+        assert c == 1 or pairs * c <= 132
+        assert c == 8 or pairs * 2 * c > 132
+
+
+def test_paged_attention_scalar_fence_builds_no_per_row_operands(
+        monkeypatch):
+    """An int fence reaches K1's C entry point by value (NULL per-row
+    pointers, the ints as scalars): neither ``per_id`` nor any (B,)
+    operand is built for it.  A tensor fence is passed as per-row
+    pointers, and both forms give the same output."""
+    K1 = importlib.import_module("repro_torch.kernels.paged_attention")
+    rng = np.random.default_rng(2)
+    B, H, KH, D, P, page = 3, 4, 2, 8, 8, 4
+    q = t_of(rng.normal(size=(B, H, D)), torch.float32)
+    kp = t_of(rng.normal(size=(P, page, KH, D)), torch.float32)
+    vp = t_of(rng.normal(size=(P, page, KH, D)), torch.float32)
+    table = t_of(rng.integers(-20, 20, size=(B, 2)).astype(np.int32))
+    lens = torch.tensor([5, 0, 8], dtype=torch.int32)
+    per_row = [torch.full((B,), x, dtype=torch.int32) for x in (4, 3)]
+    want = paged_attention(q, kp, vp, table, lens, *per_row)
+
+    def refuse(*a, **kw):
+        raise AssertionError("per_id called for a scalar fence")
+
+    monkeypatch.setattr(_build, "per_id", refuse)
+    base, mask = (_build.fence_operand(x, B, q.device) for x in (4, 3))
+    assert (base, mask) == (4, 3)
+    args = K1.launch_args(q, kp, vp, table, lens, base, mask, None,
+                          torch.empty_like(q), 2)
+    assert len(args) + 1 == len(K1.KERNEL.argtypes)
+    assert args[5].value is None and args[6].value is None
+    assert args[7:9] == [4, 3]
+    assert_same(paged_attention(q, kp, vp, table, lens, 4, 3), want)
+    monkeypatch.undo()
+    rows = [_build.fence_operand(t, B, q.device) for t in per_row]
+    args = K1.launch_args(q, kp, vp, table, lens, *rows, None,
+                          torch.empty_like(q), 2)
+    assert [a.value for a in args[5:7]] == [t.data_ptr() for t in rows]
+    assert args[7:9] == [0, 0]
+
+
+@pytest.mark.parametrize("policy,row_policy", [
+    ("bitwise", None), ("modulo", None), ("check", None),
+    ("bitwise", [1, 2, 3, 1])])
+def test_kernel_fence_operands_give_k1_and_k2_the_fenced_pages(
+        policy, row_policy):
+    """Under every guard the serve path builds (BITWISE, MODULO, CHECK,
+    row-mixed), the operands ``kernel_fence`` hands K1 and K2 reach
+    exactly the pages ``fence_pages(spec, fence(spec, "kv", ids))``
+    names: each kernel's plain version on them equals the same kernel on
+    those physical pages under the identity fence.  A BITWISE guard's mask
+    is computed once per guard, not once per layer."""
+    GM = importlib.import_module("repro_torch.models.guard")
+    guard = _serve_guard("torch", policy)
+    if row_policy is not None:
+        guard = dataclasses.replace(guard, row_policy=t_of(
+            np.array(row_policy, np.int32)))
+    rng = np.random.default_rng(len(policy))
+    B, H, KH, D, P, page = 4, 4, 2, 8, 32, 4
+    table = t_of(rng.integers(-40, 40, size=(B, 3)).astype(np.int32))
+    phys = GM.fence_pages(guard, GM.fence(guard, "kv", table))
+    ids, base, mask, pmap = GM.kernel_fence(guard, table)
+    if policy == "bitwise" and row_policy is None:
+        assert mask is GM.kernel_fence(guard, table)[2]
+    q = t_of(rng.normal(size=(B, H, D)), torch.float32)
+    kp = t_of(rng.normal(size=(P, page, KH, D)), torch.float32)
+    vp = t_of(rng.normal(size=(P, page, KH, D)), torch.float32)
+    lens = torch.tensor([12, 0, 7, 3], dtype=torch.int32)
+    assert_same(paged_attention(q, kp, vp, ids, lens, base, mask, pmap),
+                paged_attention(q, kp, vp, phys, lens, 0, -1))
+    src = t_of(rng.normal(size=(2, B, 3 * page - 1, KH, D)), torch.float32)
+    got = [torch.zeros((P, page, KH, D)) for _ in range(2)]
+    want = [torch.zeros((P, page, KH, D)) for _ in range(2)]
+    scatter_pages(*got, src[0], src[1], ids, base, mask, pmap)
+    scatter_pages(*want, src[0], src[1], phys, 0, -1)
+    assert_same(got[0], want[0])
+    assert_same(got[1], want[1])
 
 
 # --------------------------------------------------------------------- #
@@ -301,8 +481,6 @@ def test_gather_rows_scalar_fence_equals_per_id_tensors(dtype, V, base,
 
 def test_gather_rows_scalar_fence_builds_no_per_id_operands(monkeypatch):
     """Only a tensor fence is broadcast to per-id operands."""
-    K3 = importlib.import_module("repro_torch.kernels.gather_rows")
-
     def refuse(*a, **kw):
         raise AssertionError("per_id called for a scalar fence")
 
@@ -310,7 +488,7 @@ def test_gather_rows_scalar_fence_builds_no_per_id_operands(monkeypatch):
     want = gather_rows(table, torch.tensor([1, 9, -3], dtype=torch.int32),
                        torch.zeros(3, dtype=torch.int32),
                        torch.full((3,), 7, dtype=torch.int32))
-    monkeypatch.setattr(K3, "per_id", refuse)
+    monkeypatch.setattr(_build, "per_id", refuse)
     assert_same(gather_rows(table, torch.tensor([1, 9, -3],
                                                 dtype=torch.int32), 0, 7),
                 want)

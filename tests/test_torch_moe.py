@@ -7,6 +7,7 @@ serving of the reduced qwen3-moe in both packages, and the port's mirror of
 ``tests/test_serve_families.py``."""
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -92,6 +93,32 @@ def test_moe_histogram_fence_past_the_experts_counts_nothing(E):
     assert not np_of(got).any()
     assert_same(got, R.moe_histogram_ref(jnp.asarray(ids), E, E, E - 1))
     assert_same(got, ops.moe_histogram(jnp.asarray(ids), E, E, E - 1))
+
+
+@pytest.mark.parametrize("T", [8, 512, 1025, 2048, 8192])
+@pytest.mark.parametrize("fence", ["serve", "identity", "past"])
+def test_moe_histogram_cluster_split_sums_to_the_histogram(T, fence):
+    """K5's one launch: one CTA up to 8,192 ids (every serve-path call:
+    decode (8, 8), prefill (512, 8)), then a cluster of up to 8 CTAs, rank
+    r taking ids i with (i // 1024) % ranks == r.  The ranks' histograms,
+    summed in rank order as rank 0 sums them, equal the plain version and
+    the Pallas kernel (interpret mode) exactly, under the serve, identity
+    and past-the-experts fences, forged ids included."""
+    K5 = importlib.import_module("repro_torch.kernels.moe_histogram")
+    E, K = 128, 8
+    base, mask = {"serve": (0, E - 1), "identity": (0, -1),
+                  "past": (E, E - 1)}[fence]
+    rng = np.random.default_rng(T)
+    ids = rng.integers(-2 * E, 4 * E, size=(T, K)).astype(np.int32)
+    n = ids.size
+    ranks = K5.cluster_ctas(n)
+    assert ranks == min(8, max(1, -(-n // 8192)))
+    owner = (np.arange(n) // K5.THREADS) % ranks
+    split = sum(np_of(moe_histogram(t_of(ids.reshape(-1)[owner == r])[:, None],
+                                    E, base, mask)) for r in range(ranks))
+    got = moe_histogram(t_of(ids), E, base, mask)
+    assert_same(got, split)
+    assert_same(got, ops.moe_histogram(jnp.asarray(ids), E, base, mask))
 
 
 def test_moe_histogram_wrapper_takes_plain_version_only_on_cpu():
