@@ -11,7 +11,7 @@ qwen3-moe-30b-a3b.  Phases, in order (any failure exits non-zero):
 1. device and build — the card's name and power limit, the torch version,
    the build of every kernel of ``src/repro_torch/kernels/csrc`` for
    ``sm_90a`` (into ``build/repro_torch/``, one ``nvcc`` per source, all
-   started together) and K4's, K1's and K5's ``-Xptxas -v`` reports
+   started together) and K4's, K1's, K5's and K2's ``-Xptxas -v`` reports
    (registers, spills);
 2. each kernel against its plain PyTorch version at each path's shapes —
    stablelm-3b (H = KH = 32, D = 80, a 50,304-row vocab under a 65,536
@@ -24,11 +24,17 @@ qwen3-moe-30b-a3b.  Phases, in order (any failure exits non-zero):
    lengths inside a tile and a cluster rank's share), at every cluster
    size, and under the identity fence by value; K5 at decode (8, 8),
    prefill (512, 8) and past one CTA (2,048 and 8,192 tokens) under three
-   fences — with its time, the plain version's, the library call's where
+   fences; K2 in f32 on its original inputs, then (inputs from the second
+   generator) every (source, pool) dtype pair at S = 57 with strided ids
+   and at S = 193 over four pages, under an int, the identity, a per-row
+   and a per-id fence, exact, pages not written unchanged, and the main
+   path's prefill write (bf16 K/V into the f32 layer view through
+   ``write_prefill_kv`` under a per-row BITWISE guard) timed and counted
+   — with its time, the plain version's, the library call's where
    one exists, the bound (the least time the card could take for the same
    bytes or operations), the card's launch floor (a one-element fill_,
-   timed the same way) and, for K1 and K5, the device operations a call
-   puts on the card, counted by ``torch.profiler``;
+   timed the same way) and, for K1, K2 and K5, the device operations a
+   call puts on the card, counted by ``torch.profiler`` (one each);
 3. full width against the CPU at two layers, for each path: float32,
    prefill + 4 decode steps on the card through the kernels and on the CPU
    through the plain versions, from the same weights — greedy ids equal,
@@ -53,7 +59,9 @@ object, the card's ``name, power.limit``, and the result object.
 
 builds both trees' kernels and prints phase 2's kernel times of the
 checkout at PARENT and of this one, run in the order parent, this, this,
-parent on this card (a same-card A/B), with no result line.
+parent on this card (a same-card A/B), with no result line.  The main
+path's prefill write is timed in both trees by this file's code, against
+each tree's port.
 """
 
 from __future__ import annotations
@@ -393,9 +401,13 @@ def check_kernels(torch, cfg):
         shape=f"pools ({P},{page},{KH},{D}) f32, src ({B},{S},{KH},{D})",
         **dict(zip(("bound_ms", "bound_by"),
                    bound_ms(n_bytes, 0.0, "float32"))))
+    # K2's bytes alone: one copy_ of the kept padded K and V pages into
+    # as many contiguous pool pages, with no lookups and no fence
+    bytes_ms = cuda_ms(torch, lambda: kv2[:, :len(last)].copy_(pages2))
     log(f"K2 scatter_pages ok{tag}: {len(written)} distinct pages written, "
         f"forged id wrapped into its extent, {len(untouched)} pages "
-        "untouched")
+        f"untouched; its bytes alone (one copy_ of the kept padded pages) "
+        f"take {bytes_ms:.5f} ms")
 
     # ---- K4 flash_attention: ragged prefill --------------------------- #
     # bf16 (the tensor-core kernel) and f32 (the CUDA-core kernel), at one
@@ -555,6 +567,10 @@ def check_kernels(torch, cfg):
 
     if cfg.moe is not None:
         check_moe_histogram(torch, cfg, gen, more, row)
+    # K2's added checks and the main path's prefill write come last: they
+    # draw from ``more`` after every earlier check has drawn its inputs
+    check_scatter_pages_forms(torch, cfg, more, k_pool, v_pool, page_map)
+    check_prefill_write(torch, cfg, more)
     for r in rows:
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms ({r['library_call']})"
@@ -652,6 +668,202 @@ def check_moe_histogram(torch, cfg, gen, more, row):
         f"{int((ids < 0).sum())} negative in the prefill's; "
         f"{ops:g} device operation(s) a call; kernel "
         + ", ".join(f"{case} {ms:.5f} ms" for case, ms in times.items()))
+
+
+#: K2's fence forms: (base, mask) by value, or built per row / per id
+K2_FENCES = ("int", "identity", "per-row", "per-id")
+
+
+def check_scatter_pages_forms(torch, cfg, gen, k_pool, v_pool, page_map):
+    """K2 exactly against its plain version in every form the kernel
+    takes: each (source, pool) dtype pair (bf16 into the f32 pool is the
+    serve path's), a one-page prefill (S = 57) whose ids are a strided
+    column slice of an (8, 4) page table and a four-page one (S = 193),
+    each under an int fence by value, the identity fence by value, per-row
+    (B,) and per-id (B, n) fences — forged ids, duplicate destinations
+    within and across rows and parked rows on page 0 included.  After
+    each call the pages no id resolves to must be unchanged.  Inputs come
+    from ``gen``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.scatter_pages import scatter_pages
+
+    dev = "cuda"
+    i32 = dict(dtype=torch.int32, device=dev)
+    B, page, P = 8, 64, 64
+    KH, D = cfg.n_kv_heads, cfg.head_dim
+    table = torch.randint(0, 64, (B, 4), generator=gen, **i32)
+    table[1, 2] = 45               # forged: tenant0's row names tenant1's id
+    table[2, 1:] = table[2, 0]     # duplicates within a row
+    table[1, 0] = table[0, 0]      # and across rows of one tenant
+    base = torch.tensor([16, 16, 32, 32, 0, 0, 0, 0], **i32)
+    msk = torch.tensor([15, 15, 15, 15, 3, 3, 3, 3], **i32)
+    base_id = base[:, None].repeat(1, 4)
+    base_id[0, 3] = 32             # one page of row 0 in another extent
+    fences = {"int": (16, 15), "identity": (0, -1),
+              "per-row": (base, msk),
+              "per-id": (base_id, msk[:, None].repeat(1, 4))}
+    srcs = {s_len: [torch.randn(B, s_len, KH, D, generator=gen, device=dev)
+                    for _ in range(2)] for s_len in (57, 193)}
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def per_row(v):   # a (B,) fence broadcast over the pages
+        return v[:, None] if isinstance(v, torch.Tensor) and v.dim() == 1 \
+            else v
+
+    n_checks, written = 0, {}
+    for src_dt in (f32, bf16):
+        for pool_dt in (f32, bf16):
+            pools = (k_pool.to(pool_dt), v_pool.to(pool_dt))
+            for s_len, n in ((57, 1), (193, 4)):
+                ids = table[:, :n]           # n = 1: a strided slice
+                ks, vs = (x.to(src_dt) for x in srcs[s_len])
+                for form in K2_FENCES:
+                    fb, fm = fences[form]
+                    fb_n = fb[:, :n] if isinstance(fb, torch.Tensor) \
+                        and fb.dim() == 2 else fb
+                    fm_n = fm[:, :n] if isinstance(fm, torch.Tensor) \
+                        and fm.dim() == 2 else fm
+                    kk, vv = (x.clone() for x in pools)
+                    scatter_pages(kk, vv, ks, vs, ids, fb_n, fm_n, page_map)
+                    kr, vr = (x.clone() for x in pools)
+                    ref.scatter_pages_ref(kr, vr, ks, vs, ids, fb_n, fm_n,
+                                          page_map)
+                    what = (f"scatter_pages {src_dt} into {pool_dt}, S = "
+                            f"{s_len}, {form} fence")
+                    if not (torch.equal(kk, kr) and torch.equal(vv, vr)):
+                        raise AssertionError(f"{what}: differs from its "
+                                             "plain version")
+                    phys = ref.resolve_pages(ids, per_row(fb_n),
+                                             per_row(fm_n), page_map, P)
+                    hit = set(int(x) for x in phys.reshape(-1))
+                    rest = [x for x in range(P) if x not in hit]
+                    if not (torch.equal(kk[rest], pools[0][rest])
+                            and torch.equal(vv[rest], pools[1][rest])):
+                        raise AssertionError(f"{what}: wrote outside the "
+                                             "fenced pages")
+                    if form == "per-row" and n == 4 and \
+                            not 1 <= int(phys[1, 2]) <= 16:
+                        raise AssertionError(f"{what}: forged id left its "
+                                             "extent")
+                    written[(s_len, form)] = len(hit)
+                    n_checks += 1
+    ks, vs = (x.to(bf16) for x in srcs[193])
+    kk, vv = k_pool.clone(), v_pool.clone()
+    ms_193 = cuda_ms(torch, lambda: scatter_pages(kk, vv, ks, vs, table,
+                                                  base, msk, page_map))
+    log(f"K2 scatter_pages forms ok [{cfg.name}]: {n_checks} cases equal to "
+        "the plain version (f32/bf16 sources into f32/bf16 pools; S = 57 "
+        "with strided ids, S = 193 over 4 pages; fences "
+        + ", ".join(K2_FENCES) + "), pages not written unchanged; distinct "
+        "pages written " + ", ".join(f"S={k[0]} {k[1]}: {v}"
+                                     for k, v in written.items())
+        + f"; bf16 into f32 at S = 193 (per-row fence): {ms_193:.5f} ms")
+
+
+def prefill_write_row(torch, cfg, gen):
+    """The main path's prefill page write, as one layer of a prefill
+    makes it: bf16 K/V (8, 57, KH, D) written by ``write_prefill_kv`` into
+    the f32 layer view (64, 64, KH, D) of a two-layer pool under a per-row
+    BITWISE guard with a page map (tenant rows, one forged id, four parked
+    rows on the scratch extent).  Checks the write exactly against the
+    plain version on the operands ``kernel_fence`` gives, and that the
+    other layer is untouched; returns its time, device operations per
+    call (under that guard and with no guard), the plain version's time,
+    the bytes bound and the operands.  Uses only entry points every tree
+    of the port has, so the same-card A/B times it on both."""
+    from repro_torch.core.fence import FenceParams, FencePolicy
+    from repro_torch.kernels import ref
+    from repro_torch.models import kvcache as KV
+    from repro_torch.models.guard import GuardSpec, kernel_fence
+
+    dev = "cuda"
+    i32 = dict(dtype=torch.int32, device=dev)
+    B, S, P = 8, 57, 64
+    KH, D = cfg.n_kv_heads, cfg.head_dim
+    cache = KV.init_global_kv_cache(cfg, B, 256, P, n_layers=2, device=dev)
+    for pool in (cache.k, cache.v):
+        pool.copy_(torch.randn(pool.shape, generator=gen, device=dev))
+    table = torch.randint(0, 64, (B, 4), generator=gen, **i32)
+    table[:, 0] = torch.tensor([16, 45, 33, 40, 0, 1, 2, 3], **i32)
+    cache = dataclasses.replace(cache, page_table=table)
+    page_map = torch.zeros(64, **i32)
+    page_map[16:32] = torch.arange(1, 17, **i32)
+    page_map[32:48] = torch.arange(17, 33, **i32)
+    guard = GuardSpec(
+        policy=FencePolicy.BITWISE, vocab=FenceParams(0, pow2(cfg.vocab)),
+        kv=FenceParams(base=torch.tensor([16, 16, 32, 32, 0, 0, 0, 0], **i32),
+                       size=torch.tensor([16, 16, 16, 16, 4, 4, 4, 4], **i32)),
+        page=FenceParams(0, P), page_map=page_map)
+    k_new, v_new = (torch.randn(B, S, KH, D, generator=gen, device=dev)
+                    .to(torch.bfloat16) for _ in range(2))
+    ids, fb, fm, pm = kernel_fence(guard, cache.page_table[:, :1])
+    kr, vr = cache.k[1].clone(), cache.v[1].clone()
+    ref.scatter_pages_ref(kr, vr, k_new, v_new, ids, fb, fm, pm)
+    k0, v0 = cache.k[0].clone(), cache.v[0].clone()
+
+    def call():
+        KV.write_prefill_kv(cache, 1, k_new, v_new, guard)
+
+    call()
+    if not (torch.equal(cache.k[1], kr) and torch.equal(cache.v[1], vr)
+            and torch.equal(cache.k[0], k0) and torch.equal(cache.v[0], v0)):
+        raise AssertionError(f"write_prefill_kv [{cfg.name}] differs from "
+                             "the plain page write")
+    phys = ref.resolve_pages(ids, fb[:, None], fm[:, None], pm, P)
+    kept = len(set(int(x) for x in phys.reshape(-1)))
+    # bytes: for each kept page of K and V its S bf16 source tokens read
+    # and the whole f32 page written, plus the ids and per-row fences
+    n_bytes = (2 * kept * (S * KH * D * 2 + 64 * KH * D * 4)
+               + ids.numel() * 4 + 2 * B * 4)
+    ops = device_ops_per_call(torch, call)
+    ops_none = device_ops_per_call(
+        torch, lambda: KV.write_prefill_kv(cache, 1, k_new, v_new, None))
+    ms = cuda_ms(torch, call)
+    plain_ms = cuda_ms(torch, lambda: ref.scatter_pages_ref(
+        kr, vr, k_new, v_new, ids, fb, fm, pm))
+    bound, by = bound_ms(n_bytes, 0.0, "float32")
+    return dict(ms=ms, ops=ops, ops_none=ops_none, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, n_bytes=n_bytes, kept=kept,
+                cache=cache, operands=(k_new, v_new, ids, fb, fm, pm))
+
+
+def check_prefill_write(torch, cfg, gen):
+    """The main path's prefill write (:func:`prefill_write_row`): one
+    device operation a call under the per-row BITWISE guard and with no
+    guard, as K2 alone under those operands and under the identity fence
+    by value; logs its time beside K2's alone, the plain version's and the
+    bound."""
+    from repro_torch.kernels.scatter_pages import scatter_pages
+
+    w = prefill_write_row(torch, cfg, gen)
+    cache = w["cache"]
+    k_new, v_new, ids, fb, fm, pm = w["operands"]
+    k1, v1 = cache.k[1], cache.v[1]
+
+    def kernel():
+        scatter_pages(k1, v1, k_new, v_new, ids, fb, fm, pm)
+
+    ops_k = device_ops_per_call(torch, kernel)
+    ops_id = device_ops_per_call(torch, lambda: scatter_pages(
+        k1, v1, k_new, v_new, ids, 0, -1, pm))
+    counts = {"write_prefill_kv, BITWISE guard": w["ops"],
+              "write_prefill_kv, no guard": w["ops_none"],
+              "scatter_pages, per-row fence": ops_k,
+              "scatter_pages, identity fence": ops_id}
+    if any(v != 1 for v in counts.values()):
+        raise AssertionError(f"prefill write [{cfg.name}]: device "
+                             f"operations a call {counts}, want 1 each")
+    kernel_ms = cuda_ms(torch, kernel)
+    log(f"prefill write [{cfg.name}] (bf16 K/V (8, 57, {cfg.n_kv_heads}, "
+        f"{cfg.head_dim}) into the f32 layer view, per-row BITWISE guard, "
+        f"{w['kept']} kept pages): write_prefill_kv {w['ms']:.5f} ms, K2 "
+        f"alone {kernel_ms:.5f} ms, plain {w['plain_ms']:.5f} ms, bound "
+        f"{w['bound_ms']:.5f} ms ({w['n_bytes'] / 1e6:.2f} MB, "
+        f"{w['bound_by']}); equal to the plain page write; device "
+        "operations a call: " + ", ".join(f"{k} {v:g}"
+                                          for k, v in counts.items()))
+    del w["cache"], w["operands"]
+    return w
 
 
 # --------------------------------------------------------------------- #
@@ -1009,22 +1221,32 @@ def solo_rerun(torch, cfg, eng, outs):
 
 
 # A worker of the same-card A/B: phase 2 of the checkout at argv[1], run
-# with that checkout's own chip_smoke.py and kernels; prints each row's
-# (kernel, path, ms) as one JSON line.
+# with that checkout's own chip_smoke.py and kernels, then the main path's
+# prefill write timed by this file's (argv[2]) code against that
+# checkout's port; prints each row's (label, path, value) as one JSON line.
 _AB_WORKER = """
-import json, sys
-tree = sys.argv[1]
+import importlib.util, json, sys
+tree, this = sys.argv[1], sys.argv[2]
 sys.path[:0] = [tree, tree + "/src"]
 import torch
 import chip_smoke as cs
+spec = importlib.util.spec_from_file_location("chip_smoke_this", this)
+mine = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mine)
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build
 torch.backends.cuda.matmul.allow_tf32 = False
 _build.build_all()
 rows = []
 for name in cs.PATHS:
-    rows += cs.check_kernels(torch, get_config(name))
-print("AB " + json.dumps([[r["kernel"], r["path"], r["ms"]] for r in rows]))
+    cfg = get_config(name)
+    rows += [[r["kernel"], r["path"], r["ms"]]
+             for r in cs.check_kernels(torch, cfg)]
+    w = mine.prefill_write_row(
+        torch, cfg, torch.Generator(device="cuda").manual_seed(8765))
+    rows += [["write_prefill_kv (main path), ms", name, w["ms"]],
+             ["write_prefill_kv (main path), device ops", name, w["ops"]]]
+print("AB " + json.dumps(rows))
 """
 
 
@@ -1038,18 +1260,23 @@ def same_card_ab(parent: Path) -> int:
              ("parent", parent)]
     runs = []
     for label, tree in order:
-        proc = subprocess.run([sys.executable, "-c", _AB_WORKER, str(tree)],
+        proc = subprocess.run([sys.executable, "-c", _AB_WORKER, str(tree),
+                               str(ROOT / "chip_smoke.py")],
                               capture_output=True, text=True, cwd=tree)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return 1
         line = [x for x in proc.stdout.splitlines() if x.startswith("AB ")]
-        runs.append({(k, p): ms for k, p, ms in json.loads(line[-1][3:])})
+        runs.append({(k, p): v for k, p, v in json.loads(line[-1][3:])})
         log(f"A/B run {len(runs)} ({label}, {tree}) done")
-    log("A/B (ms, in the order " + ", ".join(lb for lb, _ in order) + "):")
-    for key in runs[0]:
+    log("A/B (ms unless named, in the order "
+        + ", ".join(lb for lb, _ in order) + "; — where a tree lacks the "
+        "row):")
+    keys = list(dict.fromkeys(k for r in runs for k in r))
+    for key in keys:
         log(f"  {key[0]} [{key[1]}]: " + ", ".join(
-            f"{r[key]:.5f}" for r in runs))
+            "—" if key not in r else f"{r[key]:g}" if "ops" in key[0]
+            else f"{r[key]:.5f}" for r in runs))
     return 0
 
 
@@ -1087,6 +1314,8 @@ def main() -> int:
                                     ("paged_attention_kernel",)))
     log("K5 ptxas: " + ptxas_report(_build, "moe_histogram.cu",
                                     ("moe_histogram_kernel",)))
+    log("K2 ptxas: " + ptxas_report(_build, "scatter_pages.cu",
+                                    ("scatter_pages_kernel",)))
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         return same_card_ab(Path(sys.argv[2]).resolve())
 

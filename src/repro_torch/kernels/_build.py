@@ -18,6 +18,7 @@ CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -150,6 +151,18 @@ def ptr(t) -> ctypes.c_void_p:
 
 def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the CUDA ``device`` (cached)."""
+    device = torch.device(device)
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 #: element types the kernels are instantiated for, by their C code

@@ -9,13 +9,12 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import Kernel, check_cuda, dtype_code, \
-    fence_args, fence_operand, ptr, stream_of
+    fence_args, fence_operand, ptr, sm_count, stream_of
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("paged_attention", "paged_attention.cu",
@@ -34,11 +33,6 @@ def cluster_size(pairs: int, n_sm: int) -> int:
     while 2 * c <= MAX_CLUSTER and pairs * 2 * c <= n_sm:
         c *= 2
     return c
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch_args(q, k_pages, v_pages, table, lens, base, mask, page_map,
@@ -100,8 +94,7 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, fence_base,
         raise ValueError("paged_attention: the pools must be 16-byte "
                          "aligned (float4 loads)")
     out = torch.empty_like(q)
-    cluster = cluster_size(B * KH, _sm_count(
-        dev.index if dev.index is not None else torch.cuda.current_device()))
+    cluster = cluster_size(B * KH, sm_count(dev))
     KERNEL.launch(*launch_args(q, k_pages, v_pages, table, lens, base, mask,
                                pmap, out, cluster), stream_of(q))
     return out

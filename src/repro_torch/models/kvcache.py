@@ -128,16 +128,17 @@ def write_prefill_kv(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
     ``layer``, through the fenced-scatter kernel (K2), in place.  The
     ragged last page is zero-filled (the reference pads S to a page
     multiple); the kernel fences each row's virtual page ids with that
-    row's extent on the store address."""
+    row's extent on the store address, reads the page table's column
+    slice in place and converts K,V to the pool's type as it stores, so
+    under a BITWISE guard (or the identity fence) the write is one device
+    operation."""
     _require_global(cache)
     S = k_new.shape[1]
     n_pages = -(-S // cache.page_size)
     ids, base, mask, page_map = kernel_fence(
         guard, cache.page_table[:, :n_pages])
-    scatter_pages(cache.k[layer], cache.v[layer],
-                  k_new.to(cache.k.dtype).contiguous(),
-                  v_new.to(cache.v.dtype).contiguous(),
-                  ids, base, mask, page_map)
+    scatter_pages(cache.k[layer], cache.v[layer], k_new, v_new, ids, base,
+                  mask, page_map)
     return cache
 
 

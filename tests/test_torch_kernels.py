@@ -348,6 +348,17 @@ def test_scatter_pages_plain_matches_oracle_and_pallas(dtype, P, page, KH,
     assert (np_of(k_pool)[P // 2:] == 0).all()
     if N > P // 2:     # more ids than pages: duplicates are certain
         assert len(set(((ids & mask) | base).tolist())) < N
+    if dtype == "bfloat16":
+        # mixed: bf16 pages into an f32 pool, widened on the store as the
+        # Pallas kernel widens them in its body
+        pallas = OPS.scatter_pages(jnp.zeros((P, page, KH, D), jnp.float32),
+                                   pj, jnp.asarray(ids), base, mask)
+        k_pool, v_pool = (torch.zeros((P, page, KH, D)) for _ in range(2))
+        scatter_pages(k_pool, v_pool, src, -src, t_of(ids)[:, None], base,
+                      mask)
+        assert k_pool.dtype == torch.float32
+        assert_same(k_pool, pallas)
+        assert_same(v_pool, -np_of(pallas))
 
 
 def _serve_guard(framework, policy="bitwise"):
@@ -389,14 +400,189 @@ def test_write_prefill_kv_per_row_fences_match_jnp_path(policy, S):
         KVT.init_global_kv_cache(cfg, B, max_len, P, device="cpu"),
         page_table=t_of(table))
     kv = rng.normal(size=(2, B, S, cfg.n_kv_heads, cfg.head_dim))
-    cj = KVJ.write_prefill_kv(cj, 1, jnp.asarray(kv[0], jnp.float32),
-                              jnp.asarray(kv[1], jnp.float32),
-                              _serve_guard("jax", policy))
-    KVT.write_prefill_kv(ct, 1, t_of(kv[0], torch.float32),
-                         t_of(kv[1], torch.float32),
-                         _serve_guard("torch", policy))
-    assert_same(ct.k[:, 1:], np_of(cj.k)[:, 1:])
-    assert_same(ct.v[:, 1:], np_of(cj.v)[:, 1:])
+    # float32 K/V, then bfloat16 K/V (the serve path's) into the f32 pool,
+    # the reference fed the same bf16 values
+    for jd, td in ((jnp.float32, torch.float32),
+                   (jnp.bfloat16, torch.bfloat16)):
+        cj = KVJ.write_prefill_kv(cj, 1, jnp.asarray(kv[0], jd),
+                                  jnp.asarray(kv[1], jd),
+                                  _serve_guard("jax", policy))
+        KVT.write_prefill_kv(ct, 1, t_of(kv[0], torch.float32).to(td),
+                             t_of(kv[1], torch.float32).to(td),
+                             _serve_guard("torch", policy))
+        assert ct.k.dtype == torch.float32
+        assert_same(ct.k[:, 1:], np_of(cj.k)[:, 1:])
+        assert_same(ct.v[:, 1:], np_of(cj.v)[:, 1:])
+        kv = -kv        # the bf16 write must replace the f32 one
+
+
+def test_scatter_pages_launch_args_pass_ids_and_fences_in_place(
+        monkeypatch):
+    """K2's C arguments: an int fence by value (NULL pointer, zero strides)
+    with no ``per_id`` operand built; a per-row (B,) fence as its pointer
+    with strides (1, 0) and a per-id (B, n) fence with its own strides; a
+    column slice of the page table as its own pointer and row stride (no
+    copy); the (source, pool) dtype pair as the kernel's dtype codes."""
+    K2 = importlib.import_module("repro_torch.kernels.scatter_pages")
+
+    def refuse(*a, **kw):
+        raise AssertionError("per_id called for a K2 fence")
+
+    monkeypatch.setattr(_build, "per_id", refuse)
+    B, S, page, KH, D, P = 3, 11, 4, 2, 8, 16
+    k_pool, v_pool = (torch.zeros((P, page, KH, D)) for _ in range(2))
+    src = torch.randn((B, S, KH, D)).to(torch.bfloat16)
+    table = torch.arange(B * 5, dtype=torch.int32).reshape(B, 5) % P
+    ids = table[:, :3]
+    assert not ids.is_contiguous()
+    base, mask = (K2.fence_view(x, B, 3, "cpu") for x in (4, 3))
+    assert (base, mask) == (4, 3)
+    args = K2.launch_args(k_pool, v_pool, src, -src, ids, base, mask, None, 7)
+    assert len(args) + 1 == len(K2.KERNEL.argtypes)
+    assert args[4].value == table.data_ptr()
+    assert args[5:7] == [5, 1]
+    assert args[7].value is None and args[8:11] == [0, 0, 4]
+    assert args[11].value is None and args[12:15] == [0, 0, 3]
+    assert args[-4:] == [_build.DTYPE_CODE[torch.bfloat16],
+                         _build.DTYPE_CODE[torch.float32], 4, 7]
+    scatter_pages(k_pool, v_pool, src, -src, ids, 4, 3)   # no per_id
+    monkeypatch.undo()
+    per_row = K2.fence_view(torch.tensor([0, 4, 8], dtype=torch.int32), B,
+                            3, "cpu")
+    per_id = K2.fence_view(torch.full((B, 3), 3, dtype=torch.int32), B, 3,
+                           "cpu")
+    args = K2.launch_args(k_pool, v_pool, src.float(), src.float(), ids,
+                          per_row, per_id, None, 1)
+    assert args[7].value == per_row.data_ptr() and args[8:11] == [1, 0, 0]
+    assert args[11].value == per_id.data_ptr() and args[12:15] == [3, 1, 0]
+    assert args[-4:-2] == [_build.DTYPE_CODE[torch.float32]] * 2
+    halves = [x.to(torch.bfloat16) for x in (k_pool, v_pool, src, src)]
+    assert K2.launch_args(*halves, ids, 0, -1, None, 1)[-2] == 8
+    assert K2.fence_view(torch.tensor(5), B, 3, "cpu").stride() == (0, 0)
+
+
+@pytest.mark.parametrize("n,S", [(1, 57), (4, 193)])
+def test_scatter_pages_strided_ids_and_per_id_fences_match_per_row(n, S):
+    """Ids given as a column slice of a wider page table, with per-id
+    (B, n) fences that repeat each row's (base, mask) over its pages, write
+    exactly what contiguous ids under per-row (B,) fences write — forged
+    ids and duplicate destinations within and across rows (parked rows on
+    page 0) included — and what the reference's jnp page write does."""
+    rng = np.random.default_rng(S)
+    B, page, KH, D, P = 8, 64, 2, 8, 64
+    table = rng.integers(0, 64, size=(B, 6)).astype(np.int32)
+    table[1, 0] = 45                       # forged: another tenant's id
+    table[2, :n] = table[2, 0]             # duplicates within a row
+    table[3, 0] = table[0, 0]              # and across rows
+    base = np.array([16, 16, 32, 32, 0, 0, 0, 0], np.int32)
+    mask = np.array([15, 15, 15, 15, 3, 3, 3, 3], np.int32)
+    pmap = np.zeros(64, np.int32)
+    pmap[16:32], pmap[32:48] = np.arange(1, 17), np.arange(17, 33)
+    kv = rng.normal(size=(2, B, S, KH, D)).astype(np.float32)
+    src = [t_of(x).to(torch.bfloat16) for x in kv]
+    pool0 = rng.normal(size=(P, page, KH, D)).astype(np.float32)
+    got = [t_of(pool0) for _ in range(2)]
+    want = [t_of(pool0) for _ in range(2)]
+    wide = t_of(table)
+    scatter_pages(*got, *src, wide[:, :n],
+                  t_of(np.repeat(base[:, None], n, 1)),
+                  t_of(np.repeat(mask[:, None], n, 1)), t_of(pmap))
+    scatter_pages(*want, *src, wide[:, :n].contiguous(), t_of(base),
+                  t_of(mask), t_of(pmap))
+    assert_same(got[0], want[0])
+    assert_same(got[1], want[1])
+    # the reference: fence, map, clamp, then an in-order page write of the
+    # zero-padded bf16 values into the f32 pool
+    phys = RJ.fence_ref(jnp.asarray(table[:, :n]), jnp.asarray(base)[:, None],
+                        jnp.asarray(mask)[:, None])
+    phys = jnp.asarray(pmap)[phys] & (P - 1)
+    for pool, x in zip(got, kv):
+        pages = jnp.pad(jnp.asarray(x, jnp.bfloat16),
+                        ((0, 0), (0, n * page - S), (0, 0), (0, 0)))
+        ref_pool = RJ.scatter_pages_ref(
+            jnp.asarray(pool0), pages.reshape(B * n, page, KH, D),
+            phys.reshape(-1), 0, -1)
+        assert_same(pool, ref_pool)
+
+
+def _k2_block_algorithm(k_pool, v_pool, k_src, v_src, ids, base, mask,
+                        page_map, group, chunks, order):
+    """K2's blocks (``csrc/scatter_pages.cu``) in plain PyTorch, run in the
+    given order of (chunk, id, pool): each resolves its id, stops unless no
+    later id resolves to the same page, and writes its chunk's groups —
+    source groups below the row's S tokens, zeros past them."""
+    B, S, KH, D = k_src.shape
+    P, page = k_pool.shape[:2]
+    n = ids.shape[1]
+    phys = RT.resolve_pages(ids, base, mask, page_map, P).reshape(-1)
+    row_groups = KH * D // group
+    page_groups = page * row_groups
+    per_chunk = -(-page_groups // chunks)
+    for c, i, which in order:
+        if (phys[i + 1:] == phys[i]).any():
+            continue
+        b, p = divmod(i, n)
+        held = max(0, min(page, S - p * page)) * row_groups
+        src = (k_src, v_src)[which][b].reshape(-1)[p * page * KH * D:]
+        dst = (k_pool, v_pool)[which][int(phys[i])].reshape(-1)
+        for g in range(c * per_chunk, min((c + 1) * per_chunk, page_groups)):
+            sl = slice(g * group, (g + 1) * group)
+            dst[sl] = src[sl].to(dst.dtype) if g < held else 0
+
+
+@pytest.mark.parametrize("B,n,S,KH,D,pool,n_sm", [
+    (8, 1, 57, 2, 40, "float32", 132),   # stablelm-3b's row / 32
+    (8, 4, 193, 4, 8, "float32", 132),   # multi-page prefill, 32 ids
+    (9, 4, 200, 1, 16, "float32", 20),   # 36 ids: past one warp's match
+    (3, 2, 70, 1, 16, "bfloat16", 8),    # bf16 pool: 8-element groups
+])
+def test_scatter_pages_block_algorithm_matches_plain(B, n, S, KH, D, pool,
+                                                     n_sm):
+    """K2's split of each page into ``chunks_per_page`` chunks of
+    ``group_size`` groups, its source and zero groups, and its last-writer
+    test give the plain version's pool exactly, with the blocks run in a
+    shuffled order (the card runs them in none)."""
+    K2 = importlib.import_module("repro_torch.kernels.scatter_pages")
+    rng = np.random.default_rng(B * n + S)
+    page, P = 64, 32
+    ids = t_of(rng.integers(0, 4 * P, size=(B, n)).astype(np.int32))
+    base = t_of(rng.choice([0, 8, 16], size=(B, 1)).astype(np.int32))
+    mask = 7
+    src = [t_of(rng.normal(size=(B, S, KH, D)), torch.bfloat16)
+           for _ in range(2)]
+    pool0 = t_of(rng.normal(size=(P, page, KH, D)), DT[pool][1])
+    group = K2.group_size(src[0], pool0)
+    assert group == (8 if pool == "bfloat16" else 4)
+    chunks = K2.chunks_per_page(B * n, page * KH * D // group, n_sm)
+    order = [(c, i, w) for c in range(chunks) for i in range(B * n)
+             for w in (0, 1)]
+    rng.shuffle(order)
+    got = [pool0.clone(), pool0.clone()]
+    _k2_block_algorithm(*got, *src, ids, base, mask, None, group, chunks,
+                        order)
+    want = [pool0.clone(), pool0.clone()]
+    scatter_pages(*want, *src, ids, base, mask)
+    assert_same(got[0], want[0])
+    assert_same(got[1], want[1])
+
+
+def test_scatter_pages_chunks_cover_the_card():
+    """The chunk count: at the main paths' f32 pages (8 ids, 4-element
+    groups) stablelm-3b's 40,960 groups take 40 chunks (4 groups a
+    thread), qwen3-moe's 8,192 take 17 (136 blocks a pool); every chunk
+    gives each thread between one and UNROLL groups where the page
+    allows."""
+    K2 = importlib.import_module("repro_torch.kernels.scatter_pages")
+    assert K2.chunks_per_page(8, 40960, 132) == 40
+    assert K2.chunks_per_page(8, 8192, 132) == 17
+    assert K2.chunks_per_page(32, 8192, 132) == 8
+    for n_ids in (1, 8, 32, 100):
+        for gpp in (1, 300, 4096, 20480, 65536):
+            c = K2.chunks_per_page(n_ids, gpp, 132)
+            assert c >= 1
+            assert -(-gpp // c) <= K2.THREADS * K2.UNROLL
+            assert c == 1 or gpp // c >= K2.THREADS or \
+                c == -(-gpp // (K2.THREADS * K2.UNROLL))
 
 
 # --------------------------------------------------------------------- #
