@@ -52,6 +52,27 @@ qwen3-moe-30b-a3b.  Phases, in order (any failure exits non-zero):
    a solo rerun under ``torch.profiler`` gives the device's busy share and
    each of the port's kernels' device time.
 
+5. the tenant-kernel plane (after phase 3, before phase 4's full-size
+   paths): a ``GuardianManager`` with a 1 GiB f32 arena and four tenants
+   of 2**26 slots (one for NONE, the standalone fast path) loads the
+   simulated libraries (``core/libsim.py``) as sandboxed tenant kernels —
+   gemm 1024^3, dot / axpby / isamax at n = 2**24, a 2**16-point FFT, a
+   2**22-nonzero SpMV whose column ids are loaded from the arena — and
+   runs each under NONE, BITWISE, MODULO and CHECK, solo and four-wide
+   fused: results equal the port's on the CPU for the same seeded inputs
+   (axpby's stored bytes and isamax's ids exactly, float reductions within
+   1e-5 normwise); a forged-pointer kernel of one tenant, alone and as
+   one row of a four-wide fused step, leaves the other three partitions
+   byte-identical but for their own rows' stores, every partition equal
+   to the CPU's (under CHECK its stores roll back, are counted by kind
+   and it is quarantined); and a NONE launch past the arena loads NaN,
+   leaves every byte of the arena as it was and the context usable.  It
+   prints each launch round's device time (CUDA events, the stream held
+   busy first) and wall time, the bytes it allocated, its peak above the
+   start and the CHECK rollback log, the same for the kernels called
+   unfenced (as written, no sandbox), and the ladders of each policy's
+   time over the unfenced kernels' and over NONE's.
+
 The last three lines of standard output are the kernel table as one JSON
 object, the card's ``name, power.limit``, and the result object.
 
@@ -1220,6 +1241,446 @@ def solo_rerun(torch, cfg, eng, outs):
             for e in sorted(ours, key=dev_us, reverse=True)))
 
 
+# --------------------------------------------------------------------- #
+# Phase 5: tenant kernels — the sandboxed launch plane                  #
+# --------------------------------------------------------------------- #
+
+#: a shared GPU of four tenants: a 1 GiB f32 arena, 2**26 slots each
+TENANT_SIZES = dict(arena=1 << 28, tenants=4, gemm=1024, n=1 << 24,
+                    fft=1 << 16, nnz=1 << 22, rows=1 << 16, evil=1 << 20)
+TENANT_POLICIES = ("none", "bitwise", "modulo", "check")
+TOL_F32 = 1e-5
+
+
+def tenant_inputs(sz, seed: int = 1234):
+    """Each tenant's library operands, seeded, as host arrays (uniform in
+    [0, 1) so every reduction sums positive terms; SpMV columns in
+    range)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    g, n = sz["gemm"], sz["n"]
+    out = []
+    for _ in range(sz["tenants"]):
+        out.append({
+            "a": rng.random(g * g, np.float32),
+            "b": rng.random(g * g, np.float32),
+            "x": rng.random(n, np.float32),
+            "y": rng.random(n, np.float32),
+            "fx": rng.random(2 * sz["fft"], np.float32) - 0.5,
+            "vals": rng.random(sz["nnz"], np.float32),
+            "cols": rng.integers(0, sz["rows"], sz["nnz"]).astype(
+                np.float32),
+            "sx": rng.random(sz["rows"], np.float32),
+        })
+    return out
+
+
+def evil(arena, target, n: int):
+    """A tenant kernel that stores at an address of its choosing."""
+    import torch
+    idx = target + torch.arange(n, dtype=torch.int32, device=arena.device)
+    arena[idx] = 999.0
+    return arena, None
+
+
+def probe(arena, ptr, n: int):
+    """Loads and stores at ``ptr`` (past the arena in the NONE check)."""
+    import torch
+    idx = ptr + torch.arange(n, dtype=torch.int32, device=arena.device)
+    vals = torch.take(arena, idx.long())
+    arena[idx] = 7.0
+    return arena, vals
+
+
+class TenantPlane:
+    """One manager of the tenant phase: a policy, its tenants (one for
+    NONE — the standalone fast path — else four), every library kernel
+    registered, each tenant's operands uploaded through validated
+    ``memcpy_h2d``."""
+
+    def __init__(self, torch, policy: str, device: str, sz, inputs):
+        from repro_torch.core import FencePolicy, GuardianManager, \
+            ThresholdPolicy
+        from repro_torch.core.libsim import register_all_libraries
+        self.torch, self.policy, self.sz = torch, policy, sz
+        self.mgr = GuardianManager(
+            total_slots=sz["arena"], policy=(
+                FencePolicy.BITWISE if policy == "none"
+                else FencePolicy(policy)), device=device,
+            quarantine_policy=ThresholdPolicy(quarantine_after=sz["evil"]))
+        register_all_libraries(self.mgr)
+        n_t = 1 if policy == "none" else sz["tenants"]
+        part = sz["arena"] // sz["tenants"]
+        self.clients, self.ptrs = [], []
+        for t in range(n_t):
+            c = self.mgr.register_tenant(f"t{t}", part)
+            c.module_load("evil", evil)
+            c.module_load("probe", probe)
+            ptr = {k: c.malloc(v.size) for k, v in inputs[t].items()}
+            for k, v in inputs[t].items():
+                c.memcpy_h2d(ptr[k], v)
+            g = sz["gemm"]
+            ptr["c"], ptr["out"] = c.malloc(g * g), c.malloc(1)
+            ptr["fo"], ptr["sy"] = c.malloc(2 * sz["fft"]), c.malloc(
+                sz["rows"])
+            self.clients.append(c)
+            self.ptrs.append(ptr)
+        self.mgr.synchronize()
+
+    def ops(self):
+        torch, sz = self.torch, self.sz
+        g, n = sz["gemm"], sz["n"]
+        alpha = torch.tensor(2.0, device=self.mgr.device)
+        beta = torch.tensor(0.5, device=self.mgr.device)
+        return [
+            ("gemm", "grdblas.gemm", ("a", "b", "c"), (g, g, g)),
+            ("dot", "grdblas.dot", ("x", "y", "out"), (n,)),
+            ("axpby", "grdblas.axpby", ("x", "y"), (alpha, beta, n)),
+            ("isamax", "grdblas.isamax", ("x",), (n,)),
+            ("fft", "grdfft.c2c", ("fx", "fo"), (sz["fft"],)),
+            ("spmv", "grdsparse.csr_spmv", ("vals", "cols", "sx", "sy"),
+             (sz["nnz"], sz["rows"])),
+        ]
+
+    def launch(self, op, tenants):
+        """One launch of ``op`` by each of ``tenants``, then a drain;
+        returns the request handles."""
+        _, name, ptr_keys, args = op
+        reqs = [self.clients[t].launch_kernel(
+            name, ptrs=[self.ptrs[t][k] for k in ptr_keys], args=args)
+            for t in tenants]
+        self.mgr.run_queued()
+        return reqs
+
+    def read(self, t, key, n=None):
+        p = self.ptrs[t][key]
+        return self.mgr.arena.unsafe_read_range(
+            p.addr, p.length if n is None else n)
+
+    def partition(self, t):
+        part = self.mgr.bounds.lookup(f"t{t}")
+        return self.mgr.arena.buf[part.base:part.end]
+
+
+class Unfenced:
+    """The library kernels as written, called on the arena with no
+    sandbox — no fence, no guard, no drain: the unfenced baseline that a
+    policy's overhead is read against (its inputs are in range)."""
+
+    def __init__(self, plane):
+        self.plane = plane
+
+    def launch(self, op, tenants):
+        _, name, ptr_keys, args = op
+        mgr = self.plane.mgr
+        fn = mgr.pointer_to_symbol[name].fn
+        for t in tenants:
+            ptrs = [self.plane.ptrs[t][k].addr_on(mgr.device)
+                    for k in ptr_keys]
+            mgr.arena.buf, _ = fn(mgr.arena.buf, *ptrs, *args)
+
+
+def _tenant_results(plane, reqs_by_op):
+    """What the phase compares between the card and the CPU."""
+    out = {}
+    for t in range(len(plane.clients)):
+        out[f"c{t}"] = plane.read(t, "c")
+        out[f"out{t}"] = plane.read(t, "out")
+        out[f"y{t}"] = plane.read(t, "y")
+        out[f"fo{t}"] = plane.read(t, "fo")
+        out[f"sy{t}"] = plane.read(t, "sy")
+    for name, reqs in reqs_by_op.items():
+        for i, r in enumerate(reqs):
+            if r.result is not None:
+                out[f"{name}.result{i}"] = r.result
+    return out
+
+
+def _compare(torch, card, cpu, label) -> float:
+    """Worst normwise error of the float reductions (max |card - cpu| /
+    max |cpu|); stored elementwise bytes (axpby's y) and integer results
+    must be equal exactly."""
+    worst = 0.0
+    for k, want in cpu.items():
+        got = card[k].detach().cpu()
+        want = want.detach().cpu()
+        if k.startswith("y") or not want.is_floating_point():
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label}: {k} differs from the CPU")
+            continue
+        scale = max(float(want.abs().max()), 1e-30)
+        err = float((got - want).abs().max()) / scale
+        if not err <= TOL_F32:
+            raise AssertionError(f"{label}: {k} normwise error {err:.3g} > "
+                                 f"{TOL_F32}")
+        worst = max(worst, err)
+    return worst
+
+
+def _tenant_round(plane, tenants):
+    return {op[0]: plane.launch(op, tenants) for op in plane.ops()}
+
+
+def _time_op(torch, plane, op, tenants, reps: int = 3):
+    """(device ms, wall ms, MB allocated, MB of peak above the start) of
+    one launch round: CUDA events around the launches and the drain, the
+    stream held busy first so the host has enqueued the work before the
+    start event fires; the wall time is a host clock around the same
+    round ending in a synchronize, without the hold."""
+    dev, wall = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plane.launch(op, tenants)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        plane.launch(op, tenants)
+        b.record()
+        torch.cuda.synchronize()
+        dev.append(a.elapsed_time(b))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+    plane.launch(op, tenants)
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_stats()["allocated_bytes.all.allocated"] \
+        - before
+    peak = torch.cuda.max_memory_allocated() - base
+    busy, n_ops = _busy_ms(torch, plane, op, tenants)
+    return dict(dev=statistics.median(dev), wall=statistics.median(wall),
+                alloc=alloc / 2**20, peak=peak / 2**20, busy=busy,
+                ops=n_ops, rounds=2 * reps + 5)
+
+
+def _busy_ms(torch, plane, op, tenants, rounds: int = 3):
+    """(kernel time, device operations) of one launch round, summed by
+    ``torch.profiler`` over ``rounds`` rounds in one session and divided
+    by them, after a session that is thrown away (a session can start
+    recording late); ``(nan, 0)`` when it records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    for n in (1, rounds):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                plane.launch(op, tenants)
+            torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)) for e in kern)
+    if not us:
+        return float("nan"), 0
+    return us / 1e3 / rounds, sum(e.count for e in kern) / rounds
+
+
+def tenant_plane(torch, sz=None, device: str = "cuda", smi: str = ""):
+    """Phase 5: the tenant-kernel plane on the card at a shared GPU's size
+    — a 1 GiB arena, four tenants of 2**26 slots, the simulated libraries
+    at working sets of 2**22 slots and more — under NONE, BITWISE, MODULO
+    and CHECK, solo and four-wide fused.  Each policy's results on the
+    card equal the port's on the CPU for the same seeded inputs; a
+    forged-pointer kernel leaves the other partitions byte-identical;
+    under CHECK the rogue's rows roll back, are counted by kind and it is
+    quarantined; a NONE launch past the arena leaves the context usable.
+    Prints the device and wall time, the bytes allocated and the rollback
+    bytes of each launch round."""
+    sz = dict(TENANT_SIZES if sz is None else sz)
+    t_start = time.perf_counter()
+    inputs = tenant_inputs(sz)
+    arena_mb = sz["arena"] * 4 / 2**20
+    log(f"tenant plane: {arena_mb:.0f} MB arena, {sz['tenants']} tenants "
+        f"x {sz['arena'] // sz['tenants']} slots; gemm {sz['gemm']}^3, "
+        f"dot/axpby/isamax n = {sz['n']}, fft n = {sz['fft']}, spmv nnz "
+        f"= {sz['nnz']} over {sz['rows']} rows ({smi})")
+    ladder = {}
+    for policy in TENANT_POLICIES:
+        card = TenantPlane(torch, policy, device, sz, inputs)
+        cpu = TenantPlane(torch, policy, "cpu", sz, inputs)
+        everyone = list(range(len(card.clients)))
+        rounds = (("solo", [0]), ("x4", everyone if policy != "none"
+                                  else [0, 0, 0, 0]))
+        worst = 0.0
+        for label, tenants in rounds:
+            reqs_card = _tenant_round(card, tenants)
+            reqs_cpu = _tenant_round(cpu, tenants)
+            worst = max(worst, _compare(
+                torch, _tenant_results(card, reqs_card),
+                _tenant_results(cpu, reqs_cpu), f"{policy} {label}"))
+        st = card.mgr.scheduler.stats
+        if policy != "none" and st.fused_steps != len(card.ops()):
+            raise AssertionError(f"{policy}: {st.fused_steps} fused steps, "
+                                 f"want {len(card.ops())}")
+        log(f"  [{policy}] card = CPU: float reductions within "
+            f"{worst:.3g} normwise (tolerance {TOL_F32}), axpby bytes and "
+            f"isamax ids exact; drain steps fused {st.fused_steps}, single "
+            f"{st.single_steps}, check {st.check_steps}, proven "
+            f"{st.proven_steps}")
+        if device == "cuda" and policy == "none":
+            for label, tenants in rounds:
+                for op in card.ops():
+                    t = _time_op(torch, Unfenced(card), op, tenants)
+                    ladder[("unfenced", label, op[0])] = t
+                    log(f"  [unfenced] {op[0]:6s} {label:4s}: device "
+                        f"{t['dev']:.4f} ms, wall {t['wall']:.4f} ms, "
+                        f"kernels {t['busy']:.4f} ms in {t['ops']:g} device "
+                        f"ops a round; allocated {t['alloc']:.1f} MB, peak "
+                        f"+{t['peak']:.1f} MB")
+        if device == "cuda":
+            for label, tenants in rounds:
+                for op in card.ops():
+                    fused0 = st.fused_steps
+                    rb0 = st.rollback_bytes
+                    t = _time_op(torch, card, op, tenants)
+                    rb = (st.rollback_bytes - rb0) / t["rounds"] / 2**20
+                    fused = (st.fused_steps - fused0) / t["rounds"]
+                    ladder[(policy, label, op[0])] = t
+                    log(f"  [{policy}] {op[0]:6s} {label:4s}: device "
+                        f"{t['dev']:.4f} ms, wall {t['wall']:.4f} ms, "
+                        f"kernels {t['busy']:.4f} ms in {t['ops']:g} device "
+                        f"ops a round; allocated {t['alloc']:.1f} MB, peak "
+                        f"+{t['peak']:.1f} MB (arena {arena_mb:.0f} MB); "
+                        f"rollback log {rb:.2f} MB; fused steps {fused:g} "
+                        "a round")
+        _tenant_isolation(torch, card, cpu, policy, sz)
+        card_ops = card.ops()
+        del card, cpu
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    if ladder:
+        ops = [op[0] for op in card_ops]
+        # over the unfenced kernels: the fence's overhead; over NONE: what
+        # a policy costs beyond jnp's out-of-range semantics, which NONE
+        # keeps and an unfenced kernel does not
+        for over in ("unfenced", "none"):
+            for key, what in (("dev", "device time"),
+                              ("busy", "kernel time")):
+                log(f"  ladder ({what} / {over}'s; x4 of {over} = four "
+                    f"unfused calls; {smi}):")
+                for policy in TENANT_POLICIES:
+                    if policy == over:
+                        continue
+                    parts = []
+                    for lb in ("solo", "x4"):
+                        for op in ops:
+                            r = ladder[(policy, lb, op)][key] \
+                                / ladder[(over, lb, op)][key]
+                            parts.append(f"{op} {r:.2f}x ({lb})")
+                    log(f"    {policy:8s} " + ", ".join(parts))
+    log(f"tenant plane: ok in {time.perf_counter() - t_start:.1f} s")
+
+
+def _tenant_isolation(torch, card, cpu, policy, sz):
+    """The forged-pointer attack (BITWISE, MODULO, CHECK) or the NONE
+    probe past the arena, on the card and on the CPU."""
+    if policy == "none":
+        past = torch.tensor(sz["arena"] + 5, dtype=torch.int32)
+        outs = []
+        for plane in (card, cpu):
+            snap = plane.mgr.arena.buf.clone()
+            r = plane.launch(("probe", "probe", (), (past, 4096)), [0])[0]
+            plane.mgr.synchronize()
+            outs.append(r.result.cpu())
+            # every store fell past the arena and was dropped: no byte of
+            # the arena moved, slot 0 (where a dropped store is redirected
+            # with the value already there) included
+            if not torch.equal(plane.mgr.arena.buf, snap):
+                raise AssertionError(f"NONE past the arena: the arena "
+                                     f"changed on the {plane.mgr.device}")
+            del snap
+            # the context stays usable: another launch and a synchronize
+            plane.launch(plane.ops()[1], [0])
+            plane.mgr.synchronize()
+        if not (torch.equal(outs[0].isnan(), outs[1].isnan())
+                and outs[0].isnan().all()):
+            raise AssertionError("NONE past the arena: card != CPU")
+        log(f"  [none] a launch 5 slots past the {sz['arena']}-slot arena "
+            "loads NaN and drops its stores, as the reference (the arena "
+            "byte-identical before and after, on the card and the CPU); "
+            "the next launch and synchronize run")
+        return
+    n_t = sz["tenants"]
+    rogue = n_t - 1
+    victim = card.ptrs[0]["x"].addr
+    # first a four-wide fused round in which every tenant stores at its
+    # own x buffer and the rogue at t0's, then the rogue alone; the
+    # fused round stays under the quarantine threshold, the two together
+    # reach it
+    rounds = (("x4", sz["evil"] // 2, list(range(n_t))),
+              ("solo", sz["evil"], [rogue]))
+    st = card.mgr.scheduler.stats
+    total = 0
+    for label, n, tenants in rounds:
+        snaps = {id(p): [p.partition(t).clone() for t in range(n_t)]
+                 for p in (card, cpu)}
+        fused0 = st.fused_steps
+        for plane in (card, cpu):
+            for t in tenants:
+                target = victim if t == rogue else plane.ptrs[t]["x"].addr
+                plane.clients[t].launch_kernel(
+                    "evil", args=(torch.tensor(target, dtype=torch.int32),
+                                  n))
+            plane.mgr.run_queued()
+        card.mgr.synchronize()
+        total += n
+        if len(tenants) > 1 and not (st.fused_steps == fused0 + 1
+                                     and st.batch_widths[-1] == n_t):
+            raise AssertionError(f"{policy} {label}: the attack did not "
+                                 f"run as one {n_t}-wide fused step")
+        # every partition, on the card and on the CPU, is what it held
+        # before plus exactly the stores its own rows may make (the
+        # timing rounds ran on the card alone, so the two planes' bytes
+        # differ; what the attack changed may not)
+        for plane in (card, cpu):
+            where = f"{policy} {label} ({plane.mgr.device})"
+            for t in range(n_t):
+                want = snaps[id(plane)][t].clone()
+                if t == rogue and policy != "check":
+                    # both fences wrap an address into the row by its
+                    # offset modulo the row's size
+                    at = victim % want.numel()
+                    want[at:at + n] = 999.0
+                elif t != rogue and t in tenants:   # its own, legit stores
+                    at = plane.ptrs[t]["x"].addr \
+                        - plane.mgr.bounds.lookup(f"t{t}").base
+                    want[at:at + n] = 999.0
+                if not torch.equal(plane.partition(t), want):
+                    raise AssertionError(
+                        f"{where}: tenant t{t}'s partition is not what "
+                        "its own stores leave" + (
+                            " (the forged stores landed elsewhere than "
+                            "wrapped, or were not rolled back)"
+                            if t == rogue else ""))
+        counts = card.mgr.violog.counts(f"t{rogue}")
+        if counts != cpu.mgr.violog.counts(f"t{rogue}"):
+            raise AssertionError(f"{policy} {label}: ViolationLog rows "
+                                 "differ")
+        state = card.mgr.quarantine.state_of(f"t{rogue}")
+        if policy == "check":
+            want_state = "QUARANTINED" if total >= sz["evil"] else "ACTIVE"
+            if not (counts["scatter"] == total
+                    and state.name == want_state
+                    and cpu.mgr.quarantine.state_of(f"t{rogue}") is state):
+                raise AssertionError(
+                    f"check {label}: rogue not counted / {want_state} "
+                    f"({counts}, {state})")
+            detail = (f"its {n} stores rolled back, {total} counted "
+                      f"({counts}), {state.name}")
+        else:
+            detail = f"its {n} stores wrapped into its own partition"
+        others = ("the other three tenants' own stores landed, nothing "
+                  "else of their partitions moved" if len(tenants) > 1
+                  else "the other three partitions byte-identical")
+        log(f"  [{policy}] forged pointer of t{rogue} at t0's buffer, "
+            f"{label}, on the card and the CPU: {others}; {detail}")
+
+
 # A worker of the same-card A/B: phase 2 of the checkout at argv[1], run
 # with that checkout's own chip_smoke.py and kernels, then the main path's
 # prefill write timed by this file's (argv[2]) code against that
@@ -1318,6 +1779,11 @@ def main() -> int:
                                     ("scatter_pages_kernel",)))
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         return same_card_ab(Path(sys.argv[2]).resolve())
+    if len(sys.argv) == 2 and sys.argv[1] == "--tenants":
+        # a development switch: phase 5 alone, after the build, to iterate
+        # on the tenant plane without paying for the serve paths
+        tenant_plane(torch, smi=smi)
+        return 0
 
     cfgs = [get_config(name) for name in PATHS]
     floor = launch_floor_ms(torch)
@@ -1341,6 +1807,7 @@ def main() -> int:
         check_full_width(torch, cfg)
         gc.collect()
         torch.cuda.empty_cache()
+    tenant_plane(torch, smi=smi)
     paths = {}
     for cfg in cfgs:
         # each path's engine, manager and pool are freed before the next

@@ -316,9 +316,29 @@ def apply_fence(policy: FencePolicy, idx, params: FenceParams
 
 
 # ---------------------------------------------------------------------------
-# Guarded contiguous arena access (the elastic relocation step).  Axis 0 of
-# ``arena`` is the shared slot space; writes update the arena in place.
+# Guarded arena ops — the "sandboxed load/store".  Axis 0 of ``arena`` is
+# the shared slot space; writes update the arena in place.  Indices are
+# fenced in int32 and widened to int64 only at the access.
 # ---------------------------------------------------------------------------
+
+
+def guarded_take(arena: torch.Tensor, idx, params: FenceParams,
+                 policy: FencePolicy = FencePolicy.BITWISE) -> torch.Tensor:
+    """Fenced gather of arena rows: ``arena[fence(idx)]``."""
+    fenced, _ = apply_fence(policy, idx, params)
+    return arena[fenced.to(arena.device).long()]
+
+
+def guarded_update(arena: torch.Tensor, idx, values: torch.Tensor,
+                   params: FenceParams,
+                   policy: FencePolicy = FencePolicy.BITWISE
+                   ) -> torch.Tensor:
+    """Fenced scatter of arena rows, in place:
+    ``arena[fence(idx)] = values``."""
+    fenced, _ = apply_fence(policy, idx, params)
+    arena[fenced.to(arena.device).long()] = torch.as_tensor(
+        values, dtype=arena.dtype, device=arena.device)
+    return arena
 
 
 def _fenced_window(start, length: int, params: FenceParams,

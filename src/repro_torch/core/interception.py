@@ -68,6 +68,15 @@ class DevicePtr:
             object.__setattr__(self, "_addr_dev", val)
             return val
 
+    def addr_on(self, device):
+        """:attr:`addr_device` staged on ``device``, cached per device (a
+        launch operand of a tenant kernel)."""
+        cache = self.__dict__.setdefault("_addr_on", {})
+        val = cache.get(device)
+        if val is None:
+            val = cache[device] = self.addr_device.to(device)
+        return val
+
 
 @dataclasses.dataclass
 class CallRecord:

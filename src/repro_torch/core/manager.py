@@ -1,5 +1,4 @@
-"""GuardianManager — the ``grdManager`` analogue (Guardian §4.2), trusted
-subset.
+"""GuardianManager — the ``grdManager`` analogue (Guardian §4.2).
 
 The manager is the **only entity with device access**: it owns the arena
 tensors (on its ``device``), the partition bounds table, and the symbol
@@ -14,15 +13,19 @@ Responsibilities (paper section in parentheses):
   against the bounds table; violations raise :class:`GuardianViolation`
   without touching the device.
 * **Kernel invocation** (§4.2.3): ``pointer_to_symbol`` maps kernel name →
-  entry.  This port registers *trusted* kernels — framework-plane steps
-  such as the serving engine's prefill/decode, internally fenced per row
-  from :meth:`GuardianManager.fence_table` — which run eagerly on the
-  device.  Sandboxed tenant kernels (``register_kernel``, the sandboxer
-  and the static verifier) are not ported yet.
+  entry.  A tenant kernel (:meth:`GuardianManager.register_kernel`) is a
+  plain PyTorch function over the arena; the sandboxer
+  (:mod:`repro_torch.core.sandbox`) traces it into an aten graph and runs
+  it with every arena access fenced — the launch is *augmented* with the
+  partition's ``(base, mask)`` scalars — or natively when the tenant runs
+  standalone.  *Trusted* kernels — framework-plane steps such as the
+  serving engine's prefill/decode, internally fenced per row from
+  :meth:`GuardianManager.fence_table` — run as they are.
 * **Spatial multiplexing** (§4.2.4): per-tenant queues drained
   round-robin; the selected launches go to the
-  :class:`BatchedLaunchScheduler`, which coalesces compatible trusted
-  steps of different engines into one batch per cycle.
+  :class:`BatchedLaunchScheduler`, which coalesces compatible launches of
+  different tenants into one batch per cycle (per-row fence rows from a
+  :class:`FenceTable`; CHECK rows commit selectively).
 * **Fault containment**: a device-side per-tenant
   :class:`~repro_torch.core.violations.ViolationLog` polled by the
   :class:`~repro_torch.core.quarantine.QuarantineManager` at drain-cycle
@@ -44,7 +47,8 @@ import torch
 from repro_torch.core.arena import Arena, ArenaSpec, PoolArena, \
     make_flat_arena
 from repro_torch.core.elastic import ElasticManager, ElasticPolicy
-from repro_torch.core.fence import FencePolicy, FenceTable
+from repro_torch.core.fence import FenceParams, FencePolicy, FenceTable, \
+    require_pow2_sizes
 from repro_torch.core.interception import DevicePtr, GuardianClient
 from repro_torch.core.partition import (
     IntraPartitionAllocator,
@@ -58,14 +62,17 @@ from repro_torch.core.quarantine import (
     QuarantineManager,
     QuarantinePolicy,
 )
+from repro_torch.core.sandbox import UndoLog, sandbox
 from repro_torch.core.scheduler import (
     BatchedLaunchScheduler,
     LaunchRequest,
     LRUCache,
+    _arg_signature,
 )
 from repro_torch.core.telemetry import DRAIN_TRACK, Telemetry
 from repro_torch.core.tenantclass import ClassSpec, TenantClassPolicy, \
     as_class_policy
+from repro_torch.core.verifier import SandboxProof, verify as verify_kernel
 from repro_torch.core.violations import ViolationLog
 
 
@@ -113,6 +120,18 @@ class _KernelEntry:
     name: str
     fn: Callable
     arena_argnums: Tuple[int, ...]
+    #: the sandboxed twins of a tenant kernel, one per fence mode:
+    #: ``native(arena, *args)`` (NONE — the reference's out-of-range
+    #: semantics, no fence), ``fenced_dyn(arena, base, mask, *args)``,
+    #: ``checked_dyn(arena, base, size, *args, undo=) -> ((arena, out),
+    #: ok, counts)`` and ``modulo_dyn(arena, base, size, m, s, *args)``
+    native: Optional[Callable] = None
+    fenced_dyn: Optional[Callable] = None
+    checked_dyn: Optional[Callable] = None
+    modulo_dyn: Optional[Callable] = None
+    #: per-partition static MODULO twins, keyed (base, size)
+    modulo_static: Dict[Tuple[int, int], Callable] = dataclasses.field(
+        default_factory=dict)
     #: framework-plane kernels (serving-engine steps): already fenced
     #: internally via a GuardSpec built from the manager's fence table
     trusted: bool = False
@@ -122,10 +141,31 @@ class _KernelEntry:
     #: the returned one, so N engines sharing the pool (and fused rows of
     #: one batch) always see each other's updates.
     pool_arena: Optional[str] = None
-    #: per-kernel specializations (none while every kernel runs eagerly;
-    #: kept LRU-bounded for the flight recorder's jit-cache view)
+    #: planned sandbox programs keyed (mode, argument signature) — the
+    #: port's stand-in for the reference's per-(kernel, mode, signature)
+    #: jit cache; LRU-bounded by the manager's ``jit_cache_capacity``
     jit_cache: Dict[Tuple, Callable] = dataclasses.field(
         default_factory=dict)
+    #: run the static verifier over each new trace (PROVEN sites lose
+    #: their fence, REFUTED kernels raise at trace time)
+    verify: bool = False
+    #: fence-aware convention ``fn(arena, base, mask, *args)``: the row
+    #: scalars are forwarded *into* the kernel (Listing 1 made visible)
+    fence_aware: bool = False
+    #: verifier proofs keyed by trace signature, beside the program cache
+    proofs: Dict[Tuple, Any] = dataclasses.field(default_factory=dict)
+
+
+def _run_twin(entry: _KernelEntry, mode: str, sb, fp: FenceParams,
+              args: Tuple, undo: Optional[UndoLog] = None):
+    """One launch of a sandboxed twin through the entry's program cache
+    (trace, verify and plan once per (mode, signature))."""
+    key = (mode, _arg_signature(args))
+    prog = entry.jit_cache.get(key)
+    if prog is None:
+        prog = sb.program(fp, args)
+        entry.jit_cache[key] = prog
+    return sb.run(prog, fp, args, undo)
 
 
 @dataclasses.dataclass
@@ -219,8 +259,9 @@ class GuardianManager:
 
         # §4.2.3 — pointerToSymbol: kernel name -> kernel entry.
         self.pointer_to_symbol: Dict[str, _KernelEntry] = {}
-        # partition scalars pre-staged on device for the raw-launch augment
-        # path (not ported yet; elastic resizes drop stale entries)
+        # partition scalars pre-staged on device (the "augment" fast path:
+        # the two extra parameters are reused, not re-uploaded per launch;
+        # elastic resizes drop stale entries)
         self._part_scalars: Dict[str, Tuple[Any, Any, Any]] = {}
         # per-tenant fence-policy overrides (None -> manager default); lets
         # one arena mix e.g. MODULO and CHECK tenants — each policy group
@@ -386,19 +427,41 @@ class GuardianManager:
         self.telemetry.forget_tenant(tenant_id)
 
     def _purge_symbol_caches(self, part: Partition) -> None:
-        """Evict per-partition compiled state when a partition dies or
-        moves.  The port compiles nothing per partition yet (trusted
-        kernels run eagerly), so there is nothing to purge; the elastic
-        plane calls this hook on every resize."""
+        """Evict per-tenant planned state from the program caches when a
+        partition dies or moves (the elastic plane calls this on every
+        resize):
+
+        * NONE-policy ("native") programs: planned while some tenant ran
+          standalone; they carry no fence, so none may survive a
+          tenant-set change.
+        * The partition's static MODULO twins and their programs.
+        * Scheduler fence-table stagings that reference the dead bounds.
+        """
+        self._purge_native_entries()
+        for entry in self.pointer_to_symbol.values():
+            for key in [k for k in entry.jit_cache
+                        if k[0] == f"mod{part.base}.{part.size}"]:
+                del entry.jit_cache[key]
+            entry.modulo_static.pop((part.base, part.size), None)
+        self.scheduler.invalidate_table_rows((part.base, part.mask))
 
     # -- quarantine/eviction hooks (driven by QuarantineManager) -------- #
     def _drop_tenant_ops(self, tenant_id: str) -> None:
         """Quarantine: discard everything queued or pending for the tenant
-        (its in-flight work must not keep landing)."""
+        (its in-flight work must not keep landing) and purge standalone
+        programs (the tenant set effectively changed)."""
         q = self._queues.get(tenant_id)
         if q is not None:
             q.clear()
         self.scheduler.drop_tenant(tenant_id)
+        self._purge_native_entries()
+
+    def _purge_native_entries(self) -> None:
+        """No NONE-policy (unfenced) program survives a tenant-set or
+        lifecycle change — the next standalone tenant plans afresh."""
+        for entry in self.pointer_to_symbol.values():
+            for key in [k for k in entry.jit_cache if k[0] == "native"]:
+                del entry.jit_cache[key]
 
     def _evict_tenant(self, tenant_id: str) -> None:
         """Eviction: drop ops, then scrub + reclaim the partition."""
@@ -454,6 +517,20 @@ class GuardianManager:
             self._fence_table_key = key
             self._fence_table_row = {t: i for i, t in enumerate(ids)}
         return self._fence_table, self._fence_table_row
+
+    def _scalars_for(self, tenant_id: str, part: Partition):
+        """Device-staged ``(base, mask, size)`` int32 scalars per tenant —
+        the two extra kernel parameters, reused rather than re-uploaded
+        each launch.  Pow2 is validated before staging."""
+        cached = self._part_scalars.get(tenant_id)
+        if cached is None or cached[3] != (part.base, part.size):
+            require_pow2_sizes(part.size)
+            dev = self.device
+            cached = tuple(torch.tensor(v, dtype=torch.int32, device=dev)
+                           for v in (part.base, part.mask, part.size)) + (
+                (part.base, part.size),)
+            self._part_scalars[tenant_id] = cached
+        return cached[:3]
 
     @property
     def standalone(self) -> bool:
@@ -573,7 +650,7 @@ class GuardianManager:
         flat = torch.as_tensor(np.asarray(host).reshape(-1)).to(
             self.arena.spec.dtype)
         addr = self._resolve_ptr(tenant_id, ptr)
-        self._validate_range(tenant_id, addr, flat.size, "cudaMemcpyH2D")
+        self._validate_range(tenant_id, addr, flat.numel(), "cudaMemcpyH2D")
         if self.mode is SharingMode.SPATIAL:
             self._enqueue(tenant_id, "h2d", (addr, flat))
         else:
@@ -619,6 +696,99 @@ class GuardianManager:
             self.arenas[name] = pool
         return pool
 
+    def register_kernel(self, name: str, fn: Callable,
+                        arena_argnums: Sequence[int] = (0,),
+                        verify: bool = True,
+                        fence_aware: bool = False) -> None:
+        """Offline sandboxing (§4.3, §4.4) of a tenant kernel.
+
+        ``fn(arena, *args) -> (arena, out)``: a plain PyTorch function over
+        the flat arena, storing in place (``arena[idx] = v``) and returning
+        the arena it was given; ``out`` may be any pytree of tensors (use
+        ``None`` for stores-only kernels).  Tensor arguments are launch
+        operands; any other argument is a launch dimension baked into the
+        plan.  The sandboxer traces the kernel on fake tensors at its first
+        launch of each argument signature and *fails closed*
+        (:class:`~repro_torch.core.sandbox.SandboxError`) on anything it
+        cannot contain.
+
+        ``verify=True`` (default) runs the static bounds verifier over
+        every new trace: PROVEN sites get **no runtime fence**, and a
+        kernel with a provably out-of-bounds site raises
+        :class:`~repro_torch.core.verifier.GuardianStaticViolation` at
+        trace time.  ``verify=False`` restores fence-everything behaviour.
+
+        ``fence_aware=True`` declares the Listing-1 convention
+        ``fn(arena, base, mask, *args)``: the launch row's scalars are
+        forwarded *into* the kernel, and a kernel applying its own ``(idx &
+        mask) | base`` proves itself row-exact for every partition.
+        """
+        if name in self.pointer_to_symbol:
+            return  # idempotent: many clients may load the same module
+
+        arena_argnums = tuple(arena_argnums)
+        bound = (1, 2) if fence_aware else ()
+
+        def on_proof(proof: SandboxProof) -> None:
+            holder = self.pointer_to_symbol.get(name)
+            if holder is not None:
+                holder.proofs[("row", proof.arg_sig)] = proof
+
+        def make(policy, count=False, check=verify):
+            return sandbox(fn, arena_argnums=arena_argnums, policy=policy,
+                           count_violations=count, verify=check,
+                           bound_argnums=bound, on_proof=on_proof)
+
+        native_sb = make(FencePolicy.NONE, check=False)
+        fenced_sb = make(FencePolicy.BITWISE)
+        checked_sb = make(FencePolicy.CHECK, count=True)
+        modulo_sb = make(FencePolicy.MODULO)
+
+        def row(base, size, mask=None, **magic) -> FenceParams:
+            fp = FenceParams(base=base, size=size, **magic)
+            if mask is not None:
+                fp.__dict__["mask"] = mask      # no recompute per launch
+            return fp
+
+        def kargs(arena, base, mask, args):
+            # fence-aware kernels see the row scalars as leading args
+            return (arena, base, mask, *args) if fence_aware else \
+                (arena, *args)
+
+        def native(arena, *args):
+            out, _ = _run_twin(entry, "native", native_sb, None,
+                               (arena, *args))
+            return out
+
+        def fenced_dyn(arena, base, mask, *args):
+            # the two extra kernel parameters of Listing 1
+            fp = row(base, mask + 1, mask)
+            out, _ = _run_twin(entry, "bitwise", fenced_sb, fp,
+                               kargs(arena, base, mask, args))
+            return out
+
+        def checked_dyn(arena, base, size, *args, undo=None):
+            fp = row(base, size)
+            return _run_twin(entry, "check", checked_sb, fp,
+                             kargs(arena, base, size - 1, args), undo)
+
+        def modulo_dyn(arena, base, size, m, s, *args):
+            # one magic row of the FenceTable: the four extra parameters
+            # that make MODULO a dynamic (fusable) mode
+            fp = row(base, size, magic_m=m, magic_s=s)
+            out, _ = _run_twin(entry, "modulo", modulo_sb, fp,
+                               kargs(arena, base, size - 1, args))
+            return out
+
+        entry = _KernelEntry(
+            name=name, fn=fn, arena_argnums=arena_argnums,
+            native=native, fenced_dyn=fenced_dyn, checked_dyn=checked_dyn,
+            modulo_dyn=modulo_dyn,
+            jit_cache=LRUCache(self.jit_cache_capacity),
+            verify=verify, fence_aware=fence_aware,
+            proofs=LRUCache(self.jit_cache_capacity))
+        self.pointer_to_symbol[name] = entry
+
     def register_trusted_kernel(self, name: str, fn: Callable,
                                 arena_argnums: Sequence[int] = (0,),
                                 pool_arena: Optional[str] = None,
@@ -652,6 +822,91 @@ class GuardianManager:
             trusted=True, pool_arena=pool_arena,
             jit_cache=LRUCache(self.jit_cache_capacity))
 
+    def _modulo_exec(self, entry: _KernelEntry, part: Partition) -> Callable:
+        """The per-launch MODULO twin of one partition: static bounds and
+        magic constants (the reference's per-partition specialization)."""
+        key = (part.base, part.size)
+        if key not in entry.modulo_static:
+            fp = FenceParams(base=part.base, size=part.size)
+            sb = sandbox(entry.fn, arena_argnums=entry.arena_argnums,
+                         policy=FencePolicy.MODULO, verify=entry.verify,
+                         bound_argnums=(1, 2) if entry.fence_aware else ())
+            mode = f"mod{part.base}.{part.size}"
+            # a fence-aware kernel is handed the row's scalars
+            lead = tuple(torch.tensor(v, dtype=torch.int32,
+                                      device=self.device)
+                         for v in (part.base, part.mask)) \
+                if entry.fence_aware else ()
+
+            def modulo_entry(arena, *args):
+                out, _ = _run_twin(entry, mode, sb, fp,
+                                   (arena, *lead, *args))
+                return out
+
+            entry.modulo_static[key] = modulo_entry
+        return entry.modulo_static[key]
+
+    # ------------------------------------------------------------------ #
+    # Static bounds proofs (core/verifier.py)                            #
+    # ------------------------------------------------------------------ #
+    def _verifier_args(self, entry: _KernelEntry, call_args: Sequence[Any]):
+        if entry.fence_aware:
+            zero = torch.zeros((), dtype=torch.int32, device=self.device)
+            return (self.arena.buf, zero, zero, *call_args), (1, 2)
+        return (self.arena.buf, *call_args), ()
+
+    def symbolic_proof(self, entry: _KernelEntry, call_args: Tuple,
+                       arg_sig: Optional[Tuple] = None,
+                       ) -> Optional[SandboxProof]:
+        """Symbolic-row proof for a tenant kernel at one operand signature,
+        computed on first need (on fake tensors) and cached beside the
+        program cache.  A *fully proven symbolic* proof holds for every
+        partition, so the scheduler may route CHECK batches of this
+        signature onto the plain fused path.  ``None`` when the kernel is
+        not fully provable (or not verifiable at all)."""
+        if entry.trusted or not entry.verify:
+            return None
+        key = ("sym", _arg_signature(call_args) if arg_sig is None
+               else arg_sig)
+        proof = entry.proofs.get(key)
+        if proof is None:
+            args, bound = self._verifier_args(entry, call_args)
+            try:
+                proof = verify_kernel(
+                    entry.fn, args, arena_argnums=entry.arena_argnums,
+                    bound_argnums=bound, params=None, mode="row")
+            except Exception:
+                proof = False    # not verifiable; never retry this sig
+            entry.proofs[key] = proof
+        if proof and proof.symbolic and proof.fully_proven:
+            return proof
+        return None
+
+    def sandbox_report(self, name: str,
+                       example_args: Sequence[Any] = ()) -> SandboxProof:
+        """Per-site verifier classification of a registered tenant kernel
+        against the *symbolic* fence row (valid for every partition) — the
+        operator surface for "why does this site still fence?".
+        ``example_args`` are the kernel's operands after the arena."""
+        entry = self.pointer_to_symbol.get(name)
+        if entry is None:
+            raise GuardianViolation(
+                f"unknown kernel {name!r}: symbol not in grdLib")
+        if entry.trusted:
+            raise ValueError(
+                f"{name!r} is a trusted kernel; its extent-mode proof is "
+                "not ported")
+        args, bound = self._verifier_args(entry, example_args)
+        return verify_kernel(entry.fn, args,
+                             arena_argnums=entry.arena_argnums,
+                             bound_argnums=bound, params=None, mode="row")
+
+    def _on_device(self, a):
+        """A tensor launch operand on the manager's device."""
+        if isinstance(a, torch.Tensor) and a.device != self.device:
+            return a.to(self.device, non_blocking=True)
+        return a
+
     def launch_kernel(self, tenant_id: str, name: str,
                       ptrs: Sequence[DevicePtr] = (),
                       args: Sequence[Any] = (),
@@ -670,10 +925,13 @@ class GuardianManager:
 
         remap = self._ptr_remap.get(tenant_id)
         ptr_args = tuple(
-            p.addr_device if not remap
+            p.addr_on(self.device) if not remap
             or p.addr not in remap.get(p.epoch, ())
-            else torch.tensor(remap[p.epoch][p.addr], dtype=torch.int32)
+            else torch.tensor(remap[p.epoch][p.addr], dtype=torch.int32,
+                              device=self.device)
             for p in ptrs)
+        if not entry.trusted:
+            args = tuple(self._on_device(a) for a in args)
         req = LaunchRequest(tenant_id=tenant_id, name=name,
                             policy=self._effective_policy(tenant_id),
                             entry=entry, part=part,
@@ -709,15 +967,21 @@ class GuardianManager:
         return req.result
 
     def _execute_request(self, req: LaunchRequest) -> Any:
-        """Per-launch (unbatched) dispatch of one request — width-1
-        scheduler batches, TIME_SHARE and ``batch_launches=False`` land
-        here.  A trusted step is internally fenced: it runs as is, with
-        the arena (and its pool arena) threaded through; its pool writes
-        land in place and the step hands the same tensors back."""
+        """Per-launch (unbatched) dispatch of one request — the standalone
+        fast path, width-1 scheduler batches, TIME_SHARE and
+        ``batch_launches=False`` land here (MODULO keeps its static
+        per-partition twin on this path; fused MODULO rides the
+        scheduler's magic-row table).  CHECK on the scheduler path never
+        does: the scheduler diverts every CHECK batch to its
+        contain-and-log commit path; the raising CHECK below is the
+        per-launch paths' only.
+
+        A trusted step is internally fenced: it runs as is, with the arena
+        (and its pool arena) threaded through; its pool writes land in
+        place and the step hands the same tensors back."""
         entry = req.entry
         if not entry.trusted:
-            raise NotImplementedError(
-                "raw tenant-kernel launches are not ported yet")
+            return self._execute_tenant(req)
         t1 = time.perf_counter_ns()
         if entry.pool_arena is None:
             new_arena, out = entry.fn(self.arena.buf, *req.call_args)
@@ -728,6 +992,57 @@ class GuardianManager:
             pool.buf = new_pool
         self.arena.buf = new_arena
         self.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t1)
+        req.result = out
+        return out
+
+    def _execute_tenant(self, req: LaunchRequest) -> Any:
+        entry, part, policy = req.entry, req.part, req.policy
+        # -- augment params (Table 5 "Augment kernel params") ------------
+        t1 = time.perf_counter_ns()
+        undo = None
+        if policy is FencePolicy.NONE:
+            call_args = req.call_args
+            if entry.fence_aware:
+                # the kernel consumes the row scalars itself
+                base_s, mask_s, _ = self._scalars_for(req.tenant_id, part)
+                call_args = (base_s, mask_s, *call_args)
+            fn = entry.native
+        elif policy is FencePolicy.BITWISE:
+            base_s, mask_s, _ = self._scalars_for(req.tenant_id, part)
+            call_args = (base_s, mask_s, *req.call_args)
+            fn = entry.fenced_dyn
+        elif policy is FencePolicy.MODULO:
+            fn = self._modulo_exec(entry, part)
+            call_args = req.call_args
+        elif policy is FencePolicy.CHECK:
+            base_s, _, size_s = self._scalars_for(req.tenant_id, part)
+            call_args = (base_s, size_s, *req.call_args)
+            fn = entry.checked_dyn
+            undo = UndoLog()
+        else:  # pragma: no cover
+            raise ValueError(policy)
+        t2 = time.perf_counter_ns()
+        self.launch_stats.augment_ns.append(t2 - t1)
+
+        # -- dispatch ----------------------------------------------------
+        if policy is FencePolicy.CHECK:
+            (new_arena, out), ok, counts = fn(self.arena.buf, *call_args,
+                                              undo=undo)
+            self.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t2)
+            # attribute even on the raising path: the log row is what the
+            # quarantine policy reasons over
+            self.violog.add(req.tenant_id, counts)
+            if not bool(ok):
+                undo.restore()          # the faulting launch never lands
+                msg = (f"kernel {req.name!r} of tenant {req.tenant_id!r} "
+                       "performed an out-of-bounds access (detected by "
+                       "CHECK)")
+                self.violations.append(msg)
+                raise GuardianViolation(msg)
+        else:
+            new_arena, out = fn(self.arena.buf, *call_args)
+            self.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t2)
+        self.arena.buf = new_arena
         req.result = out
         return out
 

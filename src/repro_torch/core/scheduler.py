@@ -1,5 +1,5 @@
 """Batched multi-tenant launch scheduler — the grdManager's launch
-multiplexer (Guardian §4.2.3–§4.2.4), trusted-step path.
+multiplexer (Guardian §4.2.3–§4.2.4).
 
 The scheduler coalesces *compatible* pending launches from different
 tenants into one batch per drain cycle:
@@ -7,18 +7,27 @@ tenants into one batch per drain cycle:
 * Compatibility = same kernel symbol, same fence policy, same operand
   signature (tensor shapes/dtypes + static launch dims); policies never
   mix in one batch (the policy is part of the signature).
+* A batch of T sandboxed tenant launches takes one
+  :class:`~repro_torch.core.fence.FenceTable` — ``(T, 2)`` int32 ``(base,
+  mask)`` rows, or for MODULO the ``(T, 4)`` magic rows ``(base, size, m,
+  s)`` — staged on the device once per tenant set.  Row r runs the
+  kernel's sandboxed twin fenced with tenant r's own row, so a forged
+  index in r's operands only wraps inside r's partition.  The reference
+  compiles the T rows into one device program; the port runs them as its
+  rows in submission order, each seeing the arena the row before it
+  left, which is the same composition (one drain step for the stats).
+* CHECK batches attribute faults per row and **commit selectively**:
+  each row's fenced stores are logged (:class:`~repro_torch.core.sandbox.
+  UndoLog`), a row whose ``ok`` is false has exactly those elements
+  restored on the device before the next row runs, and its per-kind
+  counts fold into the device-side ViolationLog — no host sync.  A CHECK
+  batch whose kernel carries a fully proven *symbolic* bounds proof rides
+  the plain fused path instead (``proven_steps``).
 * Trusted batches — the serving engines' prefill/decode steps, internally
   fenced multi-row programs — run as the sequential composition of their
   solo steps: row r runs engine r's step, threading the manager arena and
   the shared pool arena row to row, so engine r+1's step sees engine r's
-  pool updates exactly as in the per-launch drain.  (The reference
-  compiles that composition into one device program; the port runs it
-  eagerly, so batch widths, drain-cycle counts and
-  :class:`SchedulerStats` are the same.)
-
-The raw-launch fused BITWISE / MODULO / CHECK paths for sandboxed tenant
-kernels are not ported yet: only trusted kernels can be registered with
-the port's manager.
+  pool updates exactly as in the per-launch drain.
 
 Fairness: requests are taken strictly in arrival order (the manager's
 round-robin cycle order).  A request that cannot join the open batch
@@ -51,9 +60,10 @@ from typing import Any, Callable, Deque, Dict, Iterable, List, Optional, \
 
 import torch
 
-from repro_torch.core.fence import FencePolicy
+from repro_torch.core.fence import FencePolicy, FenceTable
 from repro_torch.core.pressure import Ewma, derive_lookahead, \
     total_arrival_rate
+from repro_torch.core.sandbox import UndoLog
 from repro_torch.core.telemetry import Histogram, QUEUE_AGE_BOUNDS, \
     SCHEDULER_TRACK
 
@@ -213,6 +223,10 @@ class SchedulerStats:
     #: carries a fully-proven *symbolic* bounds proof (violations are
     #: statically impossible — no ViolationLog plumbing needed)
     proven_steps: int = 0
+    #: arena bytes the CHECK commit path logged for selective rollback —
+    #: the elements rows stored, each saved once (a rollback re-reads and
+    #: rewrites them); counted from shapes on the host, no sync
+    rollback_bytes: int = 0
     max_batch_width: int = 0
     #: launches that fused *across* drain cycles: dispatched in a width>1
     #: step at a later cycle than they were submitted (the lookahead win)
@@ -373,10 +387,18 @@ class BatchedLaunchScheduler:
         self._class_tracking = False
         self._cycle = 0
         self._pending: List[LaunchRequest] = []
-        # ("trusted", name, policy, arg-sig, T) -> fused step; LRU-bounded
-        # (one composition per signature×width)
+        # (name, policy, arg-sig, T) -> fused step; LRU-bounded (one
+        # composition per signature×width)
         self._fused_cache: Dict[Tuple, Callable] = LRUCache(
             fused_cache_capacity)
+        # ((base, mask), ...) -> device-staged FenceTable (re-staging the
+        # same tenant set's rows every flush costs a host->device put);
+        # LRU-bounded — compositions are combinatorial in the tenants
+        self._table_cache: Dict[Tuple, FenceTable] = LRUCache(512)
+        # (tenant_id, ...) -> device-staged ViolationLog row ids of a CHECK
+        # batch (invalidated when a tenant's log row is recycled)
+        self._vrow_cache: Dict[Tuple[str, ...], torch.Tensor] = LRUCache(
+            512)
         self.stats = SchedulerStats()
         # tenant ids of the most recent device steps, in dispatch order
         # (fairness tests / debugging; bounded — see SchedulerStats)
@@ -471,14 +493,24 @@ class BatchedLaunchScheduler:
         return dropped
 
     def invalidate_tenant_rows(self, tenant_id: str) -> None:
-        """Forget a departing tenant's scheduling history: its arrival
-        rate (a departed tenant must not keep inflating the adaptive
-        budget) and its queue-age EWMA (a departed LC tenant must not keep
-        preempting best-effort co-tenants)."""
+        """Forget a departing tenant: staged row-id vectors naming it (its
+        ViolationLog row is being recycled), its arrival rate (a departed
+        tenant must not keep inflating the adaptive budget) and its
+        queue-age EWMA (a departed LC tenant must not keep preempting
+        best-effort co-tenants)."""
+        for key in [k for k in self._vrow_cache if tenant_id in k]:
+            del self._vrow_cache[key]
         self._arrival_ewma.pop(tenant_id, None)
         self._cycle_arrivals.pop(tenant_id, None)
         self._qage_ewma.pop(tenant_id, None)
         self._flush_max_age.pop(tenant_id, None)
+
+    def invalidate_table_rows(self, bounds: Tuple[int, int]) -> None:
+        """Drop staged FenceTables referencing a dead partition's
+        ``(base, mask)`` — called by the manager on partition
+        reclamation."""
+        for key in [k for k in self._table_cache if bounds in k[0]]:
+            del self._table_cache[key]
 
     def flush(self, drain: bool = True) -> None:
         """Coalesce and execute pending requests, oldest first.
@@ -710,13 +742,83 @@ class BatchedLaunchScheduler:
             tel.event("lookahead_flush", SCHEDULER_TRACK,
                       width=len(batch),
                       tenants=",".join(r.tenant_id for r in batch))
-        if not getattr(batch[0].entry, "trusted", False):
-            raise NotImplementedError(
-                "raw tenant-kernel launches are not ported yet; only "
-                "trusted kernels run on the port's scheduler")
-        # internally-fenced engine step: width-N batches run as the
-        # sequential composition of their rows' solo steps
-        self._execute_trusted(batch)
+        if getattr(batch[0].entry, "trusted", False):
+            # internally-fenced engine step: width-N batches run as the
+            # sequential composition of their rows' solo steps
+            self._execute_trusted(batch)
+            return
+        if batch[0].policy is FencePolicy.CHECK:
+            # A fully proven *symbolic* bounds proof holds for every
+            # partition: no access can stray, so the CHECK plumbing (ok
+            # predicates, ViolationLog attribution, selective commit) is
+            # dead weight — ride the plain fused path instead.
+            head = batch[0]
+            proof = self.manager.symbolic_proof(
+                head.entry, head.call_args, arg_sig=head.signature[2])
+            if proof is not None:
+                self.stats.proven_steps += 1
+                if tel is not None and tel.enabled:
+                    tel.registry.inc("proven_steps")
+                    tel.event("proven_step", SCHEDULER_TRACK,
+                              kernel=head.name, width=len(batch))
+                for r in batch:
+                    r.repolicy(FencePolicy.BITWISE)
+            else:
+                # CHECK always takes the attributing commit path (any
+                # width): a width-1 CHECK step contains and logs, it does
+                # not raise, so its semantics match the fused case
+                self._execute_check(batch)
+                return
+        if len(batch) == 1:
+            self.stats.single_steps += 1
+            self.manager._execute_request(batch[0])
+            return
+
+        mgr = self.manager
+        T = len(batch)
+        head = batch[0]
+        modulo = head.policy is FencePolicy.MODULO
+        key = (*head.signature, T)
+        fn = self._fused_cache.get(key)
+        if fn is None:
+            fn = (self._build_fused_modulo if modulo else self._build_fused)(
+                head.entry, head.signature[2], T)
+            self._fused_cache[key] = fn
+        table = self._staged_table(batch, with_magic=modulo)
+        flat_dyn: List[Any] = []
+        for req in batch:
+            flat_dyn.extend(a for a in req.call_args
+                            if isinstance(a, torch.Tensor))
+        t0 = time.perf_counter_ns()
+        new_arena, outs = fn(mgr.arena.buf,
+                             table.magic if modulo else table.rows,
+                             *flat_dyn)
+        mgr.arena.buf = new_arena
+        mgr.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t0)
+        for req, out in zip(batch, outs):
+            req.result = out
+        self._record_step(T)
+
+    def _staged_table(self, batch: List[LaunchRequest],
+                      with_magic: bool = False) -> FenceTable:
+        key = (tuple((r.part.base, r.part.mask) for r in batch), with_magic)
+        table = self._table_cache.get(key)
+        if table is None:
+            table = FenceTable.from_partitions(
+                [r.part for r in batch], with_magic=with_magic,
+                device=self.manager.device)
+            self._table_cache[key] = table
+        return table
+
+    def _staged_vrows(self, batch: List[LaunchRequest]) -> torch.Tensor:
+        key = tuple(r.tenant_id for r in batch)
+        vrows = self._vrow_cache.get(key)
+        if vrows is None:
+            vrows = torch.tensor(
+                [self.manager.violog.assign(r.tenant_id) for r in batch],
+                dtype=torch.int64, device=self.manager.device)
+            self._vrow_cache[key] = vrows
+        return vrows
 
     def _record_step(self, T: int) -> None:
         reg = self._tel_registry()
@@ -786,6 +888,116 @@ class BatchedLaunchScheduler:
                     arena, pool, out = entry.fn(arena, pool, *rows[r])
                     outs.append(out)
                 return arena, pool, tuple(outs)
+        return fused
+
+    # ------------------------------------------------------------------ #
+    def _execute_check(self, batch: List[LaunchRequest]) -> None:
+        """CHECK-mode dispatch with per-row attribution + selective
+        commit: every row's checked twin runs with an undo log, a row whose
+        ``ok`` is false has its stores restored before the next row runs,
+        and each row's per-kind violation counts fold into the manager's
+        device-side ViolationLog — no host sync (the QuarantineManager
+        polls the log at cycle boundaries)."""
+        mgr = self.manager
+        T = len(batch)
+        head = batch[0]
+        key = (*head.signature, T)
+        fn = self._fused_cache.get(key)
+        if fn is None:
+            fn = self._build_fused_check(head.entry, head.signature[2], T)
+            self._fused_cache[key] = fn
+        table = self._staged_table(batch)
+        vrows = self._staged_vrows(batch)
+        flat_dyn: List[Any] = []
+        for req in batch:
+            flat_dyn.extend(a for a in req.call_args
+                            if isinstance(a, torch.Tensor))
+        t0 = time.perf_counter_ns()
+        new_arena, new_log, _ok_rows, outs = fn(
+            mgr.arena.buf, mgr.violog.buf, table.rows, vrows, *flat_dyn)
+        mgr.arena.buf = new_arena
+        mgr.violog.buf = new_log
+        mgr.violog.dirty = True
+        mgr.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t0)
+        for req, out in zip(batch, outs):
+            req.result = out
+        self.stats.check_steps += 1
+        self._record_step(T)
+
+    @staticmethod
+    def _rows_of(arg_sig: Tuple, T: int, flat_dyn: Sequence[Any]):
+        """Each row's call operands: its tensors from ``flat_dyn`` in
+        order, launch dimensions from the signature."""
+        n_dyn = sum(1 for kind, *_ in arg_sig if kind == "d")
+        for r in range(T):
+            row_dyn = iter(flat_dyn[r * n_dyn:(r + 1) * n_dyn])
+            yield r, [next(row_dyn) if kind == "d" else spec[0]
+                      for kind, *spec in arg_sig]
+
+    def _build_fused_check(self, entry, arg_sig: Tuple, T: int) -> Callable:
+        """CHECK twin of :meth:`_build_fused`: rows carry dynamic ``(base,
+        size)`` bounds, return per-row ``ok``, and commit selectively —
+        an offending row's stores are undone before the next row sees the
+        arena (a kernel that returned a fresh arena tensor instead has it
+        committed only where ``ok``), so co-tenant rows land exactly as in
+        their standalone runs."""
+        rows_of, stats = self._rows_of, self.stats
+
+        def fused(arena, violog, rows, vrows, *flat_dyn):
+            oks, outs = [], []
+            for r, call in rows_of(arg_sig, T, flat_dyn):
+                undo = UndoLog()
+                written, ok, counts = entry.checked_dyn(
+                    arena, rows[r, 0], rows[r, 1] + 1, *call, undo=undo)
+                new_arena, out = written
+                undo.rollback(ok)
+                stats.rollback_bytes += undo.nbytes
+                if new_arena is not arena:
+                    new_arena = torch.where(ok, new_arena, arena)
+                arena = new_arena
+                # counts are nonzero exactly where ok is false — fold
+                # unconditionally (in-bounds rows add zeros)
+                violog.index_add_(0, vrows[r:r + 1],
+                                  counts.to(violog.device).view(1, -1))
+                oks.append(ok)
+                outs.append(out)
+            return arena, violog, oks, tuple(outs)
+
+        return fused
+
+    def _build_fused(self, entry, arg_sig: Tuple, T: int) -> Callable:
+        """One fused step per (kernel, operand signature, width): the
+        ``(base, mask)`` rows are dynamic operands, so any T co-located
+        tenants share it; rows run in submission order, threading the
+        arena."""
+        rows_of = self._rows_of
+
+        def fused(arena, rows, *flat_dyn):
+            outs = []
+            for r, call in rows_of(arg_sig, T, flat_dyn):
+                arena, out = entry.fenced_dyn(arena, rows[r, 0], rows[r, 1],
+                                              *call)
+                outs.append(out)
+            return arena, tuple(outs)
+
+        return fused
+
+    def _build_fused_modulo(self, entry, arg_sig: Tuple, T: int) -> Callable:
+        """MODULO twin of :meth:`_build_fused`: rows come from the magic
+        row table — ``(base, size, m, s)`` per tenant — so the reciprocal
+        division runs with dynamic constants, bit-identical to the
+        per-launch path's static per-partition twin."""
+        rows_of = self._rows_of
+
+        def fused(arena, magic_rows, *flat_dyn):
+            outs = []
+            for r, call in rows_of(arg_sig, T, flat_dyn):
+                m = magic_rows[r]
+                arena, out = entry.modulo_dyn(arena, m[0], m[1], m[2], m[3],
+                                              *call)
+                outs.append(out)
+            return arena, tuple(outs)
+
         return fused
 
 

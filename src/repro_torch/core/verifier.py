@@ -1,0 +1,1289 @@
+"""Static bounds verifier — trace-time proof of arena-access safety, row
+mode, over the aten graph of a tenant kernel.
+
+Guardian (§4.3) fences only *register-addressed* loads because direct
+accesses are provably safe at compile time.  The sandbox
+(:mod:`repro_torch.core.sandbox`) fences every tainted access; this module
+is the compiler pass that proves some of them safe: an **interval abstract
+interpretation** over the ``make_fx`` graph of the kernel that classifies
+each tainted access site as
+
+    PROVEN   statically inside the fence row ``[base, base + size)`` — the
+             runtime fence is redundant and the sandbox elides it;
+    FENCED   unprovable either way — keep the runtime fence;
+    REFUTED  outside the row on *every* launch — surfaced at trace time as
+             :class:`GuardianStaticViolation`.
+
+The abstract domain — affine bounds over the row's symbols ``B`` (base)
+and ``S`` (size), decided over the polytope ``{B >= 0, S >= 1, B + S <=
+N}`` — is the reference's, line for line.  The transfer functions follow
+the aten ops ``make_fx`` emits (``add``, ``bitwise_and``, ``remainder``,
+``clamp``, ``arange``, views, ``_to_copy``, the index ops, ...); an op
+without one gives ⊤, so its sites are FENCED, never PROVEN: partial
+coverage is safe.  Python loops with a fixed count are unrolled by the
+trace and verify as straight-line code; a higher-order loop op is refused
+by the tracer (:func:`trace_kernel`), so there is no loop fixpoint here.
+
+The graph analysis shared with the sandbox — tracing on fake tensors, the
+taint rule, and the table of access ops — lives here too, so the two
+walkers classify every node identically.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import operator
+import warnings
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.fence import FenceParams
+from repro_torch.core.violations import ViolationKind
+
+aten = torch.ops.aten
+
+__all__ = [
+    "FENCED", "PROVEN", "REFUTED", "GuardianStaticViolation",
+    "GuardianTaintWarning", "SandboxProof", "SiteRecord", "VerifierError",
+    "trace_kernel", "verify", "verify_graph",
+]
+
+
+class GuardianStaticViolation(Exception):
+    """A tenant kernel contains an access the verifier *refuted*: provably
+    out-of-bounds on every launch.  Raised at trace time with the per-site
+    diagnostic — the static analogue of a CHECK-mode detection."""
+
+
+class VerifierError(Exception):
+    """The abstract interpretation could not complete; the sandbox turns
+    this into a refusal of the kernel (fail closed)."""
+
+
+class GuardianTaintWarning(UserWarning):
+    """A view or copy reshaped away the arena's slot dimension (a reshape
+    splitting dim 0, a permute demoting it).  Taint is *kept* — downstream
+    accesses stay fenced — instead of silently dropping the arena
+    lineage."""
+
+
+class SandboxError(Exception):
+    """Raised when a tenant kernel uses a construct the sandboxer cannot
+    prove safe — the manager refuses the kernel (fail closed, like
+    grdManager refusing an unknown CUDA symbol)."""
+
+
+# --------------------------------------------------------------------------
+# Linear expressions over bound symbols (the reference's domain)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Lin:
+    """``const + Σ coef_i · sym_i`` with integer coefficients; a concrete
+    bound is a ``Lin`` with no terms.  Python-int arithmetic."""
+
+    const: int
+    terms: Tuple[Tuple[int, int], ...] = ()
+
+    def __add__(self, other: "Lin") -> "Lin":
+        acc = dict(self.terms)
+        for s, c in other.terms:
+            acc[s] = acc.get(s, 0) + c
+        return Lin(self.const + other.const,
+                   tuple(sorted((s, c) for s, c in acc.items() if c)))
+
+    def __sub__(self, other: "Lin") -> "Lin":
+        return self + other.scale(-1)
+
+    def scale(self, k: int) -> "Lin":
+        if k == 0:
+            return Lin(0)
+        return Lin(self.const * k, tuple((s, c * k) for s, c in self.terms))
+
+    def shift(self, k: int) -> "Lin":
+        return Lin(self.const + k, self.terms)
+
+    @property
+    def is_const(self) -> bool:
+        return not self.terms
+
+    def __str__(self) -> str:
+        parts = [str(self.const)] if (self.const or not self.terms) else []
+        for s, c in self.terms:
+            name = _SYM_NAMES.get(s, f"x{s}")
+            mag = abs(c) if abs(c) != 1 else ""
+            parts.append(f"{'+' if c > 0 else '-'}{mag}{name}")
+        return "".join(parts).lstrip("+") or "0"
+
+
+_SYM_NAMES: Dict[int, str] = {}
+
+
+def lc(c: int) -> Lin:
+    return Lin(int(c))
+
+
+class SymCtx:
+    """Allocates ``(B, S)`` symbol pairs and decides linear inequalities
+    by minimizing over each pair's polytope (three vertices)."""
+
+    def __init__(self):
+        self._next = 0
+        self._pair_of: Dict[int, Tuple[int, int, Optional[int]]] = {}
+
+    def new_pair(self, extent: Optional[int] = None,
+                 tag: str = "") -> Tuple[int, int]:
+        b, s = self._next, self._next + 1
+        self._next += 2
+        self._pair_of[b] = (b, s, extent)
+        self._pair_of[s] = (b, s, extent)
+        _SYM_NAMES[b] = f"B{tag}"
+        _SYM_NAMES[s] = f"S{tag}"
+        return b, s
+
+    def prove_nonneg(self, e: Lin) -> bool:
+        by_pair: Dict[int, Tuple[int, int, Optional[int]]] = {}
+        coefs: Dict[int, Dict[int, int]] = {}
+        for sym, coef in e.terms:
+            pair = self._pair_of.get(sym)
+            if pair is None:
+                return False
+            by_pair[pair[0]] = pair
+            coefs.setdefault(pair[0], {})[sym] = coef
+        total = e.const
+        for b, (pb, ps, extent) in by_pair.items():
+            db = coefs[b].get(pb, 0)
+            ds = coefs[b].get(ps, 0)
+            if extent is None:
+                if db < 0 or ds < 0:
+                    return False
+                total += ds
+            else:
+                n = int(extent)
+                total += min(ds, ds * n, db * max(n - 1, 0) + ds)
+        return total >= 0
+
+    def le(self, a: Lin, b: Lin) -> bool:
+        return self.prove_nonneg(b - a)
+
+    def lt(self, a: Lin, b: Lin) -> bool:
+        return self.prove_nonneg((b - a).shift(-1))
+
+
+# --------------------------------------------------------------------------
+# Intervals
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Ival:
+    """Tensor-wide interval; ``None`` bound = unbounded in that direction."""
+
+    lo: Optional[Lin] = None
+    hi: Optional[Lin] = None
+
+    @property
+    def is_top(self) -> bool:
+        return self.lo is None and self.hi is None
+
+    def __str__(self) -> str:
+        lo = "-inf" if self.lo is None else str(self.lo)
+        hi = "+inf" if self.hi is None else str(self.hi)
+        return f"[{lo}, {hi}]"
+
+
+TOP = Ival()
+
+
+def iconst(lo: int, hi: Optional[int] = None) -> Ival:
+    return Ival(lc(lo), lc(lo if hi is None else hi))
+
+
+def _opt_add(a: Optional[Lin], b: Optional[Lin]) -> Optional[Lin]:
+    return None if (a is None or b is None) else a + b
+
+
+def iadd(a: Ival, b: Ival) -> Ival:
+    return Ival(_opt_add(a.lo, b.lo), _opt_add(a.hi, b.hi))
+
+
+def ineg(a: Ival) -> Ival:
+    return Ival(None if a.hi is None else a.hi.scale(-1),
+                None if a.lo is None else a.lo.scale(-1))
+
+
+def isub(a: Ival, b: Ival) -> Ival:
+    return iadd(a, ineg(b))
+
+
+def _as_const(a: Ival) -> Optional[int]:
+    if (a.lo is not None and a.hi is not None and a.lo.is_const
+            and a.hi.is_const and a.lo.const == a.hi.const):
+        return a.lo.const
+    return None
+
+
+def imul(a: Ival, b: Ival) -> Ival:
+    for x, y in ((a, b), (b, a)):
+        k = _as_const(x)
+        if k is not None:
+            if k >= 0:
+                return Ival(None if y.lo is None else y.lo.scale(k),
+                            None if y.hi is None else y.hi.scale(k))
+            return Ival(None if y.hi is None else y.hi.scale(k),
+                        None if y.lo is None else y.lo.scale(k))
+    bounds = (a.lo, a.hi, b.lo, b.hi)
+    if all(x is not None and x.is_const for x in bounds):
+        prods = [a.lo.const * b.lo.const, a.lo.const * b.hi.const,
+                 a.hi.const * b.lo.const, a.hi.const * b.hi.const]
+        return iconst(min(prods), max(prods))
+    return TOP
+
+
+def _pick_le(ctx: SymCtx, a: Optional[Lin], b: Optional[Lin],
+             prefer_first: bool = True) -> Optional[Lin]:
+    if a is None or b is None:
+        return None
+    if ctx.le(a, b):
+        return a
+    if ctx.le(b, a):
+        return b
+    return a if prefer_first else None
+
+
+def imin(ctx: SymCtx, a: Ival, b: Ival) -> Ival:
+    if a.hi is None:
+        hi = b.hi
+    elif b.hi is None:
+        hi = a.hi
+    else:
+        hi = a.hi if ctx.le(a.hi, b.hi) else \
+            (b.hi if ctx.le(b.hi, a.hi) else a.hi)
+    return Ival(_pick_le(ctx, a.lo, b.lo, prefer_first=False), hi)
+
+
+def imax(ctx: SymCtx, a: Ival, b: Ival) -> Ival:
+    return ineg(imin(ctx, ineg(a), ineg(b)))
+
+
+def ijoin(ctx: SymCtx, a: Ival, b: Ival) -> Ival:
+    lo = _pick_le(ctx, a.lo, b.lo, prefer_first=False)
+    hi = None
+    if a.hi is not None and b.hi is not None:
+        if ctx.le(a.hi, b.hi):
+            hi = b.hi
+        elif ctx.le(b.hi, a.hi):
+            hi = a.hi
+    return Ival(lo, hi)
+
+
+def iwiden(ctx: SymCtx, old: Ival, new: Ival) -> Ival:
+    """Classic widening: a bound that moved outward goes to ±∞ (the
+    reference's loop fixpoint; kept with the domain for the structural
+    loop interpretation still to port)."""
+    lo = old.lo if (old.lo is not None and new.lo is not None
+                    and ctx.le(old.lo, new.lo)) else None
+    hi = old.hi if (old.hi is not None and new.hi is not None
+                    and ctx.le(new.hi, old.hi)) else None
+    return Ival(lo, hi)
+
+
+def ieq(a: Ival, b: Ival) -> bool:
+    return a.lo == b.lo and a.hi == b.hi
+
+
+# --------------------------------------------------------------------------
+# Proof artifacts
+# --------------------------------------------------------------------------
+
+PROVEN = "proven"
+FENCED = "fenced"
+REFUTED = "refuted"
+
+
+@dataclasses.dataclass(frozen=True)
+class SiteRecord:
+    """One tainted access site: where it is, what it does, what we know."""
+
+    path: Tuple                      # (graph node name,)
+    kind: ViolationKind              # GATHER / SCATTER / SLICE / UPDATE
+    prim: str                        # aten op at the site
+    verdict: str                     # PROVEN | FENCED | REFUTED
+    interval: str                    # index interval at the site (display)
+    target: str                      # the bound it was classified against
+    why: str                         # one-line reason
+
+    def row(self) -> str:
+        return (f"{self.verdict.upper():8s} {self.kind.name.lower():8s} "
+                f"{self.prim:22s} idx∈{self.interval:24s} "
+                f"target {self.target:18s} {self.why}")
+
+
+@dataclasses.dataclass(frozen=True)
+class SandboxProof:
+    """The verifier's per-site provenance for one traced kernel.
+    ``symbolic=True``: computed against the symbolic row ``(B, S)`` — it
+    holds for every partition of the arena."""
+
+    sites: Tuple[SiteRecord, ...]
+    mode: str
+    symbolic: bool
+    arg_sig: Tuple
+    n_eqns: int = 0
+
+    @property
+    def n_proven(self) -> int:
+        return sum(1 for s in self.sites if s.verdict == PROVEN)
+
+    @property
+    def n_fenced(self) -> int:
+        return sum(1 for s in self.sites if s.verdict == FENCED)
+
+    @property
+    def n_refuted(self) -> int:
+        return sum(1 for s in self.sites if s.verdict == REFUTED)
+
+    @property
+    def fully_proven(self) -> bool:
+        return self.n_fenced == 0 and self.n_refuted == 0
+
+    @property
+    def proven_fraction(self) -> float:
+        return self.n_proven / len(self.sites) if self.sites else 1.0
+
+    def verdict_of(self, path: Tuple) -> Optional[str]:
+        for s in self.sites:
+            if s.path == path:
+                return s.verdict
+        return None
+
+    def refuted_sites(self) -> Tuple[SiteRecord, ...]:
+        return tuple(s for s in self.sites if s.verdict == REFUTED)
+
+    def summary(self) -> Dict[str, Any]:
+        return {
+            "sites": len(self.sites),
+            "proven": self.n_proven,
+            "fenced": self.n_fenced,
+            "refuted": self.n_refuted,
+            "fully_proven": self.fully_proven,
+            "proven_fraction": round(self.proven_fraction, 4),
+            "symbolic": self.symbolic,
+            "mode": self.mode,
+        }
+
+    def format_table(self, indent: str = "  ") -> str:
+        if not self.sites:
+            return indent + "(no dynamic arena access sites)"
+        return "\n".join(indent + s.row() for s in self.sites)
+
+
+# --------------------------------------------------------------------------
+# Tracing and the shared graph analysis
+# --------------------------------------------------------------------------
+
+def _dynamic_slice_fake(x, start, length):
+    return x.new_empty((length, *x.shape[1:]))
+
+
+@torch.library.custom_op("repro_torch::dynamic_slice", mutates_args=())
+def _dynamic_slice_op(x: torch.Tensor, start: torch.Tensor,
+                      length: int) -> torch.Tensor:
+    return x[_window(start, length, x.shape[0], x.device)]
+
+
+_dynamic_slice_op.register_fake(_dynamic_slice_fake)
+
+
+@torch.library.custom_op("repro_torch::dynamic_update_slice_",
+                         mutates_args=("x",))
+def _dynamic_update_slice_op(x: torch.Tensor, start: torch.Tensor,
+                             values: torch.Tensor) -> None:
+    x[_window(start, values.shape[0], x.shape[0], x.device)] = \
+        values.to(x.dtype)
+
+
+@_dynamic_update_slice_op.register_fake
+def _(x, start, values):
+    return None
+
+
+def _window(start, length: int, extent: int, device) -> torch.Tensor:
+    """Row ids of a contiguous window of ``length`` rows whose start is
+    clamped into ``[0, extent - length]`` — XLA's dynamic-slice
+    semantics, so an out-of-range start never faults."""
+    s = torch.as_tensor(start).to(device=device, dtype=torch.int32)
+    s = torch.clamp(s.reshape(()), 0, max(extent - length, 0))
+    return s.long() + torch.arange(length, device=device)
+
+
+def dynamic_slice(x: torch.Tensor, start, length: int) -> torch.Tensor:
+    """``length`` rows of ``x`` from a tensor-valued ``start`` — the
+    counterpart of ``jax.lax.dynamic_slice_in_dim(x, start, length)``
+    (start clamped so the window fits).  Inside a sandboxed kernel the
+    start of an arena slice is fenced (a SLICE site)."""
+    return _dynamic_slice_op(x, torch.as_tensor(start), int(length))
+
+
+def dynamic_update_slice(x: torch.Tensor, start,
+                         values: torch.Tensor) -> torch.Tensor:
+    """Write ``values`` over rows of ``x`` from a tensor-valued ``start``,
+    in place — ``jax.lax.dynamic_update_slice_in_dim``'s counterpart.
+    Inside a sandboxed kernel an arena update is fenced (an UPDATE
+    site).  Returns ``x``."""
+    _dynamic_update_slice_op(x, torch.as_tensor(start), values)
+    return x
+
+
+DYNAMIC_SLICE = torch.ops.repro_torch.dynamic_slice.default
+DYNAMIC_UPDATE = torch.ops.repro_torch.dynamic_update_slice_.default
+
+
+@dataclasses.dataclass(frozen=True)
+class AccessOp:
+    """How one aten op addresses its operand (arg 0).
+
+    ``index``: position of the index argument (``list`` ops keep it in a
+    list of optional tensors).  ``dim``: position of the dim argument, or
+    None (dim 0; ``take`` addresses the flattened operand).  ``native``:
+    the out-of-range semantics of the reference's jnp counterpart —
+    ``clamp`` (``x[i]``), ``fill`` (``jnp.take``), ``set``/``add``/
+    ``mul``/``min``/``max`` (``.at[i]`` scatters, which drop), ``window``
+    (``lax.dynamic_slice``).  ``rows``: the index picks whole rows (the
+    ``index_*`` family) rather than elements (``gather``/``scatter``)."""
+
+    kind: ViolationKind
+    index: int
+    dim: Optional[int] = None
+    native: str = "clamp"
+    inplace: bool = False
+    listed: bool = False
+    rows: bool = True
+    values: Optional[int] = None
+
+
+_G, _S = ViolationKind.GATHER, ViolationKind.SCATTER
+
+ACCESS_OPS: Dict[Any, AccessOp] = {
+    aten.index.Tensor: AccessOp(_G, 1, listed=True),
+    aten.take.default: AccessOp(_G, 1, native="fill"),
+    aten.index_select.default: AccessOp(_G, 2, dim=1, native="fill"),
+    aten.gather.default: AccessOp(_G, 2, dim=1, native="fill", rows=False),
+    aten.index_put_.default: AccessOp(_S, 1, native="put", inplace=True,
+                                      listed=True, values=2),
+    aten.index_put.default: AccessOp(_S, 1, native="put", listed=True,
+                                     values=2),
+    aten.index_copy_.default: AccessOp(_S, 2, dim=1, native="set",
+                                       inplace=True, values=3),
+    aten.index_copy.default: AccessOp(_S, 2, dim=1, native="set",
+                                      values=3),
+    aten.index_add_.default: AccessOp(_S, 2, dim=1, native="add",
+                                      inplace=True, values=3),
+    aten.index_add.default: AccessOp(_S, 2, dim=1, native="add", values=3),
+    aten.scatter_.src: AccessOp(_S, 2, dim=1, native="set", inplace=True,
+                                rows=False, values=3),
+    aten.scatter.src: AccessOp(_S, 2, dim=1, native="set", rows=False,
+                               values=3),
+    aten.scatter_.value: AccessOp(_S, 2, dim=1, native="set", inplace=True,
+                                  rows=False, values=3),
+    aten.scatter.value: AccessOp(_S, 2, dim=1, native="set", rows=False,
+                                 values=3),
+    aten.scatter_add_.default: AccessOp(_S, 2, dim=1, native="add",
+                                        inplace=True, rows=False, values=3),
+    aten.scatter_add.default: AccessOp(_S, 2, dim=1, native="add",
+                                       rows=False, values=3),
+    aten.scatter_reduce_.two: AccessOp(_S, 2, dim=1, native="reduce",
+                                       inplace=True, rows=False, values=3),
+    aten.scatter_reduce.two: AccessOp(_S, 2, dim=1, native="reduce",
+                                      rows=False, values=3),
+    DYNAMIC_SLICE: AccessOp(ViolationKind.SLICE, 1, native="window"),
+    DYNAMIC_UPDATE: AccessOp(ViolationKind.UPDATE, 1, native="window",
+                             inplace=True, values=2),
+}
+
+#: Views and copies through which "this value IS the arena slot space"
+#: propagates (the reference's convert_element_type / copy / reshape /
+#: transpose family).
+_VIEWS = {
+    "view", "_unsafe_view", "reshape", "expand", "unsqueeze", "squeeze",
+    "flatten", "view_as",
+}
+_PERMUTES = {"permute", "transpose", "t"}
+_COPIES = {"_to_copy", "clone", "alias", "detach", "contiguous",
+           "lift_fresh_copy", "_conj", "resolve_conj", "resolve_neg"}
+#: ops that address a tensor through an index tensor the sandbox has no
+#: rewrite for: an out-of-range index there would be a device-side
+#: assert, so a kernel using one is refused whatever it indexes
+_UNSUPPORTED_INDEXED = {
+    "embedding", "embedding_bag", "_embedding_bag", "index_fill",
+    "index_fill_", "index_reduce", "index_reduce_", "put", "put_",
+    "scatter", "scatter_", "nll_loss", "nll_loss_forward",
+    "nll_loss2d_forward", "multi_margin_loss",
+    "multilabel_margin_loss_forward", "_unsafe_index", "_unsafe_index_put",
+    "index_put", "index_put_",
+}
+#: ops that read only the metadata (shape/dtype/device) of their input
+_METADATA = {"zeros_like", "ones_like", "empty_like", "full_like",
+             "new_zeros", "new_ones", "new_empty", "new_full", "sym_size",
+             "sym_numel", "sym_stride", "randn_like", "rand_like"}
+
+
+def op_name(target) -> str:
+    pkt = getattr(target, "_overloadpacket", None)
+    return pkt.__name__ if pkt is not None else getattr(
+        target, "__name__", str(target))
+
+
+def _shape(node) -> Tuple[int, ...]:
+    val = node.meta.get("val") if hasattr(node, "meta") else None
+    return tuple(int(d) for d in val.shape) if isinstance(
+        val, torch.Tensor) else ()
+
+
+@dataclasses.dataclass
+class Site:
+    """One access node: its op, operand and index nodes, the addressed
+    dim, and whether the operand is the arena (``tainted``) and keeps its
+    slot axis (``exact``)."""
+
+    node: Any
+    op: AccessOp
+    operand: Any
+    index: Any
+    dim: int
+    extent: int
+    length: int
+    tainted: bool
+    exact: bool
+    list_pos: int = 0
+
+
+@dataclasses.dataclass
+class Traced:
+    """A kernel traced into an aten graph: the graph module, the original
+    argument positions of its placeholders, their taints, the access
+    sites, and the per-node taint / slot-axis facts."""
+
+    gm: Any
+    dyn_pos: List[int]
+    taints: List[bool]
+    sites: Dict[str, Site]
+    tainted: Dict[str, bool]
+    exact: Dict[str, bool]
+    arena_extent: Optional[int]
+
+    @property
+    def placeholders(self) -> List[Any]:
+        return [n for n in self.gm.graph.nodes if n.op == "placeholder"]
+
+    @property
+    def arg_sig(self) -> Tuple:
+        return tuple((_shape(n), str(n.meta["val"].dtype))
+                     for n in self.placeholders)
+
+
+def _unsupported(msg: str) -> SandboxError:
+    return SandboxError(f"tenant kernel refused: {msg}")
+
+
+def _trace_errors() -> Tuple[type, ...]:
+    from torch._subclasses import fake_tensor as ft
+    return (ft.DataDependentOutputException, ft.DynamicOutputShapeException,
+            ft.UnsupportedOperatorException)
+
+
+def trace_kernel(fn: Callable, example_args: Sequence[Any],
+                 arena_argnums: Sequence[int] = (0,)) -> Traced:
+    """Trace ``fn(*example_args)`` into an aten graph on *fake* tensors of
+    the arguments' shapes, dtypes and devices (the live arena is never
+    read or written) and run the shared taint analysis.  Tensor arguments
+    become graph inputs; every other argument is baked in (a launch
+    dimension, like a CUDA grid size).  Fails closed with
+    :class:`SandboxError` on a data-dependent value or shape (``.item()``,
+    a boolean mask), a higher-order op (``cond``, ``while_loop``, ``scan``)
+    and on any use of the arena the walker cannot contain."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    example_args = tuple(example_args)
+    dyn_pos = [i for i, a in enumerate(example_args)
+               if isinstance(a, torch.Tensor)]
+
+    def fn_dyn(*dargs):
+        full = list(example_args)
+        for p, v in zip(dyn_pos, dargs):
+            full[p] = v
+        return fn(*full)
+
+    mode = FakeTensorMode()
+    try:
+        with mode:
+            # a fresh fake per position: two arguments that happen to be
+            # one tensor must not share a graph input
+            fakes = [torch.empty_strided(
+                example_args[p].shape, example_args[p].stride(),
+                dtype=example_args[p].dtype,
+                device=example_args[p].device) for p in dyn_pos]
+            gm = make_fx(fn_dyn, tracing_mode="real")(*fakes)
+    except _trace_errors() as e:
+        raise _unsupported(
+            f"a value or shape depends on tensor data ({type(e).__name__}: "
+            f"{e}); launch dimensions must be Python ints") from e
+    except Exception as e:
+        if "HigherOrderOp" in type(e).__name__:
+            raise _unsupported(
+                "a higher-order op (cond / while_loop / scan) routes the "
+                "arena through control flow the sandbox does not "
+                f"interpret: {e}") from e
+        raise
+    arena_set = frozenset(arena_argnums)
+    taints = [p in arena_set for p in dyn_pos]
+    return _analyze(gm, dyn_pos, taints)
+
+
+def _node_args(node) -> List[Any]:
+    out: List[Any] = []
+
+    def walk(a):
+        if isinstance(a, (list, tuple)):
+            for x in a:
+                walk(x)
+        elif isinstance(a, dict):
+            for x in a.values():
+                walk(x)
+        elif hasattr(a, "op") and hasattr(a, "meta"):
+            out.append(a)
+
+    walk(node.args)
+    walk(node.kwargs)
+    return out
+
+
+def _warn_taint(msg: str) -> None:
+    warnings.warn(msg, GuardianTaintWarning, stacklevel=4)
+
+
+def _analyze(gm, dyn_pos: List[int], taints: List[bool]) -> Traced:
+    """The taint rule over the aten graph, shared by the sandbox and the
+    verifier.  The arena and values derived from it by views and copies
+    are tainted; a gather's output is not (values, not slot space); a
+    scatter's output stays tainted (the arena flows through).  Every
+    other use of a tainted value fails closed: an elementwise op or a
+    reduction over the arena reads every partition, an in-place op other
+    than a fenced scatter writes every partition, an access along another
+    dim than the slot axis reaches every row."""
+    tainted: Dict[str, bool] = {}
+    exact: Dict[str, bool] = {}
+    sites: Dict[str, Site] = {}
+    arena_extent, arena_val = None, None
+    it = iter(taints)
+    for node in gm.graph.nodes:
+        if node.op == "placeholder":
+            t = next(it)
+            tainted[node.name] = exact[node.name] = t
+            if t and arena_val is None:
+                arena_val = node.meta.get("val")
+                arena_extent = _shape(node)[0] if _shape(node) else None
+            continue
+        if node.op == "get_attr":
+            tainted[node.name] = exact[node.name] = False
+            continue
+        if node.op == "output":
+            _check_outputs(node, tainted, exact, arena_val)
+            continue
+        target = node.target
+        if isinstance(target, torch._ops.HigherOrderOperator):
+            raise _unsupported(f"higher-order op `{target}`")
+        ins = _node_args(node)
+        t_in = [tainted.get(a.name, False) for a in ins]
+        name = op_name(target)
+        acc = ACCESS_OPS.get(target)
+        out_t, out_x = False, False
+        if acc is None and name in _UNSUPPORTED_INDEXED:
+            raise _unsupported(
+                f"`{target}` addresses a tensor through an index the "
+                "sandbox cannot keep in range")
+        if acc is not None:
+            site = _site_of(node, acc, tainted, exact)
+            sites[node.name] = site
+            if site.tainted:
+                out_t = acc.kind in (ViolationKind.SCATTER,
+                                     ViolationKind.UPDATE)
+                out_x = out_t and site.exact
+        elif target is operator.getitem:
+            src = node.args[0]
+            if tainted.get(getattr(src, "name", None), False):
+                raise _unsupported("a multi-output op over the arena")
+        elif any(t_in):
+            src = node.args[0] if node.args else None
+            if not (hasattr(src, "name") and tainted.get(src.name)) or \
+                    sum(t_in) > 1:
+                raise _unsupported(
+                    f"`{name}` consumes the arena other than as the "
+                    "operand of a view or an access")
+            out_t, out_x = _transparent(node, name, exact[src.name])
+        tainted[node.name] = out_t
+        exact[node.name] = out_x
+    return Traced(gm=gm, dyn_pos=dyn_pos, taints=list(taints), sites=sites,
+                  tainted=tainted, exact=exact, arena_extent=arena_extent)
+
+
+def _transparent(node, name: str, exact_in: bool) -> Tuple[bool, bool]:
+    """(tainted, slot-exact) of a view / copy of a tainted operand."""
+    src = node.args[0]
+    in_shape, out_shape = _shape(src), _shape(node)
+    if name in _METADATA:
+        return False, False
+    if name in _COPIES:
+        return True, exact_in
+    if name in _VIEWS:
+        if in_shape and out_shape and in_shape[0] == out_shape[0]:
+            return True, exact_in
+        _warn_taint(
+            f"{name} {in_shape} -> {out_shape} does not preserve the "
+            "arena slot dim 0; keeping taint (downstream accesses stay "
+            "fenced)")
+        return True, False
+    if name in _PERMUTES:
+        if name == "permute":
+            moved = list(node.args[1])[0] % max(len(in_shape), 1) != 0
+        elif name == "transpose":
+            d0, d1 = (int(d) % max(len(in_shape), 1)
+                      for d in node.args[1:3])
+            moved = 0 in (d0, d1) and d0 != d1
+        else:
+            moved = len(in_shape) > 1
+        if not moved:
+            return True, exact_in
+        _warn_taint(
+            f"{name} of {in_shape} demotes the arena slot dim 0; keeping "
+            "taint (downstream accesses stay fenced)")
+        return True, False
+    if name in ("slice", "select"):
+        dim = int(node.args[1]) if len(node.args) > 1 else 0
+        if dim % max(len(in_shape), 1) != 0:
+            return True, exact_in
+        if name == "slice" and in_shape and out_shape == in_shape:
+            return True, exact_in          # the whole slot axis
+        raise _unsupported(
+            f"a static {name} of the arena's slot axis (an address the "
+            "fence row cannot follow)")
+    raise _unsupported(
+        f"`{name}` consumes the arena other than as the operand of a view "
+        "or an access")
+
+
+def _site_of(node, acc: AccessOp, tainted, exact) -> Site:
+    args = list(node.args)
+    operand = args[0]
+    t_op = tainted.get(operand.name, False)
+    shape = _shape(operand)
+    if acc.listed:
+        entries = list(args[acc.index])
+        present = [i for i, e in enumerate(entries) if e is not None]
+        if len(present) != 1:
+            raise _unsupported(
+                f"`{op_name(node.target)}` with {len(present)} index "
+                "tensors (one is supported)")
+        pos = present[0]
+        index, dim = entries[pos], pos
+    else:
+        index = args[acc.index]
+        dim = 0 if acc.dim is None else int(args[acc.dim])
+        pos = 0
+    if acc.native == "reduce":
+        reduce = args[4] if len(args) > 4 else node.kwargs.get("reduce")
+        include_self = args[5] if len(args) > 5 else node.kwargs.get(
+            "include_self", True)
+        if reduce not in ("sum", "prod", "amax", "amin") or not include_self:
+            raise _unsupported(
+                f"scatter_reduce with reduce={reduce!r}, "
+                f"include_self={include_self}")
+    if acc.native == "put":
+        accumulate = args[3] if len(args) > 3 else node.kwargs.get(
+            "accumulate", False)
+        acc = dataclasses.replace(acc, native="add" if accumulate else "set")
+    ndim = max(len(shape), 1)
+    dim = dim % ndim
+    if node.target is aten.take.default:
+        extent = 1
+        for d in shape:
+            extent *= d
+    else:
+        extent = shape[dim] if shape else 1
+    length = 1
+    if acc.kind is ViolationKind.SLICE:
+        length = int(args[2])
+    elif acc.kind is ViolationKind.UPDATE:
+        vs = _shape(args[2])
+        length = vs[0] if vs else 1
+    for other in _node_args(node):
+        if other is not operand and tainted.get(other.name, False):
+            raise _unsupported(
+                f"`{op_name(node.target)}` takes an index or values "
+                "straight from the arena (load them with a gather first)")
+    if t_op:
+        if dim != 0:
+            raise _unsupported(
+                f"`{op_name(node.target)}` addresses dim {dim} of the "
+                "arena, which reaches every slot")
+        if acc.inplace and not exact.get(operand.name, False):
+            raise _unsupported(
+                f"`{op_name(node.target)}` stores through a view of the "
+                "arena that reshaped its slot axis")
+    # a flat index into a multi-dim operand is not in slot units
+    slot_exact = exact.get(operand.name, False) and not (
+        node.target is aten.take.default and len(shape) > 1)
+    return Site(node=node, op=acc, operand=operand, index=index, dim=dim,
+                extent=extent, length=length, tainted=t_op,
+                exact=slot_exact, list_pos=pos)
+
+
+def _check_outputs(node, tainted, exact, arena_val) -> None:
+    """The kernel contract ``(new_arena, out)``: the first result is the
+    arena, updated only through fenced stores (never a value the kernel
+    made up — that would overwrite every partition), and nothing else the
+    kernel returns may be arena-tainted (that would hand every partition
+    to the caller)."""
+    outs = node.args[0]
+    leaves: List[Any] = []
+
+    def walk(a):
+        if isinstance(a, (list, tuple)):
+            for x in a:
+                walk(x)
+        elif isinstance(a, dict):
+            for x in a.values():
+                walk(x)
+        else:
+            leaves.append(a)
+
+    walk(outs)
+    for i, leaf in enumerate(leaves):
+        is_node = hasattr(leaf, "name") and hasattr(leaf, "meta")
+        t = is_node and tainted.get(leaf.name, False)
+        if i == 0 and isinstance(outs, (list, tuple)) and len(outs) == 2:
+            val = leaf.meta.get("val") if is_node else None
+            if not (t and exact.get(leaf.name, False)) or (
+                    arena_val is not None and (
+                        val.shape != arena_val.shape
+                        or val.dtype != arena_val.dtype)):
+                raise _unsupported(
+                    "the first result must be the arena it was given, "
+                    "updated only through fenced stores")
+        elif t:
+            raise _unsupported(
+                "a result other than the arena is the arena itself or a "
+                "view of it")
+
+
+# --------------------------------------------------------------------------
+# Abstract interpreter over the aten graph
+# --------------------------------------------------------------------------
+
+def _const_ival(val) -> Ival:
+    if isinstance(val, bool):
+        return iconst(int(val))
+    if isinstance(val, int):
+        return iconst(val)
+    if isinstance(val, torch.Tensor):
+        if val.numel() == 0 or val.is_floating_point() or val.is_complex():
+            return TOP
+        if getattr(val, "fake_mode", None) is not None or \
+                val.device.type == "meta":
+            return TOP
+        v = val.to(torch.int64)
+        return iconst(int(v.min()), int(v.max()))
+    return TOP
+
+
+def _is_int(node) -> bool:
+    val = node.meta.get("val") if hasattr(node, "meta") else None
+    if isinstance(val, torch.Tensor):
+        return not (val.is_floating_point() or val.is_complex())
+    return isinstance(val, (int, bool))
+
+
+class _Target:
+    """The fence row ``[row_lo, row_hi]`` (inclusive) sites must land in."""
+
+    def __init__(self, row_lo: Lin, row_hi: Lin):
+        self.row_lo, self.row_hi = row_lo, row_hi
+
+    def desc(self) -> str:
+        return f"[{self.row_lo}, {self.row_hi}]"
+
+
+def _normalize_ival(ctx: SymCtx, iv: Ival, extent: int) -> Ival:
+    """The interval after the negative-index wrap (``i < 0 -> i + E``)
+    every jnp gather and scatter applies before it addresses: decided
+    when the sign is provable, else the join of both cases."""
+    if iv.lo is not None and ctx.prove_nonneg(iv.lo):
+        return iv
+    shifted = iadd(iv, iconst(extent))
+    if iv.hi is not None and ctx.lt(iv.hi, lc(0)):
+        return shifted
+    return ijoin(ctx, iv, shifted)
+
+
+class _AbsState:
+    def __init__(self, ctx: SymCtx, target: _Target, traced: Traced):
+        self.ctx = ctx
+        self.target = target
+        self.traced = traced
+        self.sites: List[SiteRecord] = []
+        self.n_eqns = 0
+        #: node name -> index interval at each access, as the op is
+        #: given it (before the negative-index wrap)
+        self.index_ival: Dict[str, Ival] = {}
+
+
+def _classify(state: _AbsState, site: Site, iv: Ival) -> str:
+    ctx, tgt = state.ctx, state.target
+    length = site.length
+    hi_len = tgt.row_hi.shift(1 - length)
+    verdict, why = FENCED, "interval not contained"
+    if (iv.lo is not None and iv.hi is not None
+            and ctx.le(tgt.row_lo, iv.lo) and ctx.le(iv.hi, hi_len)):
+        verdict, why = PROVEN, "statically contained"
+    else:
+        if iv.hi is not None and ctx.lt(iv.hi, tgt.row_lo):
+            verdict, why = REFUTED, "always below partition"
+        elif iv.lo is not None and ctx.lt(tgt.row_hi, iv.lo):
+            verdict, why = REFUTED, "always above partition"
+        else:
+            why = ("interval unbounded" if iv.is_top
+                   else "interval straddles bound")
+    state.sites.append(SiteRecord(
+        path=(site.node.name,), kind=site.op.kind,
+        prim=op_name(site.node.target), verdict=verdict, interval=str(iv),
+        target=tgt.desc(), why=why))
+    return verdict
+
+
+def _arg_ival(ival: Dict[str, Ival], a) -> Ival:
+    if hasattr(a, "name") and hasattr(a, "meta"):
+        return ival.get(a.name, TOP)
+    return _const_ival(a)
+
+
+def _int_range(val) -> Optional[Tuple[int, int]]:
+    """The values an integer tensor's dtype can hold (``None`` for a
+    Python int, which never wraps, and for a float)."""
+    if not isinstance(val, torch.Tensor) or val.is_floating_point() \
+            or val.is_complex():
+        return None
+    if val.dtype == torch.bool:
+        return 0, 1
+    info = torch.iinfo(val.dtype)
+    return int(info.min), int(info.max)
+
+
+#: ops whose interval is computed, not selected from their operands': the
+#: result may leave the dtype's range, and then it wraps
+_WRAPPING = {"add", "sub", "rsub", "neg", "mul", "abs", "arange", "full",
+             "scalar_tensor", "full_like", "new_full"}
+
+
+def _abs_eval(ctx: SymCtx, node, ival: Dict[str, Ival]) -> Ival:
+    """Interval transfer function for one aten node (⊤ when unknown),
+    sound for the node's dtype: where the interval arithmetic may have
+    left the range the dtype holds (an int32 overflow, a narrowing
+    ``_to_copy``), the value wrapped on the device and the result is ⊤;
+    a view that reinterprets the bits as another dtype is ⊤ too."""
+    iv = _abs_eval_op(ctx, node, ival)
+    if iv.is_top:
+        return iv
+    val = node.meta.get("val")
+    rng = _int_range(val)
+    if rng is None:
+        return iv
+    name = op_name(node.target)
+    src = node.args[0] if node.args else None
+    src_val = src.meta.get("val") if hasattr(src, "meta") else None
+    converts = (isinstance(src_val, torch.Tensor)
+                and src_val.dtype != val.dtype)
+    if converts and name in _VIEWS | _PERMUTES | {"slice", "select"}:
+        return TOP                       # a bit reinterpretation
+    if iv.lo is not None and iv.hi is not None:
+        if ctx.le(lc(rng[0]), iv.lo) and ctx.le(iv.hi, lc(rng[1])):
+            return iv
+        return TOP
+    if name in _WRAPPING:
+        return TOP
+    if converts:
+        src_rng = _int_range(src_val)
+        if src_rng is None or src_rng[0] < rng[0] or src_rng[1] > rng[1]:
+            return TOP                   # a narrowing cast
+    return iv
+
+
+def _abs_eval_op(ctx: SymCtx, node, ival: Dict[str, Ival]) -> Ival:
+    """The interval arithmetic of one aten node, before the dtype's range
+    is taken into account (see :func:`_abs_eval`)."""
+    name = op_name(node.target)
+    args = list(node.args)
+    kw = node.kwargs
+    if node.target is operator.getitem or not _is_int(node):
+        return TOP
+
+    def a(i) -> Ival:
+        return _arg_ival(ival, args[i]) if i < len(args) else TOP
+
+    if name == "arange":
+        nums = [x for x in args if not hasattr(x, "meta")]
+        if not all(isinstance(x, int) for x in nums):
+            return TOP
+        start, end, step = 0, None, 1
+        if len(nums) == 1:
+            end = nums[0]
+        elif len(nums) >= 2:
+            start, end = nums[0], nums[1]
+            step = nums[2] if len(nums) > 2 else 1
+        n = max(0, -(-(end - start) // step)) if step else 0
+        if n == 0:
+            return TOP
+        last = start + step * (n - 1)
+        return iconst(min(start, last), max(start, last))
+    if name in ("full", "scalar_tensor", "full_like", "new_full"):
+        v = args[1] if name in ("full", "full_like", "new_full") else args[0]
+        return _const_ival(v)
+    if name in ("zeros", "zeros_like", "new_zeros"):
+        return iconst(0)
+    if name in ("ones", "ones_like", "new_ones"):
+        return iconst(1)
+    if name in _VIEWS | _PERMUTES | _COPIES | {"slice", "select"}:
+        return a(0)
+    if name in ("add", "sub", "rsub"):
+        alpha = _const_ival(kw.get("alpha", 1))
+        x, y = a(0), imul(a(1), alpha)
+        if name == "add":
+            return iadd(x, y)
+        if name == "sub":
+            return isub(x, y)
+        return isub(imul(a(1), iconst(1)), imul(a(0), alpha))
+    if name == "neg":
+        return ineg(a(0))
+    if name == "mul":
+        return imul(a(0), a(1))
+    if name in ("maximum", "max") and len(args) == 2:
+        return imax(ctx, a(0), a(1))
+    if name in ("minimum", "min") and len(args) == 2:
+        return imin(ctx, a(0), a(1))
+    if name in ("clamp", "clip", "clamp_min", "clamp_max"):
+        lo = hi = None
+        if name in ("clamp", "clip"):
+            lo = args[1] if len(args) > 1 else kw.get("min")
+            hi = args[2] if len(args) > 2 else kw.get("max")
+        elif name == "clamp_min":
+            lo = args[1]
+        else:
+            hi = args[1]
+        out = a(0)
+        if lo is not None:
+            out = imax(ctx, out, _arg_ival(ival, lo))
+        if hi is not None:
+            out = imin(ctx, out, _arg_ival(ival, hi))
+        return out
+    if name == "abs":
+        v = a(0)
+        if v.lo is not None and ctx.prove_nonneg(v.lo):
+            return v
+        return Ival(lc(0), None)
+    if name in ("remainder", "fmod"):
+        d = _as_const(a(1))
+        if d is None or d <= 0:
+            return TOP
+        v = a(0)
+        if v.lo is not None and ctx.prove_nonneg(v.lo):
+            hi = lc(d - 1)
+            if v.hi is not None and ctx.le(v.hi, hi):
+                hi = v.hi
+            return Ival(lc(0), hi)
+        if name == "remainder":          # floor mod: sign of the divisor
+            return iconst(0, d - 1)
+        return iconst(-(d - 1), d - 1)
+    if name in ("floor_divide", "div"):
+        mode = kw.get("rounding_mode", "floor" if name == "floor_divide"
+                      else None)
+        d, v = _as_const(a(1)), a(0)
+        if (mode in ("floor", "trunc") and d is not None and d > 0
+                and v.lo is not None and v.hi is not None
+                and v.lo.is_const and v.hi.is_const and v.lo.const >= 0):
+            return iconst(v.lo.const // d, v.hi.const // d)
+        return TOP
+    if name in ("bitwise_right_shift", "__rshift__"):
+        k, v = _as_const(a(1)), a(0)
+        if (k is not None and k >= 0 and v.lo is not None
+                and v.hi is not None and v.lo.is_const and v.hi.is_const
+                and v.lo.const >= 0):
+            return iconst(v.lo.const >> k, v.hi.const >> k)
+        return TOP
+    if name in ("bitwise_and", "__and__"):
+        cands = []
+        for i in (0, 1):
+            v = a(i)
+            if v.lo is not None and ctx.prove_nonneg(v.lo):
+                cands.append(v.hi)
+        if not cands:
+            return TOP
+        hi = cands[0]
+        for c in cands[1:]:
+            hi = _pick_le(ctx, hi, c) if hi is not None else c
+        return Ival(lc(0), hi)
+    if name in ("bitwise_or", "bitwise_xor", "__or__", "__xor__"):
+        x, y = a(0), a(1)
+        if (x.lo is not None and ctx.prove_nonneg(x.lo)
+                and y.lo is not None and ctx.prove_nonneg(y.lo)):
+            lo = lc(0)
+            if name in ("bitwise_or", "__or__"):
+                lo = x.lo if ctx.le(y.lo, x.lo) else y.lo
+            return Ival(lo, _opt_add(x.hi, y.hi))
+        return TOP
+    if name == "where":
+        c = _as_const(a(0))
+        if c == 1:
+            return a(1)
+        if c == 0:
+            return a(2)
+        return ijoin(ctx, a(1), a(2))
+    if name in ("lt", "le", "gt", "ge"):
+        x, y = a(0), a(1)
+        if name in ("gt", "ge"):
+            x, y = y, x
+        strict = name in ("lt", "gt")
+        if x.hi is not None and y.lo is not None and (
+                ctx.lt(x.hi, y.lo) if strict else ctx.le(x.hi, y.lo)):
+            return iconst(1)
+        if x.lo is not None and y.hi is not None and (
+                ctx.le(y.hi, x.lo) if strict else ctx.lt(y.hi, x.lo)):
+            return iconst(0)
+        return iconst(0, 1)
+    if name in ("eq", "ne", "logical_not", "logical_and", "logical_or",
+                "isfinite", "isnan"):
+        return iconst(0, 1)
+    if name in ("argmax", "argmin"):
+        shape = _shape(args[0])
+        dim = args[1] if len(args) > 1 else kw.get("dim")
+        n = 1
+        if dim is None:
+            for d in shape:
+                n *= d
+        elif shape:
+            n = shape[int(dim) % len(shape)]
+        return iconst(0, max(n - 1, 0))
+    if name in ("index", "take", "index_select", "gather", "dynamic_slice"):
+        return a(0)
+    if name in ("index_put", "index_put_", "index_copy", "index_copy_",
+                "scatter", "scatter_"):
+        vpos = ACCESS_OPS[node.target].values
+        return ijoin(ctx, a(0), a(vpos))
+    if name in ("cat", "stack"):
+        items = [_arg_ival(ival, x) for x in args[0]]
+        out = items[0] if items else TOP
+        for v in items[1:]:
+            out = ijoin(ctx, out, v)
+        return out
+    return TOP
+
+
+def _abs_interpret(state: _AbsState, in_ivals: Sequence[Ival]) -> None:
+    traced = state.traced
+    ival: Dict[str, Ival] = {}
+    gm = traced.gm
+    it = iter(in_ivals)
+    for node in gm.graph.nodes:
+        if node.op == "placeholder":
+            ival[node.name] = next(it)
+            continue
+        if node.op == "get_attr":
+            ival[node.name] = _const_ival(getattr(gm, node.target))
+            continue
+        if node.op != "call_function":
+            continue
+        state.n_eqns += 1
+        site = traced.sites.get(node.name)
+        if site is not None:
+            iv = _arg_ival(ival, site.index)
+            state.index_ival[node.name] = iv
+            if site.op.kind not in (ViolationKind.SLICE,
+                                    ViolationKind.UPDATE):
+                iv = _normalize_ival(state.ctx, iv, site.extent)
+            if site.tainted and site.dim == 0:
+                _classify(state, site, iv)
+        ival[node.name] = _abs_eval(state.ctx, node, ival)
+
+
+def verify_graph(traced: Traced, params: Optional[FenceParams] = None, *,
+                 in_roles: Optional[Sequence[Optional[str]]] = None,
+                 ) -> Tuple[SandboxProof, Dict[str, Ival], SymCtx]:
+    """Row-mode proof over a traced kernel.  Static ``params`` give a
+    concrete proof; ``None`` (or tensor-valued params) the symbolic-row
+    proof, valid for every partition of an arena of ``arena_extent``
+    slots.  ``in_roles`` names placeholders that carry the row into the
+    kernel (``"base"`` / ``"mask"`` / ``"size"``).  Also returns each
+    access's index interval (before the negative-index wrap) and the
+    symbol context that decides them."""
+    ctx = SymCtx()
+    static = (params is not None and isinstance(params.base, int)
+              and isinstance(params.size, int))
+    if static:
+        row_lo, row_hi = lc(params.base), lc(params.base + params.size - 1)
+        base_iv, size_iv = iconst(params.base), iconst(params.size)
+    else:
+        b, s = ctx.new_pair(extent=traced.arena_extent)
+        row_lo = Lin(0, ((b, 1),))
+        row_hi = Lin(-1, ((b, 1), (s, 1)))
+        base_iv = Ival(row_lo, row_lo)
+        size_iv = Ival(Lin(0, ((s, 1),)), Lin(0, ((s, 1),)))
+    roles = {"base": base_iv, "size": size_iv,
+             "mask": Ival(size_iv.lo.shift(-1), size_iv.hi.shift(-1))}
+    n_in = len(traced.dyn_pos)
+    in_ivals: List[Ival] = [TOP] * n_in
+    for i, role in enumerate(in_roles or ()):
+        if role in roles and i < n_in:
+            in_ivals[i] = roles[role]
+    state = _AbsState(ctx, _Target(row_lo, row_hi), traced)
+    _abs_interpret(state, in_ivals)
+    proof = SandboxProof(sites=tuple(state.sites), mode="row",
+                         symbolic=not static, arg_sig=traced.arg_sig,
+                         n_eqns=state.n_eqns)
+    return proof, state.index_ival, ctx
+
+
+def roles_for(traced: Traced, bound_argnums: Sequence[int]
+              ) -> List[Optional[str]]:
+    """Placeholder roles of the ``(base, mask)`` argument positions."""
+    roles: List[Optional[str]] = [None] * len(traced.dyn_pos)
+    for role, argnum in zip(("base", "mask"), bound_argnums):
+        if argnum in traced.dyn_pos:
+            roles[traced.dyn_pos.index(argnum)] = role
+    return roles
+
+
+def verify(fn: Callable, example_args: Sequence[Any],
+           arena_argnums: Sequence[int] = (0,),
+           bound_argnums: Sequence[int] = (),
+           params: Optional[FenceParams] = None,
+           mode: str = "row") -> SandboxProof:
+    """Standalone bounds proof for ``fn(*example_args)``.
+    ``bound_argnums`` names the two injected row parameters —
+    ``(base_argnum, mask_argnum)`` — of a fence-aware kernel.  Only
+    ``mode="row"`` is ported (extent mode, for trusted steps, is not)."""
+    if mode != "row":
+        raise ValueError(f"verifier mode {mode!r} is not ported (row only)")
+    traced = trace_kernel(fn, example_args, arena_argnums)
+    proof, _, _ = verify_graph(traced, params,
+                               in_roles=roles_for(traced, bound_argnums))
+    return proof
+
+
+def refute_message(proof: SandboxProof, name: str = "<kernel>") -> str:
+    lines = [f"kernel {name!r}: {proof.n_refuted} access site(s) are "
+             "provably out-of-bounds on every launch:"]
+    for s in proof.refuted_sites():
+        lines.append("  " + s.row())
+    lines.append("(the verifier refuses at trace time; fix the index "
+                 "computation or register with verify=False to fall back "
+                 "to runtime containment)")
+    return "\n".join(lines)
