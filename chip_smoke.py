@@ -40,17 +40,32 @@ qwen3-moe-30b-a3b.  Phases, in order (any failure exits non-zero):
    through the plain versions, from the same weights — greedy ids equal,
    logits within a stated tolerance (the MoE path also prints the smallest
    top-k routing margin it met, so a routing tie can be told from a fault);
+   then, at the same size on the card, the compiled steps (one CUDA graph
+   per step key, ``core/stepgraph.py``) against eager: a prefill's and a
+   decode's logits bit-identical on the first call and on a replay, equal
+   served tokens, a page table forged with a co-tenant's virtual ids
+   leaving the co-tenant's pages byte-identical replay after replay, and
+   decode graphs replayed after an elastic grow and after a co-tenant's
+   eviction writing only the tenants' pages, every pool byte equal to
+   eager; and (once) a step calling ``.item()`` refused at capture with
+   its name;
 4. each main path at full width and full depth (bf16 weights from a seeded
    generator, float32 page pool) through ``make_shared_manager(paged=True)``,
    ``ServeEngine(paged=True)`` and ``serve_continuous``, 3 tenants and 8
-   staggered requests x 16 tokens — every request served with its token
-   count, every kernel of the path launched (counts set to 0 just before
-   the path and read just after), no plain version run.  stablelm-3b runs
-   first and is freed before qwen3-moe-30b-a3b (61 GB of weights) is
-   built; the MoE path also prints its decode-step time against the bytes
-   floor, its peak memory and the (token, k) assignments capacity dropped;
-   a solo rerun under ``torch.profiler`` gives the device's busy share and
-   each of the port's kernels' device time.
+   staggered requests x 16 tokens, served twice on one engine: eager
+   (``jit_trusted`` off, with the routing and logit-gap hooks), then
+   compiled (the default) — equal tokens per request, drain cycles,
+   prefill and decode counts and kernel launches, every request served
+   with its token count, every kernel of the path launched as many times
+   as the per-step count says (counts set to 0 just before each run and
+   read just after), no plain version run.  Each run prints its
+   decode-step time (CUDA events around the manager's dispatch) against
+   the bytes floor, tokens/s and peak memory; the compiled run its graphs,
+   capture seconds and graph-pool bytes.  stablelm-3b runs first and is
+   freed before qwen3-moe-30b-a3b (61 GB of weights) is built; the MoE
+   path also prints the (token, k) assignments capacity dropped; a
+   compiled solo rerun under ``torch.profiler`` gives the device's busy
+   share and each of the port's kernels' device time.
 
 5. the tenant-kernel plane (after phase 3, before phase 4's full-size
    paths): a ``GuardianManager`` with a 1 GiB f32 arena and four tenants
@@ -977,6 +992,267 @@ def check_full_width(torch, cfg):
 
 
 # --------------------------------------------------------------------- #
+# Phase 3 (compiled): steps as CUDA graphs against eager, at phase 3's    #
+# size                                                                  #
+# --------------------------------------------------------------------- #
+
+def compiled_engine(torch, cfg2, device, tenants):
+    """A fresh f32 engine at ``cfg2`` (seed 0: every engine gets the same
+    weights) with ``tenants`` ``{name: (pages, policy)}``."""
+    from repro_torch.launch.serve import ServeEngine, make_shared_manager
+
+    mgr = make_shared_manager(1, max_batch=8, max_len=256, paged=True,
+                              device=device)
+    eng = ServeEngine(cfg2, max_batch=8, max_len=256, manager=mgr,
+                      paged=True, seed=0, device=device)
+    for t, (pages, policy) in tenants.items():
+        eng.register_tenant(t, pages, policy=policy)
+    return mgr, eng
+
+
+def drive(eng, hook=None, max_new_tokens=8):
+    """``serve_continuous`` for one engine, with ``hook(cycle)`` at each
+    cycle boundary."""
+    st = eng._cont_begin(max_new_tokens)
+    while st.cycles < 200:
+        if hook is not None:
+            hook(st.cycles)
+        eng._cont_leave(st)
+        joiners = eng._cont_join(st)
+        h = eng._cont_dispatch(st, joiners)
+        if h[0] is None and h[1] is None and not eng._cont_waiting(st):
+            break
+        eng.manager.run_queued()
+        eng._cont_finish(st, *h)
+    else:
+        raise AssertionError("the trace did not drain in 200 cycles")
+    return eng._cont_finalize(st), st.cycles
+
+
+def probe_logits(torch, eng, compiled: bool, rounds: int):
+    """A prefill and a decode step that hand back their logits, launched
+    through ``eng``'s manager as trusted steps on one prepared batch (two
+    rows serving a request, six parked), ``rounds`` times each: eager, or
+    compiled (the first round warms up and captures, later rounds
+    replay).  Each round rewrites the same pool bytes."""
+    from repro_torch.launch.steps import join_cache_pool, split_cache_pool
+
+    mgr, api = eng.manager, eng.api
+    names = ("probe.prefill", "probe.decode")
+    if names[0] not in mgr.pointer_to_symbol:
+        def step(run):
+            def fn(arena, pool, params, meta, x, guard):
+                cache, logits = run(params, join_cache_pool(pool, meta), x,
+                                    guard=guard)
+                new_pool, new_meta = split_cache_pool(cache)
+                return arena, new_pool, (new_meta, logits)
+            return fn
+        for name, run in zip(names, (api.prefill, api.decode)):
+            mgr.register_trusted_kernel(name, step(run), resident_argnums=(1,),
+                                        pool_arena=eng._steps.pool_name)
+        st = eng._cont_begin(1)
+        for t, p in (("t0", [5, 17, 29, 41, 53, 65, 77]), ("t1", [3] * 40)):
+            eng.submit(t, p, max_new=1)
+        joiners = eng._cont_join(st)
+        eng._probe = (st, joiners)
+    st, joiners = eng._probe
+    rows = [r if i in joiners else None for i, r in enumerate(st.rows)]
+    guard = eng._guard_for_rows(rows)
+    plen = max(len(st.rows[i].prompt) for i in joiners)
+    toks = torch.zeros((eng.max_batch, plen), dtype=torch.int32)
+    for i in joiners:
+        toks[i, :len(st.rows[i].prompt)] = torch.tensor(st.rows[i].prompt)
+    meta = eng._cont_meta(st, set(joiners))
+    mgr.jit_trusted = compiled
+    out = []
+    for _ in range(rounds):
+        pre = eng._client.launch_kernel(names[0], args=(
+            eng.params, meta, {"tokens": toks.to(eng.device)}, guard))
+        mgr.run_queued()
+        new_meta, logits = pre.result
+        dec = eng._client.launch_kernel(names[1], args=(
+            eng.params, new_meta, logits.argmax(-1).to(torch.int32), guard))
+        mgr.run_queued()
+        out.append((logits, dec.result[1]))
+    return out, joiners
+
+
+def fence_scenario(torch, cfg2, device, name: str, compiled: bool):
+    """One served trace whose decode graph replays after the fence rows
+    moved: ``grow`` (a one-page tenant grows mid-run) or ``evict`` (a
+    co-tenant is quarantined and evicted mid-run).  Returns the tokens,
+    the cycles, the pool without page 0 (the allocator's garbage page,
+    where parked rows' duplicate writes race) and whether every page
+    written lies in some tenant's extent at some cycle of the run."""
+    tenants = ({"a": (16, None), "b": (1, None)} if name == "grow" else
+               {t: (8, None) for t in "abc"})
+    mgr, eng = compiled_engine(torch, cfg2, device, tenants)
+    mgr.jit_trusted = compiled
+    owners = ["b" if i % 3 == 0 else "a" for i in range(8)] \
+        if name == "grow" else ["abc"[i % 3] for i in range(8)]
+    rids = [eng.submit(o, [(7 * i + 3 * j) % 997 + 1 for j in range(20)],
+                       max_new=3 + i % 4, arrive=i // 2)
+            for i, o in enumerate(owners)]
+    owned = {0}
+
+    def hook(cycle):
+        pm = eng._pool.pages.page_map
+        for t in tenants:
+            if t in mgr.bounds.tenants():
+                part = mgr.bounds.lookup(t)
+                owned.update(int(pm[v]) for v in range(part.base, part.end))
+        if name == "evict" and cycle == 3:
+            eng.quarantine_tenant("b", reason="phase 3 compiled check")
+            eng.evict_tenant("b")
+
+    out, cycles = drive(eng, hook)
+    if name == "grow" and mgr.bounds.lookup("b").size <= 1:
+        raise AssertionError("the grow scenario never grew")
+    if name == "evict" and not eng.rejected:
+        raise AssertionError("the evict scenario dropped no request")
+    k, v = eng._pool.buf["k"], eng._pool.buf["v"]
+    written = ((k != 0) | (v != 0)).flatten(2).any(dim=2).any(dim=0)
+    inside = set(written.nonzero().flatten().tolist()) <= owned
+    return ([out.get(r) for r in rids], cycles, k[:, 1:].clone(),
+            v[:, 1:].clone(), inside, mgr.jit_cache_stats()["graphs"])
+
+
+def check_uncapturable(torch):
+    """A trusted step that syncs with the host (``.item()``) cannot be
+    captured: the compiled path raises with the step's name, and the card
+    stays usable."""
+    from repro_torch.core.manager import GuardianManager
+    from repro_torch.core.stepgraph import StepCaptureError
+
+    mgr = GuardianManager(total_slots=64)
+    mgr.register_trusted_kernel(
+        "uncapturable", lambda arena, x: (arena, x * x.sum().item()))
+    client = mgr.register_tenant("t", 8)
+    for attempt in range(2):        # a retry fails again, never runs eager
+        client.launch_kernel("uncapturable",
+                             args=(torch.ones(4, device="cuda"),))
+        try:
+            mgr.synchronize()
+        except StepCaptureError as err:
+            if "'uncapturable'" not in str(err):
+                raise AssertionError(f"the capture error names no step: "
+                                     f"{err}")
+            cause = str(err.__cause__).splitlines()[0][:120]
+        else:
+            raise AssertionError(f"a step calling .item() ran (attempt "
+                                 f"{attempt + 1})")
+    x = torch.arange(4.0, device="cuda")
+    if (x * 2).sum().item() != 12.0:
+        raise AssertionError("the card is unusable after a failed capture")
+    log(f"compiled steps: a step calling .item() raises StepCaptureError "
+        f"naming it, twice ({cause}); the card stays usable")
+
+
+def check_compiled(torch, cfg, device: str = "cuda"):
+    """Phase 3's size (float32, two layers, full width) through the
+    compiled path on the card: (1) a prefill's and a decode's logits,
+    compiled — first call and replay — bit-identical to eager, and the
+    served tokens of a trace equal; (2) a page table forged with a
+    co-tenant's virtual ids leaves the co-tenant's pages as they were,
+    replay after replay; (3) decode graphs replayed after an elastic grow
+    and after a co-tenant's eviction write only pages of the tenants'
+    extents, and every pool byte and token equals the eager run's."""
+    import dataclasses as dc
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    mgr, eng = compiled_engine(torch, cfg2, device,
+                               {"t0": (16, None), "t1": (16, None)})
+    # the rows serving a request: a parked row's decode appends its K/V
+    # to the garbage page, where the parked rows' writes race (an MoE
+    # model's parked rows write different values), so its logits are not
+    # deterministic, eager or compiled — and never emitted
+    (eager,), rows = probe_logits(torch, eng, False, 1)
+    comp, _ = probe_logits(torch, eng, True, 2)
+    for i, (pre, dec) in enumerate(comp):
+        diff = [(a[rows] - b[rows]).abs().max().item()
+                for a, b in ((pre, eager[0]), (dec, eager[1]))]
+        if any(diff):
+            raise AssertionError(
+                f"[{cfg.name}] compiled logits ({'replay' if i else 'first'}"
+                f" call) of the serving rows differ from eager by {diff}")
+    parked = [r for r in range(eng.max_batch) if r not in rows]
+    race = max((dec[parked] - eager[1][parked]).abs().max().item()
+               for _, dec in comp)
+    probes = sum(mgr.pointer_to_symbol[n].jit_cache[k].replays
+                 for n in ("probe.prefill", "probe.decode")
+                 for k in mgr.pointer_to_symbol[n].jit_cache)
+    trace = [(f"t{i % 2}", [(11 * i + j) % 509 + 1 for j in range(9 + 5 * i)],
+              i // 2) for i in range(6)]
+    toks = []
+    for compiled in (False, True):
+        mgr.jit_trusted = compiled
+        rids = [eng.submit(t, p, max_new=6, arrive=a) for t, p, a in trace]
+        out = drive(eng)[0]
+        toks.append([out[r] for r in rids])
+    if toks[0] != toks[1]:
+        raise AssertionError(f"[{cfg.name}] compiled tokens differ: "
+                             f"{toks[1]} vs {toks[0]}")
+    log(f"compiled [{cfg.name}] f32 x 2 layers: prefill and decode logits "
+        f"of the {len(rows)} serving rows, first call and replay ({probes} "
+        f"replays), bit-identical to eager (the parked rows' decode logits "
+        f"differ by up to {race:.3g}); a {len(trace)}-request trace serves "
+        "equal tokens")
+
+    # (2) a forged page table, replay after replay
+    mgr, eng = compiled_engine(torch, cfg2, device,
+                               {"victim": (4, None), "forger": (4, None)})
+    eng.submit("victim", list(range(1, 40)), max_new=3)
+    drive(eng, max_new_tokens=3)
+    vp = mgr.bounds.lookup("victim")
+    pm = eng._pool.pages.page_map
+    phys = [int(pm[v]) for v in range(vp.base, vp.end)]
+    kept = [eng._pool.buf[n][:, phys].clone() for n in ("k", "v")]
+    meta = eng._cont_meta
+
+    def forged(st, active):
+        m = meta(st, active)
+        rows = [i for i, r in enumerate(st.rows)
+                if r is not None and r.tenant == "forger" and i in active]
+        table = m.page_table.clone()
+        table[rows] = torch.arange(vp.base, vp.base + table.shape[1],
+                                   dtype=torch.int32, device=table.device)
+        return dc.replace(m, page_table=table)
+
+    eng._cont_meta = forged
+    eng.submit("forger", list(range(2, 60)), max_new=6)
+    drive(eng, max_new_tokens=6)
+    decode = mgr.pointer_to_symbol[eng._steps.decode_name].jit_cache
+    replays = sum(g.replays for g in decode.values())
+    if replays < 4:
+        raise AssertionError(f"forged decode replayed {replays} times")
+    for n, before in zip(("k", "v"), kept):
+        if not torch.equal(eng._pool.buf[n][:, phys], before):
+            raise AssertionError(f"[{cfg.name}] a forged page table wrote "
+                                 f"the co-tenant's {n} pages under replay")
+    log(f"compiled [{cfg.name}]: a page table forged with the co-tenant's "
+        f"virtual ids over {replays} decode replays left its {len(phys)} "
+        "physical pages byte-identical")
+
+    # (3) replays after the fence rows moved
+    for name in ("grow", "evict"):
+        runs = [fence_scenario(torch, cfg2, device, name, c)
+                for c in (False, True)]
+        (te, ce, ke, ve, ie, _), (tc, cc, kc, vc, ic, graphs) = runs
+        if not (ie and ic):
+            raise AssertionError(f"[{cfg.name}] {name}: a page outside the "
+                                 "tenants' extents was written")
+        if te != tc or ce != cc or not (torch.equal(ke, kc)
+                                        and torch.equal(ve, vc)):
+            raise AssertionError(f"[{cfg.name}] {name}: compiled run differs"
+                                 f" from eager (tokens {tc} vs {te})")
+        what = "an elastic grow" if name == "grow" \
+            else "a co-tenant eviction"
+        log(f"compiled [{cfg.name}]: decode replayed after {what} "
+            f"({graphs} graphs, {cc} cycles): only pages of the tenants' "
+            "extents written, pool and tokens equal to eager")
+
+
+# --------------------------------------------------------------------- #
 # Phase 4: the main paths at full width and depth                       #
 # --------------------------------------------------------------------- #
 
@@ -1070,67 +1346,124 @@ class GreedyGap:
         return g.min().item(), g.quantile(0.01).item(), g.numel()
 
 
-def run_main_path(torch, cfg):
-    from repro_torch.kernels import _build
-    from repro_torch.launch.serve import ServeEngine, make_shared_manager, \
-        serve_continuous
-    from repro_torch.models import moe as MT
-    from repro_torch.models import transformer as TF
-
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    mgr = make_shared_manager(1, max_batch=8, max_len=256, paged=True)
-    eng = ServeEngine(cfg, max_batch=8, max_len=256, manager=mgr,
-                      paged=True, seed=0)
-    for t in range(3):
-        eng.register_tenant(f"tenant{t}", 16)
+def path_trace(torch, cfg):
+    """The main path's 8 seeded requests: (tenant, prompt, arrival cycle),
+    prompts of 16-64 tokens, two arriving per cycle."""
     rng = torch.Generator().manual_seed(11)
-    want = {}
+    trace = []
     for i in range(8):
         plen = int(torch.randint(16, 65, (1,), generator=rng))
         prompt = torch.randint(0, cfg.vocab, (plen,), generator=rng)
-        rid = eng.submit(f"tenant{i % 3}", prompt.tolist(), max_new=16,
-                         arrive=i // 2)
-        want[rid] = 16
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    log(f"main path set-up [{cfg.name}]: {setup_s:.1f} s (weights, pool, "
-        f"manager); pool {eng._pool.buf['k'].numel() * 8 / 1e9:.2f} GB, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        trace.append((f"tenant{i % 3}", prompt.tolist(), i // 2))
+    return trace
 
-    # CUDA events around each decode step: device-side step intervals,
-    # recorded on the stream (no host sync)
-    model = MT if cfg.moe else TF
-    decode = model.decode
-    steps = []
 
-    def timed_decode(*a, **kw):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
+class DispatchTimes:
+    """Within ``with``: CUDA events around the manager's dispatch of each
+    of ``eng``'s decode steps — outside any capture, so they time eager
+    steps and graph replays alike — and the host's wall time of the same
+    dispatch, with the part of it spent flattening a compiled step's
+    operands and keying its resident tensors.  A dispatch that captured a
+    new graph (its first call: the eager warm-up, then the capture on the
+    host) is kept apart."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng, self.mgr = torch, eng, eng.manager
+        self.steps, self.captures, self.host, self.keying = [], [], [], []
+        self._keying = 0.0
+
+    def _timed(self, req):
+        if req.name != self.eng._steps.decode_name:
+            return self.execute(req)
+        ev = self.torch.cuda.Event
+        s, e = ev(enable_timing=True), ev(enable_timing=True)
+        graphs = self.mgr.jit_cache_stats()["graphs"]
+        self._keying = 0.0
+        t0 = time.perf_counter()
         s.record()
-        out = decode(*a, **kw)
+        out = self.execute(req)
         e.record()
-        steps.append((s, e))
+        host = time.perf_counter() - t0
+        if self.mgr.jit_cache_stats()["graphs"] > graphs:
+            self.captures.append((s, e))
+        else:
+            self.steps.append((s, e))
+            self.host.append(host * 1e3)
+            self.keying.append(self._keying * 1e3)
         return out
 
-    model.decode = timed_decode
-    _build.reset_counts()
-    try:
-        with RouteTally(torch, eng) as tally, GreedyGap(torch) as gap:
+    def _operands(self, *a, **kw):
+        t0 = time.perf_counter()
+        ops = self.trusted_operands(*a, **kw)
+        ops.key = self._key(ops.key)
+        self._keying += time.perf_counter() - t0
+        return ops
+
+    def _key(self, key):
+        def timed():
             t0 = time.perf_counter()
-            outs = serve_continuous([eng], max_new_tokens=16)[0]
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        model.decode = decode
+            out = key()
+            self._keying += time.perf_counter() - t0
+            return out
+        return timed
+
+    def __enter__(self):
+        self.execute = self.mgr._execute_request
+        self.trusted_operands = self.mgr._trusted_operands
+        self.mgr._execute_request = self._timed
+        self.mgr._trusted_operands = self._operands
+        return self
+
+    def __exit__(self, *exc):
+        del self.mgr._execute_request
+        del self.mgr._trusted_operands
+
+    def read(self):
+        """(sorted replay/eager step ms, capture-step ms, median host ms of
+        a dispatch, median ms of it flattening and keying operands)"""
+        med = statistics.median
+        return (sorted(s.elapsed_time(e) for s, e in self.steps),
+                [s.elapsed_time(e) for s, e in self.captures],
+                med(self.host) if self.host else 0.0,
+                med(self.keying) if self.keying else 0.0)
+
+
+def serve_run(torch, cfg, eng, trace, compiled: bool) -> dict:
+    """One run of ``trace`` through ``serve_continuous`` on ``eng``: eager
+    (the manager's ``jit_trusted`` off) with the diagnostic hooks, or
+    compiled (one CUDA graph per step key, no hook: under a graph a hook
+    would run once, at the capture).  Checks every request's tokens and
+    that the kernels' launches equal the per-step counts with no plain
+    version run; returns what the two runs are compared on and print."""
+    import contextlib
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve_continuous
+
+    mgr = eng.manager
+    mgr.jit_trusted = compiled
+    reg, stats = mgr.telemetry.registry, mgr.scheduler.stats
+    cycles0, dec0 = reg.counter("drain_cycles"), eng.decode_steps
+    steps0 = int(stats.total_launches)
+    rids = [eng.submit(t, p, max_new=16, arrive=a) for t, p, a in trace]
+    with contextlib.ExitStack() as hooks:
+        times = hooks.enter_context(DispatchTimes(torch, eng))
+        tally = gap = None
+        if not compiled:
+            tally = hooks.enter_context(RouteTally(torch, eng))
+            gap = hooks.enter_context(GreedyGap(torch))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        outs = serve_continuous([eng], max_new_tokens=16)[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in _build.KERNELS.values()}
     plain = {k.name: k.plain_calls for k in _build.KERNELS.values()}
-
-    if sorted(outs) != sorted(want):
-        raise AssertionError(f"served {sorted(outs)}, want {sorted(want)}")
-    for rid, toks in outs.items():
-        if len(toks) != want[rid] or not all(0 <= t < cfg.vocab
-                                             for t in toks):
+    tokens = [outs.get(r) for r in rids]
+    for rid, toks in zip(rids, tokens):
+        if toks is None or len(toks) != 16 or not all(0 <= t < cfg.vocab
+                                                      for t in toks):
             raise AssertionError(f"request {rid}: bad tokens {toks}")
     path_kernels = {"gather_rows", "scatter_pages", "flash_attention",
                     "paged_attention"} | ({"moe_histogram"} if cfg.moe
@@ -1139,11 +1472,8 @@ def run_main_path(torch, cfg):
         raise AssertionError(f"a kernel never launched: {launches}")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the card: {plain}")
-    n_tok = sum(len(t) for t in outs.values())
-    stats = mgr.scheduler.stats
-    cycles = eng.manager.telemetry.registry.counter("drain_cycles")
-    n_dec = eng.decode_steps
-    n_pre = int(stats.total_launches) - n_dec
+    n_dec = eng.decode_steps - dec0
+    n_pre = int(stats.total_launches) - steps0 - n_dec
     L = cfg.n_layers
     per_step = {"gather_rows": n_pre + n_dec, "scatter_pages": L * n_pre,
                 "flash_attention": L * n_pre, "paged_attention": L * n_dec,
@@ -1151,58 +1481,117 @@ def run_main_path(torch, cfg):
     if launches != per_step:
         raise AssertionError(f"launches {launches} differ from the "
                              f"per-step count {per_step}")
-    log(f"main path [{cfg.name}]: {len(outs)} requests x 16 tokens in "
-        f"{wall:.2f} s ({n_tok / wall:.1f} tokens/s); {cycles} drain "
-        f"cycles, {n_pre} prefills, {n_dec} decode steps; kernel launches "
-        f"{launches} (per prefill: K3 1, K2 {L}, K4 {L}"
-        f"{f', K5 {L}' if cfg.moe else ''}; per decode step: K3 1, K1 {L}"
-        f"{f', K5 {L}' if cfg.moe else ''})")
-    served = json.dumps([[int(t) for t in outs[r]] for r in sorted(outs)])
-    smallest, pct1, n_gaps = gap.read()
+    step_ms, capture_ms, host_ms, keying_ms = times.read()
+    return {"tokens": tokens, "cycles": reg.counter("drain_cycles") - cycles0,
+            "prefills": n_pre, "decodes": n_dec, "launches": launches,
+            "outs": dict(zip(rids, tokens)), "rids": rids, "wall": wall,
+            "step_ms": step_ms, "capture_ms": capture_ms,
+            "host_ms": host_ms, "keying_ms": keying_ms,
+            "peak": torch.cuda.max_memory_allocated(),
+            "tally": tally, "gap": gap}
+
+
+def run_main_path(torch, cfg, smi: str):
+    """Phase 4 for one path: the trace served twice on one engine, first
+    eager, then compiled; the two runs must give equal tokens per request,
+    drain cycles, prefill and decode counts and kernel launches."""
+    from repro_torch.launch.serve import ServeEngine, make_shared_manager
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mgr = make_shared_manager(1, max_batch=8, max_len=256, paged=True)
+    eng = ServeEngine(cfg, max_batch=8, max_len=256, manager=mgr,
+                      paged=True, seed=0)
+    for t in range(3):
+        eng.register_tenant(f"tenant{t}", 16)
+    trace = path_trace(torch, cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    log(f"main path set-up [{cfg.name}]: {setup_s:.1f} s (weights, pool, "
+        f"manager); pool {eng._pool.buf['k'].numel() * 8 / 1e9:.2f} GB, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    runs = {mode: serve_run(torch, cfg, eng, trace, mode == "compiled")
+            for mode in ("eager", "compiled")}
+    eager, comp = runs["eager"], runs["compiled"]
+    for key in ("tokens", "cycles", "prefills", "decodes", "launches"):
+        if eager[key] != comp[key]:
+            raise AssertionError(f"[{cfg.name}] compiled {key} differ from "
+                                 f"eager: {comp[key]} vs {eager[key]}")
+    L = cfg.n_layers
+    n_tok = sum(len(t) for t in comp["tokens"])
+    log(f"main path [{cfg.name}]: {len(trace)} requests x 16 tokens, eager "
+        f"and compiled on one engine with equal tokens; {comp['cycles']} "
+        f"drain cycles, {comp['prefills']} prefills, {comp['decodes']} "
+        f"decode steps each; kernel launches {comp['launches']} in each run "
+        f"(per prefill: K3 1, K2 {L}, K4 {L}{f', K5 {L}' if cfg.moe else ''}"
+        f"; per decode step: K3 1, K1 {L}{f', K5 {L}' if cfg.moe else ''})")
+    served = json.dumps(eager["tokens"])
+    smallest, pct1, n_gaps = eager["gap"].read()
     log(f"tokens [{cfg.name}]: sha256 "
         f"{hashlib.sha256(served.encode()).hexdigest()[:16]} of the served "
         f"tokens in request order; greedy top-1 over top-2 logit gap "
         f"smallest {smallest:.3g}, 1st percentile {pct1:.3g} over {n_gaps} "
-        "row-steps")
-    ms = sorted(s.elapsed_time(e) for s, e in steps)
+        "row-steps (eager run)")
     floor = decode_floor_bytes(eng.params)
     floor_ms = floor / HBM_BYTES_PER_S * 1e3
-    log(f"decode step [{cfg.name}]: median {statistics.median(ms):.2f} ms, "
-        f"min {ms[0]:.2f} ms, max {ms[-1]:.2f} ms over {len(ms)} steps; "
-        f"floor {floor / 1e9:.2f} GB read = {floor_ms:.2f} ms at 3.35 TB/s "
-        f"({floor_ms / statistics.median(ms):.1%} of the median); peak "
-        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    graphs = mgr.jit_cache_stats()
+    for mode, r in runs.items():
+        ms = r["step_ms"]
+        med = statistics.median(ms)
+        first = f"; first (warm-up + capture) {r['capture_ms'][0]:.2f} ms" \
+            if r["capture_ms"] else ""
+        log(f"decode step [{cfg.name}, {mode}]: median {med:.2f} ms, min "
+            f"{ms[0]:.2f} ms, max {ms[-1]:.2f} ms over {len(ms)} steps"
+            f"{first}; floor {floor / 1e9:.2f} GB read = {floor_ms:.2f} ms "
+            f"at 3.35 TB/s ({floor_ms / med:.1%} of the median); the host's "
+            f"wall time of a dispatch median {r['host_ms']:.2f} ms"
+            + (f", {r['keying_ms']:.2f} ms of it flattening the operands and "
+               "keying the resident ones" if mode == "compiled" else "")
+            + "; "
+            f"{n_tok / r['wall']:.1f} tokens/s ({r['wall']:.2f} s); peak "
+            f"memory {r['peak'] / 1e9:.2f} GB; {smi}")
+    per = {n: graphs["per_kernel"][n] for n in (eng._steps.prefill_name,
+                                                 eng._steps.decode_name)}
+    log(f"graphs [{cfg.name}]: {graphs['graphs']} captured ("
+        f"{per[eng._steps.prefill_name]} prefill lengths, "
+        f"{per[eng._steps.decode_name]} decode), "
+        f"{graphs['graph_capture_s']:.2f} s capturing, "
+        f"{graphs['graph_pool_bytes'] / 1e9:.3f} GB reserved by their "
+        f"memory pools, {graphs['graph_evictions']} evicted")
     if cfg.moe is not None:
-        t = tally.read()
+        t = eager["tally"].read()
         log(f"capacity [{cfg.name}]: dropped {t['dropped']} of {t['routed']}"
             f" (token, k) assignments; in prefills {t['served_dropped']} of "
             f"{t['served']} in rows serving a request (their right-padding "
             f"included) and {t['parked_dropped']} of {t['parked']} in "
             f"parked rows; {t['dropped'] - t['served_dropped'] - t['parked_dropped']}"
-            " in decode steps")
-    solo_rerun(torch, cfg, eng, outs)
-    return {"launches": launches, "tokens_per_s": n_tok / wall}
+            " in decode steps (eager run)")
+    solo_rerun(torch, cfg, eng, comp["outs"], comp["rids"], smi)
+    return {"launches": comp["launches"],
+            "tokens_per_s": n_tok / comp["wall"]}
 
 
-def solo_rerun(torch, cfg, eng, outs):
+def solo_rerun(torch, cfg, eng, outs, rids, smi: str):
     """The longer prompt of the last wave (requests 6 and 7 join rows 6
     and 7 in one prefill, padded to the longer, while rows 0-5 hold
     earlier requests and sit parked for that step) served again alone —
-    in row 0, the other 7 rows parked, the prefill the same length —
+    in row 0, the other 7 rows parked, the prefill the same length, with
+    compiled steps (the graphs of the compiled run replay) —
     under ``torch.profiler`` for the device's share of the wall time.  A
     dense model's tokens cannot depend on the other rows; an MoE model's
     can, through the expert capacity the step's tokens share: ranks are
     given in (row, position) order, so the 6 parked rows ahead of row 6
-    claim their experts' slots first."""
+    claim their experts' slots first (the eager run's capacity line
+    counts the drops; no hook runs under a graph)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import serve_continuous
 
     reqs = {r.rid: r for r in eng._requests}
-    first = max((6, 7), key=lambda rid: len(reqs[rid].prompt))
+    first = max(rids[6:8], key=lambda rid: len(reqs[rid].prompt))
     rid = eng.submit(reqs[first].tenant, reqs[first].prompt.tolist(),
                      max_new=16)
-    with RouteTally(torch, eng) as tally, profile(activities=[
-            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         solo = serve_continuous([eng], max_new_tokens=16)[0][rid]
         torch.cuda.synchronize()
@@ -1210,14 +1599,10 @@ def solo_rerun(torch, cfg, eng, outs):
     same = solo == outs[first]
     diff = "" if same else ", first differing token " + str(next(
         i for i, (a, b) in enumerate(zip(solo, outs[first])) if a != b))
-    drops = ""
-    if cfg.moe is not None:
-        t = tally.read()
-        drops = f"; capacity dropped {t['dropped']} of {t['routed']} " \
-            "assignments"
-    log(f"solo rerun [{cfg.name}]: request {first} ({len(reqs[first].prompt)}"
+    log(f"solo rerun [{cfg.name}]: request {rids.index(first)} "
+        f"({len(reqs[first].prompt)}"
         f"-token prompt) alone gives {'the same' if same else 'other'} "
-        f"tokens as co-batched{diff}{drops}")
+        f"tokens as co-batched{diff}")
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -1232,9 +1617,10 @@ def solo_rerun(torch, cfg, eng, outs):
         return
     top = sorted(kern, key=dev_us, reverse=True)[:6]
     ours = [e for e in kern if any(f"{k}_" in e.key for k in KERNEL_NAMES)]
-    log(f"profile [{cfg.name}]: 1 prefill + 15 decode steps in {wall * 1e3:.0f}"
-        f" ms of wall time under the profiler, device busy {busy_ms:.1f} ms "
-        f"({busy_ms / (wall * 1e3):.1%}); top device time: " + "; ".join(
+    log(f"profile [{cfg.name}, compiled]: 1 prefill + 15 decode steps in "
+        f"{wall * 1e3:.0f} ms of wall time under the profiler, device busy "
+        f"{busy_ms:.1f} ms ({busy_ms / (wall * 1e3):.1%}) on {smi}; top "
+        "device time: " + "; ".join(
             f"{e.key[:60]} {dev_us(e) / 1e3:.1f} ms x{e.count}" for e in top)
         + "; the port's kernels: " + "; ".join(
             f"{e.key.split('(')[0][:40]} {dev_us(e) / 1e3:.2f} ms x{e.count}"
@@ -1805,14 +2191,16 @@ def main() -> int:
     log("kernels: " + ", ".join(r["name"] for r in rows))
     for cfg in cfgs:
         check_full_width(torch, cfg)
+        check_compiled(torch, cfg)
         gc.collect()
         torch.cuda.empty_cache()
+    check_uncapturable(torch)
     tenant_plane(torch, smi=smi)
     paths = {}
     for cfg in cfgs:
         # each path's engine, manager and pool are freed before the next
         # is built (qwen3-moe's 61 GB of weights need the room)
-        paths[cfg.name] = run_main_path(torch, cfg)
+        paths[cfg.name] = run_main_path(torch, cfg, smi)
         gc.collect()
         torch.cuda.empty_cache()
         log(f"after [{cfg.name}]: {torch.cuda.memory_allocated() / 1e9:.2f}"

@@ -729,7 +729,11 @@ class ElasticManager:
             self._event_dispatched.add(name)
         mgr = self.manager
         mgr.pointer_to_symbol.pop(name, None)   # paranoid: never stale
-        mgr.register_trusted_kernel(name, fn, pool_arena=pool_arena)
+        # eager by declaration: a plan runs once, so a compiled step would
+        # be captured for nothing, and popping the symbol after dispatch
+        # drops anything keyed under it — no move set replays another's
+        mgr.register_trusted_kernel(name, fn, pool_arena=pool_arena,
+                                    capture=False)
         self.stats["reloc_steps"] += 1
         try:
             return mgr._dispatch_trusted_direct(tenant_id, name)

@@ -20,7 +20,9 @@ Responsibilities (paper section in parentheses):
   partition's ``(base, mask)`` scalars — or natively when the tenant runs
   standalone.  *Trusted* kernels — framework-plane steps such as the
   serving engine's prefill/decode, internally fenced per row from
-  :meth:`GuardianManager.fence_table` — run as they are.
+  :meth:`GuardianManager.fence_table` — run as they are, compiled into
+  one CUDA graph per (step, operand signature, width) under
+  ``jit_trusted`` (:mod:`repro_torch.core.stepgraph`).
 * **Spatial multiplexing** (§4.2.4): per-tenant queues drained
   round-robin; the selected launches go to the
   :class:`BatchedLaunchScheduler`, which coalesces compatible launches of
@@ -69,6 +71,8 @@ from repro_torch.core.scheduler import (
     LRUCache,
     _arg_signature,
 )
+from repro_torch.core.stepgraph import Operands, StepCaptureError, \
+    StepGraph, tree_flatten
 from repro_torch.core.telemetry import DRAIN_TRACK, Telemetry
 from repro_torch.core.tenantclass import ClassSpec, TenantClassPolicy, \
     as_class_policy
@@ -141,9 +145,19 @@ class _KernelEntry:
     #: the returned one, so N engines sharing the pool (and fused rows of
     #: one batch) always see each other's updates.
     pool_arena: Optional[str] = None
+    #: trusted-step argument positions (arena = 0, the pool not counted)
+    #: whose tensors a compiled step addresses in place, keyed by identity
+    #: and never copied — the port's counterpart of the reference's
+    #: ``donate_argnums`` (see :mod:`repro_torch.core.stepgraph`)
+    resident_argnums: Tuple[int, ...] = ()
+    #: a trusted step declared eager (``capture=False``) never runs as a
+    #: CUDA graph and never fuses, even under ``jit_trusted``
+    capture: bool = True
     #: planned sandbox programs keyed (mode, argument signature) — the
     #: port's stand-in for the reference's per-(kernel, mode, signature)
-    #: jit cache; LRU-bounded by the manager's ``jit_cache_capacity``
+    #: jit cache — and a trusted step's :class:`StepGraph` objects keyed
+    #: ("trusted", signature, resident operands); LRU-bounded by the
+    #: manager's ``jit_cache_capacity``
     jit_cache: Dict[Tuple, Callable] = dataclasses.field(
         default_factory=dict)
     #: run the static verifier over each new trace (PROVEN sites lose
@@ -191,6 +205,7 @@ class GuardianManager:
         max_tenants: int = 64,
         quarantine_policy: Optional[QuarantinePolicy] = None,
         quarantine_poll_every: int = 1,
+        jit_trusted: bool = True,
         jit_cache_capacity: int = 64,
         lookahead_cycles: int = 0,
         adaptive_lookahead: bool = False,
@@ -207,6 +222,15 @@ class GuardianManager:
         self.mode = mode
         self.standalone_fast_path = standalone_fast_path
         self.batch_launches = batch_launches
+        #: run trusted (framework-plane) steps as compiled steps — one CUDA
+        #: graph per (step, operand signature, width), see
+        #: :mod:`repro_torch.core.stepgraph` — and let compatible trusted
+        #: steps of several serve engines fuse into one.  False is the
+        #: eager, unfused fallback (equal results by regression test).
+        self.jit_trusted = jit_trusted
+        #: the side stream compiled steps warm up and capture on (created
+        #: at the first capture on a CUDA device)
+        self._capture_stream = None
         #: LRU capacity of each kernel entry's specialization cache
         self.jit_cache_capacity = jit_cache_capacity
         self.scheduler = BatchedLaunchScheduler(
@@ -791,18 +815,32 @@ class GuardianManager:
 
     def register_trusted_kernel(self, name: str, fn: Callable,
                                 arena_argnums: Sequence[int] = (0,),
+                                resident_argnums: Sequence[int] = (),
                                 pool_arena: Optional[str] = None,
+                                capture: bool = True,
                                 ) -> None:
         """Register a *framework-plane* kernel — an engine step that is
         already fenced internally (per-row GuardSpec built from this
         manager's :meth:`fence_table`).
 
         Trusted kernels ride the queues and the scheduler drain —
-        ordering, quarantine drops and launch telemetry are shared — run
-        eagerly on the manager's device, and are never batched with
-        tenant kernels (the signature includes the kernel name).
-        Compatible trusted steps of different engines fuse into one batch
-        (the sequential composition of their solo steps).
+        ordering, quarantine drops and launch telemetry are shared — and
+        are never batched with tenant kernels (the signature includes the
+        kernel name).  With ``jit_trusted`` (the default) a launch runs
+        as a compiled step, one CUDA graph per operand signature (see
+        :mod:`repro_torch.core.stepgraph`), and compatible trusted steps
+        of different engines fuse into one compiled step (the sequential
+        composition of their solo steps); with ``jit_trusted=False`` it
+        runs eagerly and unfused.  A compiled step must write the arena
+        and its pool in place and hand the same tensors back.
+
+        ``resident_argnums`` are argument positions (arena = 0, the pool
+        not counted) whose tensors a compiled step addresses in place —
+        large operands such as an engine's weights, keyed by identity and
+        never copied; every other tensor operand is copied into the
+        graph's own input at dispatch.  ``capture=False`` declares a step
+        eager (and unfused) whatever ``jit_trusted`` says: the elastic
+        relocation steps, dispatched once each.
 
         ``pool_arena`` names a manager pool (see :meth:`register_pool`)
         threaded through the step: the contract becomes
@@ -820,6 +858,7 @@ class GuardianManager:
         self.pointer_to_symbol[name] = _KernelEntry(
             name=name, fn=fn, arena_argnums=tuple(arena_argnums),
             trusted=True, pool_arena=pool_arena,
+            resident_argnums=tuple(resident_argnums), capture=capture,
             jit_cache=LRUCache(self.jit_cache_capacity))
 
     def _modulo_exec(self, entry: _KernelEntry, part: Partition) -> Callable:
@@ -936,7 +975,7 @@ class GuardianManager:
                             policy=self._effective_policy(tenant_id),
                             entry=entry, part=part,
                             call_args=(*ptr_args, *args),
-                            trusted_fusable=entry.trusted)
+                            trusted_fusable=self._compiles(entry))
         if enqueue or self.mode is SharingMode.SPATIAL:
             self._enqueue(tenant_id, "launch", (req,))
             # the request doubles as the result handle: req.result holds
@@ -962,7 +1001,7 @@ class GuardianManager:
             tenant_id=tenant_id, name=name,
             policy=self._effective_policy(tenant_id),
             entry=entry, part=part, call_args=(),
-            trusted_fusable=entry.trusted)
+            trusted_fusable=self._compiles(entry))
         self.scheduler._execute([req])
         return req.result
 
@@ -976,24 +1015,91 @@ class GuardianManager:
         contain-and-log commit path; the raising CHECK below is the
         per-launch paths' only.
 
-        A trusted step is internally fenced: it runs as is, with the arena
-        (and its pool arena) threaded through; its pool writes land in
-        place and the step hands the same tensors back."""
+        A trusted step is internally fenced: it runs with the arena (and
+        its pool arena) threaded through — compiled (keyed by operand
+        signature) unless ``jit_trusted`` is off or the step is declared
+        eager; its pool writes land in place and the step hands the same
+        tensors back."""
         entry = req.entry
         if not entry.trusted:
             return self._execute_tenant(req)
         t1 = time.perf_counter_ns()
-        if entry.pool_arena is None:
-            new_arena, out = entry.fn(self.arena.buf, *req.call_args)
+        if self._compiles(entry):
+            res = self._trusted_exec(entry, req.call_args,
+                                     arg_sig=req.signature[2])
+        elif entry.pool_arena is None:
+            res = entry.fn(self.arena.buf, *req.call_args)
         else:
-            pool = self.arenas[entry.pool_arena]
-            new_arena, new_pool, out = entry.fn(self.arena.buf, pool.buf,
-                                                *req.call_args)
-            pool.buf = new_pool
+            res = entry.fn(self.arena.buf,
+                           self.arenas[entry.pool_arena].buf,
+                           *req.call_args)
+        if entry.pool_arena is None:
+            new_arena, out = res
+        else:
+            new_arena, self.arenas[entry.pool_arena].buf, out = res
         self.arena.buf = new_arena
         self.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t1)
         req.result = out
         return out
+
+    # -- compiled trusted steps (core/stepgraph.py) --------------------- #
+    def _compiles(self, entry: _KernelEntry) -> bool:
+        """Whether ``entry`` runs (and fuses) as a compiled step."""
+        return entry.trusted and self.jit_trusted and entry.capture
+
+    def _trusted_operands(self, entry: _KernelEntry,
+                          rows: Sequence[Tuple]) -> Operands:
+        """A compiled step's operands: the arena (and the entry's pool),
+        then each row's call arguments; the arena, the pool and the
+        declared resident positions are resident."""
+        lead = [self.arena.buf]
+        if entry.pool_arena is not None:
+            lead.append(self.arenas[entry.pool_arena].buf)
+        args, flags = list(lead), [True] * len(lead)
+        for call_args in rows:
+            args.extend(call_args)
+            flags.extend(i + 1 in entry.resident_argnums
+                         for i in range(len(call_args)))
+        return Operands.of(args, flags)
+
+    def _step_graph(self, name: str, fn: Callable,
+                    ops: Operands) -> StepGraph:
+        if self.device.type == "cuda" and self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        return StepGraph(name, fn, ops, self.device, self._capture_stream)
+
+    def _run_compiled(self, entry: _KernelEntry, graph: StepGraph,
+                      ops: Operands) -> Tuple:
+        """Run ``graph`` on ``ops``; the arena and the pool must come back
+        as the tensors the step was given (a replay writes them in
+        place)."""
+        want = [self.arena.buf]
+        if entry.pool_arena is not None:
+            want += tree_flatten(self.arenas[entry.pool_arena].buf)[1]
+        res = graph.run(ops)
+        _, got = tree_flatten(res[:-1])
+        if len(got) != len(want) or any(a is not b
+                                         for a, b in zip(got, want)):
+            raise StepCaptureError(
+                f"trusted step {graph.name!r} must write the arena and its "
+                "pool in place and hand the same tensors back to be compiled")
+        return res
+
+    def _trusted_exec(self, entry: _KernelEntry, call_args: Tuple,
+                      arg_sig: Optional[Tuple] = None) -> Tuple:
+        """Run a trusted step compiled: its :class:`StepGraph` is cached in
+        ``entry.jit_cache`` (LRU-bounded by ``jit_cache_capacity``) under
+        ``("trusted", operand signature, resident operands)``.  ``arg_sig``
+        reuses a signature already computed for the request."""
+        ops = self._trusted_operands(entry, [call_args])
+        key = ("trusted",
+               _arg_signature(call_args) if arg_sig is None else arg_sig,
+               ops.key())
+        graph = entry.jit_cache.get(key)
+        if graph is None:
+            graph = self._step_graph(entry.name, entry.fn, ops)
+            entry.jit_cache[key] = graph
+        return self._run_compiled(entry, graph, ops)
 
     def _execute_tenant(self, req: LaunchRequest) -> Any:
         entry, part, policy = req.entry, req.part, req.policy

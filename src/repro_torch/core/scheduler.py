@@ -27,7 +27,9 @@ tenants into one batch per drain cycle:
   fenced multi-row programs — run as the sequential composition of their
   solo steps: row r runs engine r's step, threading the manager arena and
   the shared pool arena row to row, so engine r+1's step sees engine r's
-  pool updates exactly as in the per-launch drain.
+  pool updates exactly as in the per-launch drain.  Only compiled steps
+  (``jit_trusted``) fuse; a fused batch runs as one CUDA graph per
+  (kernel, operand signature, width) — :mod:`repro_torch.core.stepgraph`.
 
 Fairness: requests are taken strictly in arrival order (the manager's
 round-robin cycle order).  A request that cannot join the open batch
@@ -64,6 +66,7 @@ from repro_torch.core.fence import FencePolicy, FenceTable
 from repro_torch.core.pressure import Ewma, derive_lookahead, \
     total_arrival_rate
 from repro_torch.core.sandbox import UndoLog
+from repro_torch.core.stepgraph import StepGraph, tree_flatten
 from repro_torch.core.telemetry import Histogram, QUEUE_AGE_BOUNDS, \
     SCHEDULER_TRACK
 
@@ -78,7 +81,9 @@ class LRUCache(collections.OrderedDict):
     refreshing recency on read and evicting the coldest entry past
     ``capacity``; ``evictions`` counts what was dropped (an evicted
     binary recompiles on next use — a latency blip, never a correctness
-    event).
+    event); ``graph_evictions`` counts the :class:`StepGraph` objects among
+    them (dropping one frees its CUDA graph and private memory pool; a
+    later call of its key recaptures).
     """
 
     def __init__(self, capacity: int):
@@ -87,6 +92,7 @@ class LRUCache(collections.OrderedDict):
         super().__init__()
         self.capacity = capacity
         self.evictions = 0
+        self.graph_evictions = 0
 
     def __getitem__(self, key):
         val = super().__getitem__(key)
@@ -105,28 +111,11 @@ class LRUCache(collections.OrderedDict):
         while len(self) > self.capacity:
             # not OrderedDict.popitem: its C implementation re-enters the
             # subclass __getitem__ on the already-removed key
-            super().__delitem__(next(iter(self)))
+            cold = next(iter(self))
+            if isinstance(super().__getitem__(cold), StepGraph):
+                self.graph_evictions += 1
+            super().__delitem__(cold)
             self.evictions += 1
-
-
-def _tree_leaves(x: Any) -> Tuple[Tuple, List[Any]]:
-    """Structure key + leaves of a nested operand (dicts, lists, tuples,
-    dataclasses such as cache metas and guard specs, tensors, scalars)."""
-    if isinstance(x, dict):
-        keys = sorted(x)
-        subs = [_tree_leaves(x[k]) for k in keys]
-        return (("dict", tuple(keys), tuple(s for s, _ in subs)),
-                [leaf for _, ls in subs for leaf in ls])
-    if isinstance(x, (list, tuple)):
-        subs = [_tree_leaves(v) for v in x]
-        return ((type(x).__name__, tuple(s for s, _ in subs)),
-                [leaf for _, ls in subs for leaf in ls])
-    if dataclasses.is_dataclass(x) and not isinstance(x, type):
-        names = [f.name for f in dataclasses.fields(x)]
-        subs = [_tree_leaves(getattr(x, n)) for n in names]
-        return ((type(x).__name__, tuple(s for s, _ in subs)),
-                [leaf for _, ls in subs for leaf in ls])
-    return ("leaf",), [x]
 
 
 def _leaf_sig(leaf: Any) -> Tuple:
@@ -149,7 +138,7 @@ def _arg_signature(args: Sequence[Any]) -> Tuple:
                             type(None), enum.Enum)):
             sig.append(("s", a))
         else:
-            struct, leaves = _tree_leaves(a)
+            struct, leaves = tree_flatten(a)
             sig.append(("t", struct, tuple(_leaf_sig(l) for l in leaves)))
     return tuple(sig)
 
@@ -387,8 +376,9 @@ class BatchedLaunchScheduler:
         self._class_tracking = False
         self._cycle = 0
         self._pending: List[LaunchRequest] = []
-        # (name, policy, arg-sig, T) -> fused step; LRU-bounded (one
-        # composition per signature×width)
+        # (name, policy, arg-sig, T) -> fused step, and ("trusted", name,
+        # policy, arg-sig, T, resident operands) -> fused StepGraph;
+        # LRU-bounded (one composition per signature×width)
         self._fused_cache: Dict[Tuple, Callable] = LRUCache(
             fused_cache_capacity)
         # ((base, mask), ...) -> device-staged FenceTable (re-staging the
@@ -838,8 +828,12 @@ class BatchedLaunchScheduler:
     # ------------------------------------------------------------------ #
     def _execute_trusted(self, batch: List[LaunchRequest]) -> None:
         """Trusted (framework-plane) dispatch.  Width 1 goes through the
-        manager's per-launch path; width N runs every engine's step in
-        submission order — the multi-engine fused decode.  The arena
+        manager's per-launch path (compiled there under ``jit_trusted``);
+        width N — only compiled steps fuse — runs every engine's step in
+        submission order as one compiled step: one CUDA graph per
+        (trusted kernel, operand signature, width), keyed besides by the
+        identity of every row's resident operands (two engines with equal
+        shapes and different weights never share a graph).  The arena
         threads through rows untouched (trusted steps carry their own
         internal fences), so the fused step is exactly the sequential
         composition of the solo steps."""
@@ -851,41 +845,48 @@ class BatchedLaunchScheduler:
             return
         head = batch[0]
         entry = head.entry
-        key = ("trusted", *head.signature, T)
-        fn = self._fused_cache.get(key)
-        if fn is None:
-            fn = self._build_fused_trusted(entry, T)
-            self._fused_cache[key] = fn
-        rows = tuple(r.call_args for r in batch)
+        ops = mgr._trusted_operands(entry, [r.call_args for r in batch])
+        key = ("trusted", *head.signature, T, ops.key())
+        graph = self._fused_cache.get(key)
+        if graph is None:
+            graph = mgr._step_graph(
+                f"{entry.name} x{T}",
+                self._build_fused_trusted(entry, len(head.call_args), T), ops)
+            self._fused_cache[key] = graph
         t0 = time.perf_counter_ns()
+        res = mgr._run_compiled(entry, graph, ops)
         if entry.pool_arena is None:
-            new_arena, outs = fn(mgr.arena.buf, rows)
+            new_arena, outs = res
         else:
-            pool = mgr.arenas[entry.pool_arena]
-            new_arena, new_pool, outs = fn(mgr.arena.buf, pool.buf, rows)
-            pool.buf = new_pool
+            new_arena, mgr.arenas[entry.pool_arena].buf, outs = res
         mgr.arena.buf = new_arena
         mgr.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t0)
         for req, out in zip(batch, outs):
             req.result = out
         self._record_step(T)
 
-    def _build_fused_trusted(self, entry, T: int) -> Callable:
-        """One fused step per (trusted kernel, operand signature, width):
-        rows execute in submission order, threading the arena — and the
-        entry's pool arena, when declared — row to row."""
+    def _build_fused_trusted(self, entry, n_args: int, T: int) -> Callable:
+        """The width-T composition a fused graph records: rows execute in
+        submission order, threading the arena — and the entry's pool
+        arena, when declared — row to row, so engine r+1's step sees
+        engine r's pool updates exactly as in the per-launch drain.  Its
+        arguments are the arena (and pool), then the rows' call arguments
+        one after the other."""
+        def rows(flat):
+            return [flat[r * n_args:(r + 1) * n_args] for r in range(T)]
+
         if entry.pool_arena is None:
-            def fused(arena, rows):
+            def fused(arena, *flat):
                 outs = []
-                for r in range(T):
-                    arena, out = entry.fn(arena, *rows[r])
+                for row in rows(flat):
+                    arena, out = entry.fn(arena, *row)
                     outs.append(out)
                 return arena, tuple(outs)
         else:
-            def fused(arena, pool, rows):
+            def fused(arena, pool, *flat):
                 outs = []
-                for r in range(T):
-                    arena, pool, out = entry.fn(arena, pool, *rows[r])
+                for row in rows(flat):
+                    arena, pool, out = entry.fn(arena, pool, *row)
                     outs.append(out)
                 return arena, pool, tuple(outs)
         return fused

@@ -879,13 +879,29 @@ class Telemetry:
 
     def jit_cache_view(self) -> Dict[str, Any]:
         """The ``jit_cache_stats()`` body: occupancy + evictions of every
-        LRU-bounded compiled cache (host dict sizes — never a sync)."""
+        LRU-bounded compiled cache (host dict sizes — never a sync).  The
+        compiled trusted steps among the entries — one
+        :class:`~repro_torch.core.stepgraph.StepGraph` each — are counted
+        apart: ``graphs`` live, ``graph_evictions`` (an evicted graph
+        frees its private memory pool; its key recaptures on next use),
+        the bytes their private pools reserved at capture and the seconds
+        the captures took."""
         from repro_torch.core.scheduler import LRUCache
+        from repro_torch.core.stepgraph import StepGraph
 
         mgr = self.manager
         per_kernel = {name: len(e.jit_cache)
                       for name, e in mgr.pointer_to_symbol.items()}
+        caches = [e.jit_cache for e in mgr.pointer_to_symbol.values()
+                  if isinstance(e.jit_cache, LRUCache)]
+        caches.append(mgr.scheduler._fused_cache)
+        graphs = [g for c in caches for g in c.values()
+                  if isinstance(g, StepGraph)]
         return {
+            "graphs": len(graphs),
+            "graph_evictions": sum(c.graph_evictions for c in caches),
+            "graph_pool_bytes": sum(g.pool_bytes for g in graphs),
+            "graph_capture_s": float(sum(g.capture_s for g in graphs)),
             "capacity": mgr.jit_cache_capacity,
             "entries": sum(per_kernel.values()),
             "per_kernel": per_kernel,

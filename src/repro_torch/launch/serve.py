@@ -12,8 +12,11 @@ of its own**:
 * every prefill/decode step is registered as a *trusted kernel* (built in
   :mod:`repro_torch.launch.steps`) and submitted as a
   :class:`~repro_torch.core.scheduler.LaunchRequest`, enqueued and drained
-  by the shared :class:`BatchedLaunchScheduler`; steps run eagerly on the
-  manager's device through the port's hand-written kernels;
+  by the shared :class:`BatchedLaunchScheduler`; steps run on the
+  manager's device through the port's hand-written kernels, as compiled
+  steps — one CUDA graph per (step, operand signature, width), see
+  :mod:`repro_torch.core.stepgraph` — unless ``jit_steps=False`` asks for
+  the eager fallback;
 * N engines may **share one manager** (``manager=`` / ``name=``): their
   tenants partition one global page space over one physical page pool;
 * per-row fence params come from :meth:`GuardianManager.fence_table`
@@ -121,7 +124,8 @@ def make_shared_manager(n_engines: int, max_batch: int = 8,
     ``paged=True`` sizes the slot space in *virtual pages* instead of
     sequence slots (one slot per page — see ``ServeEngine(paged=True)``).
     The manager lives on ``device`` (the card unless the caller asks for
-    the CPU)."""
+    the CPU); ``kw`` goes to :class:`GuardianManager` (``jit_trusted=False``
+    gives the co-hosted engines the eager fallback)."""
     unit = max(max_len // KV.PAGE_SIZE, 1) if paged else 1
     return GuardianManager(
         total_slots=n_engines * 2 * _pow2(max_batch) * unit,
@@ -141,6 +145,10 @@ class ServeEngine:
     weights); otherwise they are drawn from a ``torch.Generator`` seeded
     with ``seed`` on ``device``.  The engine runs on ``device`` (the card
     unless the caller asks for the CPU), which must be its manager's.
+
+    ``jit_steps`` (the default) runs the prefill/decode steps compiled:
+    the engine's own manager gets ``jit_trusted=jit_steps``.  A co-hosted
+    engine takes its manager's setting and refuses ``jit_steps=False``.
     """
 
     def __init__(self, cfg, *, max_batch: int = 8, max_len: int = 256,
@@ -149,6 +157,7 @@ class ServeEngine:
                  quarantine_policy: Optional[QuarantinePolicy] = None,
                  manager: Optional[GuardianManager] = None,
                  name: Optional[str] = None,
+                 jit_steps: bool = True,
                  telemetry: bool = True,
                  paged: bool = False,
                  max_inflight: Optional[int] = None,
@@ -189,22 +198,24 @@ class ServeEngine:
                 total_slots=n_slots, policy=policy,
                 standalone_fast_path=False,
                 quarantine_policy=quarantine_policy,
-                telemetry=telemetry, device=self.device)
+                jit_trusted=jit_steps, telemetry=telemetry,
+                device=self.device)
             # parked rows only need ONE request's worth of scratch page
             # ids (they all resolve to the allocator-owned garbage page)
             scratch_slots = _pow2(self.pages_per_req)
             self.engine_tenant = ENGINE_TENANT
         else:
-            # fencing, containment and telemetry are manager-wide
-            # concerns: refuse per-engine overrides instead of silently
-            # ignoring them (configure them on the shared manager)
+            # fencing, containment, step compilation and telemetry are
+            # manager-wide concerns: refuse per-engine overrides instead of
+            # silently ignoring them (configure them on the shared manager)
             if (policy is not FencePolicy.BITWISE
-                    or quarantine_policy is not None or not telemetry):
+                    or quarantine_policy is not None or not jit_steps
+                    or not telemetry):
                 raise ValueError(
-                    "policy/quarantine_policy/telemetry are owned by the "
-                    "shared GuardianManager; configure them on the manager "
-                    "(see make_shared_manager) instead of on a co-hosted "
-                    "ServeEngine")
+                    "policy/quarantine_policy/jit_steps/telemetry are owned "
+                    "by the shared GuardianManager; configure them on the "
+                    "manager (see make_shared_manager) instead of on a "
+                    "co-hosted ServeEngine")
             self.manager = manager
             n_slots = manager.bounds.total_slots
             scratch_slots = _pow2(self.pages_per_req)
@@ -477,6 +488,8 @@ class ServeEngine:
             row_policy=row_policy,
             # a copy: the host map is rewritten in place at later cycle
             # boundaries, and a step must keep the map it was built with
+            # (a compiled step stages it into its graph's input when it
+            # runs, not before)
             page_map=torch.tensor(self._pool.pages.page_map,
                                   device=self.device),
         )

@@ -2,10 +2,12 @@
 trusted manager kernels, and the elastic relocation step of the flat
 arena.
 
-Steps run eagerly on the manager's device.  Where the reference threads a
-new pool value through each step, the port's steps write the pool
-tensors in place and hand the same tensors back, so the manager's
-``PoolArena.buf`` bookkeeping is unchanged.
+Steps run on the manager's device, as compiled steps (one CUDA graph per
+operand signature, :mod:`repro_torch.core.stepgraph`) unless the manager's
+``jit_trusted`` is off.  Where the reference threads a new pool value
+through each step, the port's steps write the pool tensors in place and
+hand the same tensors back, so the manager's ``PoolArena.buf`` bookkeeping
+is unchanged and a replay addresses the same pool.
 """
 
 from __future__ import annotations
@@ -47,7 +49,16 @@ class TrustedStepBundle:
     Names carry a pool fingerprint (model shape + pool geometry) so
     engines serving the *same* model shape share one symbol entry — and
     the scheduler can fuse their steps — while engines serving different
-    models stay on separate entries."""
+    models stay on separate entries.
+
+    The weights (argument 1, after the arena) are declared *resident*: a
+    compiled step addresses them in place, keyed by identity, and never
+    copies them; the meta, the tokens and the guard are staged into the
+    graph's own inputs at each dispatch (the reference declares
+    ``donate_argnums`` at the same place)."""
+
+    #: argument positions (arena = 0) a compiled step keeps resident
+    RESIDENT_ARGNUMS = (1,)
 
     pool_name: str
     prefill_name: str
@@ -60,10 +71,11 @@ class TrustedStepBundle:
         engines converge on the first-registered pool) and register both
         step kernels against it.  Returns the live PoolArena."""
         arena = manager.register_pool(self.pool_name, pool)
-        manager.register_trusted_kernel(
-            self.prefill_name, self.prefill_fn, pool_arena=self.pool_name)
-        manager.register_trusted_kernel(
-            self.decode_name, self.decode_fn, pool_arena=self.pool_name)
+        for name, fn in ((self.prefill_name, self.prefill_fn),
+                         (self.decode_name, self.decode_fn)):
+            manager.register_trusted_kernel(
+                name, fn, resident_argnums=self.RESIDENT_ARGNUMS,
+                pool_arena=self.pool_name)
         return arena
 
 
@@ -112,7 +124,8 @@ def build_flat_relocation_step(moves: Tuple[Tuple[int, int, int], ...],
                                dst_extent: Tuple[int, int]) -> Callable:
     """On-device compaction step for the flat arena — a *trusted* kernel
     (``fn(arena) -> (arena, None)``) the elastic manager registers and
-    dispatches through the scheduler between drain cycles.
+    dispatches through the scheduler between drain cycles.  It is
+    declared eager: one step exists per move set and runs once.
 
     ``moves`` are absolute ``(src, dst, len)`` slot copies applied in
     order (ascending with ``dst <= src`` per move, so in-place packing

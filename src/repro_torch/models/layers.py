@@ -15,6 +15,7 @@ both wrappers take their plain versions.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -132,12 +133,20 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float,
+                   device: torch.device) -> torch.Tensor:
+    """:func:`rope_freqs` as float32 on ``device``, uploaded once: a step
+    captured into a CUDA graph cannot copy from the host.  Callers only
+    read it."""
+    return torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
+                           device=device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, S, H, D); positions: (B, S) int32."""
-    d = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(d, theta), dtype=torch.float32,
-                            device=x.device)
+    freqs = _rope_freqs_on(x.shape[-1], theta, x.device)
     ang = positions.float()[..., None] * freqs
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]

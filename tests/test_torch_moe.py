@@ -334,20 +334,52 @@ def _counts(mgr, eng):
             "prefills": int(stats["total_launches"]) - eng.decode_steps}
 
 
-@pytest.mark.parametrize("experts", [None, 16])
-def test_moe_serve_continuous_matches_reference(experts, monkeypatch):
-    """Reduced qwen3-moe through ``serve_continuous`` in both packages on
-    the same weights: 3 tenants, 6 requests of mixed lengths and budgets
-    arriving over 3 cycles, 3 rows — the same tokens per request and the
-    same drain, prefill and decode counts.  With 16 experts top-2 the
-    capacity binds in every prefill (the parked rows' identical tokens
-    overflow their experts), so the drop path runs end to end."""
-    prompts = [[(5 * i + 3 * j) % 199 + 1 for j in range(3 + i % 4)]
+MOE_PROMPTS = [[(5 * i + 3 * j) % 199 + 1 for j in range(3 + i % 4)]
                for i in range(6)]
-    cfg_j, cfg_t = CFG_J, CFG_T
-    if experts:
-        cfg_j = dataclasses.replace(CFG_J, moe=MoEJ(experts, 2, 32))
-        cfg_t = dataclasses.replace(CFG_T, moe=MoET(experts, 2, 32))
+
+
+def _moe_trace(SV, mgr, eng):
+    for t in range(3):
+        eng.register_tenant(f"t{t}", 2)
+    for i, p in enumerate(MOE_PROMPTS):
+        eng.submit(f"t{i % 3}", p, max_new=2 + i % 3, arrive=i // 2)
+    return SV.serve_continuous([eng], max_new_tokens=4), _counts(mgr, eng)
+
+
+@pytest.fixture(scope="module")
+def moe_serve_ref():
+    """The reference's run of the MoE serve trace, per expert count:
+    ``(weights, (generations, counts))``, computed on first use."""
+    runs = {}
+
+    def run(experts):
+        if experts not in runs:
+            cfg = CFG_J if not experts else dataclasses.replace(
+                CFG_J, moe=MoEJ(experts, 2, 32))
+            mgr = SJ.make_shared_manager(1, max_batch=4, max_len=64,
+                                         paged=True)
+            eng = SJ.ServeEngine(cfg, max_batch=4, max_len=64, manager=mgr,
+                                 paged=True, max_inflight=3)
+            runs[experts] = (params_np(eng.params),
+                             _moe_trace(SJ, mgr, eng))
+        return runs[experts]
+
+    return run
+
+
+@pytest.mark.parametrize("jit", [True, False], ids=["compiled", "eager"])
+@pytest.mark.parametrize("experts", [None, 16])
+def test_moe_serve_continuous_matches_reference(experts, jit, moe_serve_ref,
+                                                monkeypatch):
+    """Reduced qwen3-moe through ``serve_continuous`` in both packages on
+    the same weights, with compiled steps and with the eager fallback: 3
+    tenants, 6 requests of mixed lengths and budgets arriving over 3
+    cycles, 3 rows — the same tokens per request and the same drain,
+    prefill and decode counts.  With 16 experts top-2 the capacity binds
+    in every prefill (the parked rows' identical tokens overflow their
+    experts), so the drop path runs end to end."""
+    cfg_t = CFG_T if not experts else dataclasses.replace(
+        CFG_T, moe=MoET(experts, 2, 32))
     dropped = []
     route = MT.route
 
@@ -357,25 +389,15 @@ def test_moe_serve_continuous_matches_reference(experts, monkeypatch):
         return r
 
     monkeypatch.setattr(MT, "route", counted_route)
-    results = []
-    for pk, SV, cfg, kw in (("jax", SJ, cfg_j, {}),
-                            ("torch", ST, cfg_t, {"device": "cpu"})):
-        mgr = SV.make_shared_manager(1, max_batch=4, max_len=64, paged=True,
-                                     **kw)
-        extra = {} if pk == "jax" else {
-            "params": params_from_jax(params_np(jax_params), device="cpu")}
-        eng = SV.ServeEngine(cfg, max_batch=4, max_len=64, manager=mgr,
-                             paged=True, max_inflight=3, **kw, **extra)
-        if pk == "jax":
-            jax_params = eng.params
-        for t in range(3):
-            eng.register_tenant(f"t{t}", 2)
-        for i, p in enumerate(prompts):
-            eng.submit(f"t{i % 3}", p, max_new=2 + i % 3, arrive=i // 2)
-        results.append((SV.serve_continuous([eng], max_new_tokens=4),
-                        _counts(mgr, eng)))
-    assert len(results[1][0][0]) == len(prompts)
-    assert results[1] == results[0]
+    params, ref = moe_serve_ref(experts)
+    mgr = ST.make_shared_manager(1, max_batch=4, max_len=64, paged=True,
+                                 device="cpu", jit_trusted=jit)
+    eng = ST.ServeEngine(cfg_t, max_batch=4, max_len=64, manager=mgr,
+                         paged=True, max_inflight=3, device="cpu",
+                         params=params_from_jax(params, device="cpu"))
+    result = _moe_trace(ST, mgr, eng)
+    assert len(result[0][0]) == len(MOE_PROMPTS)
+    assert result == ref
     assert (sum(dropped) > 0) == bool(experts)
 
 

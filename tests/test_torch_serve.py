@@ -2,7 +2,9 @@
 README's "Continuous serving over paged KV" snippet and a churny
 multi-tenant trace on identical weights (same request -> tokens dicts,
 same drain-cycle, prefill and decode counts), plus mirrors of the
-reference's containment and row-refill tests."""
+reference's containment and row-refill tests.  The engine-driven tests
+run with compiled steps (``jit_trusted``, the default) and with the eager
+fallback."""
 
 import dataclasses
 
@@ -40,62 +42,90 @@ def _shape(d):
     return type(d).__name__
 
 
-def test_readme_snippet_matches_reference():
-    """README.md's continuous paged-serving snippet, in both packages on
-    the same weights."""
+#: the port's jit-cache keys for its CUDA graphs (the reference compiles
+#: through jax.jit and has no such counters)
+GRAPH_KEYS = {"graphs": "int", "graph_evictions": "int",
+              "graph_pool_bytes": "int", "graph_capture_s": "float"}
+
+JIT = pytest.mark.parametrize("jit", [True, False],
+                              ids=["compiled", "eager"])
+
+
+def _readme_trace(e, run):
+    e.register_tenant("api", 4)
+    for i in range(3):
+        e.submit("api", [1 + i, 2 + i, 3 + i], max_new=2 + i, arrive=i)
+    return run([e], max_new_tokens=4)
+
+
+@pytest.fixture(scope="module")
+def readme_ref():
+    """The reference's run of the README snippet: its engine's weights,
+    generations, counts and report shape."""
     smgr = SJ.make_shared_manager(1, max_batch=4, max_len=64, paged=True)
     eng = SJ.ServeEngine(CFG_J, max_batch=4, max_len=64, manager=smgr,
                          paged=True)
+    outs = _readme_trace(eng, SJ.serve_continuous)
+    return (params_np(eng.params), outs, _counts(smgr, eng),
+            _shape(smgr.metrics_report()))
+
+
+@JIT
+def test_readme_snippet_matches_reference(readme_ref, jit):
+    """README.md's continuous paged-serving snippet, in both packages on
+    the same weights; the port's report has the reference's shape plus
+    its graph counters."""
+    params, ref_outs, ref_counts, ref_shape = readme_ref
     tmgr = ST.make_shared_manager(1, max_batch=4, max_len=64, paged=True,
-                                  device="cpu")
+                                  device="cpu", jit_trusted=jit)
     teng = ST.ServeEngine(CFG_T, max_batch=4, max_len=64, manager=tmgr,
                           paged=True, device="cpu",
-                          params=params_from_jax(params_np(eng.params),
-                                                 device="cpu"))
-    outs = []
-    for e, run in ((eng, SJ.serve_continuous), (teng, ST.serve_continuous)):
-        e.register_tenant("api", 4)
-        for i in range(3):
-            e.submit("api", [1 + i, 2 + i, 3 + i], max_new=2 + i, arrive=i)
-        outs.append(run([e], max_new_tokens=4))
-    assert len(outs[1][0]) == 3
-    assert outs[1] == outs[0]
-    assert _counts(tmgr, teng) == _counts(smgr, eng)
-    assert _shape(tmgr.metrics_report()) == _shape(smgr.metrics_report())
+                          params=params_from_jax(params, device="cpu"))
+    outs = _readme_trace(teng, ST.serve_continuous)
+    assert len(outs[0]) == 3
+    assert outs == ref_outs
+    assert _counts(tmgr, teng) == ref_counts
+    shape = _shape(tmgr.metrics_report())
+    assert {k: shape["jit_cache"].pop(k) for k in GRAPH_KEYS} == GRAPH_KEYS
+    assert shape == ref_shape
 
 
-def test_churn_with_mixed_policies_matches_reference():
+def _churn_trace(SV, eng, policy_of):
+    prompts = [[(7 * i + 3 * j) % 211 + 1 for j in range(4 + i % 3)]
+               for i in range(7)]
+    for t, pol in enumerate([None, "modulo", "check"]):
+        eng.register_tenant(f"t{t}", 2,
+                            policy=None if pol is None else policy_of(pol))
+    for i, p in enumerate(prompts):
+        eng.submit(f"t{i % 3}", p, max_new=1 + i % 4, arrive=i // 2)
+    return SV.serve_continuous([eng], max_new_tokens=8)
+
+
+@pytest.fixture(scope="module")
+def churn_ref():
+    """The reference's run of the mixed-policy churn trace."""
+    mgr = SJ.make_shared_manager(1, max_batch=4, max_len=64, paged=True)
+    eng = SJ.ServeEngine(CFG_J, max_batch=4, max_len=64, manager=mgr,
+                         paged=True, max_inflight=2)
+    outs = _churn_trace(SJ, eng, PJ)
+    return params_np(eng.params), outs, _counts(mgr, eng)
+
+
+@JIT
+def test_churn_with_mixed_policies_matches_reference(churn_ref, jit):
     """Three tenants (BITWISE, MODULO, CHECK) with staggered arrivals and
     per-request budgets, two rows in flight: rows leave and refill every few
     cycles, row-mixed fences run, and every generation and count equals
     the reference's."""
-    prompts = [[(7 * i + 3 * j) % 211 + 1 for j in range(4 + i % 3)]
-               for i in range(7)]
-    policies = [None, "modulo", "check"]
-    results = []
-    for pk, SV, cfg, kw in (
-            ("jax", SJ, CFG_J, {}),
-            ("torch", ST, CFG_T, {"device": "cpu"})):
-        mgr = SV.make_shared_manager(1, max_batch=4, max_len=64, paged=True,
-                                     **kw)
-        extra = {}
-        if pk == "torch":
-            extra["params"] = params_from_jax(params_np(jax_params),
-                                              device="cpu")
-        eng = SV.ServeEngine(cfg, max_batch=4, max_len=64, manager=mgr,
-                             paged=True, max_inflight=2, **kw, **extra)
-        if pk == "jax":
-            jax_params = eng.params
-        for t, pol in enumerate(policies):
-            policy = None if pol is None else (
-                PJ(pol) if pk == "jax" else FencePolicy(pol))
-            eng.register_tenant(f"t{t}", 2, policy=policy)
-        for i, p in enumerate(prompts):
-            eng.submit(f"t{i % 3}", p, max_new=1 + i % 4, arrive=i // 2)
-        results.append((SV.serve_continuous([eng], max_new_tokens=8),
-                        _counts(mgr, eng)))
-    assert results[1][0] == results[0][0]
-    assert results[1][1] == results[0][1]
+    params, ref_outs, ref_counts = churn_ref
+    mgr = ST.make_shared_manager(1, max_batch=4, max_len=64, paged=True,
+                                 device="cpu", jit_trusted=jit)
+    eng = ST.ServeEngine(CFG_T, max_batch=4, max_len=64, manager=mgr,
+                         paged=True, max_inflight=2, device="cpu",
+                         params=params_from_jax(params, device="cpu"))
+    outs = _churn_trace(ST, eng, FencePolicy)
+    assert outs == ref_outs
+    assert _counts(mgr, eng) == ref_counts
 
 
 def test_forged_virtual_page_table_stays_fenced():
@@ -149,13 +179,14 @@ def test_forged_virtual_page_table_stays_fenced():
     assert_same(o1[0], o2[0])
 
 
-def test_short_request_row_refills_immediately():
+@JIT
+def test_short_request_row_refills_immediately(jit):
     """Mirror of the reference test: a finished short request's row
     refills from the admission queue at the next cycle boundary."""
     prompts = [[(7 * i + 3 * j) % 211 + 1 for j in range(6)]
                for i in range(6)]
     mgr = ST.make_shared_manager(1, max_batch=2, paged=True, max_len=64,
-                                 device="cpu")
+                                 device="cpu", jit_trusted=jit)
     eng = ST.ServeEngine(CFG_T, max_batch=2, max_len=64, seed=0,
                          manager=mgr, paged=True, device="cpu")
     eng.register_tenant("t", 2)
@@ -176,12 +207,13 @@ def test_short_request_row_refills_immediately():
     assert st.cycles <= 13
 
 
-def test_eviction_scrubs_the_tenants_physical_pages():
+@JIT
+def test_eviction_scrubs_the_tenants_physical_pages(jit):
     """Evicting a tenant zeroes the physical pages behind its virtual
     extent (the KV-leak barrier) and leaves its co-tenant's pages as they
     were."""
     mgr = ST.make_shared_manager(1, max_batch=4, paged=True, max_len=64,
-                                 device="cpu")
+                                 device="cpu", jit_trusted=jit)
     eng = ST.ServeEngine(CFG_T, max_batch=4, max_len=64, manager=mgr,
                          paged=True, device="cpu")
     for t in ("a", "b"):
