@@ -74,19 +74,31 @@ qwen3-moe-30b-a3b.  Phases, in order (any failure exits non-zero):
    gemm 1024^3, dot / axpby / isamax at n = 2**24, a 2**16-point FFT, a
    2**22-nonzero SpMV whose column ids are loaded from the arena — and
    runs each under NONE, BITWISE, MODULO and CHECK, solo and four-wide
-   fused: results equal the port's on the CPU for the same seeded inputs
-   (axpby's stored bytes and isamax's ids exactly, float reductions within
-   1e-5 normwise); a forged-pointer kernel of one tenant, alone and as
-   one row of a four-wide fused step, leaves the other three partitions
-   byte-identical but for their own rows' stores, every partition equal
-   to the CPU's (under CHECK its stores roll back, are counted by kind
-   and it is quarantined); and a NONE launch past the arena loads NaN,
-   leaves every byte of the arena as it was and the context usable.  It
-   prints each launch round's device time (CUDA events, the stream held
-   busy first) and wall time, the bytes it allocated, its peak above the
-   start and the CHECK rollback log, the same for the kernels called
-   unfenced (as written, no sandbox), and the ladders of each policy's
-   time over the unfenced kernels' and over NONE's.
+   fused, every launch through one CUDA graph per key (captured at the
+   key's first call, replayed after; the CPU side runs the same compiled
+   path): results, captured and replayed, equal the port's on the CPU
+   for the same seeded inputs (axpby's stored bytes and isamax's ids
+   exactly, float reductions within 1e-5 normwise); each plane holds one
+   graph per key, their pools together under 4 GiB; a forged-pointer
+   kernel of one tenant, replaying its key alone and as one row of a
+   four-wide fused step, leaves the other three partitions byte-identical
+   but for their own rows' stores, every partition equal to the CPU's
+   (under CHECK its stores roll back, are counted by kind and it is
+   quarantined); a NONE launch past the arena, captured and replayed,
+   loads NaN, leaves every byte of the arena as it was and the context
+   usable; on a small arena, a fused key replays across an elastic move
+   (the moved tenant fenced at its new row, the tenant registered into
+   its old extent untouched) and across a change of tenant set (one
+   graph), and a NONE graph does not survive a second tenant's arrival —
+   each card = CPU byte for byte.  It prints each launch round's device
+   time (CUDA events, the stream held busy first), wall time and device
+   operations, the bytes it allocated, its peak above the start and the
+   CHECK rollback log, each plane's graphs, captures, capture seconds and
+   pool bytes, the same rounds for the kernels called unfenced — eagerly
+   and captured by this script into a CUDA graph per round — and the
+   ladders of each policy's time over the captured unfenced kernels (by
+   device, kernel and wall time, the eager row beside), over the eager
+   ones and over NONE's.
 
 The last three lines of standard output are the kernel table as one JSON
 object, the card's ``name, power.limit``, and the result object.
@@ -211,21 +223,29 @@ K1_SLACK = 1e-5
 K1_F32_TOL = 1e-4
 
 
-def device_ops_per_call(torch, fn, calls: int = 10) -> float:
+def device_ops_per_call(torch, fn, calls: int = 10,
+                        sessions: int = 3) -> float:
     """Device operations (kernels, memsets, copies) one call of ``fn``
     puts on the card: those ``torch.profiler`` records over ``calls``
-    calls, divided by ``calls``.  The count is taken in a second profiling
-    session: the first one of a process can start recording late."""
+    calls, divided by ``calls``, the most that any of ``sessions``
+    profiling sessions recorded.  The profiler can drop a record (the
+    first session of a process starts recording late, and a later one has
+    been seen to miss one launch of ten) but never makes one up, and the
+    card is idle at each session's start and end, so the largest count is
+    the true one.  The first session is thrown away."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    counts = []
+    for _ in range(1 + sessions):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / calls
+        counts.append(sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA))
+    return max(counts[1:]) / calls
 
 
 def half_ulp_bf16(torch, x):
@@ -1766,6 +1786,39 @@ class Unfenced:
             mgr.arena.buf, _ = fn(mgr.arena.buf, *ptrs, *args)
 
 
+class CapturedUnfenced:
+    """:class:`Unfenced`'s calls captured by this script into one CUDA
+    graph per (op, tenants), replayed from the second call on — the
+    compiled unfenced baseline the compiled policies are read against.
+    The first call runs them eagerly on a side stream (cuBLAS and cuFFT
+    set up there), then captures.  The graphs share one memory pool
+    (their replays run one after the other, and nothing they compute is
+    read); the pointers are constants of a graph, as these tenants never
+    move."""
+
+    def __init__(self, torch, plane):
+        self.torch, self.eager = torch, Unfenced(plane)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs = {}
+
+    def launch(self, op, tenants):
+        torch = self.torch
+        key = (op[0], tuple(tenants))
+        graph = self.graphs.get(key)
+        if graph is not None:
+            graph.replay()
+            return
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.eager.launch(op, tenants)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            self.eager.launch(op, tenants)
+        self.graphs[key] = graph
+
+
 def _tenant_results(plane, reqs_by_op):
     """What the phase compares between the card and the CPU."""
     out = {}
@@ -1869,13 +1922,20 @@ def tenant_plane(torch, sz=None, device: str = "cuda", smi: str = ""):
     """Phase 5: the tenant-kernel plane on the card at a shared GPU's size
     — a 1 GiB arena, four tenants of 2**26 slots, the simulated libraries
     at working sets of 2**22 slots and more — under NONE, BITWISE, MODULO
-    and CHECK, solo and four-wide fused.  Each policy's results on the
-    card equal the port's on the CPU for the same seeded inputs; a
-    forged-pointer kernel leaves the other partitions byte-identical;
-    under CHECK the rogue's rows roll back, are counted by kind and it is
-    quarantined; a NONE launch past the arena leaves the context usable.
-    Prints the device and wall time, the bytes allocated and the rollback
-    bytes of each launch round."""
+    and CHECK, solo and four-wide fused, every launch a replay of one CUDA
+    graph per key (the CPU side runs the same compiled path).  Each
+    policy's results on the card equal the port's on the CPU for the same
+    seeded inputs; the graph count equals the number of keys; a
+    forged-pointer kernel, replayed, leaves the other partitions
+    byte-identical; under CHECK the rogue's rows roll back, are counted by
+    kind and it is quarantined; a NONE launch past the arena leaves the
+    context usable; on a small arena a fused key replays across an elastic
+    move (fenced at the new row) and a change of tenant set (one graph),
+    and a NONE graph never outlives a second tenant's arrival.  Prints the
+    device and wall time, the device operations, the bytes allocated and
+    the rollback bytes of each launch round, each plane's graphs, capture
+    seconds and pool bytes, and the ladders over the unfenced kernels
+    captured into graphs, over them called eagerly, and over NONE."""
     sz = dict(TENANT_SIZES if sz is None else sz)
     t_start = time.perf_counter()
     inputs = tenant_inputs(sz)
@@ -1885,6 +1945,7 @@ def tenant_plane(torch, sz=None, device: str = "cuda", smi: str = ""):
         f"dot/axpby/isamax n = {sz['n']}, fft n = {sz['fft']}, spmv nnz "
         f"= {sz['nnz']} over {sz['rows']} rows ({smi})")
     ladder = {}
+    pool_total = 0
     for policy in TENANT_POLICIES:
         card = TenantPlane(torch, policy, device, sz, inputs)
         cpu = TenantPlane(torch, policy, "cpu", sz, inputs)
@@ -1892,31 +1953,37 @@ def tenant_plane(torch, sz=None, device: str = "cuda", smi: str = ""):
         rounds = (("solo", [0]), ("x4", everyone if policy != "none"
                                   else [0, 0, 0, 0]))
         worst = 0.0
-        for label, tenants in rounds:
+        # each round twice: the first call of a key captures its graph,
+        # the second replays it, and both must equal the CPU's
+        for label, tenants in rounds + rounds:
             reqs_card = _tenant_round(card, tenants)
             reqs_cpu = _tenant_round(cpu, tenants)
             worst = max(worst, _compare(
                 torch, _tenant_results(card, reqs_card),
                 _tenant_results(cpu, reqs_cpu), f"{policy} {label}"))
         st = card.mgr.scheduler.stats
-        if policy != "none" and st.fused_steps != len(card.ops()):
+        if policy != "none" and st.fused_steps != 2 * len(card.ops()):
             raise AssertionError(f"{policy}: {st.fused_steps} fused steps, "
-                                 f"want {len(card.ops())}")
-        log(f"  [{policy}] card = CPU: float reductions within "
-            f"{worst:.3g} normwise (tolerance {TOL_F32}), axpby bytes and "
-            f"isamax ids exact; drain steps fused {st.fused_steps}, single "
-            f"{st.single_steps}, check {st.check_steps}, proven "
-            f"{st.proven_steps}")
+                                 f"want {2 * len(card.ops())}")
+        log(f"  [{policy}] card = CPU, compiled, each round captured then "
+            f"replayed: float reductions within {worst:.3g} normwise "
+            f"(tolerance {TOL_F32}), axpby bytes and isamax ids exact; "
+            f"drain steps fused {st.fused_steps}, single {st.single_steps}, "
+            f"check {st.check_steps}, proven {st.proven_steps}")
         if device == "cuda" and policy == "none":
-            for label, tenants in rounds:
-                for op in card.ops():
-                    t = _time_op(torch, Unfenced(card), op, tenants)
-                    ladder[("unfenced", label, op[0])] = t
-                    log(f"  [unfenced] {op[0]:6s} {label:4s}: device "
-                        f"{t['dev']:.4f} ms, wall {t['wall']:.4f} ms, "
-                        f"kernels {t['busy']:.4f} ms in {t['ops']:g} device "
-                        f"ops a round; allocated {t['alloc']:.1f} MB, peak "
-                        f"+{t['peak']:.1f} MB")
+            for base in ("unfenced", "captured"):
+                plane = Unfenced(card) if base == "unfenced" \
+                    else CapturedUnfenced(torch, card)
+                for label, tenants in rounds:
+                    for op in card.ops():
+                        t = _time_op(torch, plane, op, tenants)
+                        ladder[(base, label, op[0])] = t
+                        log(f"  [{base}] {op[0]:6s} {label:4s}: device "
+                            f"{t['dev']:.4f} ms, wall {t['wall']:.4f} ms, "
+                            f"kernels {t['busy']:.4f} ms in {t['ops']:g} "
+                            f"device ops a round; allocated "
+                            f"{t['alloc']:.1f} MB, peak +{t['peak']:.1f} MB")
+                del plane
         if device == "cuda":
             for label, tenants in rounds:
                 for op in card.ops():
@@ -1934,32 +2001,239 @@ def tenant_plane(torch, sz=None, device: str = "cuda", smi: str = ""):
                         f"rollback log {rb:.2f} MB; fused steps {fused:g} "
                         "a round")
         _tenant_isolation(torch, card, cpu, policy, sz)
+        pool_total += _tenant_graphs(card, policy, len(card.ops()))
         card_ops = card.ops()
         del card, cpu
         gc.collect()
         if device == "cuda":
             torch.cuda.empty_cache()
+    if pool_total >= 4 * 2**30:
+        raise AssertionError(f"the tenant graphs' pools total "
+                             f"{pool_total / 2**30:.2f} GiB, over 4 GiB")
+    log(f"  tenant graphs' pools of the four planes together: "
+        f"{pool_total / 2**20:.1f} MB (limit 4096 MB)")
+    for policy in TENANT_POLICIES[1:]:
+        _replay_isolation(torch, policy, device)
+    _stale_native(torch, device)
     if ladder:
-        ops = [op[0] for op in card_ops]
-        # over the unfenced kernels: the fence's overhead; over NONE: what
-        # a policy costs beyond jnp's out-of-range semantics, which NONE
-        # keeps and an unfenced kernel does not
-        for over in ("unfenced", "none"):
-            for key, what in (("dev", "device time"),
-                              ("busy", "kernel time")):
-                log(f"  ladder ({what} / {over}'s; x4 of {over} = four "
-                    f"unfused calls; {smi}):")
-                for policy in TENANT_POLICIES:
-                    if policy == over:
-                        continue
-                    parts = []
-                    for lb in ("solo", "x4"):
-                        for op in ops:
-                            r = ladder[(policy, lb, op)][key] \
-                                / ladder[(over, lb, op)][key]
-                            parts.append(f"{op} {r:.2f}x ({lb})")
-                    log(f"    {policy:8s} " + ", ".join(parts))
+        _tenant_ladders(ladder, [op[0] for op in card_ops], smi)
     log(f"tenant plane: ok in {time.perf_counter() - t_start:.1f} s")
+
+
+def _tenant_graphs(plane, policy, n_ops) -> int:
+    """Checks that the plane holds one graph per key and prints its
+    graphs, captures, capture seconds and pool bytes; returns the pool
+    bytes.  The keys: one per op and round width (NONE never fuses, so
+    its four-wide round replays the solo key), and the isolation check's
+    two (its solo and four-wide forged-pointer launches; under NONE the
+    probe)."""
+    st = plane.mgr.jit_cache_stats()
+    keys = n_ops * (1 if policy == "none" else 2) + (
+        1 if policy == "none" else 2)
+    if st["graphs"] != keys or st["graph_evictions"]:
+        raise AssertionError(f"{policy}: {st['graphs']} graphs "
+                             f"({st['graph_evictions']} evicted) for "
+                             f"{keys} keys")
+    log(f"  [{policy}] graphs: {st['graphs']} for {keys} keys, "
+        f"{st['graphs'] + st['graph_evictions']} captures in "
+        f"{st['graph_capture_s']:.3f} s, pool "
+        f"{st['graph_pool_bytes'] / 2**20:.1f} MB (one pool for the plane)")
+    return st["graph_pool_bytes"]
+
+
+def _tenant_ladders(ladder, ops, smi) -> None:
+    """Each policy's time over the unfenced kernels captured into graphs
+    (the compiled baseline: device, kernel and wall time), with the eager
+    unfenced row beside it; then over the eager unfenced kernels and over
+    NONE (device and kernel time)."""
+    # over the unfenced kernels: the fence's overhead; over NONE: what a
+    # policy costs beyond jnp's out-of-range semantics, which NONE keeps
+    # and an unfenced kernel does not
+    blocks = [("captured", k) for k in ("dev", "busy", "wall")] + [
+        (over, k) for over in ("unfenced", "none") for k in ("dev", "busy")]
+    what = {"dev": "device time", "busy": "kernel time", "wall": "wall"}
+    log("  ladders: captured = the unfenced kernels captured by this script "
+        "into one CUDA graph per round, unfenced = the same calls eager, "
+        "each policy = the port's compiled launches")
+    for over, key in blocks:
+        log(f"  ladder ({what[key]} / {over}'s; x4 of {over} = four "
+            f"unfused calls; {smi}):")
+        rows = (("unfenced",) if over == "captured" else ()) \
+            + TENANT_POLICIES
+        for row in (r for r in rows if r != over):
+            parts = []
+            for lb in ("solo", "x4"):
+                for op in ops:
+                    r = ladder[(row, lb, op)][key] / ladder[(over, lb, op)][key]
+                    parts.append(f"{op} {r:.2f}x ({lb})")
+            log(f"    {row:8s} " + ", ".join(parts))
+
+
+#: the elastic scenarios' small arena: 16 tenant extents of 2**12 slots
+REPLAY_SIZES = dict(arena=1 << 16, part=1 << 12, n=64)
+
+
+def _replay_scenario(torch, policy: str, device: str):
+    """A fused key replayed across an elastic move and a change of tenant
+    set: t0..t3 store at their own buffers (the capture, then a replay);
+    the elastic plane relocates t3, and t4 registers into t3's old
+    extent; the four replay the key with t3's pointer forged at t4's
+    buffer; then t0, t1, t2 and t4 — another set of four, the same
+    signature — replay it.  Returns the arena, the partitions and the
+    facts the checks read."""
+    import numpy as np
+    from repro_torch.core import FencePolicy, GuardianManager, \
+        ThresholdPolicy
+    from repro_torch.core.stepgraph import StepGraph
+    sz = REPLAY_SIZES
+    n = sz["n"]
+    mgr = GuardianManager(
+        total_slots=sz["arena"], policy=FencePolicy(policy), device=device,
+        quarantine_policy=ThresholdPolicy(quarantine_after=1 << 30))
+    clients, bufs = {}, {}
+
+    def join(t, pad=0):
+        clients[t] = mgr.register_tenant(t, sz["part"])
+        clients[t].module_load("evil", evil)
+        if pad:     # t3's buffer sits past the offset its forgery wraps to
+            clients[t].malloc(pad)
+        bufs[t] = clients[t].malloc(n)
+        clients[t].memcpy_h2d(bufs[t], np.full(n, 5.0, np.float32))
+
+    def replay(who, forged=None):
+        for t in who:
+            if t == "t3" and forged is not None:
+                clients[t].launch_kernel("evil", args=(
+                    torch.tensor(forged, dtype=torch.int32), n))
+            else:
+                clients[t].launch_kernel("evil", ptrs=[bufs[t]], args=(n,))
+        mgr.run_queued()
+
+    for t in ("t0", "t1", "t2", "t3"):
+        join(t, pad=2 * n if t == "t3" else 0)
+    four = ["t0", "t1", "t2", "t3"]
+    replay(four)
+    replay(four)
+    old = mgr.bounds.lookup("t3")
+    new = mgr.elastic.relocate("t3", sz["part"])
+    join("t4")
+    replay(four, forged=bufs["t4"].addr)
+    replay(["t0", "t1", "t2", "t4"])
+    mgr.synchronize()
+    graphs = [g for g in mgr.scheduler._fused_cache.values()
+              if isinstance(g, StepGraph)]
+    parts = {t: mgr.bounds.lookup(t) for t in clients}
+    return dict(
+        arena=mgr.arena.buf.cpu(), parts=parts, old=old, new=new,
+        t4_buf=bufs["t4"].addr, t3_buf=bufs["t3"].addr - old.base,
+        graphs=len(graphs),
+        all_graphs=mgr.jit_cache_stats()["graphs"],
+        replays=[g.replays for g in graphs],
+        log=mgr.violog.counts("t3"),
+        state=mgr.quarantine.state_of("t3").name)
+
+
+def _replay_isolation(torch, policy: str, device: str) -> None:
+    """:func:`_replay_scenario` on the card and on the CPU: every byte of
+    the arena equal, t4's extent (t3's old one) holding exactly its own
+    bytes, t3's forged stores fenced at its new row (wrapped there, or
+    under CHECK rolled back and counted), one graph replayed three
+    times."""
+    sz = REPLAY_SIZES
+    card = _replay_scenario(torch, policy, device)
+    cpu = _replay_scenario(torch, policy, "cpu")
+    where = f"[{policy}] elastic move between replays"
+    if not torch.equal(card["arena"], cpu["arena"]):
+        raise AssertionError(f"{where}: the card's arena differs from the "
+                             "CPU's")
+    arena, parts, n = card["arena"], card["parts"], sz["n"]
+    if parts["t4"].base != card["old"].base:
+        raise AssertionError(f"{where}: t4 did not land in t3's old extent")
+    off = card["t4_buf"] - parts["t4"].base
+    t4 = arena[parts["t4"].base:parts["t4"].end]
+    want = torch.zeros_like(t4)
+    want[off:off + n] = 999.0           # its own stores of the last replay
+    if not torch.equal(t4, want):
+        raise AssertionError(f"{where}: t4's extent (t3's old one) was "
+                             "written by t3 — a replay fenced at the old row")
+    # t3's new extent: its own buffer, moved with it, holds its stores of
+    # the first two replays; its forged stores wrapped to the offset of
+    # t4's buffer in the row (BITWISE, MODULO) or were rolled back (CHECK)
+    want = torch.zeros_like(t4)
+    want[card["t3_buf"]:card["t3_buf"] + n] = 999.0
+    if policy != "check":
+        want[off:off + n] = 999.0
+    if not torch.equal(arena[card["new"].base:card["new"].end], want):
+        raise AssertionError(f"{where}: t3's new extent is not its own "
+                             "stores plus its forgery fenced at the new row")
+    if policy == "check":
+        if card["log"]["scatter"] != n:
+            raise AssertionError(f"{where}: the forged stores were not "
+                                 f"counted ({card['log']})")
+        detail = f"rolled back, {n} counted, {card['state']}"
+    else:
+        detail = "wrapped into its new extent"
+    if not (card["graphs"] == card["all_graphs"] == 1
+            and card["replays"] == [3]):
+        raise AssertionError(f"{where}: {card['graphs']} fused graphs "
+                             f"replayed {card['replays']} times, want one "
+                             "replayed 3 times")
+    log(f"  {where}: card = CPU byte for byte; t3 moved "
+        f"[{card['old'].base}, {card['old'].end}) -> [{card['new'].base}, "
+        f"{card['new'].end}), t4 registered into the old extent; the "
+        f"replay's forged stores of t3 at t4's buffer were {detail}, t4's "
+        "extent holds only its own bytes; the sets {t0..t3} and {t0, t1, "
+        "t2, t4} replayed one graph (1 graph, captured once, replayed 3 "
+        "times)")
+
+
+def _stale_native(torch, device: str) -> None:
+    """A NONE (unfenced) graph captured and replayed by a standalone
+    tenant, then a second tenant joins: the next launch, forged at the
+    newcomer's buffer, runs fenced — no NONE graph survives the join —
+    on the card and on the CPU, byte for byte."""
+    import numpy as np
+    from repro_torch.core import GuardianManager
+    from repro_torch.core.stepgraph import StepGraph
+    sz = REPLAY_SIZES
+    n = sz["n"]
+    out = []
+    for dev in (device, "cpu"):
+        mgr = GuardianManager(total_slots=sz["arena"], device=dev)
+        solo = mgr.register_tenant("solo", sz["part"])
+        solo.module_load("evil", evil)
+        p = solo.malloc(n)
+        for _ in range(2):
+            solo.launch_kernel("evil", ptrs=[p], args=(n,))
+            mgr.run_queued()
+        cache = mgr.pointer_to_symbol["evil"].jit_cache
+        native = [g.replays for k, g in cache.items()
+                  if k[0] == "native" and isinstance(g, StepGraph)]
+        late = mgr.register_tenant("late", sz["part"])
+        q = late.malloc(n)
+        late.memcpy_h2d(q, np.full(n, 5.0, np.float32))
+        solo.launch_kernel("evil", args=(
+            torch.tensor(q.addr, dtype=torch.int32), n))
+        mgr.synchronize()
+        modes = sorted({k[0] for k, g in cache.items()
+                        if isinstance(g, StepGraph)})
+        out.append((native, modes, mgr.arena.buf.cpu(),
+                    mgr.bounds.lookup("late")))
+    (native, modes, arena, part), cpu = out[0], out[1]
+    where = "[none] a NONE graph, then a second tenant"
+    if native != [1] or modes != ["bitwise"] or cpu[0] != native \
+            or cpu[1] != modes:
+        raise AssertionError(f"{where}: NONE graphs {native}, graphs after "
+                             f"the join {modes} (CPU: {cpu[:2]})")
+    want = torch.zeros(part.size)
+    want[q.addr - part.base:q.addr - part.base + n] = 5.0
+    if not (torch.equal(arena, cpu[2])
+            and torch.equal(arena[part.base:part.end], want)):
+        raise AssertionError(f"{where}: the newcomer's extent changed, or "
+                             "card != CPU")
+    log(f"  {where}: the NONE graph (captured, replayed once) was purged at "
+        "the join; the forged launch ran as a BITWISE graph, the "
+        "newcomer's extent byte-identical; card = CPU byte for byte")
 
 
 def _tenant_isolation(torch, card, cpu, policy, sz):
@@ -1970,15 +2244,18 @@ def _tenant_isolation(torch, card, cpu, policy, sz):
         outs = []
         for plane in (card, cpu):
             snap = plane.mgr.arena.buf.clone()
-            r = plane.launch(("probe", "probe", (), (past, 4096)), [0])[0]
-            plane.mgr.synchronize()
+            for _ in range(2):              # the capture, then a replay
+                r = plane.launch(("probe", "probe", (), (past, 4096)),
+                                 [0])[0]
+                plane.mgr.synchronize()
+                # every store fell past the arena and was dropped: no
+                # byte of the arena moved, slot 0 (where a dropped store
+                # is redirected with the value already there) included
+                if not torch.equal(plane.mgr.arena.buf, snap):
+                    raise AssertionError(
+                        f"NONE past the arena: the arena changed on the "
+                        f"{plane.mgr.device}")
             outs.append(r.result.cpu())
-            # every store fell past the arena and was dropped: no byte of
-            # the arena moved, slot 0 (where a dropped store is redirected
-            # with the value already there) included
-            if not torch.equal(plane.mgr.arena.buf, snap):
-                raise AssertionError(f"NONE past the arena: the arena "
-                                     f"changed on the {plane.mgr.device}")
             del snap
             # the context stays usable: another launch and a synchronize
             plane.launch(plane.ops()[1], [0])
@@ -1986,10 +2263,10 @@ def _tenant_isolation(torch, card, cpu, policy, sz):
         if not (torch.equal(outs[0].isnan(), outs[1].isnan())
                 and outs[0].isnan().all()):
             raise AssertionError("NONE past the arena: card != CPU")
-        log(f"  [none] a launch 5 slots past the {sz['arena']}-slot arena "
-            "loads NaN and drops its stores, as the reference (the arena "
-            "byte-identical before and after, on the card and the CPU); "
-            "the next launch and synchronize run")
+        log(f"  [none] a launch 5 slots past the {sz['arena']}-slot arena, "
+            "captured then replayed, loads NaN and drops its stores, as the "
+            "reference (the arena byte-identical before and after, on the "
+            "card and the CPU); the next launch and synchronize run")
         return
     n_t = sz["tenants"]
     rogue = n_t - 1
@@ -1997,22 +2274,30 @@ def _tenant_isolation(torch, card, cpu, policy, sz):
     # first a four-wide fused round in which every tenant stores at its
     # own x buffer and the rogue at t0's, then the rogue alone; the
     # fused round stays under the quarantine threshold, the two together
-    # reach it
+    # reach it.  Each attack replays its key: a round of the same
+    # signature in which the rogue too stores at its own buffer captures
+    # it first
     rounds = (("x4", sz["evil"] // 2, list(range(n_t))),
               ("solo", sz["evil"], [rogue]))
     st = card.mgr.scheduler.stats
+
+    def attack(plane, n, tenants, forged):
+        for t in tenants:
+            target = victim if forged and t == rogue \
+                else plane.ptrs[t]["x"].addr
+            plane.clients[t].launch_kernel(
+                "evil", args=(torch.tensor(target, dtype=torch.int32), n))
+        plane.mgr.run_queued()
+
     total = 0
     for label, n, tenants in rounds:
+        for plane in (card, cpu):
+            attack(plane, n, tenants, forged=False)
         snaps = {id(p): [p.partition(t).clone() for t in range(n_t)]
                  for p in (card, cpu)}
         fused0 = st.fused_steps
         for plane in (card, cpu):
-            for t in tenants:
-                target = victim if t == rogue else plane.ptrs[t]["x"].addr
-                plane.clients[t].launch_kernel(
-                    "evil", args=(torch.tensor(target, dtype=torch.int32),
-                                  n))
-            plane.mgr.run_queued()
+            attack(plane, n, tenants, forged=True)
         card.mgr.synchronize()
         total += n
         if len(tenants) > 1 and not (st.fused_steps == fused0 + 1
@@ -2064,7 +2349,8 @@ def _tenant_isolation(torch, card, cpu, policy, sz):
                   "else of their partitions moved" if len(tenants) > 1
                   else "the other three partitions byte-identical")
         log(f"  [{policy}] forged pointer of t{rogue} at t0's buffer, "
-            f"{label}, on the card and the CPU: {others}; {detail}")
+            f"{label}, a replay, on the card and the CPU: {others}; "
+            f"{detail}")
 
 
 # A worker of the same-card A/B: phase 2 of the checkout at argv[1], run

@@ -766,9 +766,10 @@ class ElasticManager:
                        old: Partition, new: Partition) -> None:
         """Host-table rewrite for a committed extent change: purge every
         compiled/staged artifact keyed on the old bounds (fence-table
-        stagings, MODULO magic specializations, partition scalars —
-        the manager's fence_table() key includes the bounds, so the
-        (T, 2)/(T, 4) rows rebuild on next read), then notify."""
+        stagings, MODULO magic specializations and their graphs, partition
+        scalars — the manager's fence_table() key includes the bounds, so
+        the (T, 2)/(T, 4) rows rebuild on next read; the fused graphs stay,
+        their rows are staged at dispatch), then notify."""
         mgr = self.manager
         mgr._purge_symbol_caches(old)
         mgr._part_scalars.pop(tenant_id, None)

@@ -27,7 +27,11 @@ Responsibilities (paper section in parentheses):
   round-robin; the selected launches go to the
   :class:`BatchedLaunchScheduler`, which coalesces compatible launches of
   different tenants into one batch per cycle (per-row fence rows from a
-  :class:`FenceTable`; CHECK rows commit selectively).
+  :class:`FenceTable`; CHECK rows commit selectively).  Every tenant
+  launch on the card — a per-launch twin or a fused batch — replays one
+  CUDA graph per (kernel, policy, operand signature, width), as the
+  reference runs each through ``jax.jit``: its fence rows, row scalars
+  and log row ids are staged into the graph at dispatch, never frozen.
 * **Fault containment**: a device-side per-tenant
   :class:`~repro_torch.core.violations.ViolationLog` polled by the
   :class:`~repro_torch.core.quarantine.QuarantineManager` at drain-cycle
@@ -72,7 +76,7 @@ from repro_torch.core.scheduler import (
     _arg_signature,
 )
 from repro_torch.core.stepgraph import Operands, StepCaptureError, \
-    StepGraph, tree_flatten
+    StepGraph, tree_flatten, tree_unflatten
 from repro_torch.core.telemetry import DRAIN_TRACK, Telemetry
 from repro_torch.core.tenantclass import ClassSpec, TenantClassPolicy, \
     as_class_policy
@@ -127,13 +131,17 @@ class _KernelEntry:
     #: the sandboxed twins of a tenant kernel, one per fence mode:
     #: ``native(arena, *args)`` (NONE — the reference's out-of-range
     #: semantics, no fence), ``fenced_dyn(arena, base, mask, *args)``,
-    #: ``checked_dyn(arena, base, size, *args, undo=) -> ((arena, out),
-    #: ok, counts)`` and ``modulo_dyn(arena, base, size, m, s, *args)``
+    #: ``checked_dyn(arena, base, size, *args) -> ((arena, out), ok,
+    #: counts, rollback bytes)`` (a launch whose ``ok`` is false has its
+    #: stores undone on the device before it returns) and
+    #: ``modulo_dyn(arena, base, size, m, s, *args)``
     native: Optional[Callable] = None
     fenced_dyn: Optional[Callable] = None
     checked_dyn: Optional[Callable] = None
     modulo_dyn: Optional[Callable] = None
-    #: per-partition static MODULO twins, keyed (base, size)
+    #: per-partition static MODULO twins, keyed (base, size): the bounds
+    #: are constants of the twin (the reference's specialization), so its
+    #: programs and graphs live under the mode ``f"mod{base}.{size}"``
     modulo_static: Dict[Tuple[int, int], Callable] = dataclasses.field(
         default_factory=dict)
     #: framework-plane kernels (serving-engine steps): already fenced
@@ -153,11 +161,13 @@ class _KernelEntry:
     #: a trusted step declared eager (``capture=False``) never runs as a
     #: CUDA graph and never fuses, even under ``jit_trusted``
     capture: bool = True
-    #: planned sandbox programs keyed (mode, argument signature) — the
-    #: port's stand-in for the reference's per-(kernel, mode, signature)
-    #: jit cache — and a trusted step's :class:`StepGraph` objects keyed
-    #: ("trusted", signature, resident operands); LRU-bounded by the
-    #: manager's ``jit_cache_capacity``
+    #: planned sandbox programs keyed (mode, argument signature), the
+    #: per-launch twins' :class:`StepGraph` objects keyed (mode, "graph",
+    #: signature, resident operands) — together the port's counterpart of
+    #: the reference's per-(kernel, mode, signature) jit cache; the mode
+    #: leads both keys, so a purge by mode drops both — and a trusted
+    #: step's graphs keyed ("trusted", signature, resident operands);
+    #: LRU-bounded by the manager's ``jit_cache_capacity``
     jit_cache: Dict[Tuple, Callable] = dataclasses.field(
         default_factory=dict)
     #: run the static verifier over each new trace (PROVEN sites lose
@@ -173,7 +183,9 @@ class _KernelEntry:
 def _run_twin(entry: _KernelEntry, mode: str, sb, fp: FenceParams,
               args: Tuple, undo: Optional[UndoLog] = None):
     """One launch of a sandboxed twin through the entry's program cache
-    (trace, verify and plan once per (mode, signature))."""
+    (trace, verify and plan once per (mode, signature): at the first call
+    of a graph's key, which runs eagerly before its capture, so the
+    capture finds the program planned)."""
     key = (mode, _arg_signature(args))
     prog = entry.jit_cache.get(key)
     if prog is None:
@@ -228,9 +240,12 @@ class GuardianManager:
         #: steps of several serve engines fuse into one.  False is the
         #: eager, unfused fallback (equal results by regression test).
         self.jit_trusted = jit_trusted
-        #: the side stream compiled steps warm up and capture on (created
-        #: at the first capture on a CUDA device)
+        #: the side stream compiled steps warm up and capture on, and the
+        #: memory pool every tenant graph captures into with the graph
+        #: that holds it (created at the first capture on a CUDA device;
+        #: see _tenant_pool)
         self._capture_stream = None
+        self._graph_pool = None
         #: LRU capacity of each kernel entry's specialization cache
         self.jit_cache_capacity = jit_cache_capacity
         self.scheduler = BatchedLaunchScheduler(
@@ -393,6 +408,8 @@ class GuardianManager:
             self.scheduler.enable_arrival_tracking()
         client = GuardianClient(self, tenant_id)
         self._clients[tenant_id] = client
+        # the tenant set changed: no unfenced (NONE) graph may outlive it
+        self._purge_native_entries()
         if self.telemetry.enabled:
             self.telemetry.registry.inc("tenants_registered")
             extra = {}
@@ -455,11 +472,13 @@ class GuardianManager:
         partition dies or moves (the elastic plane calls this on every
         resize):
 
-        * NONE-policy ("native") programs: planned while some tenant ran
-          standalone; they carry no fence, so none may survive a
-          tenant-set change.
-        * The partition's static MODULO twins and their programs.
+        * NONE-policy ("native") programs and graphs: planned while some
+          tenant ran standalone; they carry no fence, so none may survive
+          a tenant-set change.
+        * The partition's static MODULO twins, their programs and their
+          graphs (the bounds are constants of those).
         * Scheduler fence-table stagings that reference the dead bounds.
+          The fused graphs stay: their fence rows are staged at dispatch.
         """
         self._purge_native_entries()
         for entry in self.pointer_to_symbol.values():
@@ -481,8 +500,9 @@ class GuardianManager:
         self._purge_native_entries()
 
     def _purge_native_entries(self) -> None:
-        """No NONE-policy (unfenced) program survives a tenant-set or
-        lifecycle change — the next standalone tenant plans afresh."""
+        """No NONE-policy (unfenced) program or graph survives a
+        tenant-set or lifecycle change — the next standalone tenant plans
+        and captures afresh."""
         for entry in self.pointer_to_symbol.values():
             for key in [k for k in entry.jit_cache if k[0] == "native"]:
                 del entry.jit_cache[key]
@@ -791,10 +811,17 @@ class GuardianManager:
                                kargs(arena, base, mask, args))
             return out
 
-        def checked_dyn(arena, base, size, *args, undo=None):
+        def checked_dyn(arena, base, size, *args):
+            # the stores of a launch whose ok is false never land: each
+            # is logged before it is made and undone on the device, with
+            # no host sync, before the next launch sees the arena
             fp = row(base, size)
-            return _run_twin(entry, "check", checked_sb, fp,
-                             kargs(arena, base, size - 1, args), undo)
+            undo = UndoLog()
+            written, ok, counts = _run_twin(
+                entry, "check", checked_sb, fp,
+                kargs(arena, base, size - 1, args), undo)
+            undo.rollback(ok)
+            return written, ok, counts, undo.nbytes
 
         def modulo_dyn(arena, base, size, m, s, *args):
             # one magic row of the FenceTable: the four extra parameters
@@ -863,7 +890,8 @@ class GuardianManager:
 
     def _modulo_exec(self, entry: _KernelEntry, part: Partition) -> Callable:
         """The per-launch MODULO twin of one partition: static bounds and
-        magic constants (the reference's per-partition specialization)."""
+        magic constants (the reference's per-partition specialization).
+        A fence-aware kernel's row scalars come in as staged arguments."""
         key = (part.base, part.size)
         if key not in entry.modulo_static:
             fp = FenceParams(base=part.base, size=part.size)
@@ -871,15 +899,9 @@ class GuardianManager:
                          policy=FencePolicy.MODULO, verify=entry.verify,
                          bound_argnums=(1, 2) if entry.fence_aware else ())
             mode = f"mod{part.base}.{part.size}"
-            # a fence-aware kernel is handed the row's scalars
-            lead = tuple(torch.tensor(v, dtype=torch.int32,
-                                      device=self.device)
-                         for v in (part.base, part.mask)) \
-                if entry.fence_aware else ()
 
             def modulo_entry(arena, *args):
-                out, _ = _run_twin(entry, mode, sb, fp,
-                                   (arena, *lead, *args))
+                out, _ = _run_twin(entry, mode, sb, fp, (arena, *args))
                 return out
 
             entry.modulo_static[key] = modulo_entry
@@ -941,10 +963,14 @@ class GuardianManager:
                              bound_argnums=bound, params=None, mode="row")
 
     def _on_device(self, a):
-        """A tensor launch operand on the manager's device."""
-        if isinstance(a, torch.Tensor) and a.device != self.device:
-            return a.to(self.device, non_blocking=True)
-        return a
+        """A launch operand with every tensor in it on the manager's
+        device — a graph stages device tensors only: a host tensor would
+        reach a kernel as a scalar read at capture and frozen there."""
+        struct, leaves = tree_flatten(a)
+        return tree_unflatten(struct, [
+            t.to(self.device, non_blocking=True)
+            if isinstance(t, torch.Tensor) and t.device != self.device
+            else t for t in leaves])
 
     def launch_kernel(self, tenant_id: str, name: str,
                       ptrs: Sequence[DevicePtr] = (),
@@ -958,7 +984,7 @@ class GuardianManager:
             raise GuardianViolation(
                 f"unknown kernel {name!r}: symbol not in grdLib "
                 "(application would fail to start, §4.1)")
-        part = self.bounds.lookup(tenant_id)
+        self.bounds.lookup(tenant_id)       # an unknown tenant raises
         t1 = time.perf_counter_ns()
         self.launch_stats.lookup_ns.append(t1 - t0)
 
@@ -973,8 +999,7 @@ class GuardianManager:
             args = tuple(self._on_device(a) for a in args)
         req = LaunchRequest(tenant_id=tenant_id, name=name,
                             policy=self._effective_policy(tenant_id),
-                            entry=entry, part=part,
-                            call_args=(*ptr_args, *args),
+                            entry=entry, call_args=(*ptr_args, *args),
                             trusted_fusable=self._compiles(entry))
         if enqueue or self.mode is SharingMode.SPATIAL:
             self._enqueue(tenant_id, "launch", (req,))
@@ -996,11 +1021,10 @@ class GuardianManager:
         deliberately holding.  Same trusted execution path and stats as
         any scheduled step."""
         entry = self.pointer_to_symbol[name]
-        part = self.bounds.lookup(tenant_id)
         req = LaunchRequest(
             tenant_id=tenant_id, name=name,
             policy=self._effective_policy(tenant_id),
-            entry=entry, part=part, call_args=(),
+            entry=entry, call_args=(),
             trusted_fusable=self._compiles(entry))
         self.scheduler._execute([req])
         return req.result
@@ -1062,28 +1086,75 @@ class GuardianManager:
                          for i in range(len(call_args)))
         return Operands.of(args, flags)
 
-    def _step_graph(self, name: str, fn: Callable,
-                    ops: Operands) -> StepGraph:
+    def _step_graph(self, name: str, fn: Callable, ops: Operands,
+                    pool=None) -> StepGraph:
         if self.device.type == "cuda" and self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
-        return StepGraph(name, fn, ops, self.device, self._capture_stream)
+        return StepGraph(name, fn, ops, self.device, self._capture_stream,
+                         pool)
 
-    def _run_compiled(self, entry: _KernelEntry, graph: StepGraph,
-                      ops: Operands) -> Tuple:
-        """Run ``graph`` on ``ops``; the arena and the pool must come back
-        as the tensors the step was given (a replay writes them in
-        place)."""
-        want = [self.arena.buf]
-        if entry.pool_arena is not None:
-            want += tree_flatten(self.arenas[entry.pool_arena].buf)[1]
+    def _tenant_pool(self):
+        """The one memory pool of this manager's tenant graphs (``None``
+        on the CPU).  Sharing it is sound: every replay runs on the one
+        stream the manager dispatches on, one after the other, and each
+        graph's outputs that are not resident are copied out of the pool
+        (:meth:`StepGraph.run`) before a later replay can reuse the memory
+        of another graph's temporaries; a graph's own persistent outputs
+        stay allocated while it lives, and its staged inputs live outside
+        the pool.  A pool per graph would pin each graph's temporaries —
+        hundreds of MB for one library kernel at 2**24 slots.  A pool
+        whose last graph died cannot be captured into again, and a purge
+        may drop every tenant graph: a one-operation graph captured into
+        the pool with it lives as long as the manager and holds it."""
+        if self.device.type != "cuda":
+            return None
+        if self._graph_pool is None:
+            pool = torch.cuda.graph_pool_handle()
+            anchor = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(anchor, pool=pool):
+                torch.zeros(1, device=self.device)
+            self._graph_pool = (pool, anchor)
+        return self._graph_pool[0]
+
+    def _run_compiled(self, graph: StepGraph, ops: Operands,
+                      want: Sequence[torch.Tensor]) -> Any:
+        """Run ``graph`` on ``ops``; the first results must be ``want`` —
+        the resident tensors the step was given (the arena, and the pool
+        or the ViolationLog buffer where it takes them), which a replay
+        writes in place."""
         res = graph.run(ops)
-        _, got = tree_flatten(res[:-1])
+        got = tree_flatten(res)[1][:len(want)]
         if len(got) != len(want) or any(a is not b
                                          for a, b in zip(got, want)):
             raise StepCaptureError(
-                f"trusted step {graph.name!r} must write the arena and its "
-                "pool in place and hand the same tensors back to be compiled")
+                f"step {graph.name!r} must write the arena (and its pool or "
+                "the violation log) in place and hand the same tensors back "
+                "to be compiled")
         return res
+
+    def _launch_compiled(self, cache, key: Tuple, name: str,
+                         build: Callable[[], Callable],
+                         resident: Sequence[torch.Tensor],
+                         staged: Sequence[Any]) -> Any:
+        """Run a tenant step compiled — the counterpart of the
+        reference's ``_specialized_jit`` and of the scheduler's fused
+        ``jax.jit`` binaries.  The step ``build()`` makes is called as
+        ``fn(*resident, *staged)`` and hands ``resident`` back first.  Its
+        :class:`StepGraph` lives in ``cache`` under ``key`` (which holds
+        every launch dimension by value) plus the identity of the
+        resident tensors, and captures into the manager's tenant pool at
+        the key's first call.  Every tensor in ``staged`` — row scalars,
+        fence and magic rows, log row ids, pointers, operands — is copied
+        into the graph at dispatch, so T co-located tenants share one
+        graph and a partition that moved is fenced at its new row."""
+        ops = Operands.of((*resident, *staged),
+                          [True] * len(resident) + [False] * len(staged))
+        key = (*key, ops.key())
+        graph = cache.get(key)
+        if graph is None:
+            graph = self._step_graph(name, build(), ops, self._tenant_pool())
+            cache[key] = graph
+        return self._run_compiled(graph, ops, resident)
 
     def _trusted_exec(self, entry: _KernelEntry, call_args: Tuple,
                       arg_sig: Optional[Tuple] = None) -> Tuple:
@@ -1099,56 +1170,70 @@ class GuardianManager:
         if graph is None:
             graph = self._step_graph(entry.name, entry.fn, ops)
             entry.jit_cache[key] = graph
-        return self._run_compiled(entry, graph, ops)
+        return self._run_compiled(graph, ops, self._trusted_resident(entry))
+
+    def _trusted_resident(self, entry: _KernelEntry) -> List[torch.Tensor]:
+        """The tensors a compiled trusted step hands back first: the arena
+        and the leaves of its pool."""
+        want = [self.arena.buf]
+        if entry.pool_arena is not None:
+            want += tree_flatten(self.arenas[entry.pool_arena].buf)[1]
+        return want
 
     def _execute_tenant(self, req: LaunchRequest) -> Any:
-        entry, part, policy = req.entry, req.part, req.policy
+        """One launch of a tenant kernel's twin under its policy, compiled:
+        one graph per (mode, operand signature) in the entry's cache (see
+        :meth:`_launch_compiled`).  The row scalars (``_scalars_for``) are
+        staged operands; MODULO's per-partition twin has its bounds as
+        constants, so its mode ``f"mod{base}.{size}"`` keys them by
+        value.  A CHECK launch whose ``ok`` is false has its stores undone
+        inside the graph; its counts reach the ViolationLog and the call
+        raises.  The row is the tenant's partition at dispatch."""
+        entry, policy = req.entry, req.policy
+        part = self.bounds.lookup(req.tenant_id)
         # -- augment params (Table 5 "Augment kernel params") ------------
         t1 = time.perf_counter_ns()
-        undo = None
         if policy is FencePolicy.NONE:
-            call_args = req.call_args
-            if entry.fence_aware:
-                # the kernel consumes the row scalars itself
-                base_s, mask_s, _ = self._scalars_for(req.tenant_id, part)
-                call_args = (base_s, mask_s, *call_args)
-            fn = entry.native
+            mode, fn = "native", entry.native
         elif policy is FencePolicy.BITWISE:
-            base_s, mask_s, _ = self._scalars_for(req.tenant_id, part)
-            call_args = (base_s, mask_s, *req.call_args)
-            fn = entry.fenced_dyn
+            mode, fn = "bitwise", entry.fenced_dyn
         elif policy is FencePolicy.MODULO:
+            mode = f"mod{part.base}.{part.size}"
             fn = self._modulo_exec(entry, part)
-            call_args = req.call_args
         elif policy is FencePolicy.CHECK:
-            base_s, _, size_s = self._scalars_for(req.tenant_id, part)
-            call_args = (base_s, size_s, *req.call_args)
-            fn = entry.checked_dyn
-            undo = UndoLog()
+            mode, fn = "check", entry.checked_dyn
         else:  # pragma: no cover
             raise ValueError(policy)
+        lead = ()
+        if policy is FencePolicy.CHECK:
+            base_s, _, size_s = self._scalars_for(req.tenant_id, part)
+            lead = (base_s, size_s)
+        elif policy is FencePolicy.BITWISE or entry.fence_aware:
+            # the two extra kernel parameters of Listing 1 (a fence-aware
+            # kernel consumes them itself under every policy)
+            lead = self._scalars_for(req.tenant_id, part)[:2]
         t2 = time.perf_counter_ns()
         self.launch_stats.augment_ns.append(t2 - t1)
 
         # -- dispatch ----------------------------------------------------
+        res = self._launch_compiled(
+            entry.jit_cache, (mode, "graph", req.signature[2]),
+            f"{entry.name} [{mode}]", lambda: fn, (self.arena.buf,),
+            (*lead, *req.call_args))
+        self.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t2)
         if policy is FencePolicy.CHECK:
-            (new_arena, out), ok, counts = fn(self.arena.buf, *call_args,
-                                              undo=undo)
-            self.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t2)
+            (_, out), ok, counts, _ = res
             # attribute even on the raising path: the log row is what the
             # quarantine policy reasons over
             self.violog.add(req.tenant_id, counts)
-            if not bool(ok):
-                undo.restore()          # the faulting launch never lands
+            if not bool(ok):        # the faulting launch never landed
                 msg = (f"kernel {req.name!r} of tenant {req.tenant_id!r} "
                        "performed an out-of-bounds access (detected by "
                        "CHECK)")
                 self.violations.append(msg)
                 raise GuardianViolation(msg)
         else:
-            new_arena, out = fn(self.arena.buf, *call_args)
-            self.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t2)
-        self.arena.buf = new_arena
+            _, out = res
         req.result = out
         return out
 

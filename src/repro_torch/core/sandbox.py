@@ -156,11 +156,6 @@ class UndoLog:
             cur = target.gather(0, index) if ew else target[index]
             self._write(target, index, torch.where(ok, cur, old), ew)
 
-    def restore(self) -> None:
-        """Undo every store unconditionally."""
-        for target, index, old, ew in reversed(self.entries):
-            self._write(target, index, old, ew)
-
     @property
     def nbytes(self) -> int:
         """Bytes of arena elements the log holds (one copy of each)."""
@@ -568,8 +563,10 @@ class Sandboxed:
     def program(self, fence_params: Optional[FenceParams],
                 args: Sequence[Any]) -> _Program:
         traced = trace_kernel(self.fn, args, self.arena_argnums)
-        return _plan(traced, fence_params, self.policy, self.verify,
+        prog = _plan(traced, fence_params, self.policy, self.verify,
                      self.bound_argnums, self.kernel_name, self.on_proof)
+        _constants_on(traced.gm, args[self.arena_argnums[0]].device)
+        return prog
 
     def run(self, program: _Program, fence_params, args,
             undo: Optional[UndoLog] = None):
@@ -581,6 +578,21 @@ class Sandboxed:
                  undo: Optional[UndoLog] = None):
         return self.run(self.program(fence_params, args), fence_params,
                         args, undo)
+
+
+def _constants_on(gm: torch.fx.GraphModule, device: torch.device) -> None:
+    """Move the trace's tensor constants (the value of ``arena[idx] =
+    7.0`` is one, made on the host) to the launch's device, once, when
+    the program is planned: a launch then copies nothing from the host,
+    which a CUDA graph capture refuses."""
+    for node in gm.graph.nodes:
+        if node.op != "get_attr":
+            continue
+        owner, _, attr = node.target.rpartition(".")
+        mod = gm.get_submodule(owner)
+        val = getattr(mod, attr)
+        if isinstance(val, torch.Tensor) and val.device != device:
+            setattr(mod, attr, val.to(device))
 
 
 def _plan(traced: Traced, params, policy, verify, bound_argnums,

@@ -12,17 +12,22 @@ tenants into one batch per drain cycle:
   mask)`` rows, or for MODULO the ``(T, 4)`` magic rows ``(base, size, m,
   s)`` — staged on the device once per tenant set.  Row r runs the
   kernel's sandboxed twin fenced with tenant r's own row, so a forged
-  index in r's operands only wraps inside r's partition.  The reference
-  compiles the T rows into one device program; the port runs them as its
-  rows in submission order, each seeing the arena the row before it
-  left, which is the same composition (one drain step for the stats).
+  index in r's operands only wraps inside r's partition; rows run in
+  submission order, each seeing the arena the row before it left.  As
+  the reference compiles the T rows into one binary, the port captures
+  them into one CUDA graph per (kernel, policy, operand signature, width)
+  (:meth:`GuardianManager._launch_compiled`): the fence rows and the
+  ViolationLog row ids are staged into the graph at dispatch, so any T
+  co-located tenants replay it and a partition the elastic plane moved
+  is fenced at its new row.
 * CHECK batches attribute faults per row and **commit selectively**:
   each row's fenced stores are logged (:class:`~repro_torch.core.sandbox.
   UndoLog`), a row whose ``ok`` is false has exactly those elements
   restored on the device before the next row runs, and its per-kind
-  counts fold into the device-side ViolationLog — no host sync.  A CHECK
-  batch whose kernel carries a fully proven *symbolic* bounds proof rides
-  the plain fused path instead (``proven_steps``).
+  counts fold into the device-side ViolationLog — no host sync, all
+  inside the graph.  A CHECK batch whose kernel carries a fully proven
+  *symbolic* bounds proof rides the plain fused path instead
+  (``proven_steps``).
 * Trusted batches — the serving engines' prefill/decode steps, internally
   fenced multi-row programs — run as the sequential composition of their
   solo steps: row r runs engine r's step, threading the manager arena and
@@ -65,7 +70,6 @@ import torch
 from repro_torch.core.fence import FencePolicy, FenceTable
 from repro_torch.core.pressure import Ewma, derive_lookahead, \
     total_arrival_rate
-from repro_torch.core.sandbox import UndoLog
 from repro_torch.core.stepgraph import StepGraph, tree_flatten
 from repro_torch.core.telemetry import Histogram, QUEUE_AGE_BOUNDS, \
     SCHEDULER_TRACK
@@ -149,15 +153,15 @@ class LaunchRequest:
 
     ``call_args`` are the post-arena operands exactly as the tenant passed
     them (device-staged ptr scalars first, then kernel args); the
-    ``(base, mask)`` augmentation happens at fuse/execute time so the
-    request stays policy-agnostic until dispatch.
+    ``(base, mask)`` augmentation happens at fuse/execute time, from the
+    tenant's partition then, so the request stays policy- and
+    bounds-agnostic until dispatch.
     """
 
     tenant_id: str
     name: str
     policy: FencePolicy
     entry: Any                      # manager._KernelEntry
-    part: Any                       # partition snapshot at augment time
     call_args: Tuple
     #: launch output, set at dispatch (the enqueue-path return handle:
     #: callers read it after the drain — how the serving engine gets its
@@ -376,9 +380,10 @@ class BatchedLaunchScheduler:
         self._class_tracking = False
         self._cycle = 0
         self._pending: List[LaunchRequest] = []
-        # (name, policy, arg-sig, T) -> fused step, and ("trusted", name,
-        # policy, arg-sig, T, resident operands) -> fused StepGraph;
-        # LRU-bounded (one composition per signature×width)
+        # (name, policy, arg-sig, T, resident operands) -> fused tenant
+        # StepGraph, and ("trusted", name, policy, arg-sig, T, resident
+        # operands) -> fused trusted StepGraph; LRU-bounded (one graph per
+        # signature×width)
         self._fused_cache: Dict[Tuple, Callable] = LRUCache(
             fused_cache_capacity)
         # ((base, mask), ...) -> device-staged FenceTable (re-staging the
@@ -768,35 +773,41 @@ class BatchedLaunchScheduler:
         T = len(batch)
         head = batch[0]
         modulo = head.policy is FencePolicy.MODULO
-        key = (*head.signature, T)
-        fn = self._fused_cache.get(key)
-        if fn is None:
-            fn = (self._build_fused_modulo if modulo else self._build_fused)(
-                head.entry, head.signature[2], T)
-            self._fused_cache[key] = fn
         table = self._staged_table(batch, with_magic=modulo)
-        flat_dyn: List[Any] = []
-        for req in batch:
-            flat_dyn.extend(a for a in req.call_args
-                            if isinstance(a, torch.Tensor))
+        build = self._build_fused_modulo if modulo else self._build_fused
         t0 = time.perf_counter_ns()
-        new_arena, outs = fn(mgr.arena.buf,
-                             table.magic if modulo else table.rows,
-                             *flat_dyn)
-        mgr.arena.buf = new_arena
+        _, outs = mgr._launch_compiled(
+            self._fused_cache, (*head.signature, T), self._name(head, T),
+            lambda: build(head.entry, head.signature[2], T),
+            (mgr.arena.buf,),
+            (table.magic if modulo else table.rows, *self._flat_dyn(batch)))
         mgr.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t0)
         for req, out in zip(batch, outs):
             req.result = out
         self._record_step(T)
 
+    @staticmethod
+    def _name(head: LaunchRequest, T: int) -> str:
+        return f"{head.name} [{head.policy.value}] x{T}"
+
+    @staticmethod
+    def _flat_dyn(batch: List[LaunchRequest]) -> List[torch.Tensor]:
+        """The rows' tensor operands, in order (launch dimensions are in
+        the signature)."""
+        return [a for req in batch for a in req.call_args
+                if isinstance(a, torch.Tensor)]
+
     def _staged_table(self, batch: List[LaunchRequest],
                       with_magic: bool = False) -> FenceTable:
-        key = (tuple((r.part.base, r.part.mask) for r in batch), with_magic)
+        """The batch's fence rows, from each tenant's partition at
+        dispatch (one the elastic plane resized while the launch waited
+        is fenced at its new row)."""
+        parts = [self.manager.bounds.lookup(r.tenant_id) for r in batch]
+        key = (tuple((p.base, p.mask) for p in parts), with_magic)
         table = self._table_cache.get(key)
         if table is None:
             table = FenceTable.from_partitions(
-                [r.part for r in batch], with_magic=with_magic,
-                device=self.manager.device)
+                parts, with_magic=with_magic, device=self.manager.device)
             self._table_cache[key] = table
         return table
 
@@ -854,7 +865,7 @@ class BatchedLaunchScheduler:
                 self._build_fused_trusted(entry, len(head.call_args), T), ops)
             self._fused_cache[key] = graph
         t0 = time.perf_counter_ns()
-        res = mgr._run_compiled(entry, graph, ops)
+        res = mgr._run_compiled(graph, ops, mgr._trusted_resident(entry))
         if entry.pool_arena is None:
             new_arena, outs = res
         else:
@@ -897,31 +908,26 @@ class BatchedLaunchScheduler:
         commit: every row's checked twin runs with an undo log, a row whose
         ``ok`` is false has its stores restored before the next row runs,
         and each row's per-kind violation counts fold into the manager's
-        device-side ViolationLog — no host sync (the QuarantineManager
-        polls the log at cycle boundaries)."""
+        device-side ViolationLog — one compiled step, no host sync (the
+        QuarantineManager polls the log at cycle boundaries).  The log
+        buffer is resident; the rows' fence rows and log row ids are
+        staged."""
         mgr = self.manager
         T = len(batch)
         head = batch[0]
-        key = (*head.signature, T)
-        fn = self._fused_cache.get(key)
-        if fn is None:
-            fn = self._build_fused_check(head.entry, head.signature[2], T)
-            self._fused_cache[key] = fn
-        table = self._staged_table(batch)
-        vrows = self._staged_vrows(batch)
-        flat_dyn: List[Any] = []
-        for req in batch:
-            flat_dyn.extend(a for a in req.call_args
-                            if isinstance(a, torch.Tensor))
         t0 = time.perf_counter_ns()
-        new_arena, new_log, _ok_rows, outs = fn(
-            mgr.arena.buf, mgr.violog.buf, table.rows, vrows, *flat_dyn)
-        mgr.arena.buf = new_arena
-        mgr.violog.buf = new_log
+        _, _, (outs, rollback_bytes) = mgr._launch_compiled(
+            self._fused_cache, (*head.signature, T), self._name(head, T),
+            lambda: self._build_fused_check(head.entry, head.signature[2],
+                                            T),
+            (mgr.arena.buf, mgr.violog.buf),
+            (self._staged_table(batch).rows, self._staged_vrows(batch),
+             *self._flat_dyn(batch)))
         mgr.violog.dirty = True
         mgr.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t0)
         for req, out in zip(batch, outs):
             req.result = out
+        self.stats.rollback_bytes += rollback_bytes
         self.stats.check_steps += 1
         self._record_step(T)
 
@@ -937,32 +943,25 @@ class BatchedLaunchScheduler:
 
     def _build_fused_check(self, entry, arg_sig: Tuple, T: int) -> Callable:
         """CHECK twin of :meth:`_build_fused`: rows carry dynamic ``(base,
-        size)`` bounds, return per-row ``ok``, and commit selectively —
-        an offending row's stores are undone before the next row sees the
-        arena (a kernel that returned a fresh arena tensor instead has it
-        committed only where ``ok``), so co-tenant rows land exactly as in
-        their standalone runs."""
-        rows_of, stats = self._rows_of, self.stats
+        size)`` bounds and commit selectively — an offending row's stores
+        are undone before the next row sees the arena, so co-tenant rows
+        land exactly as in their standalone runs.  Returns ``(arena,
+        violog, (outs, rollback bytes))``; the bytes the rows logged follow
+        from the shapes alone, so a replay returns the capture's count."""
+        rows_of = self._rows_of
 
         def fused(arena, violog, rows, vrows, *flat_dyn):
-            oks, outs = [], []
+            outs, logged = [], 0
             for r, call in rows_of(arg_sig, T, flat_dyn):
-                undo = UndoLog()
-                written, ok, counts = entry.checked_dyn(
-                    arena, rows[r, 0], rows[r, 1] + 1, *call, undo=undo)
-                new_arena, out = written
-                undo.rollback(ok)
-                stats.rollback_bytes += undo.nbytes
-                if new_arena is not arena:
-                    new_arena = torch.where(ok, new_arena, arena)
-                arena = new_arena
+                (arena, out), ok, counts, nbytes = entry.checked_dyn(
+                    arena, rows[r, 0], rows[r, 1] + 1, *call)
+                logged += nbytes
                 # counts are nonzero exactly where ok is false — fold
                 # unconditionally (in-bounds rows add zeros)
                 violog.index_add_(0, vrows[r:r + 1],
                                   counts.to(violog.device).view(1, -1))
-                oks.append(ok)
                 outs.append(out)
-            return arena, violog, oks, tuple(outs)
+            return arena, violog, (tuple(outs), logged)
 
         return fused
 

@@ -1,7 +1,7 @@
-"""Compiled trusted steps: one CUDA graph per (trusted step, operand
-signature, width) — the port's counterpart of the reference's "one
-compiled binary per key" (``jax.jit`` of a trusted step, or of N engines'
-steps fused).
+"""Compiled steps: one CUDA graph per (step, operand signature, width) —
+the port's counterpart of the reference's "one compiled binary per key"
+(``jax.jit`` of a trusted step or of N engines' steps fused, and of a
+tenant kernel's sandboxed twin or of T tenants' launches fused).
 
 A step's operands fall into three kinds, and the invariant that keeps a
 replay inside its tenants' fences is stated over them:
@@ -9,15 +9,18 @@ replay inside its tenants' fences is stated over them:
 * **by-value leaves** (ints, enums, ``None``): part of the cache key (see
   ``scheduler._arg_signature``), constant inside the graph — a value that
   changes gets a new graph, it is never frozen into an old one;
-* **resident tensors** (the manager arena, the pool arena, and the
-  argument positions a step declares resident, such as an engine's
-  weights): the graph addresses their storage directly, so their identity
-  (pointer, shape, strides, dtype, device — :meth:`Operands.key`) is part
-  of the key and they are never copied;
+* **resident tensors** (the manager arena, the pool arena, the
+  ViolationLog buffer, and the argument positions a step declares
+  resident, such as an engine's weights): the graph addresses their
+  storage directly, so their identity (pointer, shape, strides, dtype,
+  device — :meth:`Operands.key`) is part of the key and they are never
+  copied;
 * **staged tensors** (every other tensor: tokens, page tables, sequence
-  lengths, per-row fence rows, row policies, the page map): copied into the
-  graph's own persistent inputs immediately before each replay, at
-  dispatch, never at enqueue.
+  lengths, per-row fence rows, row policies, the page map, a tenant
+  launch's row scalars, pointers and operands, the fused steps' fence and
+  magic rows and ViolationLog row ids): copied into the graph's own
+  persistent inputs immediately before each replay, at dispatch, never at
+  enqueue.
 
 So a graph replays only when every by-value leaf equals its captured value
 and every tensor leaf either *is* the storage the graph captured or has
@@ -27,7 +30,11 @@ On a CUDA device the first call of a key runs the step eagerly on a side
 stream (its results are that call's; it also loads the kernel libraries
 outside the capture), then captures it; later calls replay.  A step that
 cannot be captured raises :class:`StepCaptureError` naming it — it never
-runs eagerly instead.  On the CPU (only when the caller asked for it) the
+runs eagerly instead.  Graphs capture into a memory pool of their own,
+or into one ``pool`` that a caller shares among its graphs (sound when
+their replays are serialised on one stream and every output that is not
+resident is copied out before the next replay, as :meth:`StepGraph.run`
+does).  On the CPU (only when the caller asked for it) the
 same object calls the step on the same staged operands and copies the
 results into the same persistent outputs a replay would fill, so a
 staging or aliasing fault shows in a CPU test as it would on the card.
@@ -47,8 +54,9 @@ import torch
 
 
 class StepCaptureError(RuntimeError):
-    """A trusted step that cannot be captured into a CUDA graph (a host
-    sync, a pageable host-to-device copy, an ``.item()``...)."""
+    """A step that cannot be captured into a CUDA graph (a host sync, a
+    pageable host-to-device copy, an ``.item()``, a fresh arena handed
+    back...)."""
 
 
 def tree_flatten(x: Any) -> Tuple[Hashable, List[Any]]:
@@ -124,22 +132,25 @@ class Operands:
 
 
 class StepGraph:
-    """One compiled trusted step (see the module docstring).
+    """One compiled step (see the module docstring).
 
     ``fn(*args)`` is the step; :meth:`run` takes each call's
     :class:`Operands` (whose structure and :meth:`Operands.key` the caller
     has matched against this graph's key) and returns the step's result
     tree, with resident outputs as the live resident tensors and every
     other tensor output as a fresh copy.  ``stream`` is the side stream
-    the warm-up and the capture run on (``None`` on the CPU)."""
+    the warm-up and the capture run on (``None`` on the CPU); ``pool`` a
+    memory pool shared with other graphs (``None``: a pool of its own)."""
 
     def __init__(self, name: str, fn: Callable, ops: Operands,
                  device: torch.device,
-                 stream: Optional["torch.cuda.Stream"] = None):
+                 stream: Optional["torch.cuda.Stream"] = None,
+                 pool: Optional[Tuple[int, int]] = None):
         self.name = name
         self.fn = fn
         self.device = torch.device(device)
         self.stream = stream
+        self.pool = pool
         self.struct = ops.struct
         resident = set(ops.resident)
         #: (leaf index, persistent input) of every staged tensor leaf
@@ -228,7 +239,8 @@ class StepGraph:
         return first
 
     def _capture(self, ops: Operands) -> None:
-        """Record the step into a CUDA graph with its own memory pool.
+        """Record the step into a CUDA graph, in its own memory pool or
+        the shared ``pool``.
         The step gets argument objects of its own: a value the warm-up
         cached on an argument (a guard's ``FenceParams.mask``) would
         otherwise reach the graph as a tensor computed outside it, frozen
@@ -247,7 +259,7 @@ class StepGraph:
         failure = None
         try:
             with torch.cuda.stream(self.stream):
-                graph.capture_begin()
+                graph.capture_begin(pool=self.pool)
                 try:
                     out = self.fn(*args)
                 except RuntimeError as err:    # the operation refused
@@ -264,7 +276,7 @@ class StepGraph:
                 k.launches = n
         if failure is not None:
             raise StepCaptureError(
-                f"trusted step {self.name!r} cannot be captured into a CUDA "
+                f"step {self.name!r} cannot be captured into a CUDA "
                 f"graph: {failure}") from failure
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved

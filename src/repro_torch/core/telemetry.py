@@ -880,12 +880,15 @@ class Telemetry:
     def jit_cache_view(self) -> Dict[str, Any]:
         """The ``jit_cache_stats()`` body: occupancy + evictions of every
         LRU-bounded compiled cache (host dict sizes — never a sync).  The
-        compiled trusted steps among the entries — one
-        :class:`~repro_torch.core.stepgraph.StepGraph` each — are counted
-        apart: ``graphs`` live, ``graph_evictions`` (an evicted graph
-        frees its private memory pool; its key recaptures on next use),
-        the bytes their private pools reserved at capture and the seconds
-        the captures took."""
+        compiled steps among the entries — trusted steps and tenant
+        launches, one :class:`~repro_torch.core.stepgraph.StepGraph` each
+        — are counted apart: ``graphs`` live, ``graph_evictions`` (an
+        evicted graph frees what it held of its pool; its key recaptures
+        on next use), ``graph_pool_bytes`` — the memory their captures
+        reserved: a trusted step's pool of its own, and the growth each
+        tenant graph's capture caused in the manager's one tenant pool,
+        so the sum is that pool's size — and the seconds the captures
+        took."""
         from repro_torch.core.scheduler import LRUCache
         from repro_torch.core.stepgraph import StepGraph
 
