@@ -34,7 +34,11 @@ qwen3-moe-30b-a3b.  Phases, in order (any failure exits non-zero):
    one exists, the bound (the least time the card could take for the same
    bytes or operations), the card's launch floor (a one-element fill_,
    timed the same way) and, for K1, K2 and K5, the device operations a
-   call puts on the card, counted by ``torch.profiler`` (one each);
+   call puts on the card, counted by ``torch.profiler`` (one each); then
+   each kernel called through its custom op ``repro_torch::<kernel>`` on
+   CUDA tensors and on CPU copies: one launch and no plain call on the
+   card, one plain call and no launch on the CPU, the two equal (K2, K3,
+   K5 exactly, K1 and K4 in float32 within 1e-4);
 3. full width against the CPU at two layers, for each path: float32,
    prefill + 4 decode steps on the card through the kernels and on the CPU
    through the plain versions, from the same weights — greedy ids equal,
@@ -66,6 +70,20 @@ qwen3-moe-30b-a3b.  Phases, in order (any failure exits non-zero):
    path also prints the (token, k) assignments capacity dropped; a
    compiled solo rerun under ``torch.profiler`` gives the device's busy
    share and each of the port's kernels' device time.
+
+6. trusted steps proven on the card (inside phase 4: stablelm-3b at full
+   depth after its runs, with its weights; qwen3-moe-30b-a3b at phase 3's
+   depth of 2 layers before its full-size engine is built): the serve
+   steps registered with the extent-mode proof obligation
+   (``register_verified_steps``, before the engine registers its own)
+   serve phase 4's trace compiled; each step signature is proven at its
+   first dispatch on fake tensors of the card — its seconds, its site
+   table (equal to ``sandbox_report``'s), and the kernels' launches and
+   ``torch.cuda.memory_allocated()`` before and after, unchanged — and
+   tokens, drain cycles, prefill and decode counts, launches and graphs
+   equal the ``verify=False`` run's; a decode step whose page index skips
+   the fence raises ``GuardianStaticViolation`` at its first dispatch,
+   before any capture, launching and allocating nothing.
 
 5. the tenant-kernel plane (after phase 3, before phase 4's full-size
    paths): a ``GuardianManager`` with a 1 GiB f32 arena and four tenants
@@ -114,6 +132,7 @@ each tree's port.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import hashlib
@@ -638,6 +657,100 @@ def check_kernels(torch, cfg):
             + (f", {r['device_ops']:g} device operation(s) a call"
                if "device_ops" in r else ""))
     return rows
+
+
+def check_ops(torch, cfg):
+    """K1-K5 called through their custom ops ``repro_torch::<kernel>`` at
+    ``cfg``'s widths, on CUDA tensors and on CPU copies of the same
+    inputs: the CUDA call adds one launch and no plain call, the CPU call
+    one plain call and no launch, and the two agree (K2, K3, K5 exactly,
+    K1 and K4 in float32 within 1e-4).  K5 runs on the MoE path only, as
+    in the path.  Also the host's time to enqueue one call through the
+    op's dispatcher and one straight to its CUDA implementation (the
+    dispatcher's cost on an eager step), alternating, 200 calls each."""
+    import importlib
+    from repro_torch.kernels import _build
+
+    gen = torch.Generator().manual_seed(99)
+    H, KH, D, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    i32 = torch.int32
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=i32)
+
+    pool = (rand(8, 64, KH, D), rand(8, 64, KH, D))
+    # each op's full argument list, as its schema orders it
+    cases = {
+        "gather_rows": ((rand(1024, d), ints(-1100, 1300, 64), None, None,
+                         0, 2047), 0.0),
+        "scatter_pages": ((*pool, rand(2, 70, KH, D), rand(2, 70, KH, D),
+                           ints(0, 64, 2, 2), None, None, 0, 7, None), 0.0),
+        "flash_attention": ((rand(2, 40, H, D), rand(2, 40, KH, D),
+                             rand(2, 40, KH, D)), 1e-4),
+        "paged_attention": ((rand(2, H, D), *pool, ints(0, 64, 2, 2),
+                             ints(1, 129, 2), None, None, 0, 7, None), 1e-4),
+    }
+    if cfg.moe is not None:
+        E = cfg.moe.num_experts
+        cases["moe_histogram"] = ((ints(-3, pow2(E) + 3, 16, cfg.moe.top_k),
+                                   E, 0, pow2(E) - 1), 0.0)
+
+    def moved(args, dev):
+        return tuple(a.clone().to(dev) if isinstance(a, torch.Tensor)
+                     else a for a in args)
+
+    def host_us(fn, n: int = 200) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return host / n * 1e6
+
+    errs, hosts = [], []
+    for name, (args, tol) in cases.items():
+        kern = _build.KERNELS[name]
+        op = getattr(torch.ops.repro_torch, name)
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            before = (kern.launches, kern.plain_calls)
+            a = moved(args, dev)
+            out = op(*a)
+            outs[dev] = (a[0], a[1]) if out is None else (out,)
+            torch.cuda.synchronize()
+            want = (before[0] + (dev == "cuda"), before[1] + (dev == "cpu"))
+            if (kern.launches, kern.plain_calls) != want:
+                raise AssertionError(
+                    f"{name} op on {dev}: (launches, plain calls) "
+                    f"{(kern.launches, kern.plain_calls)}, want {want}")
+        for g, w in zip(outs["cuda"], outs["cpu"]):
+            g = g.cpu()
+            if not torch.equal(g.isnan(), w.isnan()):
+                raise AssertionError(f"{name} op: NaN rows differ")
+            err = (torch.nan_to_num(g).double()
+                   - torch.nan_to_num(w).double()).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"{name} op: card vs CPU error {err} "
+                                     f"> {tol}")
+            errs.append(f"{name} {err:.3g}")
+        a = moved(args, "cuda")
+        direct = importlib.import_module(f"repro_torch.kernels.{name}")._cuda
+        via_op, straight = [], []
+        for _ in range(3):
+            via_op.append(host_us(lambda: op(*a)))
+            straight.append(host_us(lambda: direct(*a)))
+        hosts.append(f"{name} {statistics.median(via_op):.1f} / "
+                     f"{statistics.median(straight):.1f}")
+    log(f"ops [{cfg.name}]: each kernel through its repro_torch op, one "
+        "launch on CUDA tensors and one plain call on CPU tensors, card vs "
+        "CPU max |err|: " + ", ".join(errs) + "; host µs to enqueue a call "
+        "through the op / straight to its CUDA implementation (median of "
+        "3 x 200 calls): " + ", ".join(hosts))
 
 
 def check_moe_histogram(torch, cfg, gen, more, row):
@@ -1463,6 +1576,7 @@ def serve_run(torch, cfg, eng, trace, compiled: bool) -> dict:
     mgr.jit_trusted = compiled
     reg, stats = mgr.telemetry.registry, mgr.scheduler.stats
     cycles0, dec0 = reg.counter("drain_cycles"), eng.decode_steps
+    graphs0 = mgr.jit_cache_stats()["graphs"]
     steps0 = int(stats.total_launches)
     rids = [eng.submit(t, p, max_new=16, arrive=a) for t, p, a in trace]
     with contextlib.ExitStack() as hooks:
@@ -1504,6 +1618,7 @@ def serve_run(torch, cfg, eng, trace, compiled: bool) -> dict:
     step_ms, capture_ms, host_ms, keying_ms = times.read()
     return {"tokens": tokens, "cycles": reg.counter("drain_cycles") - cycles0,
             "prefills": n_pre, "decodes": n_dec, "launches": launches,
+            "graphs": mgr.jit_cache_stats()["graphs"] - graphs0,
             "outs": dict(zip(rids, tokens)), "rids": rids, "wall": wall,
             "step_ms": step_ms, "capture_ms": capture_ms,
             "host_ms": host_ms, "keying_ms": keying_ms,
@@ -1517,6 +1632,12 @@ def run_main_path(torch, cfg, smi: str):
     drain cycles, prefill and decode counts and kernel launches."""
     from repro_torch.launch.serve import ServeEngine, make_shared_manager
 
+    if cfg.moe is not None:
+        # the MoE path is proven at phase 3's depth, before its 61 GB of
+        # weights are built
+        proof_phase(torch, dataclasses.replace(cfg, n_layers=2), smi)
+        gc.collect()
+        torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mgr = make_shared_manager(1, max_batch=8, max_len=256, paged=True)
@@ -1587,6 +1708,10 @@ def run_main_path(torch, cfg, smi: str):
             f"parked rows; {t['dropped'] - t['served_dropped'] - t['parked_dropped']}"
             " in decode steps (eager run)")
     solo_rerun(torch, cfg, eng, comp["outs"], comp["rids"], smi)
+    if cfg.moe is None:
+        # full depth, the same weights and trace: the compiled run above
+        # is the verify=False run the proven one must equal
+        proof_phase(torch, cfg, smi, params=eng.params, reference=comp)
     return {"launches": comp["launches"],
             "tokens_per_s": n_tok / comp["wall"]}
 
@@ -1645,6 +1770,177 @@ def solo_rerun(torch, cfg, eng, outs, rids, smi: str):
         + "; the port's kernels: " + "; ".join(
             f"{e.key.split('(')[0][:40]} {dev_us(e) / 1e3:.2f} ms x{e.count}"
             for e in sorted(ours, key=dev_us, reverse=True)))
+
+
+# --------------------------------------------------------------------- #
+# Phase 6: trusted steps proven on the card (extent mode)               #
+# --------------------------------------------------------------------- #
+
+class ProofWatch:
+    """Within ``with``: wraps the manager's proof obligation
+    (``_verify_trusted``) and keeps, for each proof it computes (a cached
+    one is skipped), the step's name and operands, the seconds it took,
+    the proof, and the kernels' launch total and
+    ``torch.cuda.memory_allocated()`` just before and just after it."""
+
+    def __init__(self, torch, mgr):
+        self.torch, self.mgr = torch, mgr
+        self.records = []
+
+    def _verify(self, entry, call_args, arg_sig=None):
+        from repro_torch.kernels import _build
+
+        torch = self.torch
+        n = len(entry.proofs)
+        torch.cuda.synchronize()
+        launches = sum(k.launches for k in _build.KERNELS.values())
+        mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        proof = self.verify(entry, call_args, arg_sig)
+        seconds = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if len(entry.proofs) > n:
+            self.records.append(dict(
+                name=entry.name, args=call_args, seconds=seconds,
+                proof=proof, launches=(launches, sum(
+                    k.launches for k in _build.KERNELS.values())),
+                memory=(mem, torch.cuda.memory_allocated())))
+        return proof
+
+    def __enter__(self):
+        self.verify = self.mgr._verify_trusted
+        self.mgr._verify_trusted = self._verify
+        return self
+
+    def __exit__(self, *exc):
+        del self.mgr._verify_trusted
+
+
+def site_summary(proof) -> str:
+    """A proof's site table with equal rows counted once."""
+    rows = collections.Counter(
+        f"{s.verdict.upper()} {s.kind.name.lower()} {s.prim} "
+        f"idx∈{s.interval} target {s.target}" for s in proof.sites)
+    return "; ".join(f"{r} x{n}" for r, n in rows.items()) or "no sites"
+
+
+def unfenced_decode(decode_fn):
+    """A decode step whose page index skips the fence: the K/V append
+    writes the page map's entry with no kv and no page partition."""
+    def step(arena, pool, params, meta, toks, guard):
+        return decode_fn(arena, pool, params, meta, toks,
+                         dataclasses.replace(guard, kv=None, page=None))
+    return step
+
+
+def proof_phase(torch, cfg, smi: str, params=None, reference=None):
+    """Phase 6 for one path: the steps of an engine registered with the
+    extent-mode proof obligation (``register_verified_steps``, before the
+    engine) serve phase 4's trace compiled.  Each step signature is proven
+    at its first dispatch, on fake tensors of the card: no launch and no
+    allocation during the proof, its site table equal to
+    ``sandbox_report``'s; tokens, drain cycles, prefill and decode counts,
+    launches and graphs equal a ``verify=False`` run (``reference``, else
+    one made here on a fresh engine with the same weights); and a decode
+    step whose page index skips the fence raises before any capture."""
+    from repro_torch.core.verifier import GuardianStaticViolation
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import ServeEngine, make_shared_manager, \
+        register_verified_steps
+    from repro_torch.models import get_model
+
+    if params is None:
+        params = get_model(cfg).init(
+            torch.Generator(device="cuda").manual_seed(0), "cuda")
+    trace = path_trace(torch, cfg)
+
+    def engine(verified: bool):
+        mgr = make_shared_manager(1, max_batch=8, max_len=256, paged=True)
+        bundle = register_verified_steps(mgr, cfg, max_batch=8,
+                                         max_len=256) if verified else None
+        eng = ServeEngine(cfg, max_batch=8, max_len=256, manager=mgr,
+                          paged=True, params=params)
+        for t in range(3):
+            eng.register_tenant(f"tenant{t}", 16)
+        return mgr, eng, bundle
+
+    if reference is None:
+        _, eng0, _ = engine(False)
+        reference = serve_run(torch, cfg, eng0, trace, compiled=True)
+        del eng0
+        gc.collect()
+    mgr, eng, bundle = engine(True)
+    names = (eng._steps.prefill_name, eng._steps.decode_name)
+    if names != (bundle.prefill_name, bundle.decode_name) or not all(
+            mgr.pointer_to_symbol[n].verify for n in names):
+        raise AssertionError("the engine's steps are not the verified ones")
+    with ProofWatch(torch, mgr) as watch:
+        run = serve_run(torch, cfg, eng, trace, compiled=True)
+    for key in ("tokens", "cycles", "prefills", "decodes", "launches",
+                "graphs"):
+        if run[key] != reference[key]:
+            raise AssertionError(f"[{cfg.name}] verify=True {key} differ "
+                                 f"from verify=False: {run[key]} vs "
+                                 f"{reference[key]}")
+    if {r["name"] for r in watch.records} != set(names):
+        raise AssertionError(f"[{cfg.name}] steps proven: "
+                             f"{[r['name'] for r in watch.records]}")
+    for r in watch.records:
+        proof = r["proof"]
+        report = mgr.sandbox_report(r["name"], r["args"])
+        if not proof.fully_proven or report.summary() != proof.summary() \
+                or report.format_table() != proof.format_table():
+            raise AssertionError(f"[{cfg.name}] {r['name']}: proof "
+                                 f"{proof.summary()} vs sandbox_report "
+                                 f"{report.summary()}")
+        if r["launches"][0] != r["launches"][1] \
+                or r["memory"][0] != r["memory"][1]:
+            raise AssertionError(f"[{cfg.name}] the proof of {r['name']} "
+                                 f"launched {r['launches']} or allocated "
+                                 f"{r['memory']}")
+        kind = "decode" if r["name"] == names[1] else \
+            f"prefill of {r['args'][2]['tokens'].shape[1]} tokens"
+        log(f"proof [{cfg.name}, {cfg.n_layers} layers, {kind}]: "
+            f"{r['seconds']:.2f} s, {len(proof.sites)} sites, "
+            f"{proof.n_proven} proven, {proof.n_fenced} fenced, "
+            f"{proof.n_refuted} refuted ({proof.n_eqns} graph nodes); "
+            f"kernel launches {r['launches'][0]} -> {r['launches'][1]}, "
+            f"memory_allocated {r['memory'][0]} -> {r['memory'][1]} bytes; "
+            f"sites: {site_summary(proof)}")
+    log(f"proven serve [{cfg.name}]: tokens, {run['cycles']} drain "
+        f"cycles, {run['prefills']} prefills, {run['decodes']} decode steps,"
+        f" launches {run['launches']} and {run['graphs']} graphs equal to "
+        f"the verify=False run; proofs {sum(r['seconds'] for r in watch.records):.2f} s"
+        f" in all; {smi}")
+    # the negative control, on the same manager and the decode's operands
+    name = "serve.decode.unfenced"
+    mgr.register_trusted_kernel(name, unfenced_decode(bundle.decode_fn),
+                                resident_argnums=(1,),
+                                pool_arena=bundle.pool_name, verify=True)
+    args = next(r["args"] for r in watch.records if r["name"] == names[1])
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in _build.KERNELS.values()}
+    mem, graphs = torch.cuda.memory_allocated(), \
+        mgr.jit_cache_stats()["graphs"]
+    eng._client.launch_kernel(name, args=args)
+    try:
+        mgr.run_queued()
+    except GuardianStaticViolation as e:
+        refused = str(e).splitlines()[0].rstrip(":")
+    else:
+        raise AssertionError(f"[{cfg.name}] the unfenced decode ran")
+    torch.cuda.synchronize()
+    if ({k.name: k.launches for k in _build.KERNELS.values()} != launches
+            or mgr.pointer_to_symbol[name].jit_cache
+            or mgr.jit_cache_stats()["graphs"] != graphs
+            or torch.cuda.memory_allocated() != mem):
+        raise AssertionError(f"[{cfg.name}] the refused step launched, "
+                             "allocated or captured")
+    log(f"unfenced decode [{cfg.name}]: refused at its first dispatch "
+        f"before any capture, nothing launched or allocated: {refused}")
+    del eng, mgr
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------- #
@@ -2456,6 +2752,14 @@ def main() -> int:
         # on the tenant plane without paying for the serve paths
         tenant_plane(torch, smi=smi)
         return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--proofs":
+        # a development switch: the op checks and phase 6 alone (each with
+        # its own verify=False run), after the build
+        for cfg in (get_config(name) for name in PATHS):
+            check_ops(torch, cfg)
+            proof_phase(torch, cfg if cfg.moe is None else
+                        dataclasses.replace(cfg, n_layers=2), smi)
+        return 0
 
     cfgs = [get_config(name) for name in PATHS]
     floor = launch_floor_ms(torch)
@@ -2464,6 +2768,7 @@ def main() -> int:
     rows = []
     for cfg in cfgs:
         rows += check_kernels(torch, cfg)
+        check_ops(torch, cfg)
     for r in rows:
         log(f"  {r['kernel']} [{r['path']}]: {r['ms']:.5f} ms = "
             f"{r['ms'] / floor:.2f}x the launch floor")

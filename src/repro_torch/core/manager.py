@@ -80,7 +80,8 @@ from repro_torch.core.stepgraph import Operands, StepCaptureError, \
 from repro_torch.core.telemetry import DRAIN_TRACK, Telemetry
 from repro_torch.core.tenantclass import ClassSpec, TenantClassPolicy, \
     as_class_policy
-from repro_torch.core.verifier import SandboxProof, verify as verify_kernel
+from repro_torch.core.verifier import GuardianStaticViolation, \
+    SandboxError, SandboxProof, VerifierError, verify as verify_kernel
 from repro_torch.core.violations import ViolationLog
 
 
@@ -845,6 +846,7 @@ class GuardianManager:
                                 resident_argnums: Sequence[int] = (),
                                 pool_arena: Optional[str] = None,
                                 capture: bool = True,
+                                verify: bool = False,
                                 ) -> None:
         """Register a *framework-plane* kernel — an engine step that is
         already fenced internally (per-row GuardSpec built from this
@@ -876,6 +878,18 @@ class GuardianManager:
         (the pool is never a caller operand — the manager stays the only
         entity with device access, §4.2).
 
+        ``verify=True`` replaces blind trust with a proof obligation: the
+        first dispatch of each operand signature — solo compiled, eager or
+        fused with other engines' steps — runs the static verifier in
+        *extent mode* (every access into the arena or the pool, the
+        hand-written kernels' declared accesses included, must be proven
+        inside the accessed operand's extent or a guard partition found
+        among the operands) and raises
+        :class:`~repro_torch.core.verifier.GuardianStaticViolation` unless
+        the step is **fully** proven.  The proof traces the step on fake
+        tensors of this manager's device (nothing is allocated or
+        launched) and is cached per signature beside the step graphs.
+
         Only engine code may register trusted kernels."""
         if name in self.pointer_to_symbol:
             return
@@ -886,7 +900,8 @@ class GuardianManager:
             name=name, fn=fn, arena_argnums=tuple(arena_argnums),
             trusted=True, pool_arena=pool_arena,
             resident_argnums=tuple(resident_argnums), capture=capture,
-            jit_cache=LRUCache(self.jit_cache_capacity))
+            jit_cache=LRUCache(self.jit_cache_capacity), verify=verify,
+            proofs=LRUCache(self.jit_cache_capacity))
 
     def _modulo_exec(self, entry: _KernelEntry, part: Partition) -> Callable:
         """The per-launch MODULO twin of one partition: static bounds and
@@ -943,20 +958,62 @@ class GuardianManager:
             return proof
         return None
 
+    def _trusted_args(self, entry: _KernelEntry, call_args: Sequence[Any]
+                      ) -> Tuple[Tuple, Tuple[int, ...]]:
+        """A trusted step's full operands and the positions of the arena
+        and its pool (the tainted arguments of its extent-mode proof)."""
+        if entry.pool_arena is not None:
+            return (self.arena.buf, self.arenas[entry.pool_arena].buf,
+                    *call_args), (0, 1)
+        return (self.arena.buf, *call_args), (0,)
+
+    def _verify_trusted(self, entry: _KernelEntry, call_args: Tuple,
+                        arg_sig: Optional[Tuple] = None) -> SandboxProof:
+        """The extent-mode proof obligation of a ``verify=True`` trusted
+        step, once per operand signature (``arg_sig`` reuses one already
+        computed): traced on fake tensors of the manager's device, so it
+        allocates and launches nothing.  Raises
+        :class:`GuardianStaticViolation` unless every site is proven."""
+        key = ("extent", _arg_signature(call_args) if arg_sig is None
+               else arg_sig)
+        proof = entry.proofs.get(key)
+        if proof is not None:
+            return proof
+        args, arena_argnums = self._trusted_args(entry, call_args)
+        try:
+            proof = verify_kernel(entry.fn, args,
+                                  arena_argnums=arena_argnums,
+                                  mode="extent", device=self.device)
+        except (SandboxError, VerifierError) as e:
+            raise GuardianStaticViolation(
+                f"trusted kernel {entry.name!r} registered with verify=True "
+                f"cannot be traced for its proof: {e}") from e
+        if not proof.fully_proven:
+            raise GuardianStaticViolation(
+                f"trusted kernel {entry.name!r} registered with "
+                f"verify=True but only {proof.n_proven}/"
+                f"{len(proof.sites)} access sites are proven:\n"
+                + proof.format_table())
+        entry.proofs[key] = proof
+        return proof
+
     def sandbox_report(self, name: str,
                        example_args: Sequence[Any] = ()) -> SandboxProof:
-        """Per-site verifier classification of a registered tenant kernel
-        against the *symbolic* fence row (valid for every partition) — the
-        operator surface for "why does this site still fence?".
-        ``example_args`` are the kernel's operands after the arena."""
+        """Per-site verifier classification of a registered kernel — the
+        operator surface for "why does this site still fence?".  A tenant
+        kernel is verified against the *symbolic* fence row (valid for
+        every partition); a trusted step in extent mode, traced on fake
+        tensors of the manager's device.  ``example_args`` are the
+        kernel's operands after the arena (and the pool, for a step that
+        threads one); meta tensors stand in for shapes."""
         entry = self.pointer_to_symbol.get(name)
         if entry is None:
             raise GuardianViolation(
                 f"unknown kernel {name!r}: symbol not in grdLib")
         if entry.trusted:
-            raise ValueError(
-                f"{name!r} is a trusted kernel; its extent-mode proof is "
-                "not ported")
+            args, arena_argnums = self._trusted_args(entry, example_args)
+            return verify_kernel(entry.fn, args, arena_argnums=arena_argnums,
+                                 mode="extent", device=self.device)
         args, bound = self._verifier_args(entry, example_args)
         return verify_kernel(entry.fn, args,
                              arena_argnums=entry.arena_argnums,
@@ -1051,12 +1108,10 @@ class GuardianManager:
         if self._compiles(entry):
             res = self._trusted_exec(entry, req.call_args,
                                      arg_sig=req.signature[2])
-        elif entry.pool_arena is None:
-            res = entry.fn(self.arena.buf, *req.call_args)
         else:
-            res = entry.fn(self.arena.buf,
-                           self.arenas[entry.pool_arena].buf,
-                           *req.call_args)
+            if entry.verify:
+                self._verify_trusted(entry, req.call_args, req.signature[2])
+            res = entry.fn(*self._trusted_args(entry, req.call_args)[0])
         if entry.pool_arena is None:
             new_arena, out = res
         else:
@@ -1168,6 +1223,8 @@ class GuardianManager:
                ops.key())
         graph = entry.jit_cache.get(key)
         if graph is None:
+            if entry.verify:
+                self._verify_trusted(entry, call_args, key[1])
             graph = self._step_graph(entry.name, entry.fn, ops)
             entry.jit_cache[key] = graph
         return self._run_compiled(graph, ops, self._trusted_resident(entry))

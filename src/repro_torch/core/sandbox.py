@@ -63,6 +63,7 @@ import torch
 
 from repro_torch.core.fence import FenceParams, FencePolicy, apply_fence
 from repro_torch.core.verifier import (
+    KERNEL_OPS,
     PROVEN,
     GuardianStaticViolation,
     GuardianTaintWarning,
@@ -595,8 +596,25 @@ def _constants_on(gm: torch.fx.GraphModule, device: torch.device) -> None:
             setattr(mod, attr, val.to(device))
 
 
+def _refuse_kernel_ops(traced: Traced) -> None:
+    """A tenant never hands the arena to a hand-written kernel: the CUDA
+    code would address it through a pointer no fence of this sandbox
+    reaches (its declared accesses fence with the operands the tenant
+    chose).  Fails closed on any kernel op that takes an arena-derived
+    tensor."""
+    for node in traced.gm.graph.nodes:
+        if node.op == "call_function" and node.target in KERNEL_OPS and any(
+                traced.tainted.get(a.name, False)
+                for a in node.all_input_nodes):
+            raise SandboxError(
+                f"tenant kernel refused: `{node.target}` is a hand-written "
+                "kernel and takes the arena; tenants reach the arena only "
+                "through fenced accesses")
+
+
 def _plan(traced: Traced, params, policy, verify, bound_argnums,
           kernel_name, on_proof=None) -> _Program:
+    _refuse_kernel_ops(traced)
     static = params is not None and isinstance(params.base, int) \
         and isinstance(params.size, int)
     proof, index_ival, sym = verify_graph(

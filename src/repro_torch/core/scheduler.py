@@ -860,6 +860,10 @@ class BatchedLaunchScheduler:
         key = ("trusted", *head.signature, T, ops.key())
         graph = self._fused_cache.get(key)
         if graph is None:
+            if entry.verify:
+                # the fused step composes solo steps of this one signature
+                # in sequence: the solo proof covers it
+                mgr._verify_trusted(entry, head.call_args, head.signature[2])
             graph = mgr._step_graph(
                 f"{entry.name} x{T}",
                 self._build_fused_trusted(entry, len(head.call_args), T), ops)

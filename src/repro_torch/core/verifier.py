@@ -1,5 +1,6 @@
-"""Static bounds verifier — trace-time proof of arena-access safety, row
-mode, over the aten graph of a tenant kernel.
+"""Static bounds verifier — trace-time proof of arena-access safety over
+the aten graph of a tenant kernel (row mode) or of a trusted step (extent
+mode).
 
 Guardian (§4.3) fences only *register-addressed* loads because direct
 accesses are provably safe at compile time.  The sandbox
@@ -24,6 +25,24 @@ coverage is safe.  Python loops with a fixed count are unrolled by the
 trace and verify as straight-line code; a higher-order loop op is refused
 by the tracer (:func:`trace_kernel`), so there is no loop fixpoint here.
 
+**Extent mode** proves a trusted step (the serve steps a manager
+registers with ``verify=True``): every access into the arena or the pool
+is PROVEN inside the accessed operand's own extent along the addressed
+dim, or inside an *admissible* range — a guard partition found among the
+operands (a static :class:`FenceParams` declares ``[base, base + size)``;
+one whose base or size is a tensor gets a symbol pair of its own).  Extent
+mode never refutes.  The step's operands are nested (the pool dict, the
+weights, the cache meta, the :class:`GuardSpec`): every tensor leaf
+becomes a fake graph input, and the leaves of the arena and pool
+arguments are tainted.  The hand-written kernels are custom ops
+(``repro_torch::<kernel>``) whose CUDA code the trace cannot enter: each
+op node becomes one site per access the kernel declares
+(:mod:`repro_torch.kernels.access`), its index interval computed by this
+module's transfer functions over the kernel's own fence, page map and
+out-of-range rule.  An op with no transfer function that takes the arena
+or pool — an unknown operator, an indexing op the table lacks — is a
+FENCED site, so such a step is never fully proven.
+
 The graph analysis shared with the sandbox — tracing on fake tensors, the
 taint rule, and the table of access ops — lives here too, so the two
 walkers classify every node identically.
@@ -31,6 +50,7 @@ walkers classify every node identically.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import operator
 import warnings
@@ -39,7 +59,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.fence import FenceParams
+from repro_torch.core.stepgraph import tree_flatten, tree_unflatten
 from repro_torch.core.violations import ViolationKind
+from repro_torch.kernels.access import ACCESSES, Access
 
 aten = torch.ops.aten
 
@@ -292,6 +314,68 @@ def ieq(a: Ival, b: Ival) -> bool:
     return a.lo == b.lo and a.hi == b.hi
 
 
+def _nonneg(ctx: SymCtx, v: Ival) -> bool:
+    return v.lo is not None and ctx.prove_nonneg(v.lo)
+
+
+def iand(ctx: SymCtx, x: Ival, y: Ival) -> Ival:
+    """``x & y``: ``x`` itself when ``y`` is a constant ``2**n - 1`` and
+    ``0 <= x <= y`` (the pool clamp of an id already inside it), else
+    ``[0, min hi]`` of the operands known nonnegative."""
+    for v, m in ((x, y), (y, x)):
+        k = _as_const(m)
+        if k is not None and k >= 0 and not k & (k + 1) and \
+                _nonneg(ctx, v) and v.hi is not None and ctx.le(v.hi, lc(k)):
+            return v
+    cands = [v.hi for v in (x, y) if _nonneg(ctx, v)]
+    if not cands:
+        return TOP
+    hi = cands[0]
+    for c in cands[1:]:
+        hi = _pick_le(ctx, hi, c) if hi is not None else c
+    return Ival(lc(0), hi)
+
+
+def ior(ctx: SymCtx, x: Ival, y: Ival, xor: bool = False) -> Ival:
+    """``x | y`` (``x ^ y``) of nonnegative operands: at most their sum,
+    and an or is at least the larger operand."""
+    if not (_nonneg(ctx, x) and _nonneg(ctx, y)):
+        return TOP
+    lo = lc(0) if xor else (x.lo if ctx.le(y.lo, x.lo) else y.lo)
+    return Ival(lo, _opt_add(x.hi, y.hi))
+
+
+def icompare(ctx: SymCtx, x: Ival, y: Ival, strict: bool) -> Ival:
+    """``x < y`` (``x <= y`` unless ``strict``): 1 or 0 when decided."""
+    if x.hi is not None and y.lo is not None and (
+            ctx.lt(x.hi, y.lo) if strict else ctx.le(x.hi, y.lo)):
+        return iconst(1)
+    if x.lo is not None and y.hi is not None and (
+            ctx.le(y.hi, x.lo) if strict else ctx.lt(y.hi, x.lo)):
+        return iconst(0)
+    return iconst(0, 1)
+
+
+def iwhere(ctx: SymCtx, c: Ival, x: Ival, y: Ival) -> Ival:
+    k = _as_const(c)
+    if k == 1:
+        return x
+    if k == 0:
+        return y
+    return ijoin(ctx, x, y)
+
+
+def ifit(ctx: SymCtx, iv: Ival, dtype: torch.dtype) -> Ival:
+    """``iv`` when the integer ``dtype`` provably holds it, else ⊤ (the
+    value wrapped)."""
+    info = torch.iinfo(dtype)
+    if iv.lo is not None and iv.hi is not None and not (
+            ctx.le(lc(int(info.min)), iv.lo)
+            and ctx.le(iv.hi, lc(int(info.max)))):
+        return TOP
+    return iv
+
+
 # --------------------------------------------------------------------------
 # Proof artifacts
 # --------------------------------------------------------------------------
@@ -438,6 +522,11 @@ def dynamic_update_slice(x: torch.Tensor, start,
 DYNAMIC_SLICE = torch.ops.repro_torch.dynamic_slice.default
 DYNAMIC_UPDATE = torch.ops.repro_torch.dynamic_update_slice_.default
 
+#: the hand-written kernels' custom ops -> the accesses each declares
+KERNEL_OPS: Dict[Any, Tuple[Access, ...]] = {
+    getattr(torch.ops.repro_torch, name).default: accesses
+    for name, accesses in ACCESSES.items()}
+
 
 @dataclasses.dataclass(frozen=True)
 class AccessOp:
@@ -544,7 +633,9 @@ def _shape(node) -> Tuple[int, ...]:
 class Site:
     """One access node: its op, operand and index nodes, the addressed
     dim, and whether the operand is the arena (``tainted``) and keeps its
-    slot axis (``exact``)."""
+    slot axis (``exact``).  ``decl`` is the declared access of a kernel
+    op; ``opaque`` marks an access the verifier has no transfer function
+    for (always FENCED); ``tag`` tells apart the sites of one node."""
 
     node: Any
     op: AccessOp
@@ -556,6 +647,13 @@ class Site:
     tainted: bool
     exact: bool
     list_pos: int = 0
+    decl: Optional[Access] = None
+    opaque: bool = False
+    tag: str = ""
+
+    @property
+    def path(self) -> Tuple:
+        return (self.node.name, self.tag) if self.tag else (self.node.name,)
 
 
 @dataclasses.dataclass
@@ -571,6 +669,11 @@ class Traced:
     tainted: Dict[str, bool]
     exact: Dict[str, bool]
     arena_extent: Optional[int]
+    #: every site to classify, by node: the access ops' (``sites``) and
+    #: the kernel ops' declared accesses
+    all_sites: Dict[str, List[Site]] = dataclasses.field(
+        default_factory=dict)
+    mode: str = "row"
 
     @property
     def placeholders(self) -> List[Any]:
@@ -593,37 +696,56 @@ def _trace_errors() -> Tuple[type, ...]:
 
 
 def trace_kernel(fn: Callable, example_args: Sequence[Any],
-                 arena_argnums: Sequence[int] = (0,)) -> Traced:
+                 arena_argnums: Sequence[int] = (0,), *, mode: str = "row",
+                 device: Optional[Any] = None) -> Traced:
     """Trace ``fn(*example_args)`` into an aten graph on *fake* tensors of
     the arguments' shapes, dtypes and devices (the live arena is never
-    read or written) and run the shared taint analysis.  Tensor arguments
-    become graph inputs; every other argument is baked in (a launch
-    dimension, like a CUDA grid size).  Fails closed with
-    :class:`SandboxError` on a data-dependent value or shape (``.item()``,
-    a boolean mask), a higher-order op (``cond``, ``while_loop``, ``scan``)
-    and on any use of the arena the walker cannot contain."""
+    read or written) and run the taint analysis of ``mode``.  Row mode (a
+    tenant kernel): tensor arguments become graph inputs, every other
+    argument is baked in (a launch dimension, like a CUDA grid size).
+    Extent mode (a trusted step): every tensor leaf of every argument
+    (:func:`~repro_torch.core.stepgraph.tree_flatten` — dicts, lists,
+    dataclasses such as a cache meta or a :class:`GuardSpec`) becomes a
+    graph input, and the leaves of the ``arena_argnums`` arguments are
+    tainted.  ``device`` puts every fake on one device (a meta tensor then
+    stands in for a shape).  Fails closed with :class:`SandboxError` on a
+    data-dependent value or shape (``.item()``, a boolean mask), a
+    higher-order op (``cond``, ``while_loop``, ``scan``) and, in row mode,
+    on any use of the arena the walker cannot contain."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.fx.experimental.proxy_tensor import make_fx
 
-    example_args = tuple(example_args)
-    dyn_pos = [i for i, a in enumerate(example_args)
-               if isinstance(a, torch.Tensor)]
+    if mode not in ("row", "extent"):
+        raise ValueError(f"verifier mode {mode!r} (row or extent)")
+    structs = [tree_flatten(a) if mode == "extent" else (None, [a])
+               for a in example_args]
+    slots = [(p, j) for p, (_, leaves) in enumerate(structs)
+             for j, leaf in enumerate(leaves)
+             if isinstance(leaf, torch.Tensor)]
+    dyn_pos = [p for p, _ in slots]
+    devices = [torch.device(device) if device is not None
+               else structs[p][1][j].device for p, j in slots]
+    indexing = _AtenIndexing() if any(
+        d.type == "cuda" for d in devices) and \
+        not torch.backends.cuda.is_built() else contextlib.nullcontext()
 
     def fn_dyn(*dargs):
-        full = list(example_args)
-        for p, v in zip(dyn_pos, dargs):
-            full[p] = v
-        return fn(*full)
+        leaves = [list(ls) for _, ls in structs]
+        for (p, j), v in zip(slots, dargs):
+            leaves[p][j] = v
+        with indexing:
+            return fn(*(tree_unflatten(s, ls)
+                        for (s, _), ls in zip(structs, leaves)))
 
-    mode = FakeTensorMode()
+    fake_mode = FakeTensorMode()
     try:
-        with mode:
-            # a fresh fake per position: two arguments that happen to be
-            # one tensor must not share a graph input
+        with fake_mode:
+            # a fresh fake per leaf: two arguments that happen to be one
+            # tensor must not share a graph input
             fakes = [torch.empty_strided(
-                example_args[p].shape, example_args[p].stride(),
-                dtype=example_args[p].dtype,
-                device=example_args[p].device) for p in dyn_pos]
+                structs[p][1][j].shape, structs[p][1][j].stride(),
+                dtype=structs[p][1][j].dtype, device=dev)
+                for (p, j), dev in zip(slots, devices)]
             gm = make_fx(fn_dyn, tracing_mode="real")(*fakes)
     except _trace_errors() as e:
         raise _unsupported(
@@ -638,7 +760,71 @@ def trace_kernel(fn: Callable, example_args: Sequence[Any],
         raise
     arena_set = frozenset(arena_argnums)
     taints = [p in arena_set for p in dyn_pos]
+    if mode == "extent":
+        return _analyze_extent(gm, dyn_pos, taints)
     return _analyze(gm, dyn_pos, taints)
+
+
+def _index_steps(t: torch.Tensor, idx) -> Tuple[torch.Tensor,
+                                                Dict[int, Any]]:
+    """The basic indexing of ``t[idx]`` as aten views (an int selects, a
+    slice slices — a whole-dim slice is skipped, as the C++ indexing skips
+    it —, ``None`` unsqueezes, ``...`` skips dims) and the tensor indices
+    left for ``index`` / ``index_put_``, by the dim they address."""
+    idx = idx if isinstance(idx, tuple) else (idx,)
+    rest = t.dim() - sum(1 for i in idx if i is not None and i is not ...)
+    out, d, tensors = t, 0, {}
+    for i in idx:
+        if i is None:
+            out, d = torch.unsqueeze(out, d), d + 1
+        elif i is ...:
+            d += rest
+        elif isinstance(i, slice):
+            if not (i.start in (None, 0) and i.step in (None, 1) and (
+                    i.stop is None or (isinstance(i.stop, int)
+                                       and i.stop >= out.shape[d]))):
+                out = aten.slice.Tensor(out, d, i.start, i.stop,
+                                        1 if i.step is None else i.step)
+            d += 1
+        elif isinstance(i, torch.Tensor):
+            tensors[d], d = i, d + 1
+        elif isinstance(i, int) and not isinstance(i, bool):
+            out = torch.select(out, d, i)
+        else:
+            raise _unsupported(f"an index of type {type(i).__name__}")
+    return out, tensors
+
+
+class _AtenIndexing(torch.overrides.TorchFunctionMode):
+    """Python indexing (``t[i]``, ``t[i] = v``) spelled in aten ops, as
+    the C++ indexing spells it.  A build of torch without CUDA refuses that
+    C++ path for a fake CUDA tensor (it sets a device guard first), so a
+    step traced on fake CUDA tensors on such a build records the same
+    graph through this mode; the card's build never uses it."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.Tensor.__getitem__:
+            out, tensors = _index_steps(*args)
+            if not tensors:
+                return out if out is not args[0] else aten.alias(out)
+            return aten.index.Tensor(
+                out, [tensors.get(k) for k in range(max(tensors) + 1)])
+        if func is torch.Tensor.__setitem__:
+            t, idx, value = args
+            out, tensors = _index_steps(t, idx)
+            if tensors:
+                if not isinstance(value, torch.Tensor):
+                    value = torch.tensor(value, dtype=out.dtype,
+                                         device=out.device)
+                aten.index_put_(
+                    out, [tensors.get(k) for k in range(max(tensors) + 1)],
+                    value)
+            elif isinstance(value, torch.Tensor):
+                out.copy_(value)
+            else:
+                out.fill_(value)
+            return None
+        return func(*args, **(kwargs or {}))
 
 
 def _node_args(node) -> List[Any]:
@@ -675,6 +861,7 @@ def _analyze(gm, dyn_pos: List[int], taints: List[bool]) -> Traced:
     tainted: Dict[str, bool] = {}
     exact: Dict[str, bool] = {}
     sites: Dict[str, Site] = {}
+    all_sites: Dict[str, List[Site]] = {}
     arena_extent, arena_val = None, None
     it = iter(taints)
     for node in gm.graph.nodes:
@@ -703,9 +890,14 @@ def _analyze(gm, dyn_pos: List[int], taints: List[bool]) -> Traced:
             raise _unsupported(
                 f"`{target}` addresses a tensor through an index the "
                 "sandbox cannot keep in range")
-        if acc is not None:
+        if target in KERNEL_OPS:
+            declared = _kernel_sites(node, tainted, exact, row=True)
+            if declared:
+                all_sites[node.name] = declared
+        elif acc is not None:
             site = _site_of(node, acc, tainted, exact)
             sites[node.name] = site
+            all_sites[node.name] = [site]
             if site.tainted:
                 out_t = acc.kind in (ViolationKind.SCATTER,
                                      ViolationKind.UPDATE)
@@ -725,7 +917,157 @@ def _analyze(gm, dyn_pos: List[int], taints: List[bool]) -> Traced:
         tainted[node.name] = out_t
         exact[node.name] = out_x
     return Traced(gm=gm, dyn_pos=dyn_pos, taints=list(taints), sites=sites,
-                  tainted=tainted, exact=exact, arena_extent=arena_extent)
+                  tainted=tainted, exact=exact, arena_extent=arena_extent,
+                  all_sites=all_sites)
+
+
+def _op_arg(node, name: str):
+    """Argument ``name`` of a custom-op node, by the op's schema."""
+    for i, a in enumerate(node.target._schema.arguments):
+        if a.name == name:
+            return node.args[i] if i < len(node.args) else \
+                node.kwargs.get(name)
+    raise KeyError(f"{op_name(node.target)} has no argument {name!r}")
+
+
+def _kernel_sites(node, tainted, exact, row: bool) -> List[Site]:
+    """One site per declared access of a kernel op whose operand is the
+    arena (or the pool).  In row mode the op may take the arena only as
+    an operand it addresses, and store only through the slot axis."""
+    name = op_name(node.target)
+    out: List[Site] = []
+    addressed = set()
+    for acc in KERNEL_OPS[node.target]:
+        operand = _op_arg(node, acc.operand)
+        addressed.add(operand.name)
+        if not tainted.get(operand.name, False):
+            continue
+        if row and acc.store and not exact.get(operand.name, False):
+            raise _unsupported(
+                f"`{name}` stores through a view of the arena that "
+                "reshaped its slot axis")
+        shape = _shape(operand)
+        kind = ViolationKind.SCATTER if acc.store else ViolationKind.GATHER
+        out.append(Site(
+            node=node, op=AccessOp(kind, -1, native=acc.out_of_range),
+            operand=operand, index=_op_arg(node, acc.index), dim=0,
+            extent=shape[0] if shape else 1, length=1, tainted=True,
+            exact=exact.get(operand.name, False), decl=acc,
+            tag=acc.operand))
+    if row:
+        for other in _node_args(node):
+            if tainted.get(other.name, False) and \
+                    other.name not in addressed:
+                raise _unsupported(
+                    f"`{name}` takes the arena other than as an operand "
+                    "it addresses")
+    return out
+
+
+#: ops whose result still addresses the memory of their first operand
+_EXTENT_VIEWS = _VIEWS | _PERMUTES | _COPIES | {
+    "slice", "select", "narrow", "as_strided", "unfold", "diagonal",
+    "split", "split_with_sizes", "chunk", "unbind", "movedim",
+    "unflatten", "view_as_real", "view_as_complex", "real", "imag"}
+
+
+def _extent_sites(node, acc: AccessOp) -> List[Site]:
+    """The sites of an access op over the arena or pool in extent mode:
+    one per index tensor, each against the extent of the dim it
+    addresses."""
+    args = list(node.args)
+    operand = args[0]
+    shape = _shape(operand)
+    if acc.listed:
+        entries = [(d, e) for d, e in enumerate(args[acc.index])
+                   if e is not None]
+    else:
+        dim = 0 if acc.dim is None else int(args[acc.dim])
+        entries = [(dim % max(len(shape), 1), args[acc.index])]
+    length = 1
+    if acc.kind is ViolationKind.SLICE:
+        length = int(args[2])
+    elif acc.kind is ViolationKind.UPDATE:
+        vs = _shape(args[2])
+        length = vs[0] if vs else 1
+    out = []
+    for dim, index in entries:
+        if node.target is aten.take.default:
+            extent = 1
+            for d in shape:
+                extent *= d
+        else:
+            extent = shape[dim] if dim < len(shape) else 1
+        out.append(Site(
+            node=node, op=acc, operand=operand, index=index, dim=dim,
+            extent=extent, length=length, tainted=True, exact=False,
+            list_pos=dim, tag=f"dim{dim}" if len(entries) > 1 else ""))
+    return out
+
+
+def _analyze_extent(gm, dyn_pos: List[int], taints: List[bool]) -> Traced:
+    """The taint rule of extent mode (a trusted step): the arena and pool
+    leaves, their views, static slices and copies, and what a store or
+    an in-place op over them returns address their memory; a value
+    computed from them does not.  Nothing fails closed here — a step is
+    proven or not: each access op over a tainted operand is one site per
+    index, each kernel op one site per declared access, and an op that
+    takes a tainted operand without a transfer function (an unknown
+    operator, an indexing op the table lacks) one opaque site, always
+    FENCED."""
+    tainted: Dict[str, bool] = {}
+    all_sites: Dict[str, List[Site]] = {}
+    arena_extent = None
+    it = iter(taints)
+    for node in gm.graph.nodes:
+        if node.op == "placeholder":
+            t = next(it)
+            tainted[node.name] = t
+            if t and arena_extent is None and _shape(node):
+                arena_extent = _shape(node)[0]
+            continue
+        if node.op != "call_function":
+            tainted[node.name] = False
+            continue
+        target = node.target
+        if isinstance(target, torch._ops.HigherOrderOperator):
+            raise _unsupported(f"higher-order op `{target}`")
+        ins = _node_args(node)
+        any_t = any(tainted.get(a.name, False) for a in ins)
+        src = node.args[0] if node.args else None
+        src_t = hasattr(src, "name") and tainted.get(src.name, False)
+        name = op_name(target)
+        acc = ACCESS_OPS.get(target)
+        sites: List[Site] = []
+        out_t = False
+        if target in KERNEL_OPS:
+            sites = _kernel_sites(node, tainted, {}, row=False)
+        elif acc is not None:
+            if src_t:
+                sites = _extent_sites(node, acc)
+            out_t = src_t and acc.kind in (ViolationKind.SCATTER,
+                                           ViolationKind.UPDATE)
+        elif not isinstance(target, torch._ops.OpOverload):
+            out_t = any_t      # getitem of a multi-output op, a rebuilt tree
+        elif any_t and (name in _UNSUPPORTED_INDEXED
+                        or target.namespace not in ("aten", "prims")):
+            first = next(a for a in ins if tainted.get(a.name, False))
+            shape = _shape(first)
+            kind = ViolationKind.SCATTER if name.endswith("_") \
+                else ViolationKind.GATHER
+            sites = [Site(node=node, op=AccessOp(kind, -1), operand=first,
+                          index=None, dim=0,
+                          extent=shape[0] if shape else 1, length=1,
+                          tainted=True, exact=False, opaque=True)]
+            out_t = src_t
+        else:
+            out_t = src_t and (name in _EXTENT_VIEWS or name.endswith("_"))
+        if sites:
+            all_sites[node.name] = sites
+        tainted[node.name] = out_t
+    return Traced(gm=gm, dyn_pos=dyn_pos, taints=list(taints), sites={},
+                  tainted=tainted, exact={}, arena_extent=arena_extent,
+                  all_sites=all_sites, mode="extent")
 
 
 def _transparent(node, name: str, exact_in: bool) -> Tuple[bool, bool]:
@@ -905,13 +1247,33 @@ def _is_int(node) -> bool:
 
 
 class _Target:
-    """The fence row ``[row_lo, row_hi]`` (inclusive) sites must land in."""
+    """What a site must land in.  Row mode: the fence row ``[row_lo,
+    row_hi]`` (inclusive); a site outside it on every launch is REFUTED.
+    Extent mode: the accessed operand's extent along the addressed dim, or
+    one of the ``admissible`` guard ranges; never refuted (a trusted
+    step's property is that every access is proven, not that a tenant
+    stays in its row)."""
 
-    def __init__(self, row_lo: Lin, row_hi: Lin):
+    def __init__(self, row_lo: Optional[Lin] = None,
+                 row_hi: Optional[Lin] = None, mode: str = "row",
+                 admissible: Sequence[Tuple[Lin, Lin]] = ()):
         self.row_lo, self.row_hi = row_lo, row_hi
+        self.mode = mode
+        self.admissible = tuple(admissible)
 
     def desc(self) -> str:
         return f"[{self.row_lo}, {self.row_hi}]"
+
+    def targets_for(self, extent: int, length: int
+                    ) -> List[Tuple[Lin, Lin, str]]:
+        """Candidate inclusive ``[lo, hi]`` ranges of an index or a
+        window's start (``length`` shrinks the hi)."""
+        if self.mode == "row":
+            return [(self.row_lo, self.row_hi.shift(1 - length),
+                     self.desc())]
+        return [(lc(0), lc(extent - length), f"extent[0, {extent - 1}]")] \
+            + [(lo, hi.shift(1 - length), f"guard[{lo}, {hi}]")
+               for lo, hi in self.admissible]
 
 
 def _normalize_ival(ctx: SymCtx, iv: Ival, extent: int) -> Ival:
@@ -940,24 +1302,32 @@ class _AbsState:
 
 def _classify(state: _AbsState, site: Site, iv: Ival) -> str:
     ctx, tgt = state.ctx, state.target
-    length = site.length
-    hi_len = tgt.row_hi.shift(1 - length)
-    verdict, why = FENCED, "interval not contained"
-    if (iv.lo is not None and iv.hi is not None
-            and ctx.le(tgt.row_lo, iv.lo) and ctx.le(iv.hi, hi_len)):
-        verdict, why = PROVEN, "statically contained"
-    else:
-        if iv.hi is not None and ctx.lt(iv.hi, tgt.row_lo):
+    cands = tgt.targets_for(site.extent, site.length)
+    verdict, why, tdesc = FENCED, "interval not contained", cands[-1][2]
+    for lo, hi, desc in cands:
+        if site.opaque:
+            break
+        tdesc = desc
+        if (iv.lo is not None and iv.hi is not None
+                and ctx.le(lo, iv.lo) and ctx.le(iv.hi, hi)):
+            verdict, why = PROVEN, "statically contained"
+            break
+    if site.opaque:
+        why = f"no transfer function for `{op_name(site.node.target)}`"
+    elif verdict is FENCED:
+        if tgt.mode == "row" and iv.hi is not None and \
+                ctx.lt(iv.hi, tgt.row_lo):
             verdict, why = REFUTED, "always below partition"
-        elif iv.lo is not None and ctx.lt(tgt.row_hi, iv.lo):
+        elif tgt.mode == "row" and iv.lo is not None and \
+                ctx.lt(tgt.row_hi, iv.lo):
             verdict, why = REFUTED, "always above partition"
         else:
             why = ("interval unbounded" if iv.is_top
                    else "interval straddles bound")
     state.sites.append(SiteRecord(
-        path=(site.node.name,), kind=site.op.kind,
+        path=site.path, kind=site.op.kind,
         prim=op_name(site.node.target), verdict=verdict, interval=str(iv),
-        target=tgt.desc(), why=why))
+        target=tdesc, why=why))
     return verdict
 
 
@@ -1120,45 +1490,16 @@ def _abs_eval_op(ctx: SymCtx, node, ival: Dict[str, Ival]) -> Ival:
             return iconst(v.lo.const >> k, v.hi.const >> k)
         return TOP
     if name in ("bitwise_and", "__and__"):
-        cands = []
-        for i in (0, 1):
-            v = a(i)
-            if v.lo is not None and ctx.prove_nonneg(v.lo):
-                cands.append(v.hi)
-        if not cands:
-            return TOP
-        hi = cands[0]
-        for c in cands[1:]:
-            hi = _pick_le(ctx, hi, c) if hi is not None else c
-        return Ival(lc(0), hi)
+        return iand(ctx, a(0), a(1))
     if name in ("bitwise_or", "bitwise_xor", "__or__", "__xor__"):
-        x, y = a(0), a(1)
-        if (x.lo is not None and ctx.prove_nonneg(x.lo)
-                and y.lo is not None and ctx.prove_nonneg(y.lo)):
-            lo = lc(0)
-            if name in ("bitwise_or", "__or__"):
-                lo = x.lo if ctx.le(y.lo, x.lo) else y.lo
-            return Ival(lo, _opt_add(x.hi, y.hi))
-        return TOP
+        return ior(ctx, a(0), a(1), xor=name in ("bitwise_xor", "__xor__"))
     if name == "where":
-        c = _as_const(a(0))
-        if c == 1:
-            return a(1)
-        if c == 0:
-            return a(2)
-        return ijoin(ctx, a(1), a(2))
+        return iwhere(ctx, a(0), a(1), a(2))
     if name in ("lt", "le", "gt", "ge"):
         x, y = a(0), a(1)
         if name in ("gt", "ge"):
             x, y = y, x
-        strict = name in ("lt", "gt")
-        if x.hi is not None and y.lo is not None and (
-                ctx.lt(x.hi, y.lo) if strict else ctx.le(x.hi, y.lo)):
-            return iconst(1)
-        if x.lo is not None and y.hi is not None and (
-                ctx.le(y.hi, x.lo) if strict else ctx.lt(y.hi, x.lo)):
-            return iconst(0)
-        return iconst(0, 1)
+        return icompare(ctx, x, y, strict=name in ("lt", "gt"))
     if name in ("eq", "ne", "logical_not", "logical_and", "logical_or",
                 "isfinite", "isnan"):
         return iconst(0, 1)
@@ -1176,8 +1517,8 @@ def _abs_eval_op(ctx: SymCtx, node, ival: Dict[str, Ival]) -> Ival:
         return a(0)
     if name in ("index_put", "index_put_", "index_copy", "index_copy_",
                 "scatter", "scatter_"):
-        vpos = ACCESS_OPS[node.target].values
-        return ijoin(ctx, a(0), a(vpos))
+        acc = ACCESS_OPS.get(node.target)
+        return TOP if acc is None else ijoin(ctx, a(0), a(acc.values))
     if name in ("cat", "stack"):
         items = [_arg_ival(ival, x) for x in args[0]]
         out = items[0] if items else TOP
@@ -1185,6 +1526,40 @@ def _abs_eval_op(ctx: SymCtx, node, ival: Dict[str, Ival]) -> Ival:
             out = ijoin(ctx, out, v)
         return out
     return TOP
+
+
+def _declared_ival(ctx: SymCtx, site: Site, ival: Dict[str, Ival]) -> Ival:
+    """The address interval of a kernel op's declared access: the ids'
+    interval through the kernel's int32 fence ``(ids & mask) | base``,
+    its page map (an id outside the map resolves to page 0), its pool
+    clamp ``& (extent - 1)``, and for an id out of range what the kernel
+    does (``"nan"``: a negative id in ``[-V, 0)`` wraps once, an id outside
+    ``[0, V)`` forms no address) — the transfer functions the plain
+    version's aten graph goes through, in its order."""
+    acc, node = site.decl, site.node
+
+    def fence_part(names: Tuple[str, str]) -> Ival:
+        t = _op_arg(node, names[0])
+        iv = _arg_ival(ival, t) if t is not None else \
+            _const_ival(_op_arg(node, names[1]))
+        return ifit(ctx, iv, torch.int32)
+
+    i32 = torch.int32
+    iv = ifit(ctx, _arg_ival(ival, site.index), i32)
+    iv = ifit(ctx, ior(ctx, iand(ctx, iv, fence_part(acc.mask)),
+                       fence_part(acc.base)), i32)
+    page_map = _op_arg(node, acc.page_map) if acc.page_map else None
+    if page_map is not None:
+        iv = ijoin(ctx, ifit(ctx, _arg_ival(ival, page_map), i32),
+                   iconst(0))
+    if acc.pool_clamp:
+        iv = iand(ctx, iv, iconst(site.extent - 1))
+    if acc.out_of_range == "nan":
+        wrapped = ifit(ctx, iadd(iv, iconst(site.extent)), i32)
+        iv = iwhere(ctx, icompare(ctx, iv, iconst(0), strict=True), wrapped,
+                    iv)
+        iv = imin(ctx, imax(ctx, iv, iconst(0)), iconst(site.extent - 1))
+    return iv
 
 
 def _abs_interpret(state: _AbsState, in_ivals: Sequence[Ival]) -> None:
@@ -1202,52 +1577,86 @@ def _abs_interpret(state: _AbsState, in_ivals: Sequence[Ival]) -> None:
         if node.op != "call_function":
             continue
         state.n_eqns += 1
-        site = traced.sites.get(node.name)
-        if site is not None:
-            iv = _arg_ival(ival, site.index)
-            state.index_ival[node.name] = iv
-            if site.op.kind not in (ViolationKind.SLICE,
-                                    ViolationKind.UPDATE):
-                iv = _normalize_ival(state.ctx, iv, site.extent)
-            if site.tainted and site.dim == 0:
+        for site in traced.all_sites.get(node.name, ()):
+            if site.opaque:
+                _classify(state, site, TOP)
+                continue
+            if site.decl is not None:
+                iv = _declared_ival(state.ctx, site, ival)
+            else:
+                iv = _arg_ival(ival, site.index)
+                if traced.mode == "row":
+                    state.index_ival[node.name] = iv
+                if site.op.kind not in (ViolationKind.SLICE,
+                                        ViolationKind.UPDATE):
+                    iv = _normalize_ival(state.ctx, iv, site.extent)
+            if site.tainted and (traced.mode == "extent" or site.dim == 0):
                 _classify(state, site, iv)
         ival[node.name] = _abs_eval(state.ctx, node, ival)
 
 
 def verify_graph(traced: Traced, params: Optional[FenceParams] = None, *,
                  in_roles: Optional[Sequence[Optional[str]]] = None,
+                 admissible: Sequence[Tuple[int, int]] = (),
+                 dyn_role_pairs: Optional[Dict[int, Tuple[str, int]]] = None,
                  ) -> Tuple[SandboxProof, Dict[str, Ival], SymCtx]:
-    """Row-mode proof over a traced kernel.  Static ``params`` give a
-    concrete proof; ``None`` (or tensor-valued params) the symbolic-row
-    proof, valid for every partition of an arena of ``arena_extent``
-    slots.  ``in_roles`` names placeholders that carry the row into the
-    kernel (``"base"`` / ``"mask"`` / ``"size"``).  Also returns each
-    access's index interval (before the negative-index wrap) and the
-    symbol context that decides them."""
+    """The proof over a traced kernel, in the trace's mode.
+
+    Row mode: static ``params`` give a concrete proof; ``None`` (or
+    tensor-valued params) the symbolic-row proof, valid for every
+    partition of an arena of ``arena_extent`` slots.  ``in_roles`` names
+    placeholders that carry the row into the kernel (``"base"`` /
+    ``"mask"`` / ``"size"``).
+
+    Extent mode: ``admissible`` are the static guard partitions ``(base,
+    size)`` found in the operands, and ``dyn_role_pairs`` maps a
+    placeholder to ``(field, pair)`` — the ``"base"`` / ``"size"`` of a
+    guard partition given as tensors, each pair with symbols of its own
+    whose range is admissible too.
+
+    Also returns each access's index interval (before the negative-index
+    wrap) and the symbol context that decides them."""
     ctx = SymCtx()
-    static = (params is not None and isinstance(params.base, int)
-              and isinstance(params.size, int))
-    if static:
-        row_lo, row_hi = lc(params.base), lc(params.base + params.size - 1)
-        base_iv, size_iv = iconst(params.base), iconst(params.size)
-    else:
-        b, s = ctx.new_pair(extent=traced.arena_extent)
-        row_lo = Lin(0, ((b, 1),))
-        row_hi = Lin(-1, ((b, 1), (s, 1)))
-        base_iv = Ival(row_lo, row_lo)
-        size_iv = Ival(Lin(0, ((s, 1),)), Lin(0, ((s, 1),)))
-    roles = {"base": base_iv, "size": size_iv,
-             "mask": Ival(size_iv.lo.shift(-1), size_iv.hi.shift(-1))}
     n_in = len(traced.dyn_pos)
     in_ivals: List[Ival] = [TOP] * n_in
-    for i, role in enumerate(in_roles or ()):
-        if role in roles and i < n_in:
-            in_ivals[i] = roles[role]
-    state = _AbsState(ctx, _Target(row_lo, row_hi), traced)
+    static = False
+    if traced.mode == "row":
+        static = (params is not None and isinstance(params.base, int)
+                  and isinstance(params.size, int))
+        if static:
+            row_lo = lc(params.base)
+            row_hi = lc(params.base + params.size - 1)
+            base_iv, size_iv = iconst(params.base), iconst(params.size)
+        else:
+            b, s = ctx.new_pair(extent=traced.arena_extent)
+            row_lo = Lin(0, ((b, 1),))
+            row_hi = Lin(-1, ((b, 1), (s, 1)))
+            base_iv = Ival(row_lo, row_lo)
+            size_iv = Ival(Lin(0, ((s, 1),)), Lin(0, ((s, 1),)))
+        roles = {"base": base_iv, "size": size_iv,
+                 "mask": Ival(size_iv.lo.shift(-1), size_iv.hi.shift(-1))}
+        for i, role in enumerate(in_roles or ()):
+            if role in roles and i < n_in:
+                in_ivals[i] = roles[role]
+        target = _Target(row_lo, row_hi)
+    else:
+        adm = [(lc(b0), lc(b0 + s0 - 1)) for b0, s0 in admissible]
+        pairs: Dict[int, Tuple[int, int]] = {}
+        for pos, (field, pno) in sorted((dyn_role_pairs or {}).items()):
+            if pno not in pairs:
+                # a guard partition is a slot range of an int32 index
+                # space: B + S <= 2**31, so its last slot is an int32
+                pairs[pno] = ctx.new_pair(extent=1 << 31, tag=str(pno))
+                b, s = pairs[pno]
+                adm.append((Lin(0, ((b, 1),)), Lin(-1, ((b, 1), (s, 1)))))
+            sym = pairs[pno][0 if field == "base" else 1]
+            in_ivals[pos] = Ival(Lin(0, ((sym, 1),)), Lin(0, ((sym, 1),)))
+        target = _Target(mode="extent", admissible=adm)
+    state = _AbsState(ctx, target, traced)
     _abs_interpret(state, in_ivals)
-    proof = SandboxProof(sites=tuple(state.sites), mode="row",
-                         symbolic=not static, arg_sig=traced.arg_sig,
-                         n_eqns=state.n_eqns)
+    proof = SandboxProof(sites=tuple(state.sites), mode=traced.mode,
+                         symbolic=traced.mode == "row" and not static,
+                         arg_sig=traced.arg_sig, n_eqns=state.n_eqns)
     return proof, state.index_ival, ctx
 
 
@@ -1261,20 +1670,74 @@ def roles_for(traced: Traced, bound_argnums: Sequence[int]
     return roles
 
 
+def guard_ranges(example_args: Sequence[Any]
+                 ) -> Tuple[List[Tuple[int, int]], Dict[int, Tuple[str, int]]]:
+    """The guard partitions among a step's operands, for extent mode:
+    ``(admissible, dyn_role_pairs)`` — each static :class:`FenceParams`'s
+    ``(base, size)``, and for each one whose base or size is a tensor the
+    graph-input positions of those tensors (the tensor leaves in
+    :func:`~repro_torch.core.stepgraph.tree_flatten` order) with the
+    field and the partition's number."""
+    admissible: List[Tuple[int, int]] = []
+    pairs: Dict[int, Tuple[str, int]] = {}
+    pos, pno = 0, 0
+
+    def walk(x):
+        nonlocal pos, pno
+        if isinstance(x, FenceParams):
+            fields = (("base", x.base), ("size", x.size),
+                      ("magic_m", x.magic_m), ("magic_s", x.magic_s))
+            dyn = any(isinstance(v, torch.Tensor) for _, v in fields[:2])
+            if not dyn and isinstance(x.base, int) \
+                    and isinstance(x.size, int):
+                admissible.append((int(x.base), int(x.size)))
+            for field, v in fields:
+                if isinstance(v, torch.Tensor):
+                    if field in ("base", "size"):
+                        pairs[pos] = (field, pno)
+                    pos += 1
+            pno += dyn
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+        elif isinstance(x, torch.Tensor):
+            pos += 1
+
+    for a in example_args:
+        walk(a)
+    return admissible, pairs
+
+
 def verify(fn: Callable, example_args: Sequence[Any],
            arena_argnums: Sequence[int] = (0,),
            bound_argnums: Sequence[int] = (),
            params: Optional[FenceParams] = None,
-           mode: str = "row") -> SandboxProof:
+           mode: str = "row", device: Optional[Any] = None) -> SandboxProof:
     """Standalone bounds proof for ``fn(*example_args)``.
-    ``bound_argnums`` names the two injected row parameters —
-    ``(base_argnum, mask_argnum)`` — of a fence-aware kernel.  Only
-    ``mode="row"`` is ported (extent mode, for trusted steps, is not)."""
-    if mode != "row":
-        raise ValueError(f"verifier mode {mode!r} is not ported (row only)")
-    traced = trace_kernel(fn, example_args, arena_argnums)
-    proof, _, _ = verify_graph(traced, params,
-                               in_roles=roles_for(traced, bound_argnums))
+
+    ``mode="row"`` (a tenant kernel): ``bound_argnums`` names the two
+    injected row parameters — ``(base_argnum, mask_argnum)`` — of a
+    fence-aware kernel.  ``mode="extent"`` (a trusted step): the operands
+    may be nested, the leaves of the ``arena_argnums`` arguments are the
+    arena and the pool, and the guard partitions found among the operands
+    (:func:`guard_ranges`) are admissible targets besides each operand's
+    extent.  ``device`` traces every fake on that device (see
+    :func:`trace_kernel`)."""
+    traced = trace_kernel(fn, example_args, arena_argnums, mode=mode,
+                          device=device)
+    if mode == "row":
+        proof, _, _ = verify_graph(traced, params,
+                                   in_roles=roles_for(traced, bound_argnums))
+    else:
+        admissible, pairs = guard_ranges(example_args)
+        proof, _, _ = verify_graph(traced, admissible=admissible,
+                                   dyn_role_pairs=pairs)
     return proof
 
 

@@ -1,8 +1,11 @@
 """Hand-written Hopper kernels of the port, one module per kernel.
 
-Each module holds its wrapper (plain PyTorch version for CPU tensors, the
-CUDA kernel for CUDA tensors) and a launch counter (``KERNEL``); the CUDA
-sources live in ``csrc/`` and are built by ``_build.py`` on first use.
+Each module holds its wrapper, the custom op ``repro_torch::<kernel>`` it
+calls (the plain PyTorch version for CPU tensors, the CUDA kernel for CUDA
+tensors, shapes only for a trace's fake tensors) and a launch counter
+(``KERNEL``); the CUDA sources live in ``csrc/`` and are built by
+``_build.py`` on first use.  ``access.py`` declares what each kernel
+addresses, for the static verifier.
 
     paged_attention   K1  fenced paged decode attention
     scatter_pages     K2  fenced prefill KV page write

@@ -11,8 +11,8 @@ directly).  Libraries are loaded with ``ctypes``; every pointer and the
 stream are passed as ``c_void_p``.
 
 Nothing here runs at import time: this module imports on machines without
-``nvcc`` or a GPU, where the wrappers use the kernels' plain versions for
-CPU tensors.
+``nvcc`` or a GPU, where the kernels' custom ops run their plain versions
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -100,8 +100,9 @@ class Kernel:
     entry point, and its launch count.
 
     ``launches`` counts launches of the CUDA kernel (incremented by
-    :meth:`launch` only); ``plain_calls`` counts wrapper calls that took
-    the plain PyTorch version because their tensors lay on the CPU."""
+    :meth:`launch` only); ``plain_calls`` counts calls of the kernel's
+    custom op that ran its plain PyTorch version because their tensors lay
+    on the CPU."""
 
     def __init__(self, name: str, source: str, argtypes: Sequence[type]):
         self.name = name
@@ -146,6 +147,17 @@ def reset_counts() -> None:
 
 
 def ptr(t) -> ctypes.c_void_p:
+    """The address of ``t``'s data as a kernel argument.  Refuses a tensor
+    with no real storage behind it — a fake or meta tensor of a trace, a
+    subclass without storage — before any pointer is formed: its
+    ``data_ptr`` is no address a kernel may read or write."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if is_fake(t) or t.is_meta or not torch._C._has_storage(t):
+        raise ValueError(
+            f"a kernel argument of shape {tuple(t.shape)} on {t.device} has "
+            "no storage (a fake or meta tensor): no pointer is formed for "
+            "it")
     return ctypes.c_void_p(t.data_ptr())
 
 
@@ -196,6 +208,25 @@ def fence_args(v):
     a tensor's pointer and 0, or NULL and the int."""
     return (ptr(v), 0) if isinstance(v, torch.Tensor) \
         else (ctypes.c_void_p(None), v)
+
+
+def check_device(name: str, t) -> None:
+    """A kernel's custom op runs its CUDA kernel for CUDA tensors and its
+    plain version for CPU tensors; any other device is refused here, before
+    the op is reached."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def split_fence(v):
+    """A :func:`fence_operand` as a custom op takes it: ``(tensor or None,
+    int)`` — a tensor fence and 0, or None and the int by value."""
+    return (v, 0) if isinstance(v, torch.Tensor) else (None, int(v))
+
+
+def join_fence(t, v: int):
+    """Inverse of :func:`split_fence`."""
+    return t if t is not None else v
 
 
 def check_cuda(name: str, *tensors) -> None:

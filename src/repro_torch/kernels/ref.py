@@ -79,13 +79,16 @@ def scatter_pages_ref(k_pool, v_pool, k_src, v_src, page_ids,
 
     phys = resolve_pages(page_ids, per_row(fence_base), per_row(fence_mask),
                          page_map, P).reshape(-1)
-    later = torch.triu(torch.ones(phys.numel(), phys.numel(), dtype=torch.bool,
-                                  device=phys.device), diagonal=1)
-    keep = ~((phys[None, :] == phys[:, None]) & later).any(dim=1)
+    # every id writes its destination's last writer's page, so duplicates
+    # store identical bytes (no data-dependent shape: the verifier traces
+    # this function)
+    order = torch.arange(phys.numel(), device=phys.device)
+    last = torch.where(phys[None, :] == phys[:, None], order[None, :],
+                       torch.full_like(order, -1)[None, :]).amax(dim=1)
     for pool, src in ((k_pool, k_src), (v_pool, v_src)):
         pages = torch.nn.functional.pad(src, (0, 0, 0, 0, 0, pad))
         pages = pages.reshape(B * n, page, KH, D).to(pool.dtype)
-        pool[phys[keep].long()] = pages[keep]
+        pool[phys.long()] = pages[last]
     return k_pool, v_pool
 
 

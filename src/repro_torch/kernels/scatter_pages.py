@@ -3,20 +3,25 @@
 Replaces ``repro/kernels/fenced_scatter.py``'s ``fenced_scatter``.  Both
 pools are written in place by one launch, from K/V in their own type (the
 kernel widens or narrows to the pool's), with the page ids and any tensor
-fence read through their strides: a call is one device operation.  A CPU
-pool takes the plain version (:func:`repro_torch.kernels.ref.
-scatter_pages_ref`); a CUDA pool launches the kernel or raises.
+fence read through their strides: a call is one device operation.  The
+wrapper calls the custom op ``repro_torch::scatter_pages``, which declares
+both pools mutated: a CPU pool runs the plain version
+(:func:`repro_torch.kernels.ref.scatter_pages_ref`), a CUDA pool launches
+the kernel or raises, and a fake pool (a trace) is left as it is.  What
+the kernel addresses is declared in :mod:`repro_torch.kernels.access`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import Kernel, check_cuda, dtype_code, \
-    fence_args, ptr, sm_count, stream_of
+from repro_torch.kernels._build import Kernel, check_cuda, check_device, \
+    dtype_code, fence_args, join_fence, ptr, sm_count, split_fence, \
+    stream_of
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("scatter_pages", "scatter_pages.cu",
@@ -82,6 +87,53 @@ def launch_args(k_pool, v_pool, k_src, v_src, ids, base, mask, page_map,
             group_size(k_src, k_pool), chunks]
 
 
+@torch.library.custom_op("repro_torch::scatter_pages",
+                         mutates_args=("k_pool", "v_pool"),
+                         device_types="cpu")
+def scatter_pages_op(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     k_src: torch.Tensor, v_src: torch.Tensor,
+                     ids: torch.Tensor, base_ids: Optional[torch.Tensor],
+                     mask_ids: Optional[torch.Tensor], base: int, mask: int,
+                     page_map: Optional[torch.Tensor]) -> None:
+    """The plain version, for CPU tensors."""
+    KERNEL.plain_calls += 1
+    ref.scatter_pages_ref(k_pool, v_pool, k_src, v_src, ids,
+                          join_fence(base_ids, base),
+                          join_fence(mask_ids, mask), page_map)
+
+
+@scatter_pages_op.register_kernel("cuda")
+def _cuda(k_pool, v_pool, k_src, v_src, ids, base_ids, mask_ids, base, mask,
+      page_map):
+    if k_src.dtype != v_src.dtype or k_pool.dtype != v_pool.dtype:
+        raise TypeError("scatter_pages: K and V differ in dtype")
+    if k_src.shape != v_src.shape or k_pool.shape != v_pool.shape \
+            or k_src.shape[2:] != k_pool.shape[2:]:
+        raise ValueError("scatter_pages: K/V shapes differ")
+    pmap = page_map.to(torch.int32) if page_map is not None else None
+    check_cuda("scatter_pages", k_pool, v_pool, k_src, v_src,
+               *(() if pmap is None else (pmap,)))
+    B, n = ids.shape
+    page, KH, D = k_pool.shape[1:]
+    if (KH * D) % 8 or any(t.data_ptr() % 16 for t in (k_pool, v_pool,
+                                                       k_src, v_src)):
+        raise ValueError("scatter_pages: the kernel takes token rows of a "
+                         "multiple of 8 elements and 16-byte aligned "
+                         f"operands, got KH*D={KH * D}")
+    chunks = chunks_per_page(B * n, page * KH * D // group_size(k_src, k_pool),
+                             sm_count(k_pool.device))
+    KERNEL.launch(*launch_args(k_pool, v_pool, k_src, v_src, ids,
+                               join_fence(base_ids, base),
+                               join_fence(mask_ids, mask), pmap, chunks),
+                  stream_of(k_pool))
+
+
+@scatter_pages_op.register_fake
+def _fake(k_pool, v_pool, k_src, v_src, ids, base_ids, mask_ids, base, mask,
+      page_map):
+    return None
+
+
 def scatter_pages(k_pool, v_pool, k_src, v_src, page_ids, fence_base,
                   fence_mask, page_map=None):
     """Write k_src/v_src (B,S,KH,D), float32 or bfloat16, into k_pool/
@@ -102,30 +154,11 @@ def scatter_pages(k_pool, v_pool, k_src, v_src, page_ids, fence_base,
     if P & (P - 1):
         raise ValueError(f"scatter_pages needs a pow2 pool, got P={P}")
     dev = k_pool.device
+    check_device("scatter_pages", k_pool)
     ids = page_ids.to(device=dev, dtype=torch.int32)
-    base, mask = (fence_view(v, B, n, dev) for v in (fence_base, fence_mask))
-    if dev.type == "cpu":
-        KERNEL.plain_calls += 1
-        return ref.scatter_pages_ref(k_pool, v_pool, k_src, v_src, ids, base,
-                                     mask, page_map)
-    if dev.type != "cuda":
-        raise ValueError(f"scatter_pages: unsupported device {dev}")
-    if k_src.dtype != v_src.dtype or k_pool.dtype != v_pool.dtype:
-        raise TypeError("scatter_pages: K and V differ in dtype")
-    if k_src.shape != v_src.shape or k_pool.shape != v_pool.shape \
-            or k_src.shape[2:] != k_pool.shape[2:]:
-        raise ValueError("scatter_pages: K/V shapes differ")
-    pmap = page_map.to(torch.int32) if page_map is not None else None
-    check_cuda("scatter_pages", k_pool, v_pool, k_src, v_src,
-               *(() if pmap is None else (pmap,)))
-    KH, D = k_pool.shape[2:]
-    if (KH * D) % 8 or any(t.data_ptr() % 16 for t in (k_pool, v_pool,
-                                                       k_src, v_src)):
-        raise ValueError("scatter_pages: the kernel takes token rows of a "
-                         "multiple of 8 elements and 16-byte aligned "
-                         f"operands, got KH*D={KH * D}")
-    chunks = chunks_per_page(B * n, page * KH * D // group_size(k_src, k_pool),
-                             sm_count(dev))
-    KERNEL.launch(*launch_args(k_pool, v_pool, k_src, v_src, ids, base, mask,
-                               pmap, chunks), stream_of(k_pool))
+    (base_ids, base), (mask_ids, mask) = (
+        split_fence(fence_view(v, B, n, dev))
+        for v in (fence_base, fence_mask))
+    scatter_pages_op(k_pool, v_pool, k_src, v_src, ids, base_ids, mask_ids,
+                     base, mask, page_map)
     return k_pool, v_pool

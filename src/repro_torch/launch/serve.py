@@ -112,6 +112,40 @@ class _ContState:
     served: List[int] = dataclasses.field(default_factory=list)
 
 
+def serve_steps(api, n_phys: int, verify: bool = False):
+    """The trusted prefill/decode steps of an engine serving ``api``'s
+    model over a pool of ``n_phys`` physical pages.  The pool key is the
+    geometry only — the global page pool is one (L, P, page, KH, D)
+    tensor, so engines serving *different* model shapes with the same KV
+    geometry share it (and the manager drain) — and the step key adds the
+    model identity."""
+    cfg = api.cfg
+    pool_key = (f"paged:L{cfg.decoder_layers}:kh{cfg.n_kv_heads}:"
+                f"d{cfg.head_dim}:pg{KV.PAGE_SIZE}:P{n_phys}:f32")
+    step_key = (f"{cfg.name}:{cfg.family}:{cfg.n_layers}x"
+                f"{cfg.d_model}v{cfg.vocab}:{pool_key}")
+    return build_trusted_serve_steps(api, pool_key, step_key=step_key,
+                                     verify=verify)
+
+
+def register_verified_steps(manager: GuardianManager, cfg, *,
+                            max_batch: int = 8, max_len: int = 256):
+    """Register on ``manager`` the steps a paged :class:`ServeEngine` of
+    ``cfg`` built on it will dispatch, with their pool, under the
+    extent-mode proof obligation (``verify=True``), before the engine
+    exists: the engine's own registration is then a no-op by name, so its
+    steps owe the proof at the first dispatch of each operand signature.
+    (The engine keeps the reference's defaults and has no such switch.)
+    Returns the bundle."""
+    n_phys = _pow2(manager.bounds.total_slots)
+    bundle = serve_steps(get_model(cfg), n_phys, verify=True)
+    cache = KV.init_global_kv_cache(cfg, max_batch, max_len, n_phys,
+                                    dtype=torch.float32,
+                                    device=manager.device)
+    bundle.register(manager, split_cache_pool(cache)[0])
+    return bundle
+
+
 def make_shared_manager(n_engines: int, max_batch: int = 8,
                         policy: FencePolicy = FencePolicy.BITWISE,
                         paged: bool = False, max_len: int = 256,
@@ -226,18 +260,8 @@ class ServeEngine:
                     if t.startswith(ENGINE_TENANT))
             self.engine_tenant = f"{ENGINE_TENANT}.{name}"
         self.policy = policy
-        # Geometry-only pool key: the global page pool is one
-        # (L, P, page, KH, D) tensor — engines serving *different* model
-        # shapes with the same KV geometry share it (and the manager
-        # drain), keeping model identity in the step key.
         self._n_phys = _pow2(n_slots)
-        pool_key = (f"paged:L{cfg.decoder_layers}:kh{cfg.n_kv_heads}:"
-                    f"d{cfg.head_dim}:pg{KV.PAGE_SIZE}:"
-                    f"P{self._n_phys}:f32")
-        step_key = (f"{cfg.name}:{cfg.family}:{cfg.n_layers}x"
-                    f"{cfg.d_model}v{cfg.vocab}:{pool_key}")
-        self._steps = build_trusted_serve_steps(self.api, pool_key,
-                                                step_key=step_key)
+        self._steps = serve_steps(self.api, self._n_phys)
         # A later co-hosted engine adopts the already-registered pool:
         # build its cache with a single-page pool instead (the meta half
         # is page-count independent).

@@ -65,6 +65,9 @@ class TrustedStepBundle:
     decode_name: str
     prefill_fn: Callable
     decode_fn: Callable
+    #: register both steps with the manager's extent-mode proof
+    #: obligation (``register_trusted_kernel(verify=True)``)
+    verify: bool = False
 
     def register(self, manager, pool: Dict) -> Any:
         """Adopt ``pool`` as the manager arena (idempotent — co-hosted
@@ -75,13 +78,13 @@ class TrustedStepBundle:
                          (self.decode_name, self.decode_fn)):
             manager.register_trusted_kernel(
                 name, fn, resident_argnums=self.RESIDENT_ARGNUMS,
-                pool_arena=self.pool_name)
+                pool_arena=self.pool_name, verify=self.verify)
         return arena
 
 
 def build_trusted_serve_steps(api: ModelAPI, pool_key: str,
-                              step_key: Optional[str] = None
-                              ) -> TrustedStepBundle:
+                              step_key: Optional[str] = None,
+                              verify: bool = False) -> TrustedStepBundle:
     """Trusted greedy prefill/decode step functions for one model API.
 
     The step rebuilds the cache from the manager-threaded pool + the
@@ -91,8 +94,9 @@ def build_trusted_serve_steps(api: ModelAPI, pool_key: str,
     logits on the host.
 
     ``pool_key`` identifies the pool geometry; ``step_key`` (default:
-    ``pool_key``) additionally carries the model identity.  The sampled
-    decode of the reference is not ported yet."""
+    ``pool_key``) additionally carries the model identity.  ``verify``
+    registers both steps with the manager's extent-mode proof obligation.
+    The sampled decode of the reference is not ported yet."""
     sk = step_key or pool_key
 
     def prefill_step(arena, pool, params, meta, batch, guard):
@@ -115,6 +119,7 @@ def build_trusted_serve_steps(api: ModelAPI, pool_key: str,
         decode_name=f"serve.decode[{sk}]",
         prefill_fn=prefill_step,
         decode_fn=decode_step,
+        verify=verify,
     )
 
 

@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fence import FencePolicy
@@ -145,8 +146,14 @@ def _rope_freqs_on(head_dim: int, theta: float,
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) int32."""
-    freqs = _rope_freqs_on(x.shape[-1], theta, x.device)
+    """x: (B, S, H, D); positions: (B, S) int32.  A trace on fake tensors
+    (the verifier's) records the table's shape only: it uploads nothing
+    from the host and caches nothing (a cached fake would reach later real
+    calls)."""
+    if is_fake(x):
+        freqs = x.new_empty((x.shape[-1] // 2,), dtype=torch.float32)
+    else:
+        freqs = _rope_freqs_on(x.shape[-1], theta, x.device)
     ang = positions.float()[..., None] * freqs
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]

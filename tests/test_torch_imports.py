@@ -72,3 +72,23 @@ def test_default_device_entry_points_raise_without_cuda():
         get_model(cfg).init(torch.Generator())
     with pytest.raises((RuntimeError, AssertionError)):
         KV.init_global_kv_cache(cfg, 2, 64, 4)
+
+
+@pytest.mark.parametrize("module", ["repro_torch.lint",
+                                    "repro_torch.kernels.access"])
+def test_lint_and_declared_accesses_import_alone(module):
+    """The lint CLI and the kernels' declared-access table are modules of
+    the package (so the ast check above covers them) and import in a fresh
+    interpreter without loading JAX or the reference."""
+    import os
+    import subprocess
+    import sys
+
+    assert PKG.joinpath(*module.split(".")[1:]).with_suffix(".py") in MODULES
+    code = (f"import sys; import {module}; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "assert not bad, bad")
+    src = str(PKG.parent)
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env={**os.environ, "PYTHONPATH": src})
