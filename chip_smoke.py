@@ -43,7 +43,11 @@ qwen3-moe-30b-a3b.  Phases, in order (any failure exits non-zero):
    prefill + 4 decode steps on the card through the kernels and on the CPU
    through the plain versions, from the same weights — greedy ids equal,
    logits within a stated tolerance (the MoE path also prints the smallest
-   top-k routing margin it met, so a routing tie can be told from a fault);
+   top-k routing margin it met, so a routing tie can be told from a fault)
+   — over the global paged pool and, from the same weights, over the slab
+   pool (``api.init_cache``: 8 rows, 16 slots, a forged slot id, the
+   ``permute`` prefill write, K1 over the flattened layer view, each
+   layer's K1 call held against its plain version);
    then, at the same size on the card, the compiled steps (one CUDA graph
    per step key, ``core/stepgraph.py``) against eager: a prefill's and a
    decode's logits bit-identical on the first call and on a replay, equal
@@ -70,6 +74,21 @@ qwen3-moe-30b-a3b.  Phases, in order (any failure exits non-zero):
    path also prints the (token, k) assignments capacity dropped; a
    compiled solo rerun under ``torch.profiler`` gives the device's busy
    share and each of the port's kernels' device time.
+
+7. slab lockstep serving through the command line (inside phase 4, after
+   stablelm-3b's phase 6, on its weights): ``repro_torch.launch.serve``'s
+   ``main`` driven in-process at full width and depth four times —
+   ``--tenants 3 --requests 6 --tokens 16`` compiled, the same with
+   ``--no-jit``, ``--engines 2 --tenants 1 --requests 2`` and ``--policies
+   modulo,check`` — each run's kernel counts set to 0 just before its
+   serving call and read just after: K3, K4 and K1 launched as the steps
+   count them, no plain version; compiled and eager equal in tokens,
+   decode steps and launches; the two engines' lockstep fused into one
+   device step, one graph for the decode.  Each run prints its decode-step
+   time (one engine), tokens/s and graphs.  Then a request whose slot id
+   is forged to a co-tenant's base leaves the co-tenant's slots
+   byte-equal, and K1 over the slab view is checked and timed at the slab
+   path's shapes (its row of the kernel table).
 
 6. trusted steps proven on the card (inside phase 4: stablelm-3b at full
    depth after its runs, with its weights; qwen3-moe-30b-a3b at phase 3's
@@ -1039,6 +1058,80 @@ def check_prefill_write(torch, cfg, gen):
 # Phase 3: full width, 2 layers, card against CPU                       #
 # --------------------------------------------------------------------- #
 
+def slab_full_width(torch, cfg, cfg2, api):
+    """Phase 3's slab leg, as a ``run(device, params)`` like the paged
+    leg's: the engine's slab geometry (8 rows, 16 slots of 4 pages, the
+    ``(64, page, KH, D)`` layer view K1 reads), tenants a [8, 12) and b
+    [12, 16), rows 0-2 serving (row 1's slot forged into b's extent), rows
+    3-7 in scratch slots 0-4; a 24-token prefill in the ``permute``
+    formulation, then 4 decode steps.  On the card, each layer's K1 call
+    over the slab view (the rows' ids and lengths after the prefill) is
+    held against K1's plain version, with every slab no row addresses
+    clobbered.  No two rows share a slot here: rows sharing one sum their
+    slabs (``permute``), in another order on the card than on the CPU,
+    which the CPU tests hold instead (tests/test_torch_slab.py)."""
+    from repro_torch.core.fence import FenceParams, FencePolicy, FenceTable
+    from repro_torch.core.partition import Partition
+    from repro_torch.models import kvcache as KV
+    from repro_torch.models.guard import GuardSpec
+
+    B, S, max_len, slots = 8, 24, 256, 16
+    parts = [Partition("a", 8, 4), Partition("b", 12, 4),
+             Partition("scratch", 0, 8)]
+    cols = torch.tensor([0, 0, 1] + [2] * 5, dtype=torch.int32)
+    slot_ids = torch.tensor([8, 13, 12, 0, 1, 2, 3, 4], dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=torch.Generator()
+                         .manual_seed(5), dtype=torch.int32)
+
+    def run(device, p):
+        kv = FenceTable.from_partitions(parts, with_magic=True,
+                                        device=device).gather(cols)
+        guard = GuardSpec(
+            policy=FencePolicy.BITWISE, vocab=FenceParams(0, pow2(cfg.vocab)),
+            kv=kv, state=kv,
+            expert=(FenceParams(0, pow2(cfg.moe.num_experts))
+                    if cfg.moe else None),
+            page=FenceParams(0, max_len // KV.PAGE_SIZE))
+        cache = dataclasses.replace(
+            api.init_cache(B, max_len, dtype=torch.float32, slots=slots,
+                           device=device), slot_ids=slot_ids.to(device))
+        cache, logits = api.prefill(p, cache, {"tokens": toks.to(device)},
+                                    guard=guard)
+        if device == "cuda":
+            check_slab_view(torch, cfg, cache, guard)
+        outs, ids = [logits.float().cpu()], [logits.argmax(-1).cpu()]
+        nxt = logits.argmax(-1).to(torch.int32)
+        for _ in range(4):
+            cache, logits = api.decode(p, cache, nxt, guard=guard)
+            outs.append(logits.float().cpu())
+            ids.append(logits.argmax(-1).cpu())
+            nxt = logits.argmax(-1).to(torch.int32)
+        return torch.stack(outs), torch.stack(ids)
+
+    return run
+
+
+def check_slab_view(torch, cfg, cache, guard):
+    """K1 over a slab cache's flattened layer views, each layer: the ids
+    of the step's :class:`SlabDecodePlan` (identity fence), lengths
+    ``seq_lens + 1``, an f32 query (the model's K/V, not random ones, so
+    phase 2's bf16 control has no margin to break) — against the plain
+    version within K1_F32_TOL, every page no row addresses clobbered
+    (``check_paged_attention``)."""
+    from repro_torch.models import kvcache as KV
+
+    plan = KV.decode_plan(cache, guard)
+    B = cache.slot_ids.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    zero = torch.zeros(B, dtype=torch.int32, device="cuda")
+    for layer in range(cache.k.shape[0]):
+        k_l, v_l = (x[layer].flatten(0, 1) for x in (cache.k, cache.v))
+        q = torch.randn(B, cfg.n_heads, cfg.head_dim, generator=gen,
+                        device="cuda")
+        check_paged_attention(torch, q, k_l, v_l, plan.view_pages,
+                              cache.seq_lens + 1, zero, zero - 1, None)
+
+
 def check_full_width(torch, cfg):
     from repro_torch.core.fence import FenceParams, FencePolicy
     from repro_torch.models import get_model
@@ -1059,6 +1152,7 @@ def check_full_width(torch, cfg):
         return x.cpu()
 
     cpu_params = to_cpu(params)
+    run_slab = slab_full_width(torch, cfg, cfg2, api)
     B, S, P, max_len = 2, 24, 16, 128
     page_map = torch.zeros(P, dtype=torch.int32)
     page_map[4:8] = torch.tensor([1, 2, 3, 4])
@@ -1104,24 +1198,27 @@ def check_full_width(torch, cfg):
         return torch.stack(outs), torch.stack(ids)
 
     MT._top_k = top_k_margin
+    tol = 2e-3
     try:
-        logits_gpu, ids_gpu = run("cuda", params)
-        logits_cpu, ids_cpu = run("cpu", cpu_params)
+        for layout, fn in (("paged", run), ("slab", run_slab)):
+            margins.clear()
+            logits_gpu, ids_gpu = fn("cuda", params)
+            logits_cpu, ids_cpu = fn("cpu", cpu_params)
+            err = (logits_gpu - logits_cpu).abs().max().item()
+            margin = f"; smallest top-{cfg.moe.top_k} routing margin " \
+                f"{min(float(m) for m in margins):.3g}" if margins else ""
+            if not torch.equal(ids_gpu, ids_cpu):
+                raise AssertionError(
+                    f"{layout}: greedy ids differ card vs CPU{margin}: "
+                    f"{ids_gpu.tolist()} vs {ids_cpu.tolist()}")
+            if not err <= tol:
+                raise AssertionError(f"{layout}: full-width logits differ "
+                                     f"by {err} > {tol}{margin}")
+            log(f"full width x 2 layers (f32) [{cfg.name}, {layout}]: card "
+                f"vs CPU greedy ids equal over prefill + 4 decodes, max "
+                f"|logit err| {err:.3g} (tolerance {tol}){margin}")
     finally:
         MT._top_k = top_k
-    err = (logits_gpu - logits_cpu).abs().max().item()
-    tol = 2e-3
-    margin = f"; smallest top-{cfg.moe.top_k} routing margin " \
-        f"{min(float(m) for m in margins):.3g}" if margins else ""
-    if not torch.equal(ids_gpu, ids_cpu):
-        raise AssertionError(f"greedy ids differ card vs CPU{margin}: "
-                             f"{ids_gpu.tolist()} vs {ids_cpu.tolist()}")
-    if not err <= tol:
-        raise AssertionError(f"full-width logits differ by {err} > {tol}"
-                             f"{margin}")
-    log(f"full width x 2 layers (f32) [{cfg.name}]: card vs CPU greedy ids "
-        f"equal over prefill + 4 decodes, max |logit err| {err:.3g} "
-        f"(tolerance {tol}){margin}")
 
 
 # --------------------------------------------------------------------- #
@@ -1708,12 +1805,54 @@ def run_main_path(torch, cfg, smi: str):
             f"parked rows; {t['dropped'] - t['served_dropped'] - t['parked_dropped']}"
             " in decode steps (eager run)")
     solo_rerun(torch, cfg, eng, comp["outs"], comp["rids"], smi)
+    from repro_torch.launch.serve import serve_continuous
+
+    def serve_paged(n):
+        eng.submit("tenant0", list(range(1, 13)), max_new=n + 1)
+        serve_continuous([eng], max_new_tokens=n + 1)
+
+    per = decode_step_ops(torch, serve_paged)
+    log(f"decode step ops [{cfg.name}, paged, compiled]: "
+        + ("not measured (the profiler saw no device time)" if per is None
+           else f"{per[0]:.1f} device operations, {per[1]:.2f} ms of "
+                f"device time a step (one request); {smi}"))
+    slab = None
     if cfg.moe is None:
         # full depth, the same weights and trace: the compiled run above
         # is the verify=False run the proven one must equal
         proof_phase(torch, cfg, smi, params=eng.params, reference=comp)
+        # phase 7 on the same weights
+        slab = run_slab_path(torch, cfg, eng.params, smi)
     return {"launches": comp["launches"],
-            "tokens_per_s": n_tok / comp["wall"]}
+            "tokens_per_s": n_tok / comp["wall"], "slab": slab}
+
+
+def decode_step_ops(torch, serve):
+    """Device operations and device time of one compiled decode step, from
+    ``torch.profiler``: ``serve(n)`` serves one 12-token request for a
+    prefill and ``n`` decode steps (its graphs captured by a first,
+    unprofiled call); the difference of the runs with 9 and 1 decode
+    steps, over 8.  Returns (ops, device ms) per step, or None when the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    serve(1)
+    torch.cuda.synchronize()
+    got = []
+    for n in (1, 9):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            serve(n)
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        got.append((sum(e.count for e in dev), sum(
+            getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0))
+            for e in dev) / 1e3))
+    (o1, t1), (o9, t9) = got
+    if not t9:
+        return None
+    return (o9 - o1) / 8, (t9 - t1) / 8
 
 
 def solo_rerun(torch, cfg, eng, outs, rids, smi: str):
@@ -1770,6 +1909,236 @@ def solo_rerun(torch, cfg, eng, outs, rids, smi: str):
         + "; the port's kernels: " + "; ".join(
             f"{e.key.split('(')[0][:40]} {dev_us(e) / 1e3:.2f} ms x{e.count}"
             for e in sorted(ours, key=dev_us, reverse=True)))
+
+
+# --------------------------------------------------------------------- #
+# Phase 7: slab lockstep serving through the command line               #
+# --------------------------------------------------------------------- #
+
+#: the four runs of the port's ``main`` at full width: the defaults'
+#: trace, its eager twin, two co-hosted engines, mixed policies
+SLAB_RUNS = (
+    ("compiled", ["--tenants", "3", "--requests", "6", "--tokens", "16"]),
+    ("eager", ["--tenants", "3", "--requests", "6", "--tokens", "16",
+               "--no-jit"]),
+    ("engines 2", ["--engines", "2", "--tenants", "1", "--requests", "2",
+                   "--tokens", "16"]),
+    ("modulo,check", ["--tenants", "3", "--requests", "6", "--tokens", "16",
+                      "--policies", "modulo,check"]),
+)
+
+
+def drive_main(torch, cfg, argv, params):
+    """One in-process run of ``repro_torch.launch.serve.main`` (``--arch``
+    ``cfg.name``, on the card, ``params=`` the given weights).  Around its
+    serving call: the kernels' counts set to 0 just before and read just
+    after, the wall time, and — one engine — CUDA events around each
+    decode step's dispatch.  Returns what the run printed and measured."""
+    import contextlib
+    import io
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as SV
+
+    seen = {}
+    serve_cli = SV.serve_cli
+
+    def measured(args, engines):
+        with contextlib.ExitStack() as hooks:
+            if len(engines) == 1:
+                seen["times"] = hooks.enter_context(
+                    DispatchTimes(torch, engines[0]))
+            torch.cuda.synchronize()
+            _build.reset_counts()
+            t0 = time.perf_counter()
+            outs = serve_cli(args, engines)
+            torch.cuda.synchronize()
+            seen["wall"] = time.perf_counter() - t0
+        seen["launches"] = {k.name: k.launches
+                            for k in _build.KERNELS.values()}
+        seen["plain"] = {k.name: k.plain_calls
+                         for k in _build.KERNELS.values()}
+        seen["engines"], seen["outs"] = engines, outs
+        return outs
+
+    out = io.StringIO()
+    SV.serve_cli = measured
+    try:
+        with contextlib.redirect_stdout(out):
+            SV.main(["--arch", cfg.name] + argv, params=params)
+    finally:
+        SV.serve_cli = serve_cli
+    seen["printed"] = out.getvalue().splitlines()
+    return seen
+
+
+def check_slab_run(cfg, label, run, tokens: int = 16):
+    """A slab run's gates: every request served ``tokens`` ids inside the
+    vocab; K3, K4 and K1 launched exactly as the steps count them (K2 and
+    K5 never: the slab write is plain PyTorch, the model dense), no plain
+    version run on the card.  Returns (prefills, decode steps)."""
+    engines, outs = run["engines"], run["outs"]
+    for out in outs:
+        for rid, toks in out.items():
+            if len(toks) != tokens or not all(0 <= t < cfg.vocab
+                                              for t in toks):
+                raise AssertionError(f"slab [{label}] request {rid}: bad "
+                                     f"tokens {toks}")
+    n_pre = len(engines)
+    n_dec = sum(e.decode_steps for e in engines)
+    L = cfg.n_layers
+    want = {"gather_rows": n_pre + n_dec, "flash_attention": L * n_pre,
+            "paged_attention": L * n_dec, "scatter_pages": 0,
+            "moe_histogram": 0}
+    if run["launches"] != want:
+        raise AssertionError(f"slab [{label}]: launches {run['launches']} "
+                             f"differ from the per-step count {want}")
+    if any(run["plain"].values()):
+        raise AssertionError(f"slab [{label}]: plain versions ran on the "
+                             f"card: {run['plain']}")
+    return n_pre, n_dec
+
+
+def slab_kernel_row(torch, cfg):
+    """K1 over the slab layer view at the full-size slab path's shapes —
+    8 rows, 16 slots of 4 pages (a (64, 64, KH, D) f32 view), a bf16
+    query, the identity fence, ids ``slot * 4 + page`` of three tenants'
+    rows and five rows parked on the scratch slot, 28 held tokens (a
+    12-token prompt and 16 steps) — checked and timed as phase 2's rows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    B, H, KH, D, page, P = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        64, 4
+    i32 = dict(dtype=torch.int32, device=dev)
+    k_view = torch.randn(16 * P, page, KH, D, generator=gen, device=dev)
+    v_view = torch.randn(16 * P, page, KH, D, generator=gen, device=dev)
+    q = torch.randn(B, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    slots = torch.tensor([8, 10, 12, 9, 0, 0, 0, 0], **i32)
+    ids = slots[:, None] * P + torch.arange(P, **i32)[None, :]
+    lens = torch.full((B,), 28, **i32)
+    zero = torch.zeros(B, **i32)
+    chk = check_paged_attention(torch, q, k_view, v_view, ids, lens, zero,
+                                zero - 1, None)
+    call = (lambda: paged_attention(q, k_view, v_view, ids, lens, 0, -1))
+    n_bytes = (2 * int(lens.sum()) * KH * D * 4 + 2 * B * H * D * 2
+               + ids.numel() * 4 + B * 4)
+    flops = 4 * int(lens.sum()) * H * D
+    return dict(
+        kernel="paged_attention", path=f"{cfg.name}/slab", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/fenced_paged_attention.py:173",
+        max_abs_err=chk["err"],
+        tolerance=f"1/2 bf16 ulp + {K1_SLACK:g} of the f32 plain version "
+                  f"on bf16-rounded K/V (worst error/bound "
+                  f"{chk['ratio']:.3f}; control {chk['ctrl_ratio']:.3g})",
+        ms=cuda_ms(torch, call),
+        plain_ms=cuda_ms(torch, lambda: ref.paged_attention_ref(
+            q, k_view, v_view, ids, lens, zero, zero - 1)),
+        library_ms=None, library_call=None,
+        shape=f"q ({B},{H},{D}) bf16, slab view ({16 * P},{page},{KH},{D})"
+              " f32, identity fence",
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound_ms(n_bytes, flops, "float32"))))
+
+
+def run_slab_path(torch, cfg, params, smi: str) -> dict:
+    """Phase 7: the port's ``main`` at full width and depth on phase 4's
+    weights, four runs (``SLAB_RUNS``): compiled and eager give equal
+    tokens, decode steps and launches; two engines fuse each lockstep into
+    one device step, with one graph for the decode; every run's kernel
+    launches equal its per-step count.  Then a forged slot id aimed at a
+    co-tenant's extent leaves the co-tenant's slots byte-equal.  Prints
+    the decode-step times, tokens/s and graphs; returns the compiled
+    run's launches and the K1 slab-view row."""
+    runs = {}
+    for label, argv in SLAB_RUNS:
+        run = runs[label] = drive_main(torch, cfg, argv, params)
+        n_pre, n_dec = check_slab_run(cfg, label, run)
+        mgr = run["engines"][0].manager
+        st = mgr.scheduler.stats
+        graphs = mgr.jit_cache_stats()
+        n_tok = sum(len(t) for out in run["outs"] for t in out.values())
+        line = (f"slab [{cfg.name}, {label}]: {n_tok} tokens from "
+                f"{sum(len(o) for o in run['outs'])} requests, {n_pre} "
+                f"prefill(s), {n_dec} decode steps, "
+                f"{int(st.total_launches)} scheduler launches, mean step "
+                f"width {st.mean_batch_width:.1f}, fused steps "
+                f"{st.fused_steps}; launches {run['launches']}; "
+                f"{n_tok / run['wall']:.1f} tokens/s ({run['wall']:.2f} s); "
+                f"graphs {graphs['graphs']} (fused {graphs['fused_entries']})"
+                f", {graphs['graph_capture_s']:.2f} s capturing")
+        if "times" in run:
+            ms, cap, host, _ = run["times"].read()
+            if ms:
+                line += (f"; decode step median {statistics.median(ms):.2f}"
+                         f" ms, min {ms[0]:.2f}, max {ms[-1]:.2f} over "
+                         f"{len(ms)} steps")
+            if cap:
+                line += f"; first (warm-up + capture) {cap[0]:.2f} ms"
+            line += f"; host wall of a dispatch median {host:.2f} ms"
+        log(line + f"; {smi}")
+        log(f"  printed: {run['printed'][-1]}")
+        if label == "engines 2":
+            if st.fused_steps != 1 + 16 or st.single_steps:
+                raise AssertionError(
+                    f"slab [engines 2]: {st.fused_steps} fused and "
+                    f"{st.single_steps} single steps, want 17 and 0")
+            if graphs["fused_entries"] != 2:
+                raise AssertionError(
+                    f"slab [engines 2]: {graphs['fused_entries']} fused "
+                    "graphs, want 2 (the prefill's and one decode's)")
+    comp, eager = runs["compiled"], runs["eager"]
+    for key in ("outs", "launches"):
+        if comp[key] != eager[key]:
+            raise AssertionError(f"slab: compiled {key} differ from eager: "
+                                 f"{comp[key]} vs {eager[key]}")
+    if [e.decode_steps for e in comp["engines"]] != \
+            [e.decode_steps for e in eager["engines"]]:
+        raise AssertionError("slab: compiled decode steps differ from eager")
+    same = comp["outs"] == runs["modulo,check"]["outs"]
+    log(f"slab [{cfg.name}]: compiled and eager runs equal (tokens, decode "
+        f"steps, launches); the modulo,check run gives "
+        f"{'the same' if same else 'other'} tokens as the BITWISE run")
+
+    # a forged slot id: a request of tenant1 aimed at tenant0's slots
+    eng = comp["engines"][0]
+    victim = eng.manager.bounds.lookup("tenant0")
+    kept = [eng._pool.buf[n][:, victim.base:victim.end].clone()
+            for n in ("k", "v")]
+    if not any(bool((t != 0).any()) for t in kept):
+        raise AssertionError("slab: tenant0's slots hold nothing to guard")
+    rid = eng.submit("tenant1", list(range(1, 13)))
+    req = next(r for r in eng._requests if r.rid == rid)
+    req.slot = victim.base
+    out = eng.run(max_new_tokens=4)
+    for n, before in zip(("k", "v"), kept):
+        if not torch.equal(eng._pool.buf[n][:, victim.base:victim.end],
+                           before):
+            raise AssertionError(f"slab: a forged slot id wrote tenant0's "
+                                 f"{n} slots")
+    if len(out.get(rid, [])) != 4:
+        raise AssertionError(f"slab: the forged request served {out}")
+    log(f"slab [{cfg.name}]: a request of tenant1 with its slot forged to "
+        f"tenant0's base {victim.base} served 4 tokens (compiled) and left "
+        f"tenant0's {victim.size} slots byte-equal across all "
+        f"{cfg.n_layers} layers")
+
+    def serve_slab(n):
+        eng.submit("tenant2", list(range(1, 13)))
+        eng.run(max_new_tokens=n)
+
+    per = decode_step_ops(torch, serve_slab)
+    log(f"decode step ops [{cfg.name}, slab, compiled]: "
+        + ("not measured (the profiler saw no device time)" if per is None
+           else f"{per[0]:.1f} device operations, {per[1]:.2f} ms of "
+                f"device time a step (one request); {smi}"))
+    launches = comp["launches"]
+    del runs, run, comp, eager, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "row": slab_kernel_row(torch, cfg)}
 
 
 # --------------------------------------------------------------------- #
@@ -2792,6 +3161,19 @@ def main() -> int:
         # each path's engine, manager and pool are freed before the next
         # is built (qwen3-moe's 61 GB of weights need the room)
         paths[cfg.name] = run_main_path(torch, cfg, smi)
+        slab = paths[cfg.name]["slab"]
+        if slab is not None:
+            # the slab path's K1 row, named kernel@path/slab
+            r = slab["row"]
+            r["name"] = f"paged_attention@{r['path']}"
+            rows.append(r)
+            paths[r["path"]] = slab
+            log(f"  paged_attention [{r['path']}], {r['shape']}: max |err| "
+                f"{r['max_abs_err']:.3g} (tolerance {r['tolerance']}); "
+                f"kernel {r['ms']:.5f} ms = {r['ms'] / floor:.2f}x the "
+                f"launch floor, plain {r['plain_ms']:.5f} ms, bound "
+                f"{r['bound_ms']:.5f} ms ({r['bound_by']}); launches on "
+                f"the slab path {slab['launches']}")
         gc.collect()
         torch.cuda.empty_cache()
         log(f"after [{cfg.name}]: {torch.cuda.memory_allocated() / 1e9:.2f}"

@@ -52,7 +52,7 @@ report assembly: ``manager.metrics_report()`` delegates here, and the
 legacy ``violation_report()`` / ``jit_cache_stats()`` surfaces are thin
 views (:meth:`Telemetry.violation_view`, :meth:`Telemetry.jit_cache_view`)
 kept API-compatible.  :meth:`MetricsRegistry.to_prometheus` writes the
-text exposition format; ``python -m repro.top`` renders the terminal
+text exposition format; ``python -m repro_torch.top`` renders the terminal
 dashboard (:mod:`repro_torch.launch.dashboard`).
 """
 

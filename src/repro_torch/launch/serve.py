@@ -1,11 +1,11 @@
 """Multi-tenant serving engine — Guardian's spatial sharing applied to a
-shared LM server, on the GuardianManager launch path (paged branch).
+shared LM server, on the GuardianManager launch path.
 
-One model (a dense or MoE transformer), one KV page pool, many
-mutually-untrusting tenants.  The pool's virtual page space is carved
-into contiguous pow2 partitions by the engine's
-:class:`~repro_torch.core.manager.GuardianManager` (the same
-buddy allocator, bounds table and quarantine lifecycle that fence raw
+One model (a dense or MoE transformer), one KV pool, many
+mutually-untrusting tenants.  The pool's slot space is carved into
+contiguous pow2 partitions by the engine's
+:class:`~repro_torch.core.manager.GuardianManager` (the same buddy
+allocator, bounds table and quarantine lifecycle that fence raw
 launches).  The engine owns **no fence table and no row-assignment policy
 of its own**:
 
@@ -18,39 +18,57 @@ of its own**:
   :mod:`repro_torch.core.stepgraph` — unless ``jit_steps=False`` asks for
   the eager fallback;
 * N engines may **share one manager** (``manager=`` / ``name=``): their
-  tenants partition one global page space over one physical page pool;
+  tenants partition one global slot space over one pool, and the
+  scheduler coalesces compatible steps of different engines into one
+  fused device step;
 * per-row fence params come from :meth:`GuardianManager.fence_table`
   (bitwise rows + the MODULO magic row table), gathered through a
-  tenant-id column: batch row b belongs to tenant t(b), so the virtual
-  page ids of row b are fenced with t(b)'s extent before the page map
-  translates them — a forged page table only wraps inside the forger's
-  own pages;
+  tenant-id column: batch row b belongs to tenant t(b), so the slot (or
+  virtual page) ids of row b are fenced with t(b)'s extent — a forged id
+  only wraps inside the forger's own slots;
+* batch-row selection uses the scheduler's shared
+  :func:`~repro_torch.core.scheduler.round_robin_interleave` fairness
+  policy, weighted by the tenants' round-robin shares;
 * tenants may carry **per-tenant fence policies**: the step gathers a
-  per-row policy-code column and dispatches per element;
+  per-row policy-code column and dispatches per element; CHECK rows
+  whose slot left their partition are counted into the manager's
+  ViolationLog;
 * manager-side quarantine transitions propagate into the engine
-  (pending requests dropped, the evicted tenant's pages scrubbed).
+  (pending requests dropped, the evicted tenant's slots or pages
+  scrubbed), and elastic resizes move a tenant's slab slots with it.
 
-:func:`serve_continuous` drives paged engines per request: rows join and
-leave at drain-cycle boundaries.  The slab layout, its lockstep driver
-``serve_engines`` and the command line of the reference are not ported
-yet.
+Two layouts (``paged=``): the **slab** pool (the default, as in the
+reference) — a sequence slot per request, lockstep waves driven by
+:func:`serve_engines` — and the **global paged** pool, driven per request
+by :func:`serve_continuous`.  :func:`main` is the reference's command
+line::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \
+        --reduced --tenants 3 --requests 6 --tokens 16 \
+        --policies modulo,check --device cpu
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.arena import PagePool
 from repro_torch.core.elastic import ElasticError, ResizeEvent
 from repro_torch.core.fence import FenceParams, FencePolicy
 from repro_torch.core.manager import GuardianManager, require_device
 from repro_torch.core.partition import OutOfArenaMemory
 from repro_torch.core.quarantine import QuarantinePolicy, TenantState
+from repro_torch.core.scheduler import round_robin_interleave
+from repro_torch.core.violations import NUM_KINDS, ViolationKind
 from repro_torch.launch.steps import (
+    build_pool_relocation_step,
     build_trusted_serve_steps,
     join_cache_pool,
     split_cache_pool,
@@ -83,6 +101,29 @@ class Request:
     max_new: Optional[int] = None
     #: earliest drain cycle this request may join (arrival-trace replay)
     arrive: int = 0
+
+
+@dataclasses.dataclass
+class _RunState:
+    """In-flight state of one engine's lockstep run: the driver
+    (:func:`serve_engines`) enqueues one step per engine per drain."""
+
+    rows: List[Request]
+    slot_ids: np.ndarray
+    meta: Any                      # cache meta (the pool lives on the manager)
+    guard: Optional[GuardSpec]
+    batch: Optional[Dict]          # prefill inputs; None once prefilled
+    remaining: int
+    nxt: Optional[torch.Tensor] = None
+    #: any CHECK-policy row in this run? (policies are fixed per tenant at
+    #: registration, so per-step attribution can skip entirely otherwise)
+    has_check: bool = False
+    #: per-step next-token tensors, kept on the device until _finalize —
+    #: the decode loop never syncs, tokens materialise in one transfer
+    trail: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    #: decode-step LaunchRequest signature, computed once per run (the
+    #: operand structure is invariant across a run's decode steps)
+    decode_sig: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -128,6 +169,17 @@ def serve_steps(api, n_phys: int, verify: bool = False):
                                      verify=verify)
 
 
+def slab_serve_steps(api, n_slots: int, max_len: int):
+    """The trusted prefill/decode steps of a slab engine serving ``api``'s
+    model over an ``n_slots``-slot space of ``max_len``-token slots: the
+    pool key carries the model shape and the slot geometry, so co-hosted
+    engines of one model share the pool and their steps' symbols."""
+    cfg = api.cfg
+    pool_key = (f"{cfg.name}:{cfg.family}:{cfg.n_layers}x"
+                f"{cfg.d_model}v{cfg.vocab}:s{n_slots}:l{max_len}")
+    return build_trusted_serve_steps(api, pool_key)
+
+
 def register_verified_steps(manager: GuardianManager, cfg, *,
                             max_batch: int = 8, max_len: int = 256):
     """Register on ``manager`` the steps a paged :class:`ServeEngine` of
@@ -167,14 +219,17 @@ def make_shared_manager(n_engines: int, max_batch: int = 8,
 
 
 class ServeEngine:
-    """Continuous-batching multi-tenant server over the global paged KV
-    pool.
+    """Multi-tenant server over a slab KV pool (``paged=False``, the
+    default: a sequence slot per request, lockstep waves through
+    :func:`serve_engines`) or the global paged pool (``paged=True``:
+    continuous batching through :func:`serve_continuous`).
 
     A thin client of its :class:`GuardianManager`: request bookkeeping and
     operand marshalling live here; partitioning, fencing rows, launch
     scheduling and quarantine live on the manager side.  Pass
     ``manager=`` (see :func:`make_shared_manager`) to co-host several
-    engines on one manager.  ``params=`` injects weights (for example
+    engines on one manager: their compatible steps fuse into one device
+    step per lockstep drain.  ``params=`` injects weights (for example
     :func:`repro_torch.models.convert.params_from_jax` of the reference's
     weights); otherwise they are drawn from a ``torch.Generator`` seeded
     with ``seed`` on ``device``.  The engine runs on ``device`` (the card
@@ -199,9 +254,6 @@ class ServeEngine:
                  top_k: int = 0,
                  params: Optional[Dict[str, Any]] = None,
                  device="cuda"):
-        if not paged:
-            raise NotImplementedError(
-                "the slab serve layout is not ported yet; use paged=True")
         if temperature > 0 or top_k:
             raise NotImplementedError(
                 "sampled decode is not ported yet (the reference draws from "
@@ -217,9 +269,10 @@ class ServeEngine:
         self.max_len = max_len
         self.paged = paged
         self.max_inflight = min(max_inflight or max_batch, max_batch)
-        #: virtual pages per request (= max_len / page size)
+        #: pages per request (= max_len / page size): virtual pages in
+        #: paged mode, the slab's pages per slot otherwise
         self.pages_per_req = max(max_len // KV.PAGE_SIZE, 1)
-        slot_unit = self.pages_per_req
+        slot_unit = self.pages_per_req if paged else 1
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.api.init(gen, self.device)
@@ -234,9 +287,11 @@ class ServeEngine:
                 quarantine_policy=quarantine_policy,
                 jit_trusted=jit_steps, telemetry=telemetry,
                 device=self.device)
-            # parked rows only need ONE request's worth of scratch page
-            # ids (they all resolve to the allocator-owned garbage page)
-            scratch_slots = _pow2(self.pages_per_req)
+            # paged: parked rows only need ONE request's worth of scratch
+            # page ids (they all resolve to the allocator-owned garbage
+            # page); slab: half the pool is the per-row scratch slots
+            scratch_slots = _pow2(self.pages_per_req) if paged \
+                else n_slots // 2
             self.engine_tenant = ENGINE_TENANT
         else:
             # fencing, containment, step compilation and telemetry are
@@ -252,7 +307,8 @@ class ServeEngine:
                     "co-hosted ServeEngine")
             self.manager = manager
             n_slots = manager.bounds.total_slots
-            scratch_slots = _pow2(self.pages_per_req)
+            scratch_slots = _pow2(self.pages_per_req) if paged \
+                else _pow2(max_batch)
             policy = manager.policy
             if name is None:
                 name = "e%d" % sum(
@@ -260,15 +316,31 @@ class ServeEngine:
                     if t.startswith(ENGINE_TENANT))
             self.engine_tenant = f"{ENGINE_TENANT}.{name}"
         self.policy = policy
+        #: the manager's slot space (virtual pages in paged mode)
+        self._n_slots = n_slots
+        # ONE pool for the manager's full slot space, adopted by the
+        # manager: co-hosted engines of the same model shape share it.
+        # The pool's slot (page) axis is the next power of two, which K1's
+        # clamp addresses; slots past the manager's space are never fenced
+        # to.
         self._n_phys = _pow2(n_slots)
-        self._steps = serve_steps(self.api, self._n_phys)
+        if paged:
+            self._steps = serve_steps(self.api, self._n_phys)
+        else:
+            self._steps = slab_serve_steps(self.api, n_slots, max_len)
         # A later co-hosted engine adopts the already-registered pool:
-        # build its cache with a single-page pool instead (the meta half
-        # is page-count independent).
+        # build its cache with a single-slot pool instead (the meta half
+        # is slot-count independent).
         adopted = self._steps.pool_name in self.manager.arenas
-        cache = KV.init_global_kv_cache(
-            cfg, max_batch, max_len, 1 if adopted else self._n_phys,
-            dtype=torch.float32, device=self.device)
+        n_pool = 1 if adopted else self._n_phys
+        if paged:
+            cache = KV.init_global_kv_cache(
+                cfg, max_batch, max_len, n_pool, dtype=torch.float32,
+                device=self.device)
+        else:
+            cache = self.api.init_cache(max_batch, max_len,
+                                        dtype=torch.float32, slots=n_pool,
+                                        device=self.device)
         pool, self._meta = split_cache_pool(cache)
         self._client = self.manager.register_tenant(self.engine_tenant,
                                                     scratch_slots)
@@ -280,7 +352,7 @@ class ServeEngine:
         self.manager.quarantine.subscribe(self._on_transition)
         self.manager.elastic.subscribe(self._on_resize)
         self._pool = self._steps.register(self.manager, pool)
-        if self._pool.pages is None:
+        if paged and self._pool.pages is None:
             # one virt->phys allocator per pool arena, shared by every
             # co-hosted engine
             self._pool.pages = PagePool(self._n_phys, n_slots)
@@ -306,6 +378,11 @@ class ServeEngine:
     @cache.setter
     def cache(self, value):
         self._pool.buf, self._meta = split_cache_pool(value)
+
+    def _pool_slots(self) -> int:
+        """The slot space the engine's pool serves (the manager's; the
+        slab pool tensor may hold up to the next power of two)."""
+        return self._n_slots
 
     # ------------------------------------------------------------------ #
     # Tenant lifecycle (all state on the manager)                        #
@@ -339,11 +416,12 @@ class ServeEngine:
                                      tenant_class=tenant_class)
         self._tenants.add(name)
         part = self.manager.bounds.lookup(name)
-        # the tenant's partition is a *virtual page* extent: back it with
-        # physical pages now (hand-over is all-or-nothing) and tell the
-        # elastic plane resizes need no copy step
-        self._pool.pages.bind_extent(name, part.base, part.size)
-        self.manager.elastic.mark_virtual(name)
+        if self.paged:
+            # the tenant's partition is a *virtual page* extent: back it
+            # with physical pages now (hand-over is all-or-nothing) and
+            # tell the elastic plane resizes need no copy step
+            self._pool.pages.bind_extent(name, part.base, part.size)
+            self.manager.elastic.mark_virtual(name)
         return part
 
     def quarantine_tenant(self, name: str, reason: str = "") -> List[int]:
@@ -364,27 +442,52 @@ class ServeEngine:
         self.manager.quarantine.readmit(name)
 
     def _on_resize(self, ev: ResizeEvent) -> None:
-        """Elastic extent changes propagate into the serving plane as a
-        zero-copy resize: the extent is virtual pages, so the PagePool map
-        is rewritten (bytes stay in their physical pages) together with the
-        in-flight requests' virtual ids; no relocation step exists."""
+        """Elastic extent changes propagate into the serving plane.
+
+        Paged: a zero-copy resize — the extent is virtual pages, so the
+        PagePool map is rewritten (bytes stay in their physical pages)
+        together with the in-flight requests' virtual ids.  Slab: when a
+        tenant served here (or this engine's scratch partition) moves, its
+        KV slots move with it — a pool relocation step dispatched through
+        the same trusted scheduler path as the serve steps — and its
+        pending requests re-address.  Data-moving resizes only fire while
+        the engine is idle (:func:`serve_engines` holds the elastic plane),
+        so no staged guard or slot-id operand can go stale."""
         mine = ev.tenant_id in self._tenants \
             or ev.tenant_id == self.engine_tenant
         if not mine:
             return
-        pages = self._pool.pages
-        if ev.tenant_id != self.engine_tenant:
-            if ev.moved:
-                pages.rebase_extent(ev.tenant_id, ev.new_base)
-                delta = ev.new_base - ev.old_base
-                for r in self._requests:
-                    if r.tenant == ev.tenant_id and not r.done and r.pages:
-                        r.pages = [p + delta for p in r.pages]
-            if ev.new_size > ev.old_size:
-                pages.bind_extent(ev.tenant_id, ev.new_base, ev.new_size)
-            elif ev.new_size < ev.old_size:
-                pages.shrink_extent(ev.tenant_id, ev.new_size)
-        else:
+        if self.paged:
+            pages = self._pool.pages
+            if ev.tenant_id != self.engine_tenant:
+                if ev.moved:
+                    pages.rebase_extent(ev.tenant_id, ev.new_base)
+                    delta = ev.new_base - ev.old_base
+                    for r in self._requests:
+                        if r.tenant == ev.tenant_id and not r.done \
+                                and r.pages:
+                            r.pages = [p + delta for p in r.pages]
+                if ev.new_size > ev.old_size:
+                    pages.bind_extent(ev.tenant_id, ev.new_base,
+                                      ev.new_size)
+                elif ev.new_size < ev.old_size:
+                    pages.shrink_extent(ev.tenant_id, ev.new_size)
+            else:
+                self._scratch = self.manager.bounds.lookup(
+                    self.engine_tenant)
+            return
+        if ev.moved:
+            size = min(ev.old_size, ev.new_size)
+            name = (f"elastic.pool[{self._steps.pool_name}]:"
+                    f"{ev.old_base}->{ev.new_base}x{size}")
+            self.manager.elastic.dispatch_relocation(
+                ev.tenant_id, name,
+                build_pool_relocation_step(ev.old_base, ev.new_base, size),
+                pool_arena=self._steps.pool_name)
+            for r in self._requests:
+                if r.tenant == ev.tenant_id and not r.done:
+                    r.slot = ev.new_base + (r.slot - ev.old_base)
+        if ev.tenant_id == self.engine_tenant:
             self._scratch = self.manager.bounds.lookup(self.engine_tenant)
 
     def _on_transition(self, tenant_id: str, state: TenantState) -> None:
@@ -394,20 +497,28 @@ class ServeEngine:
             return
         if state is TenantState.EVICTED and tenant_id in self._tenants:
             # fires before partition reclamation: bounds still resolvable.
-            # Translate the virtual extent to its physical pages BEFORE
-            # releasing them (the map rows zero on release), then zero
-            # those pages — the KV-leak barrier for the global pool
+            # Scoped to the owning engine (only it wrote the tenant's
+            # slots).  This zeroing is the KV-leak barrier: the reclaimed
+            # slots must hand over empty.
             part = self.manager.bounds.lookup(tenant_id)
-            pages = self._pool.pages
-            pm = pages.page_map
-            phys = tuple(int(pm[v]) for v in
-                         range(part.base, part.base + part.size)
-                         if int(pm[v]))
-            pages.release_extent(tenant_id)
-            if self._in_run:
-                self._pending_scrubs.append(phys)
+            if self.paged:
+                # translate the virtual extent to its physical pages
+                # BEFORE releasing them (the map rows zero on release),
+                # then zero those pages
+                pages = self._pool.pages
+                pm = pages.page_map
+                scrub = ("phys", tuple(
+                    int(pm[v]) for v in range(part.base,
+                                              part.base + part.size)
+                    if int(pm[v])))
+                pages.release_extent(tenant_id)
             else:
-                self.cache = _scrub_phys_pages(self.cache, phys)
+                scrub = ("slots", part.base, part.size)
+            if self._in_run:
+                # a run in flight: scrub at its end
+                self._pending_scrubs.append(scrub)
+            else:
+                self._scrub(scrub)
         if not state.admissible:
             dropped = [r.rid for r in self._requests
                        if r.tenant == tenant_id and not r.done]
@@ -425,24 +536,59 @@ class ServeEngine:
 
         ``max_new`` caps this request's generation below the driver-wide
         budget; ``arrive`` is the earliest drain cycle the request may
-        join the batch (arrival-trace replay).  No page is claimed here —
-        virtual pages are allocated when the request joins a batch row,
-        so a queued request costs nothing until it runs."""
+        join the batch (arrival-trace replay; continuous driver).  In
+        paged mode no page is claimed here — virtual pages are allocated
+        when the request joins a batch row, so a queued request costs
+        nothing until it runs.  A slab request claims a KV slot from the
+        tenant's partition now, growing it through the elastic control
+        plane when hard-full."""
         self.manager.quarantine.check_admission(tenant, "submit")
-        self.manager.bounds.lookup(tenant)
+        part = self.manager.bounds.lookup(tenant)
         # a manager-registered tenant becomes this engine's to serve (and
         # therefore to scrub on eviction) the moment it submits here
         self._tenants.add(tenant)
+        if self.paged:
+            rid = self._rid
+            self._rid += 1
+            self._requests.append(Request(
+                tenant=tenant, rid=rid, prompt=np.asarray(prompt),
+                slot=-1, max_new=max_new, arrive=arrive))
+            tel = self.manager.telemetry
+            if tel.enabled:
+                tel.registry.inc("requests", tenant=tenant)
+                # a future-arrival request defers its span clock
+                self._open_span(tenant, rid, defer=arrive > 0)
+            return rid
+        used = {r.slot for r in self._requests if not r.done
+                and r.tenant == tenant}
+        free = [s for s in range(part.base, part.end) if s not in used]
+        if not free:
+            # the pool partition is hard full: grow it through the elastic
+            # control plane (the listener moves the slots if the extent
+            # relocates) and retry once
+            try:
+                part = self.manager.elastic.grow(tenant)
+            except (ElasticError, OutOfArenaMemory):
+                raise RuntimeError(f"tenant {tenant}: no free slots")
+            used = {r.slot for r in self._requests if not r.done
+                    and r.tenant == tenant}
+            free = [s for s in range(part.base, part.end)
+                    if s not in used]
+            if not free:
+                raise RuntimeError(f"tenant {tenant}: no free slots")
         rid = self._rid
         self._rid += 1
-        self._requests.append(Request(
-            tenant=tenant, rid=rid, prompt=np.asarray(prompt),
-            slot=-1, max_new=max_new, arrive=arrive))
+        self._requests.append(Request(tenant=tenant, rid=rid,
+                                      prompt=np.asarray(prompt),
+                                      slot=free[0]))
         tel = self.manager.telemetry
         if tel.enabled:
             tel.registry.inc("requests", tenant=tenant)
-            # a future-arrival request defers its span clock
-            self._open_span(tenant, rid, defer=arrive > 0)
+            self._open_span(tenant, rid)
+        # occupancy report: the pressure tracker sees serve tenants too
+        # (non-shrinkable — the engine owns slot placement)
+        self.manager.elastic.pressure.observe(
+            tenant, len(used) + 1, part.size)
         return rid
 
     def _open_span(self, tenant: str, rid: int,
@@ -496,6 +642,19 @@ class ServeEngine:
         # the engine default (the homogeneous path stays unchanged)
         mixed = bool((pol != self.policy.code).any())
         row_policy = torch.as_tensor(pol).to(self.device) if mixed else None
+        if not self.paged:
+            # kv space = per-row slot extents; pages are fenced into the
+            # slab (space "page")
+            return GuardSpec(
+                policy=self.policy,
+                vocab=FenceParams(base=0, size=_pow2(self.cfg.vocab)),
+                kv=slot_params,
+                state=slot_params,
+                expert=(FenceParams(base=0, size=_pow2(
+                    self.cfg.moe.num_experts)) if self.cfg.moe else None),
+                page=FenceParams(base=0, size=_pow2(self.pages_per_req)),
+                row_policy=row_policy,
+            )
         # kv space = per-row *virtual page* extents (the fence-table rows
         # ARE page extents); virt->phys goes through the manager-owned
         # map, then the "page" clamp keeps even a corrupted map entry
@@ -518,15 +677,166 @@ class ServeEngine:
                                   device=self.device),
         )
 
+    def _select_rows(self) -> List[Request]:
+        """Batch-row assignment through the scheduler's shared weighted
+        round-robin fairness policy (§4.2.4).  Quarantined tenants'
+        requests never occupy a row."""
+        by_tenant: Dict[str, List[Request]] = {}
+        for r in self._requests:
+            if r.done:
+                continue
+            state = self.manager.quarantine.state_of(r.tenant)
+            if state is None or state.admissible:
+                by_tenant.setdefault(r.tenant, []).append(r)
+        weights = {t: self.manager.weight_of(t) for t in by_tenant}
+        return round_robin_interleave(by_tenant, self.max_batch,
+                                      weights=weights)
+
+    def _attribute(self, rows: List[Request],
+                   slot_ids: np.ndarray) -> None:
+        """Per-step CHECK attribution for the serving plane: a CHECK row
+        whose slot id left its owner's partition is a detected violation,
+        computed on the host from the same bounds the in-step fence used.
+        One GATHER count per offending row per step, folded into the
+        manager's ViolationLog, so serve traffic feeds the same
+        QuarantineManager poll as raw launches."""
+        if not self.guard_enabled:
+            return
+        for i, r in enumerate(rows):
+            state = self.manager.quarantine.state_of(r.tenant)
+            if state is not None and not state.admissible:
+                # quarantined/evicted mid-run: its bounds and log row may
+                # already be reclaimed
+                continue
+            if self.manager.policy_of(r.tenant) is not FencePolicy.CHECK:
+                continue
+            part = self.manager.bounds.lookup(r.tenant)
+            if not (part.base <= int(slot_ids[i]) < part.end):
+                counts = np.zeros((NUM_KINDS,), np.int32)
+                counts[int(ViolationKind.GATHER)] = 1
+                self.manager.violog.add(r.tenant, counts)
+
     # ------------------------------------------------------------------ #
     def run(self, max_new_tokens: int = 16) -> Dict[int, List[int]]:
-        """Serve every pending request to completion (one-engine
-        :func:`serve_continuous`)."""
-        return serve_continuous([self], max_new_tokens=max_new_tokens)[0]
+        """Serve every pending request: a slab engine one lockstep wave
+        (:func:`serve_engines`), a paged one to completion
+        (:func:`serve_continuous`).  Engines sharing a manager should run
+        through the drivers instead, so their steps share drains."""
+        if self.paged:
+            return serve_continuous([self],
+                                    max_new_tokens=max_new_tokens)[0]
+        return serve_engines([self], max_new_tokens=max_new_tokens)[0]
+
+    # -- lockstep phases (slab; serve_engines drives) ------------------ #
+    def _begin(self, max_new_tokens: int) -> Optional[_RunState]:
+        rows = self._select_rows()
+        if not rows:
+            return None
+        self._in_run = True
+        tel = self.manager.telemetry
+        if tel.enabled:
+            # requests the wave left behind (batch full) are *held* for
+            # the whole run — _finalize reverts survivors to "queue"
+            picked = {r.rid for r in rows}
+            for r in self._requests:
+                if not r.done and r.rid not in picked:
+                    tel.spans.phase(self._spans.get(r.rid), "hold")
+        B = self.max_batch
+        plen = max(len(r.prompt) for r in rows)
+        toks = np.zeros((B, plen), np.int32)
+        for i, r in enumerate(rows):
+            toks[i, :len(r.prompt)] = r.prompt
+        # idle rows park in the engine's scratch partition
+        slot_ids = np.full((B,), self._scratch.base, np.int32)
+        for i, r in enumerate(rows):
+            slot_ids[i] = r.slot
+        dev = self.device
+        meta = _reset_seq_lens(dataclasses.replace(
+            self._meta, slot_ids=torch.as_tensor(slot_ids).to(dev)))
+        guard = self._guard_for_rows(rows + [None] * (B - len(rows)))
+        has_check = any(
+            self.manager.policy_of(r.tenant) is FencePolicy.CHECK
+            for r in rows)
+        return _RunState(rows=rows, slot_ids=slot_ids, meta=meta,
+                         guard=guard,
+                         batch={"tokens": torch.as_tensor(toks).to(dev)},
+                         remaining=max_new_tokens, has_check=has_check)
+
+    def _enqueue_step(self, st: _RunState):
+        """Attribute CHECK rows, then enqueue this engine's next step as a
+        LaunchRequest (the request doubles as the result handle).  The
+        manager drain — shared with every co-hosted engine — happens in
+        :func:`serve_engines`."""
+        if st.has_check:
+            self._attribute(st.rows, st.slot_ids)
+        tel = self.manager.telemetry
+        if tel.enabled:
+            name = "prefill" if st.batch is not None else "decode"
+            for r in st.rows:
+                tel.spans.phase(self._spans.get(r.rid), name)
+        if st.batch is not None:       # prefill
+            return self._client.launch_kernel(
+                self._steps.prefill_name,
+                args=(self.params, st.meta, st.batch, st.guard))
+        st.trail.append(st.nxt)        # stays on the device until _finalize
+        req = self._client.launch_kernel(
+            self._steps.decode_name,
+            args=(self.params, st.meta, st.nxt, st.guard))
+        if st.decode_sig is None:
+            st.decode_sig = req.signature
+        else:
+            req._sig = st.decode_sig
+        return req
+
+    def _finish_step(self, st: _RunState, req) -> bool:
+        """Consume the drained step's result; True while decodes remain.
+        The step took its argmax on the device: no logits, no host sync
+        here (the pool was written in place on the manager)."""
+        st.meta, st.nxt = req.result
+        if st.batch is not None:
+            st.batch = None            # prefilled; decodes follow
+            return st.remaining > 0
+        self.decode_steps += 1
+        st.remaining -= 1
+        return st.remaining > 0
+
+    def _finalize(self, st: _RunState) -> Dict[int, List[int]]:
+        self._meta = st.meta           # the pool already lives on the manager
+        # one transfer materialises every step's tokens
+        if st.trail:
+            toks = torch.stack(st.trail).cpu().numpy()     # (steps, B)
+            for i, r in enumerate(st.rows):
+                r.generated.extend(int(t) for t in toks[:, i])
+        # a mid-run eviction was deferred to here
+        self._apply_pending_scrubs()
+        # rows whose tenant was quarantined/evicted mid-run were already
+        # dropped and recorded in self.rejected: not reported as served
+        out: Dict[int, List[int]] = {}
+        tel = self.manager.telemetry
+        for r in st.rows:
+            state = self.manager.quarantine.state_of(r.tenant)
+            if state is None or state.admissible:
+                r.done = True
+                out[r.rid] = r.generated
+                tel.spans.close(self._spans.pop(r.rid, None), "complete")
+        if tel.enabled:
+            # survivors the wave held now re-queue for the next run
+            for r in self._requests:
+                if not r.done:
+                    tel.spans.phase(self._spans.get(r.rid), "queue")
+        return out
+
+    def _scrub(self, item: tuple) -> None:
+        """Zero the pool behind an evicted tenant: ``("phys", pages)`` of
+        the global pool or ``("slots", base, size)`` of the slab pool."""
+        if item[0] == "phys":
+            _scrub_phys_pages(self.cache, item[1])
+        else:
+            _scrub_slots(self.cache, item[1], item[2])
 
     def _apply_pending_scrubs(self) -> None:
-        for phys in self._pending_scrubs:
-            self.cache = _scrub_phys_pages(self.cache, phys)
+        for item in self._pending_scrubs:
+            self._scrub(item)
         self._pending_scrubs.clear()
 
     # -- continuous batching (paged mode; serve_continuous drives) ----- #
@@ -821,6 +1131,43 @@ class ServeEngine:
                 if rid in by_rid}
 
 
+def serve_engines(engines: List[ServeEngine], max_new_tokens: int = 16
+                  ) -> List[Dict[int, List[int]]]:
+    """Lockstep driver for slab engines sharing one GuardianManager: every
+    active engine enqueues its next prefill/decode step, then ONE manager
+    drain dispatches them — compatible steps (same model shape, same
+    phase) fuse into a single device step, so N engines cost one dispatch
+    per lockstep instead of N.  Returns one ``rid -> tokens`` dict per
+    engine, in order.  A single-engine call is exactly ``engine.run()``."""
+    if not engines:
+        return []
+    mgr = engines[0].manager
+    if any(e.manager is not mgr for e in engines[1:]):
+        raise ValueError("serve_engines needs engines sharing one "
+                         "GuardianManager (see make_shared_manager)")
+    if any(e.paged for e in engines):
+        raise ValueError("paged engines batch per-request — drive them "
+                         "with serve_continuous")
+    # elastic resizes that move data defer for the whole run: the staged
+    # guards / slot-id operands of in-flight steps must never go stale
+    mgr.elastic.hold()
+    states = [e._begin(max_new_tokens) for e in engines]
+    try:
+        active = [i for i, s in enumerate(states) if s is not None]
+        while active:
+            reqs = [(i, engines[i]._enqueue_step(states[i]))
+                    for i in active]
+            mgr.run_queued()
+            active = [i for i, req in reqs
+                      if engines[i]._finish_step(states[i], req)]
+        return [engines[i]._finalize(s) if s is not None else {}
+                for i, s in enumerate(states)]
+    finally:
+        mgr.elastic.release()
+        for e in engines:
+            e._in_run = False
+
+
 def serve_continuous(engines: List["ServeEngine"],
                      max_new_tokens: int = 16
                      ) -> List[Dict[int, List[int]]]:
@@ -850,6 +1197,9 @@ def serve_continuous(engines: List["ServeEngine"],
     if any(e.manager is not mgr for e in engines[1:]):
         raise ValueError("serve_continuous needs engines sharing one "
                          "GuardianManager (see make_shared_manager)")
+    if not all(e.paged for e in engines):
+        raise ValueError("serve_continuous drives paged engines; slab "
+                         "engines lockstep through serve_engines")
     states = [e._cont_begin(max_new_tokens) for e in engines]
     stalled = 0
     try:
@@ -895,6 +1245,15 @@ def _pow2(n: int) -> int:
     return 1 << max(int(n - 1).bit_length(), 0) if n > 1 else 1
 
 
+def _reset_seq_lens(meta):
+    """A lockstep wave prefills EVERY row, so each row's sequence starts
+    at 0 — without this an engine reused across runs would carry the
+    previous wave's seq_lens into the new prefill (stale write positions
+    and attention over dead tokens)."""
+    return dataclasses.replace(meta,
+                               seq_lens=torch.zeros_like(meta.seq_lens))
+
+
 def _scrub_phys_pages(cache, phys):
     """Zero a set of *physical* pages of the global paged pool (axis 1 of
     the 5-dim k/v tensors), in place — the eviction scrub."""
@@ -905,3 +1264,150 @@ def _scrub_phys_pages(cache, phys):
     cache.k[:, idx] = 0
     cache.v[:, idx] = 0
     return cache
+
+
+def _scrub_slots(cache, base: int, size: int):
+    """Zero a slot range [base, base+size) of the slab pool (axis 1 of the
+    6-dim k/v tensors), in place — the eviction scrub."""
+    cache.k[:, base:base + size] = 0
+    cache.v[:, base:base + size] = 0
+    return cache
+
+
+# --------------------------------------------------------------------- #
+# Command line                                                          #
+# --------------------------------------------------------------------- #
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The reference's flags, plus ``--device`` (the card unless the
+    caller asks for the CPU)."""
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default="stablelm-3b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--tenants", type=int, default=3)
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--no-guard", action="store_true")
+    ap.add_argument("--no-jit", action="store_true",
+                    help="eager trusted steps (the fallback to the "
+                         "compiled step path)")
+    ap.add_argument("--engines", type=int, default=1,
+                    help="co-hosted engines sharing one manager; >1 "
+                         "exercises the multi-engine fused decode")
+    ap.add_argument("--policies", default="",
+                    help="comma-separated per-tenant fence policies cycled "
+                         "across tenants (e.g. 'modulo,check'); empty = "
+                         "engine default (bitwise) for all")
+    ap.add_argument("--classes", default="",
+                    help="comma-separated per-tenant SLO classes cycled "
+                         "across tenants — 'latency_critical'/'lc', "
+                         "'best_effort'/'be', or '-' for class-less; "
+                         "empty = class-less for all")
+    ap.add_argument("--bench-out", default=None,
+                    help="append a `name,us_per_call,derived` bench CSV "
+                         "row (per-token wall time) to this file")
+    ap.add_argument("--bench-name", default="serve.smoke",
+                    help="row name used with --bench-out")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the manager's flight-recorder event trace "
+                         "as Chrome/Perfetto trace_event JSON to this path")
+    ap.add_argument("--device", default="cuda",
+                    help="where the engines run: cuda (default) or cpu")
+    return ap.parse_args(argv)
+
+
+def build_engines(args: argparse.Namespace,
+                  params: Optional[Dict[str, Any]] = None
+                  ) -> List[ServeEngine]:
+    """The slab engines :func:`main` serves: one, or ``--engines`` sharing
+    one manager, each ``max_batch=8, max_len=256``.  ``params`` injects
+    the weights (every engine gets the same); otherwise each engine draws
+    its own from seed 0."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    kw = dict(max_batch=8, max_len=256, guard=not args.no_guard,
+              params=params, device=args.device)
+    if args.engines > 1:
+        mgr = make_shared_manager(args.engines, max_batch=8,
+                                  jit_trusted=not args.no_jit,
+                                  device=args.device)
+        return [ServeEngine(cfg, manager=mgr, **kw)
+                for _ in range(args.engines)]
+    return [ServeEngine(cfg, jit_steps=not args.no_jit, **kw)]
+
+
+def serve_cli(args: argparse.Namespace,
+              engines: List[ServeEngine]) -> List[Dict[int, List[int]]]:
+    """Register ``--tenants`` tenants on every engine, submit
+    ``--requests`` seeded 12-token prompts each, serve them in lockstep and
+    print the reference's lines; returns one ``rid -> tokens`` dict per
+    engine."""
+    cfg = engines[0].cfg
+    pols = [FencePolicy(p.strip()) for p in args.policies.split(",")
+            if p.strip()]
+    aliases = {"lc": "latency_critical", "be": "best_effort", "-": None}
+    classes = [aliases.get(c.strip(), c.strip())
+               for c in args.classes.split(",") if c.strip()]
+    per = max(engines[0]._pool_slots()
+              // max(args.tenants * len(engines), 1) // 2, 2)
+    for e, eng in enumerate(engines):
+        for t in range(args.tenants):
+            pol = pols[t % len(pols)] if pols else None
+            cls = classes[t % len(classes)] if classes else None
+            tenant = f"tenant{t}" if len(engines) == 1 \
+                else f"e{e}.tenant{t}"
+            eng.register_tenant(tenant, per, policy=pol, tenant_class=cls)
+            if pol is not None:
+                print(f"{tenant}: policy={pol.value}")
+            if cls is not None:
+                print(f"{tenant}: class={cls}")
+    rng = np.random.default_rng(0)
+    for i in range(args.requests):
+        t = i % args.tenants
+        for e, eng in enumerate(engines):
+            tenant = f"tenant{t}" if len(engines) == 1 \
+                else f"e{e}.tenant{t}"
+            prompt = rng.integers(0, cfg.vocab, size=12).astype(np.int32)
+            eng.submit(tenant, prompt)
+    t0 = time.time()
+    outs = serve_engines(engines, max_new_tokens=args.tokens)
+    dt = time.time() - t0
+    for e, out in enumerate(outs):
+        for rid, toks in sorted(out.items()):
+            print(f"engine{e} req {rid}: {toks[:8]}...")
+    st = engines[0].manager.scheduler.stats
+    n_out = sum(len(o) for o in outs)
+    print(f"{n_out} requests, {args.tokens} tokens each, "
+          f"{dt:.2f}s total, {sum(e.decode_steps for e in engines)} "
+          f"decode steps, {int(st.total_launches)} scheduler launches, "
+          f"mean step width {st.mean_batch_width:.1f}")
+    if args.trace_out:
+        trace = engines[0].manager.telemetry.trace
+        with open(args.trace_out, "w") as fh:
+            fh.write(trace.to_json())
+        print(f"trace: {args.trace_out} ({len(trace)} events)")
+    if args.bench_out:
+        # per-token wall time, cold start included
+        n_tokens = max(n_out * args.tokens, 1)
+        us = dt / n_tokens * 1e6
+        row = (f"{args.bench_name},{us:.2f},"
+               f"requests={n_out};tokens={n_tokens};"
+               f"launches={int(st.total_launches)};"
+               f"mean_width={st.mean_batch_width:.1f}")
+        with open(args.bench_out, "a") as fh:
+            fh.write(row + "\n")
+        print(f"bench row -> {args.bench_out}: {row}")
+    return outs
+
+
+def main(argv=None, params: Optional[Dict[str, Any]] = None):
+    """``python -m repro_torch.launch.serve``: parse the flags, build the
+    engines (:func:`build_engines`, ``params`` as there) and serve
+    (:func:`serve_cli`).  Returns the first engine's ``rid -> tokens``."""
+    args = parse_args(argv)
+    return serve_cli(args, build_engines(args, params=params))[0]
+
+
+if __name__ == "__main__":
+    main()

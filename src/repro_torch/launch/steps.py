@@ -1,6 +1,6 @@
 """Step builders for the serving plane: the engine's prefill/decode as
-trusted manager kernels, and the elastic relocation step of the flat
-arena.
+trusted manager kernels, and the elastic relocation steps of the flat
+arena and of a serve engine's slab pool.
 
 Steps run on the manager's device, as compiled steps (one CUDA graph per
 operand signature, :mod:`repro_torch.core.stepgraph`) unless the manager's
@@ -159,5 +159,36 @@ def build_flat_relocation_step(moves: Tuple[Tuple[int, int, int], ...],
         for start, ln in zeros:
             arena[start:start + ln] = 0
         return arena, None
+
+    return relocate
+
+
+def build_pool_relocation_step(src: int, dst: int, size: int) -> Callable:
+    """Slot-extent move for a manager-owned slab serve pool — a trusted
+    kernel with ``pool_arena`` threading (``fn(arena, pool) -> (arena,
+    pool, None)``) so a tenant's KV slots follow its partition when the
+    elastic manager grows or relocates it.  The elastic manager dispatches
+    it eagerly (one step per move).
+
+    Every slot-indexed pool tensor (axis 1 — see
+    ``kvcache.PagedKVCache``) has ``[src, src+size)`` copied wholesale to
+    ``[dst, dst+size)`` and the vacated source range zeroed, in place;
+    per-row page tables live in the engines' meta halves and are
+    slab-relative, so they survive the move untouched.  Distinct buddy
+    extents never overlap (pow2 blocks nest or are disjoint), which makes
+    copy-then-zero exact."""
+
+    def move(arr):
+        if arr.dim() < 2 or arr.shape[1] < max(src, dst) + size:
+            # too short to be slot-indexed over BOTH extents: touching it
+            # would clamp the copy into the wrong rows
+            return arr
+        data = arr[:, src:src + size].clone()
+        arr[:, dst:dst + size] = data
+        arr[:, src:src + size] = 0
+        return arr
+
+    def relocate(arena, pool):
+        return arena, {name: move(arr) for name, arr in pool.items()}, None
 
     return relocate

@@ -7,16 +7,20 @@ Runs the verifier (:mod:`repro_torch.core.verifier`) over
   :mod:`repro_torch.kernels.ref` — the function each CUDA kernel is held
   against — as a fence-aware tenant kernel against the *symbolic* row, so
   a PROVEN verdict holds for every tenant partition;
-* the paged serve steps (``launch/steps.py`` ``build_trusted_serve_steps``)
-  in extent mode on a reduced stablelm-3b: 4 rows, 8 physical and 8
-  virtual pages, a vocab fence of 256, every access into the arena or the
-  pool — the kernels' declared accesses included — proven inside the
-  accessed operand or a guard partition.
+* the slab serve steps (``launch/steps.py`` ``build_trusted_serve_steps``
+  over the slab cache) in extent mode on a reduced stablelm-3b, built like
+  the reference's ``_serve_fixture``: 4 rows, 4 slots of one 64-token
+  page, the single-tenant guard (slots, pages and the vocab fenced into
+  their pow2 extents);
+* the paged serve steps in extent mode on a reduced stablelm-3b: 4 rows,
+  8 physical and 8 virtual pages, a vocab fence of 256;
+
+every access into the arena or the pool — the kernels' declared accesses
+included — proven inside the accessed operand or a guard partition.
 
 Per audit it prints the verifier's site table (PROVEN / FENCED / REFUTED
-and why).  The slab serve steps and the train step are listed as not
-ported (their code is not in the port) and count neither as audits nor
-as problems.  ``--strict`` exits nonzero on a refuted site, an audit
+and why).  The train step is listed as not ported (its code is not in
+the port) and counts neither as an audit nor as a problem.  ``--strict`` exits nonzero on a refuted site, an audit
 error, or an audit whose proven fraction fell below the committed
 ``results/lint_torch.baseline.json``; ``--write-baseline`` rewrites that
 file after an intended change.
@@ -116,6 +120,44 @@ def _audit_flash_attention() -> SandboxProof:
 # Step audits (launch/steps.py, extent mode, reduced config)
 # ---------------------------------------------------------------------------
 
+def slab_serve_fixture(arch: str = "stablelm-3b", batch: int = 4,
+                       max_len: int = 64):
+    """The slab serve steps' operands at a reduced ``arch``, as the
+    reference's lint builds them (``repro/lint.py`` ``_serve_fixture``):
+    ``(bundle, pool, params, meta, guard)`` — a slab pool of
+    ``pow2(batch)`` slots of ``max_len`` tokens (float32, as the engine
+    serves), the single-tenant BITWISE guard with static vocab, kv, state,
+    expert and page partitions.  CPU tensors: the proof traces on fakes of
+    their shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.fence import FenceParams, FencePolicy
+    from repro_torch.launch.steps import build_trusted_serve_steps, \
+        split_cache_pool
+    from repro_torch.models import get_model
+    from repro_torch.models import kvcache as KV
+    from repro_torch.models.guard import GuardSpec
+
+    cfg = get_config(arch).reduced()
+    api = get_model(cfg)
+    cache = api.init_cache(batch, max_len, dtype=torch.float32,
+                           device="cpu")
+    pool, meta = split_cache_pool(cache)
+    params = api.init(torch.Generator().manual_seed(0), "cpu")
+    slots = KV._pow2_at_least(batch)
+    vocab = KV._pow2_at_least(cfg.vocab)
+    guard = GuardSpec(
+        policy=FencePolicy.BITWISE,
+        vocab=FenceParams(base=0, size=vocab),
+        kv=FenceParams(base=0, size=slots),
+        state=FenceParams(base=0, size=slots),
+        expert=(FenceParams(base=0, size=KV._pow2_at_least(
+            cfg.moe.num_experts)) if cfg.moe else None),
+        page=FenceParams(base=0, size=KV._pow2_at_least(
+            max(max_len // KV.PAGE_SIZE, 1))))
+    bundle = build_trusted_serve_steps(api, "lint")
+    return bundle, pool, params, meta, guard
+
+
 def paged_serve_fixture(arch: str = "stablelm-3b", batch: int = 4,
                         n_phys: int = 8, n_virt: int = 8):
     """The paged serve steps' operands at a reduced ``arch``: ``(bundle,
@@ -133,7 +175,8 @@ def paged_serve_fixture(arch: str = "stablelm-3b", batch: int = 4,
 
     cfg = get_config(arch).reduced()
     api = get_model(cfg)
-    cache = api.init_cache(batch, KV.PAGE_SIZE, n_phys, device="cpu")
+    cache = api.init_global_cache(batch, KV.PAGE_SIZE, n_phys,
+                                  device="cpu")
     pool, meta = split_cache_pool(cache)
     params = api.init(torch.Generator().manual_seed(0), "cpu")
     guard = GuardSpec(
@@ -149,7 +192,8 @@ def paged_serve_fixture(arch: str = "stablelm-3b", batch: int = 4,
 
 
 def step_operands(fixture, step: str) -> Tuple:
-    """A step's operands over a :func:`paged_serve_fixture`: a 1,024-slot
+    """A step's operands over a :func:`slab_serve_fixture` or a
+    :func:`paged_serve_fixture`: a 1,024-slot
     arena, the pool, the weights, the meta, the tokens (B for a decode, B
     x 16 for a prefill) and the guard."""
     _, pool, params, meta, guard = fixture
@@ -158,9 +202,10 @@ def step_operands(fixture, step: str) -> Tuple:
     return (_f32(1024), pool, params, meta, x, guard)
 
 
-def _audit_paged_step(step: str) -> Callable[[], SandboxProof]:
+def _audit_step(fixture_fn: Callable, step: str
+                ) -> Callable[[], SandboxProof]:
     def audit() -> SandboxProof:
-        fixture = paged_serve_fixture()
+        fixture = fixture_fn()
         fn = getattr(fixture[0], f"{step}_fn")
         return verify(fn, step_operands(fixture, step), arena_argnums=(0, 1),
                       mode="extent")
@@ -174,14 +219,15 @@ AUDITS: Tuple[Tuple[str, Callable[[], SandboxProof]], ...] = (
     ("kernels.paged_attention", _audit_paged_attention),
     ("kernels.moe_histogram", _audit_moe_histogram),
     ("kernels.flash_attention", _audit_flash_attention),
-    ("steps.serve.paged.prefill", _audit_paged_step("prefill")),
-    ("steps.serve.paged.decode", _audit_paged_step("decode")),
+    ("steps.serve.prefill", _audit_step(slab_serve_fixture, "prefill")),
+    ("steps.serve.decode", _audit_step(slab_serve_fixture, "decode")),
+    ("steps.serve.paged.prefill",
+     _audit_step(paged_serve_fixture, "prefill")),
+    ("steps.serve.paged.decode", _audit_step(paged_serve_fixture, "decode")),
 )
 
 #: audits of the reference whose code the port lacks, with what is missing
 NOT_PORTED: Tuple[Tuple[str, str], ...] = (
-    ("steps.serve.prefill", "the slab KV layout is not ported"),
-    ("steps.serve.decode", "the slab KV layout is not ported"),
     ("steps.train", "the train step is not ported"),
 )
 

@@ -3,7 +3,8 @@
 ``get_model(cfg)`` returns a :class:`ModelAPI` with:
 
     init(generator, device)           -> params
-    init_cache(batch, max_len, total_pages, **kw) -> global paged cache
+    init_cache(batch, max_len, *, slots=, dtype=, **kw) -> slab cache
+    init_global_cache(batch, max_len, total_pages, **kw) -> global paged cache
     prefill(params, cache, batch, ...) -> (cache, last_logits)
     decode(params, cache, tokens, ...) -> (cache, logits)
 
@@ -38,6 +39,7 @@ class ModelAPI:
     cfg: ModelConfig
     init: Callable
     init_cache: Callable
+    init_global_cache: Callable
     prefill: Callable
     decode: Callable
 
@@ -57,7 +59,9 @@ def _dense_api(cfg: ModelConfig) -> ModelAPI:
         cfg=cfg,
         init=lambda generator, device="cuda": TF.init(cfg, generator,
                                                       device),
-        init_cache=lambda batch, max_len, total_pages, **kw:
+        init_cache=lambda batch, max_len, **kw: KV.init_kv_cache(
+            cfg, batch, max_len, **kw),
+        init_global_cache=lambda batch, max_len, total_pages, **kw:
             KV.init_global_kv_cache(cfg, batch, max_len, total_pages, **kw),
         prefill=lambda params, cache, batch, **kw: TF.prefill(
             cfg, params, cache, batch["tokens"], **kw),

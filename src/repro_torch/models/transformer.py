@@ -3,11 +3,15 @@
 Params are nested dicts with one dict per layer (``params["layers"][l]``);
 the reference stacks its layers on a leading axis and scans, the port
 loops over the list (see :func:`repro_torch.models.convert.params_from_jax`).
-Prefill and decode run over the global paged KV pool with Guardian fencing
-on every data-dependent index; the four hand-written kernels carry the
-embedding gather (K3), the prefill page write (K2), prefill attention (K4)
-and decode attention (K1).  The MoE family (:mod:`repro_torch.models.moe`)
-runs the same loop with its expert block as the feed-forward (``ffn=``).
+Prefill and decode run over either KV layout of
+:mod:`repro_torch.models.kvcache` — the global paged pool or the slab pool
+— with Guardian fencing on every data-dependent index; the hand-written
+kernels carry the embedding gather (K3), prefill attention (K4), decode
+attention (K1, over the slab's flattened layer view on the slab layout)
+and, on the global layout, the prefill page write (K2; the slab write is
+the reference's plain formulation).  The MoE family
+(:mod:`repro_torch.models.moe`) runs the same loop with its expert block
+as the feed-forward (``ffn=``).
 """
 
 from __future__ import annotations
@@ -61,11 +65,12 @@ def prefill(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
     x = L.embed_tokens(params["embed"], tokens, guard)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None, :].expand(B, S)
+    plan = KV.prefill_plan(cache, S, guard)
     for lidx, p in enumerate(params["layers"]):
         q, k, v = L.qkv_proj(cfg, p["attn"],
                              L.apply_norm(cfg, p["norm1"], x))
         q, k = L.positions_rope(cfg, q, k, positions)
-        KV.write_prefill_kv(cache, lidx, k, v, guard)
+        KV.write_prefill_kv(cache, lidx, k, v, guard, plan=plan)
         o = L.prefill_attention(cfg, q, k, v)
         x = x + L.out_proj(cfg, p["attn"], o)
         x = x + ffn(cfg, p, x, guard)
@@ -82,11 +87,12 @@ def decode(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
     x = L.embed_tokens(params["embed"], tokens[:, None], guard)
     positions = cache.seq_lens[:, None]
     kv_len = cache.seq_lens + 1
+    plan = KV.decode_plan(cache, guard)
     for lidx, p in enumerate(params["layers"]):
         q, k, v = L.qkv_proj(cfg, p["attn"],
                              L.apply_norm(cfg, p["norm1"], x))
         q, k = L.positions_rope(cfg, q, k, positions)
-        KV.append_token_kv(cache, lidx, k, v, guard)
+        KV.append_token_kv(cache, lidx, k, v, guard, plan=plan)
         if cfg.attn_window:
             if q.device.type != "cpu":
                 raise NotImplementedError(
@@ -97,7 +103,8 @@ def decode(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
                                    v_hist.to(q.dtype), kv_len,
                                    window=cfg.attn_window)
         else:
-            o = KV.paged_decode_attention(cache, lidx, q, kv_len, guard)
+            o = KV.paged_decode_attention(cache, lidx, q, kv_len, guard,
+                                          plan=plan)
         x = x + L.out_proj(cfg, p["attn"], o)
         x = x + ffn(cfg, p, x, guard)
     cache = KV.advance(cache, 1)

@@ -60,3 +60,30 @@ def test_lint_kernel_audits_fully_proven():
                  "kernels.paged_attention"):
         assert summaries[name]["fully_proven"], summaries[name]
         assert summaries[name]["sites"] >= 1
+
+
+def test_lint_slab_serve_steps_fully_proven():
+    """The slab serve steps are audited (``NOT_PORTED`` holds only the
+    train step) and fully proven: the prefill's 4 sites (each layer's K
+    and V slab read of the ``permute`` write, by the fenced slot id) and
+    the decode's 16 (each layer's append — slot, page and offset, K and V
+    — and K1's two declared loads over the slab view).  The reference
+    audits the same steps over a ``scan``: 6 / 6 proven in its prefill
+    (its inverse-page scatters are sites; the port forms them by
+    comparison) and 2 / 4 in its decode, whose append index holds the
+    scan's layer carry (``results/lint.baseline.json``)."""
+    assert [n for n, _ in lint.NOT_PORTED] == ["steps.train"]
+    summaries, errors = lint.run_audits(only="steps.serve.")
+    assert not errors
+    assert {n: (s["proven"], s["sites"]) for n, s in summaries.items()
+            if n in ("steps.serve.prefill", "steps.serve.decode")} == \
+        {"steps.serve.prefill": (4, 4), "steps.serve.decode": (16, 16)}
+    ref = json.loads((lint.DEFAULT_BASELINE.parent
+                      / "lint.baseline.json").read_text())
+    assert (ref["steps.serve.prefill"]["proven"],
+            ref["steps.serve.prefill"]["sites"]) == (6, 6)
+    assert (ref["steps.serve.decode"]["proven"],
+            ref["steps.serve.decode"]["sites"]) == (2, 4)
+    baseline = json.loads(lint.DEFAULT_BASELINE.read_text())
+    for name in ("steps.serve.prefill", "steps.serve.decode"):
+        assert baseline[name] == summaries[name]

@@ -234,12 +234,18 @@ def test_eviction_scrubs_the_tenants_physical_pages(jit):
 
 
 def test_unported_serve_options_refuse():
-    """The slab layout and the sampled decode wait for later ports: they
-    refuse instead of silently serving something else."""
+    """The sampled decode waits for a later port: ``temperature > 0`` and
+    ``top_k`` refuse instead of silently serving greedy, on either layout
+    (the slab layout itself is served since it was ported:
+    tests/test_torch_slab.py)."""
     mgr = ST.make_shared_manager(1, max_batch=2, paged=True, max_len=64,
                                  device="cpu")
     with pytest.raises(NotImplementedError):
-        ST.ServeEngine(CFG_T, max_batch=2, max_len=64, device="cpu")
-    with pytest.raises(NotImplementedError):
         ST.ServeEngine(CFG_T, max_batch=2, max_len=64, manager=mgr,
                        paged=True, temperature=0.7, device="cpu")
+    with pytest.raises(NotImplementedError):
+        ST.ServeEngine(CFG_T, max_batch=2, max_len=64, top_k=4,
+                       device="cpu")
+    with pytest.raises(NotImplementedError):
+        ST.ServeEngine(CFG_T, max_batch=2, max_len=64, temperature=0.7,
+                       device="cpu")
