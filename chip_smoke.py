@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout, needs one CUDA card and the CUDA toolkit
-(``nvcc``), and imports nothing of JAX or of the JAX package.  Two serve
-paths run, each at full width: the dense stablelm-3b and the MoE
-qwen3-moe-30b-a3b.  Phases, in order (any failure exits non-zero):
+(``nvcc``), and imports nothing of JAX or of the JAX package.  Four serve
+paths run, each at full width: the dense stablelm-3b, the MoE
+qwen3-moe-30b-a3b and, in phase 8, the hybrid zamba2-7b and the xLSTM
+xlstm-350m.  Phases, in order (any failure exits non-zero):
 
 1. device and build — the card's name and power limit, the torch version,
    the build of every kernel of ``src/repro_torch/kernels/csrc`` for
@@ -33,8 +34,8 @@ qwen3-moe-30b-a3b.  Phases, in order (any failure exits non-zero):
    — with its time, the plain version's, the library call's where
    one exists, the bound (the least time the card could take for the same
    bytes or operations), the card's launch floor (a one-element fill_,
-   timed the same way) and, for K1, K2 and K5, the device operations a
-   call puts on the card, counted by ``torch.profiler`` (one each); then
+   timed the same way) and, for K1, K2, K4 and K5, the device operations
+   a call puts on the card, counted by ``torch.profiler`` (one each); then
    each kernel called through its custom op ``repro_torch::<kernel>`` on
    CUDA tensors and on CPU copies: one launch and no plain call on the
    card, one plain call and no launch on the CPU, the two equal (K2, K3,
@@ -137,6 +138,44 @@ qwen3-moe-30b-a3b.  Phases, in order (any failure exits non-zero):
    device, kernel and wall time, the eager row beside), over the eager
    ones and over NONE's.
 
+   Phase 2 also holds the recurrent families' kernels, after the two
+   main paths', with the same checks (``check_kernels`` picks the kernels
+   a family's path runs): K3 at zamba2-7b's and xlstm-350m's tables, and
+   at zamba2-7b's shapes (H = KH = 32, D = 112: K4's KSTEPS = 7
+   instantiation, K1 at G = 1) K4 in bf16 and f32 at S = 57 and 193
+   under the path's window (4,096, past S), windows inside S (32, 100)
+   and ``causal=False``, and K1 on phase 2's K1 cases under the path's
+   window, a window of 32 and none, each at every cluster size and one
+   device operation a call — where K and V set to NaN before the rows'
+   windows leave the output bit-equal (those positions are never read).
+   The rows of forms on no path (K4 under window 32 and not causal, K1
+   under window 32) report 0 launches.  Then the ops check at zamba2-7b's
+   widths.
+
+8. the recurrent families (after phase 4's paths are freed): (a) the
+   reduced zamba2-7b and xlstm-350m, float32, card against CPU on the
+   same weights through phase 3's slab run (8 rows, a forged slot id, each
+   KV layer's K1 call held against its plain version) — a 38-token
+   prefill past the reduced hybrid's 32-token window and 8 decode steps,
+   so the windowed K4 and K1 run — logits within 1e-4, greedy ids equal,
+   the launches counted; (b) the same at
+   full width and reduced depth (zamba2-7b at 7 layers: a group of 6 and
+   a 1-layer Mamba tail; xlstm-350m at 2), within 2e-3; (c) each at full
+   width and depth (81 / 24 layers, bf16 weights from a seeded
+   generator) through a slab ``ServeEngine`` (``max_batch`` 8,
+   ``max_len`` 256, a 16-slot f32 pool, 3 tenants, six 12-64-token
+   prompts, 16 new tokens) and ``serve_engines``, eager then compiled on
+   two engines of one seed (a hybrid engine's decode positions carry
+   across its waves, as the reference's do) — equal tokens, decode steps
+   and launches, K3 / K4 / K1 launched as the steps count them, no plain
+   version — printing decode-step times against the bytes floor (the
+   shared block counted once per invocation, with and without the rows'
+   state traffic), tokens/s and a compiled decode step's device
+   operations; (d) on the zamba2-7b engine, a forged slot id leaves the
+   victim's KV and state slots byte-equal, an eviction zeroes a tenant's
+   slots in every pool, and a full tenant grows through the elastic
+   plane, its KV and state slots moved by the relocation step.
+
 The last three lines of standard output are the kernel table as one JSON
 object, the card's ``name, power.limit``, and the result object.
 
@@ -152,6 +191,7 @@ each tree's port.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -249,6 +289,50 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return total / iters
 
 
+def tree_leaves(x) -> list:
+    """The leaves of a nested operand (dicts, lists, cache dataclasses)."""
+    from repro_torch.core.stepgraph import tree_flatten
+    return tree_flatten(x)[1]
+
+
+def tree_to(x, device):
+    """A nested operand with every tensor leaf moved to ``device``."""
+    from repro_torch.core.stepgraph import tree_flatten, tree_unflatten
+    struct, leaves = tree_flatten(x)
+    return tree_unflatten(struct, [t.to(device) for t in leaves])
+
+
+def tree_bytes(x) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(x))
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Within ``with``: kernel calls made to hold a kernel against its
+    plain version leave every kernel's counts as they were."""
+    from repro_torch.kernels import _build
+    kept = {k: (k.launches, k.plain_calls) for k in _build.KERNELS.values()}
+    try:
+        yield
+    finally:
+        for k, (n, m) in kept.items():
+            k.launches, k.plain_calls = n, m
+
+
+def hold_card_vs_cpu(label, card, cpu, tol: float, note: str = "") -> float:
+    """A run's ``(logits, greedy ids)`` on the card against the CPU's: the
+    ids equal, the logits within ``tol``.  Returns the logits' max error."""
+    (logits_gpu, ids_gpu), (logits_cpu, ids_cpu) = card, cpu
+    err = (logits_gpu - logits_cpu).abs().max().item()
+    if not ids_gpu.equal(ids_cpu):
+        raise AssertionError(f"{label}: greedy ids differ card vs CPU{note}: "
+                             f"{ids_gpu.tolist()} vs {ids_cpu.tolist()}")
+    if not err <= tol:
+        raise AssertionError(f"{label}: logits differ card vs CPU by {err} "
+                             f"> {tol}{note}")
+    return err
+
+
 # --------------------------------------------------------------------- #
 # Phase 2: each kernel against its plain version                        #
 # --------------------------------------------------------------------- #
@@ -296,23 +380,24 @@ def half_ulp_bf16(torch, x):
 
 
 def check_paged_attention(torch, q, k_pool, v_pool, table, lens, base, msk,
-                          page_map):
+                          page_map, window: int = 0):
     """K1 on one case, against the plain version in float32 on K/V
     rounded to q's type: a bf16 output within half a bf16 ulp (of the
     larger of the two values) plus K1_SLACK, and the control without K/V
     rounding must break that bound; an f32 output within K1_F32_TOL.
     Then every page the fence does not reach is clobbered and the output
-    must not move.  Returns the output, its worst error and error/bound,
-    the control's error/bound and the number of pages clobbered."""
+    must not move.  ``window`` is K1's sliding window (0: none).  Returns
+    the output, its worst error and error/bound, the control's
+    error/bound and the number of pages clobbered."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention
 
     bf16 = q.dtype == torch.bfloat16
     out = paged_attention(q, k_pool, v_pool, table, lens, base, msk,
-                          page_map)
+                          page_map, window=window)
     want = ref.paged_attention_ref(
         q.float(), k_pool.to(q.dtype).float(), v_pool.to(q.dtype).float(),
-        table, lens, base, msk, page_map)
+        table, lens, base, msk, page_map, window=window)
 
     def err_ratio(got):
         err = (got.float() - want).abs()
@@ -328,7 +413,8 @@ def check_paged_attention(torch, q, k_pool, v_pool, table, lens, base, msk,
     ctrl_ratio = None
     if bf16:
         ctrl = ref.paged_attention_ref(q.float(), k_pool, v_pool, table,
-                                       lens, base, msk, page_map).to(q.dtype)
+                                       lens, base, msk, page_map,
+                                       window=window).to(q.dtype)
         ctrl_ratio = err_ratio(ctrl)[1]
         if not ctrl_ratio > 1.0:
             raise AssertionError(
@@ -342,7 +428,7 @@ def check_paged_attention(torch, q, k_pool, v_pool, table, lens, base, msk,
     foreign = [p for p in range(P) if p not in own]
     k2[foreign], v2[foreign] = 12345.0, -999.0
     if not torch.equal(out, paged_attention(q, k2, v2, table, lens, base,
-                                            msk, page_map)):
+                                            msk, page_map, window=window)):
         raise AssertionError("paged_attention read outside the fence")
     return dict(out=out, err=err, ratio=ratio, ctrl_ratio=ctrl_ratio,
                 foreign=len(foreign))
@@ -350,7 +436,14 @@ def check_paged_attention(torch, q, k_pool, v_pool, table, lens, base, msk,
 
 def check_kernels(torch, cfg):
     """Rows of the kernel table at ``cfg``'s serve shapes (max_batch 8,
-    64-token pages, a 64-page pool, a ragged 57-token prefill)."""
+    64-token pages, a 64-page pool — the shape of the slab path's layer
+    view, 16 slots x 4 pages — a ragged 57-token prefill), for the kernels
+    ``cfg``'s family runs: K3 always; K4 and K1 where it attends (not
+    ssm); K2 where its path is paged (dense, MoE; the slab write is plain
+    PyTorch); K5 with experts.  K4 and K1 run under the config's window
+    (0: none).  A windowed config also gets rows under a window inside the
+    lengths and K4's ``causal=False`` form: forms on no path, whose rows
+    carry their own 0 launches."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gather_rows import gather_rows
@@ -376,8 +469,8 @@ def check_kernels(torch, cfg):
 
     rows = []
 
-    def row(name, source, replaces, **kw):
-        rows.append(dict(kernel=name, path=cfg.name, route="cuda",
+    def row(kernel, source, replaces, **kw):
+        rows.append(dict(kernel=kernel, path=cfg.name, route="cuda",
                          source=f"src/repro_torch/kernels/csrc/{source}",
                          replaces=f"src/repro/kernels/{replaces}", **kw))
 
@@ -438,6 +531,9 @@ def check_kernels(torch, cfg):
         f"({nan_rows['identity']}) and per-id fences of {quarter} rows "
         f"({nan_rows['per-id']})")
     del table
+    if cfg.family == "ssm":
+        log_rows(rows)
+        return rows
 
     # ---- K2 scatter_pages: prefill page write, forged + parked rows --- #
     k_pool = randn(P, page, KH, D)
@@ -453,66 +549,77 @@ def check_kernels(torch, cfg):
     page_ids[1, 0] = 45          # forged: tenant0's row names tenant1's id
     base = torch.tensor([16, 16, 32, 32, 0, 0, 0, 0], **i32)
     msk = torch.tensor([15, 15, 15, 15, 3, 3, 3, 3], **i32)
-    kk, vv = k_pool.clone(), v_pool.clone()
-    scatter_pages(kk, vv, k_src, v_src, page_ids, base, msk, page_map)
-    kr, vr = k_pool.clone(), v_pool.clone()
-    ref.scatter_pages_ref(kr, vr, k_src, v_src, page_ids, base, msk,
-                          page_map)
-    if not (torch.equal(kk, kr) and torch.equal(vv, vr)):
-        raise AssertionError("scatter_pages disagrees with its plain version")
-    err = max((kk - kr).abs().max().item(), (vv - vr).abs().max().item())
-    phys = ref.resolve_pages(page_ids, base[:, None], msk[:, None],
-                             page_map, P).reshape(-1)
-    written = set(int(p) for p in phys)
-    if not 1 <= int(phys[1]) <= 16:        # tenant0's physical pages
-        raise AssertionError("scatter_pages: forged id left its extent")
-    untouched = [p for p in range(P) if p not in written]
-    if not (torch.equal(kk[untouched], k_pool[untouched])
-            and torch.equal(vv[untouched], v_pool[untouched])):
-        raise AssertionError("scatter_pages wrote outside the fenced pages")
-    # bytes, K and V: for each kept page its S source tokens read and the
-    # whole page written (the padding is zero-filled, not read), plus the
-    # ids and fence operands
-    tok_bytes = KH * D * 4
-    n_bytes = (2 * len(written) * (S + page) * tok_bytes
-               + phys.numel() * 12)
-    last = {int(p): i for i, p in enumerate(phys)}    # last writer wins
-    uniq = torch.tensor(list(last), dtype=torch.long, device=dev)
-    rows_kept = torch.tensor(list(last.values()), dtype=torch.long,
-                             device=dev)
-    kv2 = torch.stack([k_pool, v_pool])
-    pages2 = torch.stack([F.pad(k_src, (0, 0, 0, 0, 0, page - S)),
-                          F.pad(v_src, (0, 0, 0, 0, 0, page - S))]
-                         )[:, rows_kept]
-    row("scatter_pages", "scatter_pages.cu", "fenced_scatter.py:53",
-        max_abs_err=err, tolerance="exact (a copy)",
-        ms=cuda_ms(torch, lambda: scatter_pages(
-            kk, vv, k_src, v_src, page_ids, base, msk, page_map)),
-        plain_ms=cuda_ms(torch, lambda: ref.scatter_pages_ref(
-            kr, vr, k_src, v_src, page_ids, base, msk, page_map)),
-        library_ms=cuda_ms(torch, lambda: kv2.index_copy_(1, uniq, pages2)),
-        library_call="Tensor.index_copy_ of the kept padded K and V pages",
-        shape=f"pools ({P},{page},{KH},{D}) f32, src ({B},{S},{KH},{D})",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound_ms(n_bytes, 0.0, "float32"))))
-    # K2's bytes alone: one copy_ of the kept padded K and V pages into
-    # as many contiguous pool pages, with no lookups and no fence
-    bytes_ms = cuda_ms(torch, lambda: kv2[:, :len(last)].copy_(pages2))
-    log(f"K2 scatter_pages ok{tag}: {len(written)} distinct pages written, "
-        f"forged id wrapped into its extent, {len(untouched)} pages "
-        f"untouched; its bytes alone (one copy_ of the kept padded pages) "
-        f"take {bytes_ms:.5f} ms")
+    paged = cfg.family in ("dense", "moe")
+    if paged:
+        kk, vv = k_pool.clone(), v_pool.clone()
+        scatter_pages(kk, vv, k_src, v_src, page_ids, base, msk, page_map)
+        kr, vr = k_pool.clone(), v_pool.clone()
+        ref.scatter_pages_ref(kr, vr, k_src, v_src, page_ids, base, msk,
+                              page_map)
+        if not (torch.equal(kk, kr) and torch.equal(vv, vr)):
+            raise AssertionError("scatter_pages disagrees with its plain "
+                                 "version")
+        err = max((kk - kr).abs().max().item(), (vv - vr).abs().max().item())
+        phys = ref.resolve_pages(page_ids, base[:, None], msk[:, None],
+                                 page_map, P).reshape(-1)
+        written = set(int(p) for p in phys)
+        if not 1 <= int(phys[1]) <= 16:        # tenant0's physical pages
+            raise AssertionError("scatter_pages: forged id left its extent")
+        untouched = [p for p in range(P) if p not in written]
+        if not (torch.equal(kk[untouched], k_pool[untouched])
+                and torch.equal(vv[untouched], v_pool[untouched])):
+            raise AssertionError("scatter_pages wrote outside the fenced "
+                                 "pages")
+        # bytes, K and V: for each kept page its S source tokens read and the
+        # whole page written (the padding is zero-filled, not read), plus the
+        # ids and fence operands
+        tok_bytes = KH * D * 4
+        n_bytes = (2 * len(written) * (S + page) * tok_bytes
+                   + phys.numel() * 12)
+        last = {int(p): i for i, p in enumerate(phys)}    # last writer wins
+        uniq = torch.tensor(list(last), dtype=torch.long, device=dev)
+        rows_kept = torch.tensor(list(last.values()), dtype=torch.long,
+                                 device=dev)
+        kv2 = torch.stack([k_pool, v_pool])
+        pages2 = torch.stack([F.pad(k_src, (0, 0, 0, 0, 0, page - S)),
+                              F.pad(v_src, (0, 0, 0, 0, 0, page - S))]
+                             )[:, rows_kept]
+        row("scatter_pages", "scatter_pages.cu", "fenced_scatter.py:53",
+            max_abs_err=err, tolerance="exact (a copy)",
+            ms=cuda_ms(torch, lambda: scatter_pages(
+                kk, vv, k_src, v_src, page_ids, base, msk, page_map)),
+            plain_ms=cuda_ms(torch, lambda: ref.scatter_pages_ref(
+                kr, vr, k_src, v_src, page_ids, base, msk, page_map)),
+            library_ms=cuda_ms(torch, lambda: kv2.index_copy_(1, uniq,
+                                                              pages2)),
+            library_call="Tensor.index_copy_ of the kept padded K and V pages",
+            shape=f"pools ({P},{page},{KH},{D}) f32, src ({B},{S},{KH},{D})",
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(n_bytes, 0.0, "float32"))))
+        # K2's bytes alone: one copy_ of the kept padded K and V pages into
+        # as many contiguous pool pages, with no lookups and no fence
+        bytes_ms = cuda_ms(torch, lambda: kv2[:, :len(last)].copy_(pages2))
+        log(f"K2 scatter_pages ok{tag}: {len(written)} distinct pages "
+            f"written, forged id wrapped into its extent, {len(untouched)} "
+            f"pages untouched; its bytes alone (one copy_ of the kept padded "
+            f"pages) take {bytes_ms:.5f} ms")
 
     # ---- K4 flash_attention: ragged prefill --------------------------- #
     # bf16 (the tensor-core kernel) and f32 (the CUDA-core kernel), at one
     # key tile (S = 57) and at four (S = 193, ragged: the online-softmax
-    # rescale across tiles), each against the plain version.  bf16: one
-    # bf16 ulp at outputs in [2, 4) (an early causal row averages only a
-    # few V rows of N(0, 1) values), which also covers the kernel's bf16
-    # rounding of P (tests/test_torch_kernels.py emulates it); f32: the
-    # sums run in another order than the plain version's.
+    # rescale across tiles), each against the plain version, in every
+    # (window, causal) form: the path's (the config's window), and for a
+    # windowed config the window inside S (32, 100) and the non-causal
+    # form, whole and windowed.  bf16: one bf16 ulp at outputs in [2, 4)
+    # (an early causal row averages only a few V rows of N(0, 1) values),
+    # which also covers the kernel's bf16 rounding of P
+    # (tests/test_torch_kernels.py emulates it); f32: the sums run in
+    # another order than the plain version's.
     tols = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
     bf16, f32 = torch.bfloat16, torch.float32
+    w_path = cfg.attn_window
+    forms = [(w_path, True)] + ([(32, True), (100, True), (0, False),
+                                 (32, False)] if w_path else [])
     cases = {(bf16, S): tuple(randn(B, S, h, D, dtype=bf16)
                               for h in (H, KH, KH))}
     for dt, s_len in ((bf16, 193), (f32, S), (f32, 193)):
@@ -521,39 +628,73 @@ def check_kernels(torch, cfg):
                                    for h in (H, KH, KH))
     errs = {}
     for (dt, s_len), (q, k, v) in cases.items():
-        got = flash_attention(q, k, v)
-        want = ref.flash_attention_ref(q, k, v)
-        err = (got.float() - want.float()).abs().max().item()
-        if not err <= tols[dt]:
-            raise AssertionError(f"flash_attention {dt} S={s_len}: "
-                                 f"error {err} > {tols[dt]}")
-        errs[(dt, s_len)] = err
-    q, k, v = cases[(bf16, S)]
-    n_bytes = 2 * B * S * (2 * H + 2 * KH) * D
-    flops = 4 * B * H * D * S * (S + 1) / 2
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    row("flash_attention", "flash_attention.cu", "flash_attention.py:84",
-        max_abs_err=max(errs[(bf16, S)], errs[(bf16, 193)]),
-        tolerance="2e-2 (bf16 output, one ulp at |out| < 4)",
-        ms=cuda_ms(torch, lambda: flash_attention(q, k, v)),
-        plain_ms=cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v)),
-        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=KH != H)),
-        library_call="F.scaled_dot_product_attention(is_causal=True)",
-        shape=f"q ({B},{S},{H},{D}), k/v ({B},{S},{KH},{D}) bf16",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound_ms(n_bytes, flops, "bfloat16"))))
+        for w, causal in forms:
+            got = flash_attention(q, k, v, causal=causal, window=w)
+            want = ref.flash_attention_ref(q, k, v, causal=causal, window=w)
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= tols[dt]:
+                raise AssertionError(
+                    f"flash_attention {dt} S={s_len} window={w} causal="
+                    f"{causal}: error {err} > {tols[dt]}")
+            errs[(dt, s_len, w, causal)] = err
+
+    def sdpa(s_len, w, causal):
+        """The library call computing K4's function in one form: the band
+        as a boolean mask where a window cuts inside S."""
+        qt, kt, vt = (t.transpose(1, 2) for t in cases[(bf16, s_len)])
+        if w and w < s_len:
+            band = band_mask(torch, s_len, w, causal)
+            return (lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=KH != H),
+                "F.scaled_dot_product_attention(attn_mask=band)")
+        return (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=KH != H),
+            f"F.scaled_dot_product_attention(is_causal={causal})")
+
+    def k4_row(s_len, w, causal, err, **kw):
+        q, k, v = cases[(bf16, s_len)]
+        lib, lib_call = sdpa(s_len, w, causal)
+        form = (f", window {w}" if w else "") + ("" if causal else
+                                                 ", not causal")
+        # bytes: q, k, v read and the output written once; operations:
+        # QK^T and PV over the (query, key) pairs of the band
+        n_bytes = 2 * B * s_len * (2 * H + 2 * KH) * D
+        flops = 4 * B * H * D * int(band_mask(torch, s_len, w, causal).sum())
+        call = (lambda: flash_attention(q, k, v, causal=causal, window=w))
+        ops = device_ops_per_call(torch, call)
+        if ops != 1:
+            raise AssertionError(f"flash_attention (S={s_len}{form}): "
+                                 f"{ops:g} device operations a call, want 1")
+        row("flash_attention", "flash_attention.cu", "flash_attention.py:84",
+            max_abs_err=err,
+            tolerance="2e-2 (bf16 output, one ulp at |out| < 4)",
+            ms=cuda_ms(torch, call), device_ops=ops,
+            plain_ms=cuda_ms(torch, lambda: ref.flash_attention_ref(
+                q, k, v, causal=causal, window=w)),
+            library_ms=cuda_ms(torch, lib), library_call=lib_call,
+            shape=f"q ({B},{s_len},{H},{D}), k/v ({B},{s_len},{KH},{D}) "
+                  f"bf16{form}",
+            **kw, **dict(zip(("bound_ms", "bound_by"),
+                             bound_ms(n_bytes, flops, "bfloat16"))))
+
+    k4_row(S, w_path, True, max(errs[(bf16, S, w_path, True)],
+                                errs[(bf16, 193, w_path, True)]))
+    if w_path:
+        k4_row(193, 32, True, errs[(bf16, 193, 32, True)],
+               name=f"flash_attention@{cfg.name}/window", launches=0)
+        k4_row(S, 0, False, errs[(bf16, S, 0, False)],
+               name=f"flash_attention@{cfg.name}/non-causal", launches=0)
     # four key tiles, timed for the log only
     q4, k4, v4 = cases[(bf16, 193)]
-    qt, kt, vt = (t.transpose(1, 2) for t in (q4, k4, v4))
-    ms_193 = cuda_ms(torch, lambda: flash_attention(q4, k4, v4))
-    sdpa_193 = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=KH != H))
-    log(f"K4 flash_attention ok{tag}: max |err| bf16 "
-        f"{errs[(bf16, S)]:.3g} (S={S}) / {errs[(bf16, 193)]:.3g} (S=193), "
-        f"tolerance 2e-2; f32 {errs[(f32, S)]:.3g} / {errs[(f32, 193)]:.3g},"
-        f" tolerance 1e-4; bf16 at S=193: kernel {ms_193:.5f} ms, "
-        f"scaled_dot_product_attention {sdpa_193:.5f} ms")
+    ms_193 = cuda_ms(torch, lambda: flash_attention(q4, k4, v4,
+                                                    window=w_path))
+    sdpa_193 = cuda_ms(torch, sdpa(193, w_path, True)[0])
+    log(f"K4 flash_attention ok{tag}: max |err| " + "; ".join(
+        f"{'bf16' if dt == bf16 else 'f32'} S={s_len}"
+        f"{f' window {w}' if w else ''} {'causal' if c else 'not causal'} "
+        f"{e:.3g}" for (dt, s_len, w, c), e in errs.items())
+        + f"; tolerance 2e-2 (bf16), 1e-4 (f32); bf16 at S=193: kernel "
+        f"{ms_193:.5f} ms, scaled_dot_product_attention {sdpa_193:.5f} ms")
 
     # ---- K1 paged_attention: decode over the f32 pool ----------------- #
     # The main row: a bf16 query, the inputs ``gen`` has always given K1
@@ -561,7 +702,9 @@ def check_kernels(torch, cfg):
     # cases from ``more``: a (8, 4) table at the main path's max_len 256
     # with a full row (all four pages), a row with seq_len 0, lengths on a
     # page boundary and lengths ending inside a 32-token tile and inside a
-    # cluster rank's share; each in bf16 and in f32.
+    # cluster rank's share; each in bf16 and in f32.  Each under the
+    # path's window, and for a windowed config also under a window of 32,
+    # inside every length past it, and under none (0).
     qd = randn(B, H, D, dtype=torch.bfloat16)
     table_ids = torch.randint(0, 64, (B, 4), generator=gen, **i32)  # forged
     lens = torch.randint(17, 81, (B,), generator=gen, **i32)
@@ -577,45 +720,86 @@ def check_kernels(torch, cfg):
         ("f32", "max_len 256"): (randn(B, H, D, generator=more), cov_table,
                                  cov_lens),
     }
-    k1 = {case: check_paged_attention(torch, q_, k_pool, v_pool, t_, l_,
-                                      base, msk, page_map)
-          for case, (q_, t_, l_) in k1_cases.items()}
+    windows = [w_path] + ([32, 0] if w_path else [])
+    k1 = {(dt, name, w): check_paged_attention(
+              torch, q_, k_pool, v_pool, t_, l_, base, msk, page_map,
+              window=w)
+          for w in windows for (dt, name), (q_, t_, l_) in k1_cases.items()}
     # the fence by value: the identity fence on the resolved physical
     # pages gives the per-row fenced result bit for bit
     phys = ref.resolve_pages(table_ids, base[:, None], msk[:, None],
                              page_map, P)
     if not torch.equal(paged_attention(qd, k_pool, v_pool, phys, lens, 0,
-                                       -1),
-                       k1[("bf16", "main")]["out"]):
+                                       -1, window=w_path),
+                       k1[("bf16", "main", w_path)]["out"]):
         raise AssertionError("paged_attention under the scalar identity "
                              "fence differs from the per-row fence")
-    main = k1[("bf16", "main")]
-    # bytes: each held K and V token row read once (f32), q read and out
-    # written (bf16), the page table and the per-row lens/base/mask read
-    n_bytes = (2 * int(lens.sum()) * KH * D * 4 + 2 * B * H * D * 2
-               + table_ids.numel() * 4 + 3 * B * 4)
-    flops = 4 * int(lens.sum()) * H * D
-    call = (lambda: paged_attention(qd, k_pool, v_pool, table_ids, lens,
-                                    base, msk, page_map))
-    ops = device_ops_per_call(torch, call)
-    if ops != 1:
-        raise AssertionError(f"paged_attention: {ops:g} device operations "
-                             "a call, want 1")
-    row("paged_attention", "paged_attention.cu",
-        "fenced_paged_attention.py:173",
-        max_abs_err=main["err"],
-        tolerance=f"1/2 bf16 ulp + {K1_SLACK:g} of the f32 plain version "
-                  f"on bf16-rounded K/V (worst error/bound "
-                  f"{main['ratio']:.3f}; the control without K/V rounding "
-                  f"{main['ctrl_ratio']:.3g})",
-        ms=cuda_ms(torch, call),
-        plain_ms=cuda_ms(torch, lambda: ref.paged_attention_ref(
-            qd, k_pool, v_pool, table_ids, lens, base, msk, page_map)),
-        library_ms=None, library_call=None,
-        device_ops=ops,
-        shape=f"q ({B},{H},{D}) bf16, pool ({P},{page},{KH},{D}) f32",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound_ms(n_bytes, flops, "float32"))))
+    phys_cov = ref.resolve_pages(cov_table, base[:, None], msk[:, None],
+                                 page_map, P)
+    q256 = k1_cases[("bf16", "max_len 256")][0]
+    calls = {(name, w): (lambda q_=q_, t_=t_, l_=l_, w=w: paged_attention(
+                 q_, k_pool, v_pool, t_, l_, base, msk, page_map, window=w))
+             for w in windows
+             for name, (q_, t_, l_) in (("main", (qd, table_ids, lens)),
+                                        ("max_len 256", (q256, cov_table,
+                                                         cov_lens)))}
+    ops = {}
+    for (name, w), call in calls.items():
+        ops[(name, w)] = device_ops_per_call(torch, call)
+        if ops[(name, w)] != 1:
+            raise AssertionError(f"paged_attention ({name}, window {w}): "
+                                 f"{ops[(name, w)]:g} device operations a "
+                                 "call, want 1")
+
+    def k1_row(q_, tbl, phys_, lens_, w, chk, **kw):
+        # bytes: each distinct K and V token row the output needs read
+        # once (f32) — a token that several rows read (a shared or a
+        # garbage page) counts once, a row with no band needs V only — q
+        # read and out written (bf16), the page table and the per-row
+        # lens/base/mask read; operations: each row's query against each
+        # position it walks
+        pairs, k_tok, v_tok = k1_held(phys_, lens_, page, w)
+        n_bytes = ((k_tok + v_tok) * KH * D * 4 + 2 * B * H * D * 2
+                   + tbl.numel() * 4 + 3 * B * 4)
+        row("paged_attention", "paged_attention.cu",
+            "fenced_paged_attention.py:173",
+            max_abs_err=chk["err"],
+            tolerance=f"1/2 bf16 ulp + {K1_SLACK:g} of the f32 plain version "
+                      f"on bf16-rounded K/V (worst error/bound "
+                      f"{chk['ratio']:.3f}; the control without K/V rounding "
+                      f"{chk['ctrl_ratio']:.3g})",
+            ms=cuda_ms(torch, lambda: paged_attention(
+                q_, k_pool, v_pool, tbl, lens_, base, msk, page_map,
+                window=w)),
+            plain_ms=cuda_ms(torch, lambda: ref.paged_attention_ref(
+                q_, k_pool, v_pool, tbl, lens_, base, msk, page_map,
+                window=w)),
+            library_ms=None, library_call=None,
+            shape=f"q ({B},{H},{D}) bf16, pool ({P},{page},{KH},{D}) f32"
+                  + (f", window {w}, lengths {lens_.tolist()}" if w else ""),
+            **kw, **dict(zip(("bound_ms", "bound_by"),
+                             bound_ms(n_bytes, 4 * pairs * H * D,
+                                      "float32"))))
+
+    k1_row(qd, table_ids, phys, lens, w_path,
+           k1[("bf16", "main", w_path)], device_ops=ops[("main", w_path)])
+    nan_at = 0
+    if w_path:
+        k1_row(q256, cov_table, phys_cov, cov_lens, 32,
+               k1[("bf16", "max_len 256", 32)],
+               device_ops=ops[("max_len 256", 32)],
+               name=f"paged_attention@{cfg.name}/window", launches=0)
+        # positions before a row's band are never loaded: NaN K and V at
+        # every one that no row's band covers leave the output bit-equal
+        k_nan, v_nan, nan_at = nan_before_window(torch, k_pool, v_pool,
+                                                 phys_cov, cov_lens, 32)
+        if not torch.equal(calls[("max_len 256", 32)](),
+                           paged_attention(q256, k_nan, v_nan, cov_table,
+                                           cov_lens, base, msk, page_map,
+                                           window=32)):
+            raise AssertionError(f"paged_attention{tag}: a position before "
+                                 "the window moved the output")
+        del k_nan, v_nan
     # K1's bytes alone: one index_select of the held K and V token rows
     # (every KV head), the same bytes the kernel reads, with no chain of
     # lookups before them and no math after
@@ -626,57 +810,134 @@ def check_kernels(torch, cfg):
     bytes_ms = cuda_ms(torch, lambda: kv_rows.index_select(1, held))
     log(f"K1's bytes alone{tag}: one index_select of the {held.numel()} "
         f"held K and V token rows takes {bytes_ms:.5f} ms")
-    q256 = k1_cases[("bf16", "max_len 256")][0]
-    call_256 = (lambda: paged_attention(q256, k_pool, v_pool, cov_table,
-                                        cov_lens, base, msk, page_map))
-    ms_256 = cuda_ms(torch, call_256)
+    ms_256 = cuda_ms(torch, calls[("max_len 256", w_path)])
     # every cluster size the kernel can launch, each checked as above and
-    # timed on the main row's inputs and on the max_len 256 lengths
+    # timed on the main row's inputs and on the max_len 256 lengths, under
+    # each window
     K1 = sys.modules["repro_torch.kernels.paged_attention"]
     chosen, sweep = K1.cluster_size, []
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     try:
         for c in (1, 2, 4, 8):
             K1.cluster_size = lambda pairs, n_sm, c=c: c
-            for q_, t_, l_ in (k1_cases[("bf16", "main")],
-                               k1_cases[("bf16", "max_len 256")]):
-                check_paged_attention(torch, q_, k_pool, v_pool, t_, l_,
-                                      base, msk, page_map)
-            sweep.append(f"C={c} {cuda_ms(torch, call):.5f} / "
-                         f"{cuda_ms(torch, call_256):.5f} ms")
+            for w in windows:
+                for q_, t_, l_ in (k1_cases[("bf16", "main")],
+                                   k1_cases[("bf16", "max_len 256")]):
+                    check_paged_attention(torch, q_, k_pool, v_pool, t_, l_,
+                                          base, msk, page_map, window=w)
+                sweep.append(
+                    f"C={c}{f' window {w}' if w else ''} "
+                    f"{cuda_ms(torch, calls[('main', w)]):.5f} / "
+                    f"{cuda_ms(torch, calls[('max_len 256', w)]):.5f} ms")
     finally:
         K1.cluster_size = chosen
     log(f"K1 cluster sizes{tag} (main inputs / max_len 256 lengths; the "
         f"path runs C={chosen(B * KH, n_sm)}): " + ", ".join(sweep))
     log(f"K1 paged_attention ok{tag}: " + "; ".join(
-        f"{dt} {name}: max |err| {r['err']:.3g}, error/bound {r['ratio']:.3f}"
+        f"{dt} {name}{f' window {w}' if w else ''}: max |err| "
+        f"{r['err']:.3g}, error/bound {r['ratio']:.3f}"
         + (f", control without K/V rounding {r['ctrl_ratio']:.3g}"
            if dt == "bf16" else "")
         + f", {r['foreign']} foreign pages clobbered, output unchanged"
-        for (dt, name), r in k1.items())
+        for (dt, name, w), r in k1.items())
         + f"; bound 1/2 bf16 ulp + {K1_SLACK:g} (bf16), {K1_F32_TOL:g} (f32);"
         f" the identity fence by value equals the per-row fence; lengths "
         f"{cov_lens.tolist()}: kernel {ms_256:.5f} ms; "
-        f"{ops:g} device operation(s) a call")
+        + ", ".join(f"{n:g} device operation(s) a call ({name}"
+                    f"{f', window {w}' if w else ''})"
+                    for (name, w), n in ops.items())
+        + (f"; NaN K/V at the {nan_at} positions before the window 32 that "
+           "no band covers leave the output bit-equal" if w_path else ""))
 
     if cfg.moe is not None:
         check_moe_histogram(torch, cfg, gen, more, row)
     # K2's added checks and the main path's prefill write come last: they
     # draw from ``more`` after every earlier check has drawn its inputs
-    check_scatter_pages_forms(torch, cfg, more, k_pool, v_pool, page_map)
-    check_prefill_write(torch, cfg, more)
+    if paged:
+        check_scatter_pages_forms(torch, cfg, more, k_pool, v_pool, page_map)
+        check_prefill_write(torch, cfg, more)
+    log_rows(rows)
+    return rows
+
+
+def log_rows(rows) -> None:
     for r in rows:
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms ({r['library_call']})"
-        log(f"  {r['kernel']} [{r['path']}], {r['shape']}: max |err| "
-            f"{r['max_abs_err']:.3g}"
+        log(f"  {r.get('name', r['kernel'])} [{r['path']}], {r['shape']}: "
+            f"max |err| {r['max_abs_err']:.3g}"
             f" (tolerance {r['tolerance']}); kernel {r['ms']:.5f} ms, plain "
             f"{r['plain_ms']:.5f} ms, library {lib}, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']})"
             + (f", {r['device_ops']:g} device operation(s) a call"
                if "device_ops" in r else ""))
-    return rows
 
+
+def band_mask(torch, S, window, causal):
+    """K4's band as ``scaled_dot_product_attention``'s boolean mask (True
+    attends): key j <= query i when ``causal``, j > i - window when
+    ``window`` > 0."""
+    pos = torch.arange(S, device="cuda")
+    band = torch.ones(S, S, dtype=torch.bool, device="cuda")
+    if causal:
+        band &= pos[None, :] <= pos[:, None]
+    if window:
+        band &= pos[None, :] > pos[:, None] - window
+    return band
+
+
+def k1_walk(n: int, window: int, cap: int):
+    """(lo, hi, attends) for a K1 row of ``n`` held tokens over ``cap``
+    positions: the positions [lo, hi) the kernel and its plain version
+    read — the band, the last ``window`` (all when 0) of the held tokens —
+    or, when the band holds no position (``n`` <= 0, or a band past the
+    table), every position, whose V the row's uniform mean needs and
+    whose K it does not (``attends`` False)."""
+    lo, hi = 0, (min(n, cap) if n > 0 else cap)
+    if window > 0 and n > 0:
+        lo = max(n - window, 0)
+        if lo >= hi:
+            return 0, cap, False
+    return lo, hi, n > 0
+
+
+def k1_held(phys, lens, page: int, window: int = 0):
+    """(pairs, K tokens, V tokens) of a K1 call through each row's
+    resolved pages ``phys``: the (row, position) pairs it walks
+    (:func:`k1_walk`), and the distinct (page, position) pairs whose K and
+    whose V the output needs — a token that several rows read (a shared
+    or a garbage page) is one token of bytes."""
+    cap = phys.shape[1] * page
+    pairs, k_seen, v_seen = 0, set(), set()
+    for pg, n in zip(phys.tolist(), lens.tolist()):
+        lo, hi, attends = k1_walk(n, window, cap)
+        at = {(pg[t // page], t % page) for t in range(lo, hi)}
+        pairs += hi - lo
+        v_seen |= at
+        if attends:
+            k_seen |= at
+    return pairs, len(k_seen), len(v_seen)
+
+
+def nan_before_window(torch, k_pool, v_pool, phys, lens, window: int):
+    """Copies of the pools with NaN K and V at every position that lies
+    before some row's band and that no row reads (:func:`k1_walk`, through
+    each row's resolved pages ``phys``), and the number of such
+    positions."""
+    page = k_pool.shape[1]
+    cap = phys.shape[1] * page
+    read, before = set(), set()
+    for pg, n in zip(phys.tolist(), lens.tolist()):
+        lo, hi, attends = k1_walk(n, window, cap)
+        read.update((pg[t // page], t % page) for t in range(lo, hi))
+        if attends:
+            before.update((pg[t // page], t % page) for t in range(lo))
+    at = sorted(before - read)
+    k, v = k_pool.clone(), v_pool.clone()
+    if at:
+        idx = tuple(torch.tensor(c, device=k_pool.device) for c in zip(*at))
+        k[idx], v[idx] = float("nan"), float("nan")
+    return k, v, len(at)
 
 def check_ops(torch, cfg):
     """K1-K5 called through their custom ops ``repro_torch::<kernel>`` at
@@ -708,9 +969,11 @@ def check_ops(torch, cfg):
         "scatter_pages": ((*pool, rand(2, 70, KH, D), rand(2, 70, KH, D),
                            ints(0, 64, 2, 2), None, None, 0, 7, None), 0.0),
         "flash_attention": ((rand(2, 40, H, D), rand(2, 40, KH, D),
-                             rand(2, 40, KH, D)), 1e-4),
+                             rand(2, 40, KH, D), True, cfg.attn_window),
+                            1e-4),
         "paged_attention": ((rand(2, H, D), *pool, ints(0, 64, 2, 2),
-                             ints(1, 129, 2), None, None, 0, 7, None), 1e-4),
+                             ints(1, 129, 2), None, None, 0, 7, None,
+                             cfg.attn_window), 1e-4),
     }
     if cfg.moe is not None:
         E = cfg.moe.num_experts
@@ -1058,24 +1321,27 @@ def check_prefill_write(torch, cfg, gen):
 # Phase 3: full width, 2 layers, card against CPU                       #
 # --------------------------------------------------------------------- #
 
-def slab_full_width(torch, cfg, cfg2, api):
+def slab_full_width(torch, cfg, api, S: int = 24, steps: int = 4):
     """Phase 3's slab leg, as a ``run(device, params)`` like the paged
     leg's: the engine's slab geometry (8 rows, 16 slots of 4 pages, the
     ``(64, page, KH, D)`` layer view K1 reads), tenants a [8, 12) and b
     [12, 16), rows 0-2 serving (row 1's slot forged into b's extent), rows
-    3-7 in scratch slots 0-4; a 24-token prefill in the ``permute``
-    formulation, then 4 decode steps.  On the card, each layer's K1 call
-    over the slab view (the rows' ids and lengths after the prefill) is
-    held against K1's plain version, with every slab no row addresses
-    clobbered.  No two rows share a slot here: rows sharing one sum their
-    slabs (``permute``), in another order on the card than on the CPU,
-    which the CPU tests hold instead (tests/test_torch_slab.py)."""
+    3-7 in scratch slots 0-4; an ``S``-token prefill in the ``permute``
+    formulation, then ``steps`` decode steps.  Any slab cache: a KV slab,
+    a recurrent state pool (ssm) or both (hybrid), the slot ids set on
+    each half, the state fenced as the KV.  On the card, each KV layer's
+    K1 call over the slab view (the rows' ids and lengths after the
+    prefill, the config's window) is held against K1's plain version, with
+    every slab no row addresses clobbered; those calls leave the kernel
+    counts as they were.  No two rows share a slot here: rows sharing one
+    sum their slabs (``permute``), in another order on the card than on
+    the CPU, which the CPU tests hold instead (tests/test_torch_slab.py)."""
     from repro_torch.core.fence import FenceParams, FencePolicy, FenceTable
     from repro_torch.core.partition import Partition
     from repro_torch.models import kvcache as KV
     from repro_torch.models.guard import GuardSpec
 
-    B, S, max_len, slots = 8, 24, 256, 16
+    B, max_len, slots = 8, 256, 16
     parts = [Partition("a", 8, 4), Partition("b", 12, 4),
              Partition("scratch", 0, 8)]
     cols = torch.tensor([0, 0, 1] + [2] * 5, dtype=torch.int32)
@@ -1092,16 +1358,17 @@ def slab_full_width(torch, cfg, cfg2, api):
             expert=(FenceParams(0, pow2(cfg.moe.num_experts))
                     if cfg.moe else None),
             page=FenceParams(0, max_len // KV.PAGE_SIZE))
-        cache = dataclasses.replace(
+        cache = KV.with_slot_ids(
             api.init_cache(B, max_len, dtype=torch.float32, slots=slots,
-                           device=device), slot_ids=slot_ids.to(device))
+                           device=device), slot_ids.to(device))
         cache, logits = api.prefill(p, cache, {"tokens": toks.to(device)},
                                     guard=guard)
         if device == "cuda":
-            check_slab_view(torch, cfg, cache, guard)
+            with uncounted():
+                check_slab_view(torch, cfg, cache, guard)
         outs, ids = [logits.float().cpu()], [logits.argmax(-1).cpu()]
         nxt = logits.argmax(-1).to(torch.int32)
-        for _ in range(4):
+        for _ in range(steps):
             cache, logits = api.decode(p, cache, nxt, guard=guard)
             outs.append(logits.float().cpu())
             ids.append(logits.argmax(-1).cpu())
@@ -1112,24 +1379,33 @@ def slab_full_width(torch, cfg, cfg2, api):
 
 
 def check_slab_view(torch, cfg, cache, guard):
-    """K1 over a slab cache's flattened layer views, each layer: the ids
-    of the step's :class:`SlabDecodePlan` (identity fence), lengths
-    ``seq_lens + 1``, an f32 query (the model's K/V, not random ones, so
-    phase 2's bf16 control has no margin to break) — against the plain
-    version within K1_F32_TOL, every page no row addresses clobbered
-    (``check_paged_attention``)."""
+    """K1 over a slab cache's flattened layer views, each layer, as the
+    next decode step calls it: the ids of the step's
+    :class:`SlabDecodePlan` (identity fence), lengths ``seq_lens + 1``
+    (the write position clamped to the slab's last slot, as the hybrid's
+    decode does), the config's window, an f32 query (the model's K/V, not
+    random ones, so phase 2's bf16 control has no margin to break) —
+    against the plain version within K1_F32_TOL, every page no row
+    addresses clobbered (``check_paged_attention``).  A state pool alone
+    holds no K/V and is skipped."""
     from repro_torch.models import kvcache as KV
 
-    plan = KV.decode_plan(cache, guard)
-    B = cache.slot_ids.shape[0]
+    kv = getattr(cache, "kv", cache)
+    if not hasattr(kv, "k"):
+        return
+    clamped = dataclasses.replace(
+        kv, seq_lens=torch.clamp(kv.seq_lens, max=kv.max_len - 1))
+    plan = KV.decode_plan(clamped, guard)
+    lens = torch.clamp(kv.seq_lens + 1, max=kv.max_len)
+    B = kv.slot_ids.shape[0]
     gen = torch.Generator(device="cuda").manual_seed(99)
     zero = torch.zeros(B, dtype=torch.int32, device="cuda")
-    for layer in range(cache.k.shape[0]):
-        k_l, v_l = (x[layer].flatten(0, 1) for x in (cache.k, cache.v))
+    for layer in range(kv.k.shape[0]):
+        k_l, v_l = (x[layer].flatten(0, 1) for x in (kv.k, kv.v))
         q = torch.randn(B, cfg.n_heads, cfg.head_dim, generator=gen,
                         device="cuda")
-        check_paged_attention(torch, q, k_l, v_l, plan.view_pages,
-                              cache.seq_lens + 1, zero, zero - 1, None)
+        check_paged_attention(torch, q, k_l, v_l, plan.view_pages, lens,
+                              zero, zero - 1, None, window=cfg.attn_window)
 
 
 def check_full_width(torch, cfg):
@@ -1144,15 +1420,8 @@ def check_full_width(torch, cfg):
     gen = torch.Generator(device="cuda").manual_seed(7)
     params = api.init(gen, "cuda")
 
-    def to_cpu(x):
-        if isinstance(x, dict):
-            return {k: to_cpu(v) for k, v in x.items()}
-        if isinstance(x, list):
-            return [to_cpu(v) for v in x]
-        return x.cpu()
-
-    cpu_params = to_cpu(params)
-    run_slab = slab_full_width(torch, cfg, cfg2, api)
+    cpu_params = tree_to(params, "cpu")
+    run_slab = slab_full_width(torch, cfg, api)
     B, S, P, max_len = 2, 24, 16, 128
     page_map = torch.zeros(P, dtype=torch.int32)
     page_map[4:8] = torch.tensor([1, 2, 3, 4])
@@ -1202,18 +1471,12 @@ def check_full_width(torch, cfg):
     try:
         for layout, fn in (("paged", run), ("slab", run_slab)):
             margins.clear()
-            logits_gpu, ids_gpu = fn("cuda", params)
-            logits_cpu, ids_cpu = fn("cpu", cpu_params)
-            err = (logits_gpu - logits_cpu).abs().max().item()
+            card = fn("cuda", params)
+            cpu = fn("cpu", cpu_params)
             margin = f"; smallest top-{cfg.moe.top_k} routing margin " \
                 f"{min(float(m) for m in margins):.3g}" if margins else ""
-            if not torch.equal(ids_gpu, ids_cpu):
-                raise AssertionError(
-                    f"{layout}: greedy ids differ card vs CPU{margin}: "
-                    f"{ids_gpu.tolist()} vs {ids_cpu.tolist()}")
-            if not err <= tol:
-                raise AssertionError(f"{layout}: full-width logits differ "
-                                     f"by {err} > {tol}{margin}")
+            err = hold_card_vs_cpu(f"{layout} full width", card, cpu, tol,
+                                   margin)
             log(f"full width x 2 layers (f32) [{cfg.name}, {layout}]: card "
                 f"vs CPU greedy ids equal over prefill + 4 decodes, max "
                 f"|logit err| {err:.3g} (tolerance {tol}){margin}")
@@ -1491,15 +1754,9 @@ def decode_floor_bytes(params) -> int:
     layer weight (the capacity dispatch multiplies every expert, tokens or
     not), the final norm and the LM head; the embedding table only for its
     8 rows, which are left out."""
-    def size(x):
-        if isinstance(x, dict):
-            return sum(size(v) for v in x.values())
-        if isinstance(x, list):
-            return sum(size(v) for v in x)
-        return x.numel() * x.element_size()
-
     head = params["embed"].get("head", params["embed"]["table"])
-    return size(params["layers"]) + size(params["norm_f"]) + size(head)
+    return (tree_bytes(params["layers"]) + tree_bytes(params["norm_f"])
+            + tree_bytes(head))
 
 
 class RouteTally:
@@ -2001,9 +2258,10 @@ def check_slab_run(cfg, label, run, tokens: int = 16):
 def slab_kernel_row(torch, cfg):
     """K1 over the slab layer view at the full-size slab path's shapes —
     8 rows, 16 slots of 4 pages (a (64, 64, KH, D) f32 view), a bf16
-    query, the identity fence, ids ``slot * 4 + page`` of three tenants'
-    rows and five rows parked on the scratch slot, 28 held tokens (a
-    12-token prompt and 16 steps) — checked and timed as phase 2's rows."""
+    query, the identity fence, ids ``slot * 4 + page`` of four rows on
+    three tenants' slots and four rows parked on the scratch slot 0, 28
+    held tokens (a 12-token prompt and 16 steps) — checked and timed as
+    phase 2's rows, the bound counting the scratch slot's tokens once."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention
 
@@ -2022,9 +2280,11 @@ def slab_kernel_row(torch, cfg):
     chk = check_paged_attention(torch, q, k_view, v_view, ids, lens, zero,
                                 zero - 1, None)
     call = (lambda: paged_attention(q, k_view, v_view, ids, lens, 0, -1))
-    n_bytes = (2 * int(lens.sum()) * KH * D * 4 + 2 * B * H * D * 2
+    # bytes: the four rows on the scratch slot read its tokens once
+    pairs, k_tok, v_tok = k1_held(ids, lens, page)
+    n_bytes = ((k_tok + v_tok) * KH * D * 4 + 2 * B * H * D * 2
                + ids.numel() * 4 + B * 4)
-    flops = 4 * int(lens.sum()) * H * D
+    flops = 4 * pairs * H * D
     return dict(
         kernel="paged_attention", path=f"{cfg.name}/slab", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -3018,6 +3278,293 @@ def _tenant_isolation(torch, card, cpu, policy, sz):
             f"{detail}")
 
 
+# --------------------------------------------------------------------- #
+# Phase 2 (recurrent families) and phase 8: the recurrent families      #
+# --------------------------------------------------------------------- #
+
+#: the recurrent families' paths: zamba2-7b (hybrid: Mamba2 blocks and a
+#: shared, windowed attention block) and xlstm-350m (ssm: mLSTM / sLSTM)
+RECURRENT = ("zamba2-7b", "xlstm-350m")
+
+
+def recurrent_card_vs_cpu(torch, cfg, label, prompt: int, steps: int,
+                          tol: float):
+    """Phase 8 (a) / (b): ``cfg`` (float32) through phase 3's slab run
+    (:func:`slab_full_width`, a ``prompt``-token prefill and ``steps``
+    greedy decode steps) on the card through the kernels and on the CPU
+    through the plain versions, from the same weights (drawn on the CPU,
+    copied to the card): greedy ids equal, logits within ``tol``, and the
+    kernels the card ran counted (no plain version)."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import get_model
+
+    api = get_model(cfg)
+    params = api.init(torch.Generator().manual_seed(11), "cpu")
+    run = slab_full_width(torch, cfg, api, S=prompt, steps=steps)
+    _build.reset_counts()
+    card = run("cuda", tree_to(params, "cuda"))
+    launches = {k.name: k.launches for k in _build.KERNELS.values()}
+    plain = sum(k.plain_calls for k in _build.KERNELS.values())
+    err = hold_card_vs_cpu(label, card, run("cpu", params), tol)
+    if plain:
+        raise AssertionError(f"{label}: {plain} plain calls on the card")
+    want = {"gather_rows": 1 + steps}
+    if cfg.family == "hybrid":
+        g = cfg.n_layers // cfg.attn_every
+        want.update(flash_attention=g, paged_attention=g * steps)
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+    log(f"{label} [{cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"f32]: card vs CPU greedy ids equal over a {prompt}-token prefill "
+        f"+ {steps} decodes of 8 rows, max |logit err| {err:.3g} (tolerance "
+        f"{tol}); launches on the card {want}"
+        + (f" (window {cfg.attn_window})" if cfg.attn_window else ""))
+
+
+def recurrent_floor_bytes(eng) -> dict:
+    """The bytes one decode step of ``eng`` must move at least: every
+    weight it reads once per use (the hybrid's shared block once per
+    invocation), the final norm and the LM head (the embedding's 8 rows
+    left out); and each row's state read and written (SSM / conv, or the
+    mLSTM / sLSTM state) — the K/V history of the shared block is left
+    out (at most 80 tokens a row)."""
+    p, cfg = eng.params, eng.cfg
+    head = p["embed"].get("head", p["embed"]["table"])
+    if cfg.family == "hybrid":
+        g = cfg.n_layers // cfg.attn_every
+        weights = (tree_bytes(p["mamba"]) + tree_bytes(p.get("mamba_tail",
+                                                            []))
+                   + g * tree_bytes(p["shared_attn"]))
+        pools = eng._pool.buf["state"]["pools"]
+    else:
+        weights = tree_bytes(p["mlstm"]) + tree_bytes(p["slstm"])
+        pools = eng._pool.buf["pools"]
+    state = sum(2 * eng.max_batch * t[:, 0].numel() * t.element_size()
+                for t in pools.values())
+    return {"weights": weights + tree_bytes(p["norm_f"]) + tree_bytes(head),
+            "state": state}
+
+
+def recurrent_serve(torch, cfg, smi: str):
+    """Phase 8 (c): ``cfg`` at full width and depth through a slab
+    ``ServeEngine`` (``max_batch`` 8, ``max_len`` 256, a 16-slot f32 pool,
+    3 tenants of 2 slots, six 12-64-token prompts, 16 new tokens) and
+    ``serve_engines``, served eager, then compiled on a second engine of
+    the same seed (a hybrid engine's decode positions carry across its
+    waves, as the reference's do): equal tokens, decode steps and
+    launches; every kernel of the path launched as the steps count it
+    (counts set to 0 just before each run and read just after), no plain
+    version.  Prints set-up, decode-step times against the bytes floor,
+    tokens/s, graphs and the device operations of a compiled decode step.
+    Returns the compiled engine and its run's launches."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import ServeEngine, serve_engines
+
+    gen = torch.Generator().manual_seed(8)
+    lens = [12, 64, 37, 20, 51, 28]
+    prompts = [torch.randint(1, cfg.vocab, (n,), generator=gen).tolist()
+               for n in lens]
+    g = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    runs, eng = {}, None
+    for mode in ("eager", "compiled"):
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, max_batch=8, max_len=256, seed=0,
+                          jit_steps=mode == "compiled")
+        for t in range(3):
+            eng.register_tenant(f"tenant{t}", 2)
+        torch.cuda.synchronize()
+        pool_gb = tree_bytes(eng._pool.buf) / 1e9
+        log(f"recurrent set-up [{cfg.name}, {mode}]: "
+            f"{time.perf_counter() - t0:.1f} s (weights, pool, manager); "
+            f"{cfg.n_layers} layers, pool {pool_gb:.2f} GB, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        graphs0 = eng.manager.jit_cache_stats()["graphs"]
+        dec0 = eng.decode_steps
+        rids = [eng.submit(f"tenant{i % 3}", p)
+                for i, p in enumerate(prompts)]
+        with DispatchTimes(torch, eng) as times:
+            torch.cuda.synchronize()
+            _build.reset_counts()
+            t1 = time.perf_counter()
+            out = serve_engines([eng], max_new_tokens=16)[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        launches = {k.name: k.launches for k in _build.KERNELS.values()}
+        plain = {k.name: k.plain_calls for k in _build.KERNELS.values()}
+        toks = [out.get(r) for r in rids]
+        for rid, t in zip(rids, toks):
+            if t is None or len(t) != 16 or not all(0 <= x < cfg.vocab
+                                                    for x in t):
+                raise AssertionError(f"recurrent [{cfg.name}] request "
+                                     f"{rid}: bad tokens {t}")
+        n_dec = eng.decode_steps - dec0
+        want = {"gather_rows": 1 + n_dec, "flash_attention": g,
+                "paged_attention": g * n_dec, "scatter_pages": 0,
+                "moe_histogram": 0}
+        if launches != want:
+            raise AssertionError(f"recurrent [{cfg.name}, {mode}]: launches "
+                                 f"{launches} differ from the per-step "
+                                 f"count {want}")
+        if any(plain.values()):
+            raise AssertionError(f"recurrent [{cfg.name}, {mode}]: plain "
+                                 f"versions ran on the card: {plain}")
+        step_ms, capture_ms, host_ms, _ = times.read()
+        del times                      # it holds the engine
+        runs[mode] = dict(tokens=toks, decodes=n_dec, launches=launches,
+                          wall=wall, step_ms=step_ms, capture_ms=capture_ms,
+                          host_ms=host_ms,
+                          graphs=eng.manager.jit_cache_stats()["graphs"]
+                          - graphs0, peak=torch.cuda.max_memory_allocated())
+    eager, comp = runs["eager"], runs["compiled"]
+    for key in ("tokens", "decodes", "launches"):
+        if eager[key] != comp[key]:
+            raise AssertionError(f"recurrent [{cfg.name}]: compiled {key} "
+                                 f"differ from eager: {comp[key]} vs "
+                                 f"{eager[key]}")
+    floor = recurrent_floor_bytes(eng)
+    w_ms = floor["weights"] / HBM_BYTES_PER_S * 1e3
+    ws_ms = (floor["weights"] + floor["state"]) / HBM_BYTES_PER_S * 1e3
+    n_tok = sum(len(t) for t in comp["tokens"])
+    log(f"recurrent [{cfg.name}]: {len(prompts)} requests (prompts {lens}) "
+        f"x 16 tokens in one lockstep wave, eager and compiled (two engines "
+        f"of one seed) with equal tokens; 1 prefill, {comp['decodes']} "
+        f"decode steps "
+        f"each; kernel launches {comp['launches']} in each run"
+        + (f" (per prefill: K3 1, K4 {g}; per decode step: K3 1, K1 {g}; "
+           f"window {cfg.attn_window})" if g else
+           " (per prefill and per decode step: K3 1)"))
+    for mode, r in runs.items():
+        ms = r["step_ms"]
+        med = statistics.median(ms)
+        first = (f"; first (warm-up + capture) {r['capture_ms'][0]:.2f} ms"
+                 if r["capture_ms"] else "")
+        log(f"decode step [{cfg.name}, slab, {mode}]: median {med:.2f} ms, "
+            f"min {ms[0]:.2f} ms, max {ms[-1]:.2f} ms over {len(ms)} steps"
+            f"{first}; floor {floor['weights'] / 1e9:.2f} GB of weights = "
+            f"{w_ms:.2f} ms at 3.35 TB/s ({w_ms / med:.1%} of the median), "
+            f"with the rows' state read and written "
+            f"{(floor['weights'] + floor['state']) / 1e9:.2f} GB = "
+            f"{ws_ms:.2f} ms ({ws_ms / med:.1%}); host wall of a dispatch "
+            f"median {r['host_ms']:.2f} ms; {n_tok / r['wall']:.1f} tokens/s"
+            f" ({r['wall']:.2f} s); graphs {r['graphs']}; peak memory "
+            f"{r['peak'] / 1e9:.2f} GB; {smi}")
+
+    def serve_one(n):
+        eng.submit("tenant2", list(range(1, 13)))
+        eng.run(max_new_tokens=n)
+
+    per = decode_step_ops(torch, serve_one)
+    log(f"decode step ops [{cfg.name}, slab, compiled]: "
+        + ("not measured (the profiler saw no device time)" if per is None
+           else f"{per[0]:.1f} device operations, {per[1]:.2f} ms of "
+                f"device time a step (one request); {smi}"))
+    return eng, comp["launches"]
+
+
+def _slot_rows(eng, part):
+    """Copies of every pool tensor's slots of partition ``part``."""
+    return [t[:, part.base:part.end].clone()
+            for t in tree_leaves(eng._pool.buf)]
+
+
+def recurrent_fences(torch, eng):
+    """Phase 8 (d), on the full-size zamba2-7b engine: a request of
+    tenant1 whose slot id is forged to tenant0's base leaves every pool's
+    tenant0 slots (KV slabs, SSM and conv state) byte-equal; tenant2's
+    eviction zeroes its slots in every pool; then tenant0, full, takes a
+    third request and grows through the elastic plane into the freed
+    room: the relocation step moves its KV and state slots to the new
+    extent (the old slots zeroed), and the grown tenant's requests
+    serve."""
+    victim = eng.manager.bounds.lookup("tenant0")
+    kept = _slot_rows(eng, victim)
+    if not all(bool((t != 0).any()) for t in kept):
+        raise AssertionError("recurrent fences: tenant0's slots hold "
+                             "nothing to guard")
+    rid = eng.submit("tenant1", list(range(1, 13)))
+    next(r for r in eng._requests if r.rid == rid).slot = victim.base
+    out = eng.run(max_new_tokens=4)
+    if any(not torch.equal(a, b) for a, b in zip(
+            _slot_rows(eng, victim), kept)):
+        raise AssertionError("recurrent fences: a forged slot id wrote "
+                             "tenant0's slots")
+    if len(out.get(rid, [])) != 4:
+        raise AssertionError(f"recurrent fences: the forged request served "
+                             f"{out}")
+    # tenant2 evicted: its slots in every pool zeroed, the room tenant0
+    # grows into
+    gone = eng.manager.bounds.lookup("tenant2")
+    eng.quarantine_tenant("tenant2", reason="phase 8 eviction")
+    eng.evict_tenant("tenant2")
+    if any(bool((t != 0).any()) for t in _slot_rows(eng, gone)):
+        raise AssertionError("recurrent fences: the eviction left tenant2's "
+                             "slots unscrubbed")
+    old = eng.manager.bounds.lookup("tenant0")
+    before = _slot_rows(eng, old)
+    reloc0 = eng.manager.elastic.stats["relocations"]
+    rids = [eng.submit("tenant0", list(range(2, 2 + n))) for n in (9, 17, 33)]
+    new = eng.manager.bounds.lookup("tenant0")
+    moved = eng.manager.elastic.stats["relocations"] - reloc0
+    if new.size != 2 * old.size or new.base == old.base or moved != 1:
+        raise AssertionError(f"recurrent fences: tenant0 {old.base}+"
+                             f"{old.size} -> {new.base}+{new.size}, "
+                             f"{moved} relocations")
+    for t, b in zip(tree_leaves(eng._pool.buf), before):
+        if not torch.equal(t[:, new.base:new.base + old.size], b) or \
+                bool((t[:, old.base:old.end] != 0).any()):
+            raise AssertionError("recurrent fences: the relocation did not "
+                                 "move tenant0's slots")
+    out = eng.run(max_new_tokens=4)
+    if any(len(out.get(r, [])) != 4 for r in rids):
+        raise AssertionError(f"recurrent fences: the grown tenant served "
+                             f"{out}")
+    log(f"recurrent fences [{eng.cfg.name}]: a request of tenant1 with its "
+        f"slot forged to tenant0's base {victim.base} served 4 tokens and "
+        f"left tenant0's {victim.size} slots byte-equal in all "
+        f"{len(kept)} pool tensors (KV slabs, SSM and conv state); "
+        f"tenant2's eviction zeroed its {gone.size} slots in every pool; "
+        f"tenant0 grew {old.base}+{old.size} -> {new.base}+{new.size} with "
+        "one relocation step, its KV and state slots moved and the old ones "
+        "zeroed, and its 3 requests served 4 tokens each")
+
+
+def recurrent_phase(torch, smi: str) -> dict:
+    """Phase 8: (a) the reduced configs, f32, card against CPU (a 38-token
+    prefill past the reduced hybrid's 32-token window, 8 decode steps, so
+    the windowed K4 and K1 run); (b) full width at reduced depth, f32, card
+    against CPU (zamba2-7b at 7 layers: one group of 6 and a 1-layer Mamba
+    tail; xlstm-350m at 2 layers); (c) each at full width and depth through
+    the slab engine, eager then compiled; (d) the fence scenarios on
+    zamba2-7b.  Returns each path's launches."""
+    from repro_torch.configs import get_config
+
+    paths = {}
+    for name in RECURRENT:
+        cfg = get_config(name)
+        recurrent_card_vs_cpu(torch, cfg.reduced(), "recurrent (a) reduced",
+                              38, 8, 1e-4)
+        depth = 7 if cfg.family == "hybrid" else 2
+        recurrent_card_vs_cpu(
+            torch, dataclasses.replace(cfg, n_layers=depth, dtype="float32"),
+            "recurrent (b) full width", 38, 4, 2e-3)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in RECURRENT:
+        cfg = get_config(name)
+        eng, launches = recurrent_serve(torch, cfg, smi)
+        if cfg.family == "hybrid":
+            recurrent_fences(torch, eng)
+        paths[name] = {"launches": launches}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
 # A worker of the same-card A/B: phase 2 of the checkout at argv[1], run
 # with that checkout's own chip_smoke.py and kernels, then the main path's
 # prefill write timed by this file's (argv[2]) code against that
@@ -3105,9 +3652,9 @@ def main() -> int:
     built = _build.build_all()
     log(f"build: {len(built)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s ({', '.join(sorted(built))})")
-    # the bf16 instantiations the paths run (D / 16 = 5 and 8), and f32
+    # the bf16 instantiations the paths run (D / 16 = 5, 7 and 8), and f32
     log("K4 ptxas: " + ptxas_report(_build, "flash_attention.cu",
-                                    ("ILi5E", "ILi8E", "f32")))
+                                    ("ILi5E", "ILi7E", "ILi8E", "f32")))
     log("K1 ptxas: " + ptxas_report(_build, "paged_attention.cu",
                                     ("paged_attention_kernel",)))
     log("K5 ptxas: " + ptxas_report(_build, "moe_histogram.cu",
@@ -3138,6 +3685,9 @@ def main() -> int:
     for cfg in cfgs:
         rows += check_kernels(torch, cfg)
         check_ops(torch, cfg)
+    for name in RECURRENT:
+        rows += check_kernels(torch, get_config(name))
+    check_ops(torch, get_config(RECURRENT[0]))
     for r in rows:
         log(f"  {r['kernel']} [{r['path']}]: {r['ms']:.5f} ms = "
             f"{r['ms'] / floor:.2f}x the launch floor")
@@ -3145,8 +3695,9 @@ def main() -> int:
     # named kernel@path
     seen = set()
     for r in rows:
-        r["name"] = r["kernel"] if r["kernel"] not in seen \
-            else f"{r['kernel']}@{r['path']}"
+        if "name" not in r:
+            r["name"] = r["kernel"] if r["kernel"] not in seen \
+                else f"{r['kernel']}@{r['path']}"
         seen.add(r["kernel"])
     log("kernels: " + ", ".join(r["name"] for r in rows))
     for cfg in cfgs:
@@ -3178,12 +3729,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"after [{cfg.name}]: {torch.cuda.memory_allocated() / 1e9:.2f}"
             " GB still allocated")
+    paths.update(recurrent_phase(torch, smi))
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    table = [{k: (paths[r["path"]]["launches"][r["kernel"]]
-                  if k == "launches" else r[k]) for k in keys}
+    def launches(r):
+        """The row's launches on its path's main run (a row on no path
+        carries its own 0)."""
+        return r["launches"] if "launches" in r \
+            else paths[r["path"]]["launches"][r["kernel"]]
+
+    table = [{k: launches(r) if k == "launches" else r[k] for k in keys}
              for r in rows]
     print(json.dumps({"kernels": table}))
     print(smi)

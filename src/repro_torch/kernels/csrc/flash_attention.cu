@@ -1,15 +1,23 @@
-// K4 flash_attention: blocked causal attention forward for prefill.
+// K4 flash_attention: blocked softmax attention forward for prefill,
+// causal or not, optionally under a sliding window.
 //
 // Replaces: src/repro/kernels/flash_attention.py `flash_attention` (body
 // `_kernel`; the TPU kernel carries its online-softmax state across a
-// sequential KV grid axis and asserts S % blk == 0).
+// sequential KV grid axis, asserts S % blk == 0 and takes `causal`).
 //
-// What it computes: out[b, i, h] = softmax_{j <= i} (q[b,i,h] . k[b,j,kh]
-// / sqrt(D)) applied to v[b,j,kh], kh = h / (H / KH) (GQA), accumulated in
-// float32 and stored in the inputs' type.  Prompts are right-padded to the
-// longest joiner, so S is arbitrary: keys at or past S are masked (-1e30)
-// and rows at or past S are never stored; there is no S % tile
-// requirement.
+// What it computes: out[b, i, h] = softmax_{j in band(i)} (q[b,i,h] .
+// k[b,j,kh] / sqrt(D)) applied to v[b,j,kh], kh = h / (H / KH) (GQA),
+// accumulated in float32 and stored in the inputs' type.  The band is the
+// reference's mask (src/repro/models/layers.py `chunked_attention`): j <= i
+// when causal, and j > i - window when window > 0 (window and causal are
+// launch-time operands).  Prompts are right-padded to the longest joiner,
+// so S is arbitrary: keys at or past S are masked (-1e30) and rows at or
+// past S are never stored; there is no S % tile requirement.  A query tile
+// walks only the key tiles its rows' bands reach: from the tile holding
+// q0 - window + 1 (window > 0) to the diagonal (causal) or to S.  A row
+// whose band misses the first tile it walks carries weights of 1 for that
+// tile's masked keys until its first real key, whose rescale
+// exp(-1e30 - m) = 0 clears them; every row < S holds its own key j = i.
 //
 // What bounds it on the H100: at serve prefill shapes (S <= a few hundred
 // tokens) the attention FLOPs (~2 * B * H * S^2 * D) are small and the
@@ -56,6 +64,23 @@ constexpr int kThreads = 128;
 constexpr int kBQ = 64;  // query rows per block
 constexpr int kBK = 64;  // keys per tile
 
+// Whether key `key` lies in query row `row`'s band (and inside S).
+__device__ __forceinline__ bool in_band(int key, int row, int S, int causal,
+                                        int window) {
+  return key < S && (!causal || key <= row) &&
+         (window <= 0 || key > row - window);
+}
+
+// The key tiles [lo, hi) the query tile starting at q0 reaches: from the
+// first key of its first row's band to its last row's diagonal (causal) or
+// to S.
+__device__ __forceinline__ void key_tiles(int q0, int S, int causal,
+                                          int window, int* lo, int* hi) {
+  const int last = min(q0 + kBQ, S) - 1;  // last query row of the tile
+  *hi = causal ? last / kBK + 1 : (S + kBK - 1) / kBK;
+  *lo = window > 0 ? max(q0 - window + 1, 0) / kBK : 0;
+}
+
 // ------------------------------------------------------------------------
 // float32: CUDA-core kernel
 // ------------------------------------------------------------------------
@@ -63,7 +88,7 @@ constexpr int kBK = 64;  // keys per tile
 __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out, int S, int H,
-    int KH, int D, float scale) {
+    int KH, int D, int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int ks = D + 1;
   float* q_s = smem;                // kBQ * D
@@ -90,10 +115,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
     m_s[i] = NEG_INF_F;
     l_s[i] = 0.f;
   }
-  const int last = min(q0 + kBQ, S) - 1;  // last query row of the tile
-  const int n_tiles = last / kBK + 1;     // key tiles up to the diagonal
+  int kt_lo, kt_hi;
+  key_tiles(q0, S, causal, window, &kt_lo, &kt_hi);
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();
     for (int e = tid; e < kBK * D; e += kThreads) {
@@ -109,8 +134,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
       const float* kj = k_s + j * ks;
       float s = 0.f;
       for (int d = 0; d < D; ++d) s = fmaf(qi[d], kj[d], s);
-      const int key = k0 + j;
-      s_s[e] = (key <= q0 + i && key < S) ? s * scale : NEG_INF_F;
+      s_s[e] = in_band(k0 + j, q0 + i, S, causal, window) ? s * scale
+                                                          : NEG_INF_F;
     }
     __syncthreads();
     for (int i = tid; i < kBQ; i += kThreads) {
@@ -147,8 +172,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
 }
 
 static int launch_f32(const void* q, const void* k, const void* v, void* out,
-                      int B, int S, int H, int KH, int D,
-                      cudaStream_t stream) {
+                      int B, int S, int H, int KH, int D, int causal,
+                      int window, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * (size_t)kBQ * D +
                                        (size_t)kBK * (2 * D + 1) +
                                        (size_t)kBQ * kBK + 3 * (size_t)kBQ);
@@ -157,7 +182,7 @@ static int launch_f32(const void* q, const void* k, const void* v, void* out,
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_attention_f32_kernel<<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, S, H,
-      KH, D, rsqrtf((float)D));
+      KH, D, causal, window, rsqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -319,7 +344,7 @@ template <int KSTEPS>  // D / 16
 __global__ void __launch_bounds__(kThreads, 2) flash_attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int S, int H, int KH, float scale_log2) {
+    int S, int H, int KH, int causal, int window, float scale_log2) {
   constexpr int D = KSTEPS * 16;
   constexpr int nc = D / 8;  // 16-byte chunks a row
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -328,7 +353,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_bf16_kernel(
   const uint32_t sK = sQ + kTileBytes;      // two buffers
   const uint32_t sV = sK + 2 * kTileBytes;  // two buffers
 
-  // the longest (last) query tiles start first
+  // the longest (last) query tiles start first (causal, no window)
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -351,17 +376,19 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_bf16_kernel(
     }
   }
 
-  const int last = min(q0 + kBQ, S) - 1;  // last query row of the tile
-  const int n_tiles = last / kBK + 1;     // key tiles up to the diagonal
+  int kt_lo, kt_hi;
+  key_tiles(q0, S, causal, window, &kt_lo, &kt_hi);
+  const int n_tiles = kt_hi - kt_lo;
 
-  // cp.async group t holds key tile t (group 0 also Q).
+  // cp.async group t holds the t-th key tile walked, kt_lo + t (group 0
+  // also Q).
   stage_tile<nc>(sQ, qh, q0, S, H * D, tid);
-  stage_tile<nc>(sK, kh, 0, S, KH * D, tid);
-  stage_tile<nc>(sV, vh, 0, S, KH * D, tid);
+  stage_tile<nc>(sK, kh, kt_lo * kBK, S, KH * D, tid);
+  stage_tile<nc>(sV, vh, kt_lo * kBK, S, KH * D, tid);
   cp_async_commit();
   if (n_tiles > 1) {
-    stage_tile<nc>(sK + kTileBytes, kh, kBK, S, KH * D, tid);
-    stage_tile<nc>(sV + kTileBytes, vh, kBK, S, KH * D, tid);
+    stage_tile<nc>(sK + kTileBytes, kh, (kt_lo + 1) * kBK, S, KH * D, tid);
+    stage_tile<nc>(sV + kTileBytes, vh, (kt_lo + 1) * kBK, S, KH * D, tid);
   }
   cp_async_commit();
 
@@ -395,7 +422,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_bf16_kernel(
     wgmma_wait_all();
 
     // ---- mask, scale, online softmax ---------------------------------
-    const int k0 = j * kBK;
+    const int k0 = (kt_lo + j) * kBK;
     float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -404,7 +431,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_bf16_kernel(
         const int row = row0 + (e >> 1) * 8;
         const int key = k0 + 8 * i + cq + (e & 1);
         const float x = s[4 * i + e] * scale_log2;
-        s[4 * i + e] = (key <= row && key < S) ? x : NEG_INF_F;
+        s[4 * i + e] = in_band(key, row, S, causal, window) ? x : NEG_INF_F;
       }
       mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
       mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
@@ -455,8 +482,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_bf16_kernel(
 
     __syncthreads();  // every warp is done with this K/V buffer
     if (j + 2 < n_tiles) {
-      stage_tile<nc>(kbuf, kh, (j + 2) * kBK, S, KH * D, tid);
-      stage_tile<nc>(vbuf, vh, (j + 2) * kBK, S, KH * D, tid);
+      stage_tile<nc>(kbuf, kh, (kt_lo + j + 2) * kBK, S, KH * D, tid);
+      stage_tile<nc>(vbuf, vh, (kt_lo + j + 2) * kBK, S, KH * D, tid);
     }
     cp_async_commit();
   }
@@ -490,43 +517,47 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_bf16_kernel(
 
 template <int KSTEPS>
 static int launch_bf16(const void* q, const void* k, const void* v,
-                       void* out, int B, int S, int H, int KH,
-                       cudaStream_t stream) {
+                       void* out, int B, int S, int H, int KH, int causal,
+                       int window, cudaStream_t stream) {
   auto kernel = flash_attention_bf16_kernel<KSTEPS>;
   int rc = allow_smem(kernel, kTcSmem);
   if (rc) return rc;
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, kTcSmem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, H, KH,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, H, KH, causal, window,
       rsqrtf((float)(KSTEPS * 16)) * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 static int launch_bf16(const void* q, const void* k, const void* v,
                        void* out, int B, int S, int H, int KH, int D,
-                       cudaStream_t s) {
+                       int causal, int window, cudaStream_t s) {
   if (KH <= 0 || H % KH != 0) return (int)cudaErrorInvalidValue;
+#define ARGS q, k, v, out, B, S, H, KH, causal, window, s
   switch (D) {
-    case 16: return launch_bf16<1>(q, k, v, out, B, S, H, KH, s);
-    case 32: return launch_bf16<2>(q, k, v, out, B, S, H, KH, s);
-    case 48: return launch_bf16<3>(q, k, v, out, B, S, H, KH, s);
-    case 64: return launch_bf16<4>(q, k, v, out, B, S, H, KH, s);
-    case 80: return launch_bf16<5>(q, k, v, out, B, S, H, KH, s);
-    case 96: return launch_bf16<6>(q, k, v, out, B, S, H, KH, s);
-    case 112: return launch_bf16<7>(q, k, v, out, B, S, H, KH, s);
-    case 128: return launch_bf16<8>(q, k, v, out, B, S, H, KH, s);
+    case 16: return launch_bf16<1>(ARGS);
+    case 32: return launch_bf16<2>(ARGS);
+    case 48: return launch_bf16<3>(ARGS);
+    case 64: return launch_bf16<4>(ARGS);
+    case 80: return launch_bf16<5>(ARGS);
+    case 96: return launch_bf16<6>(ARGS);
+    case 112: return launch_bf16<7>(ARGS);
+    case 128: return launch_bf16<8>(ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef ARGS
 }
 
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
-                                      int H, int KH, int D, int dtype,
-                                      void* stream) {
+                                      int H, int KH, int D, int causal,
+                                      int window, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DT_F32) return launch_f32(q, k, v, out, B, S, H, KH, D, s);
-  if (dtype == DT_BF16) return launch_bf16(q, k, v, out, B, S, H, KH, D, s);
+  if (dtype == DT_F32)
+    return launch_f32(q, k, v, out, B, S, H, KH, D, causal, window, s);
+  if (dtype == DT_BF16)
+    return launch_bf16(q, k, v, out, B, S, H, KH, D, causal, window, s);
   return (int)cudaErrorInvalidValue;
 }
 

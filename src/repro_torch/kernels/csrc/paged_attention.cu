@@ -9,7 +9,9 @@
 // h / G, G = H / KH):
 //   page p of row b:  phys = resolve_page((page_table[b,p] & mask[b]) | base[b])
 //   scores  s_t = (q[b,h] . round_q(K[phys, t, kh])) / sqrt(D)
-//   out[b,h] = softmax over positions t < seq_lens[b] of s, applied to
+//   out[b,h] = softmax over positions t < seq_lens[b] (and, when the
+//              launch-time operand window > 0, t >= seq_lens[b] - window:
+//              the reference's decode_attention band) of s, applied to
 //              round_q(V[phys, t, kh]), accumulated in float32.
 // round_q rounds a pool value to the query's type first — the serve path
 // keeps a float32 pool under bfloat16 weights and the reference rounds the
@@ -17,7 +19,11 @@
 // Masked positions score -1e30, so a row with seq_len <= 0 is the uniform
 // mean over all max_pages * page positions, as in the reference; a row
 // with seq_len > 0 reads only its held tokens (a masked position's weight
-// exp(-1e30 - m) is exactly 0 in float32).  The fence (base, mask) is one
+// exp(-1e30 - m) is exactly 0 in float32), and under a window only those
+// in the band: pages wholly before seq_len - window are neither resolved
+// nor loaded.  A row whose band holds no position (seq_len past the table
+// by more than the window) is the uniform mean, as above.  The fence (base,
+// mask) is one
 // scalar pair passed by value, or one pair per row (`base_rows` /
 // `mask_rows`, each non-null pointer overriding its scalar).
 //
@@ -153,7 +159,7 @@ __global__ void __launch_bounds__(kThreads, kTile == 64 ? 3 : 2)
         const int* __restrict__ mask_rows, int base, int mask,
         const int* __restrict__ page_map, int n_map, Q_T* __restrict__ out,
         int H, int KH, int D, int page, int max_pages, int phys_mask,
-        int cluster, float scale) {
+        int window, int cluster, float scale) {
   extern __shared__ __align__(16) float smem[];
   constexpr bool kBf16 = sizeof(Q_T) == 2;
   const int G = H / KH, GD = G * D, DQ = D / 4, GDQ = G * DQ;
@@ -187,11 +193,17 @@ __global__ void __launch_bounds__(kThreads, kTile == 64 ? 3 : 2)
     l_s[g] = 0.f;
   }
 
-  // This CTA's share of the row: tokens [t0, t1) of its n_tok positions.
+  // This CTA's share of the row: tokens [t0, t1) of the positions
+  // [lo, hi) it walks — the held tokens in the band, or every position
+  // when none is (all masked: the uniform mean).
   const int cap = max_pages * page;
-  const int n_tok = len > 0 ? min(len, cap) : cap;
-  const int chunk = (n_tok + cluster - 1) / cluster;
-  const int t0 = min(rank * chunk, n_tok), t1 = min(t0 + chunk, n_tok);
+  int lo = 0, hi = len > 0 ? min(len, cap) : cap;
+  if (window > 0 && len > 0) {
+    lo = max(len - window, 0);
+    if (lo >= hi) lo = 0, hi = cap;
+  }
+  const int chunk = (hi - lo + cluster - 1) / cluster;
+  const int t0 = lo + min(rank * chunk, hi - lo), t1 = min(t0 + chunk, hi);
   const int p_lo = t0 / page, p_hi = t1 > t0 ? (t1 - 1) / page + 1 : p_lo;
   for (int p = tid; p < p_hi; p += kThreads) {
     if (p < p_lo) continue;
@@ -263,7 +275,9 @@ __global__ void __launch_bounds__(kThreads, kTile == 64 ? 3 : 2)
           s = 0.f;
           for (int part = 0; part < n_split; ++part)
             s += sc_s[part * n_pairs + g * n_t + t];
-          s = tb + t < len ? s * scale : NEG_INF_F;
+          const int pos = tb + t;
+          s = pos < len && (window <= 0 || pos >= len - window) ? s * scale
+                                                                 : NEG_INF_F;
         }
         sv[i] = s;
         mx = fmaxf(mx, s);
@@ -397,7 +411,8 @@ static int launch_tile(const void* q, const void* k_pool, const void* v_pool,
                        const void* base_rows, const void* mask_rows, int base,
                        int mask, const void* page_map, int n_map, void* out,
                        int B, int H, int KH, int D, int page, int max_pages,
-                       int phys_mask, int cluster, cudaStream_t stream) {
+                       int phys_mask, int window, int cluster,
+                       cudaStream_t stream) {
   const size_t smem = smem_bytes(kTile, H / KH, D, max_pages);
   auto kernel = paged_attention_kernel<Q_T, kTile>;
   int rc = allow_smem(kernel, smem);
@@ -413,7 +428,7 @@ static int launch_tile(const void* q, const void* k_pool, const void* v_pool,
   if (cluster == 1) {
     kernel<<<grid, kThreads, smem, stream>>>(
         qp, kp, vp, tp, lp, bp, mp, base, mask, pm, n_map, op, H, KH, D,
-        page, max_pages, phys_mask, cluster, scale);
+        page, max_pages, phys_mask, window, cluster, scale);
     return (int)cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -430,7 +445,7 @@ static int launch_tile(const void* q, const void* k_pool, const void* v_pool,
   cfg.numAttrs = 1;
   rc = (int)cudaLaunchKernelEx(&cfg, kernel, qp, kp, vp, tp, lp, bp, mp,
                                base, mask, pm, n_map, op, H, KH, D, page,
-                               max_pages, phys_mask, cluster, scale);
+                               max_pages, phys_mask, window, cluster, scale);
   if (rc) return rc;
   return (int)cudaGetLastError();
 }
@@ -446,14 +461,14 @@ static int launch(const void* q, const void* k_pool, const void* v_pool,
                   const void* base_rows, const void* mask_rows, int base,
                   int mask, const void* page_map, int n_map, void* out, int B,
                   int H, int KH, int D, int page, int max_pages,
-                  int phys_mask, int cluster, cudaStream_t stream) {
+                  int phys_mask, int window, int cluster, cudaStream_t stream) {
   if (KH <= 0 || H % KH || D <= 0 || D % 4 || D / 4 > kMaxDQ ||
       (H / KH) * (D / 4) > kMaxGDQ || cluster < 1 ||
       cluster > kMaxCluster || page <= 0 || max_pages <= 0)
     return (int)cudaErrorInvalidValue;
 #define ARGS q, k_pool, v_pool, page_table, seq_lens, base_rows, mask_rows, \
              base, mask, page_map, n_map, out, B, H, KH, D, page, max_pages, \
-             phys_mask, cluster, stream
+             phys_mask, window, cluster, stream
   if (cluster == 1) return launch_tile<Q_T, 128>(ARGS);
   return launch_tile<Q_T, 64>(ARGS);
 #undef ARGS
@@ -464,13 +479,13 @@ extern "C" int paged_attention_launch(
     const void* page_table, const void* seq_lens, const void* base_rows,
     const void* mask_rows, int base, int mask, const void* page_map,
     int n_map, void* out, int B, int H, int KH, int D, int page,
-    int max_pages, int n_pool_pages, int cluster, int q_dtype,
+    int max_pages, int n_pool_pages, int window, int cluster, int q_dtype,
     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int pm = n_pool_pages - 1;
 #define ARGS q, k_pool, v_pool, page_table, seq_lens, base_rows, mask_rows, \
              base, mask, page_map, n_map, out, B, H, KH, D, page, max_pages, \
-             pm, cluster, s
+             pm, window, cluster, s
   if (q_dtype == DT_F32) return launch<float>(ARGS);
   if (q_dtype == DT_BF16) return launch<__nv_bfloat16>(ARGS);
 #undef ARGS

@@ -1,4 +1,5 @@
-"""K4 wrapper: blocked causal prefill attention (``csrc/flash_attention.cu``).
+"""K4 wrapper: blocked prefill attention, causal or not, optionally under a
+sliding window (``csrc/flash_attention.cu``).
 
 Replaces ``repro/kernels/flash_attention.py``'s ``flash_attention``.  The
 wrapper calls the custom op ``repro_torch::flash_attention``: a CPU query
@@ -23,20 +24,20 @@ from repro_torch.kernels._build import Kernel, check_cuda, check_device, \
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("flash_attention", "flash_attention.cu",
-                [_P] * 4 + [_I] * 6 + [_P])
+                [_P] * 4 + [_I] * 8 + [_P])
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
                          device_types="cpu")
-def flash_attention_op(q: torch.Tensor, k: torch.Tensor,
-                       v: torch.Tensor) -> torch.Tensor:
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: int) -> torch.Tensor:
     """The plain version, for CPU tensors."""
     KERNEL.plain_calls += 1
-    return ref.flash_attention_ref(q, k, v)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
 @flash_attention_op.register_kernel("cuda")
-def _cuda(q, k, v):
+def _cuda(q, k, v, causal, window):
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("flash_attention: q, k and v dtypes differ")
     check_cuda("flash_attention", q, k, v)
@@ -55,17 +56,20 @@ def _cuda(q, k, v):
     out = torch.empty_like(q)
     if B and S:
         KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(out), B, S, H, KH, D,
-                      dtype_code(q.dtype), stream_of(q))
+                      int(causal), max(int(window), 0), dtype_code(q.dtype),
+                      stream_of(q))
     return out
 
 
 @flash_attention_op.register_fake
-def _fake(q, k, v):
+def _fake(q, k, v, causal, window):
     return torch.empty_like(q)
 
 
-def flash_attention(q, k, v):
-    """Causal attention: q (B,S,H,D), k/v (B,S,KH,D) -> (B,S,H,D) in q's
-    dtype; any S (the ragged edge is masked in the kernel)."""
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """Attention over a prompt: q (B,S,H,D), k/v (B,S,KH,D) -> (B,S,H,D) in
+    q's dtype; any S (the ragged edge is masked in the kernel).  Query row
+    i attends to keys j <= i when ``causal`` and j > i - ``window`` when
+    ``window`` > 0 (0: no window), the reference's masks."""
     check_device("flash_attention", q)
-    return flash_attention_op(q, k, v)
+    return flash_attention_op(q, k, v, bool(causal), int(window))

@@ -23,7 +23,7 @@ from repro_torch.kernels._build import Kernel, check_cuda, check_device, \
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("paged_attention", "paged_attention.cu",
-                [_P] * 7 + [_I, _I, _P, _I, _P] + [_I] * 9 + [_P])
+                [_P] * 7 + [_I, _I, _P, _I, _P] + [_I] * 10 + [_P])
 
 #: the largest cluster the kernel launches (the portable size)
 MAX_CLUSTER = 8
@@ -41,10 +41,10 @@ def cluster_size(pairs: int, n_sm: int) -> int:
 
 
 def launch_args(q, k_pages, v_pages, table, lens, base, mask, page_map,
-                out, cluster: int):
+                out, cluster: int, window: int = 0):
     """The C entry point's arguments, in order, but for the stream: the
     fence (``base``/``mask`` from :func:`fence_operand`) by value, or as
-    per-row pointers."""
+    per-row pointers; the window (0: none) by value."""
     B, H, D = q.shape
     P, page, KH = k_pages.shape[:3]
     (base_rows, base_val), (mask_rows, mask_val) = fence_args(base), \
@@ -53,7 +53,8 @@ def launch_args(q, k_pages, v_pages, table, lens, base, mask, page_map,
             base_rows, mask_rows, base_val, mask_val,
             ctypes.c_void_p(None) if page_map is None else ptr(page_map),
             0 if page_map is None else page_map.shape[0], ptr(out), B, H,
-            KH, D, page, table.shape[1], P, cluster, dtype_code(q.dtype)]
+            KH, D, page, table.shape[1], P, max(int(window), 0), cluster,
+            dtype_code(q.dtype)]
 
 
 @torch.library.custom_op("repro_torch::paged_attention", mutates_args=(),
@@ -63,8 +64,8 @@ def paged_attention_op(q: torch.Tensor, k_pages: torch.Tensor,
                        seq_lens: torch.Tensor,
                        base_rows: Optional[torch.Tensor],
                        mask_rows: Optional[torch.Tensor], base: int,
-                       mask: int,
-                       page_map: Optional[torch.Tensor]) -> torch.Tensor:
+                       mask: int, page_map: Optional[torch.Tensor],
+                       window: int) -> torch.Tensor:
     """The plain version, for CPU tensors."""
     KERNEL.plain_calls += 1
     B = q.shape[0]
@@ -72,12 +73,13 @@ def paged_attention_op(q: torch.Tensor, k_pages: torch.Tensor,
         t if t is not None else torch.full((B,), v, dtype=torch.int32)
         for t, v in ((base_rows, base), (mask_rows, mask)))
     return ref.paged_attention_ref(q, k_pages, v_pages, page_table,
-                                   seq_lens, base_r, mask_r, page_map)
+                                   seq_lens, base_r, mask_r, page_map,
+                                   window=window)
 
 
 @paged_attention_op.register_kernel("cuda")
 def _cuda(q, k_pages, v_pages, page_table, seq_lens, base_rows, mask_rows,
-      base, mask, page_map):
+      base, mask, page_map, window):
     B, H, D = q.shape
     KH = k_pages.shape[2]
     if k_pages.dtype != torch.float32 or v_pages.dtype != torch.float32:
@@ -101,18 +103,18 @@ def _cuda(q, k_pages, v_pages, page_table, seq_lens, base_rows, mask_rows,
     KERNEL.launch(*launch_args(q, k_pages, v_pages, table, lens,
                                join_fence(base_rows, base),
                                join_fence(mask_rows, mask), pmap, out,
-                               cluster), stream_of(q))
+                               cluster, window), stream_of(q))
     return out
 
 
 @paged_attention_op.register_fake
 def _fake(q, k_pages, v_pages, page_table, seq_lens, base_rows, mask_rows,
-      base, mask, page_map):
+      base, mask, page_map, window):
     return torch.empty_like(q)
 
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, fence_base,
-                    fence_mask, page_map=None):
+                    fence_mask, page_map=None, window: int = 0):
     """q (B,H,D) float32 or bfloat16; pools (P,page,KH,D) (a layer view of
     the global pool, float32 on the card);
     page_table (B, max_pages) virtual or physical ids; seq_lens (B,);
@@ -120,8 +122,10 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, fence_base,
     (B,H,D) in q's dtype.
 
     An int fence reaches the kernel by value; a tensor fence is one int32
-    operand per row.  On the card the kernel takes D a multiple of 4 up to
-    128 and (H / KH) * D up to 2,048."""
+    operand per row.  ``window`` > 0 narrows row b to its last ``window``
+    held tokens (positions t >= seq_lens[b] - window), the reference's
+    windowed ``decode_attention``.  On the card the kernel takes D a
+    multiple of 4 up to 128 and (H / KH) * D up to 2,048."""
     B = q.shape[0]
     P = k_pages.shape[0]
     if P & (P - 1):
@@ -131,4 +135,5 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, fence_base,
         split_fence(fence_operand(v, B, q.device))
         for v in (fence_base, fence_mask))
     return paged_attention_op(q, k_pages, v_pages, page_table, seq_lens,
-                              base_rows, mask_rows, base, mask, page_map)
+                              base_rows, mask_rows, base, mask, page_map,
+                              int(window))

@@ -40,9 +40,12 @@ def resolve_pages(ids: torch.Tensor, base, mask,
 
 
 def paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
-                        fence_base, fence_mask, page_map=None):
+                        fence_base, fence_mask, page_map=None, window=0):
     """q (B,H,D); pools (P,page,KH,D) -> (B,H,D).  float32 math over K/V
-    rounded to the query's dtype."""
+    rounded to the query's dtype.  Row b attends to positions t <
+    seq_lens[b] and, when ``window`` > 0, t >= seq_lens[b] - window (the
+    reference's ``decode_attention`` mask); a row with no such position
+    is the uniform mean over every position of its table."""
     B, H, D = q.shape
     P, page, KH, _ = k_pages.shape
     G = H // KH
@@ -54,7 +57,10 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
     qg = q.float().reshape(B, KH, G, D)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k) * (1.0 / math.sqrt(D))
     pos = torch.arange(S, device=q.device)
-    valid = pos[None, :] < seq_lens.to(q.device)[:, None]
+    lens = seq_lens.to(q.device)[:, None]
+    valid = pos[None, :] < lens
+    if window > 0:
+        valid = valid & (pos[None, :] >= lens - window)
     s = torch.where(valid[:, None, None, :], s,
                     torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
@@ -118,17 +124,23 @@ def moe_histogram_ref(expert_ids, num_experts, fence_base, fence_mask):
     return (fenced == experts).sum(dim=0, dtype=torch.int32)
 
 
-def flash_attention_ref(q, k, v):
-    """Causal attention: q (B,S,H,D), k/v (B,S,KH,D) -> (B,S,H,D), float32
-    math."""
+def flash_attention_ref(q, k, v, causal=True, window=0):
+    """Attention: q (B,S,H,D), k/v (B,S,KH,D) -> (B,S,H,D), float32 math.
+    Query row i attends to keys j <= i when ``causal`` and j > i - window
+    when ``window`` > 0 (``repro/models/layers.py``'s
+    ``chunked_attention`` masks)."""
     B, S, H, D = q.shape
     KH = k.shape[2]
     G = H // KH
     qg = q.float().reshape(B, S, KH, G, D)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(D)
     pos = torch.arange(S, device=q.device)
-    causal = pos[None, :] <= pos[:, None]
-    s = torch.where(causal[None, None, None], s,
+    band = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        band = band & (pos[None, :] <= pos[:, None])
+    if window > 0:
+        band = band & (pos[None, :] > pos[:, None] - window)
+    s = torch.where(band[None, None, None], s,
                     torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())

@@ -1,7 +1,7 @@
 """Multi-tenant serving engine — Guardian's spatial sharing applied to a
 shared LM server, on the GuardianManager launch path.
 
-One model (a dense or MoE transformer), one KV pool, many
+One model (a dense, MoE, hybrid or xLSTM LM), one KV / state pool, many
 mutually-untrusting tenants.  The pool's slot space is carved into
 contiguous pow2 partitions by the engine's
 :class:`~repro_torch.core.manager.GuardianManager` (the same buddy
@@ -75,6 +75,7 @@ from repro_torch.launch.steps import (
 )
 from repro_torch.models import get_model
 from repro_torch.models import kvcache as KV
+from repro_torch.models.api import slab_only
 from repro_torch.models.guard import GuardSpec
 
 #: The engine's own manager tenant: owns the scratch partition where idle
@@ -259,11 +260,13 @@ class ServeEngine:
                 "sampled decode is not ported yet (the reference draws from "
                 "JAX's PRNG stream); serve greedy, temperature=0")
         self.device = require_device(device)
+        self.api = get_model(cfg)      # an unported family raises here
+        if paged and cfg.family not in ("dense", "moe"):
+            raise ValueError(slab_only(cfg.family))
         if manager is not None and manager.device != self.device:
             raise ValueError(f"engine device {self.device} differs from "
                              f"its manager's {manager.device}")
         self.cfg = cfg
-        self.api = get_model(cfg)
         self.guard_enabled = guard
         self.max_batch = max_batch
         self.max_len = max_len
@@ -337,6 +340,9 @@ class ServeEngine:
             cache = KV.init_global_kv_cache(
                 cfg, max_batch, max_len, n_pool, dtype=torch.float32,
                 device=self.device)
+        elif cfg.family == "ssm":
+            cache = self.api.init_cache(max_batch, slots=n_pool,
+                                        device=self.device)
         else:
             cache = self.api.init_cache(max_batch, max_len,
                                         dtype=torch.float32, slots=n_pool,
@@ -751,8 +757,8 @@ class ServeEngine:
         for i, r in enumerate(rows):
             slot_ids[i] = r.slot
         dev = self.device
-        meta = _reset_seq_lens(dataclasses.replace(
-            self._meta, slot_ids=torch.as_tensor(slot_ids).to(dev)))
+        meta = _reset_seq_lens(self._meta_with_slots(
+            torch.as_tensor(slot_ids).to(dev)))
         guard = self._guard_for_rows(rows + [None] * (B - len(rows)))
         has_check = any(
             self.manager.policy_of(r.tenant) is FencePolicy.CHECK
@@ -825,6 +831,12 @@ class ServeEngine:
                 if not r.done:
                     tel.spans.phase(self._spans.get(r.rid), "queue")
         return out
+
+    def _meta_with_slots(self, slot_ids: torch.Tensor):
+        """The engine's meta with every half's slot ids set to
+        ``slot_ids`` (a hybrid meta carries them in its KV and its state
+        half)."""
+        return KV.with_slot_ids(self._meta, slot_ids)
 
     def _scrub(self, item: tuple) -> None:
         """Zero the pool behind an evicted tenant: ``("phys", pages)`` of
@@ -1249,7 +1261,11 @@ def _reset_seq_lens(meta):
     """A lockstep wave prefills EVERY row, so each row's sequence starts
     at 0 — without this an engine reused across runs would carry the
     previous wave's seq_lens into the new prefill (stale write positions
-    and attention over dead tokens)."""
+    and attention over dead tokens).  A hybrid meta resets its KV half
+    only, as the reference's does: its state half's seq lens (the decode
+    positions) carry across waves."""
+    if hasattr(meta, "kv"):
+        return dataclasses.replace(meta, kv=_reset_seq_lens(meta.kv))
     return dataclasses.replace(meta,
                                seq_lens=torch.zeros_like(meta.seq_lens))
 
@@ -1267,10 +1283,17 @@ def _scrub_phys_pages(cache, phys):
 
 
 def _scrub_slots(cache, base: int, size: int):
-    """Zero a slot range [base, base+size) of the slab pool (axis 1 of the
-    6-dim k/v tensors), in place — the eviction scrub."""
-    cache.k[:, base:base + size] = 0
-    cache.v[:, base:base + size] = 0
+    """Zero a slot range [base, base+size) across every pool tensor of a
+    slab cache (axis 1: the slab k/v, the state pools, a hybrid's both), in
+    place — the eviction scrub (the sLSTM stabiliser too, as the
+    reference's scrub zeroes it)."""
+    if hasattr(cache, "kv"):
+        _scrub_slots(cache.kv, base, size)
+        _scrub_slots(cache.state, base, size)
+        return cache
+    for t in (cache.pools.values() if hasattr(cache, "pools")
+              else (cache.k, cache.v)):
+        t[:, base:base + size] = 0
     return cache
 
 

@@ -24,16 +24,31 @@ from repro_torch.models.api import ModelAPI
 
 def split_cache_pool(cache) -> Tuple[Dict, Any]:
     """Split a serve cache into ``(pool, meta)``: ``pool`` holds the
-    slot-indexed KV page tensors (a manager-owned :class:`PoolArena` that
-    N serve engines share), ``meta`` is the same cache dataclass with the
-    pool fields stripped (per-batch-row state only: page tables, seq
-    lens).  Inverse of :func:`join_cache_pool`."""
+    slot-indexed tensors (KV page pools, recurrent state pools — a
+    manager-owned :class:`PoolArena` that N serve engines share), ``meta``
+    is the same cache dataclass with the pool fields stripped (per-batch-row
+    state only: slot ids, seq lens, page tables).  A hybrid cache recurses
+    into its ``kv`` and ``state`` halves.  Inverse of
+    :func:`join_cache_pool`."""
+    if hasattr(cache, "kv"):          # hybrid: recurse
+        kv_pool, kv_meta = split_cache_pool(cache.kv)
+        st_pool, st_meta = split_cache_pool(cache.state)
+        return {"kv": kv_pool, "state": st_pool}, \
+            dataclasses.replace(cache, kv=kv_meta, state=st_meta)
+    if hasattr(cache, "pools"):
+        return {"pools": cache.pools}, dataclasses.replace(cache, pools={})
     return {"k": cache.k, "v": cache.v}, \
         dataclasses.replace(cache, k=None, v=None)
 
 
 def join_cache_pool(pool: Dict, meta) -> Any:
     """Rebuild the full cache from a pool dict + meta cache."""
+    if hasattr(meta, "kv"):
+        return dataclasses.replace(
+            meta, kv=join_cache_pool(pool["kv"], meta.kv),
+            state=join_cache_pool(pool["state"], meta.state))
+    if hasattr(meta, "pools"):
+        return dataclasses.replace(meta, pools=pool["pools"])
     return dataclasses.replace(meta, k=pool["k"], v=pool["v"])
 
 
@@ -166,13 +181,15 @@ def build_flat_relocation_step(moves: Tuple[Tuple[int, int, int], ...],
 def build_pool_relocation_step(src: int, dst: int, size: int) -> Callable:
     """Slot-extent move for a manager-owned slab serve pool — a trusted
     kernel with ``pool_arena`` threading (``fn(arena, pool) -> (arena,
-    pool, None)``) so a tenant's KV slots follow its partition when the
-    elastic manager grows or relocates it.  The elastic manager dispatches
-    it eagerly (one step per move).
+    pool, None)``) so a tenant's KV and state slots follow its partition
+    when the elastic manager grows or relocates it.  The elastic manager
+    dispatches it eagerly (one step per move).
 
-    Every slot-indexed pool tensor (axis 1 — see
-    ``kvcache.PagedKVCache``) has ``[src, src+size)`` copied wholesale to
-    ``[dst, dst+size)`` and the vacated source range zeroed, in place;
+    Every slot-indexed pool tensor of the nested pool (axis 1 — see
+    ``kvcache.PagedKVCache`` / ``kvcache.StateCache``) has ``[src,
+    src+size)`` copied wholesale to ``[dst, dst+size)`` and the vacated
+    source range zeroed, in place (the sLSTM stabiliser too, as the
+    reference's move zeroes it);
     per-row page tables live in the engines' meta halves and are
     slab-relative, so they survive the move untouched.  Distinct buddy
     extents never overlap (pow2 blocks nest or are disjoint), which makes
@@ -188,7 +205,12 @@ def build_pool_relocation_step(src: int, dst: int, size: int) -> Callable:
         arr[:, src:src + size] = 0
         return arr
 
+    def move_all(tree):
+        if isinstance(tree, dict):
+            return {name: move_all(v) for name, v in tree.items()}
+        return move(tree)
+
     def relocate(arena, pool):
-        return arena, {name: move(arr) for name, arr in pool.items()}, None
+        return arena, move_all(pool), None
 
     return relocate

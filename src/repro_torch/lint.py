@@ -197,7 +197,7 @@ def step_operands(fixture, step: str) -> Tuple:
     arena, the pool, the weights, the meta, the tokens (B for a decode, B
     x 16 for a prefill) and the guard."""
     _, pool, params, meta, guard = fixture
-    B = meta.page_table.shape[0]
+    B = (meta.kv if hasattr(meta, "kv") else meta).slot_ids.shape[0]
     x = _i32(B) if step == "decode" else {"tokens": _i32(B, 16)}
     return (_f32(1024), pool, params, meta, x, guard)
 

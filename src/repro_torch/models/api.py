@@ -1,4 +1,5 @@
-"""Model API — the surface of the families the port serves (dense, moe).
+"""Model API — the surface of the families the port serves (dense, moe,
+hybrid, ssm).
 
 ``get_model(cfg)`` returns a :class:`ModelAPI` with:
 
@@ -8,7 +9,9 @@
     prefill(params, cache, batch, ...) -> (cache, last_logits)
     decode(params, cache, tokens, ...) -> (cache, logits)
 
-Every other family raises ``NotImplementedError`` with what it lacks
+The hybrid and ssm families serve on the slab layout only: their
+``init_global_cache`` raises the reference's ``ValueError``.  Every other
+family raises ``NotImplementedError`` with what it lacks
 (:data:`UNPORTED`).
 """
 
@@ -18,20 +21,27 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import hybrid as HY
 from repro_torch.models import kvcache as KV
 from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as TF
+from repro_torch.models import xlstm as XL
 
 #: family -> what the port lacks to build it
 UNPORTED = {
     "vlm": "the vision family (models/vlm.py: M-RoPE and the 'patches' "
            "input) is not ported yet",
-    "hybrid": "the hybrid family (models/hybrid.py over the Mamba2/SSD "
-              "blocks) is not ported yet",
-    "ssm": "the xLSTM family (models/xlstm.py) is not ported yet",
     "encdec": "the encoder-decoder family (models/encdec.py) is not "
               "ported yet",
 }
+
+
+def slab_only(family: str) -> str:
+    """The reference's refusal of the global paged layout for a family
+    that serves on the slab layout only (``repro/launch/serve.py``)."""
+    return ("paged serve mode needs the global paged KV layout "
+            f"(dense/moe transformers); {family!r} engines use "
+            "the slab layout")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +59,10 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         return _dense_api(cfg)
     if cfg.family == "moe":
         return _moe_api(cfg)
+    if cfg.family == "hybrid":
+        return _hybrid_api(cfg)
+    if cfg.family == "ssm":
+        return _ssm_api(cfg)
     if cfg.family in UNPORTED:
         raise NotImplementedError(UNPORTED[cfg.family])
     raise ValueError(f"unknown family {cfg.family!r}")
@@ -80,5 +94,42 @@ def _moe_api(cfg: ModelConfig) -> ModelAPI:
         prefill=lambda params, cache, batch, **kw: MOE.prefill(
             cfg, params, cache, batch["tokens"], **kw),
         decode=lambda params, cache, tokens, **kw: MOE.decode(
+            cfg, params, cache, tokens, **kw),
+    )
+
+
+def _no_global_cache(cfg: ModelConfig) -> Callable:
+    def refuse(*args, **kw):
+        raise ValueError(slab_only(cfg.family))
+    return refuse
+
+
+def _hybrid_api(cfg: ModelConfig) -> ModelAPI:
+    return ModelAPI(
+        cfg=cfg,
+        init=lambda generator, device="cuda": HY.init(cfg, generator,
+                                                      device),
+        init_cache=lambda batch, max_len, **kw: HY.init_cache(
+            cfg, batch, max_len, **kw),
+        init_global_cache=_no_global_cache(cfg),
+        prefill=lambda params, cache, batch, **kw: HY.prefill(
+            cfg, params, cache, batch["tokens"], **kw),
+        decode=lambda params, cache, tokens, **kw: HY.decode(
+            cfg, params, cache, tokens, **kw),
+    )
+
+
+def _ssm_api(cfg: ModelConfig) -> ModelAPI:
+    """``init_cache`` ignores ``max_len``: the state is O(1) per token."""
+    return ModelAPI(
+        cfg=cfg,
+        init=lambda generator, device="cuda": XL.init(cfg, generator,
+                                                      device),
+        init_cache=lambda batch, max_len=None, **kw: XL.init_cache(
+            cfg, batch, **kw),
+        init_global_cache=_no_global_cache(cfg),
+        prefill=lambda params, cache, batch, **kw: XL.prefill(
+            cfg, params, cache, batch["tokens"], **kw),
+        decode=lambda params, cache, tokens, **kw: XL.decode(
             cfg, params, cache, tokens, **kw),
     )

@@ -1,16 +1,17 @@
 """Carry weights across from the JAX reference.
 
-The reference keeps its parameters as a pytree with the layers stacked on
-a leading ``L`` axis (``repro/models/transformer.py``: ``init`` vmaps the
-layer init).  :func:`params_from_jax` takes that tree as nested dicts of
-numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
-parameters — one dict per layer — on ``device``.  bfloat16 arrays arrive
-as ``ml_dtypes.bfloat16``; their bits are reinterpreted, never rounded.
+The reference keeps its parameters as a pytree with repeated blocks
+stacked on leading axes (``repro/models/transformer.py``: ``init`` vmaps
+the layer init).  :func:`params_from_jax` takes that tree as nested dicts
+of numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
+port's parameters — one dict per block — on ``device``.  bfloat16 arrays
+arrive as ``ml_dtypes.bfloat16``; their bits are reinterpreted, never
+rounded.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -30,22 +31,40 @@ def _tree(x, device):
     return tensor_from_numpy(x, device)
 
 
+def _take(tree, i):
+    """Entry ``i`` of a numpy tree stacked on its leading axis."""
+    if isinstance(tree, dict):
+        return {k: _take(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _blocks(tree) -> List[Any]:
+    """A stacked numpy tree -> its entries, one per block."""
+    leaf = tree
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return [_take(tree, i) for i in range(np.asarray(leaf).shape[0])]
+
+
 def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
-    """Reference dense- or MoE-model params (stacked layers) -> port
-    params (``{"embed", "layers": [per-layer dict, ...], "norm_f"}``).
-    Every leaf keeps its dtype (the MoE router stays float32 beside a
-    bfloat16 expert bank)."""
-    stacked = tree["layers"]
-    n_layers = int(np.asarray(
-        next(iter(next(iter(stacked.values())).values()))).shape[0])
+    """Reference params -> port params, by family (told apart by the
+    tree's keys).  Every leaf keeps its dtype (the MoE router stays
+    float32 beside a bfloat16 expert bank).
 
-    def layer(tree_l, i):
-        if isinstance(tree_l, dict):
-            return {k: layer(v, i) for k, v in tree_l.items()}
-        return tensor_from_numpy(np.asarray(tree_l)[i], device)
-
-    return {
-        "embed": _tree(tree["embed"], device),
-        "layers": [layer(stacked, i) for i in range(n_layers)],
-        "norm_f": _tree(tree["norm_f"], device),
-    }
+    * dense / MoE: ``layers`` (L, ...) -> ``{"embed", "layers": [per-layer
+      dict, ...], "norm_f"}``;
+    * hybrid: ``mamba`` (g, attn_every, ...) -> one list of block dicts per
+      group, ``mamba_tail`` (tail, ...) -> a list of block dicts,
+      ``shared_attn`` as it is;
+    * xLSTM: ``mlstm`` / ``slstm`` (pairs, ...) -> a list of block dicts
+      each."""
+    out = {"embed": _tree(tree["embed"], device),
+           "norm_f": _tree(tree["norm_f"], device)}
+    for name in ("layers", "mamba_tail", "mlstm", "slstm"):
+        if name in tree:
+            out[name] = [_tree(b, device) for b in _blocks(tree[name])]
+    if "mamba" in tree:
+        out["mamba"] = [[_tree(b, device) for b in _blocks(group)]
+                        for group in _blocks(tree["mamba"])]
+        out["shared_attn"] = _tree(tree["shared_attn"], device)
+    return out

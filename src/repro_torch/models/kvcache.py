@@ -35,6 +35,10 @@ sequential scatter does; every row is redirected to the last writer's
 value, so the stores are deterministic on the card too.  The ``permute``
 write's one-hot contraction instead *sums* the slabs of rows sharing a
 slot, exactly as the reference's does.
+
+Recurrent state (the hybrid's Mamba2 blocks, xLSTM) lives in the same slot
+discipline: :class:`StateCache`, ``(L, slots, *state)`` pools with fenced
+slot ids (space "state").
 """
 
 from __future__ import annotations
@@ -269,7 +273,8 @@ def gather_layer_kv(cache: PagedKVCache, layer: int,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full paged KV history of every request at one layer: (B, S_max, KH,
     D) each.  The decode path reads the pool through K1 instead; this
-    gather serves windowed attention on the CPU.  Slab layout: the fenced
+    gather is the reference's formulation, which the tests hold K1's view
+    against.  Slab layout: the fenced
     slot's slab, its pages through the fenced page table (a fenced id out
     of the pool reads NaN, as the reference's fill-mode take does)."""
     if cache.global_paged:
@@ -435,11 +440,12 @@ def write_prefill_kv(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
 def paged_decode_attention(cache: PagedKVCache, layer: int,
                            q: torch.Tensor, kv_len: torch.Tensor,
                            guard: Optional[GuardSpec] = None,
-                           plan: Optional[SlabDecodePlan] = None
-                           ) -> torch.Tensor:
+                           plan: Optional[SlabDecodePlan] = None,
+                           window: int = 0) -> torch.Tensor:
     """Decode attention straight off the pool's layer view through the
     paged-attention kernel (K1): q (B,1,H,D) over each row's first
-    ``kv_len`` cached tokens -> (B,1,H,D).  Slab layout: the layer view
+    ``kv_len`` cached tokens -> (B,1,H,D), under a sliding ``window`` the
+    last ``window`` of them (0: all).  Slab layout: the layer view
     flattened to ``(slots * P, page, KH, D)``, the page ids and their
     fences from the step's :class:`SlabDecodePlan`, the identity fence."""
     if cache.global_paged:
@@ -451,9 +457,55 @@ def paged_decode_attention(cache: PagedKVCache, layer: int,
         k_l, v_l = (pool[layer].flatten(0, 1) for pool in (cache.k,
                                                            cache.v))
     o = paged_attention(q[:, 0].contiguous(), k_l, v_l, ids, kv_len, base,
-                        mask, page_map)
+                        mask, page_map, window=window)
     return o[:, None]
 
 
 def advance(cache: PagedKVCache, n: int = 1) -> PagedKVCache:
     return dataclasses.replace(cache, seq_lens=cache.seq_lens + n)
+
+
+# ---------------------------------------------------------------------------
+# SSM / recurrent state pool
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StateCache:
+    """Recurrent state pool: ``pools`` maps state name -> ``(L_kind, slots,
+    *state_shape)`` tensors; slot ids are fenced with the row's tenant
+    partition (space "state").  ``pools`` is ``{}`` in a serve engine's
+    meta half (:func:`repro_torch.launch.steps.split_cache_pool`)."""
+
+    pools: Dict[str, torch.Tensor]
+    slot_ids: torch.Tensor       # (B,) int32
+    seq_lens: torch.Tensor       # (B,) int32
+
+    def read(self, name: str, layer: int,
+             guard: Optional[GuardSpec] = None) -> torch.Tensor:
+        """Each row's state at ``layer``: (B, *state_shape).  A fenced id
+        out of the pool reads NaN, as the reference's fill-mode take does."""
+        slots = fence(guard, "state", self.slot_ids)
+        return _take_fill(self.pools[name][layer], slots, 0)
+
+    def write(self, name: str, layer: int, value: torch.Tensor,
+              guard: Optional[GuardSpec] = None) -> "StateCache":
+        """Store each row's ``value`` (B, *state_shape) at its fenced slot
+        of ``layer``, in place; rows sharing a slot resolve last writer
+        wins (the reference promises the store in bounds; an unfenced id is
+        kept inside the pool)."""
+        pool = self.pools[name]
+        slot = _in_range(fence(guard, "state", self.slot_ids),
+                         pool.shape[1]).long()
+        pool[layer][slot] = value[_last_writer(slot)].to(pool.dtype)
+        return self
+
+
+def with_slot_ids(cache, slot_ids: torch.Tensor):
+    """``cache`` with every half's slot ids set to ``slot_ids``: a slab
+    :class:`PagedKVCache` or a :class:`StateCache`, or a hybrid cache,
+    which carries them in its KV and its state half."""
+    if hasattr(cache, "kv"):
+        return dataclasses.replace(
+            cache, kv=dataclasses.replace(cache.kv, slot_ids=slot_ids),
+            state=dataclasses.replace(cache.state, slot_ids=slot_ids))
+    return dataclasses.replace(cache, slot_ids=slot_ids)

@@ -186,8 +186,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       q_chunk: int = 1024) -> torch.Tensor:
     """Attention forward over a prompt, in query chunks (never an (S, S)
     score matrix beyond one chunk), with causal / sliding-window masks.
-    GQA: H = KH * G.  Returns (B, Sq, H, D) in q's dtype.  The plain
-    path for configurations the prefill kernel does not cover (windows)."""
+    GQA: H = KH * G.  Returns (B, Sq, H, D) in q's dtype.  The
+    reference's formulation of the masks K4 applies (the tests hold one
+    against the other)."""
     B, Sq, H, D = q.shape
     KH = k.shape[2]
     G = H // KH
@@ -215,18 +216,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor) -> torch.Tensor:
-    """Causal prefill attention.  Full attention runs the flash-attention
-    kernel (K4; its plain version for CPU tensors).  A sliding window has
-    no kernel yet: it runs :func:`chunked_attention` on the CPU and raises
-    on the card rather than leave the kernel path silently."""
-    if not cfg.attn_window:
-        return flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous())
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            "windowed attention has no CUDA kernel yet "
-            f"(attn_window={cfg.attn_window})")
-    return chunked_attention(q, k, v, causal=True, window=cfg.attn_window)
+    """Causal prefill attention, under the config's sliding window when it
+    has one, through the flash-attention kernel (K4; its plain version for
+    CPU tensors).  :func:`chunked_attention` is the reference's
+    formulation of the same masks."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=True, window=cfg.attn_window)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

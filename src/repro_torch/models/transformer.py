@@ -7,8 +7,9 @@ Prefill and decode run over either KV layout of
 :mod:`repro_torch.models.kvcache` — the global paged pool or the slab pool
 — with Guardian fencing on every data-dependent index; the hand-written
 kernels carry the embedding gather (K3), prefill attention (K4), decode
-attention (K1, over the slab's flattened layer view on the slab layout)
-and, on the global layout, the prefill page write (K2; the slab write is
+attention (K1, over the slab's flattened layer view on the slab layout;
+K4 and K1 under the config's sliding window when it has one) and, on the
+global layout, the prefill page write (K2; the slab write is
 the reference's plain formulation).  The MoE family
 (:mod:`repro_torch.models.moe`) runs the same loop with its expert block
 as the feed-forward (``ffn=``).
@@ -93,18 +94,8 @@ def decode(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
                              L.apply_norm(cfg, p["norm1"], x))
         q, k = L.positions_rope(cfg, q, k, positions)
         KV.append_token_kv(cache, lidx, k, v, guard, plan=plan)
-        if cfg.attn_window:
-            if q.device.type != "cpu":
-                raise NotImplementedError(
-                    "windowed decode attention has no CUDA kernel yet "
-                    f"(attn_window={cfg.attn_window})")
-            k_hist, v_hist = KV.gather_layer_kv(cache, lidx, guard)
-            o = L.decode_attention(q, k_hist.to(q.dtype),
-                                   v_hist.to(q.dtype), kv_len,
-                                   window=cfg.attn_window)
-        else:
-            o = KV.paged_decode_attention(cache, lidx, q, kv_len, guard,
-                                          plan=plan)
+        o = KV.paged_decode_attention(cache, lidx, q, kv_len, guard,
+                                      plan=plan, window=cfg.attn_window)
         x = x + L.out_proj(cfg, p["attn"], o)
         x = x + ffn(cfg, p, x, guard)
     cache = KV.advance(cache, 1)

@@ -107,6 +107,21 @@ def test_serve_cli_prints_the_reference_lines(name, reference_weights,
     assert any(ln.startswith("engine0 req 0: [") for ln in got[0])
 
 
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-350m"])
+def test_serve_cli_serves_the_recurrent_families(arch):
+    """``--arch zamba2-7b --reduced`` (the hybrid) and ``--arch xlstm-350m
+    --reduced`` (the xLSTM) on the reference's seed-0 weights print the
+    reference's request and tenant lines, decode steps, scheduler
+    launches and mean step width, on the slab layout."""
+    argv = ["--arch", arch, "--reduced"] + ARGSETS["baseline"].split()
+    params = params_from_jax(params_np(get_model(
+        get_config(arch).reduced()).init(jax.random.PRNGKey(0))),
+        device="cpu")
+    got = _parts(_run(ST.main, argv + ["--device", "cpu"], params=params))
+    assert got == _parts(_run(SJ.main, argv))
+    assert any(ln.startswith("engine0 req 0: [") for ln in got[0])
+
+
 def test_serve_cli_writes_the_bench_row_and_trace(tmp_path,
                                                   reference_weights):
     """``--bench-out`` appends the reference's CSV row (its launches and

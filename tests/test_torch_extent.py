@@ -25,7 +25,8 @@ from repro_torch.core.verifier import FENCED, KERNEL_OPS, PROVEN, \
 from repro_torch.kernels import _build, access, flash_attention, \
     gather_rows, moe_histogram, paged_attention, ref, \
     scatter_pages  # noqa: E402
-from repro_torch.lint import paged_serve_fixture, step_operands  # noqa: E402
+from repro_torch.lint import paged_serve_fixture, slab_serve_fixture, \
+    step_operands  # noqa: E402
 
 I32 = torch.int32
 ARENA = np.arange(256.0, dtype=np.float32)
@@ -219,15 +220,15 @@ def _k3(op):
         torch.zeros(256, 8), b, m, torch.zeros(16, dtype=I32))
 
 
-def _k1(op, mapped):
+def _k1(op, mapped, window=0):
     def kernel(k_pages, base, mask, q, v_pages, table, lens, page_map):
         if op:
             out = paged_attention(q, k_pages, v_pages, table, lens, base,
-                                  mask, page_map)
+                                  mask, page_map, window=window)
         else:
             out = ref.paged_attention_ref(
                 q, k_pages, v_pages, table, lens, _row_tensor(base, B),
-                _row_tensor(mask, B), page_map)
+                _row_tensor(mask, B), page_map, window=window)
         return k_pages, out
     return kernel, (0, 4), lambda b, m: (
         torch.zeros(P, PAGE, KH, D), b, m, torch.zeros(B, H, D),
@@ -273,6 +274,8 @@ KERNEL_CASES = {
     "gather_rows": _k3,
     "paged_attention": lambda op: _k1(op, False),
     "paged_attention_mapped": lambda op: _k1(op, True),
+    # a window narrows which fenced pages are read, never where
+    "paged_attention_window": lambda op: _k1(op, False, window=40),
     "scatter_pages": lambda op: _k2(op, False),
     "scatter_pages_mapped": lambda op: _k2(op, True),
     "flash_attention": _k4,
@@ -306,7 +309,8 @@ def test_declared_accesses_match_the_plain_version(case, fence):
     n = {"gather_rows": 1, "flash_attention": 0, "moe_histogram": 0}.get(
         case, 2)
     assert len(op.sites) == n
-    assert all(s.prim == case.replace("_mapped", "") for s in op.sites)
+    assert all(s.prim == case.replace("_mapped", "").replace("_window", "")
+               for s in op.sites)
     if fence == "row" and n:
         # a page map's entries are the manager's: through one, the page is
         # anywhere in the pool, never provably in the row
@@ -416,6 +420,55 @@ def test_serve_step_proof_on_cuda_fakes_equals_cpu_and_reference(fixture,
         [("scatter", "[-inf, +inf]", "interval unbounded")] * 2
     appends = [s for s in port.sites if s.prim == "index_put_"]
     assert len(appends) == 8 and all(s.verdict == PROVEN for s in appends)
+
+
+#: the recurrent families' state pools a decode step reads and writes,
+#: per Mamba layer (hybrid) or per (mLSTM, sLSTM) pair (xLSTM)
+RECURRENT = {"zamba2-7b": ("ssm", "conv"),
+             "xlstm-350m": ("mlstm_h", "mlstm_n", "slstm_c", "slstm_n",
+                            "slstm_h", "slstm_m")}
+
+
+@pytest.mark.parametrize("arch", sorted(RECURRENT))
+def test_recurrent_slab_decode_step_is_proven(arch):
+    """A reduced hybrid and a reduced xLSTM slab decode step, proven on
+    fake CUDA tensors and on fake CPU tensors, give one proof, fully
+    proven: every state-pool read (an ``index``) and write (an
+    ``index_put_``) PROVEN inside the pool's slots, the hybrid's K/V
+    appends (slot, page and offset, K and V) and its K1 reads too.  The
+    step registered with ``verify=True`` proves itself at its first
+    dispatch and then runs."""
+    fx = slab_serve_fixture(arch)
+    bundle, pool, params, meta, guard = fx
+    ops = step_operands(fx, "decode")
+    before = _counts()
+    proofs = {dev: verify(bundle.decode_fn, ops, arena_argnums=(0, 1),
+                          mode="extent", device=dev)
+              for dev in ("cpu", "cuda")}
+    assert _counts() == before
+    assert _rows(proofs["cuda"]) == _rows(proofs["cpu"])
+    port = proofs["cpu"]
+    assert port.fully_proven and port.n_refuted == 0
+    state = pool.get("state", pool)["pools"]
+    layers = next(iter(state.values())).shape[0]
+    slots = f"extent[0, {next(iter(state.values())).shape[1] - 1}]"
+    n = len(RECURRENT[arch]) * layers
+    # the hybrid's K and V appends: one site per index (slot, page, offset)
+    appends = 2 * len(params.get("mamba", ()))
+    reads = [s for s in port.sites if s.prim == "index"]
+    writes = [s for s in port.sites if s.prim == "index_put_"]
+    assert len(reads) == n and all(s.target == slots for s in reads)
+    assert len(writes) == n + 3 * appends
+    assert sum(s.target == slots for s in writes) == n + appends
+    mgr = GuardianManager(total_slots=64, device="cpu")
+    verified = dataclasses.replace(bundle, verify=True)
+    verified.register(mgr, pool)
+    client = mgr.register_tenant("t", 8)
+    client.launch_kernel(verified.decode_name, args=ops[2:])
+    mgr.synchronize()
+    entry = mgr.pointer_to_symbol[verified.decode_name]
+    assert entry.verify and entry.proofs
+    assert all(p.fully_proven for p in entry.proofs.values())
 
 
 def _unfenced(decode_fn):

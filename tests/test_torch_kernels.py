@@ -135,14 +135,16 @@ def test_paged_attention_empty_row_is_uniform_mean():
 
 
 def _k1_cluster_algorithm(q, k_pages, v_pages, table, lens, base, mask,
-                          page_map, cluster, tile=32):
+                          page_map, cluster, tile=32, window=0):
     """K1's cluster algorithm (``csrc/paged_attention.cu``) in plain
-    PyTorch, float32: each (sequence, KV head) splits its n_tok positions
-    (the held tokens, or all max_pages * page when seq_len <= 0) into
-    ``cluster`` contiguous shares of ceil(n_tok / cluster); each share runs
-    an online softmax over 32-token tiles from (m = -1e30, l = 0, acc = 0)
-    and leaves its partial (m, l, acc); the partials merge in rank order
-    against their largest m, and the output is acc / max(l, 1e-30)."""
+    PyTorch, float32: each (sequence, KV head) splits the positions it
+    walks (the held tokens — under a ``window`` > 0 only the last
+    ``window`` of them — or all max_pages * page when seq_len <= 0) into
+    ``cluster`` contiguous shares of ceil(n / cluster); each share runs an
+    online softmax over 32-token tiles from its first position, from (m =
+    -1e30, l = 0, acc = 0), and leaves its partial (m, l, acc); the
+    partials merge in rank order against their largest m, and the output
+    is acc / max(l, 1e-30)."""
     B, H, D = q.shape
     P, page, KH, _ = k_pages.shape
     G = H // KH
@@ -156,20 +158,27 @@ def _k1_cluster_algorithm(q, k_pages, v_pages, table, lens, base, mask,
     out = torch.empty((B, H, D))
     for b in range(B):
         n = int(lens[b])
-        n_tok = min(n, cap) if n > 0 else cap
-        chunk = -(-n_tok // cluster)
+        lo, hi = 0, (min(n, cap) if n > 0 else cap)
+        if window > 0 and n > 0:
+            lo = max(n - window, 0)
+            if lo >= hi:             # the band lies past the table: all
+                lo, hi = 0, cap      # masked, the uniform mean
+        chunk = -(-(hi - lo) // cluster)
         for kh in range(KH):
             qg = q[b, kh * G:(kh + 1) * G].float()
             parts = []
             for r in range(cluster):
-                t0 = min(r * chunk, n_tok)
-                t1 = min(t0 + chunk, n_tok)
+                t0 = lo + min(r * chunk, hi - lo)
+                t1 = min(t0 + chunk, hi)
                 m, l = torch.full((G,), -1e30), torch.zeros(G)
                 acc = torch.zeros((G, D))
                 for tb in range(t0, t1, tile):
                     te = min(tb + tile, t1)
                     s = (qg @ k[b, tb:te, kh].T) * scale
-                    s = torch.where(torch.arange(tb, te)[None] < n, s, neg)
+                    pos = torch.arange(tb, te)[None]
+                    band = (pos < n) & (pos >= n - window if window > 0
+                                        else True)
+                    s = torch.where(band, s, neg)
                     m_new = torch.maximum(m, s.amax(1))
                     w = torch.exp(s - m_new[:, None])
                     alpha = torch.exp(m - m_new)
@@ -222,6 +231,35 @@ def test_paged_attention_cluster_split_matches_plain_and_pallas(
     pallas = OPS.paged_attention(qj, kj, vj, *(jnp.asarray(a) for a in
                                                (pt, lens, base, mask, pmap)))
     assert_close(got, pallas, 1e-6)
+
+
+@pytest.mark.parametrize("window", [32, 100])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_paged_attention_cluster_split_with_window_matches_plain(cluster,
+                                                                 window):
+    """Under a sliding window K1 walks only each row's band (the last
+    ``window`` held tokens) and splits it over the cluster; modelled in
+    plain PyTorch at zamba2-7b's heads (G = 1, D = 112: 28 lanes of a
+    row's quads), it gives the windowed plain version within 1e-6 in
+    float32 over chip_smoke's coverage lengths (the band inside a page,
+    across a page boundary, past a short row's start, and an empty row's
+    uniform mean)."""
+    rng = np.random.default_rng(window + cluster)
+    B, H, KH, D, page, P = 8, 32, 32, 112, 64, 64
+    qt = t_of(rng.normal(size=(B, H, D)), torch.float32)
+    kt, vt = (t_of(rng.normal(size=(P, page, KH, D)), torch.float32)
+              for _ in range(2))
+    pmap = np.zeros(64, np.int32)
+    pmap[16:32], pmap[32:48] = np.arange(1, 17), np.arange(17, 33)
+    args_t = [t_of(a) for a in (
+        rng.integers(0, 64, size=(B, 4)).astype(np.int32),
+        np.array(K1_LENS, np.int32),
+        np.array([16, 16, 32, 32, 16, 32, 0, 0], np.int32),
+        np.array([15, 15, 15, 15, 15, 15, 3, 3], np.int32), pmap)]
+    got = _k1_cluster_algorithm(qt, kt, vt, *args_t, cluster=cluster,
+                                window=window)
+    assert_close(got, paged_attention(qt, kt, vt, *args_t, window=window),
+                 1e-6)
 
 
 def test_paged_attention_cluster_size_fills_the_card():
@@ -707,6 +745,31 @@ def test_flash_attention_plain_matches_oracle_and_pallas(dtype, B, S, H, KH,
     got = flash_attention(qt, kt, vt)
     assert_close(got, want, tol)
     assert_close(got, pallas, tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KH,D,blk", [
+    (1, 128, 4, 4, 32, 128),
+    (2, 64, 8, 1, 16, 32),
+    # zamba2-7b's shared attention block: D = 112, G = 1
+    (1, 57, 4, 4, 112, 57),
+])
+def test_flash_attention_non_causal_matches_oracle_and_pallas(dtype, B, S, H,
+                                                              KH, D, blk):
+    """K4's ``causal=False`` form (the Pallas kernel's other mode, for the
+    encoder-decoder family): the plain version against the oracle's
+    ``flash_attention_ref(causal=False)`` and the Pallas kernel in
+    interpret mode, on the same numpy inputs."""
+    rng = np.random.default_rng(S + H + 1)
+    qj, qt = _both(rng.normal(size=(B, S, H, D)), dtype)
+    kj, kt = _both(rng.normal(size=(B, S, KH, D)), dtype)
+    vj, vt = _both(rng.normal(size=(B, S, KH, D)), dtype)
+    tol = 3e-2 if dtype == "bfloat16" else TOL_F32
+    got = flash_attention(qt, kt, vt, causal=False)
+    assert_close(got, RJ.flash_attention_ref(qj, kj, vj, causal=False), tol)
+    assert_close(got, OPS.flash_attention(qj, kj, vj, causal=False,
+                                          q_blk=blk, kv_blk=blk), tol)
+    assert_close(got, LJ.chunked_attention(qj, kj, vj, causal=False), tol)
 
 
 @pytest.mark.parametrize("S", [1, 3, 57, 65])

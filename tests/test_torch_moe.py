@@ -425,17 +425,28 @@ def test_guard_for_rows_carries_the_reference_expert_fence():
 def test_family_serves_reduced_or_names_its_gap(arch):
     """The port's mirror of ``tests/test_serve_families.py``: every dense
     and MoE arch serves a request end to end through a reduced paged
-    engine, with a request span that reconciles; every other family
-    refuses with the gap it names."""
+    engine, every hybrid and xLSTM arch through a reduced slab engine (as
+    the reference's test serves it) and refuses the paged layout with the
+    reference's text, each with a request span that reconciles; every
+    other family refuses with the gap it names."""
     cfg = get_config_t(arch).reduced()
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family in UNPORTED:
         with pytest.raises(NotImplementedError) as err:
             ST.ServeEngine(cfg, max_batch=2, max_len=64, paged=True,
                            device="cpu")
         assert str(err.value) == UNPORTED[cfg.family]
         return
-    eng = ST.ServeEngine(cfg, max_batch=2, max_len=64, paged=True,
-                         device="cpu")
+    paged = cfg.family in ("dense", "moe")
+    if not paged:
+        with pytest.raises(ValueError) as err:
+            ST.ServeEngine(cfg, max_batch=2, max_len=64, paged=True,
+                           device="cpu")
+        with pytest.raises(ValueError) as ref_err:
+            SJ.ServeEngine(get_config(arch).reduced(), max_batch=2,
+                           max_len=64, paged=True)
+        assert str(err.value) == str(ref_err.value)
+    eng = ST.ServeEngine(cfg, max_batch=2, max_len=16 if not paged else 64,
+                         paged=paged, device="cpu")
     eng.register_tenant("t", 2)
     prompt = np.arange(1, 5, dtype=np.int32) % cfg.vocab
     rid = eng.submit("t", prompt)
@@ -449,8 +460,9 @@ def test_family_serves_reduced_or_names_its_gap(arch):
 
 
 def test_unported_family_reasons_are_current():
-    """Every family the registry holds is served (dense, moe) or named in
-    ``UNPORTED`` with its gap, and the table names no family that is gone."""
+    """Every family the registry holds is served (dense, moe, ssm, hybrid)
+    or named in ``UNPORTED`` with its gap, and the table names no family
+    that is gone."""
     families = {get_config_t(a).family for a in list_archs()}
     assert set(UNPORTED) <= families
-    assert families - set(UNPORTED) == {"dense", "moe"}
+    assert families - set(UNPORTED) == {"dense", "moe", "ssm", "hybrid"}
