@@ -176,6 +176,30 @@ xlstm-350m.  Phases, in order (any failure exits non-zero):
    slots in every pool, and a full tenant grows through the elastic
    plane, its KV and state slots moved by the relocation step.
 
+9. training (after phase 8): (a) minicpm-2b and qwen3-moe-30b-a3b at full
+   width and 2 layers, float32, the train guard (BITWISE; qwen3-moe's
+   expert fence and K5 too), a 2 x 64-token batch: the loss and every
+   gradient leaf on the card (K3 and K4 launched, their backwards in
+   PyTorch) against the CPU from the same weights — the loss within 1e-5
+   relative, each leaf within 1e-4 of its max |value|; (b) minicpm-2b at
+   full width and depth (40 layers, bf16, 2.72 B params) trained 10 steps
+   through ``repro_torch.launch.train``'s ``main`` in-process (AdamW + WSD
+   at peak lr 6e-4, batch 4 x 512, SyntheticLM seed 0, BITWISE guard,
+   remat off), counts set to 0 just before and read just after — every
+   loss finite, the last below the first, K3 once and K4 40 times a step
+   — then the same weights with ``--no-guard``; it prints the losses, the
+   peak memory, the CLI's step times and their guarded/native ratio, then
+   (the same weights again) the step's forward / backward / optimizer
+   times by CUDA events, guarded and native steps alternating, tokens/s,
+   the model's TFLOP/s and share of the bf16 peak against the step's
+   floor, and a step's device operations; (c) the restart contract at 2
+   layers, bf16: 6 steps against 3 + ``save_async`` / ``wait`` /
+   ``restore`` + 3, the final losses within 1e-5, and whether params and
+   moments are bit-identical.  Phase 2 holds K3 and K4 at (b)'s shapes
+   too (K3 over the 122,753 x 2,304 table under its 131,072 fence with
+   2,048 ids; K4 bf16 at (4, 512, 36, 64), causal), rows named
+   ``kernel@minicpm-2b/train``, and times both backwards.
+
 The last three lines of standard output are the kernel table as one JSON
 object, the card's ``name, power.limit``, and the result object.
 
@@ -196,6 +220,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -3565,6 +3590,499 @@ def recurrent_phase(torch, smi: str) -> dict:
     return paths
 
 
+# --------------------------------------------------------------------- #
+# Phase 9: training on the card                                         #
+# --------------------------------------------------------------------- #
+
+TRAIN_ARCH = "minicpm-2b"
+#: phase 9 (b)'s full-size run: the CLI's flags (train_100m.py's full-run
+#: lr, minicpm-2b's WSD schedule, batch 4 x 512 tokens, remat off)
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", "10", "--batch", "4",
+              "--seq", "512", "--lr", "6e-4", "--schedule", "wsd",
+              "--log-every", "1", "--device", "cuda"]
+
+
+def loss_and_grads(torch, api, params, toks, guard):
+    """``api.loss`` and the gradient of every param leaf, as the train
+    step takes them."""
+    from repro_torch.core.stepgraph import tree_flatten, tree_unflatten
+    struct, leaves = tree_flatten(params)
+    req = [p.detach().requires_grad_() for p in leaves]
+    loss = api.loss(tree_unflatten(struct, req), {"tokens": toks},
+                    guard=guard, remat=False)
+    return loss.detach(), torch.autograd.grad(loss, req)
+
+
+def train_card_vs_cpu(torch, name: str) -> None:
+    """Phase 9 (a): ``name`` at full width and 2 layers, float32, the
+    train guard (BITWISE), a 2 x 64-token SyntheticLM batch: the loss and
+    every gradient leaf on the card (K3 and K4 launched, their backwards
+    in PyTorch) against the CPU (their plain versions), from one seed's
+    weights drawn on the CPU.  The loss within 1e-5 relative, each leaf's
+    max |error| within 1e-4 of that leaf's max |value|."""
+    from repro_torch.checkpoint.store import _flatten_with_paths
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_guard
+    from repro_torch.models import get_model
+
+    cfg = dataclasses.replace(get_config(name), n_layers=2, dtype="float32")
+    api = get_model(cfg)
+    guard = make_guard(cfg, ShapeConfig("phase9", "train", 64, 2))
+    toks = torch.from_numpy(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=64, global_batch=2, seed=5)).batch(0)[
+            "tokens"])
+    params = api.init(torch.Generator().manual_seed(13), "cpu")
+    _build.reset_counts()
+    loss_g, grads_g = loss_and_grads(torch, api, tree_to(params, "cuda"),
+                                     toks.cuda(), guard)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in _build.KERNELS.values()
+                if k.launches}
+    plain = sum(k.plain_calls for k in _build.KERNELS.values())
+    want = {"gather_rows": 1, "flash_attention": 2}
+    if cfg.moe:
+        want["moe_histogram"] = 2
+    if launches != want or plain:
+        raise AssertionError(f"train (a) [{name}]: launches {launches}, "
+                             f"plain calls {plain}; want {want}, none")
+    loss_c, grads_c = loss_and_grads(torch, api, params, toks, guard)
+    rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    if not rel <= 1e-5:
+        raise AssertionError(f"train (a) [{name}]: loss {float(loss_g)} on "
+                             f"the card, {float(loss_c)} on the CPU")
+    # the leaves' checkpoint keys, in tree_flatten's order (sorted keys)
+    keys = [k for k, _ in _flatten_with_paths(params)]
+    worst, named = 0.0, {}
+    for key, g, c in zip(keys, grads_g, grads_c):
+        err = (g.cpu() - c).abs().max().item()
+        scale = c.abs().max().item()
+        ratio = err / scale if scale else err
+        if not ratio <= 1e-4:
+            raise AssertionError(f"train (a) [{name}]: gradient of {key} "
+                                 f"off by {err:.3g} (max |grad| {scale:.3g})")
+        worst = max(worst, ratio)
+        if key in ("embed/table", "layers/0/attn/wq", "layers/1/attn/wv"):
+            named[key] = ratio
+    del grads_g
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train (a) [{name}, 2 layers, d {cfg.d_model}, f32, BITWISE "
+        f"guard]: card vs CPU loss {float(loss_g):.6f} / {float(loss_c):.6f}"
+        f" (relative error {rel:.3g}, tolerance 1e-5); {len(keys)} gradient "
+        f"leaves, worst max |err| / max |grad| {worst:.3g} (tolerance 1e-4)"
+        f"; through K3's backward (tied table) and K4's: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in named.items())
+        + f"; launches on the card {launches}")
+
+
+def log_memory(torch, label: str) -> None:
+    """The card's allocated and reserved bytes and, past 1 GB allocated,
+    the largest live CUDA tensors the garbage collector sees (by shape and
+    dtype) with the types of what refers to the largest — a phase that
+    needs the card's memory names what an earlier one left."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    alloc = torch.cuda.memory_allocated() / 1e9
+    line = (f"{label}: {alloc:.2f} GB allocated, "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+    if alloc > 1.0:
+        live = [o for o in gc.get_objects()
+                if isinstance(o, torch.Tensor) and o.is_cuda]
+        size = collections.Counter()
+        for t in live:
+            size[f"{tuple(t.shape)} {t.dtype}"] += \
+                t.numel() * t.element_size() / 1e9
+        big = max(live, key=lambda t: t.numel() * t.element_size(),
+                  default=None)
+        refs = [type(r).__name__ for r in gc.get_referrers(big)] \
+            if big is not None else []
+        line += (f"; {len(live)} live CUDA tensors, largest: "
+                 + ", ".join(f"{k} {v:.2f} GB" for k, v in
+                             size.most_common(4))
+                 + f"; the largest is referred to by {refs[:6]}")
+    log(line)
+
+
+def run_train_cli(torch, argv):
+    """``repro_torch.launch.train.main(argv)`` in-process, its kernel
+    counts set to 0 just before and read just after: (summary, the step
+    lines' (loss, ms), launches, peak GB)."""
+    import io
+    import re
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as T
+
+    out = io.StringIO()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    with contextlib.redirect_stdout(out):
+        summary = T.main(argv)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in _build.KERNELS.values()
+                if k.launches}
+    plain = sum(k.plain_calls for k in _build.KERNELS.values())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = [(float(m.group(1)), float(m.group(2))) for m in (
+        re.match(r"step +\d+ loss (\S+) \((\d+) ms/step\)", ln)
+        for ln in out.getvalue().splitlines()) if m]
+    if plain:
+        raise AssertionError(f"train CLI: {plain} plain calls on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, steps, launches, peak
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of a train step: 6 N per token over the matmul params
+    (the embedding gather excluded, the tied LM head included once), plus
+    attention's QK^T and PV over the causal band, forward and backward
+    (3 x 2 x 2 x S^2 / 2 x H x D per sequence and layer)."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    per_layer = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d \
+        + 3 * d * f
+    n = L * per_layer + cfg.vocab * d
+    attn = 6 * 2 * (seq * seq / 2) * cfg.n_heads * cfg.head_dim * L \
+        * (tokens // seq)
+    return 6 * n * tokens + attn
+
+
+def train_split(torch, cfg, reps: int = 3):
+    """Phase 9 (b), timed by part: the train step's forward (the loss),
+    backward (its gradient) and optimizer (AdamW's update, applied) with
+    CUDA events, guarded (BITWISE) and native steps alternating on one set
+    of weights, after a warm-up step of each; then one guarded step's
+    device operations (``torch.profiler``).  Returns ``({guarded: [(fwd,
+    bwd, opt) ms per step]}, device operations, params, bytes of the
+    optimizer's update)``."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.stepgraph import tree_flatten, tree_unflatten
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import make_schedule, parse_args
+    from repro_torch.optim import apply_updates
+
+    args = parse_args(TRAIN_ARGV)
+    shape = ShapeConfig("train", "train", args.seq, args.batch)
+    steps = {g: build_train_step(cfg, shape, guard_enabled=g, remat=False,
+                                 schedule=make_schedule(args))
+             for g in (True, False)}
+    api = steps[True].api
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt_state = steps[True].opt.init(params)
+    struct, leaves = tree_flatten(params)
+    n_params = sum(t.numel() for t in leaves)
+    # the update's bytes: params read and written, gradients read, the
+    # float32 moments read and written
+    opt_bytes = sum(t.numel() * (3 * t.element_size() + 16) for t in leaves)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                  global_batch=args.batch))
+    times = {True: [], False: []}
+    for i in range(2 * (reps + 1)):
+        guarded = i % 2 == 0
+        step = steps[guarded]
+        toks = torch.from_numpy(data.batch(i)["tokens"]).cuda()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        req = [p.detach().requires_grad_() for p in leaves]
+        ev[0].record()
+        loss = api.loss(tree_unflatten(struct, req), {"tokens": toks},
+                        guard=step.guard, remat=False)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, req)
+        ev[2].record()
+        del req
+        updates, opt_state = step.opt.update(
+            tree_unflatten(struct, list(grads)), opt_state, params)
+        del grads
+        apply_updates(params, updates)
+        del updates
+        ev[3].record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times[guarded].append(tuple(ev[j].elapsed_time(ev[j + 1])
+                                        for j in range(3)))
+    prof = profile_step(torch, lambda: steps[True].fn(
+        params, opt_state, {"tokens": toks}))
+    del params, opt_state, leaves, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return times, prof, n_params, opt_bytes
+
+
+#: phase 9's device-time classes, by kernel name (first match)
+STEP_CLASSES = (
+    ("GEMMs", ("gemm", "xmma", "cutlass", "sm90_", "cublas")),
+    ("optimizer (foreach)", ("multi_tensor", "foreach")),
+    ("K4", ("flash_attention",)),
+    ("K3", ("gather_rows",)),
+    ("index_put / scatter", ("index", "scatter")),
+    ("softmax / reductions", ("softmax", "reduce", "norm")),
+)
+
+
+def profile_step(torch, fn, sessions: int = 2) -> dict:
+    """One call of ``fn`` (a train step) under ``torch.profiler``, after a
+    warm-up call: its device operations, device busy time, that time by
+    class (:data:`STEP_CLASSES`, the rest "elementwise / other") and the
+    top kernels — from the session that recorded the most operations (the
+    profiler can drop a record, never makes one up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    fn()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        ops = sum(e.count for e in kern)
+        if best is None or ops > best[0]:
+            best = (ops, kern)
+    ops, kern = best
+    by_class = collections.Counter()
+    for e in kern:
+        name = e.key.lower()
+        cls = next((c for c, keys in STEP_CLASSES
+                    if any(k in name for k in keys)), "elementwise / other")
+        by_class[cls] += dev_us(e) / 1e3
+    top = sorted(kern, key=dev_us, reverse=True)[:8]
+    return {"ops": ops, "busy_ms": sum(dev_us(e) for e in kern) / 1e3,
+            "by_class": dict(by_class.most_common()),
+            "top": [(e.key[:70], dev_us(e) / 1e3, e.count) for e in top]}
+
+
+def train_full(torch, smi: str) -> dict:
+    """Phase 9 (b): minicpm-2b at full width and depth (40 layers, bf16,
+    2.72 B params) trained 10 steps by ``repro_torch.launch.train``'s
+    ``main`` in-process (AdamW + WSD, peak lr 6e-4, batch 4 x 512,
+    SyntheticLM seed 0, BITWISE guard, remat off), then the same weights
+    (the same seed) with ``--no-guard``; gates: every loss finite, the
+    last below the first, K3 once and K4 once a layer per step.  Then the
+    step by part and its device operations (:func:`train_split`).
+    Returns the guarded run's launches."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    n_steps, batch, seq = 10, 4, 512
+    tokens = batch * seq
+    log_memory(torch, "train (b), before the CLI runs")
+    summary, lines, launches, peak = run_train_cli(torch, TRAIN_ARGV)
+    losses = [x for x, _ in lines]
+    want = {"gather_rows": n_steps, "flash_attention": n_steps * cfg.n_layers}
+    if launches != want:
+        raise AssertionError(f"train (b): launches {launches}, want {want}")
+    if not (len(losses) == n_steps and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"train (b): losses {losses}")
+    _, lines_n, launches_n, peak_n = run_train_cli(
+        torch, TRAIN_ARGV + ["--no-guard"])
+    wall = statistics.median(ms for _, ms in lines[1:])
+    wall_n = statistics.median(ms for _, ms in lines_n[1:])
+    log_memory(torch, "train (b), before the step by part")
+    times, prof, n_params, opt_bytes = train_split(torch, cfg)
+    step_ms = {g: statistics.median(sum(t) for t in ts)
+               for g, ts in times.items()}
+    flops = train_flops(cfg, tokens, seq)
+    peak_tf = PEAK_FLOPS["bfloat16"] / 1e12
+    floor_c = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    floor_o = opt_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"train (b) [{TRAIN_ARCH}, {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params, {cfg.dtype}, batch {batch} x "
+        f"{seq}]: "
+        "losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f" (first {summary['first_loss']:.4f} -> last "
+        f"{summary['final_loss']:.4f}); launches {launches} "
+        f"({launches['gather_rows'] // n_steps} K3 / "
+        f"{launches['flash_attention'] // n_steps} K4 a step); peak "
+        f"{peak:.2f} GB (native run {peak_n:.2f} GB, launches "
+        f"{launches_n})")
+    log(f"train (b) [{TRAIN_ARCH}]: CLI step (host clock to the loss on "
+        f"the host, steps 1-9) median {wall:.0f} ms guarded, {wall_n:.0f} "
+        f"ms native -> guarded/native {wall / wall_n:.4f}")
+    for g in (True, False):
+        log(f"train (b) [{TRAIN_ARCH}, {'guarded' if g else 'native'}]: "
+            "forward / backward / optimizer ms (CUDA events) per step: "
+            + "; ".join("/".join(f"{x:.2f}" for x in t) for t in times[g])
+            + f"; median step {step_ms[g]:.2f} ms")
+    log(f"train (b) [{TRAIN_ARCH}]: guarded/native step (device) "
+        f"{step_ms[True] / step_ms[False]:.4f}; {tokens / step_ms[True] * 1e3:.0f}"
+        f" tokens/s guarded; model {flops / 1e12:.2f} TFLOP a step (6 N "
+        f"tokens + attention) = {flops / step_ms[True] / 1e9:.1f} TFLOP/s, "
+        f"{flops / step_ms[True] / 1e9 / peak_tf:.1%} of {peak_tf:.0f} "
+        f"TFLOP/s bf16; floor {floor_c:.1f} ms compute + {floor_o:.1f} ms "
+        f"for the optimizer's {opt_bytes / 1e9:.1f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {floor_c + floor_o:.1f} ms "
+        f"({(floor_c + floor_o) / step_ms[True]:.1%} of the step); on {smi}")
+    log(f"train (b) [{TRAIN_ARCH}]: a guarded step under the profiler: "
+        f"{prof['ops']} device operations, device busy "
+        f"{prof['busy_ms']:.1f} ms; by class: " + ", ".join(
+            f"{c} {ms:.1f} ms" for c, ms in prof["by_class"].items())
+        + "; top kernels: " + "; ".join(
+            f"{k} {ms:.2f} ms x{n}" for k, ms, n in prof["top"]))
+    return {"launches": launches}
+
+
+def train_restart(torch) -> None:
+    """Phase 9 (c): the restart contract on the card, minicpm-2b at 2
+    layers and full width, bf16, the train guard, batch 2 x 128: 6 steps
+    uninterrupted against 3 steps, ``save_async`` / ``wait`` /
+    ``restore`` into fresh tensors, 3 steps.  Gate: the final losses
+    within 1e-5 (``examples/preemption_resume.py``'s bound); prints
+    whether every param and moment is bit-identical."""
+    import tempfile
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.stepgraph import tree_flatten
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import wsd
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
+    step = build_train_step(cfg, ShapeConfig("phase9", "train", 128, 2),
+                            remat=False, schedule=wsd(6e-4, 1, 3, 2))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                  global_batch=2, seed=0))
+
+    def fresh():
+        p = step.api.init(torch.Generator(device="cuda").manual_seed(0),
+                          "cuda")
+        return p, step.opt.init(p)
+
+    def run(start, stop, params, opt_state):
+        loss = None
+        for s in range(start, stop):
+            params, opt_state, out = step.fn(params, opt_state, {
+                "tokens": torch.from_numpy(data.batch(s)["tokens"]).cuda()})
+            loss = float(out["loss"])
+        return params, opt_state, loss
+
+    pa, sa, loss_a = run(0, 6, *fresh())
+    pb, sb, _ = run(0, 3, *fresh())
+    with tempfile.TemporaryDirectory() as d:
+        store = CheckpointStore(d)
+        store.save_async(3, (pb, sb))
+        store.wait()
+        del pb, sb
+        (pb, sb), at = store.restore(fresh())
+    pb, sb, loss_b = run(at, 6, pb, sb)
+    diff = abs(loss_a - loss_b)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_flatten((pa, sa))[1], tree_flatten((pb, sb))[1]))
+    if not diff < 1e-5:
+        raise AssertionError(f"train (c): restarted run's loss {loss_b} vs "
+                             f"{loss_a} uninterrupted")
+    log(f"train (c) [{TRAIN_ARCH}, 2 layers, {cfg.dtype}]: 6 steps "
+        f"{loss_a:.6f}, "
+        f"3 + checkpoint (save_async, wait, restore) + 3 {loss_b:.6f}: "
+        f"|diff| {diff:.3g} (tolerance 1e-5); params and moments "
+        f"bit-identical: {same}")
+    del pa, sa, pb, sb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_kernel_rows(torch) -> list:
+    """Phase 2's rows at the training shapes of phase 9 (b) (minicpm-2b,
+    batch 4 x 512): K3 over the 122,753 x 2,304 bf16 table under its
+    131,072 vocab fence with 2,048 SyntheticLM ids, and K4 in bf16 at (4,
+    512, 36, 64), causal — each against its plain version, with its time,
+    bound and library call; and each kernel's backward (PyTorch, the
+    gradient the train step takes) timed for the log."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gather_rows import gather_rows, \
+        gather_rows_backward_op
+    import torch.nn.functional as F
+
+    cfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(2222)
+    B, S, H, D = 4, 512, cfg.n_heads, cfg.head_dim
+    path = f"{TRAIN_ARCH}/train"
+    rows = []
+
+    def row(kernel, source, replaces, **kw):
+        rows.append(dict(kernel=kernel, path=path, route="cuda",
+                         name=f"{kernel}@{path}",
+                         source=f"src/repro_torch/kernels/csrc/{source}",
+                         replaces=f"src/repro/kernels/{replaces}", **kw))
+
+    # K3: the step's 2,048 input ids (SyntheticLM, seed 0, step 0)
+    table = torch.randn(cfg.vocab, cfg.d_model, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    ids = torch.from_numpy(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=S, global_batch=B)).batch(0)["tokens"][
+            :, :-1].reshape(-1).copy()).cuda()
+    mask = pow2(cfg.vocab) - 1
+    out = gather_rows(table, ids, 0, mask)
+    want = ref.gather_rows_ref(table, ids, 0, mask)
+    if not torch.equal(out, want):
+        raise AssertionError("gather_rows at the training shape disagrees "
+                             "with its plain version")
+    n = ids.numel()
+    grad = torch.randn(n, cfg.d_model, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    bwd_ms = cuda_ms(torch, lambda: gather_rows_backward_op(
+        table, grad, ids, None, None, 0, mask))
+    row("gather_rows", "gather_rows.cu", "fenced_gather.py:48",
+        max_abs_err=0.0, tolerance="exact",
+        ms=cuda_ms(torch, lambda: gather_rows(table, ids, 0, mask)),
+        plain_ms=cuda_ms(torch, lambda: ref.gather_rows_ref(
+            table, ids, 0, mask)),
+        library_ms=cuda_ms(torch, lambda: table.index_select(0, ids)),
+        library_call="Tensor.index_select",
+        shape=f"table {tuple(table.shape)} bf16, {n} ids, fence {mask + 1}",
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            2 * n * cfg.d_model * 2 + n * 4, 0.0, "bfloat16"))))
+    del table, grad
+
+    # K4: the step's attention, bf16, causal
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    err = (flash_attention(q, k, v).float()
+           - ref.flash_attention_ref(q, k, v).float()).abs().max().item()
+    if not err <= 2e-2:
+        raise AssertionError(f"flash_attention at the training shape: "
+                             f"error {err} > 2e-2")
+    call = (lambda: flash_attention(q, k, v))
+    ops = device_ops_per_call(torch, call)
+    if ops != 1:
+        raise AssertionError(f"flash_attention at the training shape: "
+                             f"{ops:g} device operations a call, want 1")
+    do = torch.randn(B, S, H, D, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    k4_bwd_ms = cuda_ms(torch, lambda: ref.flash_attention_grad_ref(
+        q, k, v, do), iters=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row("flash_attention", "flash_attention.cu", "flash_attention.py:84",
+        max_abs_err=err, tolerance="2e-2 (bf16 output)", device_ops=ops,
+        ms=cuda_ms(torch, call),
+        plain_ms=cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v),
+                         iters=5),
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        library_call="F.scaled_dot_product_attention(is_causal=True)",
+        shape=f"q/k/v ({B},{S},{H},{D}) bf16, causal",
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            2 * B * S * 4 * H * D, 4 * B * H * D * S * (S + 1) / 2,
+            "bfloat16"))))
+    log_rows(rows)
+    log(f"backwards at the training shapes (PyTorch, the train step's): "
+        f"K3's fenced scatter-add {bwd_ms:.5f} ms, K4's recompute "
+        f"{k4_bwd_ms:.5f} ms a call")
+    return rows
+
+
 # A worker of the same-card A/B: phase 2 of the checkout at argv[1], run
 # with that checkout's own chip_smoke.py and kernels, then the main path's
 # prefill write timed by this file's (argv[2]) code against that
@@ -3677,6 +4195,16 @@ def main() -> int:
                         dataclasses.replace(cfg, n_layers=2), smi)
         return 0
 
+    if len(sys.argv) == 2 and sys.argv[1] == "--train":
+        # a development switch: phase 2's training rows and phase 9 alone,
+        # after the build
+        train_kernel_rows(torch)
+        for name in (TRAIN_ARCH, "qwen3-moe-30b-a3b"):
+            train_card_vs_cpu(torch, name)
+        train_full(torch, smi)
+        train_restart(torch)
+        return 0
+
     cfgs = [get_config(name) for name in PATHS]
     floor = launch_floor_ms(torch)
     log(f"launch floor: {floor:.5f} ms (one-element fill_, the smallest "
@@ -3688,6 +4216,7 @@ def main() -> int:
     for name in RECURRENT:
         rows += check_kernels(torch, get_config(name))
     check_ops(torch, get_config(RECURRENT[0]))
+    rows += train_kernel_rows(torch)
     for r in rows:
         log(f"  {r['kernel']} [{r['path']}]: {r['ms']:.5f} ms = "
             f"{r['ms'] / floor:.2f}x the launch floor")
@@ -3730,6 +4259,12 @@ def main() -> int:
         log(f"after [{cfg.name}]: {torch.cuda.memory_allocated() / 1e9:.2f}"
             " GB still allocated")
     paths.update(recurrent_phase(torch, smi))
+    # phase 9: training
+    log_memory(torch, "before phase 9")
+    for name in (TRAIN_ARCH, "qwen3-moe-30b-a3b"):
+        train_card_vs_cpu(torch, name)
+    paths[f"{TRAIN_ARCH}/train"] = train_full(torch, smi)
+    train_restart(torch)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

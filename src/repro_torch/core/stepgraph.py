@@ -47,8 +47,8 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Hashable, List, Optional, \
-    Sequence, Tuple
+from typing import Any, Callable, Dict, Hashable, Iterator, List, \
+    Optional, Sequence, Tuple
 
 import torch
 
@@ -82,23 +82,25 @@ def tree_flatten(x: Any) -> Tuple[Hashable, List[Any]]:
 
 
 def tree_unflatten(struct: Hashable, leaves: Sequence[Any]) -> Any:
-    """Inverse of :func:`tree_flatten`."""
-    it = iter(leaves)
+    """Inverse of :func:`tree_flatten`.  Builds through a module-level
+    function: a nested recursive one would close over itself, a reference
+    cycle that keeps ``leaves`` (a train step's gradients, GBs) alive
+    until the cyclic garbage collector happens to run."""
+    return _build(struct, iter(leaves))
 
-    def build(s):
-        if s is None:
-            return next(it)
-        kind = s[0]
-        if kind is dict:
-            return {k: build(sub) for k, sub in zip(s[1], s[2])}
-        if len(s) == 2:
-            vals = [build(sub) for sub in s[1]]
-            if kind is list:
-                return vals
-            return kind(*vals) if hasattr(kind, "_fields") else kind(vals)
-        return kind(**{n: build(sub) for n, sub in zip(s[1], s[2])})
 
-    return build(struct)
+def _build(s: Hashable, it: Iterator[Any]) -> Any:
+    if s is None:
+        return next(it)
+    kind = s[0]
+    if kind is dict:
+        return {k: _build(sub, it) for k, sub in zip(s[1], s[2])}
+    if len(s) == 2:
+        vals = [_build(sub, it) for sub in s[1]]
+        if kind is list:
+            return vals
+        return kind(*vals) if hasattr(kind, "_fields") else kind(vals)
+    return kind(**{n: _build(sub, it) for n, sub in zip(s[1], s[2])})
 
 
 @dataclasses.dataclass

@@ -1533,9 +1533,9 @@ def _declared_ival(ctx: SymCtx, site: Site, ival: Dict[str, Ival]) -> Ival:
     interval through the kernel's int32 fence ``(ids & mask) | base``,
     its page map (an id outside the map resolves to page 0), its pool
     clamp ``& (extent - 1)``, and for an id out of range what the kernel
-    does (``"nan"``: a negative id in ``[-V, 0)`` wraps once, an id outside
-    ``[0, V)`` forms no address) — the transfer functions the plain
-    version's aten graph goes through, in its order."""
+    does (``"nan"``, ``"drop"``: a negative id in ``[-V, 0)`` wraps once,
+    an id outside ``[0, V)`` forms no address) — the transfer functions
+    the plain version's aten graph goes through, in its order."""
     acc, node = site.decl, site.node
 
     def fence_part(names: Tuple[str, str]) -> Ival:
@@ -1554,7 +1554,7 @@ def _declared_ival(ctx: SymCtx, site: Site, ival: Dict[str, Ival]) -> Ival:
                    iconst(0))
     if acc.pool_clamp:
         iv = iand(ctx, iv, iconst(site.extent - 1))
-    if acc.out_of_range == "nan":
+    if acc.out_of_range in ("nan", "drop"):
         wrapped = ifit(ctx, iadd(iv, iconst(site.extent)), i32)
         iv = iwhere(ctx, icompare(ctx, iv, iconst(0), strict=True), wrapped,
                     iv)

@@ -11,7 +11,8 @@ its own transfer functions over what the kernel computes:
     id      = page_map[id], 0 outside the map        ``page_map`` (K1, K2)
     address = id & (extent - 1)                      ``pool_clamp`` (K1, K2)
     address formed only for id in [-V, V), a         ``out_of_range="nan"``
-    negative id wrapped once (NaN row otherwise)     (K3)
+    negative id wrapped once (NaN row otherwise)     (K3), ``"drop"``
+                                                     (K3's backward store)
 
 Each entry states what the CUDA source does (the line it names) and what
 the plain version in :mod:`repro_torch.kernels.ref` does; the tests hold the
@@ -21,6 +22,13 @@ addressed from data: every other operand of a kernel is read or written
 whole, within its shape.  K4 (flash attention) forms no data-dependent
 address, and K5 (the MoE histogram) only one into its own shared-memory
 bins, dropping ids outside ``[0, E)``: neither declares an access.
+
+K3's backward (``gather_rows_backward``) is no CUDA kernel: the reference
+has none, and the port writes it in PyTorch (``kernels/ref.py``).  It is
+declared here all the same, as the store of the table's gradient into the
+table's rows at the fenced ids: the optimizer adds that gradient to the
+table row for row, so the rows it addresses are rows of the table, and a
+traced train step proves them as it proves the gather's load.
 """
 
 from __future__ import annotations
@@ -43,7 +51,8 @@ class Access:
     that the address is ``id & (extent - 1)`` of the power-of-two operand.
     ``out_of_range`` is what the kernel does with an id outside the
     operand: ``"clamp"`` (the pool clamp keeps every id inside),
-    ``"nan"`` (no address is formed; the row reads as NaN).  ``store`` is
+    ``"nan"`` (no address is formed; the row reads as NaN), ``"drop"`` (no
+    address is formed; the store is dropped).  ``store`` is
     whether the access writes; ``duplicates`` how equal addresses of one
     call resolve; ``source`` the line of the CUDA source forming it."""
 
@@ -88,6 +97,14 @@ ACCESSES: Dict[str, Tuple[Access, ...]] = {
         operand="table", index="idx", store=False,
         base=("base_ids", "base"), mask=("mask_ids", "mask"),
         out_of_range="nan", source="gather_rows.cu:46"),),
+    # K3's backward: ref.py's gather_rows_grad_ref fences each id as the
+    # load did, wraps a negative one once and drops one past the table
+    # onto a spare row of its own accumulator; equal ids sum
+    "gather_rows_backward": (Access(
+        operand="table", index="idx", store=True,
+        base=("base_ids", "base"), mask=("mask_ids", "mask"),
+        out_of_range="drop", duplicates="summed in id order",
+        source="ref.py:126"),),
     "flash_attention": (),
     "moe_histogram": (),
 }

@@ -10,6 +10,13 @@ the output's shape only.  On the card a bfloat16 query runs the tensor-core
 dim that is a multiple of 16 up to 128 and whole GQA groups.  The kernel
 has no data-dependent address (:mod:`repro_torch.kernels.access` declares
 none).
+
+The op is differentiable in q, k and v.  The reference's Pallas kernel is
+forward-only (its training path is XLA's autodiff of jnp), so the
+backward is written in PyTorch for every device: it recomputes the
+float32 softmax from the saved q, k and v
+(:func:`repro_torch.kernels.ref.flash_attention_grad_ref`), holding
+B * H * S**2 float32 scores a call.
 """
 
 from __future__ import annotations
@@ -64,6 +71,21 @@ def _cuda(q, k, v, causal, window):
 @flash_attention_op.register_fake
 def _fake(q, k, v, causal, window):
     return torch.empty_like(q)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, window = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.mask = (causal, window)
+
+
+def _backward(ctx, grad):
+    q, k, v = ctx.saved_tensors
+    return (*ref.flash_attention_grad_ref(q, k, v, grad, *ctx.mask), None,
+            None)
+
+
+flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):

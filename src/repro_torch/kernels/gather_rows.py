@@ -7,6 +7,15 @@ dispatcher sends by device: a CPU table runs the plain version
 the kernel or raises, and a fake table (a trace) gets the output's shape
 only.  What the kernel addresses is declared in
 :mod:`repro_torch.kernels.access`.
+
+The op is differentiable in ``table``.  The reference has no backward
+kernel (its gradient is XLA's transpose of ``jnp.take``, a scatter-add),
+so the backward is the custom op ``repro_torch::gather_rows_backward``,
+written in PyTorch (:func:`repro_torch.kernels.ref.gather_rows_grad_ref`)
+for every device: the row gradients added at the *fenced* ids, the
+addresses the forward loaded, ids past the table dropped.  Being an op of
+its own, it is one node of a traced train step whose declared store into
+the table's rows the verifier proves like the load.
 """
 
 from __future__ import annotations
@@ -59,6 +68,43 @@ def _cuda(table, idx, base_ids, mask_ids, base, mask):
 @gather_rows_op.register_fake
 def _fake(table, idx, base_ids, mask_ids, base, mask):
     return table.new_empty((idx.shape[0], table.shape[1]))
+
+
+@torch.library.custom_op("repro_torch::gather_rows_backward",
+                         mutates_args=())
+def gather_rows_backward_op(table: torch.Tensor, grad: torch.Tensor,
+                            idx: torch.Tensor,
+                            base_ids: Optional[torch.Tensor],
+                            mask_ids: Optional[torch.Tensor], base: int,
+                            mask: int) -> torch.Tensor:
+    """The gradient of ``table`` (a new tensor of its shape and dtype; the
+    table is read for neither): ``grad`` (N, D) scatter-added at the
+    fenced ids, on any device."""
+    return ref.gather_rows_grad_ref(table, grad, idx,
+                                    join_fence(base_ids, base),
+                                    join_fence(mask_ids, mask))
+
+
+@gather_rows_backward_op.register_fake
+def _fake_backward(table, grad, idx, base_ids, mask_ids, base, mask):
+    return torch.empty_like(table)
+
+
+def _setup_context(ctx, inputs, output):
+    table, idx, base_ids, mask_ids, base, mask = inputs
+    ctx.save_for_backward(table, idx, base_ids, mask_ids)
+    ctx.fence = (base, mask)
+
+
+def _backward(ctx, grad):
+    table, idx, base_ids, mask_ids = ctx.saved_tensors
+    d_table = gather_rows_backward_op(table, grad, idx, base_ids, mask_ids,
+                                      *ctx.fence) \
+        if ctx.needs_input_grad[0] else None
+    return d_table, None, None, None, None, None
+
+
+gather_rows_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor, fence_base,

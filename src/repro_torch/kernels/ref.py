@@ -112,6 +112,26 @@ def gather_rows_ref(table, idx, fence_base, fence_mask):
                                   device=table.device))
 
 
+def gather_rows_grad_ref(table, grad, idx, fence_base, fence_mask):
+    """The gradient of ``table`` through :func:`gather_rows_ref` — K3's
+    backward: each row of ``grad`` (N, D) added into the (V, D) result at
+    its id's fenced row, the address the gather loaded (a negative fenced
+    id in [-V, 0) wrapped once).  An id whose gather formed no address (a
+    NaN row) is dropped onto a spare row past the table, as jnp's
+    fill-mode ``take`` drops its gradient.  Sums in float32 through
+    ``index_put_(accumulate=True)``, which adds a destination's rows in
+    the order of the ids on the card as on the CPU (a deterministic sum,
+    unlike float atomics), then casts to ``table``'s dtype."""
+    V, D = table.shape
+    row = fence_ref(idx, fence_base, fence_mask)
+    row = torch.where(row < 0, row + V, row)
+    ok = (row >= 0) & (row < V)
+    dest = torch.where(ok, row, torch.full_like(row, V)).long()
+    acc = torch.zeros((V + 1, D), dtype=torch.float32, device=grad.device)
+    acc.index_put_((dest,), grad.float(), accumulate=True)
+    return acc[:V].to(table.dtype)
+
+
 def moe_histogram_ref(expert_ids, num_experts, fence_base, fence_mask):
     """Fenced expert histogram: ids (T, K) -> int32 counts (num_experts,)
     of ``(id & mask) | base``; fenced ids outside ``[0, num_experts)`` are
@@ -124,15 +144,12 @@ def moe_histogram_ref(expert_ids, num_experts, fence_base, fence_mask):
     return (fenced == experts).sum(dim=0, dtype=torch.int32)
 
 
-def flash_attention_ref(q, k, v, causal=True, window=0):
-    """Attention: q (B,S,H,D), k/v (B,S,KH,D) -> (B,S,H,D), float32 math.
-    Query row i attends to keys j <= i when ``causal`` and j > i - window
-    when ``window`` > 0 (``repro/models/layers.py``'s
-    ``chunked_attention`` masks)."""
+def _attention_probs(q, k, causal, window):
+    """float32 softmax of the masked, scaled scores, (B, KH, G, S, S), and
+    the query in float32 as (B, S, KH, G, D)."""
     B, S, H, D = q.shape
     KH = k.shape[2]
-    G = H // KH
-    qg = q.float().reshape(B, S, KH, G, D)
+    qg = q.float().reshape(B, S, KH, H // KH, D)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(D)
     pos = torch.arange(S, device=q.device)
     band = torch.ones((S, S), dtype=torch.bool, device=q.device)
@@ -142,6 +159,34 @@ def flash_attention_ref(q, k, v, causal=True, window=0):
         band = band & (pos[None, :] > pos[:, None] - window)
     s = torch.where(band[None, None, None], s,
                     torch.full((), NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
+    return torch.softmax(s, dim=-1), qg
+
+
+def flash_attention_ref(q, k, v, causal=True, window=0):
+    """Attention: q (B,S,H,D), k/v (B,S,KH,D) -> (B,S,H,D), float32 math.
+    Query row i attends to keys j <= i when ``causal`` and j > i - window
+    when ``window`` > 0 (``repro/models/layers.py``'s
+    ``chunked_attention`` masks)."""
+    p, _ = _attention_probs(q, k, causal, window)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, S, H, D).to(q.dtype)
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def flash_attention_grad_ref(q, k, v, grad, causal=True, window=0):
+    """The gradient of :func:`flash_attention_ref` — K4's backward, by
+    recomputation from q, k, v: P = softmax of the masked, scaled scores in
+    float32, then dV = P^T dO, dP = dO V^T, dS = P * (dP - rowsum(dP * P)),
+    dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D), each KV head summing its
+    query group.  Returns (dq, dk, dv) in the operands' dtypes."""
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    p, qg = _attention_probs(q, k, causal, window)
+    do = grad.float().reshape(B, S, KH, H // KH, D)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, do)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do, v.float())
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    scale = 1.0 / math.sqrt(D)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * scale
+    return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

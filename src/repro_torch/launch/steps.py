@@ -1,6 +1,7 @@
-"""Step builders for the serving plane: the engine's prefill/decode as
-trusted manager kernels, and the elastic relocation steps of the flat
-arena and of a serve engine's slab pool.
+"""Step builders: the engine's prefill/decode as trusted manager kernels,
+the elastic relocation steps of the flat arena and of a serve engine's
+slab pool, and the train step (:func:`make_guard`,
+:func:`build_train_step`).
 
 Steps run on the manager's device, as compiled steps (one CUDA graph per
 operand signature, :mod:`repro_torch.core.stepgraph`) unless the manager's
@@ -17,9 +18,15 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.fence import FenceParams, FencePolicy, \
     guarded_dynamic_slice, guarded_dynamic_update_slice
-from repro_torch.models.api import ModelAPI
+from repro_torch.core.partition import next_pow2
+from repro_torch.core.stepgraph import tree_flatten, tree_unflatten
+from repro_torch.models import kvcache as KV
+from repro_torch.models.api import ModelAPI, get_model
+from repro_torch.models.guard import GuardSpec
+from repro_torch.optim import Optimizer, adamw, apply_updates, cosine
 
 
 def split_cache_pool(cache) -> Tuple[Dict, Any]:
@@ -214,3 +221,80 @@ def build_pool_relocation_step(src: int, dst: int, size: int) -> Callable:
         return arena, move_all(pool), None
 
     return relocate
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+def make_guard(cfg: ModelConfig, shape: ShapeConfig,
+               policy: FencePolicy = FencePolicy.BITWISE,
+               enabled: bool = True) -> Optional[GuardSpec]:
+    """The reference's single-tenant-owns-everything guard (fences still
+    compiled in — the overhead-measurement configuration): each space
+    fenced into the power of two at or above its extent (the vocab's
+    ``pow2(vocab)``, the experts' ``pow2(E)``).  ``enabled=False`` is the
+    paper's standalone fast path (no fence at all)."""
+    if not enabled:
+        return None
+
+    def fp(n):
+        return FenceParams(base=0, size=n) if n else None
+
+    slots = next_pow2(shape.global_batch)
+    pages = next_pow2(max(shape.seq_len // KV.PAGE_SIZE, 1))
+    expert = next_pow2(cfg.moe.num_experts) if cfg.moe else 0
+    return GuardSpec(policy=policy, vocab=fp(next_pow2(cfg.vocab)),
+                     kv=fp(slots), state=fp(slots), expert=fp(expert),
+                     page=fp(pages))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStep:
+    """A train step and what it closes over.  ``fn(params, opt_state,
+    batch) -> (params, opt_state, {"loss": loss})`` updates ``params`` and
+    the optimizer's moments in place (the reference donates both) and
+    hands them back; ``batch["tokens"]`` is (B, S + 1) on the params'
+    device."""
+
+    fn: Callable
+    opt: Optimizer
+    guard: Optional[GuardSpec]
+    api: ModelAPI
+
+
+def build_train_step(cfg: ModelConfig, shape: ShapeConfig, *,
+                     guard_enabled: bool = True,
+                     policy: FencePolicy = FencePolicy.BITWISE,
+                     remat: bool = True, peak_lr: float = 3e-4,
+                     moe_dispatch: str = "scatter",
+                     remat_policy: str = "nothing",
+                     schedule: Optional[Callable] = None,
+                     device="cuda") -> TrainStep:
+    """The reference's ``train_step`` (``repro/launch/steps.py``) on one
+    device, without a mesh: the loss and its gradient through
+    ``api.loss`` under :func:`make_guard`'s guard, AdamW under
+    ``schedule`` (default: the reference's ``cosine(peak_lr, 2_000,
+    100_000)``), the update applied.  ``device`` is where the step's
+    params live; the step itself runs wherever its operands are."""
+    torch.device(device)          # an unknown device name raises here
+    api = get_model(cfg)
+    guard = make_guard(cfg, shape, policy, guard_enabled)
+    opt = adamw(schedule or cosine(peak_lr, 2_000, 100_000))
+    extra = {"dispatch": moe_dispatch,
+             "remat_policy": remat_policy} if cfg.moe else {}
+
+    def train_step(params, opt_state, batch):
+        struct, leaves = tree_flatten(params)
+        with torch.enable_grad():
+            req = [p.detach().requires_grad_() for p in leaves]
+            loss = api.loss(tree_unflatten(struct, req), batch, guard=guard,
+                            remat=remat, **extra)
+            grads = torch.autograd.grad(loss, req, materialize_grads=True)
+        updates, opt_state = opt.update(tree_unflatten(struct, list(grads)),
+                                        opt_state, params)
+        del grads
+        params = apply_updates(params, updates)
+        return params, opt_state, {"loss": loss.detach()}
+
+    return TrainStep(fn=train_step, opt=opt, guard=guard, api=api)

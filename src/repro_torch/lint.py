@@ -1,5 +1,5 @@
-"""``python -m repro_torch.lint`` — static bounds audit of the port's kernels
-and trusted serve steps.
+"""``python -m repro_torch.lint`` — static bounds audit of the port's kernels,
+trusted serve steps and train step.
 
 Runs the verifier (:mod:`repro_torch.core.verifier`) over
 
@@ -14,13 +14,20 @@ Runs the verifier (:mod:`repro_torch.core.verifier`) over
   their pow2 extents);
 * the paged serve steps in extent mode on a reduced stablelm-3b: 4 rows,
   8 physical and 8 virtual pages, a vocab fence of 256;
+* the train step (``launch/steps.py`` ``build_train_step``) in extent
+  mode on a reduced stablelm-3b at (seq 32, batch 2), remat off, with the
+  params as the arena, as the reference's ``_audit_train_step`` builds it:
+  the embedding gather (K3) and its scatter-add gradient (K3's backward,
+  a declared store into the table's rows) inside the table, whose 256
+  rows are the guard's vocab partition;
 
-every access into the arena or the pool — the kernels' declared accesses
-included — proven inside the accessed operand or a guard partition.
+every access into the arena, the pool or the params — the kernels'
+declared accesses included — proven inside the accessed operand or a
+guard partition.
 
 Per audit it prints the verifier's site table (PROVEN / FENCED / REFUTED
-and why).  The train step is listed as not ported (its code is not in
-the port) and counts neither as an audit nor as a problem.  ``--strict`` exits nonzero on a refuted site, an audit
+and why).  Every audit of the reference runs (``NOT_PORTED`` is empty).
+``--strict`` exits nonzero on a refuted site, an audit
 error, or an audit whose proven fraction fell below the committed
 ``results/lint_torch.baseline.json``; ``--write-baseline`` rewrites that
 file after an intended change.
@@ -212,6 +219,29 @@ def _audit_step(fixture_fn: Callable, step: str
     return audit
 
 
+def train_fixture():
+    """The reference's train-audit operands: a reduced stablelm-3b's
+    train step at (seq 32, batch 2), remat off, on the CPU, its params,
+    optimizer state and a (2, 33) token batch.  Returns ``(step,
+    operands)``."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.steps import build_train_step
+
+    cfg = get_config("stablelm-3b").reduced()
+    step = build_train_step(cfg, ShapeConfig("lint", "train", 32, 2),
+                            remat=False, device="cpu")
+    params = step.api.init(torch.Generator().manual_seed(0), "cpu")
+    return step, (params, step.opt.init(params), {"tokens": _i32(2, 33)})
+
+
+def _audit_train_step() -> SandboxProof:
+    # the params are the tainted arena: every dynamic access into the
+    # weights (the embedding gather and its scatter-add gradient) must
+    # land inside them
+    step, operands = train_fixture()
+    return verify(step.fn, operands, arena_argnums=(0,), mode="extent")
+
+
 #: audit name -> thunk returning a SandboxProof
 AUDITS: Tuple[Tuple[str, Callable[[], SandboxProof]], ...] = (
     ("kernels.gather_rows", _audit_gather_rows),
@@ -224,12 +254,11 @@ AUDITS: Tuple[Tuple[str, Callable[[], SandboxProof]], ...] = (
     ("steps.serve.paged.prefill",
      _audit_step(paged_serve_fixture, "prefill")),
     ("steps.serve.paged.decode", _audit_step(paged_serve_fixture, "decode")),
+    ("steps.train", _audit_train_step),
 )
 
 #: audits of the reference whose code the port lacks, with what is missing
-NOT_PORTED: Tuple[Tuple[str, str], ...] = (
-    ("steps.train", "the train step is not ported"),
-)
+NOT_PORTED: Tuple[Tuple[str, str], ...] = ()
 
 
 # ---------------------------------------------------------------------------
@@ -293,8 +322,8 @@ def compare_baseline(summaries: Dict[str, Dict],
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m repro_torch.lint",
-        description="Static bounds audit of the port's kernels and "
-                    "trusted serve steps.")
+        description="Static bounds audit of the port's kernels, "
+                    "trusted serve steps and train step.")
     p.add_argument("--strict", action="store_true",
                    help="exit nonzero on refuted sites, audit errors, or "
                         "proven-fraction regressions vs the baseline")

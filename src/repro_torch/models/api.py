@@ -4,13 +4,15 @@ hybrid, ssm).
 ``get_model(cfg)`` returns a :class:`ModelAPI` with:
 
     init(generator, device)           -> params
+    loss(params, batch, *, guard=, remat=, **kw) -> scalar loss (dense, moe)
     init_cache(batch, max_len, *, slots=, dtype=, **kw) -> slab cache
     init_global_cache(batch, max_len, total_pages, **kw) -> global paged cache
     prefill(params, cache, batch, ...) -> (cache, last_logits)
     decode(params, cache, tokens, ...) -> (cache, logits)
 
 The hybrid and ssm families serve on the slab layout only: their
-``init_global_cache`` raises the reference's ``ValueError``.  Every other
+``init_global_cache`` raises the reference's ``ValueError``, and they do
+not train yet (their ``loss`` raises ``NotImplementedError``).  Every other
 family raises ``NotImplementedError`` with what it lacks
 (:data:`UNPORTED`).
 """
@@ -52,6 +54,17 @@ class ModelAPI:
     init_global_cache: Callable
     prefill: Callable
     decode: Callable
+    loss: Callable
+
+
+def _no_loss(cfg: ModelConfig) -> Callable:
+    def refuse(*args, **kw):
+        raise NotImplementedError(
+            f"training the {cfg.family} family is not ported yet: its "
+            f"model ({cfg.name}) has a serving path but no training "
+            "forward (models/hybrid.py and xlstm.py lack forward / "
+            "loss_fn)")
+    return refuse
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
@@ -81,6 +94,8 @@ def _dense_api(cfg: ModelConfig) -> ModelAPI:
             cfg, params, cache, batch["tokens"], **kw),
         decode=lambda params, cache, tokens, **kw: TF.decode(
             cfg, params, cache, tokens, **kw),
+        loss=lambda params, batch, **kw: TF.loss_fn(cfg, params, batch,
+                                                    **kw),
     )
 
 
@@ -95,6 +110,8 @@ def _moe_api(cfg: ModelConfig) -> ModelAPI:
             cfg, params, cache, batch["tokens"], **kw),
         decode=lambda params, cache, tokens, **kw: MOE.decode(
             cfg, params, cache, tokens, **kw),
+        loss=lambda params, batch, **kw: MOE.loss_fn(cfg, params, batch,
+                                                     **kw),
     )
 
 
@@ -116,6 +133,7 @@ def _hybrid_api(cfg: ModelConfig) -> ModelAPI:
             cfg, params, cache, batch["tokens"], **kw),
         decode=lambda params, cache, tokens, **kw: HY.decode(
             cfg, params, cache, tokens, **kw),
+        loss=_no_loss(cfg),
     )
 
 
@@ -132,4 +150,5 @@ def _ssm_api(cfg: ModelConfig) -> ModelAPI:
             cfg, params, cache, batch["tokens"], **kw),
         decode=lambda params, cache, tokens, **kw: XL.decode(
             cfg, params, cache, tokens, **kw),
+        loss=_no_loss(cfg),
     )

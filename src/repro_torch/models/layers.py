@@ -10,7 +10,9 @@ Conventions (as in the JAX reference):
 
 The embedding gather runs through the fenced-gather kernel (K3) and
 prefill attention through the flash-attention kernel (K4); on CPU tensors
-both wrappers take their plain versions.
+both wrappers take their plain versions.  Both are differentiable (their
+backwards are written in PyTorch), so the training forward takes the
+same path.
 """
 
 from __future__ import annotations
@@ -293,3 +295,24 @@ def lm_logits(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ p["table"].T
     return x @ p["head"]
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mean token NLL, ``repro/models/layers.py``'s: logits (B,S,V) any
+    float dtype, taken in float32; labels (B,S).  A label outside the
+    vocabulary reads no logit: its gold logit is NaN, as jnp's fill-mode
+    ``take_along_axis`` gives (a negative one wraps once)."""
+    logits = logits.float()
+    V = logits.shape[-1]
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = labels.long()
+    lab = torch.where(lab < 0, lab + V, lab)
+    ok = (lab >= 0) & (lab < V)
+    gold = torch.gather(logits, -1, lab.clamp(0, V - 1)[..., None])[..., 0]
+    nll = lse - torch.where(ok, gold, torch.full_like(gold, float("nan")))
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

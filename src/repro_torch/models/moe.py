@@ -1,5 +1,5 @@
 """MoE decoder LM (qwen3-moe-30b-a3b: 128 experts top-8; grok-1-314b: 8
-experts top-2) — serving path.
+experts top-2) — training forward and serving path.
 
 Attention blocks, the paged KV pool and the four attention/embedding
 kernels are the dense model's (:mod:`repro_torch.models.transformer`); the
@@ -236,3 +236,57 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
 #: prefill / decode: the dense serving loop with the expert block
 prefill = functools.partial(TF.prefill, ffn=moe_ffn)
 decode = functools.partial(TF.decode, ffn=moe_ffn)
+
+
+# ---------------------------------------------------------------------------
+# Forward (training / scoring)
+# ---------------------------------------------------------------------------
+
+def _check_train_options(dispatch: str, remat_policy: str) -> None:
+    if dispatch == "einsum":
+        raise NotImplementedError(
+            "the einsum MoE dispatch (repro/models/moe.py, the Mesh-TF "
+            "one-hot variant) is not ported yet; use dispatch='scatter'")
+    if dispatch != "scatter":
+        raise ValueError(f"unknown MoE dispatch {dispatch!r}")
+    if remat_policy != "nothing":
+        raise NotImplementedError(
+            f"remat policy {remat_policy!r}: the port recomputes whole "
+            "layers only (remat_policy='nothing')")
+
+
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None, *,
+            guard: Optional[GuardSpec] = None, remat: bool = False,
+            dispatch: str = "scatter", remat_policy: str = "nothing"
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (logits (B, S, V), the layers' mean aux loss)."""
+    _check_train_options(dispatch, remat_policy)
+    x = L.embed_tokens(params["embed"], tokens, guard)
+    positions = TF.train_positions(tokens, positions)
+
+    def layer(p, x, aux):
+        x = x + TF.attn_block(cfg, p, x, positions)
+        h, a = moe_apply(cfg, p["moe"], L.apply_norm(cfg, p["norm2"], x),
+                         guard)
+        return x + h, aux + a
+
+    aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = TF.run_layers(layer, params["layers"], x, aux0, remat=remat)
+    x = L.apply_norm(cfg, params["norm_f"], x)
+    return L.lm_logits(cfg, params["embed"], x), aux / cfg.n_layers
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
+            guard: Optional[GuardSpec] = None, remat: bool = True,
+            aux_weight: float = 0.01, dispatch: str = "scatter",
+            remat_policy: str = "nothing") -> torch.Tensor:
+    """Mean next-token NLL plus ``aux_weight`` times the load-balancing
+    aux loss."""
+    tokens = batch["tokens"]
+    logits, aux = forward(cfg, params, tokens[:, :-1], guard=guard,
+                          remat=remat, dispatch=dispatch,
+                          remat_policy=remat_policy)
+    return (L.softmax_cross_entropy(logits, tokens[:, 1:],
+                                    batch.get("mask"))
+            + aux_weight * aux)

@@ -1,4 +1,5 @@
-"""Dense GQA decoder LM (the stablelm-3b / llama family) — serving path.
+"""Dense GQA decoder LM (the stablelm-3b / llama family) — training
+forward and serving path.
 
 Params are nested dicts with one dict per layer (``params["layers"][l]``);
 the reference stacks its layers on a leading axis and scans, the port
@@ -12,7 +13,11 @@ K4 and K1 under the config's sliding window when it has one) and, on the
 global layout, the prefill page write (K2; the slab write is
 the reference's plain formulation).  The MoE family
 (:mod:`repro_torch.models.moe`) runs the same loop with its expert block
-as the feed-forward (``ffn=``).
+as the feed-forward (``ffn=``).  :func:`forward` / :func:`loss_fn` are the
+reference's training pass: K3 and K4 on the same path as a prefill's,
+differentiated through their registered backwards; ``remat`` runs each
+layer under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint(nothing_saveable)``).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import kvcache as KV
@@ -55,6 +61,68 @@ def mlp_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """The dense feed-forward block (no data-dependent index: no fence)."""
     return L.mlp_apply(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
 
+
+# ---------------------------------------------------------------------------
+# Forward (training / scoring) — no cache
+# ---------------------------------------------------------------------------
+
+def attn_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """A layer's attention residual update over a whole sequence: causal
+    attention through K4, under the config's window."""
+    q, k, v = L.qkv_proj(cfg, p["attn"], L.apply_norm(cfg, p["norm1"], x))
+    q, k = L.positions_rope(cfg, q, k, positions)
+    return L.out_proj(cfg, p["attn"], L.prefill_attention(cfg, q, k, v))
+
+
+def train_positions(tokens: torch.Tensor, positions=None) -> torch.Tensor:
+    B, S = tokens.shape
+    if positions is not None:
+        return positions
+    return torch.arange(S, dtype=torch.int32,
+                        device=tokens.device)[None, :].expand(B, S)
+
+
+def run_layers(layer: Callable, layers, *carry, remat: bool = False):
+    """``carry = layer(p, *carry)`` over the layers' params, each layer
+    recomputed in the backward pass when ``remat`` (nothing saved but its
+    inputs: ``torch.utils.checkpoint``, non-reentrant)."""
+    for p in layers:
+        carry = checkpoint(layer, p, *carry, use_reentrant=False) \
+            if remat else layer(p, *carry)
+    return carry
+
+
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None, *,
+            guard: Optional[GuardSpec] = None,
+            remat: bool = False) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V)."""
+    x = L.embed_tokens(params["embed"], tokens, guard)
+    positions = train_positions(tokens, positions)
+
+    def layer(p, x):
+        x = x + attn_block(cfg, p, x, positions)
+        return (x + mlp_ffn(cfg, p, x, guard),)
+
+    (x,) = run_layers(layer, params["layers"], x, remat=remat)
+    x = L.apply_norm(cfg, params["norm_f"], x)
+    return L.lm_logits(cfg, params["embed"], x)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
+            guard: Optional[GuardSpec] = None,
+            remat: bool = True) -> torch.Tensor:
+    """Mean next-token NLL of ``batch["tokens"]`` (B, S + 1), masked by
+    ``batch["mask"]`` when given."""
+    tokens = batch["tokens"]
+    logits = forward(cfg, params, tokens[:, :-1], guard=guard, remat=remat)
+    return L.softmax_cross_entropy(logits, tokens[:, 1:], batch.get("mask"))
+
+
+# ---------------------------------------------------------------------------
+# Serving — prefill + decode over the paged or slab cache
+# ---------------------------------------------------------------------------
 
 def prefill(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
             tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None,

@@ -321,15 +321,20 @@ def test_declared_accesses_match_the_plain_version(case, fence):
 @pytest.mark.parametrize("name", sorted(access.ACCESSES))
 def test_declared_accesses_name_their_source_and_arguments(name):
     """Every declared access names op arguments that exist and the line of
-    its CUDA source that forms the address."""
+    its source that forms the address: the CUDA source of a kernel, the
+    plain version in ``kernels/ref.py`` of an op written in PyTorch (K3's
+    backward)."""
     op = getattr(torch.ops.repro_torch, name).default
     params = {a.name for a in op._schema.arguments}
     for acc in access.ACCESSES[name]:
         assert {acc.operand, acc.index, *acc.base, *acc.mask} <= params
         assert acc.page_map is None or acc.page_map in params
         src, line = acc.source.split(":")
-        text = (_build.CSRC / src).read_text().splitlines()[int(line) - 1]
-        assert ("resolve_page" if acc.page_map else "fence_id") in text
+        cuda = src.endswith(".cu")
+        root = _build.CSRC if cuda else _build.CSRC.parent
+        text = (root / src).read_text().splitlines()[int(line) - 1]
+        assert ("resolve_page" if acc.page_map else
+                "fence_id" if cuda else "fence_ref") in text
 
 
 # --------------------------------------------------------------------- #

@@ -63,8 +63,8 @@ def test_lint_kernel_audits_fully_proven():
 
 
 def test_lint_slab_serve_steps_fully_proven():
-    """The slab serve steps are audited (``NOT_PORTED`` holds only the
-    train step) and fully proven: the prefill's 4 sites (each layer's K
+    """The slab serve steps are audited (``NOT_PORTED`` is empty: the
+    train step is audited too) and fully proven: the prefill's 4 sites (each layer's K
     and V slab read of the ``permute`` write, by the fenced slot id) and
     the decode's 16 (each layer's append — slot, page and offset, K and V
     — and K1's two declared loads over the slab view).  The reference
@@ -72,7 +72,7 @@ def test_lint_slab_serve_steps_fully_proven():
     (its inverse-page scatters are sites; the port forms them by
     comparison) and 2 / 4 in its decode, whose append index holds the
     scan's layer carry (``results/lint.baseline.json``)."""
-    assert [n for n, _ in lint.NOT_PORTED] == ["steps.train"]
+    assert [n for n, _ in lint.NOT_PORTED] == []
     summaries, errors = lint.run_audits(only="steps.serve.")
     assert not errors
     assert {n: (s["proven"], s["sites"]) for n, s in summaries.items()
@@ -87,3 +87,29 @@ def test_lint_slab_serve_steps_fully_proven():
     baseline = json.loads(lint.DEFAULT_BASELINE.read_text())
     for name in ("steps.serve.prefill", "steps.serve.decode"):
         assert baseline[name] == summaries[name]
+
+
+def test_lint_train_step_audit():
+    """The train step is audited as the reference's ``_audit_train_step``
+    builds it (reduced stablelm-3b at (32, 2), remat off, the params as
+    the arena): the embedding gather (K3) and its scatter-add gradient
+    (K3's backward, a declared store into the table's rows) both PROVEN,
+    their ids inside the train guard's 256-row vocab partition — 2 / 2,
+    where the reference reads 1 / 1: its scatter-add goes into a fresh
+    zeros buffer, which its verifier does not count as the params."""
+    summaries, errors = lint.run_audits(only="steps.train")
+    assert not errors
+    assert (summaries["steps.train"]["proven"],
+            summaries["steps.train"]["sites"]) == (2, 2)
+    step, operands = lint.train_fixture()
+    assert (step.guard.vocab.base, step.guard.vocab.size) == (0, 256)
+    proof = verify(step.fn, operands, arena_argnums=(0,), mode="extent")
+    assert [(s.prim, s.kind.name, s.verdict, s.interval)
+            for s in proof.sites] == [
+        ("gather_rows", "GATHER", "proven", "[0, 255]"),
+        ("gather_rows_backward", "SCATTER", "proven", "[0, 255]")]
+    ref = json.loads((lint.DEFAULT_BASELINE.parent
+                      / "lint.baseline.json").read_text())["steps.train"]
+    assert (ref["proven"], ref["sites"]) == (1, 1)
+    baseline = json.loads(lint.DEFAULT_BASELINE.read_text())
+    assert baseline["steps.train"] == summaries["steps.train"]
