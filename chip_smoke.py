@@ -7,7 +7,9 @@ Runs from the root of a checkout, needs one CUDA card and the CUDA toolkit
 (``nvcc``), and imports nothing of JAX or of the JAX package.  Four serve
 paths run, each at full width: the dense stablelm-3b, the MoE
 qwen3-moe-30b-a3b and, in phase 8, the hybrid zamba2-7b and the xLSTM
-xlstm-350m.  Phases, in order (any failure exits non-zero):
+xlstm-350m; phase 9 trains minicpm-2b and phase 10 runs the vision
+qwen2-vl-2b and the encoder-decoder seamless-m4t-medium through the
+model API.  Phases, in order (any failure exits non-zero):
 
 1. device and build — the card's name and power limit, the torch version,
    the build of every kernel of ``src/repro_torch/kernels/csrc`` for
@@ -200,6 +202,43 @@ xlstm-350m.  Phases, in order (any failure exits non-zero):
    2,048 ids; K4 bf16 at (4, 512, 36, 64), causal), rows named
    ``kernel@minicpm-2b/train``, and times both backwards.
 
+10. the vision and encoder-decoder families (after phase 9), through the
+   model API (the reference's engine serves neither): (a) qwen2-vl-2b and
+   seamless-m4t-medium at full width and 2 layers (seamless: 2 encoder +
+   2 decoder), float32, one seed's weights on both devices — 2 rows,
+   prefill (qwen2-vl: 16 patches on a 4 x 4 grid, M-RoPE components
+   differing, + 8 text tokens; seamless: 64 frames, 16 target tokens, an
+   8-slot pool where row 1 names row 0's slot) + 4 greedy decode steps,
+   card against CPU within phase 3's 2e-3, the forged row's cross K/V at
+   its own fenced slot on both devices, launches counted; the loss and
+   every gradient leaf within phase 9 (a)'s bounds; (b) each at full
+   width and depth in bf16 on the API's defaults (a bf16 slab cache —
+   K1 reads it as it is): qwen2-vl-2b (28 layers, 1.78 B params) B = 4
+   with 256 patches on a 16 x 16 grid + 64 text tokens, seamless (12 +
+   12 layers, 0.88 B) B = 4 with 1,024 frames + 32 target tokens, a
+   prefill and 16 greedy decode steps, counts set to 0 just before and
+   read just after — K3 once a step, K4 once a layer of the prefill
+   (seamless: 36 — its encoder's and cross-attention's not causal, the
+   cross-attention over 1,024 keys), K1 once a layer a step (seamless:
+   24, self and cross), each form's launches split by call site — every
+   logit finite, every greedy id in the vocabulary; it prints the
+   prefill's and each step's wall time on the stream (CUDA events around
+   eager API calls: the host's time to launch them), the device busy
+   time of a prefill and of a step (``torch.profiler``) against the
+   step's bytes floor, tokens/s, peak memory, a step's device operations
+   and seamless's unpadded 256,206-row LM head's time.  Phase 2 holds
+   their kernels at
+   (b)'s shapes (rows kernel@qwen2-vl-2b / kernel@seamless-m4t-medium):
+   K3 over both tables, K1 on a bf16 pool at qwen2-vl's decode (every
+   cluster size) and seamless's cross view, and K4 in bf16 and f32 at
+   qwen2-vl's prefill, seamless's encoder and its cross shape (32
+   queries over 1,024 keys), K4 not causal over key lengths that end
+   inside a key tile (32 over 1,000, 57 over 193, 70 over 5), held for
+   the log; and K1 over stablelm-3b's main case with
+   its pool in bf16, beside its f32 row.  A bf16-pool row's control
+   (:func:`k1_bf16_math`: bf16 sums instead of widening to float32) must
+   break its bound.
+
 The last three lines of standard output are the kernel table as one JSON
 object, the card's ``name, power.limit``, and the result object.
 
@@ -370,29 +409,43 @@ K1_SLACK = 1e-5
 K1_F32_TOL = 1e-4
 
 
-def device_ops_per_call(torch, fn, calls: int = 10,
-                        sessions: int = 3) -> float:
-    """Device operations (kernels, memsets, copies) one call of ``fn``
-    puts on the card: those ``torch.profiler`` records over ``calls``
-    calls, divided by ``calls``, the most that any of ``sessions``
-    profiling sessions recorded.  The profiler can drop a record (the
-    first session of a process starts recording late, and a later one has
-    been seen to miss one launch of ten) but never makes one up, and the
-    card is idle at each session's start and end, so the largest count is
-    the true one.  The first session is thrown away."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
+#: CUgraphNodeType values of the nodes that are device operations:
+#: kernels, copies and memsets
+GRAPH_OP_NODES = (0, 1, 2)
+
+
+def device_ops_per_call(torch, fn) -> int:
+    """Device operations (kernels, copies, memsets) one call of ``fn``
+    puts on the card: the kernel, copy and memset nodes of a CUDA graph
+    that captures one call, after a warm-up call on a side stream.  A
+    capture holds every operation the call enqueues, so the count does not
+    vary from run to run; ``torch.profiler`` can drop a record (one launch
+    of ten, in every session of a row, has been seen on the card)."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    counts = []
-    for _ in range(1 + sessions):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        counts.append(sum(
-            e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA))
-    return max(counts[1:]) / calls
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(g, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    kind = ctypes.c_int(0)
+    count = 0
+    if n.value and cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    for node in nodes:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        count += kind.value in GRAPH_OP_NODES
+    graph.reset()
+    return count
 
 
 def half_ulp_bf16(torch, x):
@@ -409,7 +462,8 @@ def check_paged_attention(torch, q, k_pool, v_pool, table, lens, base, msk,
     """K1 on one case, against the plain version in float32 on K/V
     rounded to q's type: a bf16 output within half a bf16 ulp (of the
     larger of the two values) plus K1_SLACK, and the control without K/V
-    rounding must break that bound; an f32 output within K1_F32_TOL.
+    rounding (over a bf16 pool: with bf16 sums, :func:`k1_bf16_math`)
+    must break that bound; an f32 output within K1_F32_TOL.
     Then every page the fence does not reach is clobbered and the output
     must not move.  ``window`` is K1's sliding window (0: none).  Returns
     the output, its worst error and error/bound, the control's
@@ -436,7 +490,17 @@ def check_paged_attention(torch, q, k_pool, v_pool, table, lens, base, msk,
         raise AssertionError(f"paged_attention ({q.dtype}) error {err} "
                              f"exceeds its bound ({ratio:.3f}x)")
     ctrl_ratio = None
-    if bf16:
+    if bf16 and k_pool.dtype == torch.bfloat16:
+        # a bf16 pool has no K/V rounding to miss: the control sums in
+        # bf16 instead of widening to float32
+        ctrl_ratio = err_ratio(k1_bf16_math(
+            torch, q, k_pool, v_pool, table, lens, base, msk, page_map,
+            window))[1]
+        if not ctrl_ratio > 1.0:
+            raise AssertionError(
+                f"paged_attention control (bf16 sums) within the bound "
+                f"({ctrl_ratio:.3f}x): the bound cannot see the rounding")
+    elif bf16:
         ctrl = ref.paged_attention_ref(q.float(), k_pool, v_pool, table,
                                        lens, base, msk, page_map,
                                        window=window).to(q.dtype)
@@ -457,6 +521,167 @@ def check_paged_attention(torch, q, k_pool, v_pool, table, lens, base, msk,
         raise AssertionError("paged_attention read outside the fence")
     return dict(out=out, err=err, ratio=ratio, ctrl_ratio=ctrl_ratio,
                 foreign=len(foreign))
+
+
+def k1_bf16_math(torch, q, k_pool, v_pool, table, lens, base, msk,
+                 page_map=None, window: int = 0):
+    """K1's function with its scores and probabilities rounded to bf16:
+    what a kernel that summed a bf16 pool without widening it to float32
+    would give.  The control of the bf16-pool rows (the K/V rounding
+    control of the f32-pool rows has nothing to round there)."""
+    from repro_torch.kernels import ref
+    B, H, D = q.shape
+    P, page, KH, _ = k_pool.shape
+    phys = ref.resolve_pages(table, base[:, None], msk[:, None], page_map,
+                             P).long()
+    S = phys.shape[1] * page
+    k = k_pool[phys].reshape(B, S, KH, D).to(q.dtype)
+    v = v_pool[phys].reshape(B, S, KH, D).to(q.dtype)
+    s = torch.einsum("bkgd,bskd->bkgs", q.reshape(B, KH, H // KH, D), k) \
+        * (1.0 / math.sqrt(D))
+    pos = torch.arange(S, device=q.device)
+    lens = lens[:, None]
+    valid = pos[None, :] < lens
+    if window > 0:
+        valid = valid & (pos[None, :] >= lens - window)
+    s = s.float().masked_fill(~valid[:, None, None, :], -1e30)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bkgs,bskd->bkgd", p, v).reshape(B, H, D)
+
+
+def k1_pool_row(torch, row, path, q, k_pool, v_pool, table, lens, base,
+                msk, page_map=None, window: int = 0, chk=None, ops=None,
+                **kw):
+    """A K1 row over ``k_pool`` / ``v_pool`` (float32 or bfloat16) under
+    ``window`` (0: none), held against the plain version by
+    :func:`check_paged_attention` (``chk``, where the caller has held the
+    case already), one device operation a call (``ops``, where counted
+    already), timed, with its bytes and operations bound: each distinct K
+    and V token row the output needs read once in the pool's type
+    (:func:`k1_held`), q read and out written, the table and the per-row
+    lens / base / mask read; operations: each row's query against each
+    position it walks.  Returns the check."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    B, H, D = q.shape
+    P, page, KH, _ = k_pool.shape
+    if chk is None:
+        chk = check_paged_attention(torch, q, k_pool, v_pool, table, lens,
+                                    base, msk, page_map, window=window)
+    call = (lambda: paged_attention(q, k_pool, v_pool, table, lens, base,
+                                    msk, page_map, window=window))
+    if ops is None:
+        ops = device_ops_per_call(torch, call)
+    if ops != 1:
+        raise AssertionError(f"paged_attention [{path}]: {ops:g} device "
+                             "operations a call, want 1")
+    phys = ref.resolve_pages(table, base[:, None], msk[:, None], page_map, P)
+    pairs, k_tok, v_tok = k1_held(phys, lens, page, window)
+    n_bytes = ((k_tok + v_tok) * KH * D * k_pool.element_size()
+               + 2 * B * H * D * q.element_size() + table.numel() * 4
+               + 3 * B * 4)
+    pool = "bf16" if k_pool.dtype == torch.bfloat16 else "f32"
+    qt = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    what = "scores and P rounded to bf16" if pool == "bf16" \
+        else "no K/V rounding"
+    ctrl = "" if chk["ctrl_ratio"] is None else \
+        f"; the control ({what}) {chk['ctrl_ratio']:.3g}"
+    row("paged_attention", "paged_attention.cu",
+        "fenced_paged_attention.py:173", device_ops=ops,
+        max_abs_err=chk["err"],
+        tolerance=(f"1/2 bf16 ulp + {K1_SLACK:g} of the f32 plain version "
+                   f"on K/V rounded to bf16 (worst error/bound "
+                   f"{chk['ratio']:.3f}{ctrl})"
+                   if q.dtype == torch.bfloat16 else f"{K1_F32_TOL:g}"),
+        ms=cuda_ms(torch, call),
+        plain_ms=cuda_ms(torch, lambda: ref.paged_attention_ref(
+            q, k_pool, v_pool, table, lens, base, msk, page_map,
+            window=window)),
+        library_ms=None, library_call=None,
+        shape=f"q ({B},{H},{D}) {qt}, pool ({P},{page},{KH},{D}) "
+              f"{pool}, lengths {min(lens.tolist())}-{max(lens.tolist())}"
+              + (f", window {window}" if window else ""),
+        **kw, **dict(zip(("bound_ms", "bound_by"),
+                         bound_ms(n_bytes, 4 * pairs * H * D, "float32"))))
+    return chk
+
+
+def k4_err(torch, path, q, k, v, causal: bool, window: int = 0) -> float:
+    """K4 on one case (q's dtype; ``causal``; Skv = k's length, its own
+    when not causal; ``window``) against the plain version: within 2e-2
+    in bf16 (one ulp at |out| < 4, which also covers the kernel's bf16
+    rounding of P), 1e-4 in f32 (the sums run in another order).  Returns
+    the max error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-4
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"flash_attention [{path}] ({q.dtype}, Sq "
+                             f"{q.shape[1]}, Skv {k.shape[1]}, causal "
+                             f"{causal}, window {window}): error {err} > "
+                             f"{tol}")
+    return err
+
+
+def k4_form_row(torch, row, path, q, k, v, causal: bool, window: int = 0,
+                err=None, **kw):
+    """A K4 row in one form (q's dtype; ``causal``; Skv = k's length;
+    ``window``), held by :func:`k4_err` (``err``, where the caller has held
+    its cases already), one device operation a call, timed against the
+    plain version and ``scaled_dot_product_attention`` on the same inputs
+    (the band as a boolean mask where a window cuts inside S), with its
+    bound: q, k, v read and the output written once; QK^T and PV over the
+    band's (query, key) pairs.  Returns the error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    import torch.nn.functional as F
+
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    if err is None:
+        err = k4_err(torch, path, q, k, v, causal, window)
+    call = (lambda: flash_attention(q, k, v, causal=causal, window=window))
+    ops = device_ops_per_call(torch, call)
+    if ops != 1:
+        raise AssertionError(f"flash_attention [{path}]: {ops:g} device "
+                             "operations a call, want 1")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = KH != H
+    if window and window < Sq:
+        band = band_mask(torch, Sq, window, causal)
+        pairs = int(band.sum())
+        lib = (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, enable_gqa=gqa))
+        lib_call = "F.scaled_dot_product_attention(attn_mask=band)"
+    else:
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+        lib = (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=gqa))
+        lib_call = (f"F.scaled_dot_product_attention(is_causal={causal}"
+                    + (", enable_gqa=True)" if gqa else ")"))
+    n_bytes = (2 * B * Sq * H + 2 * B * Skv * KH) * D * q.element_size()
+    row("flash_attention", "flash_attention.cu", "flash_attention.py:84",
+        device_ops=ops, max_abs_err=err,
+        tolerance="2e-2 (bf16 output, one ulp at |out| < 4)" if bf16
+        else "1e-4 (f32)",
+        ms=cuda_ms(torch, call),
+        plain_ms=cuda_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window), iters=5),
+        library_ms=cuda_ms(torch, lib), library_call=lib_call,
+        shape=f"q ({B},{Sq},{H},{D}), k/v ({B},{Skv},{KH},{D}) "
+              f"{'bf16' if bf16 else 'f32'}, "
+              + ("causal" if causal else "not causal")
+              + (f", window {window}" if window else ""),
+        **kw, **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            n_bytes, 4 * B * H * D * pairs,
+            "bfloat16" if bf16 else "float32"))))
+    return err
 
 
 def check_kernels(torch, cfg):
@@ -640,7 +865,6 @@ def check_kernels(torch, cfg):
     # which also covers the kernel's bf16 rounding of P
     # (tests/test_torch_kernels.py emulates it); f32: the sums run in
     # another order than the plain version's.
-    tols = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
     bf16, f32 = torch.bfloat16, torch.float32
     w_path = cfg.attn_window
     forms = [(w_path, True)] + ([(32, True), (100, True), (0, False),
@@ -651,69 +875,32 @@ def check_kernels(torch, cfg):
         cases[(dt, s_len)] = tuple(randn(B, s_len, h, D, dtype=dt,
                                          generator=more)
                                    for h in (H, KH, KH))
-    errs = {}
-    for (dt, s_len), (q, k, v) in cases.items():
-        for w, causal in forms:
-            got = flash_attention(q, k, v, causal=causal, window=w)
-            want = ref.flash_attention_ref(q, k, v, causal=causal, window=w)
-            err = (got.float() - want.float()).abs().max().item()
-            if not err <= tols[dt]:
-                raise AssertionError(
-                    f"flash_attention {dt} S={s_len} window={w} causal="
-                    f"{causal}: error {err} > {tols[dt]}")
-            errs[(dt, s_len, w, causal)] = err
+    errs = {(dt, s_len, w, causal): k4_err(torch, cfg.name, q, k, v,
+                                           causal, w)
+            for (dt, s_len), (q, k, v) in cases.items()
+            for w, causal in forms}
 
-    def sdpa(s_len, w, causal):
-        """The library call computing K4's function in one form: the band
-        as a boolean mask where a window cuts inside S."""
-        qt, kt, vt = (t.transpose(1, 2) for t in cases[(bf16, s_len)])
-        if w and w < s_len:
-            band = band_mask(torch, s_len, w, causal)
-            return (lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=band, enable_gqa=KH != H),
-                "F.scaled_dot_product_attention(attn_mask=band)")
-        return (lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=KH != H),
-            f"F.scaled_dot_product_attention(is_causal={causal})")
-
-    def k4_row(s_len, w, causal, err, **kw):
-        q, k, v = cases[(bf16, s_len)]
-        lib, lib_call = sdpa(s_len, w, causal)
-        form = (f", window {w}" if w else "") + ("" if causal else
-                                                 ", not causal")
-        # bytes: q, k, v read and the output written once; operations:
-        # QK^T and PV over the (query, key) pairs of the band
-        n_bytes = 2 * B * s_len * (2 * H + 2 * KH) * D
-        flops = 4 * B * H * D * int(band_mask(torch, s_len, w, causal).sum())
-        call = (lambda: flash_attention(q, k, v, causal=causal, window=w))
-        ops = device_ops_per_call(torch, call)
-        if ops != 1:
-            raise AssertionError(f"flash_attention (S={s_len}{form}): "
-                                 f"{ops:g} device operations a call, want 1")
-        row("flash_attention", "flash_attention.cu", "flash_attention.py:84",
-            max_abs_err=err,
-            tolerance="2e-2 (bf16 output, one ulp at |out| < 4)",
-            ms=cuda_ms(torch, call), device_ops=ops,
-            plain_ms=cuda_ms(torch, lambda: ref.flash_attention_ref(
-                q, k, v, causal=causal, window=w)),
-            library_ms=cuda_ms(torch, lib), library_call=lib_call,
-            shape=f"q ({B},{s_len},{H},{D}), k/v ({B},{s_len},{KH},{D}) "
-                  f"bf16{form}",
-            **kw, **dict(zip(("bound_ms", "bound_by"),
-                             bound_ms(n_bytes, flops, "bfloat16"))))
-
-    k4_row(S, w_path, True, max(errs[(bf16, S, w_path, True)],
-                                errs[(bf16, 193, w_path, True)]))
+    k4_form_row(torch, row, cfg.name, *cases[(bf16, S)], True,
+                window=w_path, err=max(errs[(bf16, S, w_path, True)],
+                                       errs[(bf16, 193, w_path, True)]))
     if w_path:
-        k4_row(193, 32, True, errs[(bf16, 193, 32, True)],
-               name=f"flash_attention@{cfg.name}/window", launches=0)
-        k4_row(S, 0, False, errs[(bf16, S, 0, False)],
-               name=f"flash_attention@{cfg.name}/non-causal", launches=0)
+        k4_form_row(torch, row, cfg.name, *cases[(bf16, 193)], True,
+                    window=32, err=errs[(bf16, 193, 32, True)],
+                    name=f"flash_attention@{cfg.name}/window", launches=0)
+        k4_form_row(torch, row, cfg.name, *cases[(bf16, S)], False,
+                    err=errs[(bf16, S, 0, False)],
+                    name=f"flash_attention@{cfg.name}/non-causal",
+                    launches=0)
     # four key tiles, timed for the log only
     q4, k4, v4 = cases[(bf16, 193)]
     ms_193 = cuda_ms(torch, lambda: flash_attention(q4, k4, v4,
                                                     window=w_path))
-    sdpa_193 = cuda_ms(torch, sdpa(193, w_path, True)[0])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q4, k4, v4))
+    band = band_mask(torch, 193, w_path, True) \
+        if w_path and w_path < 193 else None
+    sdpa_193 = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=band, is_causal=band is None,
+        enable_gqa=KH != H))
     log(f"K4 flash_attention ok{tag}: max |err| " + "; ".join(
         f"{'bf16' if dt == bf16 else 'f32'} S={s_len}"
         f"{f' window {w}' if w else ''} {'causal' if c else 'not causal'} "
@@ -776,44 +963,16 @@ def check_kernels(torch, cfg):
                                  f"{ops[(name, w)]:g} device operations a "
                                  "call, want 1")
 
-    def k1_row(q_, tbl, phys_, lens_, w, chk, **kw):
-        # bytes: each distinct K and V token row the output needs read
-        # once (f32) — a token that several rows read (a shared or a
-        # garbage page) counts once, a row with no band needs V only — q
-        # read and out written (bf16), the page table and the per-row
-        # lens/base/mask read; operations: each row's query against each
-        # position it walks
-        pairs, k_tok, v_tok = k1_held(phys_, lens_, page, w)
-        n_bytes = ((k_tok + v_tok) * KH * D * 4 + 2 * B * H * D * 2
-                   + tbl.numel() * 4 + 3 * B * 4)
-        row("paged_attention", "paged_attention.cu",
-            "fenced_paged_attention.py:173",
-            max_abs_err=chk["err"],
-            tolerance=f"1/2 bf16 ulp + {K1_SLACK:g} of the f32 plain version "
-                      f"on bf16-rounded K/V (worst error/bound "
-                      f"{chk['ratio']:.3f}; the control without K/V rounding "
-                      f"{chk['ctrl_ratio']:.3g})",
-            ms=cuda_ms(torch, lambda: paged_attention(
-                q_, k_pool, v_pool, tbl, lens_, base, msk, page_map,
-                window=w)),
-            plain_ms=cuda_ms(torch, lambda: ref.paged_attention_ref(
-                q_, k_pool, v_pool, tbl, lens_, base, msk, page_map,
-                window=w)),
-            library_ms=None, library_call=None,
-            shape=f"q ({B},{H},{D}) bf16, pool ({P},{page},{KH},{D}) f32"
-                  + (f", window {w}, lengths {lens_.tolist()}" if w else ""),
-            **kw, **dict(zip(("bound_ms", "bound_by"),
-                             bound_ms(n_bytes, 4 * pairs * H * D,
-                                      "float32"))))
-
-    k1_row(qd, table_ids, phys, lens, w_path,
-           k1[("bf16", "main", w_path)], device_ops=ops[("main", w_path)])
+    k1_pool_row(torch, row, cfg.name, qd, k_pool, v_pool, table_ids, lens,
+                base, msk, page_map, window=w_path,
+                chk=k1[("bf16", "main", w_path)], ops=ops[("main", w_path)])
     nan_at = 0
     if w_path:
-        k1_row(q256, cov_table, phys_cov, cov_lens, 32,
-               k1[("bf16", "max_len 256", 32)],
-               device_ops=ops[("max_len 256", 32)],
-               name=f"paged_attention@{cfg.name}/window", launches=0)
+        k1_pool_row(torch, row, cfg.name, q256, k_pool, v_pool, cov_table,
+                    cov_lens, base, msk, page_map, window=32,
+                    chk=k1[("bf16", "max_len 256", 32)],
+                    ops=ops[("max_len 256", 32)],
+                    name=f"paged_attention@{cfg.name}/window", launches=0)
         # positions before a row's band are never loaded: NaN K and V at
         # every one that no row's band covers leave the output bit-equal
         k_nan, v_nan, nan_at = nan_before_window(torch, k_pool, v_pool,
@@ -874,6 +1033,16 @@ def check_kernels(torch, cfg):
         + (f"; NaN K/V at the {nan_at} positions before the window 32 that "
            "no band covers leave the output bit-equal" if w_path else ""))
 
+    if cfg.family == "dense":
+        # the main row's case over the pool in bf16 (the model API's
+        # default cache), beside the f32 row: a form on no path here
+        chk = k1_pool_row(torch, row, cfg.name, qd, k_pool.bfloat16(),
+                          v_pool.bfloat16(), table_ids, lens, base, msk,
+                          page_map, name=f"paged_attention@{cfg.name}"
+                          "/bf16-pool", launches=0)
+        log(f"K1 on a bf16 pool ok{tag}: the main row's inputs, max |err| "
+            f"{chk['err']:.3g}, error/bound {chk['ratio']:.3f}, the bf16-"
+            f"math control {chk['ctrl_ratio']:.3g}")
     if cfg.moe is not None:
         check_moe_histogram(torch, cfg, gen, more, row)
     # K2's added checks and the main path's prefill write come last: they
@@ -3604,12 +3773,14 @@ TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", "10", "--batch", "4",
 
 def loss_and_grads(torch, api, params, toks, guard):
     """``api.loss`` and the gradient of every param leaf, as the train
-    step takes them."""
+    step takes them; ``toks`` is the batch's tokens or the whole batch (a
+    dict: the vision and encoder-decoder families')."""
     from repro_torch.core.stepgraph import tree_flatten, tree_unflatten
     struct, leaves = tree_flatten(params)
     req = [p.detach().requires_grad_() for p in leaves]
-    loss = api.loss(tree_unflatten(struct, req), {"tokens": toks},
-                    guard=guard, remat=False)
+    batch = toks if isinstance(toks, dict) else {"tokens": toks}
+    loss = api.loss(tree_unflatten(struct, req), batch, guard=guard,
+                    remat=False)
     return loss.detach(), torch.autograd.grad(loss, req)
 
 
@@ -3814,9 +3985,11 @@ def train_split(torch, cfg, reps: int = 3):
 
 #: phase 9's device-time classes, by kernel name (first match)
 STEP_CLASSES = (
-    ("GEMMs", ("gemm", "xmma", "cutlass", "sm90_", "cublas")),
+    ("GEMMs", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_",
+               "cublas")),
     ("optimizer (foreach)", ("multi_tensor", "foreach")),
     ("K4", ("flash_attention",)),
+    ("K1", ("paged_attention",)),
     ("K3", ("gather_rows",)),
     ("index_put / scatter", ("index", "scatter")),
     ("softmax / reductions", ("softmax", "reduce", "norm")),
@@ -4000,10 +4173,8 @@ def train_kernel_rows(torch) -> list:
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gather_rows import gather_rows, \
         gather_rows_backward_op
-    import torch.nn.functional as F
 
     cfg = get_config(TRAIN_ARCH)
     gen = torch.Generator(device="cuda").manual_seed(2222)
@@ -4049,38 +4220,596 @@ def train_kernel_rows(torch) -> list:
     # K4: the step's attention, bf16, causal
     q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
-    err = (flash_attention(q, k, v).float()
-           - ref.flash_attention_ref(q, k, v).float()).abs().max().item()
-    if not err <= 2e-2:
-        raise AssertionError(f"flash_attention at the training shape: "
-                             f"error {err} > 2e-2")
-    call = (lambda: flash_attention(q, k, v))
-    ops = device_ops_per_call(torch, call)
-    if ops != 1:
-        raise AssertionError(f"flash_attention at the training shape: "
-                             f"{ops:g} device operations a call, want 1")
+    k4_form_row(torch, row, path, q, k, v, True)
     do = torch.randn(B, S, H, D, generator=gen,
                      device="cuda").to(torch.bfloat16)
     k4_bwd_ms = cuda_ms(torch, lambda: ref.flash_attention_grad_ref(
         q, k, v, do), iters=5)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    row("flash_attention", "flash_attention.cu", "flash_attention.py:84",
-        max_abs_err=err, tolerance="2e-2 (bf16 output)", device_ops=ops,
-        ms=cuda_ms(torch, call),
-        plain_ms=cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v),
-                         iters=5),
-        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)),
-        library_call="F.scaled_dot_product_attention(is_causal=True)",
-        shape=f"q/k/v ({B},{S},{H},{D}) bf16, causal",
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(
-            2 * B * S * 4 * H * D, 4 * B * H * D * S * (S + 1) / 2,
-            "bfloat16"))))
     log_rows(rows)
     log(f"backwards at the training shapes (PyTorch, the train step's): "
         f"K3's fenced scatter-add {bwd_ms:.5f} ms, K4's recompute "
         f"{k4_bwd_ms:.5f} ms a call")
     return rows
+
+
+# --------------------------------------------------------------------- #
+# Phase 2 (vision and encoder-decoder families) and phase 10            #
+# --------------------------------------------------------------------- #
+
+#: the vision (qwen2-vl-2b: M-RoPE, patches fused into the embeddings) and
+#: encoder-decoder (seamless-m4t-medium: an encoder, a cross-attention
+#: pool) families' paths
+FAMILIES = ("qwen2-vl-2b", "seamless-m4t-medium")
+#: phase 10 (b)'s serving shapes: rows, image patches on a side x side
+#: grid and text tokens (vlm), source frames and target tokens (encdec),
+#: greedy decode steps
+VLM_SIDE, VLM_TEXT = 16, 64
+ED_FRAMES, ED_TGT = 1024, 32
+FAMILY_B, FAMILY_STEPS = 4, 16
+
+
+def mrope_grid(torch, B: int, S: int, side: int, device):
+    """qwen2-vl positions (B, S, 3): ``side`` x ``side`` patches at (t=0,
+    h=i // side, w=i % side) — three components that differ — then the
+    text, every component at ``side + (i - side**2)``."""
+    n = side * side
+    pos = torch.zeros(S, 3, dtype=torch.int32)
+    i = torch.arange(n, dtype=torch.int32)
+    pos[:n, 1], pos[:n, 2] = i // side, i % side
+    pos[n:] = (side + torch.arange(S - n, dtype=torch.int32))[:, None]
+    return pos.expand(B, S, 3).contiguous().to(device)
+
+
+def family_kernel_rows(torch) -> list:
+    """Phase 2's rows at phase 10 (b)'s shapes: K3 over qwen2-vl-2b's
+    151,936 x 1,536 and seamless-m4t-medium's 256,206 x 1,024 bf16 tables
+    (fence 262,144) with the prefill's ids; K1 on a bf16 pool at qwen2-vl's
+    decode (q (4, 12, 128), G = 6, each row's 8 pages of a 32-page slab
+    view, 321-336 held tokens; every cluster size checked) and at
+    seamless's cross-attention (q (4, 16, 64), G = 1, 16 pages a row of a
+    64-page view, 1,024 frames); K4 in bf16 and f32 at qwen2-vl's prefill
+    (4 x 320, causal), seamless's encoder (4 x 1,024, not causal) and its
+    cross-attention (32 queries over 1,024 keys, not causal).  The f32
+    forms run on no main path (phase 10 (a) only): their rows carry 0
+    launches; the K1 cross row and the K4 encoder and cross rows carry
+    their forms' own launches, filled in from phase 10 (b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gather_rows import gather_rows
+
+    K1 = sys.modules["repro_torch.kernels.paged_attention"]
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = []
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def row_of(path):
+        """The row function of ``path``'s rows (named kernel@path unless
+        a form's name is given)."""
+        def row(kernel, source, replaces, name=None, **kw):
+            rows.append(dict(kernel=kernel, path=path, route="cuda",
+                             name=name or f"{kernel}@{path}",
+                             source=f"src/repro_torch/kernels/csrc/{source}",
+                             replaces=f"src/repro/kernels/{replaces}", **kw))
+        return row
+
+    vlm, ed = (get_config(n) for n in FAMILIES)
+    B = FAMILY_B
+    # K3: the prefill's ids under the vocab fence
+    for cfg, n in ((vlm, VLM_SIDE ** 2 + VLM_TEXT), (ed, ED_TGT)):
+        table = randn(cfg.vocab, cfg.d_model, dtype=bf16)
+        ids = torch.randint(0, cfg.vocab, (B * n,), generator=gen, **i32)
+        mask = pow2(cfg.vocab) - 1
+        if not torch.equal(gather_rows(table, ids, 0, mask),
+                           ref.gather_rows_ref(table, ids, 0, mask)):
+            raise AssertionError(f"gather_rows [{cfg.name}] disagrees with "
+                                 "its plain version")
+        row_of(cfg.name)(
+            "gather_rows", "gather_rows.cu", "fenced_gather.py:48",
+            max_abs_err=0.0, tolerance="exact",
+            ms=cuda_ms(torch, lambda: gather_rows(table, ids, 0, mask)),
+            plain_ms=cuda_ms(torch, lambda: ref.gather_rows_ref(
+                table, ids, 0, mask)),
+            library_ms=cuda_ms(torch, lambda: table.index_select(0, ids)),
+            library_call="Tensor.index_select",
+            shape=f"table {tuple(table.shape)} bf16, {ids.numel()} ids, "
+                  f"fence {mask + 1}",
+            **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                2 * ids.numel() * cfg.d_model * 2 + ids.numel() * 4, 0.0,
+                "bfloat16"))))
+        del table
+
+    # K1 on a bf16 pool: qwen2-vl's decode over the slab view (4 slots x
+    # 8 pages), each row its own slot's pages; seamless's cross view (4
+    # slots x 16 pages of 64 frames)
+    zeros, ident = torch.zeros(B, **i32), torch.full((B,), -1, **i32)
+    for cfg, pages, lens in (
+            (vlm, 8, torch.randint(VLM_SIDE ** 2 + VLM_TEXT + 1,
+                                   VLM_SIDE ** 2 + VLM_TEXT + FAMILY_STEPS
+                                   + 1, (B,), generator=gen, **i32)),
+            (ed, ED_FRAMES // 64, torch.full((B,), ED_FRAMES, **i32))):
+        H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        k_pool, v_pool = (randn(B * pages, 64, KH, D, dtype=bf16)
+                          for _ in range(2))
+        table = (torch.arange(B, **i32)[:, None] * pages
+                 + torch.arange(pages, **i32)[None, :])
+        q = randn(B, H, D, dtype=bf16)
+        cross = cfg.family == "encdec"
+        chk = k1_pool_row(torch, row_of(cfg.name), cfg.name, q, k_pool,
+                          v_pool, table,
+                          lens, zeros, ident,
+                          **({"name": f"paged_attention@{cfg.name}/cross",
+                              "form": "paged_attention/cross"}
+                             if cross else {}))
+        chosen, sweep = K1.cluster_size, []
+        try:
+            for c in (1, 2, 4, 8):
+                K1.cluster_size = lambda pairs, n_sm, c=c: c
+                for qq in (q, q.float()):
+                    r = check_paged_attention(torch, qq, k_pool, v_pool,
+                                              table, lens, zeros, ident,
+                                              None)
+                    sweep.append(f"C={c} {'bf16' if qq is q else 'f32'} q "
+                                 f"{r['ratio']:.3f}")
+        finally:
+            K1.cluster_size = chosen
+        log(f"K1 on a bf16 pool ok [{cfg.name}{'/cross' if cross else ''}]"
+            f": bf16 q max |err| {chk['err']:.3g}, error/bound "
+            f"{chk['ratio']:.3f}, the bf16-math control "
+            f"{chk['ctrl_ratio']:.3g}"
+            f", {chk['foreign']} foreign pages clobbered, output unchanged;"
+            f" every cluster size (error/bound): " + ", ".join(sweep))
+
+    # K4: qwen2-vl's prefill (causal), seamless's encoder and cross
+    S_v = VLM_SIDE ** 2 + VLM_TEXT
+    for dt in (bf16, f32):
+        tag = "" if dt == bf16 else "/f32"
+        extra = {} if dt == bf16 else {"launches": 0}
+        q = randn(B, S_v, vlm.n_heads, vlm.head_dim, dtype=dt)
+        k, v = (randn(B, S_v, vlm.n_kv_heads, vlm.head_dim, dtype=dt)
+                for _ in range(2))
+        k4_form_row(torch, row_of(vlm.name), vlm.name, q, k, v, True,
+                    name=f"flash_attention@{vlm.name}{tag}", **extra)
+        H, D = ed.n_heads, ed.head_dim
+        k, v = (randn(B, ED_FRAMES, ed.n_kv_heads, D, dtype=dt)
+                for _ in range(2))
+        for form, Sq in (("encoder", ED_FRAMES), ("cross", ED_TGT)):
+            q = randn(B, Sq, H, D, dtype=dt)
+            k4_form_row(torch, row_of(ed.name), ed.name, q, k, v, False,
+                        name=f"flash_attention@{ed.name}/{form}{tag}",
+                        **(extra or {"form": f"flash_attention/{form}"}))
+    # K4 over a key length of its own that ends inside a 64-key tile,
+    # longer and shorter than Sq (a partial last key tile masked at Skv)
+    ragged = []
+    for dt in (bf16, f32):
+        for Sq, Skv in ((ED_TGT, 1000), (57, 193), (70, 5)):
+            q = randn(B, Sq, ed.n_heads, ed.head_dim, dtype=dt)
+            k, v = (randn(B, Skv, ed.n_kv_heads, ed.head_dim, dtype=dt)
+                    for _ in range(2))
+            err = k4_err(torch, ed.name, q, k, v, False)
+            ragged.append(f"{'bf16' if dt == bf16 else 'f32'} {Sq} over "
+                          f"{Skv} {err:.3g}")
+    log(f"K4 over a ragged key length ok [{ed.name}], not causal, max "
+        f"|err|: " + ", ".join(ragged))
+    log_rows(rows)
+    return rows
+
+
+def family_batch(torch, cfg, B: int, n_src: int, S: int, gen, device,
+                 dtype):
+    """A batch of ``cfg``'s family, drawn on the CPU from ``gen``: vision
+    — ``S`` tokens whose first ``n_src`` positions are patches on a
+    square grid (``mrope_grid``), the patches ~ N(0, 0.02); encoder-
+    decoder — ``n_src`` frames ~ N(0, 1) and ``S`` target ids."""
+    if cfg.family == "vlm":
+        side = math.isqrt(n_src)
+        return {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                        dtype=torch.int32).to(device),
+                "patches": (torch.randn(B, n_src, cfg.d_model, generator=gen)
+                            * 0.02).to(dtype).to(device),
+                "positions": mrope_grid(torch, B, S, side, device)}
+    return {"src": torch.randn(B, n_src, cfg.d_model, generator=gen)
+            .to(dtype).to(device),
+            "tgt": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                 dtype=torch.int32).to(device)}
+
+
+def family_card_vs_cpu(torch, name: str) -> None:
+    """Phase 10 (a): ``name`` at full width and 2 layers (seamless: 2
+    encoder + 2 decoder), float32, weights from one seed drawn on the CPU
+    and copied to the card.  Serving, f32 caches: 2 rows — qwen2-vl a
+    prefill of 16 patches on a 4 x 4 grid and 8 text tokens, seamless 64
+    frames and 16 target tokens over an 8-slot pool whose row 1 names row
+    0's slot (fenced into its own partition) — then 4 greedy decode steps
+    (the vision rows' M-RoPE positions continuing past the grid): greedy
+    ids equal and logits within phase 3's 2e-3, the seamless cross pools'
+    written slots within 1e-4 and the slots no row owns zero, the forged
+    row's frames at its own fenced slot, on both devices; the kernels
+    launched as the steps count them, no plain version on the card.
+    Training: the train guard, a 2-row batch, the loss within 1e-5
+    relative and every gradient leaf within 1e-4 of its max |value|
+    (phase 9 (a)'s bounds)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.fence import FenceParams, FencePolicy, FenceTable
+    from repro_torch.core.partition import Partition
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_guard
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import get_model
+    from repro_torch.models import kvcache as KV
+    from repro_torch.models.guard import GuardSpec
+
+    base_cfg = get_config(name)
+    cfg = dataclasses.replace(base_cfg, n_layers=2,
+                              enc_layers=min(base_cfg.enc_layers, 2),
+                              dtype="float32")
+    api = get_model(cfg)
+    params = api.init(torch.Generator().manual_seed(17), "cpu")
+    vlm = cfg.family == "vlm"
+    B, steps = 2, 4
+    n_src, S = (16, 24) if vlm else (64, 16)
+    batch = family_batch(torch, cfg, B, n_src, S + steps + 1,
+                         torch.Generator().manual_seed(19), "cpu",
+                         torch.float32)
+    serve = {k: (v[:, :S] if k in ("tokens", "positions", "tgt") else v)
+             for k, v in batch.items()}
+    parts = [Partition("a", 4, 2), Partition("b", 6, 2)]
+    slot_ids = torch.tensor([4, 4], dtype=torch.int32)   # row 1 forged
+
+    def run(device, p):
+        kv = FenceTable.from_partitions(parts, with_magic=True,
+                                        device=device).gather(
+            torch.tensor([0, 1], dtype=torch.int32))
+        guard = GuardSpec(policy=FencePolicy.BITWISE,
+                          vocab=FenceParams(0, pow2(cfg.vocab)), kv=kv,
+                          page=FenceParams(0, 1))
+        if vlm:
+            cache = api.init_cache(B, 64, dtype=torch.float32, slots=8,
+                                   device=device)
+        else:
+            shape = (cfg.n_layers, 8, n_src, cfg.n_kv_heads, cfg.head_dim)
+            cache = ED.EncDecCache(
+                kv=KV.init_kv_cache(cfg, B, 64, slots=8,
+                                    dtype=torch.float32, device=device),
+                cross_k=torch.zeros(shape, device=device),
+                cross_v=torch.zeros(shape, device=device),
+                src_lens=torch.zeros(B, dtype=torch.int32, device=device))
+        cache = KV.with_slot_ids(cache, slot_ids.to(device))
+        cache, logits = api.prefill(
+            p, cache, {k: v.to(device) for k, v in serve.items()},
+            guard=guard)
+        outs, ids = [logits.float().cpu()], [logits.argmax(-1).cpu()]
+        for i in range(steps):
+            kw = {"positions": batch["positions"][:, S + i, :1].to(device)} \
+                if vlm else {}
+            cache, logits = api.decode(p, cache,
+                                       logits.argmax(-1).to(torch.int32),
+                                       guard=guard, **kw)
+            outs.append(logits.float().cpu())
+            ids.append(logits.argmax(-1).cpu())
+        pools = None if vlm else (cache.cross_k.cpu(), cache.cross_v.cpu())
+        return (torch.stack(outs), torch.stack(ids)), pools
+
+    _build.reset_counts()
+    card, card_pools = run("cuda", tree_to(params, "cuda"))
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in _build.KERNELS.values()
+                if k.launches}
+    plain = sum(k.plain_calls for k in _build.KERNELS.values())
+    L = cfg.n_layers
+    want = ({"gather_rows": 1 + steps, "flash_attention": L,
+             "paged_attention": L * steps} if vlm else
+            {"gather_rows": 1 + steps,
+             "flash_attention": cfg.enc_layers + 2 * L,
+             "paged_attention": 2 * L * steps})
+    if launches != want or plain:
+        raise AssertionError(f"family (a) [{name}]: launches {launches}, "
+                             f"plain calls {plain}; want {want}, none")
+    cpu, cpu_pools = run("cpu", params)
+    tol = 2e-3
+    err = hold_card_vs_cpu(f"family (a) [{name}]", card, cpu, tol)
+    note = ""
+    if not vlm:
+        pool_err = 0.0
+        for c, h in zip(card_pools, cpu_pools):
+            pool_err = max(pool_err, (c - h).abs().max().item())
+            for pools in (c, h):
+                if pools[:, [0, 1, 2, 3, 5, 7]].any():
+                    raise AssertionError(f"family (a) [{name}]: a cross "
+                                         "pool slot no row owns was written")
+                if torch.equal(pools[:, 4], pools[:, 6]):
+                    raise AssertionError(f"family (a) [{name}]: the forged "
+                                         "row's frames not at its own slot")
+        if not pool_err <= 1e-4:
+            raise AssertionError(f"family (a) [{name}]: cross pools differ "
+                                 f"card vs CPU by {pool_err}")
+        note = (f"; row 1's slot id 4 (row 0's) fenced to 6: the cross "
+                f"pools' slots 4 and 6 within {pool_err:.3g} card vs CPU, "
+                "slots no row owns zero, its cross reads (its logits) "
+                "equal the CPU's")
+    log(f"family (a) [{name}, {L} layers"
+        + ("" if vlm else f" + {cfg.enc_layers} encoder") + f", d "
+        f"{cfg.d_model}, f32]: card vs CPU greedy ids equal over prefill + "
+        f"{steps} decodes of {B} rows ("
+        + (f"{n_src} patches on a 4 x 4 grid + {S - n_src} text tokens, "
+           "M-RoPE components differing" if vlm else
+           f"{n_src} frames, {S} target tokens")
+        + f"), max |logit err| {err:.3g} (tolerance {tol}){note}; launches "
+        f"on the card {launches}")
+
+    # training: loss and every gradient leaf
+    guard = make_guard(cfg, ShapeConfig("phase10", "train", S, B))
+    train = {k: (v[:, :S + 1] if k in ("tokens", "tgt") else
+                 v[:, :S] if k == "positions" else v)
+             for k, v in batch.items()}
+    _build.reset_counts()
+    loss_g, grads_g = loss_and_grads(torch, api, tree_to(params, "cuda"),
+                                     tree_to(train, "cuda"), guard)
+    torch.cuda.synchronize()
+    plain = sum(k.plain_calls for k in _build.KERNELS.values())
+    if plain:
+        raise AssertionError(f"family (a) train [{name}]: {plain} plain "
+                             "calls on the card")
+    loss_c, grads_c = loss_and_grads(torch, api, params, train, guard)
+    rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    if not rel <= 1e-5:
+        raise AssertionError(f"family (a) train [{name}]: loss "
+                             f"{float(loss_g)} on the card, {float(loss_c)}"
+                             " on the CPU")
+    worst = 0.0
+    for i, (g, c) in enumerate(zip(grads_g, grads_c)):
+        e, scale = (g.cpu() - c).abs().max().item(), c.abs().max().item()
+        ratio = e / scale if scale else e
+        if not ratio <= 1e-4:
+            raise AssertionError(f"family (a) train [{name}]: gradient leaf "
+                                 f"{i} off by {e:.3g} (max |grad| "
+                                 f"{scale:.3g})")
+        worst = max(worst, ratio)
+    log(f"family (a) train [{name}]: card vs CPU loss {float(loss_g):.6f} / "
+        f"{float(loss_c):.6f} (relative error {rel:.3g}, tolerance 1e-5); "
+        f"{len(grads_c)} gradient leaves, worst max |err| / max |grad| "
+        f"{worst:.3g} (tolerance 1e-4)")
+    del grads_g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class FormTally:
+    """Within ``with``: each of ``sites`` — (module, function name,
+    kernel, form) — wrapped to add to ``counts[form]`` the launches its
+    kernel made inside the call (the wrapper's own count, before and
+    after), so one kernel's launches split by the call site that made
+    them."""
+
+    def __init__(self, sites):
+        from repro_torch.kernels import _build
+        self.sites, self.kernels = sites, _build.KERNELS
+        self.counts = collections.Counter()
+
+    def __enter__(self):
+        self.kept = []
+        for mod, fn, kernel, form in self.sites:
+            orig = getattr(mod, fn)
+            self.kept.append((mod, fn, orig))
+
+            def wrapped(*a, _orig=orig, _k=kernel, _f=form, **kw):
+                before = self.kernels[_k].launches
+                out = _orig(*a, **kw)
+                self.counts[_f] += self.kernels[_k].launches - before
+                return out
+            setattr(mod, fn, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, orig in self.kept:
+            setattr(mod, fn, orig)
+
+
+def family_floor_bytes(cfg, params, cache, B: int) -> dict:
+    """The bytes one decode step must move at least: every weight it reads
+    (vision: the layers, the final norm and the LM head; encoder-decoder:
+    the decoder's layers — the encoder runs at prefill only — the final
+    norm and the LM head; the embedding table for its B rows only, left
+    out), the held K/V of every layer at the step's lengths (the cache's
+    type), and the encoder-decoder's cross K/V of every layer."""
+    head = params["embed"].get("head", params["embed"]["table"])
+    layers = params["layers"] if cfg.family == "vlm" else params["dec"]
+    weights = (tree_bytes(layers) + tree_bytes(params["norm_f"])
+               + tree_bytes(head))
+    kv = cache.kv if cfg.family == "encdec" else cache
+    el = kv.k.element_size()
+    held = int(kv.seq_lens.sum()) + B
+    kv_bytes = 2 * cfg.n_layers * held * cfg.n_kv_heads * cfg.head_dim * el
+    cross = 0
+    if cfg.family == "encdec":
+        cross = (2 * cfg.n_layers * int(cache.src_lens.sum())
+                 * cfg.n_kv_heads * cfg.head_dim
+                 * cache.cross_k.element_size())
+    return {"weights": weights, "kv": kv_bytes, "cross": cross}
+
+
+def family_full(torch, name: str, smi: str) -> dict:
+    """Phase 10 (b): ``name`` at full width and depth, bf16 weights from a
+    seeded generator, on the model API's defaults (a bf16 slab cache;
+    seamless's 1,024-frame cross pools): B = 4 — qwen2-vl 256 patches on a
+    16 x 16 grid + 64 text tokens, seamless 1,024 frames + 32 target
+    tokens — a prefill, then 16 greedy decode steps (qwen2-vl's positions
+    continuing past the grid), counts set to 0 just before the prefill and
+    read after the last step: K3 once a step, K4 once a layer of the
+    prefill (seamless: the encoder's and the cross-attention's not
+    causal), K1 once a layer a step (seamless: the self- and the
+    cross-attention), no plain version; every logit finite, every greedy
+    id in the vocabulary.  Prints the prefill's and each decode step's
+    wall time on the stream (CUDA events around the eager API calls: with
+    a thousand or more small device operations a step, the host's time to
+    launch them), then the device busy time and operations of one decode
+    step and of one prefill (``torch.profiler``, uncounted), the step's
+    busy time against its bytes floor at 3.35 TB/s, tokens/s and the peak
+    memory; seamless also its LM head's time.  Returns the run's launches, each
+    kernel's and each seamless form's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as LM
+
+    cfg = get_config(name)
+    api = get_model(cfg)
+    vlm = cfg.family == "vlm"
+    B, steps = FAMILY_B, FAMILY_STEPS
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(torch.Generator(device="cuda").manual_seed(23), "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    gen = torch.Generator().manual_seed(29)
+    if vlm:
+        S = VLM_SIDE ** 2 + VLM_TEXT
+        batch = family_batch(torch, cfg, B, VLM_SIDE ** 2, S + steps, gen,
+                             "cuda", LM.dtype_of(cfg))
+        positions = batch.pop("positions")
+        batch["tokens"] = batch["tokens"][:, :S]
+        batch["positions"] = positions[:, :S]
+        cache = api.init_cache(B, pow2(S + steps), device="cuda")
+    else:
+        S = ED_TGT
+        batch = family_batch(torch, cfg, B, ED_FRAMES, S, gen, "cuda",
+                             LM.dtype_of(cfg))
+        cache = api.init_cache(B, pow2(S + steps), device="cuda")
+    sites = [] if vlm else [
+        (ED, "encode", "flash_attention", "encoder"),
+        (LM, "full_attention", "flash_attention", "non-causal"),
+        (ED, "cross_decode_attention", "paged_attention", "cross")]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * steps + 2)]
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    with FormTally(sites) as tally:
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        ev[0].record()
+        cache, logits = api.prefill(params, cache, batch)
+        ev[1].record()
+        prefill_launches = {k.name: k.launches for k in _build.KERNELS.values()
+                            if k.launches}
+        ids = [logits.argmax(-1)]
+        finite &= torch.isfinite(logits).all()
+        floor = family_floor_bytes(cfg, params, cache, B)
+        step_launches, wall0 = [], time.perf_counter()
+        for i in range(steps):
+            kw = {"positions": positions[:, S + i, :1]} if vlm else {}
+            before = {k.name: k.launches for k in _build.KERNELS.values()}
+            ev[2 + 2 * i].record()
+            cache, logits = api.decode(params, cache,
+                                       ids[-1].to(torch.int32), **kw)
+            ev[3 + 2 * i].record()
+            step_launches.append({k.name: k.launches - before[k.name]
+                                  for k in _build.KERNELS.values()
+                                  if k.launches - before[k.name]})
+            ids.append(logits.argmax(-1))
+            finite &= torch.isfinite(logits).all()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - wall0
+        launches = {k.name: k.launches for k in _build.KERNELS.values()
+                    if k.launches}
+        plain = sum(k.plain_calls for k in _build.KERNELS.values())
+    # each form's launches: K4's in the encoder and in the cross-attention
+    # (non-causal calls outside the encoder), K1's over the cross pool
+    forms = {} if vlm else {
+        "flash_attention/encoder": tally.counts["encoder"],
+        "flash_attention/cross": tally.counts["non-causal"]
+        - tally.counts["encoder"],
+        "paged_attention/cross": tally.counts["cross"]}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    step_ms = [ev[2 + 2 * i].elapsed_time(ev[3 + 2 * i])
+               for i in range(steps)]
+    ids = torch.stack(ids).cpu()
+    L = cfg.n_layers
+    want_prefill = {"gather_rows": 1, "flash_attention": L} if vlm else \
+        {"gather_rows": 1, "flash_attention": cfg.enc_layers + 2 * L}
+    want_step = {"gather_rows": 1, "paged_attention": L if vlm else 2 * L}
+    if plain or prefill_launches != want_prefill or any(
+            s != want_step for s in step_launches):
+        raise AssertionError(
+            f"family (b) [{name}]: plain calls {plain}, launches per prefill "
+            f"{prefill_launches} (want {want_prefill}), per step "
+            f"{step_launches} (want {want_step})")
+    if not vlm and forms != {"flash_attention/encoder": cfg.enc_layers,
+                             "flash_attention/cross": L,
+                             "paged_attention/cross": L * steps}:
+        raise AssertionError(f"family (b) [{name}]: forms {forms}")
+    if not bool(finite) or not bool(((ids >= 0) & (ids < cfg.vocab)).all()):
+        raise AssertionError(f"family (b) [{name}]: a logit not finite or a "
+                             "greedy id outside the vocabulary")
+    nxt = ids[-1].to(torch.int32).cuda()
+    kw = {"positions": positions[:, S + steps - 1, :1]} if vlm else {}
+    with uncounted():
+        step = profile_step(torch, lambda: api.decode(params, cache, nxt,
+                                                      **kw))
+        pre = profile_step(torch, lambda: api.prefill(params, cache, batch))
+    floor_ms = sum(floor.values()) / HBM_BYTES_PER_S * 1e3
+    head_note = ""
+    if not vlm:
+        head = params["embed"].get("head", params["embed"]["table"])
+        x = torch.randn(B, cfg.d_model, generator=torch.Generator(
+            device="cuda").manual_seed(31), device="cuda").to(head.dtype)
+        with uncounted():
+            head_ms = cuda_ms(torch, lambda: x @ head)
+        head_floor = tree_bytes(head) / HBM_BYTES_PER_S * 1e3
+        head_note = (f"; its LM head ({B} x {cfg.d_model} @ {cfg.d_model} x "
+                     f"{cfg.vocab}, bf16, unpadded) {head_ms:.5f} ms against "
+                     f"its bytes' {head_floor:.5f} ms")
+    med = statistics.median(step_ms)
+    log(f"family (b) [{name}, {L} layers"
+        + ("" if vlm else f" + {cfg.enc_layers} encoder")
+        + f", {n_params / 1e9:.2f} B params ({tree_bytes(params) / 1e9:.2f} "
+        f"GB), {cfg.dtype}, the API's bf16 slab cache]: B = {B}, "
+        + (f"{VLM_SIDE ** 2} patches on a {VLM_SIDE} x {VLM_SIDE} grid + "
+           f"{VLM_TEXT} text tokens" if vlm else
+           f"{ED_FRAMES} frames + {S} target tokens")
+        + f"; wall on the stream (eager API calls, host-bound): prefill "
+        f"{prefill_ms:.3f} ms, decode step {med:.3f} ms median (min "
+        f"{min(step_ms):.3f}, max {max(step_ms):.3f}) over {steps} greedy "
+        f"steps, {med * 1e3 / step['ops']:.1f} us a device operation; "
+        f"device busy (profiler): prefill {pre['busy_ms']:.3f} ms in "
+        f"{pre['ops']} operations, decode step {step['busy_ms']:.3f} ms in "
+        f"{step['ops']} operations ("
+        + ", ".join(f"{c} {ms:.3f}" for c, ms in step["by_class"].items())
+        + "; the top kernels " + ", ".join(
+            f"{k[:48]} {ms:.3f} ms x{n}" for k, ms, n in step["top"][:4])
+        + f") against a bytes floor of {floor_ms:.4f} ms (weights "
+        f"{floor['weights'] / 1e9:.3f} GB, KV {floor['kv'] / 1e6:.2f} MB"
+        + ("" if vlm else f", cross KV {floor['cross'] / 1e6:.1f} MB")
+        + f" at 3.35 TB/s; {floor['weights'] / HBM_BYTES_PER_S * 1e3:.4f} "
+        f"ms for the weights alone); {B * steps / wall:.1f} tokens/s "
+        f"(wall); peak {peak:.2f} GB; launches per prefill "
+        f"{prefill_launches}, per decode step {step_launches[0]}"
+        + (f" (forms: {forms})" if forms else "")
+        + f"; every logit finite, every greedy id in [0, {cfg.vocab})"
+        f"{head_note} — {smi}")
+    out = {"launches": launches}
+    if not vlm:
+        out["forms"] = forms
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_phase(torch, smi: str) -> dict:
+    """Phase 10: (a) each family at full width and 2 layers, card against
+    CPU; (b) each at full width and depth, bf16, on the API's defaults.
+    Returns each path's launches."""
+    t0 = time.perf_counter()
+    for name in FAMILIES:
+        family_card_vs_cpu(torch, name)
+    paths = {}
+    for name in FAMILIES:
+        paths[name] = family_full(torch, name, smi)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return paths
 
 
 # A worker of the same-card A/B: phase 2 of the checkout at argv[1], run
@@ -4217,6 +4946,7 @@ def main() -> int:
         rows += check_kernels(torch, get_config(name))
     check_ops(torch, get_config(RECURRENT[0]))
     rows += train_kernel_rows(torch)
+    rows += family_kernel_rows(torch)
     for r in rows:
         log(f"  {r['kernel']} [{r['path']}]: {r['ms']:.5f} ms = "
             f"{r['ms'] / floor:.2f}x the launch floor")
@@ -4265,15 +4995,22 @@ def main() -> int:
         train_card_vs_cpu(torch, name)
     paths[f"{TRAIN_ARCH}/train"] = train_full(torch, smi)
     train_restart(torch)
+    # phase 10: the vision and encoder-decoder families
+    log_memory(torch, "before phase 10")
+    paths.update(family_phase(torch, smi))
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     def launches(r):
         """The row's launches on its path's main run (a row on no path
-        carries its own 0)."""
-        return r["launches"] if "launches" in r \
-            else paths[r["path"]]["launches"][r["kernel"]]
+        carries its own 0; a row of one form of a kernel on its path, that
+        form's launches)."""
+        if "launches" in r:
+            return r["launches"]
+        if "form" in r:
+            return paths[r["path"]]["forms"][r["form"]]
+        return paths[r["path"]]["launches"][r["kernel"]]
 
     table = [{k: launches(r) if k == "launches" else r[k] for k in keys}
              for r in rows]

@@ -78,11 +78,11 @@ def _pages(operand: str, index: str, store: bool, source: str,
 
 #: op name (in the ``repro_torch`` namespace) -> its declared accesses
 ACCESSES: Dict[str, Tuple[Access, ...]] = {
-    # K1: csrc/paged_attention.cu:213 — resolve_page(fence_id(id, base,
+    # K1: csrc/paged_attention.cu:233 — resolve_page(fence_id(id, base,
     # mask), page_map, n_map, P - 1) for the pages of the row's table its
     # share walks (under a window, a suffix: the entry covers them all)
     "paged_attention": tuple(
-        _pages(pool, "page_table", False, "paged_attention.cu:213",
+        _pages(pool, "page_table", False, "paged_attention.cu:233",
                ("base_rows", "base"), ("mask_rows", "mask"))
         for pool in ("k_pages", "v_pages")),
     # K2: csrc/scatter_pages.cu:125 — the same resolution on the store

@@ -10,14 +10,19 @@
 // accumulated in float32 and stored in the inputs' type.  The band is the
 // reference's mask (src/repro/models/layers.py `chunked_attention`): j <= i
 // when causal, and j > i - window when window > 0 (window and causal are
-// launch-time operands).  Prompts are right-padded to the longest joiner,
-// so S is arbitrary: keys at or past S are masked (-1e30) and rows at or
-// past S are never stored; there is no S % tile requirement.  A query tile
+// launch-time operands).  q has Sq rows and k / v Skv keys of their own
+// (the TPU kernel asserts Skv = Sq): a non-causal call may attend Sq
+// queries over Skv keys (cross-attention: the decoder's tokens over the
+// encoder's frames); a causal one has Skv = Sq (the wrapper refuses
+// another).  Prompts are right-padded to the longest joiner, so Sq and Skv
+// are arbitrary: keys at or past Skv are masked (-1e30) and rows at or
+// past Sq are never stored; there is no S % tile requirement.  A query tile
 // walks only the key tiles its rows' bands reach: from the tile holding
-// q0 - window + 1 (window > 0) to the diagonal (causal) or to S.  A row
+// q0 - window + 1 (window > 0) to the diagonal (causal) or to Skv.  A row
 // whose band misses the first tile it walks carries weights of 1 for that
 // tile's masked keys until its first real key, whose rescale
-// exp(-1e30 - m) = 0 clears them; every row < S holds its own key j = i.
+// exp(-1e30 - m) = 0 clears them; every causal row < Sq holds its own key
+// j = i, and every non-causal row without a window holds key 0.
 //
 // What bounds it on the H100: at serve prefill shapes (S <= a few hundred
 // tokens) the attention FLOPs (~2 * B * H * S^2 * D) are small and the
@@ -64,20 +69,21 @@ constexpr int kThreads = 128;
 constexpr int kBQ = 64;  // query rows per block
 constexpr int kBK = 64;  // keys per tile
 
-// Whether key `key` lies in query row `row`'s band (and inside S).
-__device__ __forceinline__ bool in_band(int key, int row, int S, int causal,
-                                        int window) {
-  return key < S && (!causal || key <= row) &&
+// Whether key `key` lies in query row `row`'s band (and inside Skv).
+__device__ __forceinline__ bool in_band(int key, int row, int Skv,
+                                        int causal, int window) {
+  return key < Skv && (!causal || key <= row) &&
          (window <= 0 || key > row - window);
 }
 
 // The key tiles [lo, hi) the query tile starting at q0 reaches: from the
-// first key of its first row's band to its last row's diagonal (causal) or
-// to S.
-__device__ __forceinline__ void key_tiles(int q0, int S, int causal,
-                                          int window, int* lo, int* hi) {
-  const int last = min(q0 + kBQ, S) - 1;  // last query row of the tile
-  *hi = causal ? last / kBK + 1 : (S + kBK - 1) / kBK;
+// first key of its first row's band to its last row's diagonal (causal,
+// where Skv = Sq) or to Skv.
+__device__ __forceinline__ void key_tiles(int q0, int Sq, int Skv,
+                                          int causal, int window, int* lo,
+                                          int* hi) {
+  const int last = min(q0 + kBQ, Sq) - 1;  // last query row of the tile
+  *hi = causal ? last / kBK + 1 : (Skv + kBK - 1) / kBK;
   *lo = window > 0 ? max(q0 - window + 1, 0) / kBK : 0;
 }
 
@@ -87,8 +93,8 @@ __device__ __forceinline__ void key_tiles(int q0, int S, int causal,
 
 __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, int S, int H,
-    int KH, int D, int causal, int window, float scale) {
+    const float* __restrict__ v, float* __restrict__ out, int Sq, int Skv,
+    int H, int KH, int D, int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int ks = D + 1;
   float* q_s = smem;                // kBQ * D
@@ -108,7 +114,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int i = e / D, d = e % D, s = q0 + i;
-    q_s[e] = s < S ? q[(((size_t)b * S + s) * H + h) * D + d] : 0.f;
+    q_s[e] = s < Sq ? q[(((size_t)b * Sq + s) * H + h) * D + d] : 0.f;
     acc_s[e] = 0.f;
   }
   for (int i = tid; i < kBQ; i += kThreads) {
@@ -116,16 +122,16 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
     l_s[i] = 0.f;
   }
   int kt_lo, kt_hi;
-  key_tiles(q0, S, causal, window, &kt_lo, &kt_hi);
+  key_tiles(q0, Sq, Skv, causal, window, &kt_lo, &kt_hi);
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int j = e / D, d = e % D, s = k0 + j;
-      const size_t off = (((size_t)b * S + s) * KH + kvh) * D + d;
-      k_s[j * ks + d] = s < S ? k[off] : 0.f;
-      v_s[e] = s < S ? v[off] : 0.f;
+      const size_t off = (((size_t)b * Skv + s) * KH + kvh) * D + d;
+      k_s[j * ks + d] = s < Skv ? k[off] : 0.f;
+      v_s[e] = s < Skv ? v[off] : 0.f;
     }
     __syncthreads();
     for (int e = tid; e < kBQ * kBK; e += kThreads) {
@@ -134,8 +140,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
       const float* kj = k_s + j * ks;
       float s = 0.f;
       for (int d = 0; d < D; ++d) s = fmaf(qi[d], kj[d], s);
-      s_s[e] = in_band(k0 + j, q0 + i, S, causal, window) ? s * scale
-                                                          : NEG_INF_F;
+      s_s[e] = in_band(k0 + j, q0 + i, Skv, causal, window) ? s * scale
+                                                            : NEG_INF_F;
     }
     __syncthreads();
     for (int i = tid; i < kBQ; i += kThreads) {
@@ -165,24 +171,24 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
   __syncthreads();
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int i = e / D, d = e % D, s = q0 + i;
-    if (s < S)
-      out[(((size_t)b * S + s) * H + h) * D + d] =
+    if (s < Sq)
+      out[(((size_t)b * Sq + s) * H + h) * D + d] =
           acc_s[e] / fmaxf(l_s[i], 1e-30f);
   }
 }
 
 static int launch_f32(const void* q, const void* k, const void* v, void* out,
-                      int B, int S, int H, int KH, int D, int causal,
-                      int window, cudaStream_t stream) {
+                      int B, int Sq, int Skv, int H, int KH, int D,
+                      int causal, int window, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * (size_t)kBQ * D +
                                        (size_t)kBK * (2 * D + 1) +
                                        (size_t)kBQ * kBK + 3 * (size_t)kBQ);
   int rc = allow_smem(flash_attention_f32_kernel, smem);
   if (rc) return rc;
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_attention_f32_kernel<<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, S, H,
-      KH, D, causal, window, rsqrtf((float)D));
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq,
+      Skv, H, KH, D, causal, window, rsqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -344,7 +350,8 @@ template <int KSTEPS>  // D / 16
 __global__ void __launch_bounds__(kThreads, 2) flash_attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int S, int H, int KH, int causal, int window, float scale_log2) {
+    int Sq, int Skv, int H, int KH, int causal, int window,
+    float scale_log2) {
   constexpr int D = KSTEPS * 16;
   constexpr int nc = D / 8;  // 16-byte chunks a row
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -360,9 +367,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_bf16_kernel(
   const int kvh = h / (H / KH);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  const __nv_bfloat16* qh = q + ((size_t)b * S * H + h) * D;
-  const __nv_bfloat16* kh = k + ((size_t)b * S * KH + kvh) * D;
-  const __nv_bfloat16* vh = v + ((size_t)b * S * KH + kvh) * D;
+  const __nv_bfloat16* qh = q + ((size_t)b * Sq * H + h) * D;
+  const __nv_bfloat16* kh = k + ((size_t)b * Skv * KH + kvh) * D;
+  const __nv_bfloat16* vh = v + ((size_t)b * Skv * KH + kvh) * D;
 
   // V columns D..127 of both buffers: zero once (P V runs N = 128; the
   // loads below never write these chunks).
@@ -377,18 +384,20 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_bf16_kernel(
   }
 
   int kt_lo, kt_hi;
-  key_tiles(q0, S, causal, window, &kt_lo, &kt_hi);
+  key_tiles(q0, Sq, Skv, causal, window, &kt_lo, &kt_hi);
   const int n_tiles = kt_hi - kt_lo;
 
   // cp.async group t holds the t-th key tile walked, kt_lo + t (group 0
   // also Q).
-  stage_tile<nc>(sQ, qh, q0, S, H * D, tid);
-  stage_tile<nc>(sK, kh, kt_lo * kBK, S, KH * D, tid);
-  stage_tile<nc>(sV, vh, kt_lo * kBK, S, KH * D, tid);
+  stage_tile<nc>(sQ, qh, q0, Sq, H * D, tid);
+  stage_tile<nc>(sK, kh, kt_lo * kBK, Skv, KH * D, tid);
+  stage_tile<nc>(sV, vh, kt_lo * kBK, Skv, KH * D, tid);
   cp_async_commit();
   if (n_tiles > 1) {
-    stage_tile<nc>(sK + kTileBytes, kh, (kt_lo + 1) * kBK, S, KH * D, tid);
-    stage_tile<nc>(sV + kTileBytes, vh, (kt_lo + 1) * kBK, S, KH * D, tid);
+    stage_tile<nc>(sK + kTileBytes, kh, (kt_lo + 1) * kBK, Skv, KH * D,
+                   tid);
+    stage_tile<nc>(sV + kTileBytes, vh, (kt_lo + 1) * kBK, Skv, KH * D,
+                   tid);
   }
   cp_async_commit();
 
@@ -431,7 +440,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_bf16_kernel(
         const int row = row0 + (e >> 1) * 8;
         const int key = k0 + 8 * i + cq + (e & 1);
         const float x = s[4 * i + e] * scale_log2;
-        s[4 * i + e] = in_band(key, row, S, causal, window) ? x : NEG_INF_F;
+        s[4 * i + e] = in_band(key, row, Skv, causal, window) ? x : NEG_INF_F;
       }
       mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
       mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
@@ -482,8 +491,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_bf16_kernel(
 
     __syncthreads();  // every warp is done with this K/V buffer
     if (j + 2 < n_tiles) {
-      stage_tile<nc>(kbuf, kh, (kt_lo + j + 2) * kBK, S, KH * D, tid);
-      stage_tile<nc>(vbuf, vh, (kt_lo + j + 2) * kBK, S, KH * D, tid);
+      stage_tile<nc>(kbuf, kh, (kt_lo + j + 2) * kBK, Skv, KH * D, tid);
+      stage_tile<nc>(vbuf, vh, (kt_lo + j + 2) * kBK, Skv, KH * D, tid);
     }
     cp_async_commit();
   }
@@ -506,10 +515,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_bf16_kernel(
         __floats2bfloat162_rn(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
   }
   __syncthreads();
-  __nv_bfloat16* oh = out + ((size_t)b * S * H + h) * D;
+  __nv_bfloat16* oh = out + ((size_t)b * Sq * H + h) * D;
   for (int e = tid; e < kBQ * nc; e += kThreads) {
     const int r = e / nc, c = e - r * nc, srow = q0 + r;
-    if (srow < S)
+    if (srow < Sq)
       *reinterpret_cast<uint4*>(oh + (size_t)srow * H * D + c * 8) =
           *reinterpret_cast<const uint4*>(so + r * kOStride + c * 16);
   }
@@ -517,24 +526,25 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_bf16_kernel(
 
 template <int KSTEPS>
 static int launch_bf16(const void* q, const void* k, const void* v,
-                       void* out, int B, int S, int H, int KH, int causal,
-                       int window, cudaStream_t stream) {
+                       void* out, int B, int Sq, int Skv, int H, int KH,
+                       int causal, int window, cudaStream_t stream) {
   auto kernel = flash_attention_bf16_kernel<KSTEPS>;
   int rc = allow_smem(kernel, kTcSmem);
   if (rc) return rc;
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, kTcSmem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, H, KH, causal, window,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, Sq, Skv, H, KH, causal,
+      window,
       rsqrtf((float)(KSTEPS * 16)) * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 static int launch_bf16(const void* q, const void* k, const void* v,
-                       void* out, int B, int S, int H, int KH, int D,
-                       int causal, int window, cudaStream_t s) {
+                       void* out, int B, int Sq, int Skv, int H, int KH,
+                       int D, int causal, int window, cudaStream_t s) {
   if (KH <= 0 || H % KH != 0) return (int)cudaErrorInvalidValue;
-#define ARGS q, k, v, out, B, S, H, KH, causal, window, s
+#define ARGS q, k, v, out, B, Sq, Skv, H, KH, causal, window, s
   switch (D) {
     case 16: return launch_bf16<1>(ARGS);
     case 32: return launch_bf16<2>(ARGS);
@@ -550,14 +560,18 @@ static int launch_bf16(const void* q, const void* k, const void* v,
 }
 
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int S,
-                                      int H, int KH, int D, int causal,
-                                      int window, int dtype, void* stream) {
+                                      const void* v, void* out, int B,
+                                      int Sq, int Skv, int H, int KH, int D,
+                                      int causal, int window, int dtype,
+                                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (Sq <= 0 || Skv <= 0 || (causal && Skv != Sq))
+    return (int)cudaErrorInvalidValue;
   if (dtype == DT_F32)
-    return launch_f32(q, k, v, out, B, S, H, KH, D, causal, window, s);
+    return launch_f32(q, k, v, out, B, Sq, Skv, H, KH, D, causal, window, s);
   if (dtype == DT_BF16)
-    return launch_bf16(q, k, v, out, B, S, H, KH, D, causal, window, s);
+    return launch_bf16(q, k, v, out, B, Sq, Skv, H, KH, D, causal, window,
+                       s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,6 +16,9 @@
 // round_q rounds a pool value to the query's type first — the serve path
 // keeps a float32 pool under bfloat16 weights and the reference rounds the
 // gathered K/V to the query type before its float32-accumulated product.
+// The pool is float32 or bfloat16 (the model API's default cache); a
+// bfloat16 pool is widened to float32 as it is staged (the Pallas body's
+// astype(float32)), and round_q is then the identity.
 // Masked positions score -1e30, so a row with seq_len <= 0 is the uniform
 // mean over all max_pages * page positions, as in the reference; a row
 // with seq_len > 0 reads only its held tokens (a masked position's weight
@@ -45,7 +48,9 @@
 //    clamps one page id of the CTA's share into shared memory.  No K/V
 //    address forms from anything else.
 //  - Loads: 16-byte cp.async of the float32 pool rows (D = 80 is 20 a
-//    token, D = 128 32) into shared memory, a tile at a time: 128 tokens
+//    token, D = 128 32) into shared memory; a bfloat16 pool is read with
+//    16-byte vector loads of 8 elements (D a multiple of 8) and widened to
+//    float32 as it is stored to shared memory, a tile at a time: 128 tokens
 //    for a lone CTA (a row of up to 128 held tokens in one round), 64 in a
 //    cluster (smaller shared memory, so the clusters pack onto the GPCs'
 //    SMs in one wave).  K and V are rounded to the query's type as they
@@ -150,18 +155,33 @@ __device__ __forceinline__ void cp_async_wait_all() {
                    : "memory");
 }
 
-template <typename Q_T, int kTile>
+// Eight bfloat16 pool values (one 16-byte load) widened to float32 and
+// stored as two float4 at dst (16-byte aligned).
+__device__ __forceinline__ void widen8(float* dst, const __nv_bfloat16* src) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+}
+
+template <typename Q_T, typename KV_T, int kTile>
 __global__ void __launch_bounds__(kThreads, kTile == 64 ? 3 : 2)
     paged_attention_kernel(
-        const Q_T* __restrict__ q, const float* __restrict__ k_pool,
-        const float* __restrict__ v_pool, const int* __restrict__ page_table,
+        const Q_T* __restrict__ q, const KV_T* __restrict__ k_pool,
+        const KV_T* __restrict__ v_pool, const int* __restrict__ page_table,
         const int* __restrict__ seq_lens, const int* __restrict__ base_rows,
         const int* __restrict__ mask_rows, int base, int mask,
         const int* __restrict__ page_map, int n_map, Q_T* __restrict__ out,
         int H, int KH, int D, int page, int max_pages, int phys_mask,
         int window, int cluster, float scale) {
   extern __shared__ __align__(16) float smem[];
-  constexpr bool kBf16 = sizeof(Q_T) == 2;
+  // K/V are rounded to the query's type as they are read: only a bf16
+  // query over a float32 pool changes a value (a bf16 pool's values are
+  // bf16 already)
+  constexpr bool kBf16 = sizeof(Q_T) == 2 && sizeof(KV_T) == 4;
+  constexpr bool kPoolBf16 = sizeof(KV_T) == 2;
   const int G = H / KH, GD = G * D, DQ = D / 4, GDQ = G * DQ;
   const int GT = G * kTile;
   const int rank = blockIdx.x % cluster, kh = blockIdx.x / cluster;
@@ -227,15 +247,24 @@ __global__ void __launch_bounds__(kThreads, kTile == 64 ? 3 : 2)
   const size_t tok_stride = (size_t)KH * D, head_off = (size_t)kh * D;
   for (int tb = t0; tb < t1; tb += kTile) {
     const int n_t = min(kTile, t1 - tb);
-    // stage the tile: 16-byte cp.async of the float32 pool rows
-    for (int e = tid; e < n_t * DQ; e += kThreads) {
-      const int t = e / DQ, c = e - t * DQ;
+    // stage the tile: 16-byte cp.async of the float32 pool rows, or
+    // 16-byte loads of 8 bfloat16 values widened to float32
+    const int per = kPoolBf16 ? 8 : 4, n_vec = D / per;
+    for (int e = tid; e < n_t * n_vec; e += kThreads) {
+      const int t = e / n_vec, c = e - t * n_vec;
       const int pos = tb + t, pg = pos / page;
       const size_t off =
           ((size_t)phys_s[pg - p_lo] * page + (pos - pg * page)) *
-              tok_stride + head_off + 4 * c;
-      cp_async16(k_s + t * ks + 4 * c, k_pool + off);
-      cp_async16(v_s + t * D + 4 * c, v_pool + off);
+              tok_stride + head_off + per * c;
+      if constexpr (kPoolBf16) {
+        widen8(k_s + t * ks + 8 * c,
+               reinterpret_cast<const __nv_bfloat16*>(k_pool) + off);
+        widen8(v_s + t * D + 8 * c,
+               reinterpret_cast<const __nv_bfloat16*>(v_pool) + off);
+      } else {
+        cp_async16(k_s + t * ks + 4 * c, k_pool + off);
+        cp_async16(v_s + t * D + 4 * c, v_pool + off);
+      }
     }
     cp_async_wait_all();
     __syncthreads();
@@ -405,7 +434,7 @@ __global__ void __launch_bounds__(kThreads, kTile == 64 ? 3 : 2)
   cl.sync();  // the partials stay alive until rank 0 has read them
 }
 
-template <typename Q_T, int kTile>
+template <typename Q_T, typename KV_T, int kTile>
 static int launch_tile(const void* q, const void* k_pool, const void* v_pool,
                        const void* page_table, const void* seq_lens,
                        const void* base_rows, const void* mask_rows, int base,
@@ -414,12 +443,12 @@ static int launch_tile(const void* q, const void* k_pool, const void* v_pool,
                        int phys_mask, int window, int cluster,
                        cudaStream_t stream) {
   const size_t smem = smem_bytes(kTile, H / KH, D, max_pages);
-  auto kernel = paged_attention_kernel<Q_T, kTile>;
+  auto kernel = paged_attention_kernel<Q_T, KV_T, kTile>;
   int rc = allow_smem(kernel, smem);
   if (rc) return rc;
   const float scale = (float)(1.0 / sqrt((double)D));
   const Q_T* qp = (const Q_T*)q;
-  const float *kp = (const float*)k_pool, *vp = (const float*)v_pool;
+  const KV_T *kp = (const KV_T*)k_pool, *vp = (const KV_T*)v_pool;
   const int *tp = (const int*)page_table, *lp = (const int*)seq_lens;
   const int *bp = (const int*)base_rows, *mp = (const int*)mask_rows;
   const int* pm = (const int*)page_map;
@@ -455,7 +484,7 @@ static int launch_tile(const void* q, const void* k_pool, const void* v_pool,
 // shares and stage 64-token tiles, whose smaller shared memory lets the
 // clusters pack onto the GPCs' SMs in one wave (measured with chip_smoke's
 // K1 inputs: see PERF.md).
-template <typename Q_T>
+template <typename Q_T, typename KV_T>
 static int launch(const void* q, const void* k_pool, const void* v_pool,
                   const void* page_table, const void* seq_lens,
                   const void* base_rows, const void* mask_rows, int base,
@@ -464,13 +493,14 @@ static int launch(const void* q, const void* k_pool, const void* v_pool,
                   int phys_mask, int window, int cluster, cudaStream_t stream) {
   if (KH <= 0 || H % KH || D <= 0 || D % 4 || D / 4 > kMaxDQ ||
       (H / KH) * (D / 4) > kMaxGDQ || cluster < 1 ||
-      cluster > kMaxCluster || page <= 0 || max_pages <= 0)
+      cluster > kMaxCluster || page <= 0 || max_pages <= 0 ||
+      (sizeof(KV_T) == 2 && D % 8))
     return (int)cudaErrorInvalidValue;
 #define ARGS q, k_pool, v_pool, page_table, seq_lens, base_rows, mask_rows, \
              base, mask, page_map, n_map, out, B, H, KH, D, page, max_pages, \
              phys_mask, window, cluster, stream
-  if (cluster == 1) return launch_tile<Q_T, 128>(ARGS);
-  return launch_tile<Q_T, 64>(ARGS);
+  if (cluster == 1) return launch_tile<Q_T, KV_T, 128>(ARGS);
+  return launch_tile<Q_T, KV_T, 64>(ARGS);
 #undef ARGS
 }
 
@@ -480,14 +510,20 @@ extern "C" int paged_attention_launch(
     const void* mask_rows, int base, int mask, const void* page_map,
     int n_map, void* out, int B, int H, int KH, int D, int page,
     int max_pages, int n_pool_pages, int window, int cluster, int q_dtype,
-    void* stream) {
+    int kv_dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int pm = n_pool_pages - 1;
 #define ARGS q, k_pool, v_pool, page_table, seq_lens, base_rows, mask_rows, \
              base, mask, page_map, n_map, out, B, H, KH, D, page, max_pages, \
              pm, window, cluster, s
-  if (q_dtype == DT_F32) return launch<float>(ARGS);
-  if (q_dtype == DT_BF16) return launch<__nv_bfloat16>(ARGS);
+  if (q_dtype == DT_F32 && kv_dtype == DT_F32)
+    return launch<float, float>(ARGS);
+  if (q_dtype == DT_BF16 && kv_dtype == DT_F32)
+    return launch<__nv_bfloat16, float>(ARGS);
+  if (q_dtype == DT_F32 && kv_dtype == DT_BF16)
+    return launch<float, __nv_bfloat16>(ARGS);
+  if (q_dtype == DT_BF16 && kv_dtype == DT_BF16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(ARGS);
 #undef ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -11,12 +11,15 @@ dim that is a multiple of 16 up to 128 and whole GQA groups.  The kernel
 has no data-dependent address (:mod:`repro_torch.kernels.access` declares
 none).
 
+Queries and keys may differ in length (Sq != Skv) when the attention is
+not causal: the encoder-decoder family's cross-attention.
+
 The op is differentiable in q, k and v.  The reference's Pallas kernel is
 forward-only (its training path is XLA's autodiff of jnp), so the
 backward is written in PyTorch for every device: it recomputes the
 float32 softmax from the saved q, k and v
 (:func:`repro_torch.kernels.ref.flash_attention_grad_ref`), holding
-B * H * S**2 float32 scores a call.
+B * H * Sq * Skv float32 scores a call.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from repro_torch.kernels._build import Kernel, check_cuda, check_device, \
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("flash_attention", "flash_attention.cu",
-                [_P] * 4 + [_I] * 8 + [_P])
+                [_P] * 4 + [_I] * 9 + [_P])
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
@@ -49,10 +52,8 @@ def _cuda(q, k, v, causal, window):
         raise TypeError("flash_attention: q, k and v dtypes differ")
     check_cuda("flash_attention", q, k, v)
     B, S, H, D = q.shape
-    KH = k.shape[2]
-    if k.shape != (B, S, KH, D) or v.shape != k.shape:
-        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    Skv, KH = k.shape[1], k.shape[2]
+    check_shapes(q, k, v, causal)
     if D % 16 or D > 128 or KH == 0 or H % KH:
         raise ValueError(f"flash_attention: head dim {D} (a multiple of 16,"
                          f" at most 128) or {H} heads over {KH} KV heads "
@@ -61,11 +62,24 @@ def _cuda(q, k, v, causal, window):
         raise ValueError("flash_attention: operands must be 16-byte "
                          "aligned")
     out = torch.empty_like(q)
-    if B and S:
-        KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(out), B, S, H, KH, D,
+    if B and S and Skv:
+        KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(out), B, S, Skv, H, KH, D,
                       int(causal), max(int(window), 0), dtype_code(q.dtype),
                       stream_of(q))
     return out
+
+
+def check_shapes(q, k, v, causal: bool) -> None:
+    """k and v (B, Skv, KH, D) fit q (B, Sq, H, D); causal attention
+    needs Skv = Sq (its diagonal is undefined otherwise)."""
+    B, S, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    if k.shape != (B, Skv, KH, D) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if causal and Skv != S:
+        raise ValueError(f"flash_attention: causal attention needs as many "
+                         f"keys as queries, got Sq={S}, Skv={Skv}")
 
 
 @flash_attention_op.register_fake
@@ -89,9 +103,12 @@ flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
-    """Attention over a prompt: q (B,S,H,D), k/v (B,S,KH,D) -> (B,S,H,D) in
-    q's dtype; any S (the ragged edge is masked in the kernel).  Query row
-    i attends to keys j <= i when ``causal`` and j > i - ``window`` when
-    ``window`` > 0 (0: no window), the reference's masks."""
+    """Attention over a prompt: q (B,Sq,H,D), k/v (B,Skv,KH,D) ->
+    (B,Sq,H,D) in q's dtype; any Sq and Skv (the ragged edges are masked in
+    the kernel), Skv = Sq when ``causal``.  Query row i attends to keys j
+    <= i when ``causal`` and j > i - ``window`` when ``window`` > 0 (0: no
+    window), the reference's masks; a non-causal call over Skv != Sq is
+    cross-attention (the reference's ``chunked_attention(causal=False)``)."""
     check_device("flash_attention", q)
+    check_shapes(q, k, v, causal)
     return flash_attention_op(q, k, v, bool(causal), int(window))

@@ -23,7 +23,7 @@ from repro_torch.kernels._build import Kernel, check_cuda, check_device, \
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("paged_attention", "paged_attention.cu",
-                [_P] * 7 + [_I, _I, _P, _I, _P] + [_I] * 10 + [_P])
+                [_P] * 7 + [_I, _I, _P, _I, _P] + [_I] * 11 + [_P])
 
 #: the largest cluster the kernel launches (the portable size)
 MAX_CLUSTER = 8
@@ -54,7 +54,7 @@ def launch_args(q, k_pages, v_pages, table, lens, base, mask, page_map,
             ctypes.c_void_p(None) if page_map is None else ptr(page_map),
             0 if page_map is None else page_map.shape[0], ptr(out), B, H,
             KH, D, page, table.shape[1], P, max(int(window), 0), cluster,
-            dtype_code(q.dtype)]
+            dtype_code(q.dtype), dtype_code(k_pages.dtype)]
 
 
 @torch.library.custom_op("repro_torch::paged_attention", mutates_args=(),
@@ -82,13 +82,16 @@ def _cuda(q, k_pages, v_pages, page_table, seq_lens, base_rows, mask_rows,
       base, mask, page_map, window):
     B, H, D = q.shape
     KH = k_pages.shape[2]
-    if k_pages.dtype != torch.float32 or v_pages.dtype != torch.float32:
-        raise TypeError("paged_attention: the kernel reads a float32 pool, "
-                        f"got {k_pages.dtype}")
-    if H % KH or D % 4 or D > 128 or (H // KH) * D > 2048:
-        raise ValueError(f"paged_attention: the kernel takes D % 4 == 0, "
-                         f"D <= 128 and (H/KH)*D <= 2048, got H={H}, "
-                         f"KH={KH}, D={D}")
+    if k_pages.dtype not in (torch.float32, torch.bfloat16) \
+            or v_pages.dtype != k_pages.dtype:
+        raise TypeError("paged_attention: the kernel reads a float32 or a "
+                        f"bfloat16 pool, got {k_pages.dtype} / "
+                        f"{v_pages.dtype}")
+    vec = 8 if k_pages.dtype == torch.bfloat16 else 4
+    if H % KH or D % vec or D > 128 or (H // KH) * D > 2048:
+        raise ValueError(f"paged_attention: the kernel takes D % {vec} == 0 "
+                         f"({k_pages.dtype} pool), D <= 128 and (H/KH)*D <= "
+                         f"2048, got H={H}, KH={KH}, D={D}")
     table = page_table.to(torch.int32).contiguous()
     lens = seq_lens.to(torch.int32).contiguous()
     pmap = page_map.to(torch.int32) if page_map is not None else None
@@ -97,7 +100,7 @@ def _cuda(q, k_pages, v_pages, page_table, seq_lens, base_rows, mask_rows,
                *per_row, *(() if pmap is None else (pmap,)))
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged_attention: the pools must be 16-byte "
-                         "aligned (float4 loads)")
+                         "aligned (16-byte loads)")
     out = torch.empty_like(q)
     cluster = cluster_size(B * KH, sm_count(q.device))
     KERNEL.launch(*launch_args(q, k_pages, v_pages, table, lens,
@@ -116,7 +119,8 @@ def _fake(q, k_pages, v_pages, page_table, seq_lens, base_rows, mask_rows,
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, fence_base,
                     fence_mask, page_map=None, window: int = 0):
     """q (B,H,D) float32 or bfloat16; pools (P,page,KH,D) (a layer view of
-    the global pool, float32 on the card);
+    the global pool or the slab's flattened layer view), float32 or
+    bfloat16 (widened to float32 as they are read);
     page_table (B, max_pages) virtual or physical ids; seq_lens (B,);
     base/mask ints or (B,) tensors; optional page_map (n_virt,).  Returns
     (B,H,D) in q's dtype.
@@ -125,7 +129,8 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, fence_base,
     operand per row.  ``window`` > 0 narrows row b to its last ``window``
     held tokens (positions t >= seq_lens[b] - window), the reference's
     windowed ``decode_attention``.  On the card the kernel takes D a
-    multiple of 4 up to 128 and (H / KH) * D up to 2,048."""
+    multiple of 4 (of 8 over a bfloat16 pool) up to 128 and (H / KH) * D
+    up to 2,048."""
     B = q.shape[0]
     P = k_pages.shape[0]
     if P & (P - 1):

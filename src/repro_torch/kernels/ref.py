@@ -145,28 +145,30 @@ def moe_histogram_ref(expert_ids, num_experts, fence_base, fence_mask):
 
 
 def _attention_probs(q, k, causal, window):
-    """float32 softmax of the masked, scaled scores, (B, KH, G, S, S), and
-    the query in float32 as (B, S, KH, G, D)."""
+    """float32 softmax of the masked, scaled scores, (B, KH, G, Sq, Skv),
+    and the query in float32 as (B, Sq, KH, G, D)."""
     B, S, H, D = q.shape
-    KH = k.shape[2]
+    Skv, KH = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, S, KH, H // KH, D)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(D)
     pos = torch.arange(S, device=q.device)
-    band = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    kpos = torch.arange(Skv, device=q.device)
+    band = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
     if causal:
-        band = band & (pos[None, :] <= pos[:, None])
+        band = band & (kpos[None, :] <= pos[:, None])
     if window > 0:
-        band = band & (pos[None, :] > pos[:, None] - window)
+        band = band & (kpos[None, :] > pos[:, None] - window)
     s = torch.where(band[None, None, None], s,
                     torch.full((), NEG_INF, device=q.device))
     return torch.softmax(s, dim=-1), qg
 
 
 def flash_attention_ref(q, k, v, causal=True, window=0):
-    """Attention: q (B,S,H,D), k/v (B,S,KH,D) -> (B,S,H,D), float32 math.
-    Query row i attends to keys j <= i when ``causal`` and j > i - window
-    when ``window`` > 0 (``repro/models/layers.py``'s
-    ``chunked_attention`` masks)."""
+    """Attention: q (B,Sq,H,D), k/v (B,Skv,KH,D) -> (B,Sq,H,D), float32
+    math.  Query row i attends to keys j <= i when ``causal`` and j > i -
+    window when ``window`` > 0 (``repro/models/layers.py``'s
+    ``chunked_attention`` masks); Skv may differ from Sq when not causal
+    (cross-attention)."""
     p, _ = _attention_probs(q, k, causal, window)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(q.shape).to(q.dtype)

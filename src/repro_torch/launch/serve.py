@@ -260,7 +260,7 @@ class ServeEngine:
                 "sampled decode is not ported yet (the reference draws from "
                 "JAX's PRNG stream); serve greedy, temperature=0")
         self.device = require_device(device)
-        self.api = get_model(cfg)      # an unported family raises here
+        self.api = get_model(cfg)
         if paged and cfg.family not in ("dense", "moe"):
             raise ValueError(slab_only(cfg.family))
         if manager is not None and manager.device != self.device:
@@ -1284,12 +1284,17 @@ def _scrub_phys_pages(cache, phys):
 
 def _scrub_slots(cache, base: int, size: int):
     """Zero a slot range [base, base+size) across every pool tensor of a
-    slab cache (axis 1: the slab k/v, the state pools, a hybrid's both), in
-    place — the eviction scrub (the sLSTM stabiliser too, as the
-    reference's scrub zeroes it)."""
-    if hasattr(cache, "kv"):
+    slab cache (axis 1: the slab k/v, the state pools, a hybrid's both, an
+    encoder-decoder's cross-attention pools), in place — the eviction
+    scrub (the sLSTM stabiliser too, as the reference's scrub zeroes
+    it)."""
+    if hasattr(cache, "kv"):          # hybrid / encdec: recurse
         _scrub_slots(cache.kv, base, size)
-        _scrub_slots(cache.state, base, size)
+        if hasattr(cache, "state"):
+            _scrub_slots(cache.state, base, size)
+        if hasattr(cache, "cross_k"):
+            for t in (cache.cross_k, cache.cross_v):
+                t[:, base:base + size] = 0
         return cache
     for t in (cache.pools.values() if hasattr(cache, "pools")
               else (cache.k, cache.v)):

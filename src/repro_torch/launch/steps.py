@@ -36,12 +36,19 @@ def split_cache_pool(cache) -> Tuple[Dict, Any]:
     is the same cache dataclass with the pool fields stripped (per-batch-row
     state only: slot ids, seq lens, page tables).  A hybrid cache recurses
     into its ``kv`` and ``state`` halves.  Inverse of
-    :func:`join_cache_pool`."""
-    if hasattr(cache, "kv"):          # hybrid: recurse
+    :func:`join_cache_pool`.  An encoder-decoder cache recurses into its
+    ``kv`` half and carries its cross-attention pools (``cross_k`` /
+    ``cross_v``, on the same slot axis) in the pool."""
+    if hasattr(cache, "kv"):          # hybrid / encdec: recurse
         kv_pool, kv_meta = split_cache_pool(cache.kv)
-        st_pool, st_meta = split_cache_pool(cache.state)
-        return {"kv": kv_pool, "state": st_pool}, \
-            dataclasses.replace(cache, kv=kv_meta, state=st_meta)
+        pool: Dict[str, Any] = {"kv": kv_pool}
+        repl: Dict[str, Any] = {"kv": kv_meta}
+        if hasattr(cache, "state"):
+            pool["state"], repl["state"] = split_cache_pool(cache.state)
+        if hasattr(cache, "cross_k"):
+            pool["cross_k"], pool["cross_v"] = cache.cross_k, cache.cross_v
+            repl["cross_k"] = repl["cross_v"] = None
+        return pool, dataclasses.replace(cache, **repl)
     if hasattr(cache, "pools"):
         return {"pools": cache.pools}, dataclasses.replace(cache, pools={})
     return {"k": cache.k, "v": cache.v}, \
@@ -51,9 +58,13 @@ def split_cache_pool(cache) -> Tuple[Dict, Any]:
 def join_cache_pool(pool: Dict, meta) -> Any:
     """Rebuild the full cache from a pool dict + meta cache."""
     if hasattr(meta, "kv"):
-        return dataclasses.replace(
-            meta, kv=join_cache_pool(pool["kv"], meta.kv),
-            state=join_cache_pool(pool["state"], meta.state))
+        repl: Dict[str, Any] = {"kv": join_cache_pool(pool["kv"], meta.kv)}
+        if hasattr(meta, "state"):
+            repl["state"] = join_cache_pool(pool["state"], meta.state)
+        if hasattr(meta, "cross_k"):
+            repl["cross_k"], repl["cross_v"] = pool["cross_k"], \
+                pool["cross_v"]
+        return dataclasses.replace(meta, **repl)
     if hasattr(meta, "pools"):
         return dataclasses.replace(meta, pools=pool["pools"])
     return dataclasses.replace(meta, k=pool["k"], v=pool["v"])

@@ -1,20 +1,25 @@
-"""Model API — the surface of the families the port serves (dense, moe,
-hybrid, ssm).
+"""Model API — one surface over all six families (dense, moe, hybrid,
+ssm, vlm, encdec), as ``repro/models/api.py``.
 
 ``get_model(cfg)`` returns a :class:`ModelAPI` with:
 
     init(generator, device)           -> params
-    loss(params, batch, *, guard=, remat=, **kw) -> scalar loss (dense, moe)
+    loss(params, batch, *, guard=, remat=, **kw) -> scalar loss
     init_cache(batch, max_len, *, slots=, dtype=, **kw) -> slab cache
     init_global_cache(batch, max_len, total_pages, **kw) -> global paged cache
     prefill(params, cache, batch, ...) -> (cache, last_logits)
     decode(params, cache, tokens, ...) -> (cache, logits)
 
-The hybrid and ssm families serve on the slab layout only: their
-``init_global_cache`` raises the reference's ``ValueError``, and they do
-not train yet (their ``loss`` raises ``NotImplementedError``).  Every other
-family raises ``NotImplementedError`` with what it lacks
-(:data:`UNPORTED`).
+Batches: ``{"tokens"}`` for the text families; the vision family adds
+``"patches"`` (B, :data:`N_PATCHES`, d) and ``"positions"`` (B, S, 3);
+the encoder-decoder family takes ``{"src", "tgt"}`` (frames (B,
+:data:`SRC_FRAMES`, d) and target ids) and its ``init_cache`` a
+``src_len`` (no ``slots``: the reference's, which no serve engine can
+build).  Only the dense and MoE families have the global paged layout:
+every other family's ``init_global_cache`` raises the reference's
+``ValueError``.  The hybrid and ssm families do not train yet (their
+``loss`` raises ``NotImplementedError``).  :data:`UNPORTED` names the
+families the port cannot build: none.
 """
 
 from __future__ import annotations
@@ -23,19 +28,20 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import kvcache as KV
 from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as TF
+from repro_torch.models import vlm as VLM
 from repro_torch.models import xlstm as XL
 
-#: family -> what the port lacks to build it
-UNPORTED = {
-    "vlm": "the vision family (models/vlm.py: M-RoPE and the 'patches' "
-           "input) is not ported yet",
-    "encdec": "the encoder-decoder family (models/encdec.py) is not "
-              "ported yet",
-}
+#: family -> what the port lacks to build it (every family is built)
+UNPORTED: dict = {}
+
+# frontend stubs: source frames / image patches per request
+SRC_FRAMES = 1_024       # seamless encoder input length (frame embeddings)
+N_PATCHES = 256          # qwen2-vl patches per request
 
 
 def slab_only(family: str) -> str:
@@ -76,8 +82,10 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         return _hybrid_api(cfg)
     if cfg.family == "ssm":
         return _ssm_api(cfg)
-    if cfg.family in UNPORTED:
-        raise NotImplementedError(UNPORTED[cfg.family])
+    if cfg.family == "vlm":
+        return _vlm_api(cfg)
+    if cfg.family == "encdec":
+        return _encdec_api(cfg)
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -151,4 +159,45 @@ def _ssm_api(cfg: ModelConfig) -> ModelAPI:
         decode=lambda params, cache, tokens, **kw: XL.decode(
             cfg, params, cache, tokens, **kw),
         loss=_no_loss(cfg),
+    )
+
+
+def _vlm_api(cfg: ModelConfig) -> ModelAPI:
+    """The dense cache, the patches and M-RoPE positions in the batch
+    (``repro/models/api.py``'s ``_vlm_api``)."""
+    return ModelAPI(
+        cfg=cfg,
+        init=lambda generator, device="cuda": VLM.init(cfg, generator,
+                                                       device),
+        init_cache=lambda batch, max_len, **kw: KV.init_kv_cache(
+            cfg, batch, max_len, **kw),
+        init_global_cache=_no_global_cache(cfg),
+        prefill=lambda params, cache, batch, **kw: VLM.prefill(
+            cfg, params, cache, batch["tokens"], batch["patches"],
+            batch["positions"], **kw),
+        decode=lambda params, cache, tokens, **kw: VLM.decode(
+            cfg, params, cache, tokens, **kw),
+        loss=lambda params, batch, **kw: VLM.loss_fn(cfg, params, batch,
+                                                     **kw),
+    )
+
+
+def _encdec_api(cfg: ModelConfig) -> ModelAPI:
+    """The decoder's slab cache with the cross pools (``init_cache`` takes
+    ``src_len``, default :data:`SRC_FRAMES`, and no ``slots``: a serve
+    engine's ``init_cache(..., slots=)`` raises ``TypeError``, as the
+    reference's does)."""
+    return ModelAPI(
+        cfg=cfg,
+        init=lambda generator, device="cuda": ED.init(cfg, generator,
+                                                      device),
+        init_cache=lambda batch, max_len, src_len=SRC_FRAMES, **kw:
+            ED.init_cache(cfg, batch, max_len, src_len, **kw),
+        init_global_cache=_no_global_cache(cfg),
+        prefill=lambda params, cache, batch, **kw: ED.prefill(
+            cfg, params, cache, batch["src"], batch["tgt"], **kw),
+        decode=lambda params, cache, tokens, **kw: ED.decode(
+            cfg, params, cache, tokens, **kw),
+        loss=lambda params, batch, **kw: ED.loss_fn(cfg, params, batch,
+                                                    **kw),
     )

@@ -51,8 +51,10 @@ def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     tree's keys).  Every leaf keeps its dtype (the MoE router stays
     float32 beside a bfloat16 expert bank).
 
-    * dense / MoE: ``layers`` (L, ...) -> ``{"embed", "layers": [per-layer
-      dict, ...], "norm_f"}``;
+    * dense / MoE / vision: ``layers`` (L, ...) -> ``{"embed", "layers":
+      [per-layer dict, ...], "norm_f"}`` (a vision tree is a dense tree);
+    * encoder-decoder: ``enc`` / ``dec`` (L, ...) -> a list of block dicts
+      each, ``norm_enc`` as it is;
     * hybrid: ``mamba`` (g, attn_every, ...) -> one list of block dicts per
       group, ``mamba_tail`` (tail, ...) -> a list of block dicts,
       ``shared_attn`` as it is;
@@ -60,9 +62,11 @@ def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
       each."""
     out = {"embed": _tree(tree["embed"], device),
            "norm_f": _tree(tree["norm_f"], device)}
-    for name in ("layers", "mamba_tail", "mlstm", "slstm"):
+    for name in ("layers", "mamba_tail", "mlstm", "slstm", "enc", "dec"):
         if name in tree:
             out[name] = [_tree(b, device) for b in _blocks(tree[name])]
+    if "norm_enc" in tree:
+        out["norm_enc"] = _tree(tree["norm_enc"], device)
     if "mamba" in tree:
         out["mamba"] = [[_tree(b, device) for b in _blocks(group)]
                         for group in _blocks(tree["mamba"])]

@@ -503,9 +503,12 @@ class StateCache:
 def with_slot_ids(cache, slot_ids: torch.Tensor):
     """``cache`` with every half's slot ids set to ``slot_ids``: a slab
     :class:`PagedKVCache` or a :class:`StateCache`, or a hybrid cache,
-    which carries them in its KV and its state half."""
+    which carries them in its KV and its state half (an encoder-decoder
+    cache in its KV half)."""
     if hasattr(cache, "kv"):
-        return dataclasses.replace(
-            cache, kv=dataclasses.replace(cache.kv, slot_ids=slot_ids),
-            state=dataclasses.replace(cache.state, slot_ids=slot_ids))
+        halves = {"kv": dataclasses.replace(cache.kv, slot_ids=slot_ids)}
+        if hasattr(cache, "state"):
+            halves["state"] = dataclasses.replace(cache.state,
+                                                  slot_ids=slot_ids)
+        return dataclasses.replace(cache, **halves)
     return dataclasses.replace(cache, slot_ids=slot_ids)

@@ -156,7 +156,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
         freqs = x.new_empty((x.shape[-1] // 2,), dtype=torch.float32)
     else:
         freqs = _rope_freqs_on(x.shape[-1], theta, x.device)
-    ang = positions.float()[..., None] * freqs
+    return _rotate(x, positions.float()[..., None] * freqs)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, D) rotated by the angles ``ang`` (B, S, D/2), in
+    float32, cast back to x's dtype."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -164,9 +169,50 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """M-RoPE (qwen2-vl): x (B, S, H, D); positions3 (B, S, 3) int32, the
+    temporal / height / width ids.  The D/2 frequency slots are split into
+    ``sections``; each section rotates by its own position component."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    if is_fake(x):
+        freqs = x.new_empty((half,), dtype=torch.float32)
+        sec = x.new_empty((half,), dtype=torch.long)
+    else:
+        freqs = _rope_freqs_on(x.shape[-1], theta, x.device)
+        sec = _mrope_section_ids_on(tuple(sections), x.device)
+    pos = positions3.float().index_select(-1, sec)          # (B, S, half)
+    return _rotate(x, pos * freqs)
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_section_ids_on(sections: Tuple[int, int, int],
+                          device: torch.device) -> torch.Tensor:
+    """Each frequency slot's position component, on ``device``, uploaded
+    once (as :func:`_rope_freqs_on`).  Callers only read it."""
+    ids = np.concatenate([np.full((n,), i) for i, n in enumerate(sections)])
+    return torch.as_tensor(ids, dtype=torch.long, device=device)
+
+
+def mrope_sections(head_dim: int) -> Tuple[int, int, int]:
+    """qwen2-vl's split of the D/2 slots: 1/4 temporal, 3/8, 3/8."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
 def positions_rope(cfg: ModelConfig, q, k, positions):
+    """(M-)RoPE on q and k at ``positions`` ((B, S) or (B, S, 3)): M-RoPE
+    for an M-RoPE config (a (B, S) position gives all three components),
+    else RoPE at the first component."""
     if cfg.mrope:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
+        secs = mrope_sections(cfg.head_dim)
+        if positions.dim() == 2:      # text only: all three components
+            positions = positions[..., None].expand(*positions.shape, 3)
+        return (apply_mrope(q, positions, cfg.rope_theta, secs),
+                apply_mrope(k, positions, cfg.rope_theta, secs))
     if positions.dim() == 3:
         positions = positions[..., 0]
     return (apply_rope(q, positions, cfg.rope_theta),
@@ -224,6 +270,17 @@ def prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     formulation of the same masks."""
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=True, window=cfg.attn_window)
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """Non-causal attention of q (B, Sq, H, D) over k / v (B, Skv, KH, D),
+    Skv free (the encoder's self-attention, Skv = Sq; cross-attention over
+    the encoder's frames), through the flash-attention kernel (K4; its
+    plain version for CPU tensors) — the reference's
+    ``chunked_attention(causal=False)``."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=False)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -96,9 +96,14 @@ def run_layers(layer: Callable, layers, *carry, remat: bool = False):
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, *,
             guard: Optional[GuardSpec] = None,
-            remat: bool = False) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V)."""
-    x = L.embed_tokens(params["embed"], tokens, guard)
+            remat: bool = False,
+            inputs_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V).  ``inputs_embeds`` (B, S, d)
+    stands in for the token embedding (the vision family's fused patches;
+    the tokens are then not gathered again); ``positions`` (B, S) or (B,
+    S, 3) default to ``arange(S)``."""
+    x = inputs_embeds if inputs_embeds is not None \
+        else L.embed_tokens(params["embed"], tokens, guard)
     positions = train_positions(tokens, positions)
 
     def layer(p, x):
@@ -126,14 +131,17 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
 
 def prefill(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
             tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None,
-            ffn: FFN = mlp_ffn) -> Tuple[KV.PagedKVCache, torch.Tensor]:
+            ffn: FFN = mlp_ffn, positions: Optional[torch.Tensor] = None,
+            inputs_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[KV.PagedKVCache, torch.Tensor]:
     """Process the prompt, fill the KV pages (in place), return the
     last-position logits (B, V).  ``ffn`` is the layers' feed-forward
-    block (the MoE family passes its expert block)."""
+    block (the MoE family passes its expert block); ``positions`` and
+    ``inputs_embeds`` are :func:`forward`'s."""
     B, S = tokens.shape
-    x = L.embed_tokens(params["embed"], tokens, guard)
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device)[None, :].expand(B, S)
+    x = inputs_embeds if inputs_embeds is not None \
+        else L.embed_tokens(params["embed"], tokens, guard)
+    positions = train_positions(tokens, positions)
     plan = KV.prefill_plan(cache, S, guard)
     for lidx, p in enumerate(params["layers"]):
         q, k, v = L.qkv_proj(cfg, p["attn"],
@@ -150,11 +158,17 @@ def prefill(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
 
 def decode(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
            tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None,
-           ffn: FFN = mlp_ffn) -> Tuple[KV.PagedKVCache, torch.Tensor]:
+           ffn: FFN = mlp_ffn, positions: Optional[torch.Tensor] = None
+           ) -> Tuple[KV.PagedKVCache, torch.Tensor]:
     """One decode step: tokens (B,) -> logits (B, V); appends to the pool
-    in place.  Attention covers each row's ``seq_lens + 1`` tokens."""
+    in place.  Attention covers each row's ``seq_lens + 1`` tokens.  The
+    new tokens' rotary ``positions`` ((B,), (B, 1) or (B, 1, 3)) default
+    to ``seq_lens``."""
     x = L.embed_tokens(params["embed"], tokens[:, None], guard)
-    positions = cache.seq_lens[:, None]
+    if positions is None:
+        positions = cache.seq_lens[:, None]
+    elif positions.dim() == 1:
+        positions = positions[:, None]
     kv_len = cache.seq_lens + 1
     plan = KV.decode_plan(cache, guard)
     for lidx, p in enumerate(params["layers"]):

@@ -88,6 +88,41 @@ def test_paged_attention_plain_matches_oracle_and_pallas(
     assert_close(got, pallas, tol)
 
 
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KH,D,page,P_total,max_pages", [
+    (2, 12, 2, 32, 16, 32, 4),           # qwen2-vl-2b's G = 6
+    (2, 4, 4, 16, 16, 64, 16),           # seamless's cross view: 16 pages
+])
+def test_paged_attention_plain_on_a_bf16_pool_matches_oracle_and_pallas(
+        q_dtype, B, H, KH, D, page, P_total, max_pages):
+    """K1 over a bfloat16 pool (the model API's default cache): the plain
+    version, widening the pool to float32 (the Pallas body's astype),
+    against the oracle and the Pallas kernel in interpret mode on the same
+    bf16 pool, for a float32 and a bfloat16 query."""
+    rng = np.random.default_rng(H * 10 + max_pages)
+    tol = DT[q_dtype][2]
+    qj, qt = _both(rng.normal(size=(B, H, D)), q_dtype)
+    kj, kt = _both(rng.normal(size=(P_total, page, KH, D)), "bfloat16")
+    vj, vt = _both(rng.normal(size=(P_total, page, KH, D)), "bfloat16")
+    base = np.zeros((B,), np.int32)
+    mask = np.full((B,), P_total - 1, np.int32)
+    pt = rng.integers(-P_total, 2 * P_total,
+                      size=(B, max_pages)).astype(np.int32)
+    lens = rng.integers(1, max_pages * page, size=B).astype(np.int32)
+    args_j = [jnp.asarray(a) for a in (pt, lens, base, mask)]
+    want = RJ.paged_attention_ref(qj, kj, vj, *args_j)
+    pallas = OPS.paged_attention(qj, kj, vj, *args_j)
+    got = paged_attention(qt, kt, vt, *(t_of(a) for a in (pt, lens, base,
+                                                          mask)))
+    assert got.dtype == DT[q_dtype][1] and got.shape == (B, H, D)
+    assert_close(got, want, tol)
+    assert_close(got, pallas, tol)
+    # the widened pool gives the float32 pool's result bit for bit
+    assert_same(got, paged_attention(qt, kt.float(), vt.float(),
+                                     *(t_of(a) for a in (pt, lens, base,
+                                                         mask))))
+
+
 @pytest.mark.parametrize("seed,logsize", [(3, 3), (11, 4), (29, 5)])
 def test_paged_attention_page_map_isolation(seed, logsize):
     """An adversarial page table of other tenants' virtual ids only
@@ -770,6 +805,67 @@ def test_flash_attention_non_causal_matches_oracle_and_pallas(dtype, B, S, H,
     assert_close(got, OPS.flash_attention(qj, kj, vj, causal=False,
                                           q_blk=blk, kv_blk=blk), tol)
     assert_close(got, LJ.chunked_attention(qj, kj, vj, causal=False), tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,H,KH", [
+    (5, 64, 4, 4),       # a few target tokens over the encoder's frames
+    (32, 100, 4, 2),     # GQA, a ragged key length
+    (70, 16, 4, 4),      # more queries than keys
+])
+def test_flash_attention_cross_lengths_match_chunked_attention(dtype, Sq,
+                                                               Skv, H, KH):
+    """K4 with a key length of its own (non-causal cross-attention, the
+    encoder-decoder family's): the plain version against the reference's
+    ``chunked_attention(causal=False)``, which serves it."""
+    rng = np.random.default_rng(Sq + Skv)
+    qj, qt = _both(rng.normal(size=(2, Sq, H, 16)), dtype)
+    kj, kt = _both(rng.normal(size=(2, Skv, KH, 16)), dtype)
+    vj, vt = _both(rng.normal(size=(2, Skv, KH, 16)), dtype)
+    tol = 3e-2 if dtype == "bfloat16" else TOL_F32
+    got = flash_attention(qt, kt, vt, causal=False)
+    assert got.shape == (2, Sq, H, 16) and got.dtype == DT[dtype][1]
+    assert_close(got, LJ.chunked_attention(qj, kj, vj, causal=False), tol)
+
+
+def test_flash_attention_causal_needs_equal_lengths():
+    """Causal attention with Skv != Sq is undefined (the reference never
+    asks for it): the wrapper refuses it on every device, before any
+    plain call or launch; a mismatched head dim is refused too."""
+    q, k = torch.zeros(1, 4, 2, 16), torch.zeros(1, 8, 2, 16)
+    calls = _build.KERNELS["flash_attention"].plain_calls
+    with pytest.raises(ValueError, match="causal attention needs"):
+        flash_attention(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="do not fit"):
+        flash_attention(q, k[..., :8], k[..., :8], causal=False)
+    assert _build.KERNELS["flash_attention"].plain_calls == calls
+    assert flash_attention(q, k, k, causal=False).shape == q.shape
+
+
+def test_flash_attention_cross_backward_matches_autograd_of_plain():
+    """K4's recompute backward over Skv != Sq (cross-attention, GQA groups
+    of 2, with and without a window) equals autograd through
+    ``ref.flash_attention_ref`` within 1e-5, and passes
+    ``torch.library.opcheck`` (schema, autograd registration, fake tensor
+    and AOT dispatch)."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 7, 4, 16, generator=g)
+    k, v = torch.randn(2, 19, 2, 16, generator=g), \
+        torch.randn(2, 19, 2, 16, generator=g)
+    do = torch.randn(2, 7, 4, 16, generator=g)
+    for w in (0, 5):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(flash_attention(*ins, False, w), ins, do)
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(RT.flash_attention_ref(*ins, False, w),
+                                   ins, do)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    args = tuple(t.clone().requires_grad_() for t in (q, k, v)) + (False, 0)
+    result = torch.library.opcheck(
+        torch.ops.repro_torch.flash_attention.default, args)
+    assert set(result.values()) == {"SUCCESS"}, result
 
 
 @pytest.mark.parametrize("S", [1, 3, 57, 65])

@@ -427,14 +427,35 @@ def test_family_serves_reduced_or_names_its_gap(arch):
     and MoE arch serves a request end to end through a reduced paged
     engine, every hybrid and xLSTM arch through a reduced slab engine (as
     the reference's test serves it) and refuses the paged layout with the
-    reference's text, each with a request span that reconciles; every
-    other family refuses with the gap it names."""
+    reference's text, each with a request span that reconciles; the
+    families the reference's engine cannot serve fail where and as its
+    engine fails (``UNSERVABLE`` in tests/test_serve_families.py): a
+    vision engine is built and its ``run`` raises ``KeyError('patches')``
+    in prefill, an encoder-decoder engine raises ``TypeError`` at
+    construction (its ``init_cache`` takes no ``slots``)."""
     cfg = get_config_t(arch).reduced()
-    if cfg.family in UNPORTED:
-        with pytest.raises(NotImplementedError) as err:
-            ST.ServeEngine(cfg, max_batch=2, max_len=64, paged=True,
-                           device="cpu")
-        assert str(err.value) == UNPORTED[cfg.family]
+    assert cfg.family not in UNPORTED
+    if cfg.family == "vlm":
+        failures = []
+        for eng in (SJ.ServeEngine(get_config(arch).reduced(), max_batch=2,
+                                   max_len=16),
+                    ST.ServeEngine(cfg, max_batch=2, max_len=16,
+                                   device="cpu")):
+            eng.register_tenant("t", 2)
+            eng.submit("t", np.arange(1, 5, dtype=np.int32))
+            with pytest.raises(KeyError) as err:
+                eng.run(max_new_tokens=2)
+            failures.append(err.value.args)
+        assert failures[0] == failures[1] == ("patches",)
+        return
+    if cfg.family == "encdec":
+        with pytest.raises(TypeError, match="slots") as ref_err:
+            SJ.ServeEngine(get_config(arch).reduced(), max_batch=2,
+                           max_len=16)
+        with pytest.raises(TypeError, match="slots") as err:
+            ST.ServeEngine(cfg, max_batch=2, max_len=16, device="cpu")
+        assert "init_cache" in str(err.value) \
+            and "init_cache" in str(ref_err.value)
         return
     paged = cfg.family in ("dense", "moe")
     if not paged:
@@ -460,9 +481,9 @@ def test_family_serves_reduced_or_names_its_gap(arch):
 
 
 def test_unported_family_reasons_are_current():
-    """Every family the registry holds is served (dense, moe, ssm, hybrid)
-    or named in ``UNPORTED`` with its gap, and the table names no family
-    that is gone."""
+    """Every family the registry holds is built: ``UNPORTED`` is empty and
+    the registry's families are the six the model API serves."""
     families = {get_config_t(a).family for a in list_archs()}
-    assert set(UNPORTED) <= families
-    assert families - set(UNPORTED) == {"dense", "moe", "ssm", "hybrid"}
+    assert UNPORTED == {}
+    assert families - set(UNPORTED) == {"dense", "moe", "ssm", "hybrid",
+                                        "vlm", "encdec"}
