@@ -59,7 +59,8 @@ model API.  Phases, in order (any failure exits non-zero):
    decode graphs replayed after an elastic grow and after a co-tenant's
    eviction writing only the tenants' pages, every pool byte equal to
    eager; and (once) a step calling ``.item()`` refused at capture with
-   its name;
+   its name; for stablelm-3b, sampled decode (temperature 0.7, top-k 50)
+   on the paged path, card = CPU token for token from the same weights;
 4. each main path at full width and full depth (bf16 weights from a seeded
    generator, float32 page pool) through ``make_shared_manager(paged=True)``,
    ``ServeEngine(paged=True)`` and ``serve_continuous``, 3 tenants and 8
@@ -76,7 +77,11 @@ model API.  Phases, in order (any failure exits non-zero):
    freed before qwen3-moe-30b-a3b (61 GB of weights) is built; the MoE
    path also prints the (token, k) assignments capacity dropped; a
    compiled solo rerun under ``torch.profiler`` gives the device's busy
-   share and each of the port's kernels' device time.
+   share and each of the port's kernels' device time.  stablelm-3b's
+   trace is then served sampled (temperature 0.7, top-k 50) on its
+   weights, eager, compiled and compiled on a second engine of the same
+   seed: equal tokens, every eager draw inside its row's top k, the decode
+   step's time beside the greedy run's.
 
 7. slab lockstep serving through the command line (inside phase 4, after
    stablelm-3b's phase 6, on its weights): ``repro_torch.launch.serve``'s
@@ -91,7 +96,10 @@ model API.  Phases, in order (any failure exits non-zero):
    time (one engine), tokens/s and graphs.  Then a request whose slot id
    is forged to a co-tenant's base leaves the co-tenant's slots
    byte-equal, and K1 over the slab view is checked and timed at the slab
-   path's shapes (its row of the kernel table).
+   path's shapes (its row of the kernel table).  Last,
+   ``repro_torch.examples.multi_tenant_serving`` at full width and depth
+   on the same weights: solo = co-located generations, a forged slot
+   leaving the victim's KV rows byte-identical.
 
 6. trusted steps proven on the card (inside phase 4: stablelm-3b at full
    depth after its runs, with its weights; qwen3-moe-30b-a3b at phase 3's
@@ -138,7 +146,16 @@ model API.  Phases, in order (any failure exits non-zero):
    and captured by this script into a CUDA graph per round — and the
    ladders of each policy's time over the captured unfenced kernels (by
    device, kernel and wall time, the eager row beside), over the eager
-   ones and over NONE's.
+   ones and over NONE's.  Then the structural tenant kernels
+   (``structural_plane``): a ``while_loop`` list walk whose trip count is
+   the arena's data, a ``scan`` over 16 chunks of 65,536 slots of axpy +
+   dot and a ``cond`` storing in one branch, under every policy, solo and
+   four-wide, captured then replayed on other lists and the other branch
+   (a ``while`` and a ``cond`` are CUDA-graph conditional nodes), card =
+   CPU; a forged pointer inside each body leaves the other partitions'
+   bytes as they were, wraps into the forger's partition or, under
+   CHECK, rolls back exactly; each kernel's device and wall time over its
+   memory operations unrolled on the host and captured, and over NONE.
 
    Phase 2 also holds the recurrent families' kernels, after the two
    main paths', with the same checks (``check_kernels`` picks the kernels
@@ -1943,6 +1960,162 @@ def check_compiled(torch, cfg, device: str = "cuda"):
 # Phase 4: the main paths at full width and depth                       #
 # --------------------------------------------------------------------- #
 
+#: the sampled runs' temperature and top-k
+SAMPLED_T, SAMPLED_K = 0.7, 50
+
+
+def check_sampled(torch, cfg, device: str = "cuda"):
+    """Phase 3's size (float32, two layers, full width): a sampled engine
+    (temperature 0.7, top-k 50) on the card and one on the CPU, with the
+    same weights and seed, serve a trace on the paged continuous path to
+    the same tokens — the draw is the same hash on both."""
+    from repro_torch.launch.serve import ServeEngine, make_shared_manager
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    trace = [(f"t{i % 2}", [(13 * i + j) % 509 + 1 for j in range(7 + 3 * i)],
+              i // 2) for i in range(6)]
+    toks, params = {}, None
+    for dev in (device, "cpu"):
+        mgr = make_shared_manager(1, max_batch=8, max_len=256, paged=True,
+                                  device=dev)
+        eng = ServeEngine(cfg2, max_batch=8, max_len=256, manager=mgr,
+                          paged=True, seed=0, device=dev,
+                          temperature=SAMPLED_T, top_k=SAMPLED_K,
+                          params=None if params is None
+                          else tree_to(params, dev))
+        params = eng.params if params is None else params
+        for t in ("t0", "t1"):
+            eng.register_tenant(t, 16)
+        rids = [eng.submit(t, p, max_new=8, arrive=a) for t, p, a in trace]
+        out = drive(eng, max_new_tokens=8)[0]
+        toks[dev] = [out[r] for r in rids]
+    if toks[device] != toks["cpu"]:
+        raise AssertionError(f"[{cfg.name}] sampled tokens card != CPU: "
+                             f"{toks[device]} vs {toks['cpu']}")
+    log(f"sampled [{cfg.name}] f32 x 2 layers, temperature {SAMPLED_T}, "
+        f"top-k {SAMPLED_K}: {len(trace)} requests x 8 tokens, card = CPU "
+        f"token for token ({sum(map(len, toks['cpu']))} tokens), compiled "
+        "steps on both")
+
+
+def sampled_path(torch, cfg, params, trace, greedy, smi: str):
+    """Phase 4's sampled run: the main path's trace at full depth on the
+    greedy engine's weights, temperature 0.7 and top-k 50, served eager,
+    compiled, and compiled on a second engine of the same seed — equal
+    tokens from all three; every draw of the eager run inside its row's
+    top k (a draw's logit at or above the row's k-th largest); the decode
+    step's time beside the greedy run's."""
+    from repro_torch.launch import sampling
+    from repro_torch.launch.serve import ServeEngine, make_shared_manager, \
+        serve_continuous
+
+    real = sampling.sample
+    inside = []
+
+    def checked(logits, key, temperature, top_k=0):
+        out = real(logits, key, temperature, top_k)
+        lg = logits.float()
+        kth = torch.topk(lg, top_k, dim=-1).values[:, -1]
+        inside.append((lg.gather(1, out.long()[:, None])[:, 0]
+                       >= kth).all())
+        return out
+
+    runs = {}
+    for name, compiled in (("eager", False), ("compiled", True),
+                           ("compiled, a second engine", True)):
+        mgr = make_shared_manager(1, max_batch=8, max_len=256, paged=True,
+                                  jit_trusted=compiled)
+        eng = ServeEngine(cfg, max_batch=8, max_len=256, manager=mgr,
+                          paged=True, seed=0, params=params,
+                          temperature=SAMPLED_T, top_k=SAMPLED_K)
+        for t in range(3):
+            eng.register_tenant(f"tenant{t}", 16)
+        rids = [eng.submit(t, p, max_new=16, arrive=a) for t, p, a in trace]
+        if not compiled:
+            sampling.sample = checked
+        try:
+            with DispatchTimes(torch, eng) as times:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = serve_continuous([eng], max_new_tokens=16)[0]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            sampling.sample = real
+        runs[name] = dict(tokens=[outs[r] for r in rids],
+                          step_ms=times.read()[0], wall=wall,
+                          step=eng._steps.decode_name)
+        if name == "compiled, a second engine":
+            # the sampled step's device time, profiled as the greedy one
+            # is, and the draw's own at the step's shape
+            step_ops = decode_step_ops(torch, serve_paged_on(eng))
+            logits = torch.randn(8, cfg.vocab, device="cuda").to(
+                eng.params["embed"]["table"].dtype)
+            key = sampling.key_tensor(sampling.key(7), "cuda")
+            draw_ops = profiled_call(torch, lambda: real(
+                logits, key, SAMPLED_T, SAMPLED_K))
+        del eng, mgr, times
+        gc.collect()
+        torch.cuda.empty_cache()
+    toks = [r["tokens"] for r in runs.values()]
+    if not (toks[0] == toks[1] == toks[2]):
+        raise AssertionError(f"[{cfg.name}] sampled tokens differ between "
+                             "eager, compiled and a second engine")
+    if not inside or not bool(torch.stack(inside).all()):
+        raise AssertionError(f"[{cfg.name}] a sampled token outside its "
+                             f"row's top {SAMPLED_K}")
+    n_tok = sum(map(len, toks[0]))
+    same = sum(a == b for x, y in zip(toks[0], greedy["tokens"])
+               for a, b in zip(x, y))
+    med = statistics.median
+    comp = runs["compiled"]
+    log(f"sampled [{cfg.name}, {cfg.n_layers} layers, paged, "
+        f"{comp['step'].split('[')[0]}, temperature {SAMPLED_T}, top-k "
+        f"{SAMPLED_K}]: {len(trace)} requests x 16 tokens; eager, compiled "
+        f"and a second compiled engine of one seed serve equal tokens; "
+        f"{len(inside)} eager decode steps, every draw inside its row's top "
+        f"{SAMPLED_K}; {same} of {n_tok} tokens equal the greedy run's; "
+        f"decode step median {med(comp['step_ms']):.2f} ms compiled "
+        f"(greedy {med(greedy['step_ms']):.2f} ms), "
+        f"{med(runs['eager']['step_ms']):.2f} ms eager (greedy "
+        f"{med(greedy['eager_step_ms']):.2f} ms); "
+        f"{n_tok / comp['wall']:.1f} tokens/s compiled — {smi}")
+
+    def ops(per):
+        return "not measured (the profiler saw no device time)" \
+            if per is None else f"{per[0]:.1f} device operations, " \
+            f"{per[1]:.3f} ms of device time"
+    log(f"sampled step profile [{cfg.name}, compiled]: a sampled decode "
+        f"step {ops(step_ops)}; the greedy step {ops(greedy['step_ops'])} "
+        "(each a step of one request, 8 rows); the draw alone "
+        f"(launch.sampling.sample, 8 x {cfg.vocab} logits, eager) "
+        f"{ops(draw_ops)} a call — {smi}")
+
+
+def run_example(torch, cfg, params, smi: str):
+    """Phase 7's line for ``repro_torch.examples.multi_tenant_serving`` at
+    full width and depth on phase 4's weights: three slab engines, solo =
+    co-located generations, a forged slot leaving the victim's KV rows as
+    they were."""
+    import contextlib
+    import io
+    from repro_torch.examples import multi_tenant_serving as MT
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = MT.main(["--full"], params=params)
+    torch.cuda.synchronize()
+    if not res["solo_identical"] or res["victim_changed"]:
+        raise AssertionError(f"multi-tenant example: {res}")
+    gens = res["generations"]
+    log(f"multi-tenant example [{cfg.name}, {cfg.n_layers} layers, full "
+        f"width, slab, compiled]: {len(gens)} tenants x "
+        f"{len(next(iter(gens.values())))} tokens co-located, tenant0's "
+        "generations alone identical, a forged slot at the victim's rows "
+        "left its KV rows byte-identical; "
+        f"{time.perf_counter() - t0:.1f} s — {smi}")
+
+
 def decode_floor_bytes(params) -> int:
     """Bytes one decode step must read from device memory at least: every
     layer weight (the capacity dispatch multiplies every expert, tokens or
@@ -2256,26 +2429,55 @@ def run_main_path(torch, cfg, smi: str):
             f"parked rows; {t['dropped'] - t['served_dropped'] - t['parked_dropped']}"
             " in decode steps (eager run)")
     solo_rerun(torch, cfg, eng, comp["outs"], comp["rids"], smi)
-    from repro_torch.launch.serve import serve_continuous
-
-    def serve_paged(n):
-        eng.submit("tenant0", list(range(1, 13)), max_new=n + 1)
-        serve_continuous([eng], max_new_tokens=n + 1)
-
-    per = decode_step_ops(torch, serve_paged)
+    per = decode_step_ops(torch, serve_paged_on(eng))
     log(f"decode step ops [{cfg.name}, paged, compiled]: "
         + ("not measured (the profiler saw no device time)" if per is None
            else f"{per[0]:.1f} device operations, {per[1]:.2f} ms of "
                 f"device time a step (one request); {smi}"))
     slab = None
     if cfg.moe is None:
+        comp["eager_step_ms"] = eager["step_ms"]
+        comp["step_ops"] = per
+        sampled_path(torch, cfg, eng.params, trace, comp, smi)
         # full depth, the same weights and trace: the compiled run above
         # is the verify=False run the proven one must equal
         proof_phase(torch, cfg, smi, params=eng.params, reference=comp)
         # phase 7 on the same weights
         slab = run_slab_path(torch, cfg, eng.params, smi)
+        run_example(torch, cfg, eng.params, smi)
     return {"launches": comp["launches"],
             "tokens_per_s": n_tok / comp["wall"], "slab": slab}
+
+
+def serve_paged_on(eng):
+    """``serve(n)`` for :func:`decode_step_ops`: one 12-token request
+    served on ``eng`` for a prefill and ``n`` decode steps."""
+    from repro_torch.launch.serve import serve_continuous
+
+    def serve(n):
+        eng.submit("tenant0", list(range(1, 13)), max_new=n + 1)
+        serve_continuous([eng], max_new_tokens=n + 1)
+    return serve
+
+
+def profiled_call(torch, fn, n: int = 10):
+    """Device operations and device ms of one call of ``fn``, from
+    ``torch.profiler`` over ``n`` calls (after one unprofiled call), or
+    None when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    ms = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in dev) / 1e3
+    return (sum(e.count for e in dev) / n, ms / n) if ms else None
 
 
 def decode_step_ops(torch, serve):
@@ -2687,6 +2889,9 @@ def proof_phase(torch, cfg, smi: str, params=None, reference=None):
             eng.register_tenant(f"tenant{t}", 16)
         return mgr, eng, bundle
 
+    # an engine of an earlier phase that only the cyclic collector frees
+    # goes now, not while a proof is watched for allocations
+    gc.collect()
     if reference is None:
         _, eng0, _ = engine(False)
         reference = serve_run(torch, cfg, eng0, trace, compiled=True)
@@ -2906,17 +3111,18 @@ class Unfenced:
 
 
 class CapturedUnfenced:
-    """:class:`Unfenced`'s calls captured by this script into one CUDA
-    graph per (op, tenants), replayed from the second call on — the
-    compiled unfenced baseline the compiled policies are read against.
+    """An unfenced launcher's calls (:class:`Unfenced`,
+    :class:`StructUnfenced`) captured by this script into one CUDA graph
+    per (op, tenants), replayed from the second call on — the compiled
+    unfenced baseline the compiled policies are read against.
     The first call runs them eagerly on a side stream (cuBLAS and cuFFT
     set up there), then captures.  The graphs share one memory pool
     (their replays run one after the other, and nothing they compute is
     read); the pointers are constants of a graph, as these tenants never
     move."""
 
-    def __init__(self, torch, plane):
-        self.torch, self.eager = torch, Unfenced(plane)
+    def __init__(self, torch, eager):
+        self.torch, self.eager = torch, eager
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs = {}
 
@@ -3037,7 +3243,8 @@ def _busy_ms(torch, plane, op, tenants, rounds: int = 3):
     return us / 1e3 / rounds, sum(e.count for e in kern) / rounds
 
 
-def tenant_plane(torch, sz=None, device: str = "cuda", smi: str = ""):
+def tenant_plane(torch, sz=None, device: str = "cuda", smi: str = "",
+                 ss=None):
     """Phase 5: the tenant-kernel plane on the card at a shared GPU's size
     — a 1 GiB arena, four tenants of 2**26 slots, the simulated libraries
     at working sets of 2**22 slots and more — under NONE, BITWISE, MODULO
@@ -3050,7 +3257,8 @@ def tenant_plane(torch, sz=None, device: str = "cuda", smi: str = ""):
     kind and it is quarantined; a NONE launch past the arena leaves the
     context usable; on a small arena a fused key replays across an elastic
     move (fenced at the new row) and a change of tenant set (one graph),
-    and a NONE graph never outlives a second tenant's arrival.  Prints the
+    and a NONE graph never outlives a second tenant's arrival; then the
+    structural kernels (:func:`structural_plane`).  Prints the
     device and wall time, the device operations, the bytes allocated and
     the rollback bytes of each launch round, each plane's graphs, capture
     seconds and pool bytes, and the ladders over the unfenced kernels
@@ -3092,7 +3300,7 @@ def tenant_plane(torch, sz=None, device: str = "cuda", smi: str = ""):
         if device == "cuda" and policy == "none":
             for base in ("unfenced", "captured"):
                 plane = Unfenced(card) if base == "unfenced" \
-                    else CapturedUnfenced(torch, card)
+                    else CapturedUnfenced(torch, Unfenced(card))
                 for label, tenants in rounds:
                     for op in card.ops():
                         t = _time_op(torch, plane, op, tenants)
@@ -3136,6 +3344,7 @@ def tenant_plane(torch, sz=None, device: str = "cuda", smi: str = ""):
     _stale_native(torch, device)
     if ladder:
         _tenant_ladders(ladder, [op[0] for op in card_ops], smi)
+    structural_plane(torch, sz, device, smi, ss)
     log(f"tenant plane: ok in {time.perf_counter() - t_start:.1f} s")
 
 
@@ -3470,6 +3679,468 @@ def _tenant_isolation(torch, card, cpu, policy, sz):
         log(f"  [{policy}] forged pointer of t{rogue} at t0's buffer, "
             f"{label}, a replay, on the card and the CPU: {others}; "
             f"{detail}")
+
+
+# --------------------------------------------------------------------- #
+# Phase 5 (structural): tenant kernels with a while_loop, a scan, a cond #
+# --------------------------------------------------------------------- #
+
+#: the structural kernels' sizes on the card: a list of ``list`` nodes
+#: walked by a while_loop (its trip count is the arena's data; at most
+#: ``cap`` hops), a scan over ``chunks`` chunks of ``chunk`` slots of
+#: BLAS-1, and a cond storing ``cond`` slots in one branch
+STRUCT_SIZES = dict(list=256, cap=1024, chunks=16, chunk=1 << 16,
+                    cond=1 << 16)
+
+
+def st_chase(arena, lst, cap, n: int):
+    """A ``while_loop`` walking a list: node k holds the next node's
+    index at lst + k (-1 ends the list), each visit is marked at
+    lst + n + k; at most ``cap`` hops."""
+    import torch
+    from torch._higher_order_ops.while_loop import while_loop
+
+    def cond(a, k, h):
+        return (k >= 0) & (h < cap)
+
+    def body(a, k, h):
+        p = (lst + k).reshape(1)
+        nxt = a.index_select(0, p)[0].to(torch.int32)
+        a = a.index_put((p + n,), (h + 1).to(a.dtype).reshape(1))
+        return a, nxt, h + 1
+
+    zero = torch.zeros((), dtype=torch.int32, device=arena.device)
+    a, _, h = while_loop(cond, body, (arena, zero.clone(), zero))
+    return a, h
+
+
+def st_axpy(arena, x, y, alpha, chunks: int, c: int):
+    """A ``scan`` over ``chunks`` chunks of ``c`` slots: y += alpha * x in
+    place (the arena carried), each chunk's dot stacked, their sum
+    carried."""
+    import torch
+    from torch._higher_order_ops.scan import scan
+
+    def body(carry, j):
+        a, acc = carry
+        idx = j * c + torch.arange(c, dtype=torch.int32, device=a.device)
+        xv = a.index_select(0, x + idx)
+        yv = a.index_select(0, y + idx)
+        d = torch.dot(xv, yv)
+        return (a.index_put((y + idx,), alpha * xv + yv), acc + d), d
+
+    (a, acc), ys = scan(body, (arena, torch.zeros((), device=arena.device)),
+                        torch.arange(chunks, dtype=torch.int32,
+                                     device=arena.device))
+    return a, (acc, ys)
+
+
+def st_store(arena, p, flag, n: int):
+    """A ``cond`` that stores 7.0 at p .. p + n in its true branch only."""
+    import torch
+
+    def store(a, q):
+        idx = q + torch.arange(n, dtype=torch.int32, device=a.device)
+        return a.index_put((idx,), torch.full((n,), 7.0, device=a.device))
+
+    return torch.cond(flag > 0, store, lambda a, q: a.clone(),
+                      (arena, p)), None
+
+
+def st_nested(arena, p, n: int):
+    """A ``cond`` nested in a ``while``: over k < n, 1.0 stored at
+    p + n + k where the slot p + k is positive."""
+    import torch
+    from torch._higher_order_ops.while_loop import while_loop
+
+    def cond(a, k):
+        return k < n
+
+    def body(a, k):
+        v = a.index_select(0, (p + k).reshape(1))[0]
+
+        def mark(a, k):
+            return a.index_put(((p + n + k).reshape(1),),
+                               torch.ones(1, device=a.device))
+
+        return torch.cond(v > 0, mark, lambda a, k: a.clone(), (a, k)), \
+            k + 1
+
+    zero = torch.zeros((), dtype=torch.int32, device=arena.device)
+    return while_loop(cond, body, (arena, zero))[0], None
+
+
+def many_conditional_nodes(torch, device: str, keys: int = 16):
+    """One manager captures the ``cond``-in-``while`` kernel under
+    ``keys`` operand signatures (its static length), fenced by BITWISE:
+    a graph each, with a ``while`` node and two ``if`` nodes nested in its
+    body — 3 * keys conditional nodes, more than torch's pool of 32
+    streams, each body captured while the manager's own capture stream
+    is capturing.  Each key is captured, then replayed on other data, and
+    the buffer held against the CPU's after every launch."""
+    import numpy as np
+    from repro_torch.core import FencePolicy, GuardianManager
+    from repro_torch.core.stepgraph import StepGraph
+    rnd = np.random.default_rng(3)
+    planes = []
+    for dev in (device, "cpu"):
+        mgr = GuardianManager(total_slots=1 << 16,
+                              policy=FencePolicy.BITWISE, device=dev)
+        c = mgr.register_tenant("t0", 1 << 12)
+        # an idle co-tenant: t0 runs fenced, not on the native fast path
+        mgr.register_tenant("t1", 1 << 12)
+        c.module_load("nested", st_nested)
+        planes.append((mgr, c, c.malloc(4 * keys)))
+    for n in range(1, keys + 1):
+        for _ in range(2):     # captured, then replayed on other signs
+            signs = np.where(rnd.random(4 * keys) > 0.5, 1.0,
+                             -1.0).astype(np.float32)
+            got = []
+            for mgr, c, buf in planes:
+                c.memcpy_h2d(buf, signs)
+                c.launch_kernel("nested", ptrs=[buf], args=(n,))
+                mgr.synchronize()
+                got.append(mgr.arena.unsafe_read_range(
+                    buf.addr, buf.length).cpu())
+            if not torch.equal(*got):
+                raise AssertionError(f"nested conditional nodes: key {n} "
+                                     "card != CPU")
+    mgr = planes[0][0]
+    graphs = [g for cache in [mgr.scheduler._fused_cache] + [
+        e.jit_cache for e in mgr.pointer_to_symbol.values()]
+        for g in cache.values() if isinstance(g, StepGraph)]
+    if len(graphs) != keys or (device == "cuda" and not all(
+            g.graph is not None and g.replays for g in graphs)):
+        raise AssertionError(f"nested conditional nodes: {len(graphs)} "
+                             f"graphs, want {keys}, each replayed")
+    log(f"  nested conditional nodes: one manager, {keys} keys of a cond "
+        f"inside a while_loop under BITWISE ({3 * keys} conditional nodes, "
+        "two nesting depths), each captured then replayed, card = CPU "
+        "after every launch")
+
+
+def st_lists(ss, n_t, rnd):
+    """Each tenant's list: a walk over a random order of ``length`` of the
+    ``list`` nodes from node 0; returns the next-pointer arrays."""
+    import numpy as np
+    out = []
+    for t in range(n_t):
+        length = int(rnd.integers(ss["list"] // 4, ss["list"]))
+        order = rnd.permutation(np.arange(1, ss["list"]))[:length - 1]
+        nxt = np.zeros(ss["list"], np.float32)
+        prev = 0
+        for k in order:
+            nxt[prev] = k
+            prev = int(k)
+        nxt[prev] = -1
+        out.append(nxt)
+    return out
+
+
+class StructPlane:
+    """Phase 5's structural plane: one manager of a policy with the
+    tenant phase's arena and tenants, each tenant's list, x, y and store
+    buffers uploaded through ``memcpy_h2d``."""
+
+    def __init__(self, torch, policy: str, device: str, sz, ss):
+        import numpy as np
+        from repro_torch.core import FencePolicy, GuardianManager, \
+            ThresholdPolicy
+        self.torch, self.sz, self.ss = torch, sz, ss
+        self.mgr = GuardianManager(
+            total_slots=sz["arena"], policy=(
+                FencePolicy.BITWISE if policy == "none"
+                else FencePolicy(policy)), device=device,
+            quarantine_policy=ThresholdPolicy(quarantine_after=1 << 40))
+        n_t = 1 if policy == "none" else sz["tenants"]
+        rnd = np.random.default_rng(99)
+        m = ss["chunks"] * ss["chunk"]
+        self.clients, self.ptrs = [], []
+        for t, nxt in enumerate(st_lists(ss, n_t, rnd)):
+            c = self.mgr.register_tenant(f"t{t}", sz["arena"] // sz["tenants"])
+            for name, fn in (("chase", st_chase), ("axpy", st_axpy),
+                             ("store", st_store)):
+                c.module_load(name, fn)
+            p = {"lst": c.malloc(2 * ss["list"]), "x": c.malloc(m),
+                 "y": c.malloc(m), "s": c.malloc(ss["cond"])}
+            c.memcpy_h2d(p["lst"], nxt)
+            c.memcpy_h2d(p["x"], rnd.random(m, np.float32))
+            c.memcpy_h2d(p["y"], rnd.random(m, np.float32))
+            self.clients.append(c)
+            self.ptrs.append(p)
+        self.mgr.synchronize()
+
+    def ops(self, flag: int = 1):
+        torch, ss = self.torch, self.ss
+        return [
+            ("chase", (("lst",), (torch.tensor(ss["cap"], dtype=torch.int32),
+                                  ss["list"]))),
+            ("axpy", (("x", "y"), (torch.tensor(2.0), ss["chunks"],
+                                   ss["chunk"]))),
+            ("store", (("s",), (torch.tensor(flag, dtype=torch.int32),
+                                ss["cond"]))),
+        ]
+
+    def launch(self, op, tenants, forged=None):
+        """``op`` by each of ``tenants``, then a drain; ``forged`` (tenant,
+        address) aims that tenant's stored-to pointer (axpy's y, the
+        store's) at the address.  Returns the requests."""
+        name, (keys, args) = op
+        reqs = []
+        for t in tenants:
+            c, p = self.clients[t], self.ptrs[t]
+            if forged is not None and forged[0] == t and name != "chase":
+                addr = self.torch.tensor(forged[1], dtype=self.torch.int32)
+                reqs.append(c.launch_kernel(
+                    name, ptrs=[p[j] for j in keys[:-1]],
+                    args=(addr, *args)))
+                continue
+            reqs.append(c.launch_kernel(name, ptrs=[p[j] for j in keys],
+                                        args=args))
+        self.mgr.run_queued()
+        return reqs
+
+    def set_list(self, t, nxt):
+        self.clients[t].memcpy_h2d(self.ptrs[t]["lst"], nxt)
+        self.mgr.synchronize()
+
+    def read(self, t, key, n=None):
+        p = self.ptrs[t][key]
+        return self.mgr.arena.unsafe_read_range(
+            p.addr, p.length if n is None else n)
+
+    def partition(self, t):
+        part = self.mgr.bounds.lookup(f"t{t}")
+        return self.mgr.arena.buf[part.base:part.end]
+
+
+def _walk(nxt, cap):
+    """The hops a list walk makes on the host (the trip count)."""
+    k, h = 0, 0
+    while k >= 0 and h < cap:
+        k, h = int(nxt[k]), h + 1
+    return h
+
+
+class StructUnfenced:
+    """The structural kernels' memory operations with no sandbox — no
+    fence, no guard, no conditional node: each loop unrolled on the host to
+    the trip count it takes on the plane's data (the list's walk, the
+    scan's chunks, the branch taken).  Captured by
+    :class:`CapturedUnfenced`, the baseline the compiled policies'
+    structural launches are read against."""
+
+    def __init__(self, torch, plane):
+        self.torch, self.plane = torch, plane
+
+    def launch(self, op, tenants):
+        torch, plane, ss = self.torch, self.plane, self.plane.ss
+        arena = plane.mgr.arena.buf
+        dev = arena.device
+        for t in tenants:
+            p = {k: v.addr for k, v in plane.ptrs[t].items()}
+            if op[0] == "chase":
+                k = torch.zeros(1, dtype=torch.int32, device=dev)
+                for h in range(plane.hops[t]):
+                    q = p["lst"] + k
+                    nxt = arena.index_select(0, q)
+                    arena.index_put_((q + ss["list"],), torch.full(
+                        (1,), float(h + 1), device=dev))
+                    k = nxt.to(torch.int32)
+            elif op[0] == "axpy":
+                c = ss["chunk"]
+                ii = torch.arange(c, dtype=torch.int32, device=dev)
+                ds = []
+                for j in range(ss["chunks"]):
+                    xv = arena.index_select(0, p["x"] + j * c + ii)
+                    yv = arena.index_select(0, p["y"] + j * c + ii)
+                    ds.append(torch.dot(xv, yv))
+                    arena.index_put_((p["y"] + j * c + ii,), 2.0 * xv + yv)
+                torch.stack(ds).sum()
+            else:
+                arena.index_put_((p["s"] + torch.arange(
+                    ss["cond"], dtype=torch.int32, device=dev),),
+                    torch.full((ss["cond"],), 7.0, device=dev))
+
+
+def _struct_results(plane, reqs_by_op):
+    out = {}
+    for t in range(len(plane.clients)):
+        out[f"lst{t}"] = plane.read(t, "lst")
+        out[f"y{t}"] = plane.read(t, "y")
+        out[f"s{t}"] = plane.read(t, "s")
+    for name, reqs in reqs_by_op.items():
+        for i, r in enumerate(reqs):
+            if name == "chase":
+                out[f"chase.hops{i}"] = r.result
+            elif name == "axpy":
+                out[f"axpy.acc{i}"], out[f"axpy.ys{i}"] = r.result
+    return out
+
+
+def structural_plane(torch, sz=None, device: str = "cuda", smi: str = "",
+                     ss=None):
+    """Phase 5's structural kernels at the tenant phase's size (a 1 GiB
+    arena, four tenants of 2**26 slots): a ``while_loop`` list walk whose
+    trip count is the arena's data, a ``scan`` over BLAS-1 chunks and a
+    ``cond`` that stores in one branch, under NONE, BITWISE, MODULO and
+    CHECK, solo and four-wide, each round captured then replayed on
+    other lists (other trip counts) and the other branch, every launch a
+    replay of the manager's graphs with conditional nodes, card = CPU;
+    then a forged pointer inside each body (the list's last node, axpy's
+    y, the store's address) solo and four-wide: the other partitions
+    keep their bytes, the forger's stores wrap into its own partition or,
+    under CHECK, roll back exactly and are counted.  Prints each kernel's
+    device and wall time a round over the unfenced kernels unrolled and
+    captured by this script, and over NONE."""
+    import numpy as np
+    from repro_torch.core.stepgraph import StepGraph
+    sz = dict(TENANT_SIZES if sz is None else sz)
+    ss = dict(STRUCT_SIZES if ss is None else ss)
+    t_start = time.perf_counter()
+    log(f"structural tenant kernels: while_loop list walk of up to "
+        f"{ss['list']} nodes (cap {ss['cap']} hops), scan over "
+        f"{ss['chunks']} x {ss['chunk']} slots of axpy + dot, cond storing "
+        f"{ss['cond']} slots; {sz['arena'] * 4 / 2**20:.0f} MB arena, "
+        f"{sz['tenants']} tenants ({smi})")
+    ladder = {}
+    for policy in TENANT_POLICIES:
+        card = StructPlane(torch, policy, device, sz, ss)
+        cpu = StructPlane(torch, policy, "cpu", sz, ss)
+        n_t = len(card.clients)
+        rounds = (("solo", [0]), ("x4", list(range(n_t)) if n_t > 1
+                                   else [0, 0, 0, 0]))
+        rnd = np.random.default_rng(5)
+        worst = 0.0
+        for label, tenants in rounds:
+            for rep in range(2):
+                if rep:      # other lists, so the replay walks other counts
+                    for t, nxt in enumerate(st_lists(ss, n_t, rnd)):
+                        card.set_list(t, nxt)
+                        cpu.set_list(t, nxt)
+                res = [{op[0]: plane.launch(op, tenants)
+                        for op in plane.ops(flag=1 - rep)}
+                       for plane in (card, cpu)]
+                worst = max(worst, _compare(
+                    torch, _struct_results(card, res[0]),
+                    _struct_results(cpu, res[1]),
+                    f"structural {policy} {label}"))
+        graphs = [g for cache in [card.mgr.scheduler._fused_cache] + [
+            e.jit_cache for e in card.mgr.pointer_to_symbol.values()]
+            for g in cache.values() if isinstance(g, StepGraph)]
+        if device == "cuda" and not all(g.graph is not None and g.replays
+                                        for g in graphs):
+            raise AssertionError(f"structural {policy}: a launch ran "
+                                 "outside a replayed CUDA graph")
+        log(f"  [{policy}] structural card = CPU, each round captured then "
+            f"replayed on other lists and the other branch: floats within "
+            f"{worst:.3g} normwise, lists, marks, axpy's y and the stores "
+            f"exact; {len(graphs)} graphs, each replayed "
+            f"({sum(g.replays for g in graphs)} replays)")
+        if policy != "none":
+            # before the timing rounds, which run on the card alone
+            _struct_isolation(torch, card, cpu, policy, ss)
+        if device == "cuda":
+            card.hops = [_walk(card.read(t, "lst", ss["list"]).cpu()
+                               .numpy(), ss["cap"]) for t in range(n_t)]
+            bases = [("captured", CapturedUnfenced(
+                torch, StructUnfenced(torch, card)))] \
+                if policy == "none" else []
+            for base, plane in bases + [(policy, card)]:
+                for label, tenants in rounds:
+                    for op in card.ops():
+                        t = _time_op(torch, plane, op, tenants)
+                        ladder[(base, label, op[0])] = t
+                        log(f"  [{base}] {op[0]:6s} {label:4s}: device "
+                            f"{t['dev']:.4f} ms, wall {t['wall']:.4f} ms, "
+                            f"kernels {t['busy']:.4f} ms in {t['ops']:g} "
+                            "device ops a round")
+        del card, cpu
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    if ladder:
+        for over in ("captured", "none"):
+            for key in ("dev", "wall"):
+                log(f"  structural ladder ({key} / {over}'s; {smi}):")
+                for row in ("none", "bitwise", "modulo", "check"):
+                    if row == over:
+                        continue
+                    ratio = {(lb, op): ladder[(row, lb, op)][key]
+                             / ladder[(over, lb, op)][key]
+                             for lb in ("solo", "x4")
+                             for op in ("chase", "axpy", "store")}
+                    log(f"    {row:8s} " + ", ".join(
+                        f"{op} {r:.2f}x ({lb})"
+                        for (lb, op), r in ratio.items()))
+    many_conditional_nodes(torch, device)
+    log(f"structural tenant kernels: ok in "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+
+def _struct_isolation(torch, card, cpu, policy, ss):
+    """The forged pointers inside the bodies: the rogue's list ends in a
+    node pointing at t0's list, its axpy's y and its store's address are
+    t0's buffers.  Solo: every other partition keeps its bytes; under
+    CHECK the rogue's too (its stores rolled back), elsewhere its stores
+    land in its own partition.  Four-wide: the card's arena equals the
+    CPU's, and t0's buffers hold exactly its own round's stores."""
+    import numpy as np
+    n_t = len(card.clients)
+    rogue = n_t - 1
+    victim = {k: card.ptrs[0][k].addr for k in ("lst", "y", "s")}
+    counts0 = card.mgr.violog.counts(f"t{rogue}")["scatter"]
+    for plane in (card, cpu):
+        nxt = plane.read(rogue, "lst", ss["list"]).cpu().numpy().copy()
+        last = int(np.nonzero(nxt == -1)[0][0])
+        nxt[last] = victim["lst"] - plane.ptrs[rogue]["lst"].addr
+        plane.set_list(rogue, nxt)
+    for label, tenants in (("solo", [rogue]), ("x4", list(range(n_t)))):
+        snaps = {id(p): [p.partition(t).clone() for t in range(n_t)]
+                 for p in (card, cpu)}
+        before = {k: card.read(0, k).clone() for k in ("lst", "x", "y")}
+        for plane in (card, cpu):
+            for op in plane.ops(flag=1):
+                target = victim["y"] if op[0] == "axpy" else victim["s"]
+                plane.launch(op, tenants, forged=(rogue, target))
+            plane.mgr.synchronize()
+        for t in range(n_t):
+            if not torch.equal(card.partition(t).cpu(), cpu.partition(t)):
+                raise AssertionError(f"structural {policy} forged {label}: "
+                                     f"t{t}'s partition card != CPU")
+        for plane in (card, cpu):
+            snap = snaps[id(plane)]
+            for t in range(n_t):
+                same = torch.equal(plane.partition(t), snap[t])
+                if label == "solo" and (t != rogue or policy == "check") \
+                        and not same:
+                    raise AssertionError(
+                        f"structural {policy} forged solo "
+                        f"({plane.mgr.device}): t{t}'s partition changed")
+        if label == "x4":
+            y = card.read(0, "y").cpu()
+            want = before["y"].cpu() + 2.0 * before["x"].cpu()
+            s = card.read(0, "s").cpu()
+            if not (torch.equal(y, want) and bool((s == 7.0).all())):
+                raise AssertionError(f"structural {policy} forged x4: t0's "
+                                     "y or store buffer holds the rogue's "
+                                     "stores")
+    counts = card.mgr.violog.counts(f"t{rogue}")
+    if counts != cpu.mgr.violog.counts(f"t{rogue}"):
+        raise AssertionError(f"structural {policy}: ViolationLog rows "
+                             "differ card vs CPU")
+    caught = counts["scatter"] - counts0
+    if policy == "check" and not caught:
+        raise AssertionError("structural check: the forged stores were not "
+                             "counted")
+    log(f"  [{policy}] structural forged pointers of t{rogue} (its list's "
+        "last node at t0's list, its axpy's y and its store at t0's "
+        "buffers), solo and four-wide, replays, card = CPU byte for byte: "
+        + ("its stores rolled back exactly (its partition byte-identical), "
+           f"{caught} stores counted" if policy == "check" else
+           "its stores wrapped into its own partition")
+        + "; the other partitions keep their bytes, t0's buffers hold only "
+        "its own stores")
 
 
 # --------------------------------------------------------------------- #
@@ -4962,6 +5633,8 @@ def main() -> int:
     for cfg in cfgs:
         check_full_width(torch, cfg)
         check_compiled(torch, cfg)
+        if cfg.moe is None:
+            check_sampled(torch, cfg)
         gc.collect()
         torch.cuda.empty_cache()
     check_uncapturable(torch)

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import enum
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -139,6 +140,14 @@ class _KernelEntry:
     native: Optional[Callable] = None
     fenced_dyn: Optional[Callable] = None
     checked_dyn: Optional[Callable] = None
+    #: ``saves_partition(arena, base, size, call_args)``: whether a CHECK
+    #: launch of these operands saves the row's partition (a ``while`` or
+    #: ``cond`` that stores into the arena) — then the graph's key holds
+    #: the partition's size; answered once per operand signature, in
+    #: ``partition_saving``
+    saves_partition: Optional[Callable] = None
+    partition_saving: Dict[Tuple, bool] = dataclasses.field(
+        default_factory=dict)
     modulo_dyn: Optional[Callable] = None
     #: per-partition static MODULO twins, keyed (base, size): the bounds
     #: are constants of the twin (the reference's specialization), so its
@@ -181,18 +190,24 @@ class _KernelEntry:
     proofs: Dict[Tuple, Any] = dataclasses.field(default_factory=dict)
 
 
-def _run_twin(entry: _KernelEntry, mode: str, sb, fp: FenceParams,
-              args: Tuple, undo: Optional[UndoLog] = None):
-    """One launch of a sandboxed twin through the entry's program cache
-    (trace, verify and plan once per (mode, signature): at the first call
-    of a graph's key, which runs eagerly before its capture, so the
-    capture finds the program planned)."""
+def _program(entry: _KernelEntry, mode: str, sb, fp: FenceParams,
+             args: Tuple):
+    """The sandboxed twin's program for ``args`` from the entry's program
+    cache (traced, verified and planned once per (mode, signature))."""
     key = (mode, _arg_signature(args))
     prog = entry.jit_cache.get(key)
     if prog is None:
         prog = sb.program(fp, args)
         entry.jit_cache[key] = prog
-    return sb.run(prog, fp, args, undo)
+    return prog
+
+
+def _run_twin(entry: _KernelEntry, mode: str, sb, fp: FenceParams,
+              args: Tuple, undo: Optional[UndoLog] = None):
+    """One launch of a sandboxed twin through the entry's program cache
+    (planned at the first call of a graph's key, which runs eagerly before
+    its capture, so the capture finds the program planned)."""
+    return sb.run(_program(entry, mode, sb, fp, args), fp, args, undo)
 
 
 @dataclasses.dataclass
@@ -812,17 +827,25 @@ class GuardianManager:
                                kargs(arena, base, mask, args))
             return out
 
-        def checked_dyn(arena, base, size, *args):
+        def checked_dyn(arena, base, size, *args, span=None):
             # the stores of a launch whose ok is false never land: each
             # is logged before it is made and undone on the device, with
-            # no host sync, before the next launch sees the arena
+            # no host sync, before the next launch sees the arena (a
+            # while body's or a cond branch's after the row's partition,
+            # ``span`` slots, is saved before the node)
             fp = row(base, size)
-            undo = UndoLog()
+            undo = UndoLog(span)
             written, ok, counts = _run_twin(
                 entry, "check", checked_sb, fp,
                 kargs(arena, base, size - 1, args), undo)
             undo.rollback(ok)
             return written, ok, counts, undo.nbytes
+
+        def saves_partition(arena, base, size, args):
+            # plans the CHECK program of these operands; the size tensor
+            # stands in for the mask, which has its signature
+            return _program(entry, "check", checked_sb, row(base, size),
+                            kargs(arena, base, size, args)).saves_partition
 
         def modulo_dyn(arena, base, size, m, s, *args):
             # one magic row of the FenceTable: the four extra parameters
@@ -835,7 +858,7 @@ class GuardianManager:
         entry = _KernelEntry(
             name=name, fn=fn, arena_argnums=arena_argnums,
             native=native, fenced_dyn=fenced_dyn, checked_dyn=checked_dyn,
-            modulo_dyn=modulo_dyn,
+            saves_partition=saves_partition, modulo_dyn=modulo_dyn,
             jit_cache=LRUCache(self.jit_cache_capacity),
             verify=verify, fence_aware=fence_aware,
             proofs=LRUCache(self.jit_cache_capacity))
@@ -1265,6 +1288,10 @@ class GuardianManager:
         if policy is FencePolicy.CHECK:
             base_s, _, size_s = self._scalars_for(req.tenant_id, part)
             lead = (base_s, size_s)
+            if self._saves_partition(req, base_s, size_s):
+                # the rollback saves the partition: its size is in the key
+                mode = f"check.{part.size}"
+                fn = functools.partial(entry.checked_dyn, span=part.size)
         elif policy is FencePolicy.BITWISE or entry.fence_aware:
             # the two extra kernel parameters of Listing 1 (a fence-aware
             # kernel consumes them itself under every policy)
@@ -1293,6 +1320,22 @@ class GuardianManager:
             _, out = res
         req.result = out
         return out
+
+    def _saves_partition(self, req: LaunchRequest, base_s=None,
+                         size_s=None) -> bool:
+        """Whether a CHECK launch of ``req``'s kernel and operand signature
+        saves the row's partition; planned once per signature, then a
+        lookup.  ``base_s`` / ``size_s`` are the row's scalars when the
+        caller has them."""
+        entry, sig = req.entry, req.signature[2]
+        saves = entry.partition_saving.get(sig)
+        if saves is None:
+            if base_s is None:
+                base_s, _, size_s = self._scalars_for(
+                    req.tenant_id, self.bounds.lookup(req.tenant_id))
+            saves = entry.partition_saving[sig] = entry.saves_partition(
+                self.arena.buf, base_s, size_s, req.call_args)
+        return saves
 
     # ------------------------------------------------------------------ #
     # Spatial multiplexing (§4.2.4)                                      #

@@ -23,10 +23,29 @@ a scatter's output is.  A reshape or permute that splits or demotes dim 0
 keeps taint and warns (:class:`GuardianTaintWarning`).  Everything the
 walker cannot contain fails closed with :class:`SandboxError`: a value or
 shape that depends on tensor data (``.item()``, a boolean mask, ``narrow``
-with a tensor start), the higher-order ``cond`` / ``while_loop`` /
-``scan``, any other op over the whole arena (it would read or write every
-partition), a store through a view that moved the slot axis, and a first
-result that is not the arena.
+with a tensor start), a higher-order op other than ``cond`` /
+``while_loop`` / ``scan``, any other op over the whole arena (it would
+read or write every partition), a store through a view that moved the
+slot axis, and a first result that is not the arena.
+
+``torch.cond``, ``while_loop`` and ``scan`` are interpreted structurally,
+as the reference interprets ``lax.cond`` / ``lax.while_loop`` /
+``lax.scan``: each body is a planned program of its own, so every
+tainted access inside it is fenced on every iteration, with the int32
+index math and the out-of-range semantics of a straight-line access.
+CHECK's ``ok`` and violation counts accumulate in place on the device
+inside every iteration (the sum the reference threads out of the loop),
+and a CHECK-fenced access in a ``while`` condition is refused, as the
+reference refuses it.  torch traces these bodies only when they are
+functional, so a body stores into the arena by carrying it (``a =
+a.index_put(...)``); the interpreter then stores in place wherever the
+value it replaces is read no more (the arena carried into a loop, a
+branch's store, a branch's ``a.clone()``), so the arena is never copied.
+On the CPU, and for the first call of a CUDA graph's key, a ``cond`` and
+a ``while`` decide on the host; while a graph is captured they become
+CUDA-graph conditional nodes (:mod:`repro_torch.kernels.graph_nodes`)
+that decide on the device, so a data-dependent trip count replays inside
+the graph.  A ``scan`` runs its static length as a Python loop.
 
 Indices are fenced in **int32**, as the reference's are with x64 off, and
 widened back to the access's own index dtype (``take`` / ``gather`` /
@@ -45,7 +64,12 @@ Stores land **in place** in the live arena.  Under CHECK a caller may pass
 an :class:`UndoLog`: each fenced store first saves the elements it will
 overwrite, so a row whose ``ok`` is false is rolled back by restoring
 exactly what it wrote — bytes in proportion to the row's stores, never an
-arena-sized copy.
+arena-sized copy.  A ``scan`` logs each iteration's stores so (its length
+is static).  What a ``while`` body or a ``cond`` branch stores cannot be
+sized before it runs (a trip count, a branch taken on the device), so the
+log saves the row's own partition ``[base, base + span)`` before such a
+node instead — bytes in proportion to the partition — where ``span`` is
+the partition's size, by value (:class:`UndoLog`).
 
 With ``verify=True`` the static verifier (:mod:`repro_torch.core.verifier`)
 classifies every site first: PROVEN sites run unfenced, FENCED sites are
@@ -57,11 +81,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import operator
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.fence import FenceParams, FencePolicy, apply_fence
+from repro_torch.core.stepgraph import capture_pool
 from repro_torch.core.verifier import (
     KERNEL_OPS,
     PROVEN,
@@ -70,7 +96,9 @@ from repro_torch.core.verifier import (
     SandboxError,
     SandboxProof,
     Site,
+    Structure,
     Traced,
+    VerifierError,
     dynamic_slice,
     dynamic_update_slice,
     lc,
@@ -80,6 +108,7 @@ from repro_torch.core.verifier import (
     verify_graph,
 )
 from repro_torch.core.violations import NUM_KINDS, ViolationKind
+from repro_torch.kernels import graph_nodes
 
 aten = torch.ops.aten
 
@@ -129,33 +158,68 @@ _REPORT_FIELD = {
 
 class UndoLog:
     """The elements a launch's fenced arena stores overwrote, in store
-    order: ``(target, index, old values, elementwise)``.  A CHECK row that
+    order: ``(target, index, old values, how)``.  A CHECK row that
     violated is rolled back by restoring them in reverse order; the bytes
-    moved are those the row wrote."""
+    moved are those the row wrote.  ``span`` is the row's partition size
+    by value, which a kernel that stores inside a ``while`` body or a
+    ``cond`` branch needs (the partition is saved before the node)."""
 
-    def __init__(self):
+    def __init__(self, span: Optional[int] = None):
+        self.span = span
         self.entries: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                 bool]] = []
+                                 str]] = []
 
     def save(self, target: torch.Tensor, index: torch.Tensor,
              elementwise: bool) -> None:
-        old = target.gather(0, index) if elementwise else target[index]
-        self.entries.append((target, index, old, elementwise))
+        how = "elements" if elementwise else "rows"
+        self.entries.append((target, index, self._read(target, index, how),
+                             how))
+
+    def save_partition(self, arena: torch.Tensor, base: Any,
+                       span: int) -> None:
+        """The partition ``[base, base + span)`` of ``arena``'s slot axis,
+        saved whole.  The partition is ``span``-aligned, as the manager's
+        are (``core.partition`` invariant I2), so it is one block of
+        ``arena`` viewed as blocks of ``span`` slots: a one-element index
+        and one contiguous copy."""
+        if arena.shape[0] % span or (isinstance(base, int) and base % span):
+            raise SandboxError(
+                f"tenant kernel refused: the CHECK rollback saves the "
+                f"partition at {base} of {span} slots whole, which needs it "
+                f"aligned to its size inside an arena of {arena.shape[0]} "
+                "slots")
+        blocks = arena.view(-1, span, *arena.shape[1:])
+        block = (base.to(device=arena.device, dtype=torch.long) // span
+                 ).reshape(1) if isinstance(base, torch.Tensor) else \
+            torch.full((1,), base // span, dtype=torch.long,
+                       device=arena.device)
+        self.entries.append((blocks, block,
+                             self._read(blocks, block, "block"), "block"))
 
     @staticmethod
-    def _write(target, index, values, elementwise) -> None:
-        if elementwise:
+    def _read(target, index, how) -> torch.Tensor:
+        if how == "elements":
+            return target.gather(0, index)
+        if how == "rows":
+            return target[index]
+        return target.index_select(0, index)
+
+    @staticmethod
+    def _write(target, index, values, how) -> None:
+        if how == "elements":
             target.scatter_(0, index, values)
-        else:
+        elif how == "rows":
             target.index_put_((index,), values)
+        else:
+            target.index_copy_(0, index, values)
 
     def rollback(self, ok: torch.Tensor) -> None:
         """Undo the stores where ``ok`` is false, on the device and with
         no host sync: each saved element is rewritten with its current
         value if ``ok``, its old one otherwise."""
-        for target, index, old, ew in reversed(self.entries):
-            cur = target.gather(0, index) if ew else target[index]
-            self._write(target, index, torch.where(ok, cur, old), ew)
+        for target, index, old, how in reversed(self.entries):
+            cur = self._read(target, index, how)
+            self._write(target, index, torch.where(ok, cur, old), how)
 
     @property
     def nbytes(self) -> int:
@@ -285,6 +349,21 @@ def _as_i32(x, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), int(x), dtype=torch.int32, device=like.device)
 
 
+#: the in-place twin of each functional store op
+_IN_PLACE = {
+    aten.index_put.default: aten.index_put_.default,
+    aten.index_copy.default: aten.index_copy_.default,
+    aten.index_add.default: aten.index_add_.default,
+    aten.scatter.src: aten.scatter_.src,
+    aten.scatter.value: aten.scatter_.value,
+    aten.scatter_add.default: aten.scatter_add_.default,
+    aten.scatter_reduce.two: aten.scatter_reduce_.two,
+}
+
+#: copies a body may elide when the value copied is read no more
+_COPY_OPS = (aten.clone.default, aten._to_copy.default)
+
+
 class _SiteStep:
     """One access node, planned: fence the dim-0 index of an arena access
     (unless proven), wrap negatives, and keep the reference's
@@ -292,9 +371,14 @@ class _SiteStep:
     range."""
 
     def __init__(self, site: Site, proven: bool, in_extent: bool,
-                 nonneg: bool):
+                 nonneg: bool, in_place: bool = False):
         self.site = site
         self.target = site.node.target
+        #: a functional store inside a body, made in place because the
+        #: value it replaces is read no more
+        if in_place:
+            self.target = _IN_PLACE[self.target]
+        self.inplace = site.op.inplace or in_place
         self.proven = proven
         #: the index is provably inside the operand (no guard needed)
         self.in_extent = in_extent
@@ -380,7 +464,7 @@ class _SiteStep:
 
     def _save_undo(self, args, x, run: _Run) -> None:
         s = self.site
-        if (run.undo is not None and s.tainted and s.op.inplace
+        if (run.undo is not None and s.tainted and self.inplace
                 and s.op.kind is ViolationKind.SCATTER):
             i = (args[s.op.index][s.list_pos] if s.op.listed
                  else args[s.op.index])
@@ -428,7 +512,7 @@ class _SiteStep:
             src = src.expand(i32.shape) if src.dim() == 0 else \
                 src[tuple(slice(0, n) for n in i32.shape)]
             i_new, v_new = _redirect_fibers(i32, okm, src, x, d)
-            op = aten.scatter_.src if s.op.inplace else aten.scatter.src
+            op = aten.scatter_.src if self.inplace else aten.scatter.src
             return [x, d, i_new.to(raw_dtype), v_new], op
         if s.op.listed:                          # index_put(_)
             vals = torch.as_tensor(args[2]).to(device=x.device,
@@ -477,34 +561,81 @@ class _Program(torch.fx.Interpreter):
     """A tenant kernel traced, verified and planned for one fence policy —
     the "sandboxed PTX" the manager caches per (kernel, mode, signature).
     :meth:`launch` interprets the aten graph on the real tensors, each
-    access node through its planned :class:`_SiteStep`."""
+    access node through its planned :class:`_SiteStep`, each higher-order
+    node through its :class:`_Structural` (whose bodies are programs of
+    their own, sharing this one's report).
+
+    ``owned`` names the placeholders whose storage the program may
+    overwrite once their value is read no more: the kernel's arena (only
+    ever handed to a higher-order node in place — a top-level functional
+    store keeps making a fresh arena), a body's arena carry or in-place
+    operand."""
 
     def __init__(self, traced: Traced, policy: FencePolicy,
-                 verdicts: Optional[Dict[str, str]], proof, index_ival,
-                 sym):
+                 verdicts: Optional[Dict[Tuple, str]], proof, index_ival,
+                 sym, report: Optional[SandboxReport] = None,
+                 owned: Sequence[str] = ()):
         super().__init__(traced.gm)
         self.extra_traceback = False
         self.traced = traced
         self.policy = policy
         self.proof = proof
-        self.report = SandboxReport(proof=proof)
+        body = report is not None
+        self.report = report if body else SandboxReport(proof=proof)
         self.site_steps: Dict[Any, _SiteStep] = {}
+        self.structs: Dict[Any, _Structural] = {}
+        #: copies elided: the node's value is its input's tensor
+        self.aliases = set()
         self._run: Optional[_Run] = None
-        for node in traced.gm.graph.nodes:
+        nodes = list(traced.gm.graph.nodes)
+        order = {n: i for i, n in enumerate(nodes)}
+        owned = set(owned) if body else {
+            ph.name for ph in traced.placeholders
+            if traced.tainted.get(ph.name) and traced.exact.get(ph.name)}
+
+        def dead_after(v, at) -> bool:
+            return all(order[u] < order[at] for u in v.users if u is not at)
+
+        def exact(v) -> bool:
+            return traced.tainted.get(v.name, False) and \
+                traced.exact.get(v.name, False)
+
+        for node in nodes:
             if node.op != "call_function":
                 continue
             self.report.total_eqns += 1
+            st = traced.subs.get(node.name)
+            if st is not None:
+                ops = [a for a in (*st.carry, *st.xs, *st.extra)
+                       if isinstance(a, torch.fx.Node)]
+                in_place = [isinstance(a, torch.fx.Node) and a.name in owned
+                            and exact(a) and dead_after(a, node)
+                            and ops.count(a) == 1 for a in st.carry]
+                self.structs[node] = _Structural(
+                    self, st, in_place, verdicts, index_ival, sym)
+                for user in node.users:     # every result is the node's own
+                    if user.target is operator.getitem and \
+                            st.out[user.args[1]] == (True, True):
+                        owned.add(user.name)
+                continue
             site = traced.sites.get(node.name)
             if site is None:
+                src = node.args[0] if node.args else None
+                if (body and node.target in _COPY_OPS
+                        and isinstance(src, torch.fx.Node)
+                        and src.name in owned and _same_meta(node, src)
+                        and dead_after(src, node)):
+                    self.aliases.add(node)
+                    owned.add(node.name)
                 continue
             proven = verdicts is not None and verdicts.get(
-                node.name) == PROVEN
+                site.path) == PROVEN
             if site.tainted:
                 field = _REPORT_FIELD[site.op.kind]
                 pre = "elided_" if proven else "fenced_"
                 setattr(self.report, pre + field,
                         getattr(self.report, pre + field) + 1)
-            iv = index_ival.get(node.name)
+            iv = index_ival.get(site.path)
             nonneg = bool(iv is not None and iv.lo is not None
                           and sym.le(lc(0), iv.lo))
             in_extent = bool(
@@ -512,8 +643,15 @@ class _Program(torch.fx.Interpreter):
                 and sym.le(iv.hi, lc(site.extent - site.length))
                 and site.op.kind not in (ViolationKind.SLICE,
                                          ViolationKind.UPDATE))
+            operand = site.operand
+            in_place = bool(
+                body and site.tainted and site.exact
+                and node.target in _IN_PLACE and operand.name in owned
+                and dead_after(operand, node))
+            if in_place or (site.op.inplace and operand.name in owned):
+                owned.add(node.name)
             self.site_steps[node] = _SiteStep(site, proven, in_extent,
-                                              nonneg)
+                                              nonneg, in_place)
 
     def run_node(self, n):
         # the base class also sets fx's current-node metadata, which
@@ -522,7 +660,30 @@ class _Program(torch.fx.Interpreter):
         step = self.site_steps.get(n)
         if step is not None:
             return step(args, kwargs, self._run)
+        st = self.structs.get(n)
+        if st is not None:
+            return st(args, self._run)
+        if n in self.aliases:
+            return args[0]
         return getattr(self, n.op)(n.target, args, kwargs)
+
+    @property
+    def saves_partition(self) -> bool:
+        """Whether a CHECK launch saves the row's partition before a
+        ``while`` or a ``cond`` that stores into the arena (its
+        :class:`UndoLog` needs ``span``)."""
+        return any(st.snapshot or any(b.saves_partition for b in st.bodies)
+                   for st in self.structs.values())
+
+    def call(self, run: _Run, args: Sequence[Any]) -> List[Any]:
+        """The results of one run of this graph (a body) on ``args``."""
+        prev, self._run = self._run, run
+        try:
+            out = self.run(*args, enable_io_processing=False)
+        finally:
+            self._run = prev
+            self.env = {}
+        return list(out) if isinstance(out, (list, tuple)) else [out]
 
     def launch(self, params: Optional[FenceParams], dyn_args: Sequence[Any],
                undo: Optional[UndoLog] = None):
@@ -541,6 +702,180 @@ class _Program(torch.fx.Interpreter):
             self.env = {}
         ok, counts = run.acc.result() if run.acc is not None else _NO_CHECK
         return out, ok, counts
+
+
+def _same_meta(node, src) -> bool:
+    """A copy that changes nothing but the storage (same dtype, device and
+    shape)."""
+    a, b = node.meta.get("val"), src.meta.get("val")
+    return isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) and \
+        (a.dtype, a.device, tuple(a.shape)) == \
+        (b.dtype, b.device, tuple(b.shape))
+
+
+class _Structural:
+    """A ``cond`` / ``while_loop`` / ``scan`` node, planned: its bodies as
+    programs (see :class:`_Program`) and which carries enter in place.
+
+    A loop owns its carries: each enters as the caller's tensor when that
+    value is read no more after the node (the arena, which the bodies then
+    store into in place), else as a copy, and the bodies hand them back.
+    The fence row, CHECK's accumulator and the undo log are the launch's;
+    under CHECK a ``while`` or a ``cond`` that stores into the arena saves
+    the row's partition first (:class:`UndoLog`) and its bodies log
+    nothing more."""
+
+    def __init__(self, parent: _Program, st: Structure,
+                 in_place: List[bool], verdicts, index_ival, sym):
+        self.st = st
+        self.in_place = in_place
+        self.name = f"{st.kind} `{st.node.name}`"
+        for a in () if st.kind == "cond" else (*st.carry, *st.xs):
+            val = a.meta.get("val") if isinstance(a, torch.fx.Node) else a
+            if not isinstance(val, torch.Tensor):
+                raise SandboxError(
+                    f"tenant kernel refused: {self.name} carries a value "
+                    "that is not a tensor")
+        policy = parent.policy
+        report = parent.report
+
+        def arena_carries(body: Traced) -> List[str]:
+            n = len(st.carry)
+            return [ph.name for ph, (t, x) in zip(body.placeholders[:n],
+                                                   st.out[:n]) if t and x]
+
+        if st.kind == "cond":
+            # a branch owns an operand the node took in place
+            self.bodies = [_Program(
+                b, policy, verdicts, None, index_ival, sym, report,
+                [ph.name for ph, ip in zip(b.placeholders, in_place) if ip])
+                for b in st.bodies]
+        else:
+            self.bodies = [_Program(
+                b, policy, verdicts, None, index_ival, sym, report,
+                arena_carries(b) if k == len(st.bodies) - 1 else ())
+                for k, b in enumerate(st.bodies)]
+        if st.kind == "while" and policy is FencePolicy.CHECK and any(
+                site.tainted and (verdicts is None
+                                  or verdicts.get(site.path) != PROVEN)
+                for g in st.bodies[0].graphs()
+                for sites in g.all_sites.values() for site in sites):
+            raise SandboxError(
+                "tenant kernel fences a tainted access inside a `while` "
+                "condition under CHECK policy; the ok predicate cannot "
+                "escape the cond jaxpr — use a fencing policy or move the "
+                "access into the loop body")
+        self.snapshot = (policy is FencePolicy.CHECK and st.stores
+                         and st.kind in ("cond", "while"))
+
+    # ------------------------------------------------------------------ #
+    def __call__(self, args, run: _Run) -> List[Any]:
+        st = self.st
+        if st.kind == "cond":
+            pred, ops = args[0], list(args[3])
+        elif st.kind == "while":
+            ops = list(args[2])
+        else:
+            ops = list(args[1])
+        run = self._save_partition(ops, run)
+        if st.kind != "cond":
+            # a loop's carries are its own buffers: the caller's tensor
+            # where it is read no more, else a copy
+            ops = [c if ip else c.clone()
+                   for c, ip in zip(ops, self.in_place)]
+        dev = next((a.device for a in (*args[:1], *ops)
+                    if isinstance(a, torch.Tensor)), None)
+        capturing = (dev is not None and dev.type == "cuda"
+                     and torch.cuda.is_current_stream_capturing())
+        if st.kind == "scan":
+            return self._scan(ops, list(args[2]), list(args[3]), run)
+        if not capturing:
+            return self._cond(pred, ops, run) if st.kind == "cond" else \
+                self._while(ops, list(args[3]), run)
+        try:
+            return self._cond_node(pred, ops, run) if st.kind == "cond" \
+                else self._while_node(ops, list(args[3]), run)
+        except RuntimeError as err:   # the capture names the op
+            raise RuntimeError(f"the tenant kernel's {self.name} as a "
+                               f"conditional node: {err}") from err
+
+    def _save_partition(self, ops, run: _Run) -> _Run:
+        """Under CHECK, the partition of the row saved before a ``while``
+        or a ``cond`` that stores into the arena (the bodies then log
+        nothing)."""
+        if not self.snapshot or run.undo is None:
+            return run
+        span = run.undo.span
+        if span is None and isinstance(run.params.size, int):
+            span = run.params.size
+        if span is None:
+            raise SandboxError(
+                f"tenant kernel refused: {self.name} stores into the arena "
+                "under CHECK, and its rollback needs the partition's size "
+                "by value (UndoLog(span=...))")
+        for c, ip in zip(ops, self.in_place):
+            if ip:
+                run.undo.save_partition(c, run.params.base, span)
+        return dataclasses.replace(run, undo=None)
+
+    # -- cond --------------------------------------------------------------
+    def _cond(self, pred, ops, run):
+        # the reference's branch index: the false branch 0, the true one 1
+        return self.bodies[1 if bool(pred) else 0].call(run, ops)
+
+    def _cond_node(self, pred, ops, run):
+        """Two ``if`` nodes, on the predicate and on its negation; the
+        false branch's results land in the true branch's (an operand
+        stored in place is its own result)."""
+        res: Optional[List[Any]] = None
+        for b, negate in ((1, False), (0, True)):
+            with graph_nodes.conditional(pred, graph_nodes.IF,
+                                         capture_pool(), negate):
+                outs = self.bodies[b].call(run, ops)
+                if res is None:
+                    res = outs
+                else:
+                    for r, o in zip(res, outs):
+                        if o is not r:
+                            r.copy_(o)
+        return res
+
+    # -- while -------------------------------------------------------------
+    def _while(self, carry, extra, run):
+        cond, body = self.bodies
+        while bool(cond.call(run, carry + extra)[0]):
+            carry = body.call(run, carry + extra)
+        return carry
+
+    def _while_node(self, carry, extra, run):
+        """A ``while`` node: first evaluated from the condition on the
+        entry carries, its body the loop body, the carries written back in
+        place, and the condition on the new carries."""
+        cond, body = self.bodies
+        pred = cond.call(run, carry + extra)[0]
+        with graph_nodes.conditional(pred, graph_nodes.WHILE,
+                                     capture_pool()) as handle:
+            outs = body.call(run, carry + extra)
+            for c, o in zip(carry, outs):
+                if o is not c:
+                    c.copy_(o)
+            graph_nodes.set_condition(handle, cond.call(run,
+                                                        carry + extra)[0])
+        return carry
+
+    # -- scan --------------------------------------------------------------
+    def _scan(self, carry, xs, extra, run):
+        (body,) = self.bodies
+        n = len(carry)
+        length = xs[0].shape[0] if xs else 0
+        ys: List[List[Any]] = []
+        for t in range(length):
+            outs = body.call(run, carry + [x[t] for x in xs] + extra)
+            carry, y = outs[:n], outs[n:]
+            ys.append(y)
+        stacked = [torch.stack([y[k] for y in ys])
+                   for k in range(len(ys[0]))] if ys else []
+        return carry + stacked
 
 
 class Sandboxed:
@@ -584,16 +919,19 @@ class Sandboxed:
 def _constants_on(gm: torch.fx.GraphModule, device: torch.device) -> None:
     """Move the trace's tensor constants (the value of ``arena[idx] =
     7.0`` is one, made on the host) to the launch's device, once, when
-    the program is planned: a launch then copies nothing from the host,
-    which a CUDA graph capture refuses."""
-    for node in gm.graph.nodes:
-        if node.op != "get_attr":
+    the program is planned, in every body: a launch then copies nothing
+    from the host, which a CUDA graph capture refuses."""
+    for g in gm.modules():
+        if not isinstance(g, torch.fx.GraphModule):
             continue
-        owner, _, attr = node.target.rpartition(".")
-        mod = gm.get_submodule(owner)
-        val = getattr(mod, attr)
-        if isinstance(val, torch.Tensor) and val.device != device:
-            setattr(mod, attr, val.to(device))
+        for node in g.graph.nodes:
+            if node.op != "get_attr":
+                continue
+            owner, _, attr = node.target.rpartition(".")
+            mod = g.get_submodule(owner)
+            val = getattr(mod, attr)
+            if isinstance(val, torch.Tensor) and val.device != device:
+                setattr(mod, attr, val.to(device))
 
 
 def _refuse_kernel_ops(traced: Traced) -> None:
@@ -602,14 +940,15 @@ def _refuse_kernel_ops(traced: Traced) -> None:
     reaches (its declared accesses fence with the operands the tenant
     chose).  Fails closed on any kernel op that takes an arena-derived
     tensor."""
-    for node in traced.gm.graph.nodes:
-        if node.op == "call_function" and node.target in KERNEL_OPS and any(
-                traced.tainted.get(a.name, False)
-                for a in node.all_input_nodes):
-            raise SandboxError(
-                f"tenant kernel refused: `{node.target}` is a hand-written "
-                "kernel and takes the arena; tenants reach the arena only "
-                "through fenced accesses")
+    for g in traced.graphs():
+        for node in g.gm.graph.nodes:
+            if node.op == "call_function" and node.target in KERNEL_OPS \
+                    and any(g.tainted.get(a.name, False)
+                            for a in node.all_input_nodes):
+                raise SandboxError(
+                    f"tenant kernel refused: `{node.target}` is a "
+                    "hand-written kernel and takes the arena; tenants reach "
+                    "the arena only through fenced accesses")
 
 
 def _plan(traced: Traced, params, policy, verify, bound_argnums,
@@ -617,14 +956,19 @@ def _plan(traced: Traced, params, policy, verify, bound_argnums,
     _refuse_kernel_ops(traced)
     static = params is not None and isinstance(params.base, int) \
         and isinstance(params.size, int)
-    proof, index_ival, sym = verify_graph(
-        traced, params if static else None,
-        in_roles=roles_for(traced, bound_argnums))
+    try:
+        proof, index_ival, sym = verify_graph(
+            traced, params if static else None,
+            in_roles=roles_for(traced, bound_argnums))
+    except VerifierError as e:
+        raise SandboxError(
+            f"tenant kernel {kernel_name!r} routes the shared arena through "
+            f"a loop whose carry fixpoint did not converge: {e}") from e
     verdicts = None
     if verify:
         if proof.n_refuted:
             raise GuardianStaticViolation(refute_message(proof, kernel_name))
-        verdicts = {s.path[0]: s.verdict for s in proof.sites}
+        verdicts = {s.path: s.verdict for s in proof.sites}
         if on_proof is not None:
             on_proof(proof)
     return _Program(traced, policy, verdicts, proof if verify else None,

@@ -920,10 +920,15 @@ class BatchedLaunchScheduler:
         T = len(batch)
         head = batch[0]
         t0 = time.perf_counter_ns()
+        # a kernel whose rollback saves the partition (a while or a cond
+        # that stores) keys the rows' partition sizes by value
+        spans = tuple(mgr.bounds.lookup(r.tenant_id).size for r in batch) \
+            if mgr._saves_partition(head) else None
         _, _, (outs, rollback_bytes) = mgr._launch_compiled(
-            self._fused_cache, (*head.signature, T), self._name(head, T),
+            self._fused_cache, (*head.signature, T, spans),
+            self._name(head, T),
             lambda: self._build_fused_check(head.entry, head.signature[2],
-                                            T),
+                                            T, spans),
             (mgr.arena.buf, mgr.violog.buf),
             (self._staged_table(batch).rows, self._staged_vrows(batch),
              *self._flat_dyn(batch)))
@@ -945,7 +950,9 @@ class BatchedLaunchScheduler:
             yield r, [next(row_dyn) if kind == "d" else spec[0]
                       for kind, *spec in arg_sig]
 
-    def _build_fused_check(self, entry, arg_sig: Tuple, T: int) -> Callable:
+    def _build_fused_check(self, entry, arg_sig: Tuple, T: int,
+                           spans: Optional[Tuple[int, ...]] = None
+                           ) -> Callable:
         """CHECK twin of :meth:`_build_fused`: rows carry dynamic ``(base,
         size)`` bounds and commit selectively — an offending row's stores
         are undone before the next row sees the arena, so co-tenant rows
@@ -958,7 +965,8 @@ class BatchedLaunchScheduler:
             outs, logged = [], 0
             for r, call in rows_of(arg_sig, T, flat_dyn):
                 (arena, out), ok, counts, nbytes = entry.checked_dyn(
-                    arena, rows[r, 0], rows[r, 1] + 1, *call)
+                    arena, rows[r, 0], rows[r, 1] + 1, *call,
+                    span=None if spans is None else spans[r])
                 logged += nbytes
                 # counts are nonzero exactly where ok is false — fold
                 # unconditionally (in-bounds rows add zeros)

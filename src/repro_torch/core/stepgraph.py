@@ -46,11 +46,24 @@ replay of the key overwrites them: every call returns copies of them.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Callable, Dict, Hashable, Iterator, List, \
     Optional, Sequence, Tuple
 
 import torch
+
+
+#: the memory pools of the graphs being captured, innermost last
+_POOLS: List[Any] = []
+
+
+def capture_pool() -> Any:
+    """The memory pool of the step graph being captured (a conditional
+    node's body allocates from it)."""
+    if not _POOLS:
+        raise StepCaptureError("no step graph is being captured")
+    return _POOLS[-1]
 
 
 class StepCaptureError(RuntimeError):
@@ -257,11 +270,21 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         torch.cuda.synchronize(self.device)
         reserved = torch.cuda.memory_reserved(self.device)
+        # a pool of the graph's own, named, so that a conditional node's
+        # body can allocate from it (capture_pool)
+        pool = self.pool if self.pool is not None else \
+            torch.cuda.graph_pool_handle()
         t0 = time.perf_counter()
         failure = None
+        _POOLS.append(pool)
+        # no cyclic collection while recording: it could free an
+        # unreachable graph of an earlier step, and a graph's teardown
+        # during a capture invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.stream(self.stream):
-                graph.capture_begin(pool=self.pool)
+                graph.capture_begin(pool=pool)
                 try:
                     out = self.fn(*args)
                 except RuntimeError as err:    # the operation refused
@@ -272,6 +295,9 @@ class StepGraph:
                     except RuntimeError as err:
                         failure = failure or err
         finally:
+            if collecting:
+                gc.enable()
+            _POOLS.pop()
             self.launches = {k: k.launches - n for k, n in counts.items()
                              if k.launches != n}
             for k, n in counts.items():

@@ -22,8 +22,18 @@ the aten ops ``make_fx`` emits (``add``, ``bitwise_and``, ``remainder``,
 ``clamp``, ``arange``, views, ``_to_copy``, the index ops, ...); an op
 without one gives ⊤, so its sites are FENCED, never PROVEN: partial
 coverage is safe.  Python loops with a fixed count are unrolled by the
-trace and verify as straight-line code; a higher-order loop op is refused
-by the tracer (:func:`trace_kernel`), so there is no loop fixpoint here.
+trace and verify as straight-line code.  The higher-order ``torch.cond``,
+``while_loop`` and ``scan`` stay in the graph with their bodies as
+subgraphs, interpreted structurally as the reference interprets
+``lax.cond`` / ``lax.while_loop`` / ``lax.scan``: the carries' taints come
+from a monotone fixpoint, their intervals from a fixpoint widened with
+:func:`iwiden`, a ``cond``'s branches are joined, and one recording pass
+at the fixpoint classifies each body's sites, whose paths carry the
+higher-order node and the body's index (a ``cond``'s false branch 0 and
+true branch 1, a ``while``'s condition 0 and body 1, a ``scan``'s body 0).
+A ``while`` carry is not refined by its condition, as in the reference:
+``i < ptr + 4`` leaves ``i`` unbounded above, so the body's access is
+FENCED, never PROVEN.
 
 **Extent mode** proves a trusted step (the serve steps a manager
 registers with ``verify=True``): every access into the arena or the pool
@@ -58,6 +68,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+import torch._higher_order_ops.scan  # noqa: F401  (registers the op)
+import torch._higher_order_ops.while_loop  # noqa: F401
 from repro_torch.core.fence import FenceParams
 from repro_torch.core.stepgraph import tree_flatten, tree_unflatten
 from repro_torch.core.violations import ViolationKind
@@ -301,8 +313,7 @@ def ijoin(ctx: SymCtx, a: Ival, b: Ival) -> Ival:
 
 def iwiden(ctx: SymCtx, old: Ival, new: Ival) -> Ival:
     """Classic widening: a bound that moved outward goes to ±∞ (the
-    reference's loop fixpoint; kept with the domain for the structural
-    loop interpretation still to port)."""
+    reference's loop fixpoint, :func:`_fixpoint`)."""
     lo = old.lo if (old.lo is not None and new.lo is not None
                     and ctx.le(old.lo, new.lo)) else None
     hi = old.hi if (old.hi is not None and new.hi is not None
@@ -650,10 +661,14 @@ class Site:
     decl: Optional[Access] = None
     opaque: bool = False
     tag: str = ""
+    #: the path of the body holding the node: ``()`` at the top, else the
+    #: higher-order node's path and the body's index
+    prefix: Tuple = ()
 
     @property
     def path(self) -> Tuple:
-        return (self.node.name, self.tag) if self.tag else (self.node.name,)
+        key = (*self.prefix, self.node.name)
+        return (*key, self.tag) if self.tag else key
 
 
 @dataclasses.dataclass
@@ -674,6 +689,14 @@ class Traced:
     all_sites: Dict[str, List[Site]] = dataclasses.field(
         default_factory=dict)
     mode: str = "row"
+    #: where this graph sits: ``()`` for the kernel, a body's path for a
+    #: subgraph of a higher-order node
+    prefix: Tuple = ()
+    #: the higher-order nodes of this graph, by name
+    subs: Dict[str, "Structure"] = dataclasses.field(default_factory=dict)
+    #: (tainted, slot-exact) of each of the graph's results
+    out_tx: List[Tuple[bool, bool]] = dataclasses.field(
+        default_factory=list)
 
     @property
     def placeholders(self) -> List[Any]:
@@ -683,6 +706,43 @@ class Traced:
     def arg_sig(self) -> Tuple:
         return tuple((_shape(n), str(n.meta["val"].dtype))
                      for n in self.placeholders)
+
+    def graphs(self):
+        """This graph and every body below it, depth first."""
+        yield self
+        for st in self.subs.values():
+            for body in st.bodies:
+                yield from body.graphs()
+
+
+@dataclasses.dataclass
+class Structure:
+    """One higher-order node, parsed.  ``kind`` is ``"cond"``,
+    ``"while"`` or ``"scan"``; the operand groups are graph values (nodes)
+    or constants: a ``cond``'s predicate and ``carry`` (its operands), a
+    loop's ``carry``, a ``scan``'s ``xs`` and a loop's ``extra`` operands
+    (the values its bodies close over).  ``bodies`` are the analysed
+    subgraphs in the reference's order (``cond``: false branch, true
+    branch; ``while``: condition, body; ``scan``: body); ``out`` the
+    (tainted, slot-exact) of each result, ``stores`` whether a body stores
+    into the arena."""
+
+    kind: str
+    node: Any
+    pred: Any
+    carry: List[Any]
+    xs: List[Any]
+    extra: List[Any]
+    bodies: List[Traced] = dataclasses.field(default_factory=list)
+    out: List[Tuple[bool, bool]] = dataclasses.field(default_factory=list)
+
+    @property
+    def stores(self) -> bool:
+        return any(site.tainted and site.op.kind in (ViolationKind.SCATTER,
+                                                     ViolationKind.UPDATE)
+                   for body in self.bodies for g in body.graphs()
+                   for sites in g.all_sites.values() for site in sites)
+
 
 
 def _unsupported(msg: str) -> SandboxError:
@@ -710,8 +770,8 @@ def trace_kernel(fn: Callable, example_args: Sequence[Any],
     tainted.  ``device`` puts every fake on one device (a meta tensor then
     stands in for a shape).  Fails closed with :class:`SandboxError` on a
     data-dependent value or shape (``.item()``, a boolean mask), a
-    higher-order op (``cond``, ``while_loop``, ``scan``) and, in row mode,
-    on any use of the arena the walker cannot contain."""
+    higher-order op other than ``cond``, ``while_loop`` and ``scan`` and,
+    in row mode, on any use of the arena the walker cannot contain."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.fx.experimental.proxy_tensor import make_fx
 
@@ -737,32 +797,74 @@ def trace_kernel(fn: Callable, example_args: Sequence[Any],
             return fn(*(tree_unflatten(s, ls)
                         for (s, _), ls in zip(structs, leaves)))
 
-    fake_mode = FakeTensorMode()
-    try:
-        with fake_mode:
+    def trace(shape_env):
+        with FakeTensorMode(shape_env=shape_env):
             # a fresh fake per leaf: two arguments that happen to be one
             # tensor must not share a graph input
             fakes = [torch.empty_strided(
                 structs[p][1][j].shape, structs[p][1][j].stride(),
                 dtype=structs[p][1][j].dtype, device=dev)
                 for (p, j), dev in zip(slots, devices)]
-            gm = make_fx(fn_dyn, tracing_mode="real")(*fakes)
+            return make_fx(fn_dyn, tracing_mode="real")(*fakes)
+
+    try:
+        try:
+            gm = trace(None)
+        except _trace_errors():
+            raise
+        except Exception as first:
+            # torch's while_loop traces only under a shape environment,
+            # which also lets a data-dependent value through as an
+            # unbacked symbol: the retry refuses every such symbol
+            from torch.fx.experimental.symbolic_shapes import ShapeEnv
+            try:
+                gm = trace(ShapeEnv())
+            except Exception:
+                raise first from None
+            _refuse_symbols(gm)
     except _trace_errors() as e:
         raise _unsupported(
             f"a value or shape depends on tensor data ({type(e).__name__}: "
             f"{e}); launch dimensions must be Python ints") from e
+    except SandboxError:
+        raise
     except Exception as e:
         if "HigherOrderOp" in type(e).__name__:
             raise _unsupported(
-                "a higher-order op (cond / while_loop / scan) routes the "
-                "arena through control flow the sandbox does not "
-                f"interpret: {e}") from e
+                "torch could not trace a higher-order op (its bodies must "
+                "be functional: carry the arena and store with "
+                f"`index_put`, not `index_put_`): {e}") from e
         raise
     arena_set = frozenset(arena_argnums)
     taints = [p in arena_set for p in dyn_pos]
     if mode == "extent":
         return _analyze_extent(gm, dyn_pos, taints)
     return _analyze(gm, dyn_pos, taints)
+
+
+def _symbolic(val) -> bool:
+    if isinstance(val, (torch.SymInt, torch.SymFloat, torch.SymBool)):
+        return True
+    if isinstance(val, torch.Tensor):
+        return any(isinstance(d, torch.SymInt)
+                   for d in (*val.shape, *val.stride()))
+    if isinstance(val, (list, tuple)):
+        return any(_symbolic(v) for v in val)
+    return False
+
+
+def _refuse_symbols(gm) -> None:
+    """Fail closed on a trace that holds a symbol (a value read from
+    tensor data, a shape that depends on it), in any body."""
+    for mod in gm.modules():
+        if not isinstance(mod, torch.fx.GraphModule):
+            continue
+        for node in mod.graph.nodes:
+            if _symbolic(node.meta.get("val")):
+                raise _unsupported(
+                    f"a value or shape depends on tensor data (`{node.name}`"
+                    " is a symbol of the trace); launch dimensions must be "
+                    "Python ints")
 
 
 def _index_steps(t: torch.Tensor, idx) -> Tuple[torch.Tensor,
@@ -857,17 +959,31 @@ def _analyze(gm, dyn_pos: List[int], taints: List[bool]) -> Traced:
     other use of a tainted value fails closed: an elementwise op or a
     reduction over the arena reads every partition, an in-place op other
     than a fenced scatter writes every partition, an access along another
-    dim than the slot axis reaches every row."""
+    dim than the slot axis reaches every row.  The bodies of ``cond`` /
+    ``while_loop`` / ``scan`` are held to the same rule (:func:`_hop_row`);
+    the kernel's own results to the contract of :func:`_check_outputs`."""
+    traced = _analyze_row(gm, taints, taints, ())
+    traced.dyn_pos = dyn_pos
+    return traced
+
+
+def _analyze_row(gm, in_taints: Sequence[bool], in_exact: Sequence[bool],
+                 prefix: Tuple) -> Traced:
+    """The row-mode taint rule over one graph: the kernel (``prefix ==
+    ()``) or a body of a higher-order node, whose placeholders carry
+    ``in_taints`` / ``in_exact``."""
     tainted: Dict[str, bool] = {}
     exact: Dict[str, bool] = {}
     sites: Dict[str, Site] = {}
     all_sites: Dict[str, List[Site]] = {}
+    subs: Dict[str, Structure] = {}
+    out_tx: List[Tuple[bool, bool]] = []
     arena_extent, arena_val = None, None
-    it = iter(taints)
+    it = iter(zip(in_taints, in_exact))
     for node in gm.graph.nodes:
         if node.op == "placeholder":
-            t = next(it)
-            tainted[node.name] = exact[node.name] = t
+            t, x = next(it, (False, False))
+            tainted[node.name], exact[node.name] = t, t and x
             if t and arena_val is None:
                 arena_val = node.meta.get("val")
                 arena_extent = _shape(node)[0] if _shape(node) else None
@@ -876,11 +992,16 @@ def _analyze(gm, dyn_pos: List[int], taints: List[bool]) -> Traced:
             tainted[node.name] = exact[node.name] = False
             continue
         if node.op == "output":
-            _check_outputs(node, tainted, exact, arena_val)
+            if not prefix:
+                _check_outputs(node, tainted, exact, arena_val)
+            out_tx = [_tx(tainted, exact, a) for a in _flat_out(node)]
             continue
         target = node.target
         if isinstance(target, torch._ops.HigherOrderOperator):
-            raise _unsupported(f"higher-order op `{target}`")
+            st = _hop_row(gm, node, tainted, exact, prefix)
+            subs[node.name] = st
+            tainted[node.name] = exact[node.name] = False
+            continue
         ins = _node_args(node)
         t_in = [tainted.get(a.name, False) for a in ins]
         name = op_name(target)
@@ -891,11 +1012,13 @@ def _analyze(gm, dyn_pos: List[int], taints: List[bool]) -> Traced:
                 f"`{target}` addresses a tensor through an index the "
                 "sandbox cannot keep in range")
         if target in KERNEL_OPS:
-            declared = _kernel_sites(node, tainted, exact, row=True)
+            declared = _kernel_sites(node, tainted, exact, row=True,
+                                     prefix=prefix)
             if declared:
                 all_sites[node.name] = declared
         elif acc is not None:
             site = _site_of(node, acc, tainted, exact)
+            site.prefix = prefix
             sites[node.name] = site
             all_sites[node.name] = [site]
             if site.tainted:
@@ -904,7 +1027,9 @@ def _analyze(gm, dyn_pos: List[int], taints: List[bool]) -> Traced:
                 out_x = out_t and site.exact
         elif target is operator.getitem:
             src = node.args[0]
-            if tainted.get(getattr(src, "name", None), False):
+            if getattr(src, "name", None) in subs:
+                out_t, out_x = subs[src.name].out[node.args[1]]
+            elif tainted.get(getattr(src, "name", None), False):
                 raise _unsupported("a multi-output op over the arena")
         elif any(t_in):
             src = node.args[0] if node.args else None
@@ -916,9 +1041,126 @@ def _analyze(gm, dyn_pos: List[int], taints: List[bool]) -> Traced:
             out_t, out_x = _transparent(node, name, exact[src.name])
         tainted[node.name] = out_t
         exact[node.name] = out_x
-    return Traced(gm=gm, dyn_pos=dyn_pos, taints=list(taints), sites=sites,
+    return Traced(gm=gm, dyn_pos=[], taints=list(in_taints), sites=sites,
                   tainted=tainted, exact=exact, arena_extent=arena_extent,
-                  all_sites=all_sites)
+                  all_sites=all_sites, prefix=prefix, subs=subs,
+                  out_tx=out_tx)
+
+
+def _is_node(a) -> bool:
+    return hasattr(a, "op") and hasattr(a, "meta")
+
+
+def _tx(tainted, exact, a) -> Tuple[bool, bool]:
+    """(tainted, slot-exact) of an operand: a graph value or a constant."""
+    if not _is_node(a):
+        return False, False
+    return tainted.get(a.name, False), exact.get(a.name, False)
+
+
+def _join_tx(a: Tuple[bool, bool], b: Tuple[bool, bool]
+             ) -> Tuple[bool, bool]:
+    """A value that is either: tainted if either is, slot-exact only if
+    every tainted side is."""
+    t = a[0] or b[0]
+    return t, t and (a[1] or not a[0]) and (b[1] or not b[0])
+
+
+def _flat_out(node) -> List[Any]:
+    """The results of a graph's output node, flattened."""
+    out = node.args[0]
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+#: the higher-order ops interpreted structurally
+COND = torch.ops.higher_order.cond
+WHILE = torch.ops.higher_order.while_loop
+SCAN = torch.ops.higher_order.scan
+_MAX_TAINT_ITERS = 64
+
+
+def _parse_hop(gm, node) -> Tuple[Structure, List[Any]]:
+    """The operand groups and bodies of a ``cond`` / ``while_loop`` /
+    ``scan`` node; any other higher-order op fails closed."""
+    target, a = node.target, node.args
+    if node.kwargs or target not in (COND, WHILE, SCAN):
+        raise _unsupported(f"higher-order op `{target}`")
+
+    def body(n):
+        return getattr(gm, n.target)
+
+    if target is COND and len(a) == 4:
+        pred, true_g, false_g, ops = a
+        st = Structure("cond", node, pred, list(ops), [], [])
+        return st, [body(false_g), body(true_g)]
+    if target is WHILE and len(a) == 4:
+        cond_g, body_g, carried, extra = a
+        st = Structure("while", node, None, list(carried), [], list(extra))
+        return st, [body(cond_g), body(body_g)]
+    if target is SCAN and len(a) in (4, 6):
+        if len(a) == 6:
+            f, init, xs, dim, reverse, extra = a
+            if dim != 0 or reverse:
+                raise _unsupported("a scan along another dim than 0, or "
+                                   "reversed")
+        else:
+            f, init, xs, extra = a
+        st = Structure("scan", node, None, list(init), list(xs), list(extra))
+        return st, [body(f)]
+    raise _unsupported(f"higher-order op `{target}` with {len(a)} operands")
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with the taint warnings silenced: a fixpoint pass
+    before the recording one (the reference warns once, there too)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", GuardianTaintWarning)
+        return fn(*args)
+
+
+def _hop_row(gm, node, tainted, exact, prefix) -> Structure:
+    """Row mode over a higher-order node: each body is analysed with its
+    operands' taints — a loop's carries at their monotone fixpoint — and
+    held to the kernel's rule; a scan that slices the arena (its ``xs``)
+    or stacks it (a ``ys``) reads or hands out every partition and fails
+    closed."""
+    st, gms = _parse_hop(gm, node)
+    path = (*prefix, node.name)
+    tx = [_tx(tainted, exact, a) for a in st.carry]
+    ext = [_tx(tainted, exact, a) for a in st.extra]
+    if st.kind == "cond":
+        st.bodies = [_analyze_row(g, [t for t, _ in tx], [x for _, x in tx],
+                                  (*path, b)) for b, g in enumerate(gms)]
+        out = st.bodies[0].out_tx
+        for body in st.bodies[1:]:
+            out = [_join_tx(p, q) for p, q in zip(out, body.out_tx)]
+        st.out = out
+        return st
+    xs = [_tx(tainted, exact, a) for a in st.xs]
+    if any(t for t, _ in xs):
+        raise _unsupported("a scan over the arena's slot axis reads every "
+                           "partition")
+    loop = gms[-1]
+    n = len(tx)
+    for _ in range(_MAX_TAINT_ITERS):
+        ins = [*tx, *xs, *ext]
+        outs = _quiet(_analyze_row, loop, [t for t, _ in ins],
+                      [x for _, x in ins], (*path, len(gms) - 1)).out_tx
+        new = [_join_tx(c, o) for c, o in zip(tx, outs[:n])]
+        if new == tx:
+            break
+        tx = new
+    else:   # pragma: no cover - booleans converge in 2n passes
+        raise VerifierError(f"loop-carry taints did not converge at {path}")
+    ins = [*tx, *xs, *ext]          # a while has no xs
+    st.bodies = [_analyze_row(g, [t for t, _ in ins], [x for _, x in ins],
+                              (*path, b)) for b, g in enumerate(gms)]
+    ys = st.bodies[-1].out_tx[n:]
+    if any(t for t, _ in ys):
+        raise _unsupported("a scan stacks the arena into its results, "
+                           "which hands every partition out")
+    st.out = tx + ys
+    return st
 
 
 def _op_arg(node, name: str):
@@ -930,7 +1172,8 @@ def _op_arg(node, name: str):
     raise KeyError(f"{op_name(node.target)} has no argument {name!r}")
 
 
-def _kernel_sites(node, tainted, exact, row: bool) -> List[Site]:
+def _kernel_sites(node, tainted, exact, row: bool,
+                  prefix: Tuple = ()) -> List[Site]:
     """One site per declared access of a kernel op whose operand is the
     arena (or the pool).  In row mode the op may take the arena only as
     an operand it addresses, and store only through the slot axis."""
@@ -953,7 +1196,7 @@ def _kernel_sites(node, tainted, exact, row: bool) -> List[Site]:
             operand=operand, index=_op_arg(node, acc.index), dim=0,
             extent=shape[0] if shape else 1, length=1, tainted=True,
             exact=exact.get(operand.name, False), decl=acc,
-            tag=acc.operand))
+            tag=acc.operand, prefix=prefix))
     if row:
         for other in _node_args(node):
             if tainted.get(other.name, False) and \
@@ -971,7 +1214,7 @@ _EXTENT_VIEWS = _VIEWS | _PERMUTES | _COPIES | {
     "unflatten", "view_as_real", "view_as_complex", "real", "imag"}
 
 
-def _extent_sites(node, acc: AccessOp) -> List[Site]:
+def _extent_sites(node, acc: AccessOp, prefix: Tuple = ()) -> List[Site]:
     """The sites of an access op over the arena or pool in extent mode:
     one per index tensor, each against the extent of the dim it
     addresses."""
@@ -1001,7 +1244,8 @@ def _extent_sites(node, acc: AccessOp) -> List[Site]:
         out.append(Site(
             node=node, op=acc, operand=operand, index=index, dim=dim,
             extent=extent, length=length, tainted=True, exact=False,
-            list_pos=dim, tag=f"dim{dim}" if len(entries) > 1 else ""))
+            list_pos=dim, tag=f"dim{dim}" if len(entries) > 1 else "",
+            prefix=prefix))
     return out
 
 
@@ -1014,24 +1258,39 @@ def _analyze_extent(gm, dyn_pos: List[int], taints: List[bool]) -> Traced:
     index, each kernel op one site per declared access, and an op that
     takes a tainted operand without a transfer function (an unknown
     operator, an indexing op the table lacks) one opaque site, always
-    FENCED."""
+    FENCED.  The bodies of ``cond`` / ``while_loop`` / ``scan`` are walked
+    with their operands' taints, a loop's carries at their fixpoint."""
+    traced = _analyze_extent_graph(gm, taints, ())
+    traced.dyn_pos = dyn_pos
+    return traced
+
+
+def _analyze_extent_graph(gm, in_taints: Sequence[bool],
+                          prefix: Tuple) -> Traced:
     tainted: Dict[str, bool] = {}
     all_sites: Dict[str, List[Site]] = {}
+    subs: Dict[str, Structure] = {}
+    out_tx: List[Tuple[bool, bool]] = []
     arena_extent = None
-    it = iter(taints)
+    it = iter(in_taints)
     for node in gm.graph.nodes:
         if node.op == "placeholder":
-            t = next(it)
+            t = next(it, False)
             tainted[node.name] = t
             if t and arena_extent is None and _shape(node):
                 arena_extent = _shape(node)[0]
+            continue
+        if node.op == "output":
+            out_tx = [_tx(tainted, {}, a) for a in _flat_out(node)]
             continue
         if node.op != "call_function":
             tainted[node.name] = False
             continue
         target = node.target
         if isinstance(target, torch._ops.HigherOrderOperator):
-            raise _unsupported(f"higher-order op `{target}`")
+            subs[node.name] = _hop_extent(gm, node, tainted, prefix)
+            tainted[node.name] = False
+            continue
         ins = _node_args(node)
         any_t = any(tainted.get(a.name, False) for a in ins)
         src = node.args[0] if node.args else None
@@ -1041,12 +1300,16 @@ def _analyze_extent(gm, dyn_pos: List[int], taints: List[bool]) -> Traced:
         sites: List[Site] = []
         out_t = False
         if target in KERNEL_OPS:
-            sites = _kernel_sites(node, tainted, {}, row=False)
+            sites = _kernel_sites(node, tainted, {}, row=False,
+                                  prefix=prefix)
         elif acc is not None:
             if src_t:
-                sites = _extent_sites(node, acc)
+                sites = _extent_sites(node, acc, prefix)
             out_t = src_t and acc.kind in (ViolationKind.SCATTER,
                                            ViolationKind.UPDATE)
+        elif target is operator.getitem and \
+                getattr(src, "name", None) in subs:
+            out_t = subs[src.name].out[node.args[1]][0]
         elif not isinstance(target, torch._ops.OpOverload):
             out_t = any_t      # getitem of a multi-output op, a rebuilt tree
         elif any_t and (name in _UNSUPPORTED_INDEXED
@@ -1058,16 +1321,53 @@ def _analyze_extent(gm, dyn_pos: List[int], taints: List[bool]) -> Traced:
             sites = [Site(node=node, op=AccessOp(kind, -1), operand=first,
                           index=None, dim=0,
                           extent=shape[0] if shape else 1, length=1,
-                          tainted=True, exact=False, opaque=True)]
+                          tainted=True, exact=False, opaque=True,
+                          prefix=prefix)]
             out_t = src_t
         else:
             out_t = src_t and (name in _EXTENT_VIEWS or name.endswith("_"))
         if sites:
             all_sites[node.name] = sites
         tainted[node.name] = out_t
-    return Traced(gm=gm, dyn_pos=dyn_pos, taints=list(taints), sites={},
+    return Traced(gm=gm, dyn_pos=[], taints=list(in_taints), sites={},
                   tainted=tainted, exact={}, arena_extent=arena_extent,
-                  all_sites=all_sites, mode="extent")
+                  all_sites=all_sites, mode="extent", prefix=prefix,
+                  subs=subs, out_tx=out_tx)
+
+
+def _hop_extent(gm, node, tainted, prefix) -> Structure:
+    """Extent mode over a higher-order node: the bodies walked with their
+    operands' taints, a loop's carries at their fixpoint; a scan's slices
+    of a tainted ``xs`` address its memory, its stacked results do not."""
+    st, gms = _parse_hop(gm, node)
+    path = (*prefix, node.name)
+
+    def taint(a):
+        return _tx(tainted, {}, a)[0]
+
+    ts = [taint(a) for a in st.carry]
+    if st.kind == "cond":
+        st.bodies = [_analyze_extent_graph(g, ts, (*path, b))
+                     for b, g in enumerate(gms)]
+        st.out = [(any(body.out_tx[k][0] for body in st.bodies), False)
+                  for k in range(len(st.bodies[0].out_tx))]
+        return st
+    rest = [taint(a) for a in (*st.xs, *st.extra)]
+    n = len(ts)
+    for _ in range(_MAX_TAINT_ITERS):
+        outs = _analyze_extent_graph(gms[-1], ts + rest,
+                                     (*path, len(gms) - 1)).out_tx
+        new = [c or o for c, (o, _) in zip(ts, outs[:n])]
+        if new == ts:
+            break
+        ts = new
+    else:   # pragma: no cover - booleans converge in n passes
+        raise VerifierError(f"loop-carry taints did not converge at {path}")
+    st.bodies = [_analyze_extent_graph(g, ts + rest, (*path, b))
+                 for b, g in enumerate(gms)]
+    n_ys = len(st.bodies[-1].out_tx) - n
+    st.out = [(t, False) for t in ts] + [(False, False)] * n_ys
+    return st
 
 
 def _transparent(node, name: str, exact_in: bool) -> Tuple[bool, bool]:
@@ -1295,9 +1595,9 @@ class _AbsState:
         self.traced = traced
         self.sites: List[SiteRecord] = []
         self.n_eqns = 0
-        #: node name -> index interval at each access, as the op is
+        #: site path -> index interval at each access, as the op is
         #: given it (before the negative-index wrap)
-        self.index_ival: Dict[str, Ival] = {}
+        self.index_ival: Dict[Tuple, Ival] = {}
 
 
 def _classify(state: _AbsState, site: Site, iv: Ival) -> str:
@@ -1562,22 +1862,38 @@ def _declared_ival(ctx: SymCtx, site: Site, ival: Dict[str, Ival]) -> Ival:
     return iv
 
 
-def _abs_interpret(state: _AbsState, in_ivals: Sequence[Ival]) -> None:
-    traced = state.traced
+def _abs_interpret(state: _AbsState, traced: Traced,
+                   in_ivals: Sequence[Ival], record: bool = True
+                   ) -> List[Ival]:
+    """Walk one graph abstractly; returns its results' intervals.
+    ``record=False`` runs the walk for its transfer functions alone (a
+    loop fixpoint's passes), classifying no site and counting no node."""
     ival: Dict[str, Ival] = {}
+    hops: Dict[str, List[Ival]] = {}
     gm = traced.gm
     it = iter(in_ivals)
     for node in gm.graph.nodes:
         if node.op == "placeholder":
-            ival[node.name] = next(it)
+            ival[node.name] = next(it, TOP)
             continue
         if node.op == "get_attr":
             ival[node.name] = _const_ival(getattr(gm, node.target))
             continue
+        if node.op == "output":
+            return [_arg_ival(ival, a) for a in _flat_out(node)]
         if node.op != "call_function":
             continue
-        state.n_eqns += 1
-        for site in traced.all_sites.get(node.name, ()):
+        if record:
+            state.n_eqns += 1
+        st = traced.subs.get(node.name)
+        if st is not None:
+            hops[node.name] = _abs_hop(state, traced, st, ival, record)
+            continue
+        if node.target is operator.getitem and \
+                getattr(node.args[0], "name", None) in hops:
+            ival[node.name] = hops[node.args[0].name][node.args[1]]
+            continue
+        for site in traced.all_sites.get(node.name, ()) if record else ():
             if site.opaque:
                 _classify(state, site, TOP)
                 continue
@@ -1586,20 +1902,75 @@ def _abs_interpret(state: _AbsState, in_ivals: Sequence[Ival]) -> None:
             else:
                 iv = _arg_ival(ival, site.index)
                 if traced.mode == "row":
-                    state.index_ival[node.name] = iv
+                    state.index_ival[site.path] = iv
                 if site.op.kind not in (ViolationKind.SLICE,
                                         ViolationKind.UPDATE):
                     iv = _normalize_ival(state.ctx, iv, site.extent)
             if site.tainted and (traced.mode == "extent" or site.dim == 0):
                 _classify(state, site, iv)
         ival[node.name] = _abs_eval(state.ctx, node, ival)
+    return []
+
+
+def _abs_hop(state: _AbsState, traced: Traced, st: Structure,
+             ival: Dict[str, Ival], record: bool) -> List[Ival]:
+    """A higher-order node, abstractly (the reference's ``_abs_loop``):
+    its results' intervals.  Structural only when an operand is tainted,
+    as in the reference; otherwise its results are ⊤ and its bodies hold
+    no arena site."""
+    def tainted(a):
+        return _is_node(a) and traced.tainted.get(a.name, False)
+
+    if not any(tainted(a) for a in (*st.carry, *st.xs, *st.extra)):
+        return [TOP] * len(st.out)
+    ctx = state.ctx
+    car = [_arg_ival(ival, a) for a in st.carry]
+    if st.kind == "cond":
+        out: Optional[List[Ival]] = None
+        for body in st.bodies:
+            got = _abs_interpret(state, body, car, record)
+            out = got if out is None else [ijoin(ctx, a, b)
+                                           for a, b in zip(out, got)]
+        return out or []
+    rest = [_arg_ival(ival, a) for a in (*st.xs, *st.extra)]
+    loop = st.bodies[-1]
+    car, outs = _fixpoint(state, loop, car, rest, st.node.name)
+    if record:        # one recording pass at the fixpoint
+        for body in st.bodies:
+            outs = _abs_interpret(state, body, car + rest, True)
+    # a while's results are its carries; a scan's its carries and the
+    # stacked ys (a slice of each holds the body's interval)
+    return car + (outs[len(car):] if st.kind == "scan" else [])
+
+
+_MAX_FIX_ITERS = 16    # hard convergence guard (widening converges in ~3)
+
+
+def _fixpoint(state: _AbsState, body: Traced, car: List[Ival],
+              rest: List[Ival], name: str
+              ) -> Tuple[List[Ival], List[Ival]]:
+    """The carries' intervals at the loop fixpoint, widened from the
+    second pass on (the reference's ``_fixpoint``), and the body's
+    results there."""
+    ctx = state.ctx
+    for it in range(_MAX_FIX_ITERS):
+        outs = _abs_interpret(state, body, car + rest, record=False)
+        new = [ijoin(ctx, a, b) for a, b in zip(car, outs[:len(car)])]
+        if it >= 1:
+            new = [iwiden(ctx, old, nw) for old, nw in zip(car, new)]
+        if all(ieq(a, b) for a, b in zip(new, car)):
+            return car, outs
+        car = new
+    raise VerifierError(
+        f"loop-carry interval fixpoint did not converge at `{name}` after "
+        f"{_MAX_FIX_ITERS} iterations")
 
 
 def verify_graph(traced: Traced, params: Optional[FenceParams] = None, *,
                  in_roles: Optional[Sequence[Optional[str]]] = None,
                  admissible: Sequence[Tuple[int, int]] = (),
                  dyn_role_pairs: Optional[Dict[int, Tuple[str, int]]] = None,
-                 ) -> Tuple[SandboxProof, Dict[str, Ival], SymCtx]:
+                 ) -> Tuple[SandboxProof, Dict[Tuple, Ival], SymCtx]:
     """The proof over a traced kernel, in the trace's mode.
 
     Row mode: static ``params`` give a concrete proof; ``None`` (or
@@ -1653,7 +2024,7 @@ def verify_graph(traced: Traced, params: Optional[FenceParams] = None, *,
             in_ivals[pos] = Ival(Lin(0, ((sym, 1),)), Lin(0, ((sym, 1),)))
         target = _Target(mode="extent", admissible=adm)
     state = _AbsState(ctx, target, traced)
-    _abs_interpret(state, in_ivals)
+    _abs_interpret(state, traced, in_ivals)
     proof = SandboxProof(sites=tuple(state.sites), mode=traced.mode,
                          symbolic=traced.mode == "row" and not static,
                          arg_sig=traced.arg_sig, n_eqns=state.n_eqns)

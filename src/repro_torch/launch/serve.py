@@ -67,6 +67,7 @@ from repro_torch.core.partition import OutOfArenaMemory
 from repro_torch.core.quarantine import QuarantinePolicy, TenantState
 from repro_torch.core.scheduler import round_robin_interleave
 from repro_torch.core.violations import NUM_KINDS, ViolationKind
+from repro_torch.launch import sampling
 from repro_torch.launch.steps import (
     build_pool_relocation_step,
     build_trusted_serve_steps,
@@ -154,23 +155,24 @@ class _ContState:
     served: List[int] = dataclasses.field(default_factory=list)
 
 
-def serve_steps(api, n_phys: int, verify: bool = False):
+def serve_steps(api, n_phys: int, verify: bool = False, **sampled):
     """The trusted prefill/decode steps of an engine serving ``api``'s
     model over a pool of ``n_phys`` physical pages.  The pool key is the
     geometry only — the global page pool is one (L, P, page, KH, D)
     tensor, so engines serving *different* model shapes with the same KV
     geometry share it (and the manager drain) — and the step key adds the
-    model identity."""
+    model identity.  ``sampled`` (``temperature``, ``top_k``) goes to
+    :func:`build_trusted_serve_steps`."""
     cfg = api.cfg
     pool_key = (f"paged:L{cfg.decoder_layers}:kh{cfg.n_kv_heads}:"
                 f"d{cfg.head_dim}:pg{KV.PAGE_SIZE}:P{n_phys}:f32")
     step_key = (f"{cfg.name}:{cfg.family}:{cfg.n_layers}x"
                 f"{cfg.d_model}v{cfg.vocab}:{pool_key}")
     return build_trusted_serve_steps(api, pool_key, step_key=step_key,
-                                     verify=verify)
+                                     verify=verify, **sampled)
 
 
-def slab_serve_steps(api, n_slots: int, max_len: int):
+def slab_serve_steps(api, n_slots: int, max_len: int, **sampled):
     """The trusted prefill/decode steps of a slab engine serving ``api``'s
     model over an ``n_slots``-slot space of ``max_len``-token slots: the
     pool key carries the model shape and the slot geometry, so co-hosted
@@ -178,7 +180,7 @@ def slab_serve_steps(api, n_slots: int, max_len: int):
     cfg = api.cfg
     pool_key = (f"{cfg.name}:{cfg.family}:{cfg.n_layers}x"
                 f"{cfg.d_model}v{cfg.vocab}:s{n_slots}:l{max_len}")
-    return build_trusted_serve_steps(api, pool_key)
+    return build_trusted_serve_steps(api, pool_key, **sampled)
 
 
 def register_verified_steps(manager: GuardianManager, cfg, *,
@@ -255,11 +257,9 @@ class ServeEngine:
                  top_k: int = 0,
                  params: Optional[Dict[str, Any]] = None,
                  device="cuda"):
-        if temperature > 0 or top_k:
-            raise NotImplementedError(
-                "sampled decode is not ported yet (the reference draws from "
-                "JAX's PRNG stream); serve greedy, temperature=0")
         self.device = require_device(device)
+        self.temperature = temperature
+        self.top_k = top_k
         self.api = get_model(cfg)
         if paged and cfg.family not in ("dense", "moe"):
             raise ValueError(slab_only(cfg.family))
@@ -327,10 +327,12 @@ class ServeEngine:
         # clamp addresses; slots past the manager's space are never fenced
         # to.
         self._n_phys = _pow2(n_slots)
+        sampled = dict(temperature=temperature, top_k=top_k)
         if paged:
-            self._steps = serve_steps(self.api, self._n_phys)
+            self._steps = serve_steps(self.api, self._n_phys, **sampled)
         else:
-            self._steps = slab_serve_steps(self.api, n_slots, max_len)
+            self._steps = slab_serve_steps(self.api, n_slots, max_len,
+                                           **sampled)
         # A later co-hosted engine adopts the already-registered pool:
         # build its cache with a single-slot pool instead (the meta half
         # is slot-count independent).
@@ -369,6 +371,10 @@ class ServeEngine:
         self._spans: Dict[int, Any] = {}
         self._rid = 0
         self.decode_steps = 0
+        #: sampled decode steps take a fresh key per decode, split from
+        #: this one on the host (:mod:`repro_torch.launch.sampling`)
+        self._sample_key = sampling.key(seed ^ 0x5EED) \
+            if temperature > 0 else None
         # evictions fired *during* a run are scrubbed at run-end
         self._in_run = False
         self._pending_scrubs: List[tuple] = []
@@ -1057,9 +1063,13 @@ class ServeEngine:
                 [r if i in set(continuers) else None
                  for i, r in enumerate(st.rows)])
             meta = self._cont_meta(st, set(continuers))
+            x = st.nxt
+            if self._sample_key is not None:
+                self._sample_key, sub = sampling.split(self._sample_key)
+                x = (st.nxt, sampling.key_tensor(sub, self.device))
             dec_req = self._client.launch_kernel(
                 self._steps.decode_name,
-                args=(self.params, meta, st.nxt, guard))
+                args=(self.params, meta, x, guard))
             st.decodes += 1
             self.decode_steps += 1
         return pre_req, dec_req, joiners, continuers, plen

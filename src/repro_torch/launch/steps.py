@@ -23,6 +23,7 @@ from repro_torch.core.fence import FenceParams, FencePolicy, \
     guarded_dynamic_slice, guarded_dynamic_update_slice
 from repro_torch.core.partition import next_pow2
 from repro_torch.core.stepgraph import tree_flatten, tree_unflatten
+from repro_torch.launch import sampling
 from repro_torch.models import kvcache as KV
 from repro_torch.models.api import ModelAPI, get_model
 from repro_torch.models.guard import GuardSpec
@@ -117,19 +118,27 @@ class TrustedStepBundle:
 
 def build_trusted_serve_steps(api: ModelAPI, pool_key: str,
                               step_key: Optional[str] = None,
-                              verify: bool = False) -> TrustedStepBundle:
-    """Trusted greedy prefill/decode step functions for one model API.
+                              verify: bool = False,
+                              temperature: float = 0.0,
+                              top_k: int = 0) -> TrustedStepBundle:
+    """Trusted prefill/decode step functions for one model API.
 
     The step rebuilds the cache from the manager-threaded pool + the
     engine's meta operand, runs the model (pool writes in place), and
-    splits the result back; the next ids are the argmax of the logits,
-    taken on the device — the engine never materialises the (B, vocab)
-    logits on the host.
+    splits the result back; the next ids are taken on the device — the
+    engine never materialises the (B, vocab) logits on the host.
 
     ``pool_key`` identifies the pool geometry; ``step_key`` (default:
     ``pool_key``) additionally carries the model identity.  ``verify``
     registers both steps with the manager's extent-mode proof obligation.
-    The sampled decode of the reference is not ported yet."""
+
+    ``temperature > 0`` builds the *sampled* decode step, the reference's
+    ``serve.decode.sampled[...]``: its token operand is ``(toks, key)``,
+    the key a (2,) int64 tensor staged like the tokens, and the next ids
+    are drawn from the temperature-scaled, optionally top-k-truncated
+    distribution (:func:`repro_torch.launch.sampling.sample`).  The greedy
+    default (``temperature=0``, whatever ``top_k`` says) is the argmax step
+    under the unsuffixed names."""
     sk = step_key or pool_key
 
     def prefill_step(arena, pool, params, meta, batch, guard):
@@ -139,17 +148,28 @@ def build_trusted_serve_steps(api: ModelAPI, pool_key: str,
         return arena, new_pool, (
             new_meta, torch.argmax(logits, -1).to(torch.int32))
 
-    def decode_step(arena, pool, params, meta, toks, guard):
-        cache = join_cache_pool(pool, meta)
-        cache, logits = api.decode(params, cache, toks, guard=guard)
-        new_pool, new_meta = split_cache_pool(cache)
-        return arena, new_pool, (
-            new_meta, torch.argmax(logits, -1).to(torch.int32))
+    if temperature > 0:
+        def decode_step(arena, pool, params, meta, x, guard):
+            toks, key = x
+            cache = join_cache_pool(pool, meta)
+            cache, logits = api.decode(params, cache, toks, guard=guard)
+            new_pool, new_meta = split_cache_pool(cache)
+            return arena, new_pool, (
+                new_meta, sampling.sample(logits, key, temperature, top_k))
+        decode_name = f"serve.decode.sampled[{sk}:t{temperature}:k{top_k}]"
+    else:
+        def decode_step(arena, pool, params, meta, toks, guard):
+            cache = join_cache_pool(pool, meta)
+            cache, logits = api.decode(params, cache, toks, guard=guard)
+            new_pool, new_meta = split_cache_pool(cache)
+            return arena, new_pool, (
+                new_meta, torch.argmax(logits, -1).to(torch.int32))
+        decode_name = f"serve.decode[{sk}]"
 
     return TrustedStepBundle(
         pool_name=f"serve.pool[{pool_key}]",
         prefill_name=f"serve.prefill[{sk}]",
-        decode_name=f"serve.decode[{sk}]",
+        decode_name=decode_name,
         prefill_fn=prefill_step,
         decode_fn=decode_step,
         verify=verify,

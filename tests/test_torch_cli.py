@@ -269,3 +269,29 @@ def test_top_demo_launches_fence_and_land():
     for c, p in zip(clients, ptrs):
         got = c.memcpy_d2h(p, 16)
         np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_multi_tenant_serving_example_prints_the_reference_lines():
+    """``repro_torch.examples.multi_tenant_serving`` (``--device cpu``, on
+    the reference's weights) prints every line of the reference's
+    ``examples/multi_tenant_serving.py``: the partitions, the co-located
+    generations, solo = co-located, and the forged slot that leaves the
+    victim's KV rows as they were."""
+    import importlib.util
+    from repro_torch.examples import multi_tenant_serving as MT
+    spec = importlib.util.spec_from_file_location(
+        "multi_tenant_serving_ref",
+        os.path.join(ROOT, "examples", "multi_tenant_serving.py"))
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    want = io.StringIO()
+    with contextlib.redirect_stdout(want):
+        ref.main()
+    cfg = get_config("stablelm-3b").reduced()
+    params = params_from_jax(params_np(get_model(cfg).init(
+        jax.random.PRNGKey(0))), device="cpu")
+    got = io.StringIO()
+    with contextlib.redirect_stdout(got):
+        res = MT.main(["--device", "cpu"], params=params)
+    assert got.getvalue() == want.getvalue()
+    assert res["solo_identical"] and not res["victim_changed"]

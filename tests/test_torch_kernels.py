@@ -940,10 +940,14 @@ def test_flash_attention_tensor_core_numerics_within_tolerance(S, H, KH, D):
 #: every kernel of the port, by the name of its source and C entry point
 KERNEL_NAMES = ["flash_attention", "gather_rows", "moe_histogram",
                 "paged_attention", "scatter_pages"]
+#: sources built with the kernels that are no kernel: the CUDA-graph
+#: conditional nodes of tenant kernels' control flow (no launch counter)
+HELPER_NAMES = ["graph_nodes"]
 
 
 def test_kernel_list_covers_every_source():
-    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == KERNEL_NAMES
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == sorted(
+        KERNEL_NAMES + HELPER_NAMES)
     assert sorted(_build.KERNELS) == KERNEL_NAMES
 
 
@@ -960,6 +964,35 @@ def test_ctypes_argtypes_match_the_c_entry_point(name):
     want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
     assert all("*" in p or p.split()[0] == "int" for p in params), params
     assert _build.KERNELS[name].argtypes == want
+
+
+def test_graph_nodes_argtypes_match_the_c_entry_points():
+    """The conditional-node helper's ctypes argument lists match its
+    source's ``extern "C" int graph_nodes_*(...)`` functions parameter by
+    parameter, and every such function is bound."""
+    from repro_torch.kernels import graph_nodes
+
+    src = (_build.CSRC / f"{graph_nodes.SOURCE}").read_text()
+    found = dict(re.findall(r'extern "C" int (graph_nodes_\w+)\(([^)]*)\)',
+                            src))
+
+    def ctype(param):
+        words = " ".join(param.split()).replace(" *", "*")
+        if words.startswith("unsigned long long*"):
+            return ctypes.POINTER(ctypes.c_ulonglong)
+        if "**" in words:
+            return ctypes.POINTER(ctypes.c_void_p)
+        if "*" in words:
+            return ctypes.c_void_p
+        if words.startswith("unsigned long long"):
+            return ctypes.c_ulonglong
+        assert words.split()[0] == "int", param
+        return ctypes.c_int
+
+    assert sorted(found) == sorted(graph_nodes._SIGS)
+    for name, params in found.items():
+        assert graph_nodes._SIGS[name] == [
+            ctype(p) for p in params.split(",")], name
 
 
 def test_wrappers_take_plain_versions_only_for_cpu_tensors():

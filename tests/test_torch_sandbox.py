@@ -4,8 +4,8 @@ reference's values, CHECK reports the same ok and per-kind counts, the
 reports count the same sites by kind, the taint warnings fire, and the
 NONE policy keeps the reference's out-of-range semantics for every access
 op.  Mirrors tests/test_sandbox.py; its ``scan`` / ``while_loop`` cases
-run in unrolled form (a Python loop traces to straight-line code) and its
-``cond`` case checks that the higher-order op fails closed."""
+run here in unrolled form (a Python loop traces to straight-line code),
+beside their structural mirrors in tests/test_torch_structural.py."""
 
 import importlib
 
@@ -270,15 +270,41 @@ def test_while_loop_fenced_and_counted_unrolled():
 
 
 def test_higher_order_cond_fails_closed():
-    """``torch.cond`` over the arena is not interpreted (the reference's
-    structural ``cond`` has no counterpart yet): refused at trace time."""
+    """``torch.cond`` over the arena is interpreted structurally (its
+    mirrors: tests/test_torch_structural.py) and each branch is held to
+    the kernel's rule: a branch that reads a static slice of the arena's
+    slot axis still fails closed, the same ``cond`` with a legal branch
+    gives the reference's ``lax.cond`` result, and a higher-order op the
+    sandbox does not interpret (``map``) fails closed."""
     def kt(arena, ptr, flag):
         return arena, torch.cond(flag > 0, lambda p: torch.take(
             arena, p.long().reshape(1)), lambda p: arena[0:1] * 0, (ptr,))
 
-    with pytest.raises(ST.SandboxError):
-        ST.sandbox(kt)(_pt(), torch.arange(256.), torch.tensor(
-            200, dtype=I32), torch.tensor(1, dtype=I32))
+    def legal_t(arena, ptr, flag):
+        return arena, torch.cond(flag > 0, lambda p: torch.take(
+            arena, p.long().reshape(1)), lambda p: torch.zeros(
+                1, device=p.device), (ptr,))
+
+    def legal_j(arena, ptr, flag):
+        return arena, jax.lax.cond(
+            flag > 0, lambda p: jnp.take(arena, p, axis=0).reshape(1),
+            lambda p: jnp.zeros(1, jnp.float32), ptr)
+
+    def map_t(arena, ptr, flag):
+        from torch._higher_order_ops.map import map as hop_map
+        return arena, hop_map(lambda x, a: torch.take(
+            a, x.long().reshape(1)), ptr.reshape(1), arena)
+
+    args = (torch.arange(256.), torch.tensor(200, dtype=I32),
+            torch.tensor(1, dtype=I32))
+    for kernel in (kt, map_t):
+        with pytest.raises(ST.SandboxError):
+            ST.sandbox(kernel)(_pt(), *args)
+    ref, got = _both(legal_j, legal_t, (np.arange(256, dtype=np.float32),
+                                        np.int32(200), np.int32(1)),
+                     "CHECK", count=True)
+    assert_same_tree(ref, got)
+    assert not bool(got[1])
 
 
 def test_reshape_splitting_dim0_keeps_taint():

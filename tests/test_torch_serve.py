@@ -234,18 +234,29 @@ def test_eviction_scrubs_the_tenants_physical_pages(jit):
 
 
 def test_unported_serve_options_refuse():
-    """The sampled decode waits for a later port: ``temperature > 0`` and
-    ``top_k`` refuse instead of silently serving greedy, on either layout
-    (the slab layout itself is served since it was ported:
-    tests/test_torch_slab.py)."""
-    mgr = ST.make_shared_manager(1, max_batch=2, paged=True, max_len=64,
-                                 device="cpu")
-    with pytest.raises(NotImplementedError):
-        ST.ServeEngine(CFG_T, max_batch=2, max_len=64, manager=mgr,
-                       paged=True, temperature=0.7, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ST.ServeEngine(CFG_T, max_batch=2, max_len=64, top_k=4,
-                       device="cpu")
-    with pytest.raises(NotImplementedError):
-        ST.ServeEngine(CFG_T, max_batch=2, max_len=64, temperature=0.7,
-                       device="cpu")
+    """``top_k`` alone (``temperature == 0``) serves greedy under the
+    unsuffixed step names, as the reference does: the tokens of a run
+    on the reference's weights are the reference's, on either layout.
+    (Sampled decode itself: tests/test_torch_sampling.py.)"""
+    for paged in (True, False):
+        _top_k_alone_is_greedy(paged)
+
+
+def _top_k_alone_is_greedy(paged):
+    def run(SV, cfg, **kw):
+        eng = SV.ServeEngine(cfg, max_batch=2, max_len=64, paged=paged,
+                             top_k=4, **kw)
+        eng.register_tenant("t", 2)
+        rids = [eng.submit("t", [3 + i, 5, 7, 11][:3 + i], max_new=4)
+                for i in range(2)]
+        out = eng.run(max_new_tokens=4)
+        return eng, [out[r] for r in rids]
+
+    ref, want = run(SJ, CFG_J)
+    eng, got = run(ST, CFG_T, device="cpu",
+                   params=params_from_jax(params_np(ref.params),
+                                          device="cpu"))
+    assert got == want
+    assert eng._steps.decode_name == ref._steps.decode_name
+    assert "sampled" not in eng._steps.decode_name
+    assert eng._sample_key is None
