@@ -7,9 +7,11 @@ Runs from the root of a checkout, needs one CUDA card and the CUDA toolkit
 (``nvcc``), and imports nothing of JAX or of the JAX package.  Four serve
 paths run, each at full width: the dense stablelm-3b, the MoE
 qwen3-moe-30b-a3b and, in phase 8, the hybrid zamba2-7b and the xLSTM
-xlstm-350m; phase 9 trains minicpm-2b and phase 10 runs the vision
+xlstm-350m; phase 9 trains minicpm-2b, phase 10 runs the vision
 qwen2-vl-2b and the encoder-decoder seamless-m4t-medium through the
-model API.  Phases, in order (any failure exits non-zero):
+model API, and phase 11 trains the recurrent families and the MoE
+variants and decodes stablelm-3b over a float8 pool.  Phases, in order
+(any failure exits non-zero):
 
 1. device and build — the card's name and power limit, the torch version,
    the build of every kernel of ``src/repro_torch/kernels/csrc`` for
@@ -255,6 +257,36 @@ model API.  Phases, in order (any failure exits non-zero):
    its pool in bf16, beside its f32 row.  A bf16-pool row's control
    (:func:`k1_bf16_math`: bf16 sums instead of widening to float32) must
    break its bound.
+
+11. training the recurrent families, the MoE variants and the float8 KV
+   pool (right after phase 2, in a process of its own started with this
+   one's cache released: after the serve paths the cache stays split too
+   finely for the MoE step's 768 MiB buffers): (a) card against CPU in
+   f32 at full width —
+   xlstm-350m at 2 layers, zamba2-7b at 7 (a group of 6 and a 1-layer
+   tail), qwen3-moe-30b-a3b at 2 with the ``einsum`` dispatch — the loss
+   within 1e-5 relative and every gradient leaf within 1e-4 of its max
+   |value|, as phase 9 (a); (b) xlstm-350m (24 layers) and zamba2-7b at
+   full width and 27 layers (its 81 do not train on one card: 4 groups
+   and a 3-layer tail) trained 3 steps in bf16 through
+   ``repro_torch.launch.train``'s ``main`` at batch 4 x 512 (the depth
+   set on the registered config, the CLI having no depth flag), counts
+   set to 0 just before and read just after (K3 once a step, K4 once a
+   shared-attention call), then ``--no-guard`` for 2 steps — losses, the
+   CLI's step time, tokens/s and peak memory; then qwen3-moe-30b-a3b at
+   full width and 2 layers, bf16, batch 4 x 512: the scatter and einsum
+   dispatches' loss and gradients held together at bf16 tolerance, and
+   the train step of each with remat off, ``nothing`` and ``dots``
+   (step time by CUDA events, peak memory, launches); (c) stablelm-3b at
+   full width and depth over a float8 e4m3 slab pool and an f32 one on
+   the same weights: a 64-token prefill and 8 decode steps, the fp8
+   run's counts (K3, K4 once a layer of the prefill, K1 once a layer a
+   step, no plain version), every logit finite and correlated > 0.98
+   with the f32 pool's (the reference's H3), each pool's decode step
+   time and device busy time.  Phase 2 holds K1 over a float8 pool at
+   stablelm-3b's slab shape (launches: (c)'s) and at qwen3-moe's GQA
+   shape (on no path), every cluster size, bf16 and f32 queries, and K2
+   storing f32 and bf16 sources into a float8 pool in its forms check.
 
 The last three lines of standard output are the kernel table as one JSON
 object, the card's ``name, power.limit``, and the result object.
@@ -507,9 +539,9 @@ def check_paged_attention(torch, q, k_pool, v_pool, table, lens, base, msk,
         raise AssertionError(f"paged_attention ({q.dtype}) error {err} "
                              f"exceeds its bound ({ratio:.3f}x)")
     ctrl_ratio = None
-    if bf16 and k_pool.dtype == torch.bfloat16:
-        # a bf16 pool has no K/V rounding to miss: the control sums in
-        # bf16 instead of widening to float32
+    if bf16 and k_pool.dtype != torch.float32:
+        # a bf16 or float8 pool has no K/V rounding to miss: the control
+        # sums in bf16 instead of widening to float32
         ctrl_ratio = err_ratio(k1_bf16_math(
             torch, q, k_pool, v_pool, table, lens, base, msk, page_map,
             window))[1]
@@ -532,7 +564,12 @@ def check_paged_attention(torch, q, k_pool, v_pool, table, lens, base, msk,
     own = set(int(p) for p in phys.reshape(-1)) | {0}
     k2, v2 = k_pool.clone(), v_pool.clone()
     foreign = [p for p in range(P) if p not in own]
-    k2[foreign], v2[foreign] = 12345.0, -999.0
+    if k_pool.element_size() == 1:
+        # a float8 pool's pages are clobbered through its bytes: 448, -448
+        k2.view(torch.uint8)[foreign], v2.view(torch.uint8)[foreign] = \
+            0x7E, 0xFE
+    else:
+        k2[foreign], v2[foreign] = 12345.0, -999.0
     if not torch.equal(out, paged_attention(q, k2, v2, table, lens, base,
                                             msk, page_map, window=window)):
         raise AssertionError("paged_attention read outside the fence")
@@ -552,8 +589,8 @@ def k1_bf16_math(torch, q, k_pool, v_pool, table, lens, base, msk,
     phys = ref.resolve_pages(table, base[:, None], msk[:, None], page_map,
                              P).long()
     S = phys.shape[1] * page
-    k = k_pool[phys].reshape(B, S, KH, D).to(q.dtype)
-    v = v_pool[phys].reshape(B, S, KH, D).to(q.dtype)
+    k = ref.take_pages(k_pool, phys).reshape(B, S, KH, D).to(q.dtype)
+    v = ref.take_pages(v_pool, phys).reshape(B, S, KH, D).to(q.dtype)
     s = torch.einsum("bkgd,bskd->bkgs", q.reshape(B, KH, H // KH, D), k) \
         * (1.0 / math.sqrt(D))
     pos = torch.arange(S, device=q.device)
@@ -569,8 +606,8 @@ def k1_bf16_math(torch, q, k_pool, v_pool, table, lens, base, msk,
 def k1_pool_row(torch, row, path, q, k_pool, v_pool, table, lens, base,
                 msk, page_map=None, window: int = 0, chk=None, ops=None,
                 **kw):
-    """A K1 row over ``k_pool`` / ``v_pool`` (float32 or bfloat16) under
-    ``window`` (0: none), held against the plain version by
+    """A K1 row over ``k_pool`` / ``v_pool`` (float32, bfloat16 or float8
+    e4m3) under ``window`` (0: none), held against the plain version by
     :func:`check_paged_attention` (``chk``, where the caller has held the
     case already), one device operation a call (``ops``, where counted
     already), timed, with its bytes and operations bound: each distinct K
@@ -598,9 +635,10 @@ def k1_pool_row(torch, row, path, q, k_pool, v_pool, table, lens, base,
     n_bytes = ((k_tok + v_tok) * KH * D * k_pool.element_size()
                + 2 * B * H * D * q.element_size() + table.numel() * 4
                + 3 * B * 4)
-    pool = "bf16" if k_pool.dtype == torch.bfloat16 else "f32"
+    pool = {torch.bfloat16: "bf16", torch.float8_e4m3fn: "fp8 e4m3"}.get(
+        k_pool.dtype, "f32")
     qt = "bf16" if q.dtype == torch.bfloat16 else "f32"
-    what = "scores and P rounded to bf16" if pool == "bf16" \
+    what = "scores and P rounded to bf16" if pool != "f32" \
         else "no K/V rounding"
     ctrl = "" if chk["ctrl_ratio"] is None else \
         f"; the control ({what}) {chk['ctrl_ratio']:.3g}"
@@ -1339,7 +1377,10 @@ K2_FENCES = ("int", "identity", "per-row", "per-id")
 def check_scatter_pages_forms(torch, cfg, gen, k_pool, v_pool, page_map):
     """K2 exactly against its plain version in every form the kernel
     takes: each (source, pool) dtype pair (bf16 into the f32 pool is the
-    serve path's), a one-page prefill (S = 57) whose ids are a strided
+    serve path's; since PR 25 also into a float8 e4m3 pool, compared byte
+    for byte, its sources scaled so a share passes 464 and is stored as
+    NaN, as jnp's cast stores it), a one-page prefill (S = 57) whose ids
+    are a strided
     column slice of an (8, 4) page table and a four-page one (S = 193),
     each under an int fence by value, the identity fence by value, per-row
     (B,) and per-id (B, n) fences — forged ids, duplicate destinations
@@ -1366,19 +1407,23 @@ def check_scatter_pages_forms(torch, cfg, gen, k_pool, v_pool, page_map):
               "per-id": (base_id, msk[:, None].repeat(1, 4))}
     srcs = {s_len: [torch.randn(B, s_len, KH, D, generator=gen, device=dev)
                     for _ in range(2)] for s_len in (57, 193)}
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, fp8 = torch.float32, torch.bfloat16, torch.float8_e4m3fn
 
     def per_row(v):   # a (B,) fence broadcast over the pages
         return v[:, None] if isinstance(v, torch.Tensor) and v.dim() == 1 \
             else v
 
+    def raw(t):       # a float8 pool's bytes (NaN compares equal)
+        return t.view(torch.uint8) if t.dtype == fp8 else t
+
     n_checks, written = 0, {}
     for src_dt in (f32, bf16):
-        for pool_dt in (f32, bf16):
+        for pool_dt in (f32, bf16, fp8):
             pools = (k_pool.to(pool_dt), v_pool.to(pool_dt))
+            scale = 150.0 if pool_dt == fp8 else 1.0
             for s_len, n in ((57, 1), (193, 4)):
                 ids = table[:, :n]           # n = 1: a strided slice
-                ks, vs = (x.to(src_dt) for x in srcs[s_len])
+                ks, vs = ((x * scale).to(src_dt) for x in srcs[s_len])
                 for form in K2_FENCES:
                     fb, fm = fences[form]
                     fb_n = fb[:, :n] if isinstance(fb, torch.Tensor) \
@@ -1392,15 +1437,17 @@ def check_scatter_pages_forms(torch, cfg, gen, k_pool, v_pool, page_map):
                                           page_map)
                     what = (f"scatter_pages {src_dt} into {pool_dt}, S = "
                             f"{s_len}, {form} fence")
-                    if not (torch.equal(kk, kr) and torch.equal(vv, vr)):
+                    if not (torch.equal(raw(kk), raw(kr))
+                            and torch.equal(raw(vv), raw(vr))):
                         raise AssertionError(f"{what}: differs from its "
                                              "plain version")
                     phys = ref.resolve_pages(ids, per_row(fb_n),
                                              per_row(fm_n), page_map, P)
                     hit = set(int(x) for x in phys.reshape(-1))
                     rest = [x for x in range(P) if x not in hit]
-                    if not (torch.equal(kk[rest], pools[0][rest])
-                            and torch.equal(vv[rest], pools[1][rest])):
+                    if not (torch.equal(raw(kk)[rest], raw(pools[0])[rest])
+                            and torch.equal(raw(vv)[rest],
+                                            raw(pools[1])[rest])):
                         raise AssertionError(f"{what}: wrote outside the "
                                              "fenced pages")
                     if form == "per-row" and n == 4 and \
@@ -1414,8 +1461,8 @@ def check_scatter_pages_forms(torch, cfg, gen, k_pool, v_pool, page_map):
     ms_193 = cuda_ms(torch, lambda: scatter_pages(kk, vv, ks, vs, table,
                                                   base, msk, page_map))
     log(f"K2 scatter_pages forms ok [{cfg.name}]: {n_checks} cases equal to "
-        "the plain version (f32/bf16 sources into f32/bf16 pools; S = 57 "
-        "with strided ids, S = 193 over 4 pages; fences "
+        "the plain version (f32/bf16 sources into f32/bf16/fp8 pools; S = "
+        "57 with strided ids, S = 193 over 4 pages; fences "
         + ", ".join(K2_FENCES) + "), pages not written unchanged; distinct "
         "pages written " + ", ".join(f"S={k[0]} {k[1]}: {v}"
                                      for k, v in written.items())
@@ -4442,26 +4489,43 @@ TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", "10", "--batch", "4",
               "--log-every", "1", "--device", "cuda"]
 
 
-def loss_and_grads(torch, api, params, toks, guard):
-    """``api.loss`` and the gradient of every param leaf, as the train
-    step takes them; ``toks`` is the batch's tokens or the whole batch (a
-    dict: the vision and encoder-decoder families')."""
+def loss_and_grads(torch, api, params, toks, guard, **kw):
+    """``api.loss`` (remat off, ``kw`` as its options) and the gradient of
+    every param leaf, as the train step takes them; ``toks`` is the
+    batch's tokens or the whole batch (a dict: the vision and
+    encoder-decoder families')."""
     from repro_torch.core.stepgraph import tree_flatten, tree_unflatten
     struct, leaves = tree_flatten(params)
     req = [p.detach().requires_grad_() for p in leaves]
     batch = toks if isinstance(toks, dict) else {"tokens": toks}
     loss = api.loss(tree_unflatten(struct, req), batch, guard=guard,
-                    remat=False)
+                    remat=False, **kw)
     return loss.detach(), torch.autograd.grad(loss, req)
 
 
-def train_card_vs_cpu(torch, name: str) -> None:
-    """Phase 9 (a): ``name`` at full width and 2 layers, float32, the
-    train guard (BITWISE), a 2 x 64-token SyntheticLM batch: the loss and
-    every gradient leaf on the card (K3 and K4 launched, their backwards
-    in PyTorch) against the CPU (their plain versions), from one seed's
-    weights drawn on the CPU.  The loss within 1e-5 relative, each leaf's
-    max |error| within 1e-4 of that leaf's max |value|."""
+def train_launches(cfg) -> dict:
+    """The kernels one forward of ``cfg``'s training loss launches: K3
+    once; K4 once a layer (dense, MoE) or once a group (the hybrid's
+    shared attention); K5 once a MoE layer."""
+    want = {"gather_rows": 1}
+    if cfg.family in ("dense", "moe"):
+        want["flash_attention"] = cfg.n_layers
+    if cfg.family == "hybrid":
+        want["flash_attention"] = cfg.n_layers // cfg.attn_every
+    if cfg.moe:
+        want["moe_histogram"] = cfg.n_layers
+    return want
+
+
+def train_card_vs_cpu(torch, name: str, n_layers: int = 2,
+                      label: str = "train (a)", **loss_kw) -> None:
+    """Phase 9 (a) (and 11 (a)): ``name`` at full width and ``n_layers``
+    layers, float32, the train guard (BITWISE), a 2 x 64-token SyntheticLM
+    batch, ``loss_kw`` as the loss's options: the loss and every gradient
+    leaf on the card (K3 and K4 launched, their backwards in PyTorch)
+    against the CPU (their plain versions), from one seed's weights drawn
+    on the CPU.  The loss within 1e-5 relative, each leaf's max |error|
+    within 1e-4 of that leaf's max |value|."""
     from repro_torch.checkpoint.store import _flatten_with_paths
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.data import DataConfig, SyntheticLM
@@ -4469,31 +4533,33 @@ def train_card_vs_cpu(torch, name: str) -> None:
     from repro_torch.launch.steps import make_guard
     from repro_torch.models import get_model
 
-    cfg = dataclasses.replace(get_config(name), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers,
+                              dtype="float32")
     api = get_model(cfg)
     guard = make_guard(cfg, ShapeConfig("phase9", "train", 64, 2))
+    tag = f"{label} [{name}" + "".join(f", {k} {v}" for k, v in
+                                       loss_kw.items()) + "]"
     toks = torch.from_numpy(SyntheticLM(DataConfig(
         vocab=cfg.vocab, seq_len=64, global_batch=2, seed=5)).batch(0)[
             "tokens"])
     params = api.init(torch.Generator().manual_seed(13), "cpu")
     _build.reset_counts()
     loss_g, grads_g = loss_and_grads(torch, api, tree_to(params, "cuda"),
-                                     toks.cuda(), guard)
+                                     toks.cuda(), guard, **loss_kw)
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in _build.KERNELS.values()
                 if k.launches}
     plain = sum(k.plain_calls for k in _build.KERNELS.values())
-    want = {"gather_rows": 1, "flash_attention": 2}
-    if cfg.moe:
-        want["moe_histogram"] = 2
+    want = train_launches(cfg)
     if launches != want or plain:
-        raise AssertionError(f"train (a) [{name}]: launches {launches}, "
-                             f"plain calls {plain}; want {want}, none")
-    loss_c, grads_c = loss_and_grads(torch, api, params, toks, guard)
+        raise AssertionError(f"{tag}: launches {launches}, plain calls "
+                             f"{plain}; want {want}, none")
+    loss_c, grads_c = loss_and_grads(torch, api, params, toks, guard,
+                                     **loss_kw)
     rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
     if not rel <= 1e-5:
-        raise AssertionError(f"train (a) [{name}]: loss {float(loss_g)} on "
-                             f"the card, {float(loss_c)} on the CPU")
+        raise AssertionError(f"{tag}: loss {float(loss_g)} on the card, "
+                             f"{float(loss_c)} on the CPU")
     # the leaves' checkpoint keys, in tree_flatten's order (sorted keys)
     keys = [k for k, _ in _flatten_with_paths(params)]
     worst, named = 0.0, {}
@@ -4502,19 +4568,20 @@ def train_card_vs_cpu(torch, name: str) -> None:
         scale = c.abs().max().item()
         ratio = err / scale if scale else err
         if not ratio <= 1e-4:
-            raise AssertionError(f"train (a) [{name}]: gradient of {key} "
-                                 f"off by {err:.3g} (max |grad| {scale:.3g})")
+            raise AssertionError(f"{tag}: gradient of {key} off by "
+                                 f"{err:.3g} (max |grad| {scale:.3g})")
         worst = max(worst, ratio)
-        if key in ("embed/table", "layers/0/attn/wq", "layers/1/attn/wv"):
+        if key in ("embed/table", "layers/0/attn/wq", "layers/1/attn/wv",
+                   "shared_attn/attn/wq", "mlstm/0/wq", "slstm/0/r"):
             named[key] = ratio
     del grads_g
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"train (a) [{name}, 2 layers, d {cfg.d_model}, f32, BITWISE "
+    log(f"{tag[:-1]}, {n_layers} layers, d {cfg.d_model}, f32, BITWISE "
         f"guard]: card vs CPU loss {float(loss_g):.6f} / {float(loss_c):.6f}"
         f" (relative error {rel:.3g}, tolerance 1e-5); {len(keys)} gradient "
         f"leaves, worst max |err| / max |grad| {worst:.3g} (tolerance 1e-4)"
-        f"; through K3's backward (tied table) and K4's: " + ", ".join(
+        f"; named leaves: " + ", ".join(
             f"{k} {v:.3g}" for k, v in named.items())
         + f"; launches on the card {launches}")
 
@@ -4530,14 +4597,18 @@ def log_memory(torch, label: str) -> None:
     line = (f"{label}: {alloc:.2f} GB allocated, "
             f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
     if alloc > 1.0:
-        live = [o for o in gc.get_objects()
-                if isinstance(o, torch.Tensor) and o.is_cuda]
+        from torch._subclasses.fake_tensor import is_fake
+        # fake tensors left by a trace hold no memory, and their sizes
+        # may be symbols
+        nbytes = {id(o): (o, o.numel() * o.element_size())
+                  for o in gc.get_objects()
+                  if isinstance(o, torch.Tensor) and o.is_cuda
+                  and not is_fake(o)}
+        live = [(t, n) for t, n in nbytes.values() if isinstance(n, int)]
         size = collections.Counter()
-        for t in live:
-            size[f"{tuple(t.shape)} {t.dtype}"] += \
-                t.numel() * t.element_size() / 1e9
-        big = max(live, key=lambda t: t.numel() * t.element_size(),
-                  default=None)
+        for t, n in live:
+            size[f"{tuple(t.shape)} {t.dtype}"] += n / 1e9
+        big = max(live, key=lambda tn: tn[1], default=(None, 0))[0]
         refs = [type(r).__name__ for r in gc.get_referrers(big)] \
             if big is not None else []
         line += (f"; {len(live)} live CUDA tensors, largest: "
@@ -5483,6 +5554,393 @@ def family_phase(torch, smi: str) -> dict:
     return paths
 
 
+# --------------------------------------------------------------------- #
+# Phase 2 (the float8 pool) and phase 11: training the recurrent        #
+# families, the MoE variants, the float8 KV pool                        #
+# --------------------------------------------------------------------- #
+
+#: phase 11 (b)'s recurrent training runs: each family at full width and
+#: this depth (xlstm-350m's full 24; zamba2-7b's 81 layers do not train on
+#: one card — 4 groups of 6 and a 3-layer tail), through the CLI
+FAMILY_TRAIN = {"xlstm-350m": 24, "zamba2-7b": 27}
+#: the CLI's flags of phase 11 (b)'s runs (batch 4 x 512, remat off)
+FAMILY_ARGV = ["--steps", "3", "--batch", "4", "--seq", "512", "--lr",
+               "6e-4", "--log-every", "1", "--device", "cuda"]
+#: the MoE variants' model: qwen3-moe-30b-a3b at full width and 2 layers
+MOE_TRAIN = ("qwen3-moe-30b-a3b", 2)
+#: the float8 decode path: stablelm-3b at full depth over a slab pool
+FP8_PATH = "stablelm-3b/fp8"
+
+
+def fp8_kernel_rows(torch) -> list:
+    """Phase 2's K1 rows over a float8 e4m3 pool: at stablelm-3b's slab
+    shape (q (8, 32, 80) bf16, the 16-slot x 4-page layer view) and at
+    qwen3-moe-30b-a3b's GQA shape (G = 8, D = 128), 17-80 held tokens,
+    forged table ids, per-row fences — each against the plain version
+    (bf16 query: 1/2 bf16 ulp + K1_SLACK, the bf16-math control past it),
+    at every cluster size and with an f32 query (1e-4), one device
+    operation a call, timed, with its bound (one byte an element).  The
+    stablelm-3b row's launches come from phase 11 (c); the GQA shape is on
+    no path here (0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(8888)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    fp8 = torch.float8_e4m3fn
+    rows = []
+    K1 = sys.modules["repro_torch.kernels.paged_attention"]
+    for name in PATHS:
+        cfg = get_config(name)
+        B, H, KH, D, page, P = 8, cfg.n_heads, cfg.n_kv_heads, \
+            cfg.head_dim, 64, 64
+
+        def row(kernel, source, replaces, **kw):
+            path = FP8_PATH if FP8_PATH.startswith(name + "/") else name
+            rows.append(dict(kernel=kernel, path=path, route="cuda",
+                             source=f"src/repro_torch/kernels/csrc/{source}",
+                             replaces=f"src/repro/kernels/{replaces}", **kw))
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+
+        k_pool, v_pool = (randn(P, page, KH, D).to(fp8) for _ in range(2))
+        q = randn(B, H, D).to(torch.bfloat16)
+        table = torch.randint(0, P, (B, 4), generator=gen, **i32)
+        lens = torch.randint(17, 81, (B,), generator=gen, **i32)
+        base = torch.tensor([16, 16, 32, 32, 16, 32, 0, 0], **i32)
+        msk = torch.tensor([15, 15, 15, 15, 15, 15, 3, 3], **i32)
+        args = (k_pool, v_pool, table, lens, base, msk, None)
+        chosen, errs = K1.cluster_size, []
+        try:
+            for c in (1, 2, 4, 8):
+                K1.cluster_size = lambda pairs, n_sm, c=c: c
+                for q_ in (q, q.float()):
+                    errs.append(check_paged_attention(torch, q_, *args)[
+                        "ratio"])
+        finally:
+            K1.cluster_size = chosen
+        chk = k1_pool_row(torch, row, name, q, *args,
+                          name=f"paged_attention@{name}/fp8-pool",
+                          **({} if cfg.moe is None else {"launches": 0}))
+        if not torch.equal(chk["out"], paged_attention(
+                q, k_pool.float(), v_pool.float(), table, lens, base, msk)):
+            raise AssertionError(f"paged_attention [{name}]: the fp8 pool "
+                                 "differs from the same pool widened to f32")
+        log(f"K1 on an fp8 pool ok [{name}]: max |err| {chk['err']:.3g}, "
+            f"error/bound {chk['ratio']:.3f}, the bf16-math control "
+            f"{chk['ctrl_ratio']:.3g}; every cluster size 1-8, bf16 and f32 "
+            f"queries, worst error/bound {max(errs):.3f}; equal bit for bit "
+            "to the kernel over the pool widened to f32")
+    log_rows(rows)
+    return rows
+
+
+@contextlib.contextmanager
+def at_depth(name: str, n_layers: int):
+    """Within ``with``: the registered config ``name`` at ``n_layers``
+    layers (the training CLI has no depth flag, as the reference's has
+    none)."""
+    from repro_torch.configs import base
+    base.get_config(name)
+    kept = base._REGISTRY[name]
+    base._REGISTRY[name] = dataclasses.replace(kept, n_layers=n_layers)
+    try:
+        yield base._REGISTRY[name]
+    finally:
+        base._REGISTRY[name] = kept
+
+
+def family_train_full(torch, name: str, smi: str) -> dict:
+    """Phase 11 (b): ``name`` at full width and :data:`FAMILY_TRAIN`'s
+    depth (bf16), trained 3 steps by ``repro_torch.launch.train``'s
+    ``main`` in-process (:data:`FAMILY_ARGV`: AdamW + cosine at 6e-4,
+    batch 4 x 512, SyntheticLM seed 0, BITWISE guard, remat off), counts
+    set to 0 just before and read just after, then with ``--no-guard`` on
+    the same weights, stopped after 2 steps (``--stop-after``: the same
+    schedule).  Gates: every loss finite; K3 once a step, K4 once a
+    shared-attention call.  Returns the guarded run's launches."""
+    argv = ["--arch", name] + FAMILY_ARGV
+    n_steps, tokens = 3, 4 * 512
+    with at_depth(name, FAMILY_TRAIN[name]) as cfg:
+        want = {k: n_steps * v for k, v in train_launches(cfg).items()}
+        summary, lines, launches, peak = run_train_cli(torch, argv)
+        _, lines_n, launches_n, peak_n = run_train_cli(
+            torch, argv + ["--no-guard", "--stop-after", "2"])
+    losses = [x for x, _ in lines] + [x for x, _ in lines_n]
+    want_n = {k: v // n_steps * 2 for k, v in want.items()}
+    if launches != want or launches_n != want_n:
+        raise AssertionError(f"families train (b) [{name}]: launches "
+                             f"{launches} / {launches_n}, want {want} / "
+                             f"{want_n}")
+    if not (len(losses) == n_steps + 2
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"families train (b) [{name}]: losses {losses}")
+    ms = {g: statistics.median(m for _, m in ls[1:])
+          for g, ls in ((True, lines), (False, lines_n))}
+    log(f"families train (b) [{name}, {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.dtype}, batch 4 x 512]: losses guarded "
+        + ", ".join(f"{x:.4f}" for x, _ in lines) + "; native "
+        + ", ".join(f"{x:.4f}" for x, _ in lines_n)
+        + f"; CLI step (host clock to the loss on the host, steps 1-2 / "
+        f"1) median {ms[True]:.0f} ms guarded, {ms[False]:.0f} ms native -> "
+        f"guarded/native {ms[True] / ms[False]:.4f}; "
+        f"{tokens / ms[True] * 1e3:.0f} tokens/s guarded; peak "
+        f"{peak:.2f} GB (native {peak_n:.2f} GB); launches {launches}; on "
+        f"{smi}")
+    return {"launches": launches}
+
+
+def moe_variants(torch, smi: str) -> None:
+    """Phase 11 (b): qwen3-moe-30b-a3b at full width (128 experts, top-8,
+    d 2,048) and 2 layers, bf16, batch 4 x 512 (C = 256 slots an expert),
+    the BITWISE guard, one seed's weights: the loss and every gradient of
+    the ``scatter`` and ``einsum`` dispatches held together at bf16
+    tolerance (loss within 1e-2 relative, each leaf's max |error| within
+    5e-2 of its max |value|); then the train step (AdamW) of each dispatch
+    with remat off, ``nothing`` and ``dots``: a warm-up step and 3 timed
+    ones (CUDA events around the step), the peak memory and the launches
+    a step."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import build_train_step
+
+    name, depth = MOE_TRAIN
+    cfg = dataclasses.replace(get_config(name), n_layers=depth)
+    shape = ShapeConfig("phase11", "train", 512, 4)
+    steps = {(d, r, p): build_train_step(cfg, shape, remat=r,
+                                         moe_dispatch=d, remat_policy=p)
+             for d in ("scatter", "einsum")
+             for r, p in ((False, "nothing"), (True, "nothing"),
+                          (True, "dots"))}
+    api = next(iter(steps.values())).api
+    guard = next(iter(steps.values())).guard
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                  global_batch=4))
+    toks = torch.from_numpy(data.batch(0)["tokens"]).cuda()
+    got = {d: loss_and_grads(torch, api, params, toks, guard, dispatch=d)
+           for d in ("scatter", "einsum")}
+    rel = abs(float(got["einsum"][0]) - float(got["scatter"][0])) \
+        / abs(float(got["scatter"][0]))
+    worst = 0.0
+    for a, b in zip(got["einsum"][1], got["scatter"][1]):
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        worst = max(worst, err / scale if scale else err)
+    if not (rel <= 1e-2 and worst <= 5e-2):
+        raise AssertionError(f"moe variants: einsum vs scatter loss "
+                             f"relative {rel:.3g}, worst leaf {worst:.3g}")
+    log(f"moe variants [{name}, {depth} layers, {cfg.dtype}, batch 4 x 512, C "
+        f"{max(int(2 * cfg.moe.top_k * 2048 / cfg.moe.num_experts), 8)}]: "
+        f"loss scatter {float(got['scatter'][0]):.5f} / einsum "
+        f"{float(got['einsum'][0]):.5f} (relative {rel:.3g}, tolerance "
+        f"1e-2); {len(got['scatter'][1])} gradient leaves, worst max |err| "
+        f"/ max |grad| {worst:.3g} (tolerance 5e-2)")
+    del got
+    opt_state = next(iter(steps.values())).opt.init(params)
+    for (d, r, p), step in steps.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(4):
+            batch = {"tokens": torch.from_numpy(
+                data.batch(i)["tokens"]).cuda()}
+            _build.reset_counts()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            params, opt_state, out = step.fn(params, opt_state, batch)
+            b.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(a.elapsed_time(b))
+            if not math.isfinite(float(out["loss"])):
+                raise AssertionError(f"moe variants [{d}, remat {r} {p}]: "
+                                     f"loss {float(out['loss'])}")
+        launches = {k.name: k.launches for k in _build.KERNELS.values()
+                    if k.launches}
+        if launches.get("moe_histogram", 0) < depth:
+            raise AssertionError(f"moe variants [{d}]: launches {launches}")
+        log(f"moe variants [{name}, dispatch {d}, remat "
+            f"{p if r else 'off'}]: step (CUDA events) "
+            + "/".join(f"{t:.2f}" for t in times)
+            + f" ms, median {statistics.median(times):.2f} ms, "
+            f"{2048 / statistics.median(times) * 1e3:.0f} tokens/s; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches a "
+            f"step {launches}; on {smi}")
+    del params, opt_state, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fp8_decode(torch, smi: str) -> dict:
+    """Phase 11 (c): stablelm-3b at full width and depth (32 layers, bf16
+    weights from a seeded generator) through the model API over a slab
+    pool of 4 rows x 256 tokens, in float8 e4m3 and in float32 on the same
+    weights: a 64-token prefill and 8 greedy decode steps, both pools fed
+    the f32 run's tokens; the float8 run's kernel counts set to 0 just
+    before its prefill and read after its last step — K3 once a call, K4
+    once a layer of the prefill, K1 once a layer a step, no plain
+    version.  Gates: every logit finite, each step's logits correlated
+    with the f32 pool's above 0.98 (the reference's H3).  Prints each
+    pool's decode step time (CUDA events around ``api.decode``) and its
+    device busy time (``torch.profiler``) against the step's bytes floor.
+    Returns the float8 run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import get_model
+
+    name = FP8_PATH.split("/")[0]
+    cfg = get_config(name)
+    api = get_model(cfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    B, S, steps, max_len = 4, 64, 8, 256
+    toks = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(3))
+    runs, nxt_f32 = {}, []
+    with torch.no_grad():
+        for pool, dt in (("f32", torch.float32),
+                         ("fp8", torch.float8_e4m3fn)):
+            cache = api.init_cache(B, max_len, dtype=dt, device="cuda")
+            torch.cuda.synchronize()
+            _build.reset_counts()
+            cache, lg = api.prefill(params, cache, {"tokens": toks})
+            logits, ms = [lg.float()], []
+            for i in range(steps):
+                nxt = lg.argmax(-1).to(torch.int32) if pool == "f32" \
+                    else nxt_f32[i]
+                nxt_f32.append(nxt) if pool == "f32" else None
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                cache, lg = api.decode(params, cache, nxt)
+                b.record()
+                torch.cuda.synchronize()
+                ms.append(a.elapsed_time(b))
+                logits.append(lg.float())
+            launches = {k.name: k.launches for k in _build.KERNELS.values()
+                        if k.launches}
+            plain = sum(k.plain_calls for k in _build.KERNELS.values())
+            with uncounted():
+                prof = profiled_call(torch, lambda: api.decode(
+                    params, cache, nxt))
+            runs[pool] = (logits, ms, launches, plain, prof,
+                          tree_bytes(cache))
+            del cache
+    want = {"gather_rows": 1 + steps, "flash_attention": cfg.n_layers,
+            "paged_attention": cfg.n_layers * steps}
+    launches, plain = runs["fp8"][2], runs["fp8"][3]
+    if launches != want or plain:
+        raise AssertionError(f"fp8 decode: launches {launches}, plain "
+                             f"{plain}; want {want}, none")
+    corr = []
+    for a, b in zip(runs["f32"][0], runs["fp8"][0]):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError("fp8 decode: a logit is not finite")
+        corr.append(torch.corrcoef(torch.stack([a.reshape(-1),
+                                                b.reshape(-1)]))[0, 1].item())
+    if not min(corr) > 0.98:
+        raise AssertionError(f"fp8 decode: correlation {min(corr):.4f}")
+    same = [int((a.argmax(-1) == b.argmax(-1)).sum())
+            for a, b in zip(runs["f32"][0], runs["fp8"][0])]
+    # the step's bytes floor: the weights once, each row's held K and V
+    # (prompt + step tokens, every layer) in the pool's type
+    w_bytes = tree_bytes(params)
+    held = B * (S + steps // 2) * cfg.n_layers * 2 * cfg.n_kv_heads \
+        * cfg.head_dim
+    for pool, size in (("f32", 4), ("fp8", 1)):
+        logits, ms, _, _, prof, pool_bytes = runs[pool]
+        floor = (w_bytes + held * size) / HBM_BYTES_PER_S * 1e3
+        dev = "not measured" if prof is None else \
+            f"{prof[1]:.3f} ms busy, {prof[0]:g} device operations"
+        log(f"fp8 decode [{name}, {cfg.n_layers} layers, {pool} slab pool "
+            f"of {pool_bytes / 1e9:.2f} GB, B {B}, prompt {S}]: decode step "
+            f"(CUDA events around api.decode) median "
+            f"{statistics.median(ms):.3f} ms; device {dev}; bytes floor "
+            f"{floor:.3f} ms (weights + the held K/V); on {smi}")
+    log(f"fp8 decode [{name}]: logits finite, correlation with the f32 "
+        f"pool per call (prefill, then 8 steps) "
+        + ", ".join(f"{c:.5f}" for c in corr)
+        + f" (gate > 0.98); greedy ids equal {same} of {B}; launches "
+        f"{launches}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def families_train_phase(torch, smi: str) -> dict:
+    """Phase 11: (a) card against CPU, f32, at full width — xlstm-350m at
+    2 layers, zamba2-7b at 7 (a group of 6 and a 1-layer tail) and
+    qwen3-moe-30b-a3b at 2 with the ``einsum`` dispatch (phase 9 (a) held
+    its scatter dispatch) — the loss and every gradient; (b) the recurrent
+    families' training runs and the MoE variants; (c) the float8 decode.
+    Returns each path's launches.  Order: (a), the MoE variants, (c),
+    then (b)'s two runs."""
+    t0 = time.perf_counter()
+    label = "families train (a)"
+    train_card_vs_cpu(torch, "xlstm-350m", label=label)
+    train_card_vs_cpu(torch, "zamba2-7b", n_layers=7, label=label)
+    train_card_vs_cpu(torch, MOE_TRAIN[0], label=label, dispatch="einsum")
+    # the MoE variants' optimizer takes 768 MiB blocks, so they run before
+    # the recurrent runs split the cache into smaller ones; zamba2-7b,
+    # the largest (64 GB peak), runs last
+    log_memory(torch, "moe variants, before")
+    moe_variants(torch, smi)
+    log_memory(torch, "fp8 decode, before")
+    paths = {FP8_PATH: fp8_decode(torch, smi)}
+    for name in FAMILY_TRAIN:
+        log_memory(torch, f"families train (b) [{name}], before")
+        paths[f"{name}/train"] = family_train_full(torch, name, smi)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+# Phase 11's worker: the phase in a process of its own, from the checkout
+# at argv[1]; its lines pass through, and its paths' launches come back as
+# one JSON line.
+_PHASE11_WORKER = """
+import json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
+import torch
+import chip_smoke as cs
+from repro_torch.kernels import _build
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+_build.build_all()
+paths = cs.families_train_phase(torch, cs.smi_line())
+print("PHASE11 " + json.dumps(paths), flush=True)
+"""
+
+
+def families_train_worker(torch) -> dict:
+    """Phase 11 in a process of its own, started right after phase 2 with
+    this process's cache released, while the card's memory is whole.
+    After the serve paths ~75 GB of this process's cache stay reserved
+    (held by ~1 GB of allocations the collector does not see) in pieces
+    smaller than the MoE variants' 768 MiB optimizer buffers, which then
+    could not be allocated.  Returns the worker's paths' launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_memory(torch, "before phase 11 (this process)")
+    proc = subprocess.Popen([sys.executable, "-c", _PHASE11_WORKER,
+                             str(ROOT)], stdout=subprocess.PIPE, text=True)
+    paths = None
+    for line in proc.stdout:
+        if line.startswith("PHASE11 "):
+            paths = json.loads(line[len("PHASE11 "):])
+        else:
+            print(line, end="", flush=True)
+    if proc.wait() != 0 or paths is None:
+        raise AssertionError(f"phase 11's worker failed (exit "
+                             f"{proc.returncode})")
+    return paths
+
+
 # A worker of the same-card A/B: phase 2 of the checkout at argv[1], run
 # with that checkout's own chip_smoke.py and kernels, then the main path's
 # prefill write timed by this file's (argv[2]) code against that
@@ -5595,6 +6053,13 @@ def main() -> int:
                         dataclasses.replace(cfg, n_layers=2), smi)
         return 0
 
+    if len(sys.argv) == 2 and sys.argv[1] == "--families-train":
+        # a development switch: phase 2's K1 fp8 rows and phase 11 alone,
+        # after the build
+        fp8_kernel_rows(torch)
+        families_train_phase(torch, smi)
+        return 0
+
     if len(sys.argv) == 2 and sys.argv[1] == "--train":
         # a development switch: phase 2's training rows and phase 9 alone,
         # after the build
@@ -5618,6 +6083,7 @@ def main() -> int:
     check_ops(torch, get_config(RECURRENT[0]))
     rows += train_kernel_rows(torch)
     rows += family_kernel_rows(torch)
+    rows += fp8_kernel_rows(torch)
     for r in rows:
         log(f"  {r['kernel']} [{r['path']}]: {r['ms']:.5f} ms = "
             f"{r['ms'] / floor:.2f}x the launch floor")
@@ -5630,6 +6096,9 @@ def main() -> int:
                 else f"{r['kernel']}@{r['path']}"
         seen.add(r["kernel"])
     log("kernels: " + ", ".join(r["name"] for r in rows))
+    # phase 11 (training the recurrent families, the MoE variants, the
+    # float8 pool) runs now, in a process of its own
+    phase11 = families_train_worker(torch)
     for cfg in cfgs:
         check_full_width(torch, cfg)
         check_compiled(torch, cfg)
@@ -5671,6 +6140,7 @@ def main() -> int:
     # phase 10: the vision and encoder-decoder families
     log_memory(torch, "before phase 10")
     paths.update(family_phase(torch, smi))
+    paths.update(phase11)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

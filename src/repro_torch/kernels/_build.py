@@ -178,7 +178,7 @@ def sm_count(device) -> int:
 
 
 #: element types the kernels are instantiated for, by their C code
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 
 
 def dtype_code(dtype) -> int:

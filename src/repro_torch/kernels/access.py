@@ -78,17 +78,17 @@ def _pages(operand: str, index: str, store: bool, source: str,
 
 #: op name (in the ``repro_torch`` namespace) -> its declared accesses
 ACCESSES: Dict[str, Tuple[Access, ...]] = {
-    # K1: csrc/paged_attention.cu:233 — resolve_page(fence_id(id, base,
+    # K1: csrc/paged_attention.cu:268 — resolve_page(fence_id(id, base,
     # mask), page_map, n_map, P - 1) for the pages of the row's table its
     # share walks (under a window, a suffix: the entry covers them all)
     "paged_attention": tuple(
-        _pages(pool, "page_table", False, "paged_attention.cu:233",
+        _pages(pool, "page_table", False, "paged_attention.cu:268",
                ("base_rows", "base"), ("mask_rows", "mask"))
         for pool in ("k_pages", "v_pages")),
-    # K2: csrc/scatter_pages.cu:125 — the same resolution on the store
-    # address; of equal destinations only the last id writes (:131)
+    # K2: csrc/scatter_pages.cu:165 — the same resolution on the store
+    # address; of equal destinations only the last id writes (:171)
     "scatter_pages": tuple(
-        _pages(pool, "ids", True, "scatter_pages.cu:125",
+        _pages(pool, "ids", True, "scatter_pages.cu:165",
                ("base_ids", "base"), ("mask_ids", "mask"))
         for pool in ("k_pool", "v_pool")),
     # K3: csrc/gather_rows.cu:46-54 — fence_id, then a negative id in
@@ -104,7 +104,7 @@ ACCESSES: Dict[str, Tuple[Access, ...]] = {
         operand="table", index="idx", store=True,
         base=("base_ids", "base"), mask=("mask_ids", "mask"),
         out_of_range="drop", duplicates="summed in id order",
-        source="ref.py:126"),),
+        source="ref.py:160"),),
     "flash_attention": (),
     "moe_histogram": (),
 }

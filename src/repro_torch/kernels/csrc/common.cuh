@@ -8,7 +8,7 @@
 #include <stdint.h>
 
 // Element-type codes passed from Python (see kernels/_build.py DTYPE_CODE).
-enum DTypeCode { DT_F32 = 0, DT_BF16 = 1 };
+enum DTypeCode { DT_F32 = 0, DT_BF16 = 1, DT_FP8E4M3 = 2 };
 
 #define NEG_INF_F (-1e30f)
 

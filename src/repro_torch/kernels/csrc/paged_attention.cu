@@ -16,9 +16,10 @@
 // round_q rounds a pool value to the query's type first — the serve path
 // keeps a float32 pool under bfloat16 weights and the reference rounds the
 // gathered K/V to the query type before its float32-accumulated product.
-// The pool is float32 or bfloat16 (the model API's default cache); a
-// bfloat16 pool is widened to float32 as it is staged (the Pallas body's
-// astype(float32)), and round_q is then the identity.
+// The pool is float32, bfloat16 (the model API's default cache) or float8
+// e4m3 (the reference's kv_dtype "f8"); a bfloat16 or float8 pool is
+// widened to float32 as it is staged (the Pallas body's astype(float32)),
+// and round_q is then the identity (every e4m3 value is a bfloat16 one).
 // Masked positions score -1e30, so a row with seq_len <= 0 is the uniform
 // mean over all max_pages * page positions, as in the reference; a row
 // with seq_len > 0 reads only its held tokens (a masked position's weight
@@ -49,7 +50,9 @@
 //    address forms from anything else.
 //  - Loads: 16-byte cp.async of the float32 pool rows (D = 80 is 20 a
 //    token, D = 128 32) into shared memory; a bfloat16 pool is read with
-//    16-byte vector loads of 8 elements (D a multiple of 8) and widened to
+//    16-byte vector loads of 8 elements (D a multiple of 8), a float8 pool
+//    with 16-byte loads of 16 (D a multiple of 16: 64, 80, 112 and 128 are;
+//    cvt.rn.f16x2.e4m3x2 then a widening to float32, exact), and widened to
 //    float32 as it is stored to shared memory, a tile at a time: 128 tokens
 //    for a lone CTA (a row of up to 128 held tokens in one round), 64 in a
 //    cluster (smaller shared memory, so the clusters pack onto the GPCs'
@@ -77,6 +80,7 @@
 //  which the merge weighs to nothing.
 
 #include <cooperative_groups.h>
+#include <cuda_fp8.h>
 
 #include "common.cuh"
 
@@ -166,6 +170,36 @@ __device__ __forceinline__ void widen8(float* dst, const __nv_bfloat16* src) {
   reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
 }
 
+// Two float8 e4m3 values (low byte first) widened to float32, through the
+// hardware's e4m3x2 -> f16x2 conversion (both steps exact; NaN stays NaN).
+__device__ __forceinline__ float2 fp8x2_to_float2(__nv_fp8x2_storage_t v) {
+  return __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(v, __NV_E4M3)));
+}
+
+// Sixteen float8 e4m3 pool values (one 16-byte load) widened to float32
+// and stored as four float4 at dst (16-byte aligned).
+__device__ __forceinline__ void widen16(float* dst,
+                                        const __nv_fp8_e4m3* src) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
+  const __nv_fp8x2_storage_t* h =
+      reinterpret_cast<const __nv_fp8x2_storage_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = fp8x2_to_float2(h[2 * i]);
+    const float2 b = fp8x2_to_float2(h[2 * i + 1]);
+    reinterpret_cast<float4*>(dst)[i] = make_float4(a.x, a.y, b.x, b.y);
+  }
+}
+
+// One 16-byte load of a narrow pool (16 / sizeof(KV_T) values) widened to
+// float32 at dst.
+__device__ __forceinline__ void widen(float* dst, const __nv_bfloat16* src) {
+  widen8(dst, src);
+}
+__device__ __forceinline__ void widen(float* dst, const __nv_fp8_e4m3* src) {
+  widen16(dst, src);
+}
+
 template <typename Q_T, typename KV_T, int kTile>
 __global__ void __launch_bounds__(kThreads, kTile == 64 ? 3 : 2)
     paged_attention_kernel(
@@ -178,10 +212,11 @@ __global__ void __launch_bounds__(kThreads, kTile == 64 ? 3 : 2)
         int window, int cluster, float scale) {
   extern __shared__ __align__(16) float smem[];
   // K/V are rounded to the query's type as they are read: only a bf16
-  // query over a float32 pool changes a value (a bf16 pool's values are
-  // bf16 already)
+  // query over a float32 pool changes a value (a bf16 or float8 pool's
+  // values are bf16 already)
   constexpr bool kBf16 = sizeof(Q_T) == 2 && sizeof(KV_T) == 4;
-  constexpr bool kPoolBf16 = sizeof(KV_T) == 2;
+  // pool elements per 16-byte load: 4 float32, 8 bfloat16, 16 float8
+  constexpr int kPer = 16 / (int)sizeof(KV_T);
   const int G = H / KH, GD = G * D, DQ = D / 4, GDQ = G * DQ;
   const int GT = G * kTile;
   const int rank = blockIdx.x % cluster, kh = blockIdx.x / cluster;
@@ -248,19 +283,17 @@ __global__ void __launch_bounds__(kThreads, kTile == 64 ? 3 : 2)
   for (int tb = t0; tb < t1; tb += kTile) {
     const int n_t = min(kTile, t1 - tb);
     // stage the tile: 16-byte cp.async of the float32 pool rows, or
-    // 16-byte loads of 8 bfloat16 values widened to float32
-    const int per = kPoolBf16 ? 8 : 4, n_vec = D / per;
+    // 16-byte loads of 8 bfloat16 / 16 float8 values widened to float32
+    const int n_vec = D / kPer;
     for (int e = tid; e < n_t * n_vec; e += kThreads) {
       const int t = e / n_vec, c = e - t * n_vec;
       const int pos = tb + t, pg = pos / page;
       const size_t off =
           ((size_t)phys_s[pg - p_lo] * page + (pos - pg * page)) *
-              tok_stride + head_off + per * c;
-      if constexpr (kPoolBf16) {
-        widen8(k_s + t * ks + 8 * c,
-               reinterpret_cast<const __nv_bfloat16*>(k_pool) + off);
-        widen8(v_s + t * D + 8 * c,
-               reinterpret_cast<const __nv_bfloat16*>(v_pool) + off);
+              tok_stride + head_off + kPer * c;
+      if constexpr (sizeof(KV_T) < 4) {
+        widen(k_s + t * ks + kPer * c, k_pool + off);
+        widen(v_s + t * D + kPer * c, v_pool + off);
       } else {
         cp_async16(k_s + t * ks + 4 * c, k_pool + off);
         cp_async16(v_s + t * D + 4 * c, v_pool + off);
@@ -494,7 +527,7 @@ static int launch(const void* q, const void* k_pool, const void* v_pool,
   if (KH <= 0 || H % KH || D <= 0 || D % 4 || D / 4 > kMaxDQ ||
       (H / KH) * (D / 4) > kMaxGDQ || cluster < 1 ||
       cluster > kMaxCluster || page <= 0 || max_pages <= 0 ||
-      (sizeof(KV_T) == 2 && D % 8))
+      D % (16 / (int)sizeof(KV_T)))
     return (int)cudaErrorInvalidValue;
 #define ARGS q, k_pool, v_pool, page_table, seq_lens, base_rows, mask_rows, \
              base, mask, page_map, n_map, out, B, H, KH, D, page, max_pages, \
@@ -524,6 +557,10 @@ extern "C" int paged_attention_launch(
     return launch<float, __nv_bfloat16>(ARGS);
   if (q_dtype == DT_BF16 && kv_dtype == DT_BF16)
     return launch<__nv_bfloat16, __nv_bfloat16>(ARGS);
+  if (q_dtype == DT_F32 && kv_dtype == DT_FP8E4M3)
+    return launch<float, __nv_fp8_e4m3>(ARGS);
+  if (q_dtype == DT_BF16 && kv_dtype == DT_FP8E4M3)
+    return launch<__nv_bfloat16, __nv_fp8_e4m3>(ARGS);
 #undef ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -9,7 +9,9 @@
 // page of tokens [p*page, (p+1)*page) of k_src[b] / v_src[b] is stored at
 // physical page resolve_page((page_ids[b, p] & mask) | base) of k_pool /
 // v_pool, in place, converted to the pool's type (bf16 -> f32 is exact,
-// f32 -> bf16 rounds to nearest even, as Tensor.to does).  Beyond the TPU
+// f32 -> bf16 rounds to nearest even, as Tensor.to does; into a float8
+// e4m3 pool both round to nearest even and give NaN past 464, as jnp's
+// astype does — the reference's kv_dtype "f8").  Beyond the TPU
 // kernel it takes:
 //   * the fence by value (one int pair for every id) or as int32 operands
 //     read through (row, id) strides — per row (stride 0 over the pages)
@@ -48,7 +50,8 @@
 //   * A group is G elements moved as one access: 16 bytes of the wider
 //     type, so every warp-wide load and store covers whole 32-byte sectors
 //     (G = 4 when either side is f32 — bf16 -> f32 loads 8 bytes and
-//     stores 16 — and G = 8 when both are bf16).  Token rows are a
+//     stores 16 — and G = 8 when both are bf16 or bf16 goes into float8;
+//     a float8 pool stores 4 or 8 bytes a group).  Token rows are a
 //     multiple of 8 elements and the operands 16-byte aligned (the
 //     wrapper refuses others; every configuration of the repo complies).
 //   * The source loads go first: a chunk's source address depends only on
@@ -63,8 +66,11 @@
 //     warp vote; no shared memory and no block barrier either way.  A
 //     block whose id is not the last writer of its page exits there.
 //   * Conversion in registers, on the raw bits: bf16 -> f32 is a 16-bit
-//     shift, f32 -> bf16 __floats2bfloat162_rn.
+//     shift, f32 -> bf16 __floats2bfloat162_rn, -> float8 the hardware's
+//     saturating round-to-nearest-even cvt inside +-464, NaN past it.
 // No TMA and no wgmma: the kernel is a copy.
+
+#include <cuda_fp8.h>
 
 #include <type_traits>
 
@@ -91,6 +97,7 @@ struct Args {
 template <int N> struct BitsOf;
 template <> struct BitsOf<16> { using T = uint4; };
 template <> struct BitsOf<8> { using T = uint2; };
+template <> struct BitsOf<4> { using T = uint32_t; };
 template <typename T, int G> using Bits = typename BitsOf<sizeof(T) * G>::T;
 
 __device__ __forceinline__ uint32_t f32x2_to_bf16x2(uint32_t a, uint32_t b) {
@@ -99,13 +106,46 @@ __device__ __forceinline__ uint32_t f32x2_to_bf16x2(uint32_t a, uint32_t b) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// One value as a float8 e4m3 byte, as jnp's astype casts: round to nearest
+// even (the saturating cvt, exact inside the range), NaN with the value's
+// sign past 464 (where round to nearest leaves the largest finite, 448).
+__device__ __forceinline__ uint32_t f32_to_fp8(float f) {
+  if (!(fabsf(f) <= 464.f)) return signbit(f) ? 0xFFu : 0x7Fu;
+  return (uint32_t)__nv_cvt_float_to_fp8(f, __NV_SATFINITE, __NV_E4M3);
+}
+
+// G float32 or bfloat16 values (their raw bits) as G float8 bytes, the
+// first in the lowest byte.
+template <typename TS, int G>
+__device__ __forceinline__ Bits<__nv_fp8_e4m3, G> to_fp8(Bits<TS, G> x) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&x);
+  uint32_t out[2] = {0u, 0u};
+#pragma unroll
+  for (int e = 0; e < G; ++e) {
+    uint32_t bits;  // the value's float32 bits (a bf16 is the top half)
+    if constexpr (sizeof(TS) == 4) {
+      bits = w[e];
+    } else {
+      bits = e % 2 ? w[e / 2] & 0xFFFF0000u : w[e / 2] << 16;
+    }
+    out[e / 4] |= f32_to_fp8(__uint_as_float(bits)) << (8 * (e % 4));
+  }
+  if constexpr (G == 4) {
+    return out[0];
+  } else {
+    return make_uint2(out[0], out[1]);
+  }
+}
+
 // G elements in TS bits -> the same elements in TP bits: a copy, an exact
 // widening (bf16 -> f32 is a 16-bit shift) or a narrowing that rounds to
-// nearest even.
+// nearest even (into float8: past its range, NaN).
 template <typename TS, typename TP, int G>
 __device__ __forceinline__ Bits<TP, G> convert(Bits<TS, G> x) {
   if constexpr (std::is_same<TS, TP>::value) {
     return x;
+  } else if constexpr (std::is_same<TP, __nv_fp8_e4m3>::value) {
+    return to_fp8<TS, G>(x);
   } else if constexpr (std::is_same<TS, __nv_bfloat16>::value) {
     return make_uint4(x.x << 16, x.x & 0xFFFF0000u, x.y << 16,
                       x.y & 0xFFFF0000u);
@@ -202,11 +242,12 @@ static int launch(Args a, int row_elems, int chunks, cudaStream_t stream) {
 }
 
 // One instantiation per (source, pool) pair: 16-byte accesses of the
-// wider type, 4 elements when either side is f32, 8 when both are bf16.
+// wider type, 4 elements when either side is f32, 8 when the wider is bf16.
 template <typename TS, typename TP>
 static int launch_pair(const Args& a, int row_elems, int group, int chunks,
                        cudaStream_t s) {
-  constexpr int kG = (sizeof(TS) == 2 && sizeof(TP) == 2) ? 8 : 4;
+  constexpr int kG = 16 / (int)(sizeof(TS) > sizeof(TP) ? sizeof(TS)
+                                                        : sizeof(TP));
   if (group != kG || row_elems % kG != 0) return (int)cudaErrorInvalidValue;
   return launch<TS, TP, kG>(a, row_elems, chunks, s);
 }
@@ -224,7 +265,8 @@ extern "C" int scatter_pages_launch(
     int src_dtype, int pool_dtype, int group, int chunks, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const bool dtypes_ok = (src_dtype == DT_F32 || src_dtype == DT_BF16) &&
-                         (pool_dtype == DT_F32 || pool_dtype == DT_BF16);
+                         (pool_dtype == DT_F32 || pool_dtype == DT_BF16 ||
+                          pool_dtype == DT_FP8E4M3);
   if (!dtypes_ok || chunks < 1) return (int)cudaErrorInvalidValue;
   if (!(aligned16(k_pool) && aligned16(v_pool) && aligned16(k_src) &&
         aligned16(v_src)))
@@ -254,13 +296,18 @@ extern "C" int scatter_pages_launch(
   a.page = page;
   a.phys_mask = n_pool_pages - 1;
   typedef __nv_bfloat16 bf16;
+  typedef __nv_fp8_e4m3 fp8;
   if (src_dtype == DT_BF16)
     return pool_dtype == DT_F32
                ? launch_pair<bf16, float>(a, row_elems, group, chunks, s)
-               : launch_pair<bf16, bf16>(a, row_elems, group, chunks, s);
+           : pool_dtype == DT_BF16
+               ? launch_pair<bf16, bf16>(a, row_elems, group, chunks, s)
+               : launch_pair<bf16, fp8>(a, row_elems, group, chunks, s);
   return pool_dtype == DT_F32
              ? launch_pair<float, float>(a, row_elems, group, chunks, s)
-             : launch_pair<float, bf16>(a, row_elems, group, chunks, s);
+         : pool_dtype == DT_BF16
+             ? launch_pair<float, bf16>(a, row_elems, group, chunks, s)
+             : launch_pair<float, fp8>(a, row_elems, group, chunks, s);
 }
 
 extern "C" const char* scatter_pages_error_string(int e) {

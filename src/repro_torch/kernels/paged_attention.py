@@ -28,6 +28,9 @@ KERNEL = Kernel("paged_attention", "paged_attention.cu",
 #: the largest cluster the kernel launches (the portable size)
 MAX_CLUSTER = 8
 
+#: the pool types the kernel reads (widening the narrow ones to float32)
+POOL_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
+
 
 def cluster_size(pairs: int, n_sm: int) -> int:
     """CTAs a (sequence, KV head) pair is split over: the largest power of
@@ -82,12 +85,11 @@ def _cuda(q, k_pages, v_pages, page_table, seq_lens, base_rows, mask_rows,
       base, mask, page_map, window):
     B, H, D = q.shape
     KH = k_pages.shape[2]
-    if k_pages.dtype not in (torch.float32, torch.bfloat16) \
-            or v_pages.dtype != k_pages.dtype:
-        raise TypeError("paged_attention: the kernel reads a float32 or a "
-                        f"bfloat16 pool, got {k_pages.dtype} / "
-                        f"{v_pages.dtype}")
-    vec = 8 if k_pages.dtype == torch.bfloat16 else 4
+    if k_pages.dtype not in POOL_DTYPES or v_pages.dtype != k_pages.dtype:
+        raise TypeError("paged_attention: the kernel reads a float32, a "
+                        "bfloat16 or a float8_e4m3fn pool, got "
+                        f"{k_pages.dtype} / {v_pages.dtype}")
+    vec = 16 // k_pages.element_size()     # elements per 16-byte load
     if H % KH or D % vec or D > 128 or (H // KH) * D > 2048:
         raise ValueError(f"paged_attention: the kernel takes D % {vec} == 0 "
                          f"({k_pages.dtype} pool), D <= 128 and (H/KH)*D <= "
@@ -119,8 +121,8 @@ def _fake(q, k_pages, v_pages, page_table, seq_lens, base_rows, mask_rows,
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, fence_base,
                     fence_mask, page_map=None, window: int = 0):
     """q (B,H,D) float32 or bfloat16; pools (P,page,KH,D) (a layer view of
-    the global pool or the slab's flattened layer view), float32 or
-    bfloat16 (widened to float32 as they are read);
+    the global pool or the slab's flattened layer view), float32,
+    bfloat16 or float8_e4m3fn (widened to float32 as they are read);
     page_table (B, max_pages) virtual or physical ids; seq_lens (B,);
     base/mask ints or (B,) tensors; optional page_map (n_virt,).  Returns
     (B,H,D) in q's dtype.
@@ -129,8 +131,8 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, fence_base,
     operand per row.  ``window`` > 0 narrows row b to its last ``window``
     held tokens (positions t >= seq_lens[b] - window), the reference's
     windowed ``decode_attention``.  On the card the kernel takes D a
-    multiple of 4 (of 8 over a bfloat16 pool) up to 128 and (H / KH) * D
-    up to 2,048."""
+    multiple of 4 (of 8 over a bfloat16 pool, of 16 over a float8 one) up
+    to 128 and (H / KH) * D up to 2,048."""
     B = q.shape[0]
     P = k_pages.shape[0]
     if P & (P - 1):

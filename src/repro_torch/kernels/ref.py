@@ -16,6 +16,32 @@ import torch
 
 NEG_INF = -1e30
 
+#: the float8 pool type, its largest finite value's rounding boundary
+#: (values up to 464 round to 448, past it jnp's cast gives NaN) and its
+#: NaN byte
+FP8 = torch.float8_e4m3fn
+FP8_LIMIT = 464.0
+FP8_NAN = 0x7F
+
+
+def to_pool(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` cast to a pool's ``dtype`` as jnp's ``astype`` casts: to
+    float8 e4m3 by round to nearest even, NaN (sign kept) past its range,
+    where torch's cast saturates to +-448."""
+    if dtype != FP8 or x.dtype == FP8:
+        return x.to(dtype)
+    y = x.to(FP8).view(torch.uint8)
+    nan = torch.where(torch.signbit(x), FP8_NAN | 0x80, FP8_NAN).to(
+        torch.uint8)
+    return torch.where(x.abs() <= FP8_LIMIT, y, nan).view(FP8)
+
+
+def pool_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A float8 tensor's bytes as ``uint8`` (the same storage), any other
+    tensor as it is: float8 values move through byte views (torch lacks
+    float8 ``gather`` / ``index_copy_`` kernels on some devices)."""
+    return t.view(torch.uint8) if t.dtype == FP8 else t
+
 
 def fence_ref(idx: torch.Tensor, base, mask) -> torch.Tensor:
     """``(idx & mask) | base`` in int32."""
@@ -39,10 +65,16 @@ def resolve_pages(ids: torch.Tensor, base, mask,
     return torch.bitwise_and(phys, n_pool_pages - 1)
 
 
+def take_pages(pool: torch.Tensor, phys: torch.Tensor) -> torch.Tensor:
+    """``pool[phys]``; a float8 pool's pages are gathered as bytes."""
+    return pool_bytes(pool)[phys].view(pool.dtype)
+
+
 def paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
                         fence_base, fence_mask, page_map=None, window=0):
     """q (B,H,D); pools (P,page,KH,D) -> (B,H,D).  float32 math over K/V
-    rounded to the query's dtype.  Row b attends to positions t <
+    rounded to the query's dtype (a bfloat16 or float8 pool is widened,
+    exactly).  Row b attends to positions t <
     seq_lens[b] and, when ``window`` > 0, t >= seq_lens[b] - window (the
     reference's ``decode_attention`` mask); a row with no such position
     is the uniform mean over every position of its table."""
@@ -52,8 +84,8 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
     phys = resolve_pages(page_table, fence_base[:, None],
                          fence_mask[:, None], page_map, P).long()
     S = phys.shape[1] * page
-    k = k_pages[phys].reshape(B, S, KH, D).to(q.dtype).float()
-    v = v_pages[phys].reshape(B, S, KH, D).to(q.dtype).float()
+    k = take_pages(k_pages, phys).reshape(B, S, KH, D).to(q.dtype).float()
+    v = take_pages(v_pages, phys).reshape(B, S, KH, D).to(q.dtype).float()
     qg = q.float().reshape(B, KH, G, D)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k) * (1.0 / math.sqrt(D))
     pos = torch.arange(S, device=q.device)
@@ -73,7 +105,8 @@ def scatter_pages_ref(k_pool, v_pool, k_src, v_src, page_ids,
     """Write a prefill's K/V (B,S,KH,D) as whole pages into the pools
     (P,page,KH,D) at the fenced, translated, clamped ids ``page_ids``
     (B, ceil(S/page)); tokens past S write zeros; duplicate destinations
-    resolve last-writer-wins.  In place; returns the pools."""
+    resolve last-writer-wins; the pages are cast to the pool's type as jnp
+    casts (:func:`to_pool`).  In place; returns the pools."""
     B, S, KH, D = k_src.shape
     P, page = k_pool.shape[:2]
     n = page_ids.shape[1]
@@ -92,9 +125,10 @@ def scatter_pages_ref(k_pool, v_pool, k_src, v_src, page_ids,
     last = torch.where(phys[None, :] == phys[:, None], order[None, :],
                        torch.full_like(order, -1)[None, :]).amax(dim=1)
     for pool, src in ((k_pool, k_src), (v_pool, v_src)):
-        pages = torch.nn.functional.pad(src, (0, 0, 0, 0, 0, pad))
-        pages = pages.reshape(B * n, page, KH, D).to(pool.dtype)
-        pool[phys.long()] = pages[last]
+        pages = torch.nn.functional.pad(pool_bytes(to_pool(src, pool.dtype)),
+                                        (0, 0, 0, 0, 0, pad))
+        pool_bytes(pool)[phys.long()] = pages.reshape(B * n, page, KH,
+                                                      D)[last]
     return k_pool, v_pool
 
 

@@ -45,8 +45,8 @@ def chunks_per_page(n_ids: int, groups_per_page: int, n_sm: int) -> int:
 
 def group_size(k_src, k_pool) -> int:
     """Elements a thread moves as one access: 16 bytes of the wider of the
-    source and pool types, 4 when either is float32, 8 when both are
-    bfloat16."""
+    source and pool types, 4 when either is float32, 8 when the wider is
+    bfloat16 (into a float8 pool too)."""
     return 16 // max(k_src.element_size(), k_pool.element_size())
 
 
@@ -137,7 +137,8 @@ def _fake(k_pool, v_pool, k_src, v_src, ids, base_ids, mask_ids, base, mask,
 def scatter_pages(k_pool, v_pool, k_src, v_src, page_ids, fence_base,
                   fence_mask, page_map=None):
     """Write k_src/v_src (B,S,KH,D), float32 or bfloat16, into k_pool/
-    v_pool (P,page,KH,D), float32 or bfloat16, at page ids (B,
+    v_pool (P,page,KH,D), float32, bfloat16 or float8_e4m3fn (cast as jnp
+    casts: :func:`repro_torch.kernels.ref.to_pool`), at page ids (B,
     ceil(S/page)) — any strides, e.g. a column slice of the page table —
     fenced with ``(id & mask) | base`` (base and mask: ints, or tensors of
     one value, per row (B,) or per id (B, n)), translated through

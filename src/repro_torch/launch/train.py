@@ -30,7 +30,7 @@ import json
 import signal
 import statistics
 import time
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -74,7 +74,11 @@ def make_schedule(args: argparse.Namespace):
             "constant": lambda: constant(args.lr)}[args.schedule]()
 
 
-def main(argv: Optional[List[str]] = None) -> dict:
+def main(argv: Optional[List[str]] = None,
+         params: Optional[Dict[str, Any]] = None) -> dict:
+    """Train as the flags say; ``params`` (on ``--device``, updated in
+    place) stands in for the weights drawn from ``--seed`` — e.g. the
+    reference's, converted.  Returns the summary."""
     args = parse_args(argv)
 
     from repro_torch.checkpoint import CheckpointStore
@@ -100,8 +104,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                     global_batch=args.batch, seed=args.seed,
                                     host_index=0, host_count=1))
 
-    params = step_fn.api.init(
-        torch.Generator(device=device).manual_seed(args.seed), device)
+    if params is None:
+        params = step_fn.api.init(
+            torch.Generator(device=device).manual_seed(args.seed), device)
     opt_state = step_fn.opt.init(params)
     start_step = 0
 

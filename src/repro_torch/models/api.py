@@ -17,8 +17,9 @@ the encoder-decoder family takes ``{"src", "tgt"}`` (frames (B,
 ``src_len`` (no ``slots``: the reference's, which no serve engine can
 build).  Only the dense and MoE families have the global paged layout:
 every other family's ``init_global_cache`` raises the reference's
-``ValueError``.  The hybrid and ssm families do not train yet (their
-``loss`` raises ``NotImplementedError``).  :data:`UNPORTED` names the
+``ValueError``.  Every family trains through ``loss`` (the MoE family's
+also takes the reference's ``dispatch`` and ``remat_policy``; its
+``prefill`` / ``decode`` take ``dispatch``).  :data:`UNPORTED` names the
 families the port cannot build: none.
 """
 
@@ -61,16 +62,6 @@ class ModelAPI:
     prefill: Callable
     decode: Callable
     loss: Callable
-
-
-def _no_loss(cfg: ModelConfig) -> Callable:
-    def refuse(*args, **kw):
-        raise NotImplementedError(
-            f"training the {cfg.family} family is not ported yet: its "
-            f"model ({cfg.name}) has a serving path but no training "
-            "forward (models/hybrid.py and xlstm.py lack forward / "
-            "loss_fn)")
-    return refuse
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
@@ -141,7 +132,8 @@ def _hybrid_api(cfg: ModelConfig) -> ModelAPI:
             cfg, params, cache, batch["tokens"], **kw),
         decode=lambda params, cache, tokens, **kw: HY.decode(
             cfg, params, cache, tokens, **kw),
-        loss=_no_loss(cfg),
+        loss=lambda params, batch, **kw: HY.loss_fn(cfg, params, batch,
+                                                    **kw),
     )
 
 
@@ -158,7 +150,8 @@ def _ssm_api(cfg: ModelConfig) -> ModelAPI:
             cfg, params, cache, batch["tokens"], **kw),
         decode=lambda params, cache, tokens, **kw: XL.decode(
             cfg, params, cache, tokens, **kw),
-        loss=_no_loss(cfg),
+        loss=lambda params, batch, **kw: XL.loss_fn(cfg, params, batch,
+                                                    **kw),
     )
 
 

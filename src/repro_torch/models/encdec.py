@@ -183,8 +183,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, src_len: int,
              cfg.head_dim)
     return EncDecCache(
         kv=kv,
-        cross_k=torch.zeros(shape, dtype=dtype, device=device),
-        cross_v=torch.zeros(shape, dtype=dtype, device=device),
+        cross_k=KV.zeros(shape, dtype, device),
+        cross_v=KV.zeros(shape, dtype, device),
         src_lens=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
@@ -261,8 +261,8 @@ def prefill(cfg: ModelConfig, params: Params, cache: EncDecCache,
         KV.write_prefill_kv(cache.kv, lidx, k, v, guard, plan=plan)
         x = x + L.out_proj(cfg, p["attn"], L.prefill_attention(cfg, q, k, v))
         ck, cv = _cross_kv(cfg, p, memory)
-        cache.cross_k[lidx][slot] = ck[last].to(cache.cross_k.dtype)
-        cache.cross_v[lidx][slot] = cv[last].to(cache.cross_v.dtype)
+        KV.store(cache.cross_k[lidx], slot, ck[last])
+        KV.store(cache.cross_v[lidx], slot, cv[last])
         o = L.full_attention(_cross_q(cfg, p, x), ck, cv)
         x = x + L.out_proj(cfg, p["cross"], o)
         x = x + L.mlp_apply(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))

@@ -14,6 +14,11 @@ Params: ``mamba`` is one list of ``attn_every`` block dicts per group,
 dict per tail layer, ``shared_attn`` one dict; the reference stacks the
 blocks and scans, the port loops.
 
+Training (:func:`forward` / :func:`loss_fn`) is the reference's: every
+block full-sequence, the shared attention through K4 under the window,
+the embedding through K3, differentiated through their registered
+backwards.
+
 Serving state per request (:class:`HybridCache`): one windowed KV slab per
 shared-attention invocation in the slab pool (prefill writes the prompt's
 trailing window with ``write_prefill_kv``; decode appends with
@@ -25,6 +30,7 @@ state in the state pool.  Prefill attention runs K4 under the window.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -34,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.models import transformer as TF
 from repro_torch.models.guard import GuardSpec
 
 Params = Dict[str, Any]
@@ -85,23 +92,35 @@ def _shared_out(cfg, sa, x, o):
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, *,
-            guard: Optional[GuardSpec] = None) -> torch.Tensor:
-    """Full-sequence logits (B, S, V)."""
+            guard: Optional[GuardSpec] = None,
+            remat: bool = False) -> torch.Tensor:
+    """Full-sequence logits (B, S, V).  The shared attention runs K4,
+    causal, under the config's window.  ``remat`` recomputes each group
+    (its ``attn_every`` Mamba2 blocks and the shared attention) in the
+    backward pass, as the reference's ``jax.checkpoint(nothing_saveable)``
+    over its group scan; the tail blocks are not recomputed."""
     B, S = tokens.shape
     x = L.embed_tokens(params["embed"], tokens, guard)
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None, :].expand(B, S)
     sa = params["shared_attn"]
-    for group in params["mamba"]:
-        for p in group:
+
+    def group(blocks, x):
+        for p in blocks:
             x = x + M2.block_apply(cfg, p, x)[0]
         q, k, v = _shared_qkv(cfg, sa, x, positions)
-        x = _shared_out(cfg, sa, x, L.prefill_attention(cfg, q, k, v))
+        return (_shared_out(cfg, sa, x, L.prefill_attention(cfg, q, k, v)),)
+
+    (x,) = TF.run_layers(group, params["mamba"], x, remat=remat)
     for p in params.get("mamba_tail", ()):
         x = x + M2.block_apply(cfg, p, x)[0]
     x = L.apply_norm(cfg, params["norm_f"], x)
     return L.lm_logits(cfg, params["embed"], x)
+
+
+#: mean next-token NLL (``transformer.next_token_loss``), remat on
+loss_fn = functools.partial(TF.next_token_loss, forward)
 
 
 # ---------------------------------------------------------------------------
@@ -131,8 +150,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     pools = {
         "ssm": torch.zeros((cfg.n_layers, slots, *shapes["ssm"]),
                            dtype=torch.float32, device=device),
-        "conv": torch.zeros((cfg.n_layers, slots, *shapes["conv"]),
-                            dtype=dtype, device=device),
+        "conv": KV.zeros((cfg.n_layers, slots, *shapes["conv"]), dtype,
+                         device),
     }
     state = KV.StateCache(pools=pools, slot_ids=torch.arange(batch, **i32),
                           seq_lens=torch.zeros((batch,), **i32))

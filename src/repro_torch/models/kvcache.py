@@ -36,6 +36,13 @@ value, so the stores are deterministic on the card too.  The ``permute``
 write's one-hot contraction instead *sums* the slabs of rows sharing a
 slot, exactly as the reference's does.
 
+A pool may be ``float8_e4m3fn`` (the reference's ``kv_dtype="f8"``): values
+are cast to it as jnp's ``astype`` casts (``kernels/ref.py``'s
+``to_pool``), its bytes move as ``uint8`` (``pool_bytes``: torch lacks
+float8 ``gather`` / ``index_copy_`` kernels), the ``permute`` write sums in
+float32 and rounds as XLA's float8 dot does, and K1 widens it to float32
+as it loads.
+
 Recurrent state (the hybrid's Mamba2 blocks, xLSTM) lives in the same slot
 discipline: :class:`StateCache`, ``(L, slots, *state)`` pools with fenced
 slot ids (space "state").
@@ -50,12 +57,25 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import paged_attention, scatter_pages
+from repro_torch.kernels.ref import FP8, FP8_NAN, pool_bytes, to_pool
 from repro_torch.models.guard import GuardSpec, fence, fence_pages, \
     kernel_fence
 
 PAGE_SIZE = 64
 
 _INT32_MIN = -(1 << 31)
+
+def zeros(shape, dtype, device) -> torch.Tensor:
+    """A zeroed pool (a float8 one zeroed as bytes: +0 is byte 0)."""
+    if dtype == FP8:
+        return torch.zeros(shape, dtype=torch.uint8, device=device).view(FP8)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def store(view: torch.Tensor, idx, value: torch.Tensor) -> None:
+    """``view[idx] = value`` cast to the view's dtype (``to_pool``), in
+    place."""
+    pool_bytes(view)[idx] = pool_bytes(to_pool(value, view.dtype))
 
 
 def _pow2_at_least(n: int) -> int:
@@ -132,8 +152,8 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     pages = spec["page_table"].shape[1]
     i32 = dict(dtype=torch.int32, device=device)
     return PagedKVCache(
-        k=torch.zeros(spec["k"].shape, dtype=dtype, device=device),
-        v=torch.zeros(spec["v"].shape, dtype=dtype, device=device),
+        k=zeros(spec["k"].shape, dtype, device),
+        v=zeros(spec["v"].shape, dtype, device),
         page_table=torch.arange(pages, **i32)[None, :].repeat(batch, 1),
         slot_ids=torch.arange(batch, **i32),
         seq_lens=torch.zeros((batch,), **i32),
@@ -152,8 +172,8 @@ def init_global_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     shape = (L, total_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     i32 = dict(dtype=torch.int32, device=device)
     return PagedKVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        k=zeros(shape, dtype, device),
+        v=zeros(shape, dtype, device),
         page_table=torch.zeros((batch, pages_per_req), **i32),
         slot_ids=torch.zeros((batch,), **i32),
         seq_lens=torch.zeros((batch,), **i32),
@@ -188,7 +208,10 @@ def _take_fill(t: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
     """``jnp.take`` / ``take_along_axis`` in fill mode along ``dim``: a
     negative id wraps once, an id outside ``[-n, n)`` reads NaN.  ``idx``
     indexes ``t`` along ``dim``; for ``dim > 0`` it carries the leading
-    batch axes of ``t`` (take_along_axis)."""
+    batch axes of ``t`` (take_along_axis).  A float8 ``t`` is read as
+    bytes, NaN its NaN byte."""
+    if t.dtype == FP8:
+        return _take_fill(t.view(torch.uint8), idx, dim).view(FP8)
     n = t.shape[dim]
     idx = _wrap(idx, n)
     ok = (idx >= 0) & (idx < n)
@@ -200,8 +223,9 @@ def _take_fill(t: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
         out = torch.gather(t, dim, safe.reshape(shape).expand(
             *safe.shape, *t.shape[dim + 1:]))
     okb = ok.reshape(tuple(ok.shape) + (1,) * (out.dim() - ok.dim()))
-    return torch.where(okb, out, torch.full((), float("nan"),
-                                            dtype=t.dtype, device=t.device))
+    fill = FP8_NAN if t.dtype == torch.uint8 else float("nan")
+    return torch.where(okb, out, torch.full((), fill, dtype=t.dtype,
+                                            device=t.device))
 
 
 def _last_writer(keys: torch.Tensor) -> torch.Tensor:
@@ -299,8 +323,8 @@ def append_token_kv(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
     if not cache.global_paged:
         plan = plan or decode_plan(cache, guard)
         idx = (plan.slot, plan.page, plan.offset)
-        cache.k[layer][idx] = k_new[:, 0][plan.last].to(cache.k.dtype)
-        cache.v[layer][idx] = v_new[:, 0][plan.last].to(cache.v.dtype)
+        store(cache.k[layer], idx, k_new[:, 0][plan.last])
+        store(cache.v[layer], idx, v_new[:, 0][plan.last])
         return cache
     page = cache.page_size
     pos = cache.seq_lens.long()
@@ -311,8 +335,8 @@ def append_token_kv(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
                        torch.full_like(virt, _INT32_MIN))[:, 0]
     phys = _fenced_phys_pages(virt, guard).long()
     off = pos % page
-    cache.k[layer, phys, off] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[layer, phys, off] = v_new[:, 0].to(cache.v.dtype)
+    store(cache.k[layer], (phys, off), k_new[:, 0])
+    store(cache.v[layer], (phys, off), v_new[:, 0])
     return cache
 
 
@@ -376,19 +400,25 @@ def _permute_write(pool: torch.Tensor, layer: int, new_pg: torch.Tensor,
     row's slab materialised through its inverse permutation (old
     contents kept where it wrote nothing), placed into the slot rows by a
     one-hot contraction — rows sharing a slot *sum* — and written over
-    the owned slots of the layer."""
+    the owned slots of the layer.  ``new_pg`` is in the pool's dtype.  A
+    float8 pool's slabs move as bytes and are placed in float32, each sum
+    rounded through float16 to float8, as XLA computes the reference's
+    float8 one-hot dot."""
     B = new_pg.shape[0]
     inv = plan.inv[:, :, None, None, None].expand(
         -1, -1, *new_pg.shape[2:])
-    slab_new = torch.gather(new_pg, 1, inv.long())
+    slab_new = torch.gather(pool_bytes(new_pg), 1, inv.long())
     pool_l = pool[layer]
-    old = _take_fill(pool_l, plan.slots, 0)
-    slab = torch.where(plan.wrote[:, :, None, None, None],
-                       slab_new.to(pool.dtype), old)
-    oh = plan.oh.to(pool.dtype)
-    placed = (oh.t() @ slab.reshape(B, -1)).reshape(pool_l.shape)
-    pool_l.copy_(torch.where(plan.owned[:, None, None, None, None], placed,
-                             pool_l))
+    old = pool_bytes(_take_fill(pool_l, plan.slots, 0))
+    slab = torch.where(plan.wrote[:, :, None, None, None], slab_new, old)
+    if pool.dtype == FP8:
+        placed = plan.oh.float().t() @ slab.view(FP8).float().reshape(B, -1)
+        placed = pool_bytes(to_pool(placed.half(), FP8))
+    else:
+        placed = plan.oh.to(pool.dtype).t() @ slab.reshape(B, -1)
+    pool_bytes(pool_l).copy_(torch.where(
+        plan.owned[:, None, None, None, None],
+        placed.reshape(pool_l.shape), pool_bytes(pool_l)))
 
 
 def write_prefill_kv(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
@@ -425,15 +455,15 @@ def write_prefill_kv(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
     page = cache.page_size
     pad = plan.n_pages * page - S
     for pool, new in ((cache.k, k_new), (cache.v, v_new)):
-        new_pg = torch.nn.functional.pad(new.to(pool.dtype),
-                                         (0, 0, 0, 0, 0, pad))
+        new_pg = torch.nn.functional.pad(
+            pool_bytes(to_pool(new, pool.dtype)), (0, 0, 0, 0, 0, pad))
         new_pg = new_pg.reshape(B, plan.n_pages, page, KH, D)
         if plan.mode == "scatter":
-            pool[layer][plan.slots, plan.pages] = new_pg.reshape(
-                B * plan.n_pages, page, KH, D)[plan.last].reshape(
-                new_pg.shape)
+            pool_bytes(pool[layer])[plan.slots, plan.pages] = \
+                new_pg.reshape(B * plan.n_pages, page, KH, D)[
+                    plan.last].reshape(new_pg.shape)
         else:
-            _permute_write(pool, layer, new_pg, plan)
+            _permute_write(pool, layer, new_pg.view(pool.dtype), plan)
     return cache
 
 
@@ -496,7 +526,7 @@ class StateCache:
         pool = self.pools[name]
         slot = _in_range(fence(guard, "state", self.slot_ids),
                          pool.shape[1]).long()
-        pool[layer][slot] = value[_last_writer(slot)].to(pool.dtype)
+        store(pool[layer], slot, value[_last_writer(slot)])
         return self
 
 

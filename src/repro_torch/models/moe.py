@@ -10,15 +10,21 @@ dispatch offset, and the per-expert counts that place every (token, k)
 assignment come from the fenced-histogram kernel (K5), which fences each
 id again on its own bin address.
 
-Dispatch is the reference's ``scatter`` variant (``repro/models/moe.py``):
-capacity ``C = max(int(2 * K * T / E), 8)`` slots per expert, shared by
-every token of the step (parked rows and right-padding included); an
-assignment whose rank within its expert reaches ``C`` is dropped.  The
-reference ranks assignments with a float cumsum over a one-hot (T*K, E);
-here the rank is the assignment's position in a stable sort of the fenced
-ids minus its expert's start, the exclusive cumsum of K5's counts — the
-same integer for every (t, k).  The expert products are plain batched
-matmuls, as the reference leaves them to XLA.
+Dispatch is either of the reference's variants (``repro/models/moe.py``,
+``dispatch=``): ``scatter`` (the default, and what any name but
+``einsum`` selects, as there) stores each kept assignment's token into
+its expert buffer row and gathers the outputs back; ``einsum`` is the
+Mesh-TF one-hot formulation, dispatch and combine as (T, E, C) tensors
+contracted with the tokens and the expert outputs.  Both share the
+routing: capacity ``C = max(int(2 * K * T / E), 8)`` slots per expert,
+shared by every token of the step (parked rows and right-padding
+included); an assignment whose rank within its expert reaches ``C`` is
+dropped.  The reference ranks assignments with a float cumsum over a
+one-hot (T*K, E); here the rank is the assignment's position in a stable
+sort of the fenced ids minus its expert's start, the exclusive cumsum of
+K5's counts — the same integer for every (t, k).  The expert products and
+the einsum dispatch's contractions are plain matmuls, as the reference
+leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -156,11 +162,46 @@ def dispatch_dest(r: Routing) -> torch.Tensor:
     return torch.where(r.keep.reshape(-1), dest, torch.full_like(dest, E * C))
 
 
+def _expert_mlps(cfg: ModelConfig, p: Params,
+                 xin: torch.Tensor) -> torch.Tensor:
+    """The expert MLPs over the (E, C, d) buffers -> (E, C, d)."""
+    if cfg.act == "silu":
+        h = F.silu(torch.bmm(xin, p["wg"])) * torch.bmm(xin, p["wu"])
+    else:
+        h = F.gelu(torch.bmm(xin, p["wu"]), approximate="tanh")
+    return torch.bmm(h, p["wd"])
+
+
+def experts_einsum(cfg: ModelConfig, p: Params, xf: torch.Tensor,
+                   r: Routing) -> torch.Tensor:
+    """The reference's ``einsum`` dispatch of tokens xf (T, d): the
+    (T, E, C) dispatch tensor one-hot on (expert, slot) — a dropped
+    assignment's slot is class C, a zero row, and so is a fenced id past
+    the experts — the buffers ``xin = einsum("td,tec->ecd")``, the expert
+    MLPs, and the combine ``disp * sum_k onehot * gates`` contracted with
+    their outputs -> (T, d).  Where a fence folds two of a token's ids
+    onto one expert, ``disp`` holds both slots and the combine weighs each
+    by the sum of both gates, as the reference's does."""
+    E, C = cfg.moe.num_experts, r.capacity
+    dt = xf.dtype
+    onehot = (r.experts.long()[..., None]
+              == torch.arange(E, device=xf.device)).to(dt)      # (T,K,E)
+    slot = torch.where(r.keep, r.pos.long(), torch.full_like(
+        r.pos, C, dtype=torch.long))
+    slot_oh = (slot[..., None] == torch.arange(C, device=xf.device)).to(dt)
+    disp = torch.einsum("tke,tkc->tec", onehot, slot_oh)
+    xin = torch.einsum("td,tec->ecd", xf, disp)
+    out_e = _expert_mlps(cfg, p, xin)
+    combine = disp * torch.einsum("tke,tk->te", onehot,
+                                  r.gates.to(dt))[..., None]
+    return torch.einsum("tec,ecd->td", combine, out_e)
+
+
 def experts(cfg: ModelConfig, p: Params, xf: torch.Tensor,
             r: Routing) -> torch.Tensor:
     """Dispatch tokens xf (T, d) into the (E, C, d) expert buffers, run
     the expert MLPs, and combine each token's kept outputs by its gates
-    -> (T, d)."""
+    -> (T, d): the reference's ``scatter`` dispatch."""
     T, d = xf.shape
     E, K = cfg.moe.num_experts, cfg.moe.top_k
     # fenced scatter dispatch into (E*C + 1, d): a destination outside
@@ -173,31 +214,31 @@ def experts(cfg: ModelConfig, p: Params, xf: torch.Tensor,
     src = xf[:, None, :].expand(T, K, d).reshape(T * K, d)
     buf = torch.zeros((EC + 1, d), dtype=xf.dtype, device=xf.device)
     buf.index_copy_(0, dest_w, src)
-    xin = buf[:EC].reshape(E, r.capacity, d)
-
-    if cfg.act == "silu":
-        h = F.silu(torch.bmm(xin, p["wg"])) * torch.bmm(xin, p["wu"])
-    else:
-        h = F.gelu(torch.bmm(xin, p["wu"]), approximate="tanh")
-    out_e = torch.bmm(h, p["wd"])                               # (E, C, d)
+    out_e = _expert_mlps(cfg, p, buf[:EC].reshape(E, r.capacity, d))
 
     y_tk = out_e.reshape(EC, d)[dest.clamp(0, EC - 1)].reshape(T, K, d)
     return torch.einsum("tkd,tk->td", y_tk, r.gates.to(xf.dtype))
 
 
+def dispatch_experts(dispatch: str):
+    """The expert block of a ``dispatch`` name: :func:`experts_einsum` for
+    ``"einsum"``, else :func:`experts` (the reference's reading)."""
+    return experts_einsum if dispatch == "einsum" else experts
+
+
 def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
               guard: Optional[GuardSpec] = None,
-              capacity_factor: float = 2.0
+              capacity_factor: float = 2.0, dispatch: str = "scatter"
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d), aux_loss scalar): top-k routing with
-    the ``scatter`` capacity dispatch of ``repro/models/moe.py``."""
+    the capacity dispatch ``dispatch`` of ``repro/models/moe.py``."""
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
     r = route(cfg, p, xf, guard, capacity_factor)
     # load-balancing aux loss (Switch-style); ce = counts / T
     aux = cfg.moe.num_experts * (
         r.probs.mean(dim=0) * (r.counts.float() / (B * S))).sum()
-    return experts(cfg, p, xf, r).reshape(B, S, d), aux
+    return dispatch_experts(dispatch)(cfg, p, xf, r).reshape(B, S, d), aux
 
 
 # ---------------------------------------------------------------------------
@@ -224,55 +265,57 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 
 
 def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
-            guard: Optional[GuardSpec] = None) -> torch.Tensor:
+            guard: Optional[GuardSpec] = None,
+            dispatch: str = "scatter") -> torch.Tensor:
     """The MoE layer's feed-forward block: :func:`moe_apply` without the
     aux loss, a training quantity the reference's prefill/decode drop."""
     B, S, d = x.shape
     xf = L.apply_norm(cfg, p["norm2"], x).reshape(B * S, d)
     r = route(cfg, p["moe"], xf, guard)
-    return experts(cfg, p["moe"], xf, r).reshape(B, S, d)
+    return dispatch_experts(dispatch)(cfg, p["moe"], xf, r).reshape(B, S, d)
 
 
-#: prefill / decode: the dense serving loop with the expert block
-prefill = functools.partial(TF.prefill, ffn=moe_ffn)
-decode = functools.partial(TF.decode, ffn=moe_ffn)
+def prefill(cfg: ModelConfig, params: Params, cache, tokens: torch.Tensor,
+            *, dispatch: str = "scatter", **kw):
+    """The dense serving loop's prefill with the expert block
+    (``dispatch`` as :func:`moe_apply`'s)."""
+    return TF.prefill(cfg, params, cache, tokens, ffn=functools.partial(
+        moe_ffn, dispatch=dispatch), **kw)
+
+
+def decode(cfg: ModelConfig, params: Params, cache, tokens: torch.Tensor,
+           *, dispatch: str = "scatter", **kw):
+    """The dense serving loop's decode step with the expert block
+    (``dispatch`` as :func:`moe_apply`'s)."""
+    return TF.decode(cfg, params, cache, tokens, ffn=functools.partial(
+        moe_ffn, dispatch=dispatch), **kw)
 
 
 # ---------------------------------------------------------------------------
 # Forward (training / scoring)
 # ---------------------------------------------------------------------------
 
-def _check_train_options(dispatch: str, remat_policy: str) -> None:
-    if dispatch == "einsum":
-        raise NotImplementedError(
-            "the einsum MoE dispatch (repro/models/moe.py, the Mesh-TF "
-            "one-hot variant) is not ported yet; use dispatch='scatter'")
-    if dispatch != "scatter":
-        raise ValueError(f"unknown MoE dispatch {dispatch!r}")
-    if remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat policy {remat_policy!r}: the port recomputes whole "
-            "layers only (remat_policy='nothing')")
-
-
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, *,
             guard: Optional[GuardSpec] = None, remat: bool = False,
             dispatch: str = "scatter", remat_policy: str = "nothing"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (logits (B, S, V), the layers' mean aux loss)."""
-    _check_train_options(dispatch, remat_policy)
+    """tokens (B, S) -> (logits (B, S, V), the layers' mean aux loss).
+    ``dispatch`` as :func:`moe_apply`'s; ``remat_policy`` is what a
+    recomputed layer keeps (:func:`repro_torch.models.transformer.
+    run_layers`: ``"dots"`` its plain products, else nothing)."""
     x = L.embed_tokens(params["embed"], tokens, guard)
     positions = TF.train_positions(tokens, positions)
 
     def layer(p, x, aux):
         x = x + TF.attn_block(cfg, p, x, positions)
         h, a = moe_apply(cfg, p["moe"], L.apply_norm(cfg, p["norm2"], x),
-                         guard)
+                         guard, dispatch=dispatch)
         return x + h, aux + a
 
     aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
-    x, aux = TF.run_layers(layer, params["layers"], x, aux0, remat=remat)
+    x, aux = TF.run_layers(layer, params["layers"], x, aux0, remat=remat,
+                           policy=remat_policy)
     x = L.apply_norm(cfg, params["norm_f"], x)
     return L.lm_logits(cfg, params["embed"], x), aux / cfg.n_layers
 

@@ -17,15 +17,18 @@ as the feed-forward (``ffn=``).  :func:`forward` / :func:`loss_fn` are the
 reference's training pass: K3 and K4 on the same path as a prefill's,
 differentiated through their registered backwards; ``remat`` runs each
 layer under ``torch.utils.checkpoint`` (the reference's
-``jax.checkpoint(nothing_saveable)``).
+``jax.checkpoint(nothing_saveable)``, or with :func:`run_layers`'s
+``policy="dots"`` its ``dots_with_no_batch_dims_saveable``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
+    create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import kvcache as KV
@@ -83,12 +86,31 @@ def train_positions(tokens: torch.Tensor, positions=None) -> torch.Tensor:
                         device=tokens.device)[None, :].expand(B, S)
 
 
-def run_layers(layer: Callable, layers, *carry, remat: bool = False):
+def _save_plain_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The ``dots`` policy (``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``): a product with no batch dimension
+    — ``aten.mm`` / ``aten.addmm``, what ``(B, S, d) @ (d, f)`` lowers to
+    — is saved; everything else (the expert ``bmm``s, the kernels, norms,
+    elementwise ops) is recomputed."""
+    return CheckpointPolicy.MUST_SAVE \
+        if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def run_layers(layer: Callable, layers, *carry, remat: bool = False,
+               policy: str = "nothing"):
     """``carry = layer(p, *carry)`` over the layers' params, each layer
-    recomputed in the backward pass when ``remat`` (nothing saved but its
-    inputs: ``torch.utils.checkpoint``, non-reentrant)."""
+    recomputed in the backward pass when ``remat`` (``torch.utils.
+    checkpoint``, non-reentrant).  ``policy`` is what a recomputed layer
+    keeps: ``"dots"`` its plain products' outputs
+    (:func:`_save_plain_products`), anything else nothing but its inputs,
+    as the reference reads ``remat_policy``."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_plain_products)
     for p in layers:
-        carry = checkpoint(layer, p, *carry, use_reentrant=False) \
+        carry = checkpoint(layer, p, *carry, use_reentrant=False, **kw) \
             if remat else layer(p, *carry)
     return carry
 
@@ -115,14 +137,19 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return L.lm_logits(cfg, params["embed"], x)
 
 
-def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            guard: Optional[GuardSpec] = None,
-            remat: bool = True) -> torch.Tensor:
-    """Mean next-token NLL of ``batch["tokens"]`` (B, S + 1), masked by
-    ``batch["mask"]`` when given."""
+def next_token_loss(forward: Callable, cfg: ModelConfig, params: Params,
+                    batch: Dict[str, Any], *,
+                    guard: Optional[GuardSpec] = None,
+                    remat: bool = True) -> torch.Tensor:
+    """Mean next-token NLL of ``batch["tokens"]`` (B, S + 1) under a
+    family's ``forward``, masked by ``batch["mask"]`` when given: the
+    ``loss_fn`` of the dense, hybrid and ssm families."""
     tokens = batch["tokens"]
     logits = forward(cfg, params, tokens[:, :-1], guard=guard, remat=remat)
     return L.softmax_cross_entropy(logits, tokens[:, 1:], batch.get("mask"))
+
+
+loss_fn = functools.partial(next_token_loss, forward)
 
 
 # ---------------------------------------------------------------------------

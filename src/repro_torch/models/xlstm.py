@@ -14,12 +14,14 @@ pair; the reference stacks them and scans, the port loops.
 Attention-free: the Guardian-guarded resource is the recurrent **state
 pool** (:class:`repro_torch.models.kvcache.StateCache`, fenced slot ids,
 space "state").  The only hand-written kernel on the path is the embedding
-gather (K3).
+gather (K3), in training too (:func:`forward` / :func:`loss_fn`, the
+sLSTM a loop over positions under autograd).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -28,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as TF
 from repro_torch.models.guard import GuardSpec
 from repro_torch.models.ssd import ssd_chunked, ssd_step
 
@@ -205,14 +208,26 @@ def init(cfg: ModelConfig, generator: torch.Generator,
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, *,
-            guard: Optional[GuardSpec] = None) -> torch.Tensor:
-    """Full-sequence logits (B, S, V)."""
+            guard: Optional[GuardSpec] = None,
+            remat: bool = False) -> torch.Tensor:
+    """Full-sequence logits (B, S, V).  ``remat`` recomputes each
+    (mLSTM, sLSTM) pair in the backward pass, as the reference's
+    ``jax.checkpoint(nothing_saveable)`` over its pair scan."""
     x = L.embed_tokens(params["embed"], tokens, guard)
-    for pm, psl in zip(params["mlstm"], params["slstm"]):
+
+    def pair(ps, x):
+        pm, psl = ps
         x = x + mlstm_apply(cfg, pm, x)[0]
-        x = x + slstm_apply(cfg, psl, x)[0]
+        return (x + slstm_apply(cfg, psl, x)[0],)
+
+    (x,) = TF.run_layers(pair, list(zip(params["mlstm"], params["slstm"])),
+                         x, remat=remat)
     x = L.apply_norm(cfg, params["norm_f"], x)
     return L.lm_logits(cfg, params["embed"], x)
+
+
+#: mean next-token NLL (``transformer.next_token_loss``), remat on
+loss_fn = functools.partial(TF.next_token_loss, forward)
 
 
 # ---------------------------------------------------------------------------

@@ -470,17 +470,12 @@ def _smoke_batch(cfg, B, S):
 @pytest.mark.parametrize("arch", list_archs())
 def test_arch_smoke_train_step(arch):
     """Mirror of ``test_models.py::test_arch_smoke_train_step``: a scalar
-    loss, finite, finite gradients, one of them non-zero — or, for the
-    families with no training forward yet (hybrid, ssm), the refusal
-    that names it."""
+    loss, finite, finite gradients, one of them non-zero, for every
+    family."""
     cfg = get_config_t(arch).reduced()
     api = get_model_t(cfg)
     params = api.init(torch.Generator().manual_seed(0), "cpu")
     batch = {k: t_of(v) for k, v in _smoke_batch(cfg, 2, 32).items()}
-    if cfg.family in ("hybrid", "ssm"):
-        with pytest.raises(NotImplementedError, match="training the"):
-            api.loss(params, batch, remat=False)
-        return
     struct, leaves = tree_flatten(params)
     req = [p.detach().requires_grad_() for p in leaves]
     loss = api.loss(tree_unflatten(struct, req), batch, remat=False)

@@ -515,18 +515,6 @@ def test_loss_and_grads_match_reference(models, arch):
         assert torch.equal(a, b)
 
 
-def test_moe_options_refused(models):
-    cj, ct, pj, pt, toks = models["qwen3-moe-30b-a3b"]
-    api = get_model(ct)
-    with pytest.raises(NotImplementedError, match="einsum"):
-        api.loss(pt, {"tokens": t_of(toks)}, dispatch="einsum")
-    with pytest.raises(NotImplementedError, match="dots"):
-        api.loss(pt, {"tokens": t_of(toks)}, remat_policy="dots")
-    for arch in ("zamba2-7b", "xlstm-350m"):
-        with pytest.raises(NotImplementedError, match="training"):
-            get_model(get_config_t(arch).reduced()).loss({}, {})
-
-
 def test_fence_modes_equivalent_for_honest_tenant(models):
     """Mirror of ``test_system.py::test_fence_modes_equivalent_for_honest
     _tenant`` (reduced qwen3-moe): native, BITWISE, MODULO and CHECK give
