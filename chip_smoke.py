@@ -9,9 +9,11 @@ paths run, each at full width: the dense stablelm-3b, the MoE
 qwen3-moe-30b-a3b and, in phase 8, the hybrid zamba2-7b and the xLSTM
 xlstm-350m; phase 9 trains minicpm-2b, phase 10 runs the vision
 qwen2-vl-2b and the encoder-decoder seamless-m4t-medium through the
-model API, and phase 11 trains the recurrent families and the MoE
-variants and decodes stablelm-3b over a float8 pool.  Phases, in order
-(any failure exits non-zero):
+model API, phase 11 trains the recurrent families and the MoE
+variants and decodes stablelm-3b over a float8 pool, and phase 12 runs
+the reference's step bundles (``build_prefill_step`` /
+``build_decode_step``) at stablelm-3b's full width over the reference's
+32k shapes.  Phases, in order (any failure exits non-zero):
 
 1. device and build — the card's name and power limit, the torch version,
    the build of every kernel of ``src/repro_torch/kernels/csrc`` for
@@ -287,6 +289,50 @@ variants and decodes stablelm-3b over a float8 pool.  Phases, in order
    stablelm-3b's slab shape (launches: (c)'s) and at qwen3-moe's GQA
    shape (on no path), every cluster size, bf16 and f32 queries, and K2
    storing f32 and bf16 sources into a float8 pool in its forms check.
+
+12. the reference's step bundles (right after phase 11, in a process of
+   its own: the 43 GB bf16 pool needs the card's memory whole): (a)
+   stablelm-3b and qwen3-moe-30b-a3b at full width and 2 layers, float32,
+   through ``build_prefill_step`` / ``build_decode_step`` on
+   ``make_local_mesh()`` (``kv_dtype`` "f32", the bundles' BITWISE guard
+   — the MoE family's expert fence and K5 too): a 4 x 64 (MoE: 4 x 32)
+   prefill and 4 greedy decode steps, card against CPU from the same
+   weights — greedy ids equal, logits within phase 3's 2e-3, the
+   launches counted; ``compress_roundtrip`` of a (50,304 x 2,560) float32
+   tensor card = CPU bit for bit, and ``tree_compress_psum`` over a
+   one-rank NCCL group equal to the round trip leaf by leaf; (b)
+   stablelm-3b at full width and depth (32 layers, bf16 weights from a
+   seeded generator) at the reference's ``prefill_32k`` / ``decode_32k``
+   with the global batch cut to 4 (each cut printed), over a bf16 pool
+   (42.95 GB, the reference's default) and a float8 one, each bundle
+   guarded (``make_guard``, BITWISE) and with ``guard_enabled=False``:
+   the prefill bundle at its spec (4 x 32,768) guarded, native, native,
+   guarded; the prefill bundle filling the cache with 4 x 32,704 tokens
+   (511 pages a row); 16 decode bundle steps guarded, native, native,
+   guarded from that cache (the float8 pool fed the bf16 pool's tokens);
+   counts set to 0 just before a pool's run and read just after — every
+   K1 / K3 / K4 call launched its kernel, no plain version, every logit
+   finite, guarded logits bit-equal to native ones — printing the
+   prefill's wall and tokens/s, the decode step's median (min-max)
+   against its bytes floor, guarded / native, the launches a call, peak
+   memory and the greedy ids the float8 pool shares with the bf16
+   pool's; then, the counts read, each pool at its last layer (a view
+   past 2^31 elements into the pool tensor): its K / V slabs at 8
+   positions of every row equal to what the model wrote, value for
+   value, and to the plain projection of the layer's input within a stated
+   bound (the layer before's weights, the control, breaking it), and K1
+   over the view with the decode step's q held against its plain
+   version, with its control and the pages outside the fence clobbered.
+   Phase 2 holds K1 over the bf16 and the float8 layer view (4,096
+   pages, each row's 512 followed by 512 outside its table,
+   32,704-32,720 held tokens), K4 at (4, 32,768, 32, 80) bf16 causal
+   (its plain version, whose scores would take 550 GB whole, on (row,
+   head, query block) triples, the first and last blocks among them,
+   within half a bf16 ulp plus 2^-5 of the row's output RMS, a dropped
+   far key tile as the control; its plain time the whole call one (row,
+   head) at a time) and K3 over the prefill's
+   131,072 ids, rows ``kernel@stablelm-3b/32k`` (``/32k-fp8``), launches
+   from (b).
 
 The last three lines of standard output are the kernel table as one JSON
 object, the card's ``name, power.limit``, and the result object.
@@ -648,7 +694,9 @@ def k1_pool_row(torch, row, path, q, k_pool, v_pool, table, lens, base,
         tolerance=(f"1/2 bf16 ulp + {K1_SLACK:g} of the f32 plain version "
                    f"on K/V rounded to bf16 (worst error/bound "
                    f"{chk['ratio']:.3f}{ctrl})"
-                   if q.dtype == torch.bfloat16 else f"{K1_F32_TOL:g}"),
+                   if q.dtype == torch.bfloat16 else f"{K1_F32_TOL:g}")
+        + f"; {chk['foreign']} pages outside the fence clobbered, output "
+          "unchanged",
         ms=cuda_ms(torch, call),
         plain_ms=cuda_ms(torch, lambda: ref.paged_attention_ref(
             q, k_pool, v_pool, table, lens, base, msk, page_map,
@@ -5941,6 +5989,763 @@ def families_train_worker(torch) -> dict:
     return paths
 
 
+# --------------------------------------------------------------------- #
+# Phase 2 (the 32k rows) and phase 12: the reference's step bundles       #
+# --------------------------------------------------------------------- #
+
+#: phase 12's model, at full width and depth over the reference's 32k
+#: serving shapes with the batch cut to fit one card
+BUNDLE_ARCH = "stablelm-3b"
+BUNDLE_BATCH = 4
+#: decode bundle steps a run, and the prompts the prefill bundle fills
+#: the decode cache with: 511 of a row's 512 pages, room for the steps
+BUNDLE_STEPS = 16
+BUNDLE_PROMPT = 32_704
+#: the paths of phase 12 (b), one per pool type (the reference's kv_dtype)
+BUNDLE_PATHS = {"bf16": f"{BUNDLE_ARCH}/32k", "f8": f"{BUNDLE_ARCH}/32k-fp8"}
+
+
+def bundle_shapes():
+    """The reference's ``prefill_32k`` and ``decode_32k`` with the global
+    batch cut to :data:`BUNDLE_BATCH` (from 32 and 128)."""
+    from repro_torch.configs import SHAPES
+    return {kind: dataclasses.replace(SHAPES[f"{kind}_32k"],
+                                      global_batch=BUNDLE_BATCH)
+            for kind in ("prefill", "decode")}
+
+
+#: K4's slack at 32k keys, as a share of each query row's output RMS: the
+#: kernel rounds P to bf16 (a relative error of at most 2^-8 a weight,
+#: ~0.45 * 2^-8 RMS), so its output moves by ~0.0018 of the row's RMS at
+#: one sigma and ~0.008 at the ~4.5 sigma of the ~10^5 sampled elements;
+#: leaving out one 64-key tile of 32k moves a late row by ~sqrt(64 / n)
+#: = 0.044 of its RMS at one sigma
+K4_LONG_SLACK = 2 ** -5
+#: K4's keys a tile (``kBK`` of ``csrc/flash_attention.cu``)
+K4_TILE = 64
+
+
+def k4_long_row(torch, row, path, q, k, v, samples: int = 8, blk: int = 128):
+    """K4 (causal, bf16) at a length whose plain version cannot hold its
+    scores whole (S x S floats a (row, head): 4.3 GB at 32,768, 550 GB the
+    call): held against the plain math in float32 on (row, head, query
+    block of ``blk``) triples — the first two and the last blocks of two
+    (row, head) pairs and ``samples`` drawn at random — each computed
+    alone over the keys its block attends, within half a bf16 ulp (of the
+    larger of the two values) plus :data:`K4_LONG_SLACK` times the query
+    row's output RMS; the control, the plain version with the first key
+    tile left out on the last blocks (a dropped far tile), must break that
+    bound.  Its plain time is the whole call's, the plain version run one
+    (row, head) at a time; timed against
+    ``scaled_dot_product_attention(is_causal=True)`` on the whole call,
+    with its bound.  One device operation a call."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    import torch.nn.functional as F
+
+    B, S, H, D = q.shape
+    nb = S // blk
+    call = (lambda: flash_attention(q, k, v, causal=True))
+    out = call()
+    gen = torch.Generator().manual_seed(5)
+    picks = [(0, 0, 0), (B - 1, H - 1, 1), (0, 0, nb - 1),
+             (B - 1, H // 2, nb - 1)] + [
+        tuple(int(torch.randint(0, n, (1,), generator=gen))
+              for n in (B, H, nb)) for _ in range(samples)]
+
+    def plain_block(b, h, qb, drop: int = 0):
+        lo, hi = qb * blk, (qb + 1) * blk
+        s = (q[b, lo:hi, h].float() @ k[b, :hi, h].float().T) \
+            / math.sqrt(D)
+        qpos = torch.arange(lo, hi, device="cuda")[:, None]
+        kpos = torch.arange(hi, device="cuda")[None, :]
+        s = torch.where((kpos <= qpos) & (kpos >= drop), s,
+                        torch.full((), -1e30, device="cuda"))
+        return torch.softmax(s, dim=-1) @ v[b, :hi, h].float()
+
+    def err_ratio(got, want):
+        got = got.float()
+        err = (got - want).abs()
+        bound = (half_ulp_bf16(torch, torch.maximum(want.abs(), got.abs()))
+                 + K4_LONG_SLACK * want.square().mean(-1, keepdim=True)
+                 .sqrt())
+        return err.max().item(), (err / bound).max().item()
+
+    err = ratio = ctrl = 0.0
+    for b, h, qb in picks:
+        want = plain_block(b, h, qb)
+        e, r = err_ratio(out[b, qb * blk:(qb + 1) * blk, h], want)
+        err, ratio = max(err, e), max(ratio, r)
+        if qb == nb - 1:
+            ctrl = max(ctrl, err_ratio(
+                plain_block(b, h, qb, drop=K4_TILE).to(torch.bfloat16),
+                want)[1])
+    if not ratio <= 1.0:
+        raise AssertionError(f"flash_attention [{path}]: error {err} exceeds "
+                             f"its bound ({ratio:.3f}x) on the sampled "
+                             "(row, head, block) triples")
+    if not ctrl > 1.0:
+        raise AssertionError(f"flash_attention [{path}]: the control (the "
+                             f"first key tile left out) within the bound "
+                             f"({ctrl:.3f}x): the bound cannot see a "
+                             "dropped tile")
+    ops = device_ops_per_call(torch, call)
+    if ops != 1:
+        raise AssertionError(f"flash_attention [{path}]: {ops:g} device "
+                             "operations a call, want 1")
+
+    def plain():
+        for b in range(B):
+            for h in range(H):
+                ref.flash_attention_ref(q[b:b + 1, :, h:h + 1],
+                                        k[b:b + 1, :, h:h + 1],
+                                        v[b:b + 1, :, h:h + 1], causal=True)
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = S * (S + 1) // 2
+    row("flash_attention", "flash_attention.cu", "flash_attention.py:84",
+        device_ops=ops, max_abs_err=err,
+        tolerance=(f"1/2 bf16 ulp + {K4_LONG_SLACK:g} x the query row's "
+                   f"output RMS of the f32 plain version, on {len(picks)} "
+                   f"(row, head, {blk}-query block) triples, the first and "
+                   f"last blocks among them (worst error/bound {ratio:.3f};"
+                   f" the control (the first {K4_TILE}-key tile left out, "
+                   f"last blocks) {ctrl:.3g})"),
+        ms=cuda_ms(torch, call, iters=5, warmup=1),
+        plain_ms=cuda_ms(torch, plain, iters=1, warmup=0),
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=5, warmup=1),
+        library_call="F.scaled_dot_product_attention(is_causal=True)",
+        shape=f"q/k/v ({B},{S},{H},{D}) bf16, causal; plain version one "
+              "(row, head) at a time",
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            4 * B * S * H * D * q.element_size(), 4 * B * H * D * pairs,
+            "bfloat16"))))
+    return err
+
+
+def bundle_kernel_rows(torch) -> list:
+    """Phase 2's rows at phase 12 (b)'s shapes (stablelm-3b, 4 rows over
+    32,768 tokens): K1 over the bf16 and the float8 layer view (4,096
+    pages, q (4, 32, 80) bf16, 32,704-32,720 held tokens, each row's 512
+    pages through the page table, 512 foreign pages after each), each
+    against its plain version with its control and the
+    fence check (:func:`check_paged_attention`); K4 at
+    (4, 32,768, 32, 80) bf16 causal (:func:`k4_long_row`); K3 over the
+    50,304 x 2,560 bf16 table with the prefill's 131,072 ids under the
+    65,536 fence, against ``index_select``.  Launches: phase 12 (b)'s."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gather_rows import gather_rows
+
+    cfg = get_config(BUNDLE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(3232)
+    B, S, H, KH, D = BUNDLE_BATCH, bundle_shapes()["prefill"].seq_len, \
+        cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    page = 64
+    P = S // page
+    i32 = dict(dtype=torch.int32, device="cuda")
+    rows = []
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    # K1 over each pool type's layer view: slot b's pages 2 P b + p, each
+    # row's P pages followed by P its table does not reach (the foreign
+    # pages the fence check clobbers; K1 takes a pow2 pool)
+    q = randn(B, H, D)
+    table = (torch.arange(B, **i32)[:, None] * 2 * P
+             + torch.arange(P, **i32)[None, :])
+    lens = torch.tensor([BUNDLE_PROMPT, BUNDLE_PROMPT + 5,
+                         BUNDLE_PROMPT + 10, BUNDLE_PROMPT + 16], **i32)
+    base = torch.zeros(B, **i32)
+    msk = torch.full((B,), -1, **i32)
+    for kv_dtype, path in BUNDLE_PATHS.items():
+        dt = torch.bfloat16 if kv_dtype == "bf16" else torch.float8_e4m3fn
+
+        def row(kernel, source, replaces, path=path, **kw):
+            rows.append(dict(kernel=kernel, path=path, route="cuda",
+                             name=f"{kernel}@{path}",
+                             source=f"src/repro_torch/kernels/csrc/{source}",
+                             replaces=f"src/repro/kernels/{replaces}", **kw))
+
+        k_pool, v_pool = (randn(2 * B * P, page, KH, D, dtype=dt)
+                          for _ in range(2))
+        k1_pool_row(torch, row, path, q, k_pool, v_pool, table, lens, base,
+                    msk)
+        del k_pool, v_pool
+    path = BUNDLE_PATHS["bf16"]
+
+    def row(kernel, source, replaces, **kw):
+        rows.append(dict(kernel=kernel, path=path, route="cuda",
+                         name=f"{kernel}@{path}",
+                         source=f"src/repro_torch/kernels/csrc/{source}",
+                         replaces=f"src/repro/kernels/{replaces}", **kw))
+
+    qkv = [randn(B, S, H, D) for _ in range(3)]
+    k4_long_row(torch, row, path, *qkv)
+    del qkv
+    gc.collect()
+    torch.cuda.empty_cache()
+    # K3: the prefill bundle's ids under the vocab fence
+    table = randn(cfg.vocab, cfg.d_model)
+    ids = torch.randint(0, cfg.vocab, (B * S,), generator=gen, **i32)
+    mask = pow2(cfg.vocab) - 1
+    if not torch.equal(gather_rows(table, ids, 0, mask),
+                       ref.gather_rows_ref(table, ids, 0, mask)):
+        raise AssertionError(f"gather_rows [{path}] disagrees with its "
+                             "plain version")
+    n = ids.numel()
+    row("gather_rows", "gather_rows.cu", "fenced_gather.py:48",
+        max_abs_err=0.0, tolerance="exact",
+        ms=cuda_ms(torch, lambda: gather_rows(table, ids, 0, mask)),
+        plain_ms=cuda_ms(torch, lambda: ref.gather_rows_ref(
+            table, ids, 0, mask)),
+        library_ms=cuda_ms(torch, lambda: table.index_select(0, ids)),
+        library_call="Tensor.index_select",
+        shape=f"table {tuple(table.shape)} bf16, {n} ids, fence {mask + 1}",
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(
+            2 * n * cfg.d_model * 2 + n * 4, 0.0, "bfloat16"))))
+    log_rows(rows)
+    return rows
+
+
+def counts() -> dict:
+    """Every kernel's (launches, plain calls) as they stand."""
+    from repro_torch.kernels import _build
+    return {k.name: (k.launches, k.plain_calls)
+            for k in _build.KERNELS.values()}
+
+
+def counted_call(fn, *args):
+    """``fn(*args)`` and the kernels' (launches, plain calls) it made."""
+    before = counts()
+    out = fn(*args)
+    after = counts()
+    return out, {k: (after[k][0] - before[k][0], after[k][1] - before[k][1])
+                 for k in after if after[k] != before[k]}
+
+
+def bundles_card_vs_cpu(torch, name: str, prompt: int, steps: int = 4,
+                        tol: float = 2e-3) -> None:
+    """Phase 12 (a): ``name`` at full width and 2 layers, float32, its
+    ``build_prefill_step`` / ``build_decode_step`` bundles (``kv_dtype``
+    "f32", the bundles' BITWISE guard — the MoE family's expert fence and
+    K5 too) over a cache of 128 tokens a row: a 4 x ``prompt`` prefill and
+    ``steps`` greedy decode steps on the card through the kernels and on
+    the CPU through the plain versions, from the same weights — greedy ids
+    equal, logits within phase 3's ``tol``, every kernel of the path
+    launched on the card and no plain version run there."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_decode_step, \
+        build_prefill_step
+
+    cfg = dataclasses.replace(get_config(name), n_layers=2, dtype="float32")
+    B, max_len = BUNDLE_BATCH, 128
+    # each device's bundles on its own one-device mesh
+    bundles = {dev: [build(cfg, ShapeConfig("bundle", kind, max_len, B),
+                           make_local_mesh(dev), kv_dtype="f32")
+                     for build, kind in ((build_prefill_step, "prefill"),
+                                         (build_decode_step, "decode"))]
+               for dev in ("cuda", "cpu")}
+    api = bundles["cuda"][0].api
+    params = api.init(torch.Generator(device="cuda").manual_seed(7), "cuda")
+    cpu_params = tree_to(params, "cpu")
+    toks = torch.randint(0, cfg.vocab, (B, prompt), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(12))
+    made = collections.Counter()
+
+    def run(device, p):
+        pre, dec = bundles[device]
+        cache = api.init_cache(B, max_len, dtype=torch.float32,
+                               device=device)
+        (cache, lg), n = counted_call(pre.fn, p, cache,
+                                      {"tokens": toks.to(device)})
+        made.update({k: v[0] for k, v in n.items()}) if device == "cuda" \
+            else None
+        outs, ids = [lg.float().cpu()], [lg.argmax(-1).cpu()]
+        for _ in range(steps):
+            (cache, lg), n = counted_call(
+                dec.fn, p, cache, lg.argmax(-1).to(torch.int32))
+            if device == "cuda":
+                made.update({k: v[0] for k, v in n.items()})
+                if any(v[1] for v in n.values()):
+                    raise AssertionError(f"bundles (a) [{name}]: a plain "
+                                         f"version ran on the card: {n}")
+            outs.append(lg.float().cpu())
+            ids.append(lg.argmax(-1).cpu())
+        return torch.stack(outs), torch.stack(ids)
+
+    with torch.no_grad():
+        card = run("cuda", params)
+        cpu = run("cpu", cpu_params)
+    want = {"gather_rows": 1 + steps, "flash_attention": cfg.n_layers,
+            "paged_attention": cfg.n_layers * steps}
+    if cfg.moe:
+        want["moe_histogram"] = cfg.n_layers * (1 + steps)
+    if dict(made) != want:
+        raise AssertionError(f"bundles (a) [{name}]: launches {dict(made)}, "
+                             f"want {want}")
+    err = hold_card_vs_cpu(f"bundles (a) [{name}]", card, cpu, tol)
+    log(f"bundles (a) [{name}, full width x 2 layers, f32, kv_dtype f32]: "
+        f"prefill bundle on {B} x {prompt} + {steps} decode bundle steps, "
+        f"card vs CPU greedy ids equal, max |logit err| {err:.3g} "
+        f"(tolerance {tol}); launches {dict(made)}")
+    del params, cpu_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def compress_card_vs_cpu(torch) -> None:
+    """Phase 12 (a): ``compress_roundtrip`` of a (50,304 x 2,560) float32
+    tensor (stablelm-3b's embedding gradient) on the card equal to the
+    CPU's bit for bit, and ``tree_compress_psum`` over a one-rank NCCL
+    group on the card (codes and scales all-gathered) equal, leaf by
+    leaf, to the round trip."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compress_roundtrip, \
+        init_error_feedback, tree_compress_psum
+
+    cfg = get_config(BUNDLE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    x = torch.randn(cfg.vocab, cfg.d_model, generator=gen, device="cuda")
+    approx, resid = compress_roundtrip(x)
+    approx_c, resid_c = compress_roundtrip(x.cpu())
+    if not (torch.equal(approx.cpu(), approx_c)
+            and torch.equal(resid.cpu(), resid_c)):
+        raise AssertionError("compress_roundtrip: the card differs from the "
+                             "CPU")
+    grads = {"embed": x, "wd": torch.randn(cfg.d_ff, cfg.d_model,
+                                           generator=gen, device="cuda"),
+             "norm": torch.randn(7, generator=gen, device="cuda")}
+    # one rank, an in-process store: NCCL bootstraps over loopback only
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        t0 = time.perf_counter()
+        red, err = tree_compress_psum(grads, init_error_feedback(grads),
+                                      dist.group.WORLD)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        dist.destroy_process_group()
+    for name, g in grads.items():
+        a, r = compress_roundtrip(g)
+        if not (torch.equal(red[name], a) and torch.equal(err[name], r)):
+            raise AssertionError(f"tree_compress_psum [{name}]: differs "
+                                 "from the round trip on one rank")
+    log(f"bundles (a) compression: compress_roundtrip of "
+        f"({cfg.vocab}, {cfg.d_model}) f32 card = CPU bit for bit; "
+        f"tree_compress_psum over a one-rank NCCL group = the round trip "
+        f"leaf by leaf (3 leaves, int8 codes and f32 scales gathered, "
+        f"{ms:.1f} ms host wall, first call)")
+
+
+#: the token positions of phase 12 (b)'s pool checks, in every row: the
+#: first page's ends, the second's start, the middle and the last held
+#: page (a row holds 32,704 tokens after the fill, pages 0-510)
+POOL_CHECK_POS = (0, 1, 63, 64, 4095, 16384, 32640, BUNDLE_PROMPT - 1)
+#: the plain projection's slack, as a share of each (K or V) element
+#: pair's norm: the model rounds x @ W to bf16 before RoPE (at most 2^-8
+#: of each element, 2^-8 * sqrt 2 of the pair carried through the
+#: rotation), doubled for the products' own summation order
+PROJ_SLACK = 2 ** -6
+
+
+@contextlib.contextmanager
+def last_layer_taps(torch, params, pos):
+    """While the block runs, what the model's own calls give its last
+    layer: the normed input of its QKV projection and its K / V (after
+    RoPE, as handed to the pool write) at the token positions ``pos`` of
+    a prompt, and the first q its decode attention is given.  Taps the
+    calls as ``models.transformer`` makes them (module attributes),
+    restored on the way out."""
+    from repro_torch.models import kvcache as KV, layers as LY
+    last, n_layers = params["layers"][-1]["attn"], len(params["layers"])
+    taps = {}
+    idx = torch.tensor(pos, device="cuda")
+    qkv, write, attend = (LY.qkv_proj, KV.write_prefill_kv,
+                          KV.paged_decode_attention)
+
+    def qkv_tap(cfg, p, x):
+        if p is last and x.shape[1] > max(pos):
+            taps["x"] = x[:, idx].clone()
+        return qkv(cfg, p, x)
+
+    def write_tap(cache, layer, k_new, v_new, *args, **kw):
+        if layer == n_layers - 1 and k_new.shape[1] > max(pos):
+            taps["k"], taps["v"] = k_new[:, idx].clone(), v_new[:, idx].clone()
+        return write(cache, layer, k_new, v_new, *args, **kw)
+
+    def attend_tap(cache, layer, q, *args, **kw):
+        if layer == n_layers - 1 and "q" not in taps:
+            taps["q"] = q[:, 0].clone()
+        return attend(cache, layer, q, *args, **kw)
+
+    LY.qkv_proj, KV.write_prefill_kv, KV.paged_decode_attention = \
+        qkv_tap, write_tap, attend_tap
+    try:
+        yield taps
+    finally:
+        LY.qkv_proj, KV.write_prefill_kv, KV.paged_decode_attention = \
+            qkv, write, attend
+
+
+def pool_checks(torch, cfg, params, cache, taps, path) -> str:
+    """Phase 12 (b)'s checks of the bundle's own pool at its last layer
+    (the layer view lies past 2^31 elements into the pool tensor), after
+    the fill prefill (``taps`` from :func:`last_layer_taps`, at
+    :data:`POOL_CHECK_POS` in every row):
+
+    * the pool's slabs at those (row, position) places hold the K / V the
+      model wrote, in the pool's type, value for value; the layer
+      before's must differ (a misplaced layer view would pass otherwise);
+    * that K / V is the plain projection of the layer's input (float32
+      products, RoPE at the position), within half a bf16 ulp plus
+      :data:`PROJ_SLACK` of each element pair's norm; the control, the
+      layer before's weights, must break the bound;
+    * K1 over the last layer's view of the pool, with the decode step's
+      q, each row's first 511 pages (the 512th, past the fill, outside
+      the fence) and 32,704 held tokens:
+      :func:`check_paged_attention` (its bound, its control, the pages
+      outside the fence clobbered).
+
+    Returns a line of what was checked."""
+    from repro_torch.kernels import ref
+
+    L, B = cfg.n_layers, BUNDLE_BATCH
+    k_pool, v_pool = cache.k, cache.v
+    page, P = cache.page_size, cache.pages_per_slot
+    pos = torch.tensor(POOL_CHECK_POS, device="cuda")
+    slots = cache.slot_ids.long()[:, None]
+    pages = cache.page_table.long().gather(
+        1, (pos // page)[None, :].expand(B, -1))
+    offs = (pos % page)[None, :]
+    for name, pool in (("k", k_pool), ("v", v_pool)):
+        # value for value: the one-hot placement sums a -0 with +0s
+        want = ref.to_pool(taps[name], pool.dtype).float()
+        if not torch.equal(pool[L - 1][slots, pages, offs].float(), want):
+            raise AssertionError(f"bundles (b) [{path}]: the last layer's "
+                                 f"{name} slabs differ from what the model "
+                                 "wrote")
+        if torch.equal(pool[L - 2][slots, pages, offs].float(), want):
+            raise AssertionError(f"bundles (b) [{path}]: the layer before "
+                                 f"holds the same {name} slabs: the check "
+                                 "cannot tell a layer from another")
+    D, KH = cfg.head_dim, cfg.n_kv_heads
+    freqs = (1.0 / cfg.rope_theta ** (torch.arange(
+        0, D, 2, dtype=torch.float64, device="cuda") / D)).float()
+    ang = pos.float()[:, None] * freqs
+    cos, sin = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
+    x = taps["x"].float()
+
+    def project(p, name):
+        y = x @ p["w" + name].float()
+        if p.get("b" + name) is not None:
+            y = y + p["b" + name].float()
+        y = y.reshape(B, len(POOL_CHECK_POS), KH, D)
+        if name == "k":
+            y1, y2 = y.chunk(2, dim=-1)
+            y = torch.cat([y1 * cos - y2 * sin, y2 * cos + y1 * sin], -1)
+        return y
+
+    def proj_ratio(want, got):
+        got = got.float()
+        y1, y2 = want.chunk(2, dim=-1)
+        pair = (y1.square() + y2.square()).sqrt().repeat(1, 1, 1, 2)
+        bound = (half_ulp_bf16(torch, torch.maximum(want.abs(), got.abs()))
+                 + PROJ_SLACK * pair)
+        return ((want - got).abs() / bound).max().item()
+
+    ratio = ctrl = 0.0
+    for name in ("k", "v"):
+        ratio = max(ratio, proj_ratio(
+            project(params["layers"][-1]["attn"], name), taps[name]))
+        ctrl = max(ctrl, proj_ratio(
+            project(params["layers"][-2]["attn"], name), taps[name]))
+    if not ratio <= 1.0:
+        raise AssertionError(f"bundles (b) [{path}]: the last layer's K / V "
+                             f"are not the plain projection of its input "
+                             f"({ratio:.3f}x the bound)")
+    if not ctrl > 1.0:
+        raise AssertionError(f"bundles (b) [{path}]: the layer before's "
+                             f"projection within the bound ({ctrl:.3f}x)")
+    k_view, v_view = (t[L - 1].flatten(0, 1) for t in (k_pool, v_pool))
+    if k_view.storage_offset() < 2 ** 31:
+        raise AssertionError(f"bundles (b) [{path}]: the last layer's view "
+                             f"starts at element {k_view.storage_offset()}")
+    i32 = dict(dtype=torch.int32, device="cuda")
+    table = (cache.slot_ids[:, None] * P
+             + torch.arange(P - 1, **i32)[None, :])
+    chk = check_paged_attention(
+        torch, taps["q"], k_view, v_view, table,
+        torch.full((B,), BUNDLE_PROMPT, **i32), torch.zeros(B, **i32),
+        torch.full((B,), -1, **i32), None)
+    return (f"the last layer's K / V slabs at {len(POOL_CHECK_POS)} "
+            f"positions x {B} rows = what the model wrote, value for value "
+            f"(the layer before's differ); = the plain projection of the layer's "
+            f"input within 1/2 bf16 ulp + {PROJ_SLACK:g} x the pair norm "
+            f"(worst error/bound {ratio:.3f}, the layer before's weights "
+            f"{ctrl:.3g}); K1 over the last layer's view (element "
+            f"{k_view.storage_offset()} of the pool, past 2^31) with the "
+            f"decode step's q, {P - 1} pages a row, {BUNDLE_PROMPT} tokens: "
+            f"max |err| {chk['err']:.3g}, worst error/bound "
+            f"{chk['ratio']:.3f}"
+            + ("" if chk["ctrl_ratio"] is None else
+               f", the control {chk['ctrl_ratio']:.3g}")
+            + f", {chk['foreign']} pages outside the fence clobbered, "
+              "output unchanged")
+
+
+def bundles_full(torch, smi: str) -> dict:
+    """Phase 12 (b): stablelm-3b at full width and depth (32 layers, bf16
+    weights from a seeded generator) through ``build_prefill_step`` and
+    ``build_decode_step`` at the reference's ``prefill_32k`` /
+    ``decode_32k`` with the batch cut to 4, over a bf16 pool (the
+    reference's default) and a float8 one, each bundle built guarded
+    (``make_guard``, BITWISE) and with ``guard_enabled=False``.  Per pool:
+    the prefill bundle at its spec (4 x 32,768) guarded, native, native,
+    guarded (CUDA events around ``fn``); the prefill bundle fills the
+    cache with the first 32,704 tokens (511 pages a row); then 16 decode
+    bundle steps guarded, native, native, guarded, each pass from the
+    filled cache and fed the first pass's tokens (the float8 pool the
+    bf16 pool's).  Counts set to 0 just before a pool's run and read just
+    after.  Gates: every K1 / K3 / K4 call launched its kernel and no
+    plain version ran (K3 once a call, K4 once a layer of a prefill, K1
+    once a layer a step); every logit finite; guarded logits bit-equal to
+    native ones (a one-tenant guard is the identity on in-range ids);
+    then, the counts read, the bundle's own pool held at its last layer
+    by :func:`pool_checks` (slabs = what the model wrote = the plain
+    projection of the layer's input, K1 over the layer's view past 2^31
+    elements).  Prints the prefill's wall and tokens/s, the decode step's median
+    (min-max) against its bytes floor, the launches per call, guarded /
+    native, peak memory and the greedy ids the float8 pool shares with the
+    bf16 pool's.  Returns each path's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import describe, make_local_mesh
+    from repro_torch.launch.steps import build_decode_step, \
+        build_prefill_step
+
+    cfg = get_config(BUNDLE_ARCH)
+    shapes = bundle_shapes()
+    mesh = make_local_mesh()
+    for kind, sh in shapes.items():
+        log(f"bundles (b): the reference's {sh.name} ({sh.seq_len} tokens) "
+            f"with global_batch cut from "
+            f"{ {'prefill': 32, 'decode': 128}[kind]} to {sh.global_batch} "
+            f"(one card; {describe(mesh)})")
+    B, S = BUNDLE_BATCH, shapes["prefill"].seq_len
+    api = build_prefill_step(cfg, shapes["prefill"], mesh).api
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    w_bytes = tree_bytes(params)
+    toks = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                         dtype=torch.int32,
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(3))
+    paths, feed, ids_bf16 = {}, None, None
+    for kv_dtype, path in BUNDLE_PATHS.items():
+        bundles = {(kind, g): build(cfg, shapes[kind], mesh,
+                                    guard_enabled=g, kv_dtype=kv_dtype)
+                   for kind, build in (("prefill", build_prefill_step),
+                                       ("decode", build_decode_step))
+                   for g in (True, False)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        spec = bundles[("prefill", True)].in_specs[1]
+        cache0 = api.init_cache(B, S, dtype=spec.k.dtype, device="cuda")
+        if tuple(cache0.k.shape) != tuple(spec.k.shape):
+            raise AssertionError(f"bundles (b): cache {tuple(cache0.k.shape)}"
+                                 f" against the spec {tuple(spec.k.shape)}")
+        per_call, plain = {}, 0
+        torch.cuda.synchronize()
+        _build.reset_counts()
+
+        def timed(kind, g, *args):
+            nonlocal plain
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out, n = counted_call(bundles[(kind, g)].fn, params, *args)
+            b.record()
+            torch.cuda.synchronize()
+            per_call.setdefault(kind, {k: v[0] for k, v in n.items()})
+            plain += sum(v[1] for v in n.values())
+            if {k: v[0] for k, v in n.items()} != per_call[kind]:
+                raise AssertionError(f"bundles (b) [{path}]: a {kind} call "
+                                     f"launched {n}, another "
+                                     f"{per_call[kind]}")
+            if not torch.isfinite(out[1]).all():
+                raise AssertionError(f"bundles (b) [{path}]: a {kind} logit "
+                                     "is not finite")
+            return out, a.elapsed_time(b)
+
+        with torch.no_grad():
+            # the prefill bundle at its spec: guarded, native, native,
+            # guarded (the first call also warms the libraries up)
+            pre = []
+            for g in (True, False, False, True):
+                # the returned cache is the pool's: keep only the logits
+                lg, ms = timed("prefill", g, cache0, {"tokens": toks})
+                pre.append((g, lg[1], ms))
+                del lg
+            if not torch.equal(pre[0][1], pre[1][1]):
+                raise AssertionError(f"bundles (b) [{path}]: guarded prefill "
+                                     "logits differ from native ones")
+            pre_ms = [ms for _, _, ms in pre]
+            del pre
+            with last_layer_taps(torch, params, POOL_CHECK_POS) as taps:
+                (filled, lg), fill_ms = timed(
+                    "prefill", True, cache0,
+                    {"tokens": toks[:, :BUNDLE_PROMPT].contiguous()})
+            logits0 = lg.float()
+            # the first pool's first pass picks the tokens every pass of
+            # every pool is fed
+            tokens = feed or [lg.argmax(-1).to(torch.int32)]
+            dec = {True: [], False: []}
+            for g in (True, False, False, True):
+                cache, ms, lgs = filled, [], []
+                for i in range(BUNDLE_STEPS):
+                    (cache, lg), t = timed("decode", g, cache, tokens[i])
+                    ms.append(t)
+                    lgs.append(lg.float())
+                    if len(tokens) == i + 1 < BUNDLE_STEPS:
+                        tokens.append(lg.argmax(-1).to(torch.int32))
+                dec[g].append((lgs, ms))
+            for i, (a, b) in enumerate(zip(dec[True][0][0],
+                                           dec[False][0][0])):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"bundles (b) [{path}]: guarded "
+                                         f"decode logits differ from native "
+                                         f"ones at step {i}")
+            launches = {k.name: k.launches for k in _build.KERNELS.values()
+                        if k.launches}
+            peak = torch.cuda.max_memory_allocated()
+            # the pool checks, after the counts are read: the first step
+            # once more (its K / V go past the fill, to page 511) for its
+            # last layer's q
+            with last_layer_taps(torch, params, POOL_CHECK_POS) as more:
+                bundles[("decode", True)].fn(params, filled, tokens[0])
+            taps["q"] = more["q"]
+            checked = pool_checks(torch, cfg, params, filled, taps, path)
+            del cache, filled, taps, more
+        pool_bytes = 2 * cache0.k.numel() * cache0.k.element_size()
+        elem = cache0.k.element_size()
+        del cache0
+        gc.collect()
+        torch.cuda.empty_cache()
+        want = {"prefill": {"gather_rows": 1,
+                            "flash_attention": cfg.n_layers},
+                "decode": {"gather_rows": 1,
+                           "paged_attention": cfg.n_layers}}
+        if per_call != want or plain:
+            raise AssertionError(f"bundles (b) [{path}]: launches a call "
+                                 f"{per_call}, plain calls {plain}; want "
+                                 f"{want}, none")
+        ids = [logits0.argmax(-1)] + [x.argmax(-1) for x in dec[True][0][0]]
+        if feed is None:
+            feed, ids_bf16, agree = tokens, ids, ""
+        else:
+            same = sum(int((a == b).sum()) for a, b in zip(ids, ids_bf16))
+            agree = (f"; greedy ids equal to the bf16 pool's: {same} of "
+                     f"{B * (1 + BUNDLE_STEPS)} (the fill prefill's and each "
+                     f"step's, fed the bf16 run's tokens; not a gate: ties)")
+        # the decode step's bytes floor: the weights once and each row's
+        # held K and V (every layer) in the pool's type, at the first and
+        # the last step
+        per_tok = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * elem
+        floors = [(w_bytes + B * (BUNDLE_PROMPT + i + 1) * per_tok)
+                  / HBM_BYTES_PER_S * 1e3 for i in (0, BUNDLE_STEPS - 1)]
+        steps_g = [t for _, ms in dec[True] for t in ms]
+        steps_n = [t for _, ms in dec[False] for t in ms]
+        med_g, med_n = statistics.median(steps_g), statistics.median(steps_n)
+        log(f"bundles (b) [{path}, {cfg.n_layers} layers, bf16 weights "
+            f"{w_bytes / 1e9:.2f} GB, {kv_dtype} pool {pool_bytes / 1e9:.2f} "
+            f"GB]: prefill bundle at {B} x {S} (CUDA events around fn) "
+            f"guarded {pre_ms[0]:.1f} (first call) / {pre_ms[3]:.1f} ms, "
+            f"native {pre_ms[1]:.1f} / {pre_ms[2]:.1f} ms, "
+            f"{B * S * 1e3 / pre_ms[3]:.0f} tokens/s guarded, guarded / "
+            f"native {pre_ms[3] / pre_ms[2]:.4f} (the last two calls); fill "
+            f"prefill ({B} x {BUNDLE_PROMPT}) {fill_ms:.1f} ms; on {smi}")
+        log(f"bundles (b) [{path}]: decode step (CUDA events around the "
+            f"decode bundle's fn; {BUNDLE_STEPS} steps, 2 passes each) "
+            f"guarded median {med_g:.3f} ms ({min(steps_g):.3f}-"
+            f"{max(steps_g):.3f}), native median {med_n:.3f} ms "
+            f"({min(steps_n):.3f}-{max(steps_n):.3f}), guarded / native "
+            f"{med_g / med_n:.4f}; bytes floor {floors[0]:.3f}-"
+            f"{floors[1]:.3f} ms (weights + held K/V at 3.35 TB/s), guarded "
+            f"median / floor {med_g / statistics.mean(floors):.2f}; "
+            f"{B * 1e3 / med_g:.1f} tokens/s{agree}; on {smi}")
+        paths[path] = {"launches": launches, "per_call": per_call,
+                       "peak": peak, "decode_ms": (med_g, med_n)}
+        log(f"bundles (b) [{path}]: launches a call {per_call}, plain calls "
+            f"0; guarded logits = native bit for bit (prefill, {BUNDLE_STEPS}"
+            f" decode steps); peak memory {peak / 1e9:.2f} GB; launches "
+            f"over the run {launches}")
+        log(f"bundles (b) [{path}]: the pool after the fill: {checked}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def bundles_phase(torch, smi: str) -> dict:
+    """Phase 12: (a) the bundles card against CPU at 2 layers for
+    stablelm-3b and qwen3-moe-30b-a3b, and the compression card against
+    CPU and over a one-rank NCCL group; (b) stablelm-3b at full depth over
+    the 32k shapes.  Returns (b)'s paths' launches."""
+    t0 = time.perf_counter()
+    bundles_card_vs_cpu(torch, BUNDLE_ARCH, prompt=64)
+    bundles_card_vs_cpu(torch, "qwen3-moe-30b-a3b", prompt=32)
+    compress_card_vs_cpu(torch)
+    log_memory(torch, "bundles (b), before")
+    paths = bundles_full(torch, smi)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+# Phase 12's worker: the phase in a process of its own, from the checkout
+# at argv[1] (its 43 GB pool needs the card's memory whole); its lines
+# pass through, and its paths' launches come back as one JSON line.
+_PHASE12_WORKER = """
+import json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
+import torch
+import chip_smoke as cs
+from repro_torch.kernels import _build
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+_build.build_all()
+paths = cs.bundles_phase(torch, cs.smi_line())
+print("PHASE12 " + json.dumps(paths), flush=True)
+"""
+
+
+def bundles_worker(torch) -> dict:
+    """Phase 12 in a process of its own, started with this process's
+    cache released (as phase 11's).  Returns the worker's paths."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_memory(torch, "before phase 12 (this process)")
+    proc = subprocess.Popen([sys.executable, "-c", _PHASE12_WORKER,
+                             str(ROOT)], stdout=subprocess.PIPE, text=True)
+    paths = None
+    for line in proc.stdout:
+        if line.startswith("PHASE12 "):
+            paths = json.loads(line[len("PHASE12 "):])
+        else:
+            print(line, end="", flush=True)
+    if proc.wait() != 0 or paths is None:
+        raise AssertionError(f"phase 12's worker failed (exit "
+                             f"{proc.returncode})")
+    return paths
+
+
 # A worker of the same-card A/B: phase 2 of the checkout at argv[1], run
 # with that checkout's own chip_smoke.py and kernels, then the main path's
 # prefill write timed by this file's (argv[2]) code against that
@@ -6060,6 +6865,13 @@ def main() -> int:
         families_train_phase(torch, smi)
         return 0
 
+    if len(sys.argv) == 2 and sys.argv[1] == "--bundles":
+        # a development switch: phase 2's 32k rows and phase 12 alone,
+        # after the build
+        bundle_kernel_rows(torch)
+        bundles_worker(torch)
+        return 0
+
     if len(sys.argv) == 2 and sys.argv[1] == "--train":
         # a development switch: phase 2's training rows and phase 9 alone,
         # after the build
@@ -6084,6 +6896,7 @@ def main() -> int:
     rows += train_kernel_rows(torch)
     rows += family_kernel_rows(torch)
     rows += fp8_kernel_rows(torch)
+    rows += bundle_kernel_rows(torch)
     for r in rows:
         log(f"  {r['kernel']} [{r['path']}]: {r['ms']:.5f} ms = "
             f"{r['ms'] / floor:.2f}x the launch floor")
@@ -6099,6 +6912,9 @@ def main() -> int:
     # phase 11 (training the recurrent families, the MoE variants, the
     # float8 pool) runs now, in a process of its own
     phase11 = families_train_worker(torch)
+    # phase 12 (the step bundles at 32k) right after it, in a process of
+    # its own too: its 43 GB pool needs the card's memory whole
+    phase12 = bundles_worker(torch)
     for cfg in cfgs:
         check_full_width(torch, cfg)
         check_compiled(torch, cfg)
@@ -6141,6 +6957,7 @@ def main() -> int:
     log_memory(torch, "before phase 10")
     paths.update(family_phase(torch, smi))
     paths.update(phase11)
+    paths.update(phase12)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -23,7 +23,16 @@ Layering (bottom-up):
 """
 
 from repro_torch.core.arena import Arena, ArenaSpec, PagePool, PoolArena, \
-    make_flat_arena
+    make_flat_arena, make_kv_page_arena, make_state_arena
+from repro_torch.core.elastic import (
+    Admission,
+    AdmissionStatus,
+    ElasticError,
+    ElasticManager,
+    ElasticPolicy,
+    ElasticState,
+    ResizeEvent,
+)
 from repro_torch.core.fence import (
     FenceParams,
     FencePolicy,
@@ -35,17 +44,23 @@ from repro_torch.core.fence import (
     fence_modulo,
     fence_modulo_magic,
     fence_modulo_magic_dyn,
+    guarded_add,
+    guarded_dynamic_slice,
+    guarded_dynamic_update_slice,
     guarded_take,
     guarded_update,
     magic_constants,
     magic_row,
     require_pow2_sizes,
 )
-from repro_torch.core.interception import DevicePtr, GuardianClient
+from repro_torch.core.interception import CallTrace, DevicePtr, \
+    GuardianClient
 from repro_torch.core.manager import GuardianManager, GuardianViolation, \
     SharingMode
 from repro_torch.core.partition import BuddyAllocator, OutOfArenaMemory, \
     Partition, PartitionBoundsTable, UnknownTenant
+from repro_torch.core.pressure import Ewma, PressureTracker, \
+    derive_lookahead, total_arrival_rate
 from repro_torch.core.quarantine import (
     QuarantineError,
     QuarantineManager,
@@ -60,7 +75,10 @@ from repro_torch.core.sandbox import SandboxError, SandboxReport, UndoLog, \
     dynamic_slice, dynamic_update_slice, sandbox, sandbox_report
 from repro_torch.core.scheduler import BatchedLaunchScheduler, \
     LaunchRequest, LRUCache, SchedulerStats, round_robin_interleave
-from repro_torch.core.tenantclass import TenantClass, TenantClassPolicy
+from repro_torch.core.telemetry import EventTrace, Histogram, \
+    MetricsRegistry, Telemetry, TraceEvent
+from repro_torch.core.tenantclass import TenantClass, TenantClassPolicy, \
+    as_class_policy
 from repro_torch.core.verifier import (
     FENCED,
     PROVEN,
@@ -77,11 +95,18 @@ from repro_torch.core.violations import KIND_NAMES, NUM_KINDS, \
 
 __all__ = [
     "Arena", "ArenaSpec", "PagePool", "PoolArena", "make_flat_arena",
+    "make_kv_page_arena", "make_state_arena",
+    "Admission", "AdmissionStatus", "ElasticError", "ElasticManager",
+    "ElasticPolicy", "ElasticState", "ResizeEvent",
+    "Ewma", "PressureTracker", "derive_lookahead", "total_arrival_rate",
     "FenceParams", "FencePolicy", "FenceTable", "apply_fence",
     "apply_fence_mixed", "fence_bitwise", "fence_check", "fence_modulo",
-    "fence_modulo_magic", "fence_modulo_magic_dyn", "guarded_take",
+    "fence_modulo_magic", "fence_modulo_magic_dyn", "guarded_add",
+    "guarded_dynamic_slice", "guarded_dynamic_update_slice", "guarded_take",
     "guarded_update", "magic_constants", "magic_row", "require_pow2_sizes",
-    "DevicePtr", "GuardianClient",
+    "EventTrace", "Histogram", "MetricsRegistry", "Telemetry",
+    "TraceEvent",
+    "CallTrace", "DevicePtr", "GuardianClient",
     "GuardianManager", "GuardianViolation", "SharingMode",
     "BuddyAllocator", "OutOfArenaMemory", "Partition",
     "PartitionBoundsTable", "UnknownTenant",
@@ -92,7 +117,7 @@ __all__ = [
     "ThresholdPolicy", "WeightedRatePolicy",
     "SandboxError", "SandboxReport", "UndoLog", "dynamic_slice",
     "dynamic_update_slice", "sandbox", "sandbox_report",
-    "TenantClass", "TenantClassPolicy",
+    "TenantClass", "TenantClassPolicy", "as_class_policy",
     "FENCED", "PROVEN", "REFUTED", "GuardianStaticViolation",
     "GuardianTaintWarning", "SandboxProof", "SiteRecord", "VerifierError",
     "verify",

@@ -8,8 +8,9 @@ is the shared slot space that partitions carve up:
 
 * the **flat arena** (slot_shape=()) models raw device DRAM for the
   client-facing malloc/memcpy/kernel API;
-* structured arenas back the serving data paths: the KV page pool
-  (:class:`PoolArena` + :class:`PagePool`).
+* structured arenas back the serving data paths: KV page pools
+  (:class:`PoolArena` + :class:`PagePool`, :func:`make_kv_page_arena`)
+  and recurrent state pools (:func:`make_state_arena`).
 
 Arena writes happen in place; the manager is the only holder of the live
 buffer, which is what enforces "applications do not have direct access to
@@ -23,6 +24,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.fence import (
+    FenceParams,
+    FencePolicy,
+    guarded_dynamic_slice,
+    guarded_dynamic_update_slice,
+    guarded_take,
+    guarded_update,
+)
 from repro_torch.core.partition import is_pow2
 
 
@@ -43,6 +52,11 @@ class ArenaSpec:
     @property
     def shape(self) -> Tuple[int, ...]:
         return (self.num_slots, *self.slot_shape)
+
+    def abstract(self) -> torch.Tensor:
+        """A stand-in for dry runs: a ``meta`` tensor of the spec's shape
+        and dtype (nothing allocated)."""
+        return torch.empty(self.shape, dtype=self.dtype, device="meta")
 
     def allocate(self, device) -> torch.Tensor:
         return torch.zeros(self.shape, dtype=self.dtype, device=device)
@@ -187,15 +201,38 @@ class PagePool:
 
 
 class Arena:
-    """A live arena: spec + current buffer on ``device``.  The manager
-    validates every host-initiated range against the bounds table before
-    these unfenced accessors run; writes land in place."""
+    """A live arena: spec + current buffer on ``device``.  Dynamic access
+    goes through the fenced accessors, so the fence policy is applied
+    uniformly; the manager validates every host-initiated range against
+    the bounds table before the unfenced ones run.  Writes land in
+    place."""
 
     def __init__(self, spec: ArenaSpec, buf: Optional[torch.Tensor] = None,
                  device="cuda"):
         self.spec = spec
         self.device = torch.device(device)
         self.buf = spec.allocate(self.device) if buf is None else buf
+
+    # -- fenced row access ------------------------------------------------
+    def read_rows(self, idx, params: FenceParams,
+                  policy: FencePolicy = FencePolicy.BITWISE
+                  ) -> torch.Tensor:
+        return guarded_take(self.buf, idx, params, policy)
+
+    def write_rows(self, idx, values, params: FenceParams,
+                   policy: FencePolicy = FencePolicy.BITWISE) -> None:
+        guarded_update(self.buf, idx, values, params, policy)
+
+    def read_range(self, start, length: int, params: FenceParams,
+                   policy: FencePolicy = FencePolicy.BITWISE
+                   ) -> torch.Tensor:
+        return guarded_dynamic_slice(self.buf, start, length, params, policy)
+
+    def write_range(self, start, values, params: FenceParams,
+                    policy: FencePolicy = FencePolicy.BITWISE) -> None:
+        guarded_dynamic_update_slice(
+            self.buf, start, torch.as_tensor(values, device=self.buf.device),
+            params, policy)
 
     # -- unfenced (manager-internal, pre-validated) -----------------------
     def unsafe_read_range(self, start: int, length: int) -> torch.Tensor:
@@ -212,6 +249,23 @@ class Arena:
     @property
     def nbytes(self) -> int:
         return self.spec.total_bytes
+
+
+def make_kv_page_arena(num_pages: int, page_size: int, num_kv_heads: int,
+                       head_dim: int, dtype=torch.bfloat16,
+                       name: str = "kv_pages") -> ArenaSpec:
+    """Paged-KV pool: slot = one page of K and V (stacked on a leading 2)."""
+    return ArenaSpec(name=name, num_slots=num_pages,
+                     slot_shape=(2, page_size, num_kv_heads, head_dim),
+                     dtype=dtype)
+
+
+def make_state_arena(num_cells: int, state_dim: int, head_dim: int,
+                     dtype=torch.float32,
+                     name: str = "ssm_state") -> ArenaSpec:
+    """SSM / recurrent state pool (zamba2's Mamba2 layers, xLSTM cells)."""
+    return ArenaSpec(name=name, num_slots=num_cells,
+                     slot_shape=(state_dim, head_dim), dtype=dtype)
 
 
 def make_flat_arena(num_slots: int, dtype=torch.float32,

@@ -137,6 +137,12 @@ class FenceParams:
         if isinstance(self.size, int) and self.size <= 0:
             raise ValueError("partition size must be positive")
 
+    @property
+    def is_static(self) -> bool:
+        """Base and size are Python ints (one binary per partition): the
+        counterpart of the reference's "not traced"."""
+        return isinstance(self.base, int) and isinstance(self.size, int)
+
     @functools.cached_property
     def mask(self):
         """``size - 1``; static sizes are checked for pow2, dynamic ones
@@ -155,6 +161,16 @@ class FenceParams:
                 "MODULO fencing needs a concrete partition size or a magic "
                 "row; use static FenceParams or FenceTable(with_magic)")
         return magic_constants(self.size)
+
+    @classmethod
+    def from_partition(cls, part: Partition) -> "FenceParams":
+        return cls(base=part.base, size=part.size)
+
+    def contains(self, lo: int, hi: Optional[int] = None) -> bool:
+        """Whether ``[lo, hi)`` (default ``[lo, lo + 1)``) lies inside the
+        partition."""
+        hi = lo + 1 if hi is None else hi
+        return self.base <= lo and hi <= self.base + self.size
 
 
 def require_pow2_sizes(sizes) -> None:
@@ -176,34 +192,88 @@ def require_pow2_sizes(sizes) -> None:
 @dataclasses.dataclass(frozen=True)
 class FenceTable:
     """Stacked per-tenant fence rows: ``rows`` (T, 2) int32 ``(base,
-    mask)`` and optional ``magic`` (T, 4) int32 ``(base, size, m, s)``,
-    living on the manager's device.  A tenant-id column gathers
-    per-element params (:meth:`gather`) for row-mixed batches."""
+    mask)`` and/or ``magic`` (T, 4) int32 ``(base, size, m, s)``, living on
+    the manager's device.  A magic-only table (:meth:`modulo_from_bounds`,
+    ``rows`` None) fences arbitrary (non-pow2) sizes through MODULO and
+    CHECK.  A tenant-id column gathers per-element params
+    (:meth:`gather`) for row-mixed batches."""
 
-    rows: torch.Tensor
+    rows: Optional[torch.Tensor] = None
     magic: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.rows is None and self.magic is None:
+            raise ValueError("FenceTable needs bitwise rows, a magic "
+                             "table, or both")
+
+    @staticmethod
+    def _magic_arr(bounds, device) -> torch.Tensor:
+        arr = np.zeros((len(bounds), 4), np.uint32)
+        for r, (base, size) in enumerate(bounds):
+            arr[r] = (base, size, *magic_row(size))
+        return torch.as_tensor(arr.view(np.int32)).to(device)
 
     @classmethod
     def from_partitions(cls, parts: Sequence[Partition],
                         with_magic: bool = False,
-                        device="cpu") -> "FenceTable":
+                        device="cuda") -> "FenceTable":
         if not parts:
             raise ValueError("FenceTable needs at least one partition")
         require_pow2_sizes([p.size for p in parts])
         rows = np.array([[p.base, p.mask] for p in parts], dtype=np.int32)
-        magic = None
-        if with_magic:
-            magic = np.zeros((len(parts), 4), np.uint32)
-            for r, p in enumerate(parts):
-                magic[r] = (p.base, p.size, *magic_row(p.size))
-            magic = torch.as_tensor(magic.view(np.int32)).to(device)
+        magic = cls._magic_arr([(p.base, p.size) for p in parts], device) \
+            if with_magic else None
         return cls(rows=torch.as_tensor(rows).to(device), magic=magic)
+
+    @classmethod
+    def from_bounds(cls, base, size, device="cuda") -> "FenceTable":
+        """Build from host (base, size) arrays, validating pow2 sizes."""
+        base = np.asarray(base, np.int32).reshape(-1)
+        size = np.asarray(size, np.int64).reshape(-1)
+        require_pow2_sizes(size)
+        arr = np.stack([base, (size - 1).astype(np.int32)], axis=1)
+        return cls(rows=torch.as_tensor(arr.astype(np.int32)).to(device))
+
+    @classmethod
+    def modulo_from_bounds(cls, base, size, device="cuda") -> "FenceTable":
+        """Magic-only table for arbitrary (non-pow2 included) partition
+        sizes: no bitwise rows (a non-pow2 ``size - 1`` is no wrap mask),
+        so the table fences through MODULO / CHECK only."""
+        base = np.asarray(base, np.int64).reshape(-1)
+        size = np.asarray(size, np.int64).reshape(-1)
+        if (size <= 0).any():
+            raise ValueError("partition sizes must be positive")
+        return cls(magic=cls._magic_arr(
+            list(zip(base.tolist(), size.tolist())), device))
+
+    def __len__(self) -> int:
+        arr = self.rows if self.rows is not None else self.magic
+        return int(arr.shape[0])
+
+    def row_params(self, row) -> FenceParams:
+        """Dynamic FenceParams (0-d int32 tensors) for one table row."""
+        if self.rows is None:
+            return self.magic_row_params(row)
+        return FenceParams(base=self.rows[row, 0],
+                           size=self.rows[row, 1] + 1)
+
+    def magic_row_params(self, row) -> FenceParams:
+        """Dynamic magic-carrying FenceParams for one magic-table row."""
+        if self.magic is None:
+            raise ValueError("table was built without a magic row table")
+        return FenceParams(base=self.magic[row, 0], size=self.magic[row, 1],
+                           magic_m=self.magic[row, 2],
+                           magic_s=self.magic[row, 3])
 
     def gather(self, tenant_col) -> FenceParams:
         """Per-element FenceParams for a tenant-id column: ``(N,)``
         base/size (and magic) tensors that broadcast through the fences."""
-        col = _idx(tenant_col).to(self.rows.device).long()
-        base, size = self.rows[:, 0][col], self.rows[:, 1][col] + 1
+        table = self.rows if self.rows is not None else self.magic
+        col = _idx(tenant_col).to(table.device).long()
+        if self.rows is not None:
+            base, size = self.rows[:, 0][col], self.rows[:, 1][col] + 1
+        else:
+            base, size = self.magic[:, 0][col], self.magic[:, 1][col]
         if self.magic is None:
             return FenceParams(base=base, size=size)
         return FenceParams(base=base, size=size,
@@ -338,6 +408,19 @@ def guarded_update(arena: torch.Tensor, idx, values: torch.Tensor,
     fenced, _ = apply_fence(policy, idx, params)
     arena[fenced.to(arena.device).long()] = torch.as_tensor(
         values, dtype=arena.dtype, device=arena.device)
+    return arena
+
+
+def guarded_add(arena: torch.Tensor, idx, values: torch.Tensor,
+                params: FenceParams,
+                policy: FencePolicy = FencePolicy.BITWISE) -> torch.Tensor:
+    """Fenced accumulate of arena rows, in place: ``arena[fence(idx)] +=
+    values`` with duplicate ids summing (the reference's ``.at[].add``)."""
+    fenced, _ = apply_fence(policy, idx, params)
+    fenced = fenced.to(arena.device).long()
+    values = torch.as_tensor(values, dtype=arena.dtype, device=arena.device)
+    arena.index_put_((fenced,), values.expand(
+        *fenced.shape, *arena.shape[1:]), accumulate=True)
     return arena
 
 

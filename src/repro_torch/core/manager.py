@@ -528,6 +528,10 @@ class GuardianManager:
         self._drop_tenant_ops(tenant_id)
         self._reclaim_partition(tenant_id)
 
+    def fence_params_for(self, tenant_id: str) -> FenceParams:
+        """The tenant's partition as static fence params."""
+        return FenceParams.from_partition(self.bounds.lookup(tenant_id))
+
     def policy_of(self, tenant_id: str) -> FencePolicy:
         """The tenant's configured fence policy (override or default) —
         before standalone fast-path resolution."""

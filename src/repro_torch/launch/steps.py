@@ -1,7 +1,11 @@
 """Step builders: the engine's prefill/decode as trusted manager kernels,
 the elastic relocation steps of the flat arena and of a serve engine's
-slab pool, and the train step (:func:`make_guard`,
-:func:`build_train_step`).
+slab pool, the train step (:func:`make_guard`, :func:`build_train_step`),
+and the reference's step bundles (:func:`build_step`,
+:func:`build_prefill_step`, :func:`build_decode_step`): a step function
+with its inputs as ``meta`` tensors (``in_specs``) and every input's and
+output's placement on a mesh (``in_shardings`` / ``out_shardings``, trees
+of mesh-axis tuples from the sharding rules).
 
 Steps run on the manager's device, as compiled steps (one CUDA graph per
 operand signature, :mod:`repro_torch.core.stepgraph`) unless the manager's
@@ -14,6 +18,7 @@ is unchanged and a replay addresses the same pool.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -23,10 +28,15 @@ from repro_torch.core.fence import FenceParams, FencePolicy, \
     guarded_dynamic_slice, guarded_dynamic_update_slice
 from repro_torch.core.partition import next_pow2
 from repro_torch.core.stepgraph import tree_flatten, tree_unflatten
+from repro_torch.distributed.sharding import ShardingRules, make_rules, \
+    tree_map
 from repro_torch.launch import sampling
+from repro_torch.launch.mesh import describe
 from repro_torch.models import kvcache as KV
 from repro_torch.models.api import ModelAPI, get_model
+from repro_torch.models.encdec import EncDecCache
 from repro_torch.models.guard import GuardSpec
+from repro_torch.models.hybrid import HybridCache
 from repro_torch.optim import Optimizer, adamw, apply_updates, cosine
 
 
@@ -329,3 +339,257 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, *,
         return params, opt_state, {"loss": loss.detach()}
 
     return TrainStep(fn=train_step, opt=opt, guard=guard, api=api)
+
+
+
+# ---------------------------------------------------------------------------
+# Step bundles: a step with its abstract inputs and their placements
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StepBundle:
+    """A step and what the reference's ``pjit`` would need of it:
+
+    * ``fn`` — the step (``fn(params, cache, batch_or_tokens) -> (cache,
+      logits)`` to serve, ``fn(params, opt_state, batch) -> (params,
+      opt_state, {"loss"})`` to train), on the mesh's device
+      (:func:`_on_mesh`);
+    * ``in_specs`` — its inputs as ``meta`` tensors (nothing allocated);
+    * ``in_shardings`` / ``out_shardings`` — each input's and output's
+      placement, a tree of mesh-axis tuples (``()`` replicated);
+    * ``donate_argnums`` — the inputs the step updates in place (the
+      cache; params and optimizer state to train);
+    * ``rules``, ``api``."""
+
+    fn: Callable
+    in_specs: Tuple
+    in_shardings: Tuple
+    out_shardings: Any
+    donate_argnums: Tuple[int, ...]
+    rules: ShardingRules
+    api: ModelAPI
+
+
+def _axis_size(mesh, axis) -> int:
+    """Devices along a mapped mesh axis (a name, a tuple of names, None)."""
+    names = () if axis is None else (axis,) if isinstance(axis, str) \
+        else axis
+    return math.prod(mesh.shape[a] for a in names)
+
+
+def _shard_tree(mesh, rules: ShardingRules, axes_tree, shape_tree):
+    """Logical axes -> placements over the ``meta`` tensors of
+    ``shape_tree``: a dimension whose size the mapped mesh axes do not
+    divide is replicated instead (an input placement must divide
+    exactly)."""
+    def one(axes, shaped):
+        checked = []
+        for i, logical in enumerate(axes):
+            mesh_axis = rules.lookup(logical) if logical else None
+            if mesh_axis is not None and \
+                    shaped.shape[i] % _axis_size(mesh, mesh_axis) != 0:
+                mesh_axis = None
+            checked.append(mesh_axis)
+        return tuple(checked)
+
+    return tree_map(one, axes_tree, shape_tree)
+
+
+def _batch_axes(specs: Dict[str, torch.Tensor]) -> Dict[str, Tuple]:
+    return {k: ("batch",) + (None,) * (v.dim() - 1)
+            for k, v in specs.items()}
+
+
+def _kv_pool_axes(mesh, n_kv_heads: int) -> Tuple:
+    """(L, slots, P, page, KH, D) axes of a KV pool
+    (:func:`~repro_torch.models.kvcache.kv_cache_axes`'s): KH over the
+    model axis when it divides, else the head dim, so the pool is never
+    replicated across TP ranks."""
+    kv = KV.kv_cache_axes()["k"]
+    if n_kv_heads % mesh.shape.get("model", 1) == 0:
+        return kv
+    return kv[:4] + (None, "heads")
+
+
+def _paged_axes(mesh, n_kv_heads: int) -> KV.PagedKVCache:
+    kv = _kv_pool_axes(mesh, n_kv_heads)
+    return KV.PagedKVCache(**dict(KV.kv_cache_axes(), k=kv, v=kv))
+
+
+def _state_axes(cache_shape: KV.StateCache) -> KV.StateCache:
+    pools = {name: (None, "pages") + (None,) * (arr.dim() - 2)
+             for name, arr in cache_shape.pools.items()}
+    return KV.StateCache(pools=pools, slot_ids=("batch",),
+                         seq_lens=("batch",))
+
+
+def cache_axes(mesh, cfg: ModelConfig, cache_shape):
+    """The logical axes of a cache tree (structure-matched to it), for
+    every cache type: slab KV, state, hybrid, encoder-decoder.  ``mesh``
+    is read for its ``shape`` only."""
+    if isinstance(cache_shape, KV.PagedKVCache):
+        return _paged_axes(mesh, cfg.n_kv_heads)
+    if isinstance(cache_shape, KV.StateCache):
+        return _state_axes(cache_shape)
+    if isinstance(cache_shape, HybridCache):
+        return HybridCache(kv=_paged_axes(mesh, cfg.n_kv_heads),
+                           state=_state_axes(cache_shape.state))
+    if isinstance(cache_shape, EncDecCache):
+        kv = _paged_axes(mesh, cfg.n_kv_heads)
+        # the cross pools (L, slots, S_src, KH, D): the KV pool's axes
+        # without its page axis
+        cross = kv.k[:2] + kv.k[3:]
+        return EncDecCache(kv=kv, cross_k=cross, cross_v=cross,
+                           src_lens=("batch",))
+    raise TypeError(type(cache_shape))
+
+
+#: the reference's ``kv_dtype`` names -> the pool's type ("f8": the
+#: float8 e4m3 pool)
+_KV_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32,
+              "f8": torch.float8_e4m3fn}
+
+
+def params_spec(api: ModelAPI):
+    """The model's params as ``meta`` tensors (no weights drawn)."""
+    return api.init(torch.Generator(), "meta")
+
+
+def _on_mesh(mesh, fn: Callable) -> Callable:
+    """``fn`` bound to the mesh's one device: every tensor it is given
+    must lie there, else it raises (on one card every mesh axis has size
+    1, so a placement splits nothing and the operands' device is where
+    the step runs).  A mesh reckoned as a shape only (no device, or more
+    than one) gives a step that refuses to run."""
+    if len(mesh.devices) != 1:
+        def shape_only(*args):
+            raise ValueError(f"{describe(mesh)}: a shape only, a bundle "
+                             "runs on a one-device mesh")
+        return shape_only
+    dev = mesh.devices[0]
+
+    def run(*args):
+        for leaf in tree_flatten(args)[1]:
+            if isinstance(leaf, torch.Tensor) and (
+                    leaf.device.type != dev.type
+                    or dev.index not in (None, leaf.device.index)):
+                raise ValueError(f"an operand on {leaf.device}, off the "
+                                 f"mesh's device {dev}")
+        return fn(*args)
+    return run
+
+
+def _cache_shape_for(api: ModelAPI, cfg: ModelConfig, shape: ShapeConfig,
+                     kv_dtype: str = "bf16"):
+    if cfg.family == "ssm":
+        return api.init_cache(shape.global_batch, device="meta")
+    return api.init_cache(shape.global_batch, shape.seq_len,
+                          dtype=_KV_DTYPES[kv_dtype], device="meta")
+
+
+def _serve_bundle(cfg, shape, mesh, step, inputs_spec, inputs_axes,
+                  kv_dtype) -> StepBundle:
+    api = get_model(cfg)
+    rules = make_rules(mesh, fsdp=False)    # serving: weights TP-only
+    params_shape = params_spec(api)
+    cache_shape = _cache_shape_for(api, cfg, shape, kv_dtype)
+    p_shard = _shard_tree(mesh, rules, api.param_logical_axes(),
+                          params_shape)
+    c_shard = _shard_tree(mesh, rules, cache_axes(mesh, cfg, cache_shape),
+                          cache_shape)
+    x_shard = _shard_tree(mesh, rules, inputs_axes, inputs_spec)
+    logits = torch.empty((shape.global_batch, cfg.vocab),
+                         dtype=torch.float32, device="meta")
+    return StepBundle(
+        fn=_on_mesh(mesh, step),
+        in_specs=(params_shape, cache_shape, inputs_spec),
+        in_shardings=(p_shard, c_shard, x_shard),
+        out_shardings=(c_shard, _shard_tree(mesh, rules, ("batch", "vocab"),
+                                            logits)),
+        donate_argnums=(1,),
+        rules=rules,
+        api=api,
+    )
+
+
+def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                       guard_enabled: bool = True,
+                       policy: FencePolicy = FencePolicy.BITWISE,
+                       kv_dtype: str = "bf16") -> StepBundle:
+    """``fn(params, cache, batch) -> (cache, last_logits)``:
+    ``api.prefill`` under :func:`make_guard`'s guard, writing the cache in
+    place (the reference donates it); the cache is the slab layout of
+    ``api.init_cache(global_batch, seq_len, dtype=kv_dtype)``."""
+    api = get_model(cfg)
+    guard = make_guard(cfg, shape, policy, guard_enabled)
+
+    def prefill_step(params, cache, batch):
+        return api.prefill(params, cache, batch, guard=guard)
+
+    batch_specs = api.batch_specs(shape)
+    return _serve_bundle(cfg, shape, mesh, prefill_step, batch_specs,
+                         _batch_axes(batch_specs), kv_dtype)
+
+
+def build_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                      guard_enabled: bool = True,
+                      policy: FencePolicy = FencePolicy.BITWISE,
+                      kv_dtype: str = "bf16") -> StepBundle:
+    """``fn(params, cache, tokens) -> (cache, logits)``: one
+    ``api.decode`` step under :func:`make_guard`'s guard, appending to the
+    cache in place."""
+    api = get_model(cfg)
+    guard = make_guard(cfg, shape, policy, guard_enabled)
+
+    def decode_step(params, cache, tokens):
+        return api.decode(params, cache, tokens, guard=guard)
+
+    tokens_spec = torch.empty((shape.global_batch,), dtype=torch.int32,
+                              device="meta")
+    return _serve_bundle(cfg, shape, mesh, decode_step, tokens_spec,
+                         ("batch",), kv_dtype)
+
+
+def build_train_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                       fsdp: bool = True, **kw) -> StepBundle:
+    """:func:`build_train_step`'s step as a bundle: params, optimizer state
+    and batch as ``meta`` tensors, each moment tree placed as the params
+    are (the step counter, and a factored moment, replicated),
+    ``donate_argnums=(0, 1)``.  ``kw`` are :func:`build_train_step`'s."""
+    step = build_train_step(cfg, shape, **kw)
+    api = step.api
+    rules = make_rules(mesh, fsdp=fsdp)
+    params_shape = params_spec(api)
+    opt_shape = step.opt.init(params_shape)
+    batch_specs = api.batch_specs(shape)
+    p_shard = _shard_tree(mesh, rules, api.param_logical_axes(),
+                          params_shape)
+    like_params = tree_flatten(params_shape)[0]
+    o_shard = {k: p_shard if tree_flatten(v)[0] == like_params else
+               tree_map(lambda a: (), v,
+                        is_leaf=lambda x: isinstance(x, torch.Tensor))
+               for k, v in opt_shape.items()}
+    b_shard = _shard_tree(mesh, rules, _batch_axes(batch_specs),
+                          batch_specs)
+    return StepBundle(
+        fn=_on_mesh(mesh, step.fn),
+        in_specs=(params_shape, opt_shape, batch_specs),
+        in_shardings=(p_shard, o_shard, b_shard),
+        out_shardings=(p_shard, o_shard, {"loss": ()}),
+        donate_argnums=(0, 1),
+        rules=rules,
+        api=api,
+    )
+
+
+def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
+               **kw) -> StepBundle:
+    """The bundle of ``shape.kind``: train, prefill or decode."""
+    if shape.kind == "train":
+        kw.pop("kv_dtype", None)
+        return build_train_bundle(cfg, shape, mesh, **kw)
+    kw.pop("moe_dispatch", None)
+    kw.pop("remat_policy", None)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, shape, mesh, **kw)
+    return build_decode_step(cfg, shape, mesh, **kw)

@@ -4,11 +4,13 @@ ssm, vlm, encdec), as ``repro/models/api.py``.
 ``get_model(cfg)`` returns a :class:`ModelAPI` with:
 
     init(generator, device)           -> params
+    param_logical_axes()              -> logical-axis tree (matches params)
     loss(params, batch, *, guard=, remat=, **kw) -> scalar loss
     init_cache(batch, max_len, *, slots=, dtype=, **kw) -> slab cache
     init_global_cache(batch, max_len, total_pages, **kw) -> global paged cache
     prefill(params, cache, batch, ...) -> (cache, last_logits)
     decode(params, cache, tokens, ...) -> (cache, logits)
+    batch_specs(shape)                -> the batch as ``meta`` tensors
 
 Batches: ``{"tokens"}`` for the text families; the vision family adds
 ``"patches"`` (B, :data:`N_PATCHES`, d) and ``"positions"`` (B, S, 3);
@@ -28,7 +30,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import kvcache as KV
@@ -62,6 +66,49 @@ class ModelAPI:
     prefill: Callable
     decode: Callable
     loss: Callable
+    param_logical_axes: Callable
+    batch_specs: Callable
+
+
+def _tok_spec(*shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.int32, device="meta")
+
+
+def _text_specs(shape: ShapeConfig) -> dict:
+    """The text families' batch: (B, S + 1) tokens to train on, (B, S) to
+    prefill, (B,) to decode."""
+    b = shape.global_batch
+    if shape.kind == "train":
+        return {"tokens": _tok_spec(b, shape.seq_len + 1)}
+    if shape.kind == "prefill":
+        return {"tokens": _tok_spec(b, shape.seq_len)}
+    return {"tokens": _tok_spec(b)}
+
+
+def _vlm_specs(cfg: ModelConfig) -> Callable:
+    def batch_specs(shape: ShapeConfig) -> dict:
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": _tok_spec(b)}
+        return {
+            "tokens": _tok_spec(b, s + 1 if shape.kind == "train" else s),
+            "patches": torch.empty((b, N_PATCHES, cfg.d_model),
+                                   dtype=torch.bfloat16, device="meta"),
+            "positions": _tok_spec(b, s, 3),
+        }
+    return batch_specs
+
+
+def _encdec_specs(cfg: ModelConfig) -> Callable:
+    def batch_specs(shape: ShapeConfig) -> dict:
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": _tok_spec(b)}
+        src = torch.empty((b, SRC_FRAMES, cfg.d_model),
+                          dtype=torch.bfloat16, device="meta")
+        return {"src": src, "tgt": _tok_spec(
+            b, s + 1 if shape.kind == "train" else s)}
+    return batch_specs
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
@@ -95,6 +142,8 @@ def _dense_api(cfg: ModelConfig) -> ModelAPI:
             cfg, params, cache, tokens, **kw),
         loss=lambda params, batch, **kw: TF.loss_fn(cfg, params, batch,
                                                     **kw),
+        param_logical_axes=lambda: TF.param_logical_axes(cfg),
+        batch_specs=_text_specs,
     )
 
 
@@ -111,6 +160,7 @@ def _moe_api(cfg: ModelConfig) -> ModelAPI:
             cfg, params, cache, tokens, **kw),
         loss=lambda params, batch, **kw: MOE.loss_fn(cfg, params, batch,
                                                      **kw),
+        param_logical_axes=lambda: MOE.param_logical_axes(cfg),
     )
 
 
@@ -134,6 +184,8 @@ def _hybrid_api(cfg: ModelConfig) -> ModelAPI:
             cfg, params, cache, tokens, **kw),
         loss=lambda params, batch, **kw: HY.loss_fn(cfg, params, batch,
                                                     **kw),
+        param_logical_axes=lambda: HY.param_logical_axes(cfg),
+        batch_specs=_text_specs,
     )
 
 
@@ -152,6 +204,8 @@ def _ssm_api(cfg: ModelConfig) -> ModelAPI:
             cfg, params, cache, tokens, **kw),
         loss=lambda params, batch, **kw: XL.loss_fn(cfg, params, batch,
                                                     **kw),
+        param_logical_axes=lambda: XL.param_logical_axes(cfg),
+        batch_specs=_text_specs,
     )
 
 
@@ -172,6 +226,8 @@ def _vlm_api(cfg: ModelConfig) -> ModelAPI:
             cfg, params, cache, tokens, **kw),
         loss=lambda params, batch, **kw: VLM.loss_fn(cfg, params, batch,
                                                      **kw),
+        param_logical_axes=lambda: VLM.param_logical_axes(cfg),
+        batch_specs=_vlm_specs(cfg),
     )
 
 
@@ -193,4 +249,6 @@ def _encdec_api(cfg: ModelConfig) -> ModelAPI:
             cfg, params, cache, tokens, **kw),
         loss=lambda params, batch, **kw: ED.loss_fn(cfg, params, batch,
                                                     **kw),
+        param_logical_axes=lambda: ED.param_logical_axes(cfg),
+        batch_specs=_encdec_specs(cfg),
     )

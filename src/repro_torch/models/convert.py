@@ -6,7 +6,8 @@ the layer init).  :func:`params_from_jax` takes that tree as nested dicts
 of numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
 port's parameters — one dict per block — on ``device``.  bfloat16 arrays
 arrive as ``ml_dtypes.bfloat16``; their bits are reinterpreted, never
-rounded.
+rounded.  :func:`axes_from_jax` splits the reference's logical-axes tree
+(``api.param_logical_axes()``) the same way.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import is_axes
 
 
 def tensor_from_numpy(arr, device) -> torch.Tensor:
@@ -71,4 +74,42 @@ def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
         out["mamba"] = [[_tree(b, device) for b in _blocks(group)]
                         for group in _blocks(tree["mamba"])]
         out["shared_attn"] = _tree(tree["shared_attn"], device)
+    return out
+
+
+def _unstack_axes(tree, n_lead: int):
+    """A stacked axes tree with its ``n_lead`` leading (block) axes
+    dropped from every leaf."""
+    if is_axes(tree):
+        return tree[n_lead:]
+    return {k: _unstack_axes(v, n_lead) for k, v in tree.items()}
+
+
+def _lead_dims(tree, n: int) -> tuple:
+    leaf = tree
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return tuple(leaf.shape[:n])
+
+
+def axes_from_jax(axes: Dict[str, Any], params: Dict[str, Any]
+                  ) -> Dict[str, Any]:
+    """The reference's logical-axes tree -> the port's, split as
+    :func:`params_from_jax` splits the params: a stacked ``(None, *axes)``
+    leaf becomes ``axes`` on each block (hybrid's ``mamba`` loses two
+    leading axes, one list per group).  ``params`` is the reference's
+    params tree (arrays or ``jax.ShapeDtypeStruct`` s), read only for its
+    block counts."""
+    out = {"embed": axes["embed"], "norm_f": axes["norm_f"]}
+    for name in ("layers", "mamba_tail", "mlstm", "slstm", "enc", "dec"):
+        if name in axes:
+            (n,) = _lead_dims(params[name], 1)
+            out[name] = [_unstack_axes(axes[name], 1) for _ in range(n)]
+    if "norm_enc" in axes:
+        out["norm_enc"] = axes["norm_enc"]
+    if "mamba" in axes:
+        g, per = _lead_dims(params["mamba"], 2)
+        out["mamba"] = [[_unstack_axes(axes["mamba"], 2)
+                         for _ in range(per)] for _ in range(g)]
+        out["shared_attn"] = axes["shared_attn"]
     return out

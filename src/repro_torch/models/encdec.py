@@ -70,6 +70,27 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     }
 
 
+def param_logical_axes(cfg: ModelConfig) -> Params:
+    """Logical axes matching :func:`init`'s tree, one dict per block."""
+    def enc_layer():
+        return {"attn": L.attention_axes(cfg), "mlp": L.mlp_axes(cfg),
+                "norm1": L.norm_axes(cfg), "norm2": L.norm_axes(cfg)}
+
+    def dec_layer():
+        return {"attn": L.attention_axes(cfg),
+                "cross": L.attention_axes(cfg), "mlp": L.mlp_axes(cfg),
+                "norm1": L.norm_axes(cfg), "norm_x": L.norm_axes(cfg),
+                "norm2": L.norm_axes(cfg)}
+
+    return {
+        "embed": L.embedding_axes(cfg),
+        "enc": [enc_layer() for _ in range(cfg.enc_layers)],
+        "dec": [dec_layer() for _ in range(cfg.n_layers)],
+        "norm_enc": L.norm_axes(cfg),
+        "norm_f": L.norm_axes(cfg),
+    }
+
+
 # ---------------------------------------------------------------------------
 # Encoder
 # ---------------------------------------------------------------------------

@@ -134,3 +134,16 @@ def kernel_fence(spec: Optional[GuardSpec], ids: torch.Tensor):
             and spec.row_policy is None:
         return ids, kv.base, kv.mask, spec.page_map
     return fence(spec, "kv", ids), 0, -1, spec.page_map
+
+
+def full_guard(policy: FencePolicy = FencePolicy.BITWISE, *,
+               vocab_slots: int = 0, kv_slots: int = 0,
+               state_slots: int = 0, expert_slots: int = 0,
+               page_slots: int = 0, base: int = 0) -> GuardSpec:
+    """Every space guarded with a ``[base, base + n)`` partition (a space
+    of ``n = 0`` left unguarded)."""
+    def p(n):
+        return FenceParams(base=base, size=n) if n else None
+    return GuardSpec(policy=policy, vocab=p(vocab_slots), kv=p(kv_slots),
+                     state=p(state_slots), expert=p(expert_slots),
+                     page=p(page_slots))

@@ -79,6 +79,29 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
+def param_logical_axes(cfg: ModelConfig) -> Params:
+    """Logical axes matching :func:`init`'s tree: the reference's
+    ``(None, None, *axes)`` group leaves become ``axes`` on each block of
+    each group, its ``(None, *axes)`` tail leaves ``axes`` on each tail
+    block."""
+    g, tail = group_structure(cfg)
+    p: Params = {
+        "embed": L.embedding_axes(cfg),
+        "mamba": [[M2.block_axes(cfg) for _ in range(cfg.attn_every)]
+                  for _ in range(g)],
+        "shared_attn": {
+            "attn": L.attention_axes(cfg),
+            "mlp": L.mlp_axes(cfg),
+            "norm1": L.norm_axes(cfg),
+            "norm2": L.norm_axes(cfg),
+        },
+        "norm_f": L.norm_axes(cfg),
+    }
+    if tail:
+        p["mamba_tail"] = [M2.block_axes(cfg) for _ in range(tail)]
+    return p
+
+
 def _shared_qkv(cfg, sa, x, positions):
     q, k, v = L.qkv_proj(cfg, sa["attn"], L.apply_norm(cfg, sa["norm1"], x))
     q, k = L.positions_rope(cfg, q, k, positions)

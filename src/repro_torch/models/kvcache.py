@@ -140,6 +140,14 @@ def kv_cache_spec(cfg: ModelConfig, batch: int, max_len: int, *,
     }
 
 
+def kv_cache_axes() -> Dict[str, Tuple]:
+    """Logical sharding axes of the slab cache, in
+    :func:`kv_cache_spec`'s order."""
+    kv = (None, "pages", None, None, "kv_heads", None)
+    return {"k": kv, "v": kv, "page_table": ("batch", None),
+            "slot_ids": ("batch",), "seq_lens": ("batch",)}
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                   slots: Optional[int] = None, page_size: int = PAGE_SIZE,
                   dtype=torch.bfloat16, n_layers: Optional[int] = None,

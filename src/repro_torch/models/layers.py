@@ -66,6 +66,41 @@ def norm_init(cfg: ModelConfig, device, d: Optional[int] = None) -> Params:
     return p
 
 
+def norm_axes(cfg: ModelConfig) -> Params:
+    """Logical axes of :func:`norm_init`'s leaves (replicated)."""
+    if cfg.norm == "layernorm":
+        return {"scale": (None,), "bias": (None,)}
+    return {"scale": (None,)}
+
+
+def attention_axes(cfg: ModelConfig) -> Params:
+    p: Params = {
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "kv_heads"),
+        "wv": ("embed", "kv_heads"),
+        "wo": ("heads", "embed"),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ("heads",)
+        p["bk"] = ("kv_heads",)
+        p["bv"] = ("kv_heads",)
+    return p
+
+
+def mlp_axes(cfg: ModelConfig) -> Params:
+    if cfg.act == "silu":
+        return {"wg": ("embed", "ffn"), "wu": ("embed", "ffn"),
+                "wd": ("ffn", "embed")}
+    return {"wu": ("embed", "ffn"), "wd": ("ffn", "embed")}
+
+
+def embedding_axes(cfg: ModelConfig) -> Params:
+    p: Params = {"table": ("vocab", "embed_nofsdp")}
+    if not cfg.tie_embeddings:
+        p["head"] = ("embed_nofsdp", "vocab")
+    return p
+
+
 def attention_init(gen, cfg: ModelConfig, device) -> Params:
     dt, d = dtype_of(cfg), cfg.d_model
     p: Params = {

@@ -60,6 +60,20 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     }
 
 
+def block_axes(cfg: ModelConfig) -> Params:
+    """Logical axes of :func:`block_init`'s leaves."""
+    return {
+        "in_proj": ("embed", "ffn"),
+        "conv_w": (None, "ffn"),
+        "conv_b": ("ffn",),
+        "a_log": (None,),
+        "d_skip": (None,),
+        "dt_bias": (None,),
+        "norm_g": ("ffn",),
+        "out_proj": ("ffn", "embed"),
+    }
+
+
 def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
     dm = dims(cfg)
     d_in = dm["d_in"]

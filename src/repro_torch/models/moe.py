@@ -75,6 +75,18 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     return p
 
 
+def moe_axes(cfg: ModelConfig) -> Params:
+    """Logical axes of :func:`moe_init`'s leaves (experts over "expert")."""
+    p: Params = {
+        "router": (None, None),
+        "wu": ("expert", "embed", None),
+        "wd": ("expert", None, "embed"),
+    }
+    if cfg.act == "silu":
+        p["wg"] = ("expert", "embed", None)
+    return p
+
+
 def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``jax.lax.top_k``'s order: descending, and the lower index first
     among equal values (``torch.topk`` makes no promise on ties; a zero
@@ -261,6 +273,19 @@ def init(cfg: ModelConfig, generator: torch.Generator,
         "layers": [layer_init(generator, cfg, device)
                    for _ in range(cfg.n_layers)],
         "norm_f": L.norm_init(cfg, device),
+    }
+
+
+def param_logical_axes(cfg: ModelConfig) -> Params:
+    """Logical axes matching :func:`init`'s tree, one dict per layer."""
+    return {
+        "embed": L.embedding_axes(cfg),
+        "layers": [{"attn": L.attention_axes(cfg),
+                    "moe": moe_axes(cfg),
+                    "norm1": L.norm_axes(cfg),
+                    "norm2": L.norm_axes(cfg)}
+                   for _ in range(cfg.n_layers)],
+        "norm_f": L.norm_axes(cfg),
     }
 
 

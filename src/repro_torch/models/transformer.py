@@ -53,6 +53,21 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     }
 
 
+def param_logical_axes(cfg: ModelConfig) -> Params:
+    """Logical axes matching :func:`init`'s tree leaf for leaf: the
+    reference's stacked ``(None, *axes)`` leaves become ``axes`` on each
+    layer's dict."""
+    return {
+        "embed": L.embedding_axes(cfg),
+        "layers": [{"attn": L.attention_axes(cfg),
+                    "mlp": L.mlp_axes(cfg),
+                    "norm1": L.norm_axes(cfg),
+                    "norm2": L.norm_axes(cfg)}
+                   for _ in range(cfg.n_layers)],
+        "norm_f": L.norm_axes(cfg),
+    }
+
+
 #: a layer's feed-forward block: ``ffn(cfg, layer_params, x, guard)`` ->
 #: the residual update of ``x`` (B, S, d)
 FFN = Callable[[ModelConfig, Params, torch.Tensor, Optional[GuardSpec]],

@@ -26,6 +26,7 @@ from repro_torch.models.guard import GuardSpec
 Params = Dict[str, Any]
 
 init = TF.init
+param_logical_axes = TF.param_logical_axes
 
 
 def fuse_inputs(params: Params, tokens: torch.Tensor, patches: torch.Tensor,

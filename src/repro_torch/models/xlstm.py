@@ -56,6 +56,15 @@ def mlstm_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     }
 
 
+def mlstm_axes(cfg: ModelConfig) -> Params:
+    return {
+        "wq": ("embed", "heads"), "wk": ("embed", "heads"),
+        "wv": ("embed", "heads"), "w_if": ("embed", None),
+        "wo_gate": ("embed", "heads"), "wo": ("heads", "embed"),
+        "norm": L.norm_axes(cfg),
+    }
+
+
 def _mlstm_gates(p, xn):
     gates = xn @ p["w_if"]
     H2 = gates.shape[-1] // 2
@@ -138,6 +147,11 @@ def slstm_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     }
 
 
+def slstm_axes(cfg: ModelConfig) -> Params:
+    return {"w_in": ("embed", None), "r": (None, None, None),
+            "wo": ("embed", "embed_nofsdp"), "norm": L.norm_axes(cfg)}
+
+
 def _slstm_cell(cfg, p, pre, state):
     """One time step.  pre: (B, 4d) input pre-activations; state = (c, n,
     h, m): c, n, h (B, d); m (B, H)."""
@@ -203,6 +217,17 @@ def init(cfg: ModelConfig, generator: torch.Generator,
         "slstm": [slstm_init(generator, cfg, device)
                   for _ in range(n_pairs)],
         "norm_f": L.norm_init(cfg, device),
+    }
+
+
+def param_logical_axes(cfg: ModelConfig) -> Params:
+    """Logical axes matching :func:`init`'s tree, one dict per pair."""
+    n_pairs = cfg.n_layers // 2
+    return {
+        "embed": L.embedding_axes(cfg),
+        "mlstm": [mlstm_axes(cfg) for _ in range(n_pairs)],
+        "slstm": [slstm_axes(cfg) for _ in range(n_pairs)],
+        "norm_f": L.norm_axes(cfg),
     }
 
 

@@ -75,10 +75,15 @@ def test_default_device_entry_points_raise_without_cuda():
 
 
 @pytest.mark.parametrize("module", ["repro_torch.lint",
-                                    "repro_torch.kernels.access"])
+                                    "repro_torch.kernels.access",
+                                    "repro_torch.distributed.compress",
+                                    "repro_torch.distributed.sharding",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.steps"])
 def test_lint_and_declared_accesses_import_alone(module):
-    """The lint CLI and the kernels' declared-access table are modules of
-    the package (so the ast check above covers them) and import in a fresh
+    """The lint CLI, the kernels' declared-access table, the distributed
+    package, the meshes and the step bundles are modules of the package
+    (so the ast check above covers them) and import in a fresh
     interpreter without loading JAX or the reference."""
     import os
     import subprocess
