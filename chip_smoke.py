@@ -13,7 +13,8 @@ model API, phase 11 trains the recurrent families and the MoE
 variants and decodes stablelm-3b over a float8 pool, and phase 12 runs
 the reference's step bundles (``build_prefill_step`` /
 ``build_decode_step``) at stablelm-3b's full width over the reference's
-32k shapes.  Phases, in order (any failure exits non-zero):
+32k shapes, and phase 13 holds the dry run (``repro_torch.launch.dryrun``)
+against the card.  Phases, in order (any failure exits non-zero):
 
 1. device and build — the card's name and power limit, the torch version,
    the build of every kernel of ``src/repro_torch/kernels/csrc`` for
@@ -334,6 +335,28 @@ the reference's step bundles (``build_prefill_step`` /
    131,072 ids, rows ``kernel@stablelm-3b/32k`` (``/32k-fp8``), launches
    from (b).
 
+13. the dry run (``repro_torch.launch.dryrun``): (a) in a process of its
+   own started after the build, beside the other phases (host work only:
+   traces on fake tensors), one single-pod cell per family
+   (:data:`DRYRUN_CELLS`: stablelm-3b ``train_4k``, qwen3-moe-30b-a3b
+   ``decode_32k``, zamba2-7b ``prefill_32k``, xlstm-350m ``long_500k``,
+   qwen2-vl-2b ``decode_32k``, seamless-m4t-medium ``prefill_32k``)
+   traced on CUDA fakes and on CPU fakes: the cost and memory blocks, the
+   liveness walk, the per-op counts and the launches equal, a difference
+   naming the op, its lines printed after phase 12's; (b) in phase 12's
+   process, after it: stablelm-3b at 32 layers, 4 x 32,768, a bf16 slab
+   pool, guarded, on the 1 x 1 mesh, each bundle's dry run on CUDA fakes
+   against one real step — argument bytes equal to the params, cache and
+   inputs allocated for it, the kernels' launches equal to the trace's
+   (K3 once and K1 32 times a decode step, K3 once and K4 32 times a
+   prefill), the predicted peak (argument + temp + output - alias)
+   within 10 % of ``max_memory_allocated`` over the step, its gap printed
+   with its sign — and, printed only, the trace's counted aten ops
+   beside ``torch.profiler``'s device operations for the step and the
+   roofline's least time beside phase 12's step time.  Phase 2's bounds
+   read the kernels' cost rules of ``repro_torch.launch.graph_analysis``,
+   the rules the dry run counts with.
+
 The last three lines of standard output are the kernel table as one JSON
 object, the card's ``name, power.limit``, and the result object.
 
@@ -348,6 +371,7 @@ each tree's port.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import dataclasses
@@ -358,6 +382,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -395,6 +420,14 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rule_bound(cost, dtype: str) -> dict:
+    """``bound_ms`` / ``bound_by`` of a kernel call's work as its cost rule
+    counts it (``repro_torch.launch.graph_analysis``: the rule the dry run
+    reads), given the counts the call's data needs."""
+    return dict(zip(("bound_ms", "bound_by"),
+                    bound_ms(cost.bytes, cost.flops, dtype)))
 
 
 def ptxas_report(build, source: str, keep) -> str:
@@ -663,6 +696,7 @@ def k1_pool_row(torch, row, path, q, k_pool, v_pool, table, lens, base,
     position it walks.  Returns the check."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.launch.graph_analysis import paged_attention_cost
 
     B, H, D = q.shape
     P, page, KH, _ = k_pool.shape
@@ -678,9 +712,9 @@ def k1_pool_row(torch, row, path, q, k_pool, v_pool, table, lens, base,
                              "operations a call, want 1")
     phys = ref.resolve_pages(table, base[:, None], msk[:, None], page_map, P)
     pairs, k_tok, v_tok = k1_held(phys, lens, page, window)
-    n_bytes = ((k_tok + v_tok) * KH * D * k_pool.element_size()
-               + 2 * B * H * D * q.element_size() + table.numel() * 4
-               + 3 * B * 4)
+    cost = paged_attention_cost(q, k_pool, table, base, msk,
+                                positions=pairs, k_tokens=k_tok,
+                                v_tokens=v_tok)
     pool = {torch.bfloat16: "bf16", torch.float8_e4m3fn: "fp8 e4m3"}.get(
         k_pool.dtype, "f32")
     qt = "bf16" if q.dtype == torch.bfloat16 else "f32"
@@ -705,8 +739,7 @@ def k1_pool_row(torch, row, path, q, k_pool, v_pool, table, lens, base,
         shape=f"q ({B},{H},{D}) {qt}, pool ({P},{page},{KH},{D}) "
               f"{pool}, lengths {min(lens.tolist())}-{max(lens.tolist())}"
               + (f", window {window}" if window else ""),
-        **kw, **dict(zip(("bound_ms", "bound_by"),
-                         bound_ms(n_bytes, 4 * pairs * H * D, "float32"))))
+        **kw, **rule_bound(cost, "float32"))
     return chk
 
 
@@ -742,6 +775,7 @@ def k4_form_row(torch, row, path, q, k, v, causal: bool, window: int = 0,
     band's (query, key) pairs.  Returns the error."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.graph_analysis import flash_attention_cost
     import torch.nn.functional as F
 
     B, Sq, H, D = q.shape
@@ -768,7 +802,7 @@ def k4_form_row(torch, row, path, q, k, v, causal: bool, window: int = 0,
             qt, kt, vt, is_causal=causal, enable_gqa=gqa))
         lib_call = (f"F.scaled_dot_product_attention(is_causal={causal}"
                     + (", enable_gqa=True)" if gqa else ")"))
-    n_bytes = (2 * B * Sq * H + 2 * B * Skv * KH) * D * q.element_size()
+    cost = flash_attention_cost(q, k, causal, window, pairs=pairs)
     row("flash_attention", "flash_attention.cu", "flash_attention.py:84",
         device_ops=ops, max_abs_err=err,
         tolerance="2e-2 (bf16 output, one ulp at |out| < 4)" if bf16
@@ -781,9 +815,7 @@ def k4_form_row(torch, row, path, q, k, v, causal: bool, window: int = 0,
               f"{'bf16' if bf16 else 'f32'}, "
               + ("causal" if causal else "not causal")
               + (f", window {window}" if window else ""),
-        **kw, **dict(zip(("bound_ms", "bound_by"), bound_ms(
-            n_bytes, 4 * B * H * D * pairs,
-            "bfloat16" if bf16 else "float32"))))
+        **kw, **rule_bound(cost, "bfloat16" if bf16 else "float32"))
     return err
 
 
@@ -802,6 +834,7 @@ def check_kernels(torch, cfg):
     from repro_torch.kernels.gather_rows import gather_rows
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.scatter_pages import scatter_pages
+    from repro_torch.launch import graph_analysis as GA
     import torch.nn.functional as F
 
     dev = "cuda"
@@ -865,8 +898,7 @@ def check_kernels(torch, cfg):
     in_table = fenced < cfg.vocab
     ok_ids = fenced[in_table]
     # bytes: the in-table rows read, every output row written, the ids read
-    n_bytes = ((int(in_table.sum()) + ids.numel()) * cfg.d_model * 2
-               + ids.numel() * 4)
+    cost = GA.gather_rows_cost(table, ids, rows=int(in_table.sum()))
     row("gather_rows", "gather_rows.cu", "fenced_gather.py:48",
         max_abs_err=err, tolerance="exact (NaN rows where the fenced id "
                                    "is past the table)",
@@ -876,8 +908,7 @@ def check_kernels(torch, cfg):
         library_ms=cuda_ms(torch, lambda: table.index_select(0, ok_ids)),
         library_call="Tensor.index_select of the in-table rows",
         shape=f"table {tuple(table.shape)} bf16, {ids.numel()} ids",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound_ms(n_bytes, 0.0, "bfloat16"))))
+        **rule_bound(cost, "bfloat16"))
     log(f"K3 gather_rows ok{tag}: equal to its plain version under the "
         f"scalar {fence_vocab} fence ({nan_rows['scalar']} NaN rows for ids "
         f"past the {cfg.vocab}-row table), the identity fence "
@@ -926,9 +957,8 @@ def check_kernels(torch, cfg):
         # bytes, K and V: for each kept page its S source tokens read and the
         # whole page written (the padding is zero-filled, not read), plus the
         # ids and fence operands
-        tok_bytes = KH * D * 4
-        n_bytes = (2 * len(written) * (S + page) * tok_bytes
-                   + phys.numel() * 12)
+        cost = GA.scatter_pages_cost(k_pool, k_src, page_ids, base, msk,
+                                     pages=len(written))
         last = {int(p): i for i, p in enumerate(phys)}    # last writer wins
         uniq = torch.tensor(list(last), dtype=torch.long, device=dev)
         rows_kept = torch.tensor(list(last.values()), dtype=torch.long,
@@ -947,8 +977,7 @@ def check_kernels(torch, cfg):
                                                               pages2)),
             library_call="Tensor.index_copy_ of the kept padded K and V pages",
             shape=f"pools ({P},{page},{KH},{D}) f32, src ({B},{S},{KH},{D})",
-            **dict(zip(("bound_ms", "bound_by"),
-                       bound_ms(n_bytes, 0.0, "float32"))))
+            **rule_bound(cost, "float32"))
         # K2's bytes alone: one copy_ of the kept padded K and V pages into
         # as many contiguous pool pages, with no lookups and no fence
         bytes_ms = cuda_ms(torch, lambda: kv2[:, :len(last)].copy_(pages2))
@@ -1342,6 +1371,7 @@ def check_moe_histogram(torch, cfg, gen, more, row):
     past the one-CTA threshold, so the cluster route (2 and 8 CTAs) is
     checked too.  Adds its row through ``row``."""
     from repro_torch.kernels import ref
+    from repro_torch.launch.graph_analysis import moe_histogram_cost
     from repro_torch.kernels.moe_histogram import cluster_ctas, \
         moe_histogram
 
@@ -1386,7 +1416,7 @@ def check_moe_histogram(torch, cfg, gen, more, row):
     fenced = (ids & mask) | base
     in_range = fenced[(fenced >= 0) & (fenced < E)].reshape(-1)
     # bytes: the ids read once, the counts written once
-    n_bytes = ids.numel() * 4 + E * 4
+    cost = moe_histogram_cost(ids, E)
     call = (lambda: moe_histogram(ids, E, base, mask))
     ops = device_ops_per_call(torch, call)
     if ops != 1:
@@ -1401,8 +1431,7 @@ def check_moe_histogram(torch, cfg, gen, more, row):
                                                          minlength=E)),
         library_call="torch.bincount of the in-range fenced ids",
         device_ops=ops, shape=f"ids ({T},{K}) int32, E = {E}",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound_ms(n_bytes, 0.0, "float32"))))
+        **rule_bound(cost, "float32"))
     times = {case: cuda_ms(torch, lambda c=c: moe_histogram(c, E, base,
                                                              mask))
              for case, c in cases.items() if case != "prefill"}
@@ -1530,6 +1559,7 @@ def prefill_write_row(torch, cfg, gen):
     of the port has, so the same-card A/B times it on both."""
     from repro_torch.core.fence import FenceParams, FencePolicy
     from repro_torch.kernels import ref
+    from repro_torch.launch.graph_analysis import scatter_pages_cost
     from repro_torch.models import kvcache as KV
     from repro_torch.models.guard import GuardSpec, kernel_fence
 
@@ -1570,8 +1600,8 @@ def prefill_write_row(torch, cfg, gen):
     kept = len(set(int(x) for x in phys.reshape(-1)))
     # bytes: for each kept page of K and V its S bf16 source tokens read
     # and the whole f32 page written, plus the ids and per-row fences
-    n_bytes = (2 * kept * (S * KH * D * 2 + 64 * KH * D * 4)
-               + ids.numel() * 4 + 2 * B * 4)
+    n_bytes = scatter_pages_cost(cache.k[1], k_new, ids, fb, fm,
+                                 pages=kept).bytes
     ops = device_ops_per_call(torch, call)
     ops_none = device_ops_per_call(
         torch, lambda: KV.write_prefill_kv(cache, 1, k_new, v_new, None))
@@ -2755,6 +2785,7 @@ def slab_kernel_row(torch, cfg):
     phase 2's rows, the bound counting the scratch slot's tokens once."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.launch.graph_analysis import paged_attention_cost
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(2024)
@@ -2773,9 +2804,8 @@ def slab_kernel_row(torch, cfg):
     call = (lambda: paged_attention(q, k_view, v_view, ids, lens, 0, -1))
     # bytes: the four rows on the scratch slot read its tokens once
     pairs, k_tok, v_tok = k1_held(ids, lens, page)
-    n_bytes = ((k_tok + v_tok) * KH * D * 4 + 2 * B * H * D * 2
-               + ids.numel() * 4 + B * 4)
-    flops = 4 * pairs * H * D
+    cost = paged_attention_cost(q, k_view, ids, positions=pairs,
+                                k_tokens=k_tok, v_tokens=v_tok)
     return dict(
         kernel="paged_attention", path=f"{cfg.name}/slab", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -2790,8 +2820,7 @@ def slab_kernel_row(torch, cfg):
         library_ms=None, library_call=None,
         shape=f"q ({B},{H},{D}) bf16, slab view ({16 * P},{page},{KH},{D})"
               " f32, identity fence",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound_ms(n_bytes, flops, "float32"))))
+        **rule_bound(cost, "float32"))
 
 
 def run_slab_path(torch, cfg, params, smi: str) -> dict:
@@ -4965,6 +4994,7 @@ def train_kernel_rows(torch) -> list:
     from repro_torch.kernels import ref
     from repro_torch.kernels.gather_rows import gather_rows, \
         gather_rows_backward_op
+    from repro_torch.launch.graph_analysis import gather_rows_cost
 
     cfg = get_config(TRAIN_ARCH)
     gen = torch.Generator(device="cuda").manual_seed(2222)
@@ -5003,8 +5033,7 @@ def train_kernel_rows(torch) -> list:
         library_ms=cuda_ms(torch, lambda: table.index_select(0, ids)),
         library_call="Tensor.index_select",
         shape=f"table {tuple(table.shape)} bf16, {n} ids, fence {mask + 1}",
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(
-            2 * n * cfg.d_model * 2 + n * 4, 0.0, "bfloat16"))))
+        **rule_bound(gather_rows_cost(table, ids), "bfloat16"))
     del table, grad
 
     # K4: the step's attention, bf16, causal
@@ -5066,6 +5095,7 @@ def family_kernel_rows(torch) -> list:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.gather_rows import gather_rows
+    from repro_torch.launch.graph_analysis import gather_rows_cost
 
     K1 = sys.modules["repro_torch.kernels.paged_attention"]
     gen = torch.Generator(device="cuda").manual_seed(2468)
@@ -5107,9 +5137,7 @@ def family_kernel_rows(torch) -> list:
             library_call="Tensor.index_select",
             shape=f"table {tuple(table.shape)} bf16, {ids.numel()} ids, "
                   f"fence {mask + 1}",
-            **dict(zip(("bound_ms", "bound_by"), bound_ms(
-                2 * ids.numel() * cfg.d_model * 2 + ids.numel() * 4, 0.0,
-                "bfloat16"))))
+            **rule_bound(gather_rows_cost(table, ids), "bfloat16"))
         del table
 
     # K1 on a bf16 pool: qwen2-vl's decode over the slab view (4 slots x
@@ -6041,6 +6069,7 @@ def k4_long_row(torch, row, path, q, k, v, samples: int = 8, blk: int = 128):
     with its bound.  One device operation a call."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.graph_analysis import flash_attention_cost
     import torch.nn.functional as F
 
     B, S, H, D = q.shape
@@ -6118,9 +6147,8 @@ def k4_long_row(torch, row, path, q, k, v, samples: int = 8, blk: int = 128):
         library_call="F.scaled_dot_product_attention(is_causal=True)",
         shape=f"q/k/v ({B},{S},{H},{D}) bf16, causal; plain version one "
               "(row, head) at a time",
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(
-            4 * B * S * H * D * q.element_size(), 4 * B * H * D * pairs,
-            "bfloat16"))))
+        **rule_bound(flash_attention_cost(q, k, True, pairs=pairs),
+                     "bfloat16"))
     return err
 
 
@@ -6137,6 +6165,7 @@ def bundle_kernel_rows(torch) -> list:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.gather_rows import gather_rows
+    from repro_torch.launch.graph_analysis import gather_rows_cost
 
     cfg = get_config(BUNDLE_ARCH)
     gen = torch.Generator(device="cuda").manual_seed(3232)
@@ -6204,8 +6233,7 @@ def bundle_kernel_rows(torch) -> list:
         library_ms=cuda_ms(torch, lambda: table.index_select(0, ids)),
         library_call="Tensor.index_select",
         shape=f"table {tuple(table.shape)} bf16, {n} ids, fence {mask + 1}",
-        **dict(zip(("bound_ms", "bound_by"), bound_ms(
-            2 * n * cfg.d_model * 2 + n * 4, 0.0, "bfloat16"))))
+        **rule_bound(gather_rows_cost(table, ids), "bfloat16"))
     log_rows(rows)
     return rows
 
@@ -6682,7 +6710,8 @@ def bundles_full(torch, smi: str) -> dict:
             f"median / floor {med_g / statistics.mean(floors):.2f}; "
             f"{B * 1e3 / med_g:.1f} tokens/s{agree}; on {smi}")
         paths[path] = {"launches": launches, "per_call": per_call,
-                       "peak": peak, "decode_ms": (med_g, med_n)}
+                       "peak": peak, "decode_ms": (med_g, med_n),
+                       "prefill_ms": (pre_ms[3], pre_ms[2])}
         log(f"bundles (b) [{path}]: launches a call {per_call}, plain calls "
             f"0; guarded logits = native bit for bit (prefill, {BUNDLE_STEPS}"
             f" decode steps); peak memory {peak / 1e9:.2f} GB; launches "
@@ -6709,6 +6738,226 @@ def bundles_phase(torch, smi: str) -> dict:
     return paths
 
 
+# --------------------------------------------------------------------- #
+# Phase 13: the dry run (``repro_torch.launch.dryrun``) on the card       #
+# --------------------------------------------------------------------- #
+
+#: phase 13 (a)'s cells: one production-mesh cell per family
+DRYRUN_CELLS = (("stablelm-3b", "train_4k"),
+                ("qwen3-moe-30b-a3b", "decode_32k"),
+                ("zamba2-7b", "prefill_32k"), ("xlstm-350m", "long_500k"),
+                ("qwen2-vl-2b", "decode_32k"),
+                ("seamless-m4t-medium", "prefill_32k"))
+#: phase 13 (b): the predicted peak against ``max_memory_allocated``
+DRYRUN_PEAK_TOL = 0.10
+
+
+def first_difference(gm_a, gm_b) -> str:
+    """The first node at which two traced graphs differ (its op and its
+    results' shapes and dtypes), for a message."""
+    def sig(n):
+        from repro_torch.launch.graph_analysis import _tensors
+        return (str(n.target), [(tuple(t.shape), str(t.dtype))
+                                for t in _tensors(n.meta.get("val"))])
+    a = [sig(n) for n in gm_a.graph.nodes if n.op == "call_function"]
+    b = [sig(n) for n in gm_b.graph.nodes if n.op == "call_function"]
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return f"node {i}: {x} against {y}"
+    return f"{len(a)} against {len(b)} nodes"
+
+
+def dryrun_devices(torch, smi: str) -> None:
+    """Phase 13 (a): each of :data:`DRYRUN_CELLS` on the single-pod mesh,
+    traced by the dry run on CUDA fakes and on CPU fakes in this process:
+    the cost and memory blocks, the traced graph's liveness walk, the
+    per-op counts and the launches equal; a difference names the op."""
+    from repro_torch.launch import dryrun as DR, graph_analysis as GA
+
+    t0 = time.perf_counter()
+    for arch, shape in DRYRUN_CELLS:
+        got = {}
+        for dev in ("cuda", "cpu"):
+            cell = DR.trace_cell(arch, shape, device=dev)
+            got[dev] = (DR.reckon(cell), GA.peak_live_bytes(
+                cell.gm, cell.bundle.donate_argnums), cell)
+        (a, mem_a, ca), (b, mem_b, cb) = got["cuda"], got["cpu"]
+        ops_a, ops_b = a["trace"]["ops"], b["trace"]["ops"]
+        diff = sorted(k for k in set(ops_a) | set(ops_b)
+                      if ops_a.get(k) != ops_b.get(k))
+        if diff:
+            raise AssertionError(
+                f"dry run (a) [{arch} x {shape}]: per-op counts on cuda / "
+                "cpu fakes differ: " + ", ".join(
+                    f"{k} {ops_a.get(k, 0)} / {ops_b.get(k, 0)}"
+                    for k in diff))
+        for block in ("cost", "memory", "roofline"):
+            if a[block] != b[block]:
+                raise AssertionError(
+                    f"dry run (a) [{arch} x {shape}]: the {block} block on "
+                    f"cuda fakes {a[block]} against cpu fakes {b[block]}; "
+                    + first_difference(ca.gm, cb.gm))
+        if mem_a != mem_b or a["trace"]["launches"] != b["trace"]["launches"]:
+            raise AssertionError(
+                f"dry run (a) [{arch} x {shape}]: traced memory {mem_a} / "
+                f"{mem_b}, launches {a['trace']['launches']} / "
+                f"{b['trace']['launches']}; " + first_difference(ca.gm, cb.gm))
+        m, c = a["memory"], a["cost"]
+        log(f"dry run (a) [{arch} x {shape}, mesh {a['mesh']}]: cuda fakes "
+            f"= cpu fakes: {sum(ops_a.values())} ops of {len(ops_a)} kinds, "
+            f"launches {a['trace']['launches']}, flops/dev "
+            f"{c['flops_per_device']:.6e}, bytes/dev "
+            f"{c['bytes_per_device']:.6e}, argument / output / alias "
+            f"{m['argument_bytes']} / {m['output_bytes']} / "
+            f"{m['alias_bytes']} B a device, the trace's peak (one device) "
+            f"{mem_a.peak / 1e9:.2f} GB, loops {a['method']['loops']}; "
+            f"trace {ca.lower_s:.1f} s (cuda) / {cb.lower_s:.1f} s (cpu) on "
+            f"the host of {smi}")
+        del got, ca, cb
+        gc.collect()
+    log(f"phase 13 (a): {time.perf_counter() - t0:.1f} s")
+
+
+def dryrun_vs_card(torch, smi: str, paths=None) -> None:
+    """Phase 13 (b): the dry run of phase 12's model (stablelm-3b, 32
+    layers, 4 x 32,768, a bf16 slab pool, guarded) on the card's 1 x 1
+    mesh, held against one real step of each bundle: argument bytes equal
+    to the bytes of the params, cache and inputs allocated for the step;
+    the kernels' launches in the step equal to the trace's; the predicted
+    peak (argument + temp + output - alias) within
+    :data:`DRYRUN_PEAK_TOL` of ``max_memory_allocated`` over the step.
+    Printed, not gated: the trace's counted aten ops beside the device
+    operations ``torch.profiler`` sees, the roofline's least time beside
+    phase 12's step time (``paths``, when phase 12 ran)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun as DR, graph_analysis as GA
+
+    t0 = time.perf_counter()
+    cfg = get_config(BUNDLE_ARCH)
+    shapes = bundle_shapes()
+    cells = {kind: DR.trace_cell(BUNDLE_ARCH, shape=shapes[kind],
+                                 device="cuda", local=True)
+             for kind in ("decode", "prefill")}
+    res = {kind: DR.reckon(cell) for kind, cell in cells.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    api = cells["decode"].bundle.api
+    B, S = BUNDLE_BATCH, shapes["prefill"].seq_len
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    cache = api.init_cache(B, S, dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    inputs = {"decode": torch.randint(0, cfg.vocab, (B,), device="cuda",
+                                      dtype=torch.int32, generator=gen),
+              "prefill": {"tokens": torch.randint(
+                  0, cfg.vocab, (B, S), device="cuda", dtype=torch.int32,
+                  generator=gen)}}
+    measured = (paths or {}).get(BUNDLE_PATHS["bf16"], {})
+    for kind in ("decode", "prefill"):
+        cell, r = cells[kind], res[kind]
+        fn = cell.bundle.fn
+        held = tree_bytes(params) + tree_bytes(cache) + \
+            tree_bytes(inputs[kind])
+        if r["memory"]["argument_bytes"] != held:
+            raise AssertionError(
+                f"dry run (b) [{kind}]: argument bytes "
+                f"{r['memory']['argument_bytes']}, the step's tensors "
+                f"{held}")
+        with torch.no_grad():
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            _build.reset_counts()
+            out = fn(params, cache, inputs[kind])
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            launches = {k.name: k.launches for k in _build.KERNELS.values()
+                        if k.launches}
+            plain = sum(k.plain_calls for k in _build.KERNELS.values())
+            del out
+        if launches != r["trace"]["launches"] or plain:
+            raise AssertionError(
+                f"dry run (b) [{kind}]: the step launched {launches} "
+                f"({plain} plain calls), the trace predicts "
+                f"{r['trace']['launches']}")
+        mem = r["memory"]
+        predicted = mem["peak_live_bytes_per_device"]
+        gap = (predicted - peak) / peak
+        if abs(gap) > DRYRUN_PEAK_TOL:
+            raise AssertionError(
+                f"dry run (b) [{kind}]: predicted peak {predicted} B against "
+                f"max_memory_allocated {peak} B ({gap:+.2%}, tolerance "
+                f"{DRYRUN_PEAK_TOL:.0%})")
+        with torch.no_grad():
+            prof = profiled_call(torch, lambda: fn(params, cache,
+                                                   inputs[kind]), n=1)
+        least = max(r["roofline"]["compute_s"],
+                    r["roofline"]["memory_s"]) * 1e3
+        step = measured.get(f"{kind}_ms")
+        log(f"dry run (b) [{BUNDLE_ARCH}, {kind}, {B} x {S}, bf16 pool, "
+            f"guarded, mesh 1x1, cuda fakes]: argument bytes {held} = the "
+            f"step's params + cache + inputs; launches {launches} = the "
+            f"trace's; predicted peak {predicted / 1e9:.3f} GB (argument "
+            f"{mem['argument_bytes'] / 1e9:.3f} + temp "
+            f"{mem['temp_bytes'] / 1e9:.3f} + output "
+            f"{mem['output_bytes'] / 1e9:.3f} - alias "
+            f"{mem['alias_bytes'] / 1e9:.3f}) against max_memory_allocated "
+            f"{peak / 1e9:.3f} GB over the step ({before / 1e9:.3f} GB "
+            f"allocated before it): {gap:+.2%}, tolerance "
+            f"{DRYRUN_PEAK_TOL:.0%}; on {smi}")
+        log(f"dry run (b) [{kind}]: not gated: {GA.non_view_ops(cell.gm)} "
+            "counted aten ops in the trace, "
+            + ("not measured (the profiler saw no device time)"
+               if prof is None else f"{prof[0]:.0f} device operations "
+               f"(torch.profiler, one step, {prof[1]:.3f} ms busy)")
+            + f"; the roofline's least time {least:.3f} ms "
+              f"({r['roofline']['bottleneck']}-bound: flops "
+              f"{r['cost']['flops_per_device']:.6e}, bytes "
+              f"{r['cost']['bytes_per_device']:.6e}) beside phase 12's "
+            + (f"guarded {kind} step {step[0]:.3f} ms" if step else
+               "step time: not measured in this run")
+            + f"; on {smi}")
+    del params, cache, inputs, cells
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 13 (b): {time.perf_counter() - t0:.1f} s")
+
+
+# Phase 13 (a)'s worker: host work only (traces on fakes), run beside the
+# other phases from the start; its lines are printed after phase 12's.
+_PHASE13A_WORKER = """
+import sys
+sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
+import torch
+import chip_smoke as cs
+cs.dryrun_devices(torch, cs.smi_line())
+"""
+
+
+def start_dryrun_devices():
+    """Phase 13 (a) in a process of its own, its output kept in a file;
+    killed at exit if it is still running."""
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, "-c", _PHASE13A_WORKER,
+                             str(ROOT)], stdout=out, stderr=out, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out
+
+
+def finish_dryrun_devices(started) -> None:
+    """Wait for phase 13 (a), print its lines; its failure fails here."""
+    proc, out = started
+    rc = proc.wait()
+    out.seek(0)
+    for line in out:
+        if rc != 0 or line.startswith(("dry run", "phase 13")):
+            print(line, end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"phase 13 (a)'s worker failed (exit {rc})")
+
+
 # Phase 12's worker: the phase in a process of its own, from the checkout
 # at argv[1] (its 43 GB pool needs the card's memory whole); its lines
 # pass through, and its paths' launches come back as one JSON line.
@@ -6722,6 +6971,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 _build.build_all()
 paths = cs.bundles_phase(torch, cs.smi_line())
+cs.dryrun_vs_card(torch, cs.smi_line(), paths)
 print("PHASE12 " + json.dumps(paths), flush=True)
 """
 
@@ -6872,6 +7122,12 @@ def main() -> int:
         bundles_worker(torch)
         return 0
 
+    if len(sys.argv) == 2 and sys.argv[1] == "--dryrun":
+        # a development switch: phase 13 alone, after the build
+        dryrun_devices(torch, smi)
+        dryrun_vs_card(torch, smi)
+        return 0
+
     if len(sys.argv) == 2 and sys.argv[1] == "--train":
         # a development switch: phase 2's training rows and phase 9 alone,
         # after the build
@@ -6882,6 +7138,9 @@ def main() -> int:
         train_restart(torch)
         return 0
 
+    # phase 13 (a) (the dry run on cuda and cpu fakes: host work only) runs
+    # beside the other phases from here, in a process of its own
+    dryrun = start_dryrun_devices()
     cfgs = [get_config(name) for name in PATHS]
     floor = launch_floor_ms(torch)
     log(f"launch floor: {floor:.5f} ms (one-element fill_, the smallest "
@@ -6958,6 +7217,8 @@ def main() -> int:
     paths.update(family_phase(torch, smi))
     paths.update(phase11)
     paths.update(phase12)
+    # phase 13 (b) ran in phase 12's process; (a)'s lines now
+    finish_dryrun_devices(dryrun)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

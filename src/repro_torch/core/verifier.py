@@ -80,7 +80,7 @@ aten = torch.ops.aten
 __all__ = [
     "FENCED", "PROVEN", "REFUTED", "GuardianStaticViolation",
     "GuardianTaintWarning", "SandboxProof", "SiteRecord", "VerifierError",
-    "trace_kernel", "verify", "verify_graph",
+    "fake_trace", "trace_kernel", "verify", "verify_graph",
 ]
 
 
@@ -755,29 +755,24 @@ def _trace_errors() -> Tuple[type, ...]:
             ft.UnsupportedOperatorException)
 
 
-def trace_kernel(fn: Callable, example_args: Sequence[Any],
-                 arena_argnums: Sequence[int] = (0,), *, mode: str = "row",
-                 device: Optional[Any] = None) -> Traced:
-    """Trace ``fn(*example_args)`` into an aten graph on *fake* tensors of
-    the arguments' shapes, dtypes and devices (the live arena is never
-    read or written) and run the taint analysis of ``mode``.  Row mode (a
-    tenant kernel): tensor arguments become graph inputs, every other
-    argument is baked in (a launch dimension, like a CUDA grid size).
-    Extent mode (a trusted step): every tensor leaf of every argument
-    (:func:`~repro_torch.core.stepgraph.tree_flatten` — dicts, lists,
-    dataclasses such as a cache meta or a :class:`GuardSpec`) becomes a
-    graph input, and the leaves of the ``arena_argnums`` arguments are
-    tainted.  ``device`` puts every fake on one device (a meta tensor then
-    stands in for a shape).  Fails closed with :class:`SandboxError` on a
-    data-dependent value or shape (``.item()``, a boolean mask), a
-    higher-order op other than ``cond``, ``while_loop`` and ``scan`` and,
-    in row mode, on any use of the arena the walker cannot contain."""
+def fake_trace(fn: Callable, example_args: Sequence[Any], *,
+               flatten: bool, device: Optional[Any] = None):
+    """``make_fx`` of ``fn(*example_args)`` on *fake* tensors of the
+    arguments' shapes, dtypes and strides (nothing is read, written or
+    launched).  ``flatten`` makes every tensor leaf of every argument
+    (:func:`~repro_torch.core.stepgraph.tree_flatten`) a graph input;
+    otherwise a tensor argument is one and every other argument is baked
+    in.  ``device`` puts every fake on one device (a meta tensor then
+    stands in for a shape); a CUDA fake on a build of torch without CUDA
+    is traced through :class:`_AtenIndexing`.  Returns ``(gm, dyn_pos)``,
+    ``dyn_pos`` the argument position of each graph input.  A trace that
+    fails is retried under a shape environment (torch's ``while_loop``
+    traces only there), which refuses every symbol the trace then holds;
+    the first failure is raised otherwise."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.fx.experimental.proxy_tensor import make_fx
 
-    if mode not in ("row", "extent"):
-        raise ValueError(f"verifier mode {mode!r} (row or extent)")
-    structs = [tree_flatten(a) if mode == "extent" else (None, [a])
+    structs = [tree_flatten(a) if flatten else (None, [a])
                for a in example_args]
     slots = [(p, j) for p, (_, leaves) in enumerate(structs)
              for j, leaf in enumerate(leaves)
@@ -808,20 +803,42 @@ def trace_kernel(fn: Callable, example_args: Sequence[Any],
             return make_fx(fn_dyn, tracing_mode="real")(*fakes)
 
     try:
+        return trace(None), dyn_pos
+    except _trace_errors():
+        raise
+    except Exception as first:
+        from torch.fx.experimental.symbolic_shapes import ShapeEnv
         try:
-            gm = trace(None)
-        except _trace_errors():
-            raise
-        except Exception as first:
-            # torch's while_loop traces only under a shape environment,
-            # which also lets a data-dependent value through as an
-            # unbacked symbol: the retry refuses every such symbol
-            from torch.fx.experimental.symbolic_shapes import ShapeEnv
-            try:
-                gm = trace(ShapeEnv())
-            except Exception:
-                raise first from None
-            _refuse_symbols(gm)
+            gm = trace(ShapeEnv())
+        except Exception:
+            raise first from None
+        _refuse_symbols(gm)
+        return gm, dyn_pos
+
+
+def trace_kernel(fn: Callable, example_args: Sequence[Any],
+                 arena_argnums: Sequence[int] = (0,), *, mode: str = "row",
+                 device: Optional[Any] = None) -> Traced:
+    """Trace ``fn(*example_args)`` into an aten graph on *fake* tensors of
+    the arguments' shapes, dtypes and devices (the live arena is never
+    read or written; :func:`fake_trace`) and run the taint analysis of
+    ``mode``.  Row mode (a tenant kernel): tensor arguments become graph
+    inputs, every other argument is baked in (a launch dimension, like a
+    CUDA grid size).
+    Extent mode (a trusted step): every tensor leaf of every argument
+    (:func:`~repro_torch.core.stepgraph.tree_flatten` — dicts, lists,
+    dataclasses such as a cache meta or a :class:`GuardSpec`) becomes a
+    graph input, and the leaves of the ``arena_argnums`` arguments are
+    tainted.  ``device`` puts every fake on one device (a meta tensor then
+    stands in for a shape).  Fails closed with :class:`SandboxError` on a
+    data-dependent value or shape (``.item()``, a boolean mask), a
+    higher-order op other than ``cond``, ``while_loop`` and ``scan`` and,
+    in row mode, on any use of the arena the walker cannot contain."""
+    if mode not in ("row", "extent"):
+        raise ValueError(f"verifier mode {mode!r} (row or extent)")
+    try:
+        gm, dyn_pos = fake_trace(fn, example_args, flatten=mode == "extent",
+                                 device=device)
     except _trace_errors() as e:
         raise _unsupported(
             f"a value or shape depends on tensor data ({type(e).__name__}: "
@@ -898,11 +915,12 @@ def _index_steps(t: torch.Tensor, idx) -> Tuple[torch.Tensor,
 
 
 class _AtenIndexing(torch.overrides.TorchFunctionMode):
-    """Python indexing (``t[i]``, ``t[i] = v``) spelled in aten ops, as
-    the C++ indexing spells it.  A build of torch without CUDA refuses that
-    C++ path for a fake CUDA tensor (it sets a device guard first), so a
-    step traced on fake CUDA tensors on such a build records the same
-    graph through this mode; the card's build never uses it."""
+    """Python indexing (``t[i]``, ``t[i] = v``) and ``Tensor.copy_``
+    spelled in aten ops, as the C++ spells them.  A build of torch without
+    CUDA refuses those C++ paths for a fake CUDA tensor (they set a device
+    guard first), so a step traced on fake CUDA tensors on such a build
+    records the same graph through this mode; the card's build never uses
+    it."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         if func is torch.Tensor.__getitem__:
@@ -922,10 +940,12 @@ class _AtenIndexing(torch.overrides.TorchFunctionMode):
                     out, [tensors.get(k) for k in range(max(tensors) + 1)],
                     value)
             elif isinstance(value, torch.Tensor):
-                out.copy_(value)
+                aten.copy_(out, value)
             else:
                 out.fill_(value)
             return None
+        if func is torch.Tensor.copy_:
+            return aten.copy_(*args, **(kwargs or {}))
         return func(*args, **(kwargs or {}))
 
 

@@ -354,6 +354,9 @@ class StepBundle:
       logits)`` to serve, ``fn(params, opt_state, batch) -> (params,
       opt_state, {"loss"})`` to train), on the mesh's device
       (:func:`_on_mesh`);
+    * ``step`` — the same step before :func:`_on_mesh` binds it (a
+      shape-only mesh's ``fn`` refuses to run; the dry run traces
+      ``step`` over ``in_specs``);
     * ``in_specs`` — its inputs as ``meta`` tensors (nothing allocated);
     * ``in_shardings`` / ``out_shardings`` — each input's and output's
       placement, a tree of mesh-axis tuples (``()`` replicated);
@@ -362,6 +365,7 @@ class StepBundle:
     * ``rules``, ``api``."""
 
     fn: Callable
+    step: Callable
     in_specs: Tuple
     in_shardings: Tuple
     out_shardings: Any
@@ -502,6 +506,7 @@ def _serve_bundle(cfg, shape, mesh, step, inputs_spec, inputs_axes,
                          dtype=torch.float32, device="meta")
     return StepBundle(
         fn=_on_mesh(mesh, step),
+        step=step,
         in_specs=(params_shape, cache_shape, inputs_spec),
         in_shardings=(p_shard, c_shard, x_shard),
         out_shardings=(c_shard, _shard_tree(mesh, rules, ("batch", "vocab"),
@@ -573,6 +578,7 @@ def build_train_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                           batch_specs)
     return StepBundle(
         fn=_on_mesh(mesh, step.fn),
+        step=step.fn,
         in_specs=(params_shape, opt_shape, batch_specs),
         in_shardings=(p_shard, o_shard, b_shard),
         out_shardings=(p_shard, o_shard, {"loss": ()}),

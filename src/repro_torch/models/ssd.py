@@ -15,16 +15,72 @@ the chunk count is a host int from the shapes, so a captured step never
 syncs).
 
 Everything is float32 inside (the decays are exps of sums).
+
+The reference runs this loop and the sLSTM's loop over positions as
+``lax.scan``, which lowers to one ``while``.  The port's Python loops
+unroll in a trace instead (32,768 sLSTM cells a layer at 32k), so a trace
+may cut them: within :func:`cut_loops` a loop of kind ``k`` runs
+:func:`loop_trips` steps, not its ``n``, and :func:`stack_steps` pads the
+steps it skipped with an allocation that moves no data.  Every step of
+such a loop has the same shapes, and every step but the first and the
+last does the same work (forward and backward), so two cut traces, of 2
+and 3 steps, give a trace's work at ``n``
+(:func:`repro_torch.launch.graph_analysis.trace_step`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+
+#: the loops a trace cuts: kind -> steps run, and kind -> the steps the
+#: loop has (recorded as the trace meets it); None outside :func:`cut_loops`
+_CUT: List[Optional[Tuple[Dict[str, int], Dict[str, int]]]] = [None]
+
+
+@contextlib.contextmanager
+def cut_loops(trips: Dict[str, int]):
+    """Within ``with``: each loop of a kind in ``trips`` (``"ssd"``, the
+    inter-chunk state; ``"slstm"``, the sLSTM's positions) runs at most
+    ``trips[kind]`` steps where it has more than 3.  Yields the steps each
+    cut kind has (kind -> n), filled in as the loops run; a kind met with
+    two different step counts raises."""
+    before = _CUT[0]
+    _CUT[0] = (dict(trips), {})
+    try:
+        yield _CUT[0][1]
+    finally:
+        _CUT[0] = before
+
+
+def loop_trips(kind: str, n: int) -> int:
+    """The steps a loop of ``kind`` over ``n`` runs: ``n``, or the cut's
+    (:func:`cut_loops`)."""
+    cut = _CUT[0]
+    if cut is None or kind not in cut[0] or n <= 3:
+        return n
+    seen = cut[1].setdefault(kind, n)
+    if seen != n:
+        raise ValueError(f"a cut {kind!r} loop over {n} steps after one "
+                         f"over {seen}: the trace cannot be extrapolated")
+    return min(n, cut[0][kind])
+
+
+def stack_steps(ys: List[torch.Tensor], n: int, dim: int) -> torch.Tensor:
+    """``torch.stack(ys, dim)`` of a loop's ``n`` step results; for a cut
+    loop (fewer than ``n``), the same shape, the skipped steps an
+    uninitialised allocation (a trace's placeholder: no data moves)."""
+    if len(ys) == n:
+        return torch.stack(ys, dim=dim)
+    pad = list(ys[0].unsqueeze(dim).shape)
+    pad[dim] = n - len(ys)
+    return torch.cat([y.unsqueeze(dim) for y in ys]
+                     + [ys[0].new_empty(pad)], dim=dim)
 
 
 def segsum(a: torch.Tensor) -> torch.Tensor:
@@ -76,10 +132,10 @@ def ssd_chunked(u: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     h = (torch.zeros((B, H, N, P), dtype=torch.float32, device=u.device)
          if h0 is None else h0.float())
     prev = []
-    for ci in range(nc):
+    for ci in range(loop_trips("ssd", nc)):
         prev.append(h)
         h = chunk_decay[:, ci, :, None, None] * h + states[:, ci]
-    prev_states = torch.stack(prev, dim=1)            # (B,nc,H,N,P)
+    prev_states = stack_steps(prev, nc, 1)            # (B,nc,H,N,P)
 
     # inter-chunk: y[t] += (c_t · H_{c-1}) * exp(A_t)
     state_decay_in = torch.exp(cs.movedim(-1, -2))    # (B,nc,Q,H)

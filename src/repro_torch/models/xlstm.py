@@ -32,7 +32,8 @@ from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
 from repro_torch.models.guard import GuardSpec
-from repro_torch.models.ssd import ssd_chunked, ssd_step
+from repro_torch.models.ssd import loop_trips, ssd_chunked, ssd_step, \
+    stack_steps
 
 Params = Dict[str, Any]
 
@@ -187,10 +188,10 @@ def slstm_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     state = slstm_zero_state(cfg, B, x.device) if state0 is None \
         else state0
     hs = []
-    for t in range(S):
+    for t in range(loop_trips("slstm", S)):
         state = _slstm_cell(cfg, p, pre[:, t], state)
         hs.append(state[2])
-    y = torch.stack(hs, dim=1).to(x.dtype)                  # (B,S,d)
+    y = stack_steps(hs, S, 1).to(x.dtype)                   # (B,S,d)
     return y @ p["wo"], state
 
 

@@ -79,10 +79,13 @@ def test_default_device_entry_points_raise_without_cuda():
                                     "repro_torch.distributed.compress",
                                     "repro_torch.distributed.sharding",
                                     "repro_torch.launch.mesh",
-                                    "repro_torch.launch.steps"])
+                                    "repro_torch.launch.steps",
+                                    "repro_torch.launch.graph_analysis",
+                                    "repro_torch.launch.dryrun"])
 def test_lint_and_declared_accesses_import_alone(module):
     """The lint CLI, the kernels' declared-access table, the distributed
-    package, the meshes and the step bundles are modules of the package
+    package, the meshes, the step bundles and the dry run with its cost
+    model are modules of the package
     (so the ast check above covers them) and import in a fresh
     interpreter without loading JAX or the reference."""
     import os
