@@ -160,7 +160,11 @@ against the card.  Phases, in order (any failure exits non-zero):
    CPU; a forged pointer inside each body leaves the other partitions'
    bytes as they were, wraps into the forger's partition or, under
    CHECK, rolls back exactly; each kernel's device and wall time over its
-   memory operations unrolled on the host and captured, and over NONE.
+   memory operations unrolled on the host and captured, and over NONE;
+   and a ``cond`` nested in a ``while_loop`` under 16 keys of one
+   manager (48 conditional nodes, more than torch's 32 streams), card =
+   CPU after every launch — in a process of its own beside phase 12's
+   (host work for the most part: each key's bodies traced).
 
    Phase 2 also holds the recurrent families' kernels, after the two
    main paths', with the same checks (``check_kernels`` picks the kernels
@@ -200,31 +204,53 @@ against the card.  Phases, in order (any failure exits non-zero):
    slots in every pool, and a full tenant grows through the elastic
    plane, its KV and state slots moved by the relocation step.
 
-9. training (after phase 8): (a) minicpm-2b and qwen3-moe-30b-a3b at full
+9. training (right after phase 11, in its process: after the serve
+   paths this one's cache stays split too finely, on the default
+   stream, for the compiled step's warm-up on its side stream): (a)
+   minicpm-2b and qwen3-moe-30b-a3b at full
    width and 2 layers, float32, the train guard (BITWISE; qwen3-moe's
    expert fence and K5 too), a 2 x 64-token batch: the loss and every
    gradient leaf on the card (K3 and K4 launched, their backwards in
    PyTorch) against the CPU from the same weights — the loss within 1e-5
-   relative, each leaf within 1e-4 of its max |value|; (b) minicpm-2b at
+   relative, each leaf within 1e-4 of its max |value|; then minicpm-2b's
+   compiled step (``compile_train_step``: one CUDA graph for forward,
+   backward and AdamW) against eager, 5 steps of 2 x 64 tokens under WSD
+   from one seed's weights: two eager runs give the card's own spread,
+   and the compiled run holds every loss within 1e-5 relative and every
+   param and moment leaf within 1e-4 of its max |value| (or the spread,
+   if larger), one graph, a replay's launches equal to an eager step's,
+   whether each run is bit-equal printed; the same with the steps'
+   batches at 64, 64, 32, 64 and 32 tokens: two graphs in the step's
+   one pool, each replayed after the other was captured; (b) minicpm-2b at
    full width and depth (40 layers, bf16, 2.72 B params) trained 10 steps
-   through ``repro_torch.launch.train``'s ``main`` in-process (AdamW + WSD
+   through ``repro_torch.launch.train``'s ``main`` in-process (the
+   compiled step; AdamW + WSD
    at peak lr 6e-4, batch 4 x 512, SyntheticLM seed 0, BITWISE guard,
    remat off), counts set to 0 just before and read just after — every
-   loss finite, the last below the first, K3 once and K4 40 times a step
-   — then the same weights with ``--no-guard``; it prints the losses, the
+   loss finite, the last below the first, K3 once and K4 40 times a step,
+   one graph — then the same weights with ``--no-guard``; then the same
+   step eagerly (``step_fn.fn``) 5 steps from the same weights: the
+   compiled losses within 1e-5 relative of eager's (or the measured
+   spread), the compiled replays' and the eager step's times by CUDA
+   events, the capture's seconds, the reserved bytes after the warm-up
+   and after its release, the graph pool's bytes and the peaks; it
+   prints the losses, the
    peak memory, the CLI's step times and their guarded/native ratio, then
    (the same weights again) the step's forward / backward / optimizer
    times by CUDA events, guarded and native steps alternating, tokens/s,
    the model's TFLOP/s and share of the bf16 peak against the step's
    floor, and a step's device operations; (c) the restart contract at 2
-   layers, bf16: 6 steps against 3 + ``save_async`` / ``wait`` /
-   ``restore`` + 3, the final losses within 1e-5, and whether params and
-   moments are bit-identical.  Phase 2 holds K3 and K4 at (b)'s shapes
+   layers, bf16, under the compiled step: 6 steps against 3 +
+   ``save_async`` / ``wait`` / ``restore`` + 3 (the restored tensors
+   captured afresh), the final losses within 1e-5, and whether params
+   and moments are bit-identical; (e) a train step whose loss calls
+   ``.item()`` refused at capture, twice, naming it, the card usable
+   after.  Phase 2 holds K3 and K4 at (b)'s shapes
    too (K3 over the 122,753 x 2,304 table under its 131,072 fence with
    2,048 ids; K4 bf16 at (4, 512, 36, 64), causal), rows named
    ``kernel@minicpm-2b/train``, and times both backwards.
 
-10. the vision and encoder-decoder families (after phase 9), through the
+10. the vision and encoder-decoder families (after phase 8), through the
    model API (the reference's engine serves neither): (a) qwen2-vl-2b and
    seamless-m4t-medium at full width and 2 layers (seamless: 2 encoder +
    2 decoder), float32, one seed's weights on both devices — 2 rows,
@@ -269,18 +295,38 @@ against the card.  Phases, in order (any failure exits non-zero):
    xlstm-350m at 2 layers, zamba2-7b at 7 (a group of 6 and a 1-layer
    tail), qwen3-moe-30b-a3b at 2 with the ``einsum`` dispatch — the loss
    within 1e-5 relative and every gradient leaf within 1e-4 of its max
-   |value|, as phase 9 (a); (b) xlstm-350m (24 layers) and zamba2-7b at
+   |value|, as phase 9 (a); then the compiled step against eager as
+   phase 9 (a)'s, for xlstm-350m at 2 layers, zamba2-7b at 7 and
+   qwen3-moe-30b-a3b at 2 (its two f32 copies and a graph pool need this
+   process's whole card; its remat variants are held in (b)); (b)
+   xlstm-350m (24 layers) and zamba2-7b at
    full width and 27 layers (its 81 do not train on one card: 4 groups
    and a 3-layer tail) trained 3 steps in bf16 through
-   ``repro_torch.launch.train``'s ``main`` at batch 4 x 512 (the depth
+   ``repro_torch.launch.train``'s ``main`` (compiled) at batch 4 x 512
+   (the depth
    set on the registered config, the CLI having no depth flag), counts
    set to 0 just before and read just after (K3 once a step, K4 once a
-   shared-attention call), then ``--no-guard`` for 2 steps — losses, the
-   CLI's step time, tokens/s and peak memory; then qwen3-moe-30b-a3b at
+   shared-attention call, one graph), then ``--no-guard`` for 2 steps —
+   losses, the
+   CLI's step time, its guarded/native ratio, tokens/s and peak memory —
+   and the compiled step against the same step run eagerly: 3 eager
+   steps of zamba2-7b from the same weights on the same batches (the
+   compiled losses within 1e-5 relative or (a)'s spread); for
+   xlstm-350m, whose eager step takes 11-23 s of host time, one eager
+   step from a copy of the state and batch its first replay started
+   from (the loss so, every param and moment leaf within 1e-4 of its max
+   |value| or (a)'s spread); both step times by CUDA events, the
+   capture's and its instantiation's seconds, the graph pool; then
+   qwen3-moe-30b-a3b at
    full width and 2 layers, bf16, batch 4 x 512: the scatter and einsum
    dispatches' loss and gradients held together at bf16 tolerance, and
    the train step of each with remat off, ``nothing`` and ``dots``
-   (step time by CUDA events, peak memory, launches); (c) stablelm-3b at
+   (step time by CUDA events, peak memory, launches), each run eagerly
+   twice (the spread) and compiled from the seed's weights over the same
+   4 batches: the compiled losses within 1e-5 relative and every param
+   and moment leaf within 1e-4 of its max |value| (or the spread), one
+   graph, a replay's launches equal to an eager step's, its replays'
+   time; (c) stablelm-3b at
    full width and depth over a float8 e4m3 slab pool and an f32 one on
    the same weights: a 64-token prefill and 8 decode steps, the fp8
    run's counts (K3, K4 once a layer of the prefill, K1 once a layer a
@@ -3368,7 +3414,7 @@ def _busy_ms(torch, plane, op, tenants, rounds: int = 3):
 
 
 def tenant_plane(torch, sz=None, device: str = "cuda", smi: str = "",
-                 ss=None):
+                 ss=None, nested: bool = True):
     """Phase 5: the tenant-kernel plane on the card at a shared GPU's size
     — a 1 GiB arena, four tenants of 2**26 slots, the simulated libraries
     at working sets of 2**22 slots and more — under NONE, BITWISE, MODULO
@@ -3468,7 +3514,7 @@ def tenant_plane(torch, sz=None, device: str = "cuda", smi: str = "",
     _stale_native(torch, device)
     if ladder:
         _tenant_ladders(ladder, [op[0] for op in card_ops], smi)
-    structural_plane(torch, sz, device, smi, ss)
+    structural_plane(torch, sz, device, smi, ss, nested)
     log(f"tenant plane: ok in {time.perf_counter() - t_start:.1f} s")
 
 
@@ -4103,7 +4149,7 @@ def _struct_results(plane, reqs_by_op):
 
 
 def structural_plane(torch, sz=None, device: str = "cuda", smi: str = "",
-                     ss=None):
+                     ss=None, nested: bool = True):
     """Phase 5's structural kernels at the tenant phase's size (a 1 GiB
     arena, four tenants of 2**26 slots): a ``while_loop`` list walk whose
     trip count is the arena's data, a ``scan`` over BLAS-1 chunks and a
@@ -4116,7 +4162,9 @@ def structural_plane(torch, sz=None, device: str = "cuda", smi: str = "",
     keep their bytes, the forger's stores wrap into its own partition or,
     under CHECK, roll back exactly and are counted.  Prints each kernel's
     device and wall time a round over the unfenced kernels unrolled and
-    captured by this script, and over NONE."""
+    captured by this script, and over NONE.  Then, with ``nested``,
+    :func:`many_conditional_nodes` (``main`` runs it in a process of its
+    own, beside phase 12's)."""
     import numpy as np
     from repro_torch.core.stepgraph import StepGraph
     sz = dict(TENANT_SIZES if sz is None else sz)
@@ -4197,7 +4245,8 @@ def structural_plane(torch, sz=None, device: str = "cuda", smi: str = "",
                     log(f"    {row:8s} " + ", ".join(
                         f"{op} {r:.2f}x ({lb})"
                         for (lb, op), r in ratio.items()))
-    many_conditional_nodes(torch, device)
+    if nested:
+        many_conditional_nodes(torch, device)
     log(f"structural tenant kernels: ok in "
         f"{time.perf_counter() - t_start:.1f} s")
 
@@ -4695,10 +4744,17 @@ def log_memory(torch, label: str) -> None:
     log(line)
 
 
-def run_train_cli(torch, argv):
+def run_train_cli(torch, argv, hold=None):
     """``repro_torch.launch.train.main(argv)`` in-process, its kernel
     counts set to 0 just before and read just after: (summary, the step
-    lines' (loss, ms), launches, peak GB)."""
+    lines' (loss, ms), launches, peak GB, the compiled step's record).
+    The record holds each call's exact loss and time by CUDA events
+    around it (``main``'s ``wrap_step``), the graphs (:func:`graph_line`),
+    the launches a replay adds and the eager step (``step``).  With
+    ``hold`` it also holds copies of call ``hold``'s params, optimizer
+    state and batch, and of the params and optimizer state it handed
+    back, with its loss (``held``: the state an eager step is then run
+    from, and what it must reach)."""
     import io
     import re
     from repro_torch.kernels import _build
@@ -4709,9 +4765,41 @@ def run_train_cli(torch, argv):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_counts()
+    made, calls, held = [], [], []
+
+    def clone(x):
+        return tree_map_tensors(lambda t: t.clone(), x)
+
+    def wrap(compiled):
+        made.append(compiled)
+
+        def call(params, opt_state, batch):
+            if len(calls) == hold:
+                held.append(clone((params, opt_state, batch)))
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            res = compiled(params, opt_state, batch)
+            b.record()
+            calls.append((res[2]["loss"], a, b))
+            if len(held) == 1:
+                held.append(clone(res))
+            return res
+        return call
+
     with contextlib.redirect_stdout(out):
-        summary = T.main(argv)
+        summary = T.main(argv, wrap_step=wrap)
     torch.cuda.synchronize()
+    if len(made) != 1:
+        raise AssertionError(f"train CLI: {len(made)} compiled steps")
+    graphs = list(made[0].graphs.values())
+    record = {"losses": [float(x) for x, _, _ in calls],
+              "ms": [a.elapsed_time(b) for _, a, b in calls],
+              "graphs": graph_line(made[0]), "n_graphs": len(graphs),
+              "replay": {k.name: n for k, n in graphs[0].launches.items()}
+              if graphs else None, "step": made[0].step,
+              "held": held or None}
+    del made, graphs, calls
     launches = {k.name: k.launches for k in _build.KERNELS.values()
                 if k.launches}
     plain = sum(k.plain_calls for k in _build.KERNELS.values())
@@ -4721,9 +4809,26 @@ def run_train_cli(torch, argv):
         for ln in out.getvalue().splitlines()) if m]
     if plain:
         raise AssertionError(f"train CLI: {plain} plain calls on the card")
+    if record["n_graphs"] != 1:
+        raise AssertionError(f"train CLI: {record['graphs']}, want one "
+                             "graph for its one batch shape")
+    record["peak"] = peak
     gc.collect()
     torch.cuda.empty_cache()
-    return summary, steps, launches, peak
+    return summary, steps, launches, peak, record
+
+
+def tree_map_tensors(fn, x):
+    """``x`` (dicts, lists, tuples of tensors and other leaves) with
+    ``fn`` applied to every tensor."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, dict):
+        return {k: tree_map_tensors(fn, v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(tree_map_tensors(fn, v) for v in x)
+    return x
 
 
 def train_flops(cfg, tokens: int, seq: int) -> float:
@@ -4867,7 +4972,7 @@ def train_full(torch, smi: str) -> dict:
     n_steps, batch, seq = 10, 4, 512
     tokens = batch * seq
     log_memory(torch, "train (b), before the CLI runs")
-    summary, lines, launches, peak = run_train_cli(torch, TRAIN_ARGV)
+    summary, lines, launches, peak, cli = run_train_cli(torch, TRAIN_ARGV)
     losses = [x for x, _ in lines]
     want = {"gather_rows": n_steps, "flash_attention": n_steps * cfg.n_layers}
     if launches != want:
@@ -4875,8 +4980,20 @@ def train_full(torch, smi: str) -> dict:
     if not (len(losses) == n_steps and all(math.isfinite(x) for x in losses)
             and losses[-1] < losses[0]):
         raise AssertionError(f"train (b): losses {losses}")
-    _, lines_n, launches_n, peak_n = run_train_cli(
+    _, lines_n, launches_n, peak_n, cli_n = run_train_cli(
         torch, TRAIN_ARGV + ["--no-guard"])
+    # the same step eagerly from the same weights on the same batches,
+    # the compiled run held against it within (a)'s spread
+    eager, eager_ms, eager_peak = eager_cli_loop(torch, TRAIN_ARGV, 5)
+    compiled_cli_line(
+        f"train (b) compiled [{TRAIN_ARCH}, {cfg.n_layers} layers, "
+        f"guarded]", cli, eager, eager_ms, eager_peak,
+        "an earlier run's eager step: 342.8 ms of device busy time", smi)
+    log(f"train (b) compiled [{TRAIN_ARCH}, native]: replays by CUDA "
+        f"events median {statistics.median(cli_n['ms'][1:]):.2f} ms (first "
+        f"call {cli_n['ms'][0]:.1f} ms); {cli_n['graphs']}; launches a "
+        f"replay {cli_n['replay']} (guarded {cli['replay']}); peak "
+        f"{cli_n['peak']:.2f} GB")
     wall = statistics.median(ms for _, ms in lines[1:])
     wall_n = statistics.median(ms for _, ms in lines_n[1:])
     log_memory(torch, "train (b), before the step by part")
@@ -4924,10 +5041,11 @@ def train_full(torch, smi: str) -> dict:
 
 
 def train_restart(torch) -> None:
-    """Phase 9 (c): the restart contract on the card, minicpm-2b at 2
-    layers and full width, bf16, the train guard, batch 2 x 128: 6 steps
-    uninterrupted against 3 steps, ``save_async`` / ``wait`` /
-    ``restore`` into fresh tensors, 3 steps.  Gate: the final losses
+    """Phase 9 (c): the restart contract on the card under the compiled
+    step, minicpm-2b at 2 layers and full width, bf16, the train guard,
+    batch 2 x 128: 6 steps uninterrupted against 3 steps, ``save_async``
+    / ``wait`` / ``restore`` into fresh tensors, 3 steps (the restored
+    tensors get a graph of their own, the stale one is dropped).  Gate: the final losses
     within 1e-5 (``examples/preemption_resume.py``'s bound); prints
     whether every param and moment is bit-identical."""
     import tempfile
@@ -4935,7 +5053,8 @@ def train_restart(torch) -> None:
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.core.stepgraph import tree_flatten
     from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.steps import build_train_step, \
+        compile_train_step
     from repro_torch.optim import wsd
 
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
@@ -4949,37 +5068,396 @@ def train_restart(torch) -> None:
                           "cuda")
         return p, step.opt.init(p)
 
-    def run(start, stop, params, opt_state):
+    def run(fn, start, stop, params, opt_state):
         loss = None
         for s in range(start, stop):
-            params, opt_state, out = step.fn(params, opt_state, {
+            params, opt_state, out = fn(params, opt_state, {
                 "tokens": torch.from_numpy(data.batch(s)["tokens"]).cuda()})
             loss = float(out["loss"])
         return params, opt_state, loss
 
-    pa, sa, loss_a = run(0, 6, *fresh())
-    pb, sb, _ = run(0, 3, *fresh())
+    whole, parted = compile_train_step(step), compile_train_step(step)
+    pa, sa, loss_a = run(whole, 0, 6, *fresh())
+    pb, sb, _ = run(parted, 0, 3, *fresh())
     with tempfile.TemporaryDirectory() as d:
         store = CheckpointStore(d)
         store.save_async(3, (pb, sb))
         store.wait()
         del pb, sb
         (pb, sb), at = store.restore(fresh())
-    pb, sb, loss_b = run(at, 6, pb, sb)
+    before = next(iter(parted.graphs.values()))
+    pb, sb, loss_b = run(parted, at, 6, pb, sb)
+    graphs = (len(whole.graphs), len(parted.graphs),
+              next(iter(parted.graphs.values())) is not before)
+    del before
     diff = abs(loss_a - loss_b)
     same = all(torch.equal(a, b) for a, b in zip(
         tree_flatten((pa, sa))[1], tree_flatten((pb, sb))[1]))
-    if not diff < 1e-5:
+    if not diff < 1e-5 or graphs != (1, 1, True):
         raise AssertionError(f"train (c): restarted run's loss {loss_b} vs "
-                             f"{loss_a} uninterrupted")
-    log(f"train (c) [{TRAIN_ARCH}, 2 layers, {cfg.dtype}]: 6 steps "
-        f"{loss_a:.6f}, "
+                             f"{loss_a} uninterrupted; graphs {graphs}")
+    log(f"train (c) [{TRAIN_ARCH}, 2 layers, {cfg.dtype}, compiled]: 6 "
+        f"steps {loss_a:.6f}, "
         f"3 + checkpoint (save_async, wait, restore) + 3 {loss_b:.6f}: "
         f"|diff| {diff:.3g} (tolerance 1e-5); params and moments "
-        f"bit-identical: {same}")
-    del pa, sa, pb, sb
+        f"bit-identical: {same}; one graph each, the restored tensors' "
+        f"graph captured afresh and the stale one dropped")
+    del pa, sa, pb, sb, whole, parted
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------- #
+# Phases 9 and 11: the compiled train step                              #
+# --------------------------------------------------------------------- #
+
+#: a compiled step's loss against the eager step's (relative), unless the
+#: card's own eager-against-eager spread is larger
+COMPILED_LOSS_TOL = 1e-5
+#: a compiled step's param and moment leaves against the eager step's:
+#: max |error| over the leaf's max |value| (phase 9 (a)'s bound), unless
+#: the eager spread is larger
+COMPILED_LEAF_TOL = 1e-4
+#: the worst relative loss difference between two eager runs, and between
+#: a compiled and an eager run, that this process's (a) checks measured:
+#: the full-size checks' loss bound is stated from them (and their leaf
+#: bound from the worst eager-against-eager leaf, ``leaf``)
+TRAIN_SPREAD = {"eager": 0.0, "compiled": 0.0}
+TRAIN_LEAF_SPREAD = {"leaf": 0.0}
+
+
+def step_loop(torch, fn, params, opt_state, batches):
+    """``fn`` (a train step, eager or compiled) over ``batches`` from
+    ``params`` / ``opt_state``, each call between CUDA events, the kernel
+    counts set to 0 just before: ``(params, opt_state, losses, ms,
+    launches, plain calls)``."""
+    from repro_torch.kernels import _build
+    losses, events = [], []
+    _build.reset_counts()
+    for batch in batches:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        params, opt_state, out = fn(params, opt_state, batch)
+        b.record()
+        losses.append(out["loss"])
+        events.append((a, b))
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in _build.KERNELS.values()
+                if k.launches}
+    plain = sum(k.plain_calls for k in _build.KERNELS.values())
+    return (params, opt_state, [float(x) for x in losses],
+            [a.elapsed_time(b) for a, b in events], launches, plain)
+
+
+def leaf_gap(torch, got, want):
+    """``(worst max |got - want| / max |want| over the leaves, every leaf
+    bit-equal)``."""
+    worst, same = 0.0, True
+    for a, b in zip(got, want):
+        if torch.equal(a, b):
+            continue
+        same = False
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        worst = max(worst, err / scale if scale else err)
+    return worst, same
+
+
+def loss_gap(got, want) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(got, want))
+
+
+def graph_line(compiled) -> str:
+    """A compiled train step's graphs: count, warm-up, capture and
+    ``capture_end`` seconds, the reserved bytes after the warm-up, after
+    its release and the graph pool's."""
+    gs = list(compiled.graphs.values())
+    return f"{len(gs)} graph(s): " + ", ".join(
+        f"warm-up (the eager first run, to the card's sync) "
+        f"{g.warm_s:.3f} s, capture {g.capture_s:.3f} s (capture_end, "
+        f"which instantiates, {g.instantiate_s:.3f} s), reserved after "
+        f"the warm-up {g.warm_reserved / 1e9:.2f} GB, after its release "
+        f"{g.capture_reserved / 1e9:.2f} GB, graph pool "
+        f"{g.pool_bytes / 1e9:.2f} GB" for g in gs)
+
+
+def train_compiled_vs_eager(torch, name: str, n_layers: int = 2,
+                            label: str = "train (a)", steps: int = 5,
+                            seqs=None, **kw) -> None:
+    """Phase 9 (a) (and 11 (a)) compiled: ``name`` at full width and
+    ``n_layers`` layers, float32, the train guard (BITWISE), ``kw`` as
+    ``build_train_step``'s options (remat off unless given), AdamW under
+    WSD (peak 6e-4: warm-up, plateau and decay inside the steps) over
+    ``steps`` SyntheticLM batches of 2 x 64 tokens, each run from one
+    seed's weights drawn on the card.  Two eager runs give the card's own
+    spread, then ``compile_train_step``'s run.  Gates: one graph; every
+    loss within 1e-5 relative of the first eager run's and every param and
+    moment leaf within 1e-4 of its max |value| — or within the eager
+    spread where it is larger; the launches of a replay equal an eager
+    step's (K3, K4, K5), no plain version.  Prints whether each run is
+    bit-equal to the first.  ``seqs`` gives each step's batch its own
+    length (a prefix of its 64 tokens): then one graph per length, all
+    captured into one pool, each replayed after the others."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import build_train_step, \
+        compile_train_step
+    from repro_torch.optim import wsd
+
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers,
+                              dtype="float32")
+    seqs = list(seqs or [64] * steps)
+    steps = len(seqs)
+    tag = f"{label} compiled [{name}, {n_layers} layers" + "".join(
+        f", {k} {v}" for k, v in kw.items()) + (
+        f", lengths {'/'.join(map(str, seqs))}" if len(set(seqs)) > 1
+        else "")
+    kw.setdefault("remat", False)
+    step = build_train_step(cfg, ShapeConfig("phase9", "train", 64, 2),
+                            schedule=wsd(6e-4, 1, 2, 2), **kw)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                  global_batch=2, seed=5))
+    batches = [{"tokens": torch.from_numpy(
+        data.batch(i)["tokens"][:, :seqs[i] + 1]).cuda()}
+        for i in range(steps)]
+
+    def fresh():
+        p = step.api.init(torch.Generator(device="cuda").manual_seed(13),
+                          "cuda")
+        return p, step.opt.init(p)
+
+    pa, sa, loss_a, ms_a, launch_a, plain_a = step_loop(
+        torch, step.fn, *fresh(), batches)
+    want = tree_leaves((pa, sa))
+    pb, sb, loss_b, _, _, _ = step_loop(torch, step.fn, *fresh(), batches)
+    spread, same_b = leaf_gap(torch, tree_leaves((pb, sb)), want)
+    spread_loss = loss_gap(loss_b, loss_a)
+    del pb, sb
+    gc.collect()
+    torch.cuda.empty_cache()
+    compiled = compile_train_step(step)
+    pc, sc, loss_c, ms_c, launch_c, plain_c = step_loop(
+        torch, compiled, *fresh(), batches)
+    gap, same_c = leaf_gap(torch, tree_leaves((pc, sc)), want)
+    gap_loss = loss_gap(loss_c, loss_a)
+    loss_tol = max(COMPILED_LOSS_TOL, spread_loss)
+    leaf_tol = max(COMPILED_LEAF_TOL, spread)
+    graphs = list(compiled.graphs.values())
+    replays = [{k.name: n for k, n in g.launches.items()} for g in graphs]
+    replay = replays[0] if replays else None
+    per_step = {k: n // steps for k, n in launch_a.items()}
+    line = graph_line(compiled)
+    n_graphs = len(graphs)
+    del pa, sa, pc, sc, want, compiled, graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+    if n_graphs != len(set(seqs)) or any(r != per_step for r in replays) \
+            or launch_c != launch_a or plain_a or plain_c:
+        raise AssertionError(f"{tag}]: {line}; launches a replay "
+                             f"{replays}, an eager step {per_step}; plain "
+                             f"calls {plain_a} / {plain_c}")
+    if not (gap_loss <= loss_tol and gap <= leaf_tol):
+        raise AssertionError(
+            f"{tag}]: losses {loss_c} compiled, {loss_a} eager (relative "
+            f"{gap_loss:.3g}, tolerance {loss_tol:.3g}); worst leaf "
+            f"{gap:.3g} (tolerance {leaf_tol:.3g})")
+    TRAIN_SPREAD["eager"] = max(TRAIN_SPREAD["eager"], spread_loss)
+    TRAIN_SPREAD["compiled"] = max(TRAIN_SPREAD["compiled"], gap_loss)
+    TRAIN_LEAF_SPREAD["leaf"] = max(TRAIN_LEAF_SPREAD["leaf"], spread)
+    log(f"{tag}, d {cfg.d_model}, f32, batch 2 x {max(seqs)}, {steps} steps]: eager "
+        f"twice — losses relative {spread_loss:.3g}, worst leaf "
+        f"{spread:.3g}, bit-equal {same_b and loss_b == loss_a}; compiled "
+        f"vs eager — losses " + ", ".join(f"{x:.6f}" for x in loss_c)
+        + f" (relative {gap_loss:.3g}, tolerance {loss_tol:.3g}), worst "
+        f"param / moment leaf max |err| / max |value| {gap:.3g} "
+        f"(tolerance {leaf_tol:.3g}), bit-equal {same_c and loss_c == loss_a}"
+        f"; {line}; launches a replay {replay} = an eager step's, no plain "
+        f"version; step (CUDA events, steps 2-{steps}) median eager "
+        f"{statistics.median(ms_a[1:]):.2f} ms, compiled "
+        f"{statistics.median(ms_c[1:]):.2f} ms (first call, warm-up and "
+        f"capture, {ms_c[0]:.1f} ms)")
+
+
+def eager_cli_loop(torch, argv, steps: int):
+    """The step ``repro_torch.launch.train.main(argv)`` compiles, run
+    eagerly (``step_fn.fn``) ``steps`` times from the same weights on the
+    same batches: ``(losses, ms by CUDA events, peak GB)``."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.fence import FencePolicy
+    from repro_torch.data import DataConfig, make_source
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import make_schedule, parse_args
+
+    args = parse_args(argv)
+    cfg = get_config(args.arch)
+    step = build_train_step(
+        cfg, ShapeConfig("train", "train", args.seq, args.batch),
+        guard_enabled=not args.no_guard, policy=FencePolicy(args.policy),
+        remat=False, schedule=make_schedule(args))
+    source = make_source(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                    global_batch=args.batch, seed=args.seed,
+                                    host_index=0, host_count=1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = step.api.init(
+        torch.Generator(device="cuda").manual_seed(args.seed), "cuda")
+    batches = ({k: torch.from_numpy(v).cuda()
+                for k, v in source.batch(i).items()} for i in range(steps))
+    _, _, losses, ms, _, _ = step_loop(torch, step.fn, params,
+                                       step.opt.init(params), batches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, ms, peak
+
+
+def compiled_cli_line(tag: str, cli: dict, eager: list, eager_ms: list,
+                      eager_peak: float, busy: str, smi: str) -> None:
+    """Hold a CLI run's compiled losses against the eager loop's on its
+    first steps — within 1e-5 relative, or the largest eager-against-eager
+    or compiled-against-eager loss difference (i) measured in this
+    process, if larger — and log both step times (CUDA events), the
+    capture, the pool and the peaks."""
+    n = len(eager)
+    gap = loss_gap(cli["losses"][:n], eager)
+    bound = max(COMPILED_LOSS_TOL, *TRAIN_SPREAD.values())
+    if not gap <= bound:
+        raise AssertionError(f"{tag}: compiled losses {cli['losses'][:n]}, "
+                             f"eager {eager} (relative {gap:.3g}, bound "
+                             f"{bound:.3g})")
+    replays = cli["ms"][1:]
+    log(f"{tag}: compiled (the CLI) vs eager (step_fn.fn, the same weights "
+        f"and batches) on {n} steps — losses relative {gap:.3g} (bound "
+        f"{bound:.3g}: 1e-5 or the measured spread), bit-equal "
+        f"{cli['losses'][:n] == eager}; step by CUDA events: compiled "
+        f"replays " + "/".join(f"{x:.2f}" for x in replays)
+        + f" ms, median {statistics.median(replays):.2f} ms (first call, "
+        f"warm-up and capture, {cli['ms'][0]:.1f} ms); eager "
+        + "/".join(f"{x:.2f}" for x in eager_ms) + " ms, median of steps "
+        f"2-{n} {statistics.median(eager_ms[1:]):.2f} ms; {busy}; "
+        f"{cli['graphs']}; peak {cli['peak']:.2f} GB compiled, "
+        f"{eager_peak:.2f} GB eager; on {smi}")
+
+
+def held_vs_eager(torch, tag: str, cli: dict, busy: str, smi: str) -> None:
+    """Hold a CLI run's first replay (``run_train_cli(..., hold=1)``)
+    against one eager step (``step_fn.fn``) from a copy of the state that
+    replay started from, on a copy of its batch: the loss within
+    :func:`compiled_cli_line`'s bound, every param and moment leaf within
+    1e-4 of its max |value| or the largest eager-against-eager leaf
+    difference (i) measured in this process, if larger; logs both step
+    times (CUDA events), the capture, the pool and the peak."""
+    from repro_torch.core.stepgraph import tree_flatten
+    (params, opt_state, batch), (want_p, want_s, want_out) = cli.pop("held")
+    step = cli.pop("step")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    params, opt_state, out = step.fn(params, opt_state, batch)
+    b.record()
+    torch.cuda.synchronize()
+    eager_ms = a.elapsed_time(b)
+    loss, want_loss = float(out["loss"]), float(want_out["loss"])
+    gap_loss = loss_gap([want_loss], [loss])
+    gap, same = leaf_gap(torch, tree_flatten((want_p, want_s))[1],
+                         tree_flatten((params, opt_state))[1])
+    del params, opt_state, batch, want_p, want_s, out, want_out, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_tol = max(COMPILED_LOSS_TOL, *TRAIN_SPREAD.values())
+    leaf_tol = max(COMPILED_LEAF_TOL, TRAIN_LEAF_SPREAD["leaf"])
+    if not (gap_loss <= loss_tol and gap <= leaf_tol):
+        raise AssertionError(
+            f"{tag}: the first replay's loss {want_loss}, an eager step "
+            f"from the same state {loss} (relative {gap_loss:.3g}, bound "
+            f"{loss_tol:.3g}); worst leaf {gap:.3g} (bound {leaf_tol:.3g})")
+    replays = cli["ms"][1:]
+    log(f"{tag}: the first replay vs one eager step (step_fn.fn) from a "
+        f"copy of the state and batch it started from — loss relative "
+        f"{gap_loss:.3g} (bound {loss_tol:.3g}: 1e-5 or the measured "
+        f"spread), worst param / moment leaf max |err| / max |value| "
+        f"{gap:.3g} (bound {leaf_tol:.3g}), bit-equal "
+        f"{same and loss == want_loss}; step by CUDA events: compiled "
+        f"replays " + "/".join(f"{x:.2f}" for x in replays)
+        + f" ms (first call, warm-up and capture, {cli['ms'][0]:.1f} ms); "
+        f"eager {eager_ms:.2f} ms; {busy}; {cli['graphs']}; peak "
+        f"{cli['peak']:.2f} GB compiled; on {smi}")
+
+
+def check_uncapturable_train(torch) -> None:
+    """A train step whose loss calls ``.item()`` (minicpm-2b at 2 layers)
+    cannot be compiled: ``compile_train_step``'s call raises
+    ``StepCaptureError`` naming the step, and so does the next call (it
+    runs nothing); the card stays usable."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.stepgraph import StepCaptureError
+    from repro_torch.launch.steps import build_train_step, \
+        compile_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
+    base = build_train_step(cfg, ShapeConfig("phase9", "train", 64, 2),
+                            remat=False)
+
+    def item_loss_step(params, opt_state, batch):
+        params, opt_state, out = base.fn(params, opt_state, batch)
+        if out["loss"].item() != out["loss"].item():
+            raise AssertionError("a NaN loss")
+        return params, opt_state, out
+
+    compiled = compile_train_step(dataclasses.replace(base,
+                                                      fn=item_loss_step))
+    params = base.api.init(torch.Generator(device="cuda").manual_seed(1),
+                           "cuda")
+    opt_state = base.opt.init(params)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 65), device="cuda",
+                                     dtype=torch.int32)}
+    causes = []
+    for attempt in range(2):
+        try:
+            compiled(params, opt_state, batch)
+        except StepCaptureError as err:
+            if "'item_loss_step'" not in str(err):
+                raise AssertionError(f"the capture error names no step: "
+                                     f"{err}")
+            causes.append(str(err).splitlines()[0][:160])
+        else:
+            raise AssertionError(f"a train step calling .item() ran "
+                                 f"compiled (attempt {attempt + 1})")
+    del params, opt_state, compiled
+    gc.collect()
+    torch.cuda.empty_cache()
+    x = torch.arange(4.0, device="cuda")
+    if (x * 2).sum().item() != 12.0:
+        raise AssertionError("the card is unusable after a failed capture")
+    log(f"train (e): a train step calling .item() raises StepCaptureError "
+        f"naming it ({causes[0]}), and again on the next call without "
+        f"running ({causes[1] == causes[0]}); the card stays usable")
+
+
+def train_phase(torch, smi: str) -> dict:
+    """Phase 9: (a) card against CPU, then minicpm-2b's compiled step
+    against eager; (b) the full-size runs; (c) the restart; (e) the
+    uncapturable step.  Returns (b)'s launches."""
+    t0 = time.perf_counter()
+    for name in (TRAIN_ARCH, "qwen3-moe-30b-a3b"):
+        train_card_vs_cpu(torch, name)
+    train_compiled_vs_eager(torch, TRAIN_ARCH)
+    # two batch lengths: a graph each in the one pool, each replayed
+    # after the other was captured
+    train_compiled_vs_eager(torch, TRAIN_ARCH, seqs=(64, 64, 32, 64, 32))
+    log(f"phase 9 (a): {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    path = train_full(torch, smi)
+    log(f"phase 9 (b): {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    train_restart(torch)
+    check_uncapturable_train(torch)
+    log(f"phase 9 (c), (e): {time.perf_counter() - t1:.1f} s; phase 9: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return path
 
 
 def train_kernel_rows(torch) -> list:
@@ -5642,6 +6120,15 @@ FAMILY_TRAIN = {"xlstm-350m": 24, "zamba2-7b": 27}
 #: the CLI's flags of phase 11 (b)'s runs (batch 4 x 512, remat off)
 FAMILY_ARGV = ["--steps", "3", "--batch", "4", "--seq", "512", "--lr",
                "6e-4", "--log-every", "1", "--device", "cuda"]
+#: the eager steps phase 11 (b) runs beside each compiled CLI run, from
+#: the same weights on the same batches; none beside xlstm-350m's, whose
+#: eager step takes 11-23 s of host time on an H100 80GB HBM3 at 700 W:
+#: one eager step from a copy of the state its first replay started from
+#: is held against that replay instead (:func:`held_vs_eager`)
+FAMILY_EAGER = {"xlstm-350m": 0, "zamba2-7b": 3}
+#: the eager CLI step (host clock, ms) an earlier run measured at the same
+#: flags on an H100 80GB HBM3 at 700 W (PERF.md §5)
+FAMILY_EAGER_BEFORE = {"xlstm-350m": 11360, "zamba2-7b": 446}
 #: the MoE variants' model: qwen3-moe-30b-a3b at full width and 2 layers
 MOE_TRAIN = ("qwen3-moe-30b-a3b", 2)
 #: the float8 decode path: stablelm-3b at full depth over a slab pool
@@ -5730,19 +6217,29 @@ def at_depth(name: str, n_layers: int):
 def family_train_full(torch, name: str, smi: str) -> dict:
     """Phase 11 (b): ``name`` at full width and :data:`FAMILY_TRAIN`'s
     depth (bf16), trained 3 steps by ``repro_torch.launch.train``'s
-    ``main`` in-process (:data:`FAMILY_ARGV`: AdamW + cosine at 6e-4,
-    batch 4 x 512, SyntheticLM seed 0, BITWISE guard, remat off), counts
-    set to 0 just before and read just after, then with ``--no-guard`` on
-    the same weights, stopped after 2 steps (``--stop-after``: the same
-    schedule).  Gates: every loss finite; K3 once a step, K4 once a
-    shared-attention call.  Returns the guarded run's launches."""
+    ``main`` in-process (compiled; :data:`FAMILY_ARGV`: AdamW + cosine at
+    6e-4, batch 4 x 512, SyntheticLM seed 0, BITWISE guard, remat off),
+    counts set to 0 just before and read just after, then with
+    ``--no-guard`` on the same weights, stopped after 2 steps
+    (``--stop-after``: the same schedule); then the compiled step held
+    against eager: :data:`FAMILY_EAGER`'s eager steps from the same
+    weights on the same batches, or, where it asks for none, one eager
+    step from a copy of the state the first replay started from
+    (:func:`held_vs_eager`).  Gates: every loss finite; K3 once a step,
+    K4 once a shared-attention call; one graph a run; the compiled losses
+    (and a held step's params and moments) within the bounds of
+    :func:`compiled_cli_line`.  Returns the guarded run's launches."""
     argv = ["--arch", name] + FAMILY_ARGV
     n_steps, tokens = 3, 4 * 512
+    side = FAMILY_EAGER[name]
     with at_depth(name, FAMILY_TRAIN[name]) as cfg:
         want = {k: n_steps * v for k, v in train_launches(cfg).items()}
-        summary, lines, launches, peak = run_train_cli(torch, argv)
-        _, lines_n, launches_n, peak_n = run_train_cli(
+        summary, lines, launches, peak, cli = run_train_cli(
+            torch, argv, hold=None if side else 1)
+        _, lines_n, launches_n, peak_n, cli_n = run_train_cli(
             torch, argv + ["--no-guard", "--stop-after", "2"])
+        if side:
+            eager, eager_ms, eager_peak = eager_cli_loop(torch, argv, side)
     losses = [x for x, _ in lines] + [x for x, _ in lines_n]
     want_n = {k: v // n_steps * 2 for k, v in want.items()}
     if launches != want or launches_n != want_n:
@@ -5764,6 +6261,19 @@ def family_train_full(torch, name: str, smi: str) -> dict:
         f"{tokens / ms[True] * 1e3:.0f} tokens/s guarded; peak "
         f"{peak:.2f} GB (native {peak_n:.2f} GB); launches {launches}; on "
         f"{smi}")
+    tag = f"families train (b) compiled [{name}, {cfg.n_layers} layers, " \
+        "guarded]"
+    before = (f"an earlier run's eager CLI step: "
+              f"{FAMILY_EAGER_BEFORE[name]} ms")
+    if side:
+        compiled_cli_line(tag, cli, eager, eager_ms, eager_peak, before,
+                          smi)
+    else:
+        held_vs_eager(torch, tag, cli, before, smi)
+    log(f"families train (b) compiled [{name}, native]: replays by CUDA "
+        f"events " + "/".join(f"{x:.2f}" for x in cli_n["ms"][1:])
+        + f" ms (first call {cli_n['ms'][0]:.1f} ms); {cli_n['graphs']}; "
+        f"launches a replay {cli_n['replay']} (guarded {cli['replay']})")
     return {"launches": launches}
 
 
@@ -5774,13 +6284,20 @@ def moe_variants(torch, smi: str) -> None:
     the ``scatter`` and ``einsum`` dispatches held together at bf16
     tolerance (loss within 1e-2 relative, each leaf's max |error| within
     5e-2 of its max |value|); then the train step (AdamW) of each dispatch
-    with remat off, ``nothing`` and ``dots``: a warm-up step and 3 timed
-    ones (CUDA events around the step), the peak memory and the launches
-    a step."""
+    with remat off, ``nothing`` and ``dots``, each run three times from
+    the seed's weights over the same 4 batches: eagerly (its steps 2-4
+    timed by CUDA events, the peak memory, the launches a step), eagerly
+    again (the card's own spread) and compiled (``compile_train_step``).
+    Gates, as :func:`train_compiled_vs_eager`'s: one graph; the compiled
+    losses within 1e-5 relative of the first eager run's and every param
+    and moment leaf within 1e-4 of its max |value| — or the eager spread,
+    where larger; a replay's launches equal to an eager step's (K5 once a
+    MoE layer a forward), no plain version.  Prints whether each run is
+    bit-equal to the first and the compiled replays' times."""
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.kernels import _build
-    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.steps import build_train_step, \
+        compile_train_step
 
     name, depth = MOE_TRAIN
     cfg = dataclasses.replace(get_config(name), n_layers=depth)
@@ -5792,7 +6309,13 @@ def moe_variants(torch, smi: str) -> None:
                           (True, "dots"))}
     api = next(iter(steps.values())).api
     guard = next(iter(steps.values())).guard
-    params = api.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt = next(iter(steps.values())).opt
+
+    def fresh():
+        p = api.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        return p, opt.init(p)
+
+    params = fresh()[0]
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=512,
                                   global_batch=4))
     toks = torch.from_numpy(data.batch(0)["tokens"]).cuda()
@@ -5814,40 +6337,72 @@ def moe_variants(torch, smi: str) -> None:
         f"{float(got['einsum'][0]):.5f} (relative {rel:.3g}, tolerance "
         f"1e-2); {len(got['scatter'][1])} gradient leaves, worst max |err| "
         f"/ max |grad| {worst:.3g} (tolerance 5e-2)")
-    del got
-    opt_state = next(iter(steps.values())).opt.init(params)
+    del got, params
+    batches = [{"tokens": torch.from_numpy(data.batch(i)["tokens"]).cuda()}
+               for i in range(4)]
     for (d, r, p), step in steps.items():
+        tag = f"moe variants [{name}, dispatch {d}, remat {p if r else 'off'}]"
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        times = []
-        for i in range(4):
-            batch = {"tokens": torch.from_numpy(
-                data.batch(i)["tokens"]).cuda()}
-            _build.reset_counts()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            params, opt_state, out = step.fn(params, opt_state, batch)
-            b.record()
-            torch.cuda.synchronize()
-            if i:
-                times.append(a.elapsed_time(b))
-            if not math.isfinite(float(out["loss"])):
-                raise AssertionError(f"moe variants [{d}, remat {r} {p}]: "
-                                     f"loss {float(out['loss'])}")
-        launches = {k.name: k.launches for k in _build.KERNELS.values()
-                    if k.launches}
-        if launches.get("moe_histogram", 0) < depth:
-            raise AssertionError(f"moe variants [{d}]: launches {launches}")
-        log(f"moe variants [{name}, dispatch {d}, remat "
-            f"{p if r else 'off'}]: step (CUDA events) "
+        pa, sa, loss_a, ms_a, launch_a, plain_a = step_loop(
+            torch, step.fn, *fresh(), batches)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want = tree_leaves((pa, sa))
+        pb, sb, loss_b, _, _, plain_b = step_loop(torch, step.fn, *fresh(),
+                                                  batches)
+        spread, same_b = leaf_gap(torch, tree_leaves((pb, sb)), want)
+        spread_loss = loss_gap(loss_b, loss_a)
+        del pb, sb
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the compiled run's peak above the first run's state, held here
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        compiled = compile_train_step(step)
+        pc, sc, loss_c, ms_c, launch_c, plain_c = step_loop(
+            torch, compiled, *fresh(), batches)
+        peak_c = (torch.cuda.max_memory_allocated() - held) / 1e9
+        gap, same_c = leaf_gap(torch, tree_leaves((pc, sc)), want)
+        gap_loss = loss_gap(loss_c, loss_a)
+        line = graph_line(compiled)
+        graphs = list(compiled.graphs.values())
+        replay = {k.name: n for k, n in graphs[0].launches.items()} \
+            if graphs else None
+        per_step = {k: n // len(batches) for k, n in launch_a.items()}
+        del pa, sa, pc, sc, want, compiled, graphs
+        loss_tol = max(COMPILED_LOSS_TOL, spread_loss)
+        leaf_tol = max(COMPILED_LEAF_TOL, spread)
+        if line[0] != "1" or replay != per_step or launch_c != launch_a \
+                or per_step.get("moe_histogram", 0) < depth \
+                or plain_a or plain_b or plain_c:
+            raise AssertionError(f"{tag} compiled: {line}; launches a "
+                                 f"replay {replay}, an eager step "
+                                 f"{per_step}; plain calls {plain_a} / "
+                                 f"{plain_b} / {plain_c}")
+        if not (gap_loss <= loss_tol and gap <= leaf_tol):
+            raise AssertionError(
+                f"{tag}: losses {loss_c} compiled, {loss_a} eager (relative "
+                f"{gap_loss:.3g}, tolerance {loss_tol:.3g}); worst leaf "
+                f"{gap:.3g} (tolerance {leaf_tol:.3g})")
+        times = ms_a[1:]
+        log(f"{tag}: step (CUDA events) "
             + "/".join(f"{t:.2f}" for t in times)
             + f" ms, median {statistics.median(times):.2f} ms, "
             f"{2048 / statistics.median(times) * 1e3:.0f} tokens/s; peak "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches a "
-            f"step {launches}; on {smi}")
-    del params, opt_state, steps
+            f"{peak:.2f} GB; launches a step {per_step}; eager twice — "
+            f"losses relative {spread_loss:.3g}, worst leaf {spread:.3g}, "
+            f"bit-equal {same_b and loss_b == loss_a}; compiled vs eager — "
+            f"losses relative {gap_loss:.3g} (tolerance {loss_tol:.3g}), "
+            f"worst param / moment leaf max |err| / max |value| {gap:.3g} "
+            f"(tolerance {leaf_tol:.3g}), bit-equal "
+            f"{same_c and loss_c == loss_a}; compiled replays "
+            + "/".join(f"{t:.2f}" for t in ms_c[1:])
+            + f" ms, median {statistics.median(ms_c[1:]):.2f} ms (first call "
+            f"{ms_c[0]:.1f} ms), peak {peak_c:.2f} GB above the eager run's "
+            f"state held for the comparison, {line}, launches a replay = "
+            f"an eager step's; on {smi}")
+    del steps, batches
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5962,6 +6517,13 @@ def families_train_phase(torch, smi: str) -> dict:
     train_card_vs_cpu(torch, "xlstm-350m", label=label)
     train_card_vs_cpu(torch, "zamba2-7b", n_layers=7, label=label)
     train_card_vs_cpu(torch, MOE_TRAIN[0], label=label, dispatch="einsum")
+    # the compiled step against eager (phase 9 (a)'s MoE model too: two
+    # of its f32 copies and a graph pool need the card's memory whole;
+    # its remat variants are held in bf16 by the MoE variants below)
+    train_compiled_vs_eager(torch, "xlstm-350m", label=label)
+    train_compiled_vs_eager(torch, "zamba2-7b", n_layers=7, label=label)
+    train_compiled_vs_eager(torch, MOE_TRAIN[0], label=label)
+    log(f"phase 11 (a): {time.perf_counter() - t0:.1f} s")
     # the MoE variants' optimizer takes 768 MiB blocks, so they run before
     # the recurrent runs split the cache into smaller ones; zamba2-7b,
     # the largest (64 GB peak), runs last
@@ -5971,15 +6533,18 @@ def families_train_phase(torch, smi: str) -> dict:
     paths = {FP8_PATH: fp8_decode(torch, smi)}
     for name in FAMILY_TRAIN:
         log_memory(torch, f"families train (b) [{name}], before")
+        t1 = time.perf_counter()
         paths[f"{name}/train"] = family_train_full(torch, name, smi)
+        log(f"families train (b) [{name}]: {time.perf_counter() - t1:.1f} s")
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
     return paths
 
 
-# Phase 11's worker: the phase in a process of its own, from the checkout
-# at argv[1]; its lines pass through, and its paths' launches come back as
-# one JSON line.
-_PHASE11_WORKER = """
+# A phase in a process of its own, from the checkout at argv[1]: the code
+# put in for CODE leaves the phase's paths' launches in ``paths`` (with
+# ``cs``, ``torch`` and ``smi`` in scope); the phase's lines pass through
+# and ``paths`` comes back as one JSON line.
+_WORKER = """
 import json, sys
 sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
 import torch
@@ -5988,32 +6553,38 @@ from repro_torch.kernels import _build
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 _build.build_all()
-paths = cs.families_train_phase(torch, cs.smi_line())
-print("PHASE11 " + json.dumps(paths), flush=True)
+smi = cs.smi_line()
+CODE
+print("PATHS " + json.dumps(paths), flush=True)
 """
 
 
-def families_train_worker(torch) -> dict:
-    """Phase 11 in a process of its own, started right after phase 2 with
-    this process's cache released, while the card's memory is whole.
-    After the serve paths ~75 GB of this process's cache stay reserved
-    (held by ~1 GB of allocations the collector does not see) in pieces
-    smaller than the MoE variants' 768 MiB optimizer buffers, which then
-    could not be allocated.  Returns the worker's paths' launches."""
+def phase_worker(torch, phase: int, code: str) -> dict:
+    """Phase ``phase`` in a process of its own (``code`` as
+    :data:`_WORKER` takes it), started with this process's cache released,
+    while the card's memory is whole.  After the serve paths ~75 GB of
+    this process's cache stay reserved (held by ~1 GB of allocations the
+    collector does not see) in pieces that neither the MoE optimizer's
+    768 MiB buffers (phase 11) nor a compiled train step's warm-up, whose
+    side stream cannot reuse them (phase 9), could take.  Returns the
+    worker's paths' launches."""
     gc.collect()
     torch.cuda.empty_cache()
-    log_memory(torch, "before phase 11 (this process)")
-    proc = subprocess.Popen([sys.executable, "-c", _PHASE11_WORKER,
-                             str(ROOT)], stdout=subprocess.PIPE, text=True)
+    log_memory(torch, f"before phase {phase} (this process)")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c",
+                             _WORKER.replace("CODE", code), str(ROOT)],
+                            stdout=subprocess.PIPE, text=True)
     paths = None
     for line in proc.stdout:
-        if line.startswith("PHASE11 "):
-            paths = json.loads(line[len("PHASE11 "):])
+        if line.startswith("PATHS "):
+            paths = json.loads(line[len("PATHS "):])
         else:
             print(line, end="", flush=True)
     if proc.wait() != 0 or paths is None:
-        raise AssertionError(f"phase 11's worker failed (exit "
+        raise AssertionError(f"phase {phase}'s worker failed (exit "
                              f"{proc.returncode})")
+    log(f"phase {phase}'s process: {time.perf_counter() - t0:.1f} s")
     return paths
 
 
@@ -6935,65 +7506,47 @@ import chip_smoke as cs
 cs.dryrun_devices(torch, cs.smi_line())
 """
 
-
-def start_dryrun_devices():
-    """Phase 13 (a) in a process of its own, its output kept in a file;
-    killed at exit if it is still running."""
-    out = tempfile.TemporaryFile(mode="w+")
-    proc = subprocess.Popen([sys.executable, "-c", _PHASE13A_WORKER,
-                             str(ROOT)], stdout=out, stderr=out, text=True)
-    atexit.register(lambda: proc.poll() is None and proc.kill())
-    return proc, out
-
-
-def finish_dryrun_devices(started) -> None:
-    """Wait for phase 13 (a), print its lines; its failure fails here."""
-    proc, out = started
-    rc = proc.wait()
-    out.seek(0)
-    for line in out:
-        if rc != 0 or line.startswith(("dry run", "phase 13")):
-            print(line, end="", flush=True)
-    if rc != 0:
-        raise AssertionError(f"phase 13 (a)'s worker failed (exit {rc})")
-
-
-# Phase 12's worker: the phase in a process of its own, from the checkout
-# at argv[1] (its 43 GB pool needs the card's memory whole); its lines
-# pass through, and its paths' launches come back as one JSON line.
-_PHASE12_WORKER = """
-import json, sys
+# Phase 5's nested conditional nodes in a process of their own, beside
+# phase 12's: host work for the most part (each key's ``cond`` and
+# ``while_loop`` traced, on the card and the CPU), microseconds of the
+# card's time, a few MB of its memory.
+_NESTED_WORKER = """
+import sys, time
 sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
 import torch
 import chip_smoke as cs
 from repro_torch.kernels import _build
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
 _build.build_all()
-paths = cs.bundles_phase(torch, cs.smi_line())
-cs.dryrun_vs_card(torch, cs.smi_line(), paths)
-print("PHASE12 " + json.dumps(paths), flush=True)
+t0 = time.perf_counter()
+cs.many_conditional_nodes(torch, "cuda")
+cs.log(f"nested conditional nodes: {time.perf_counter() - t0:.1f} s, in a "
+       "process of their own beside phase 12's")
 """
 
 
-def bundles_worker(torch) -> dict:
-    """Phase 12 in a process of its own, started with this process's
-    cache released (as phase 11's).  Returns the worker's paths."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    log_memory(torch, "before phase 12 (this process)")
-    proc = subprocess.Popen([sys.executable, "-c", _PHASE12_WORKER,
-                             str(ROOT)], stdout=subprocess.PIPE, text=True)
-    paths = None
-    for line in proc.stdout:
-        if line.startswith("PHASE12 "):
-            paths = json.loads(line[len("PHASE12 "):])
-        else:
+def start_side_worker(code: str):
+    """``code`` (with the checkout at argv[1]) in a process of its own
+    beside this one, its output kept in a file; killed at exit if it is
+    still running."""
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT)],
+                            stdout=out, stderr=out, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out
+
+
+def finish_side_worker(started, what: str, keep=None) -> None:
+    """Wait for a side worker and print its lines (those starting with
+    one of ``keep``, when given, unless it failed); its failure fails
+    here."""
+    proc, out = started
+    rc = proc.wait()
+    out.seek(0)
+    for line in out:
+        if rc != 0 or keep is None or line.startswith(keep):
             print(line, end="", flush=True)
-    if proc.wait() != 0 or paths is None:
-        raise AssertionError(f"phase 12's worker failed (exit "
-                             f"{proc.returncode})")
-    return paths
+    if rc != 0:
+        raise AssertionError(f"{what}'s worker failed (exit {rc})")
 
 
 # A worker of the same-card A/B: phase 2 of the checkout at argv[1], run
@@ -7119,7 +7672,8 @@ def main() -> int:
         # a development switch: phase 2's 32k rows and phase 12 alone,
         # after the build
         bundle_kernel_rows(torch)
-        bundles_worker(torch)
+        phase_worker(torch, 12, "paths = cs.bundles_phase(torch, smi)"
+                     "\ncs.dryrun_vs_card(torch, smi, paths)")
         return 0
 
     if len(sys.argv) == 2 and sys.argv[1] == "--dryrun":
@@ -7132,15 +7686,13 @@ def main() -> int:
         # a development switch: phase 2's training rows and phase 9 alone,
         # after the build
         train_kernel_rows(torch)
-        for name in (TRAIN_ARCH, "qwen3-moe-30b-a3b"):
-            train_card_vs_cpu(torch, name)
-        train_full(torch, smi)
-        train_restart(torch)
+        train_phase(torch, smi)
         return 0
 
     # phase 13 (a) (the dry run on cuda and cpu fakes: host work only) runs
     # beside the other phases from here, in a process of its own
-    dryrun = start_dryrun_devices()
+    dryrun = start_side_worker(_PHASE13A_WORKER)
+    t_phase = time.perf_counter()
     cfgs = [get_config(name) for name in PATHS]
     floor = launch_floor_ms(torch)
     log(f"launch floor: {floor:.5f} ms (one-element fill_, the smallest "
@@ -7168,12 +7720,22 @@ def main() -> int:
                 else f"{r['kernel']}@{r['path']}"
         seen.add(r["kernel"])
     log("kernels: " + ", ".join(r["name"] for r in rows))
+    log(f"phase 2: {time.perf_counter() - t_phase:.1f} s")
     # phase 11 (training the recurrent families, the MoE variants, the
     # float8 pool) runs now, in a process of its own
-    phase11 = families_train_worker(torch)
+    # phase 11 and then phase 9 (training) run now, in a process of their
+    # own
+    phase11 = phase_worker(
+        torch, 11, "paths = cs.families_train_phase(torch, smi)\n"
+        "paths[cs.TRAIN_ARCH + '/train'] = cs.train_phase(torch, smi)")
     # phase 12 (the step bundles at 32k) right after it, in a process of
-    # its own too: its 43 GB pool needs the card's memory whole
-    phase12 = bundles_worker(torch)
+    # its own too: its 43 GB pool needs the card's memory whole; phase 5's
+    # nested conditional nodes (host work, a few MB) beside it
+    nested = start_side_worker(_NESTED_WORKER)
+    phase12 = phase_worker(torch, 12, "paths = cs.bundles_phase(torch, smi)"
+                           "\ncs.dryrun_vs_card(torch, smi, paths)")
+    finish_side_worker(nested, "phase 5's nested conditional nodes")
+    t_phase = time.perf_counter()
     for cfg in cfgs:
         check_full_width(torch, cfg)
         check_compiled(torch, cfg)
@@ -7182,7 +7744,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     check_uncapturable(torch)
-    tenant_plane(torch, smi=smi)
+    log(f"phase 3: {time.perf_counter() - t_phase:.1f} s")
+    tenant_plane(torch, smi=smi, nested=False)
+    t_phase = time.perf_counter()
     paths = {}
     for cfg in cfgs:
         # each path's engine, manager and pool are freed before the next
@@ -7205,20 +7769,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"after [{cfg.name}]: {torch.cuda.memory_allocated() / 1e9:.2f}"
             " GB still allocated")
+    log(f"phases 4, 6 and 7: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     paths.update(recurrent_phase(torch, smi))
-    # phase 9: training
-    log_memory(torch, "before phase 9")
-    for name in (TRAIN_ARCH, "qwen3-moe-30b-a3b"):
-        train_card_vs_cpu(torch, name)
-    paths[f"{TRAIN_ARCH}/train"] = train_full(torch, smi)
-    train_restart(torch)
+    log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
     # phase 10: the vision and encoder-decoder families
     log_memory(torch, "before phase 10")
     paths.update(family_phase(torch, smi))
     paths.update(phase11)
     paths.update(phase12)
     # phase 13 (b) ran in phase 12's process; (a)'s lines now
-    finish_dryrun_devices(dryrun)
+    finish_side_worker(dryrun, "phase 13 (a)", ("dry run", "phase 13"))
+    log(f"chip_smoke: {time.perf_counter() - t0:.1f} s since the build "
+        "began")
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

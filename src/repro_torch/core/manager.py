@@ -76,8 +76,8 @@ from repro_torch.core.scheduler import (
     LRUCache,
     _arg_signature,
 )
-from repro_torch.core.stepgraph import Operands, StepCaptureError, \
-    StepGraph, tree_flatten, tree_unflatten
+from repro_torch.core.stepgraph import GraphMaker, Operands, \
+    StepCaptureError, StepGraph, tree_flatten, tree_unflatten
 from repro_torch.core.telemetry import DRAIN_TRACK, Telemetry
 from repro_torch.core.tenantclass import ClassSpec, TenantClassPolicy, \
     as_class_policy
@@ -256,11 +256,11 @@ class GuardianManager:
         #: steps of several serve engines fuse into one.  False is the
         #: eager, unfused fallback (equal results by regression test).
         self.jit_trusted = jit_trusted
-        #: the side stream compiled steps warm up and capture on, and the
-        #: memory pool every tenant graph captures into with the graph
-        #: that holds it (created at the first capture on a CUDA device;
-        #: see _tenant_pool)
-        self._capture_stream = None
+        #: the compiled steps' graphs (one side stream they warm up and
+        #: capture on), and the memory pool every tenant graph captures
+        #: into with the graph that holds it (created at the first capture
+        #: on a CUDA device; see _tenant_pool)
+        self._graphs = GraphMaker(self.device)
         self._graph_pool = None
         #: LRU capacity of each kernel entry's specialization cache
         self.jit_cache_capacity = jit_cache_capacity
@@ -1170,10 +1170,7 @@ class GuardianManager:
 
     def _step_graph(self, name: str, fn: Callable, ops: Operands,
                     pool=None) -> StepGraph:
-        if self.device.type == "cuda" and self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(self.device)
-        return StepGraph(name, fn, ops, self.device, self._capture_stream,
-                         pool)
+        return self._graphs.graph(name, fn, ops, pool)
 
     def _tenant_pool(self):
         """The one memory pool of this manager's tenant graphs (``None``
@@ -1204,15 +1201,9 @@ class GuardianManager:
         the resident tensors the step was given (the arena, and the pool
         or the ViolationLog buffer where it takes them), which a replay
         writes in place."""
-        res = graph.run(ops)
-        got = tree_flatten(res)[1][:len(want)]
-        if len(got) != len(want) or any(a is not b
-                                         for a, b in zip(got, want)):
-            raise StepCaptureError(
-                f"step {graph.name!r} must write the arena (and its pool or "
-                "the violation log) in place and hand the same tensors back "
-                "to be compiled")
-        return res
+        return self._graphs.run(
+            graph, ops, want,
+            "the arena (and its pool or the violation log)")
 
     def _launch_compiled(self, cache, key: Tuple, name: str,
                          build: Callable[[], Callable],

@@ -34,7 +34,10 @@ runs eagerly instead.  Graphs capture into a memory pool of their own,
 or into one ``pool`` that a caller shares among its graphs (sound when
 their replays are serialised on one stream and every output that is not
 resident is copied out before the next replay, as :meth:`StepGraph.run`
-does).  On the CPU (only when the caller asked for it) the
+does).  A caller whose step's temporaries do not fit on the card twice
+(a train step) asks for ``release``: the warm-up's cached blocks are
+returned to the card before the capture allocates them again in the
+graph's pool.  On the CPU (only when the caller asked for it) the
 same object calls the step on the same staged operands and copies the
 results into the same persistent outputs a replay would fill, so a
 staging or aliasing fault shows in a CPU test as it would on the card.
@@ -155,17 +158,21 @@ class StepGraph:
     tree, with resident outputs as the live resident tensors and every
     other tensor output as a fresh copy.  ``stream`` is the side stream
     the warm-up and the capture run on (``None`` on the CPU); ``pool`` a
-    memory pool shared with other graphs (``None``: a pool of its own)."""
+    memory pool shared with other graphs (``None``: a pool of its own);
+    ``release`` empties the card's cache between the warm-up and the
+    capture."""
 
     def __init__(self, name: str, fn: Callable, ops: Operands,
                  device: torch.device,
                  stream: Optional["torch.cuda.Stream"] = None,
-                 pool: Optional[Tuple[int, int]] = None):
+                 pool: Optional[Tuple[int, int]] = None,
+                 release: bool = False):
         self.name = name
         self.fn = fn
         self.device = torch.device(device)
         self.stream = stream
         self.pool = pool
+        self.release = release
         self.struct = ops.struct
         resident = set(ops.resident)
         #: (leaf index, persistent input) of every staged tensor leaf
@@ -181,7 +188,18 @@ class StepGraph:
         self.out_spec: List[Tuple[str, Any]] = []
         self.launches: Dict[Any, int] = {}
         self.replays = 0
+        #: seconds from ``capture_begin`` to ``capture_end``'s return, and
+        #: of them ``capture_end``'s (it ends the capture and instantiates
+        #: the graph)
         self.capture_s = 0.0
+        self.instantiate_s = 0.0
+        #: seconds of the first call's eager run, to the card's sync
+        self.warm_s = 0.0
+        #: the card's reserved bytes after the warm-up and before the
+        #: capture (after the release, when asked for), and what the
+        #: capture added: the graph's pool
+        self.warm_reserved = 0
+        self.capture_reserved = 0
         self.pool_bytes = 0
 
     # ------------------------------------------------------------------ #
@@ -242,10 +260,13 @@ class StepGraph:
             self._spec(out, inputs, ops.resident)
             return self._outputs(ops.leaves)
         current = torch.cuda.current_stream(self.device)
+        t0 = time.perf_counter()
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
             out = self.fn(*args)
         current.wait_stream(self.stream)
+        torch.cuda.synchronize(self.device)
+        self.warm_s = time.perf_counter() - t0
         # this call's results come from the warm-up, copied as a replay's
         # are (an output may be a staged input passed through)
         self._spec(out, inputs, ops.resident)
@@ -269,7 +290,12 @@ class StepGraph:
         counts = {k: k.launches for k in _build.KERNELS.values()}
         graph = torch.cuda.CUDAGraph()
         torch.cuda.synchronize(self.device)
-        reserved = torch.cuda.memory_reserved(self.device)
+        self.warm_reserved = torch.cuda.memory_reserved(self.device)
+        if self.release:
+            gc.collect()
+            torch.cuda.empty_cache()
+        reserved = self.capture_reserved = \
+            torch.cuda.memory_reserved(self.device)
         # a pool of the graph's own, named, so that a conditional node's
         # body can allocate from it (capture_pool)
         pool = self.pool if self.pool is not None else \
@@ -290,6 +316,7 @@ class StepGraph:
                 except RuntimeError as err:    # the operation refused
                     failure = err
                 finally:
+                    t1 = time.perf_counter()
                     try:
                         graph.capture_end()
                     except RuntimeError as err:
@@ -307,6 +334,42 @@ class StepGraph:
                 f"step {self.name!r} cannot be captured into a CUDA "
                 f"graph: {failure}") from failure
         self.capture_s = time.perf_counter() - t0
+        self.instantiate_s = time.perf_counter() - t1
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self._spec(out, inputs, ops.resident)
         self.graph = graph
+
+
+class GraphMaker:
+    """One owner's graphs (a manager's, a compiled train step's): on the
+    card each warms up and is captured on the owner's one side stream,
+    made at its first graph, and :meth:`run` holds every replay to the
+    owner's resident tensors."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.stream: Optional["torch.cuda.Stream"] = None
+
+    def graph(self, name: str, fn: Callable, ops: Operands,
+              pool: Optional[Tuple[int, int]] = None,
+              release: bool = False) -> StepGraph:
+        if self.device.type == "cuda" and self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+        return StepGraph(name, fn, ops, self.device, self.stream, pool,
+                         release)
+
+    @staticmethod
+    def run(graph: StepGraph, ops: Operands,
+            want: Sequence[torch.Tensor], what: str) -> Any:
+        """Run ``graph`` on ``ops``; its first tensor results must be
+        ``want`` — the resident tensors the step was given, which a
+        replay writes in place — else :class:`StepCaptureError` names the
+        step and ``what`` it must write in place."""
+        res = graph.run(ops)
+        got = tree_flatten(res)[1][:len(want)]
+        if len(got) != len(want) or any(a is not b
+                                         for a, b in zip(got, want)):
+            raise StepCaptureError(
+                f"step {graph.name!r} must write {what} in place and hand "
+                "the same tensors back to be compiled")
+        return res

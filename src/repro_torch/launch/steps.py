@@ -1,6 +1,7 @@
 """Step builders: the engine's prefill/decode as trusted manager kernels,
 the elastic relocation steps of the flat arena and of a serve engine's
-slab pool, the train step (:func:`make_guard`, :func:`build_train_step`),
+slab pool, the train step (:func:`make_guard`, :func:`build_train_step`)
+and its compiled form (:func:`compile_train_step`),
 and the reference's step bundles (:func:`build_step`,
 :func:`build_prefill_step`, :func:`build_decode_step`): a step function
 with its inputs as ``meta`` tensors (``in_specs``) and every input's and
@@ -18,8 +19,9 @@ is unchanged and a replay addresses the same pool.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Hashable, Optional, Tuple
 
 import torch
 
@@ -27,7 +29,8 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.fence import FenceParams, FencePolicy, \
     guarded_dynamic_slice, guarded_dynamic_update_slice
 from repro_torch.core.partition import next_pow2
-from repro_torch.core.stepgraph import tree_flatten, tree_unflatten
+from repro_torch.core.stepgraph import GraphMaker, Operands, \
+    StepCaptureError, StepGraph, tree_flatten, tree_unflatten
 from repro_torch.distributed.sharding import ShardingRules, make_rules, \
     tree_map
 from repro_torch.launch import sampling
@@ -339,6 +342,105 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, *,
         return params, opt_state, {"loss": loss.detach()}
 
     return TrainStep(fn=train_step, opt=opt, guard=guard, api=api)
+
+
+class _CompiledTrainStep:
+    """A :class:`TrainStep`'s ``fn`` compiled: one CUDA graph per key
+    (:mod:`repro_torch.core.stepgraph`), the counterpart of the
+    reference's ``jax.jit(train_step)`` with ``donate_argnums=(0, 1)``.
+
+    Called as the step is: ``(params, opt_state, batch) -> (params,
+    opt_state, {"loss": loss})``.  The params and the optimizer's moments
+    are resident: the graph addresses them, and the step updates them in
+    place and hands the same tensors back (else :class:`StepCaptureError`,
+    as :meth:`GraphMaker.run` holds a manager's steps to its arena).
+    The step counter and every batch tensor are staged; the loss and the
+    new counter are copied out.  The key is the operands' structure, the
+    staged tensors' shapes and dtypes and the resident tensors' identities
+    (:meth:`Operands.key`): N steps of one batch shape replay one graph.
+    Params or moments other than the ones the graphs address (a restored
+    checkpoint's) drop every graph and return its pool before the new key
+    is captured.
+
+    On the card the first call of a key runs the step eagerly on a side
+    stream, then captures forward, backward, clipping, the schedule and
+    AdamW's update into one graph, the warm-up's cached blocks released
+    first (a step's temporaries need not fit twice); later calls replay,
+    with no host sync.  A step that cannot be captured raises
+    :class:`StepCaptureError` naming it, on that call and on every later
+    call of its key: it never runs eagerly instead (the failing call's
+    warm-up has updated the params and moments once).  On the CPU the
+    same object runs the step on the same staged operands."""
+
+    def __init__(self, step: TrainStep):
+        self.step = step
+        self.name = getattr(step.fn, "__name__", "train_step")
+        self.graphs: Dict[Hashable, StepGraph] = {}
+        self._failed: Dict[Hashable, StepCaptureError] = {}
+        self._resident: Optional[Tuple] = None
+        self._maker: Optional[GraphMaker] = None
+        self._pool = None
+
+    def _run(self, params, moments, count, batch):
+        params, state, out = self.step.fn(
+            params, {"step": count, **moments}, batch)
+        return params, {k: state[k] for k in moments}, state["step"], out
+
+    def release(self) -> None:
+        """Drop every graph; on the card their pool is returned."""
+        cuda = any(g.device.type == "cuda" for g in self.graphs.values())
+        self.graphs.clear()
+        self._failed.clear()
+        self._resident = None
+        if cuda:
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    def _graph(self, ops: Operands) -> StepGraph:
+        device = ops.leaves[ops.resident[0]].device if ops.resident \
+            else torch.device("cpu")
+        if self._maker is None or self._maker.device != device:
+            self._maker = GraphMaker(device)
+        if device.type == "cuda" and not self.graphs:
+            # a pool whose last graph died cannot be captured into again
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._maker.graph(self.name, self._run, ops, self._pool,
+                                 release=device.type == "cuda")
+
+    def __call__(self, params, opt_state, batch):
+        moments = {k: v for k, v in opt_state.items() if k != "step"}
+        ops = Operands.of((params, moments, opt_state["step"], batch),
+                          (True, True, False, False))
+        resident = ops.key()
+        if resident != self._resident:
+            self.release()
+            self._resident = resident
+        skip = set(ops.resident)
+        key = (ops.struct, tuple(
+            (tuple(x.shape), x.dtype, x.device)
+            if isinstance(x, torch.Tensor) else x
+            for i, x in enumerate(ops.leaves) if i not in skip))
+        if key in self._failed:
+            raise self._failed[key]
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = self._graph(ops)
+        try:
+            params_out, moments_out, count, out = GraphMaker.run(
+                graph, ops, tree_flatten((params, moments))[1],
+                "its params and optimizer moments")
+        except StepCaptureError as err:
+            del self.graphs[key]
+            self._failed[key] = err
+            raise
+        return params_out, {k: count if k == "step" else moments_out[k]
+                            for k in opt_state}, out
+
+
+def compile_train_step(step: TrainStep) -> "_CompiledTrainStep":
+    """``step.fn`` as one CUDA graph per key (:class:`_CompiledTrainStep`,
+    named in a capture error by the step function's name)."""
+    return _CompiledTrainStep(step)
 
 
 

@@ -9,7 +9,10 @@ The device defaults to ``cuda``; without a card, pass ``--device cpu``.
 What it exercises, as the reference does:
 * deterministic data (restart reproduces the exact token stream);
 * AdamW + cosine / WSD / constant schedule, global-norm clipping
-  (:func:`repro_torch.launch.steps.build_train_step`, remat off);
+  (:func:`repro_torch.launch.steps.build_train_step`, remat off), the
+  step compiled as the reference jits it: one CUDA graph per batch shape
+  for forward, backward and the update
+  (:func:`repro_torch.launch.steps.compile_train_step`);
 * atomic async checkpointing + ``--resume`` auto-restart;
 * a per-step watchdog (a step over ``--straggler-factor`` x the trailing
   median is logged and counted);
@@ -30,7 +33,7 @@ import json
 import signal
 import statistics
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -75,17 +78,21 @@ def make_schedule(args: argparse.Namespace):
 
 
 def main(argv: Optional[List[str]] = None,
-         params: Optional[Dict[str, Any]] = None) -> dict:
+         params: Optional[Dict[str, Any]] = None,
+         wrap_step: Optional[Callable] = None) -> dict:
     """Train as the flags say; ``params`` (on ``--device``, updated in
     place) stands in for the weights drawn from ``--seed`` — e.g. the
-    reference's, converted.  Returns the summary."""
+    reference's, converted.  ``wrap_step``, when given, is handed the
+    compiled step and returns what the loop calls in its place (a
+    caller's hook to time or inspect each step).  Returns the summary."""
     args = parse_args(argv)
 
     from repro_torch.checkpoint import CheckpointStore
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.core.fence import FencePolicy
     from repro_torch.data import DataConfig, make_source
-    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.steps import build_train_step, \
+        compile_train_step
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -99,6 +106,9 @@ def main(argv: Optional[List[str]] = None,
         cfg, shape, guard_enabled=not args.no_guard,
         policy=FencePolicy(args.policy), remat=False,
         schedule=make_schedule(args), device=device)
+    train_step = compile_train_step(step_fn)
+    if wrap_step is not None:
+        train_step = wrap_step(train_step)
 
     source = make_source(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                     global_batch=args.batch, seed=args.seed,
@@ -129,7 +139,7 @@ def main(argv: Optional[List[str]] = None,
             t0 = time.time()
             batch = {k: torch.from_numpy(v).to(device)
                      for k, v in source.batch(step).items()}
-            params, opt_state, out = step_fn.fn(params, opt_state, batch)
+            params, opt_state, out = train_step(params, opt_state, batch)
             loss = float(out["loss"])
             dt = time.time() - t0
             times.append(dt)

@@ -48,5 +48,7 @@ def wsd(peak_lr: float, warmup: int, stable: int, decay: int,
 def constant(lr: float) -> Callable:
     def f(step):
         device = step.device if isinstance(step, torch.Tensor) else None
-        return torch.tensor(lr, dtype=torch.float32, device=device)
+        # a fill on the step's device: a copy from host memory cannot be
+        # captured into a CUDA graph
+        return torch.full((), lr, dtype=torch.float32, device=device)
     return f
