@@ -131,10 +131,42 @@ def clamped_t(arena, ptr):
     return arena, torch.take(arena, idx.long())
 
 
+def bump2_j(arena, ptr, n):
+    # a fusion-incompatible twin of bump (another function)
+    idx = ptr + jnp.arange(n, dtype=jnp.int32)
+    vals = jnp.take(arena, idx, axis=0)
+    return arena.at[idx].set(vals + 1.0), None
+
+
+def bump2_t(arena, ptr, n):
+    idx = ptr + torch.arange(n, dtype=torch.int32, device=arena.device)
+    arena[idx] = torch.take(arena, idx.long()) + 1.0
+    return arena, None
+
+
+def mixed_j(arena, idx, start, n):
+    # one fenced access of every kind: gather, scatter, slice, update
+    vals = jnp.take(arena, idx, axis=0)
+    arena = arena.at[idx].set(vals + 1.0)
+    window = jax.lax.dynamic_slice_in_dim(arena, start, 4, axis=0)
+    arena = jax.lax.dynamic_update_slice_in_dim(arena, window * 1.0, start,
+                                                axis=0)
+    return arena, None
+
+
+def mixed_t(arena, idx, start, n):
+    vals = torch.take(arena, idx.long())
+    arena[idx] = vals + 1.0
+    window = RT.dynamic_slice(arena, start, 4)
+    RT.dynamic_update_slice(arena, start, window * 1.0)
+    return arena, None
+
+
 KERNELS = {
     name: (globals()[name + "_j"], globals()[name + "_t"])
     for name in ("bump", "evil", "echo", "oob", "oob200", "noop",
-                 "fence_aware", "raw_pointer", "static_oob", "clamped")
+                 "fence_aware", "raw_pointer", "static_oob", "clamped",
+                 "bump2", "mixed")
 }
 
 
