@@ -393,17 +393,29 @@ against the card.  Phases, in order (any failure exits non-zero):
    far key tile as the control; its plain time the whole call one (row,
    head) at a time) and K3 over the prefill's
    131,072 ids, rows ``kernel@stablelm-3b/32k`` (``/32k-fp8``), launches
-   from (b).
+   from (b).  Then K1 and K4 at stablelm-3b's per-device shapes on the
+   16 x 16 mesh, as the dry run's partitioned ``decode_32k`` /
+   ``prefill_32k`` traces give them (:func:`mesh_kernel_calls`: q (8, 2,
+   80) over the (65,536, 64, 2, 80) bf16 layer view the partition gathers
+   over the data axis, a cluster of 8; K4 at (2, 32,768, 2, 80)), held
+   and timed as the 32k rows are, rows ``kernel@stablelm-3b/16x16``,
+   launches 0 (the partitioned program is traced, not run).
 
-13. the dry run (``repro_torch.launch.dryrun``): (a) in a process of its
-   own started after the build, beside the other phases (host work only:
-   traces on fake tensors), one single-pod cell per family
+13. the dry run (``repro_torch.launch.dryrun``): (a) in two processes of
+   its own started after the build, beside the other phases (host work
+   only: traces on fake tensors), one single-pod cell per family
    (:data:`DRYRUN_CELLS`: stablelm-3b ``train_4k``, qwen3-moe-30b-a3b
    ``decode_32k``, zamba2-7b ``prefill_32k``, xlstm-350m ``long_500k``,
-   qwen2-vl-2b ``decode_32k``, seamless-m4t-medium ``prefill_32k``)
-   traced on CUDA fakes and on CPU fakes: the cost and memory blocks, the
-   liveness walk, the per-op counts and the launches equal, a difference
-   naming the op, its lines printed after phase 12's; (b) in phase 12's
+   qwen2-vl-2b ``decode_32k``, seamless-m4t-medium ``prefill_32k``),
+   traced whole at full depth (unpartitioned, the whole program: the
+   costs, the liveness walk, the per-op counts and the launches equal on
+   CUDA and CPU fakes) and, the first three at 8, 12 and 12 layers,
+   partitioned over a fake process group of 256 ranks (rank 0's program,
+   DTensor) and traced on CUDA fakes and on CPU fakes: the cost, memory,
+   collectives and roofline blocks (per-device FLOPs, bytes, temp,
+   collectives by kind), the liveness walk, the per-op counts and the
+   launches equal, a difference naming the op, each cell's trace seconds
+   printed, its lines printed after phase 12's; (b) in phase 12's
    process, after it: stablelm-3b at 32 layers, 4 x 32,768, a bf16 slab
    pool, guarded, on the 1 x 1 mesh, each bundle's dry run on CUDA fakes
    against one real step — argument bytes equal to the params, cache and
@@ -7082,6 +7094,88 @@ def bundle_kernel_rows(torch) -> list:
     return rows
 
 
+#: the production mesh whose per-device kernel shapes phase 2 times
+MESH_PATH = f"{BUNDLE_ARCH}/16x16"
+
+
+def mesh_kernel_calls(torch) -> dict:
+    """K1's and K4's operands in rank 0's program of :data:`BUNDLE_ARCH`'s
+    ``decode_32k`` / ``prefill_32k`` bundles on the 16 x 16 mesh, as the
+    dry run's partitioned trace gives them (at 2 layers: every layer's
+    calls alike; CPU fakes, host work only): kind -> (the op's argument
+    values, fakes for its tensors; its calls a step at full depth)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import graph_analysis as GA
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_step
+
+    full = get_config(BUNDLE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=2)
+    mesh = make_production_mesh()
+    out = {}
+    for kind, op in (("decode", "paged_attention"),
+                     ("prefill", "flash_attention")):
+        bundle = build_step(cfg, SHAPES[f"{kind}_32k"], mesh)
+        with mesh.open("cpu") as device_mesh:
+            fn, specs = bundle.partitioned(device_mesh)
+            gm = GA.trace_step(fn, specs, "cpu")
+        nodes = [n for n in gm.graph.nodes if n.op == "call_function"
+                 and str(n.target) == f"repro_torch.{op}.default"]
+        out[kind] = ([GA._value(gm, a) for a in nodes[0].args],
+                     len(nodes) // cfg.n_layers * full.n_layers)
+    return out
+
+
+def mesh_kernel_rows(torch) -> list:
+    """Phase 2's K1 and K4 rows at :data:`BUNDLE_ARCH`'s per-device shapes
+    on the 16 x 16 mesh (:func:`mesh_kernel_calls`): K1 over the bf16
+    layer view the partition gathers whole over the data axis (its slot
+    pages, its KV heads split over the model axis: 8 rows x 2 KV heads,
+    so the wrapper picks a cluster above 1), each row's 512 pages then
+    512 foreign ones, against its plain version with its control and the
+    fence check; K4 causal at the prefill's (2, 32,768, 2, 80) bf16
+    (:func:`k4_long_row`).  No run launches them at these shapes (the
+    partitioned program is traced, not run): launches 0 here, the trace's
+    calls a step logged beside them."""
+    calls = mesh_kernel_calls(torch)
+    gen = torch.Generator(device="cuda").manual_seed(1616)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    rows = []
+
+    def row(kernel, source, replaces, **kw):
+        rows.append(dict(kernel=kernel, path=MESH_PATH, route="cuda",
+                         name=f"{kernel}@{MESH_PATH}",
+                         source=f"src/repro_torch/kernels/csrc/{source}",
+                         replaces=f"src/repro/kernels/{replaces}",
+                         launches=0, **kw))
+
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    (q, k_view, _, table, *_), n_k1 = calls["decode"]
+    B, H, D = q.shape
+    P = table.shape[1]
+    q = randn(q.shape)
+    k_pool, v_pool = (randn(k_view.shape, k_view.dtype) for _ in range(2))
+    table = (torch.arange(B, **i32)[:, None] * 2 * P
+             + torch.arange(P, **i32)[None, :])
+    lens = BUNDLE_PROMPT + torch.arange(B, **i32) * 2
+    k1_pool_row(torch, row, MESH_PATH, q, k_pool, v_pool, table, lens,
+                torch.zeros(B, **i32), torch.full((B,), -1, **i32))
+    del k_pool, v_pool
+    (q, k, v, *_), n_k4 = calls["prefill"]
+    k4_long_row(torch, row, MESH_PATH, *(randn(t.shape) for t in (q, k, v)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"mesh rows [{MESH_PATH}]: the partitioned decode_32k / "
+        f"prefill_32k traces' per-device calls a step: paged_attention "
+        f"{n_k1} at q {tuple(calls['decode'][0][0].shape)}, pool view "
+        f"{tuple(k_view.shape)}; flash_attention {n_k4} at q "
+        f"{tuple(calls['prefill'][0][0].shape)}")
+    log_rows(rows)
+    return rows
+
+
 def counts() -> dict:
     """Every kernel's (launches, plain calls) as they stand."""
     from repro_torch.kernels import _build
@@ -7586,12 +7680,19 @@ def bundles_phase(torch, smi: str) -> dict:
 # Phase 13: the dry run (``repro_torch.launch.dryrun``) on the card       #
 # --------------------------------------------------------------------- #
 
-#: phase 13 (a)'s cells: one production-mesh cell per family
-DRYRUN_CELLS = (("stablelm-3b", "train_4k"),
-                ("qwen3-moe-30b-a3b", "decode_32k"),
-                ("zamba2-7b", "prefill_32k"), ("xlstm-350m", "long_500k"),
-                ("qwen2-vl-2b", "decode_32k"),
-                ("seamless-m4t-medium", "prefill_32k"))
+#: phase 13 (a)'s cells: one production-mesh cell per family, and the
+#: depth its partitioned trace takes (None: every layer).  Each cell is
+#: also traced whole (unpartitioned) at full depth.
+#: Partitioned at full depth on an H100 host, zamba2-7b took 442 s on
+#: CUDA and CPU fakes alone and 1,110 s beside the other phases,
+#: stablelm-3b 215 s, so those three are cut; a layer's trace is alike at
+#: any depth.
+DRYRUN_CELLS = (("stablelm-3b", "train_4k", 8),
+                ("qwen3-moe-30b-a3b", "decode_32k", 12),
+                ("zamba2-7b", "prefill_32k", 12),
+                ("xlstm-350m", "long_500k", None),
+                ("qwen2-vl-2b", "decode_32k", None),
+                ("seamless-m4t-medium", "prefill_32k", None))
 #: phase 13 (b): the predicted peak against ``max_memory_allocated``
 DRYRUN_PEAK_TOL = 0.10
 
@@ -7612,17 +7713,24 @@ def first_difference(gm_a, gm_b) -> str:
 
 
 def dryrun_devices(torch, smi: str) -> None:
-    """Phase 13 (a): each of :data:`DRYRUN_CELLS` on the single-pod mesh,
+    """Phase 13 (a), partitioned: each of :data:`DRYRUN_CELLS` at its
+    depth on the single-pod mesh,
+    partitioned (rank 0 of 256 over a fake process group, DTensor) and
     traced by the dry run on CUDA fakes and on CPU fakes in this process:
-    the cost and memory blocks, the traced graph's liveness walk, the
-    per-op counts and the launches equal; a difference names the op."""
+    the cost, memory, collectives and roofline blocks (per-device FLOPs,
+    bytes, temp, collectives by kind), the traced graph's liveness walk,
+    the per-op counts and the launches equal; a difference names the
+    op."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import dryrun as DR, graph_analysis as GA
 
     t0 = time.perf_counter()
-    for arch, shape in DRYRUN_CELLS:
+    for arch, shape, layers in DRYRUN_CELLS:
+        cfg = get_config(arch)
         got = {}
         for dev in ("cuda", "cpu"):
-            cell = DR.trace_cell(arch, shape, device=dev)
+            with at_depth(arch, layers or cfg.n_layers):
+                cell = DR.trace_cell(arch, shape, device=dev)
             got[dev] = (DR.reckon(cell), GA.peak_live_bytes(
                 cell.gm, cell.bundle.donate_argnums), cell)
         (a, mem_a, ca), (b, mem_b, cb) = got["cuda"], got["cpu"]
@@ -7635,7 +7743,7 @@ def dryrun_devices(torch, smi: str) -> None:
                 "cpu fakes differ: " + ", ".join(
                     f"{k} {ops_a.get(k, 0)} / {ops_b.get(k, 0)}"
                     for k in diff))
-        for block in ("cost", "memory", "roofline"):
+        for block in ("cost", "memory", "collectives", "roofline"):
             if a[block] != b[block]:
                 raise AssertionError(
                     f"dry run (a) [{arch} x {shape}]: the {block} block on "
@@ -7646,20 +7754,70 @@ def dryrun_devices(torch, smi: str) -> None:
                 f"dry run (a) [{arch} x {shape}]: traced memory {mem_a} / "
                 f"{mem_b}, launches {a['trace']['launches']} / "
                 f"{b['trace']['launches']}; " + first_difference(ca.gm, cb.gm))
-        m, c = a["memory"], a["cost"]
-        log(f"dry run (a) [{arch} x {shape}, mesh {a['mesh']}]: cuda fakes "
-            f"= cpu fakes: {sum(ops_a.values())} ops of {len(ops_a)} kinds, "
-            f"launches {a['trace']['launches']}, flops/dev "
+        m, c, col = a["memory"], a["cost"], a["collectives"]
+        log(f"dry run (a) [{arch} x {shape}, {cell.cfg.n_layers} layers, mesh "
+            f"{a['mesh']}, partitioned over {a['chips']} ranks]: cuda fakes "
+            "= cpu fakes: "
+            f"{sum(ops_a.values())} ops of {len(ops_a)} kinds, launches "
+            f"{a['trace']['launches']}, flops/dev "
             f"{c['flops_per_device']:.6e}, bytes/dev "
-            f"{c['bytes_per_device']:.6e}, argument / output / alias "
+            f"{c['bytes_per_device']:.6e}, argument / output / alias / temp "
             f"{m['argument_bytes']} / {m['output_bytes']} / "
-            f"{m['alias_bytes']} B a device, the trace's peak (one device) "
-            f"{mem_a.peak / 1e9:.2f} GB, loops {a['method']['loops']}; "
-            f"trace {ca.lower_s:.1f} s (cuda) / {cb.lower_s:.1f} s (cpu) on "
-            f"the host of {smi}")
+            f"{m['alias_bytes']} / {m['temp_bytes']} B a device, "
+            f"collectives {col['total']:.6e} B a device ("
+            + ", ".join(f"{k} {v:.6e} B x {col['counts'][k]}"
+                        for k, v in sorted(col['per_kind'].items()))
+            + f"), collective term {a['roofline']['collective_s']:.6f} s, "
+            f"loops {a['method']['loops']}; trace {ca.lower_s:.1f} s (cuda) "
+            f"/ {cb.lower_s:.1f} s (cpu) on the host of {smi}")
         del got, ca, cb
         gc.collect()
-    log(f"phase 13 (a): {time.perf_counter() - t0:.1f} s")
+    log(f"phase 13 (a), partitioned: {time.perf_counter() - t0:.1f} s")
+
+
+def dryrun_whole(torch, smi: str) -> None:
+    """Phase 13 (a), whole: each of :data:`DRYRUN_CELLS` at full depth on
+    the single-pod mesh, its step unpartitioned (the whole program), on
+    CUDA fakes and on CPU fakes: the costs, the liveness walk, the per-op
+    counts and the launches equal; a difference names the op."""
+    from repro_torch.launch import dryrun as DR, graph_analysis as GA
+
+    t0 = time.perf_counter()
+    for arch, shape, _ in DRYRUN_CELLS:
+        got = {}
+        for dev in ("cuda", "cpu"):
+            cfg, _, _, bundle = DR.build_cell(arch, shape, device=dev)
+            t1 = time.perf_counter()
+            gm = GA.trace_step(bundle.step, bundle.in_specs, dev)
+            model = GA.GraphCostModel(gm)
+            got[dev] = (model, model.analyze(), GA.peak_live_bytes(
+                gm, bundle.donate_argnums), gm, time.perf_counter() - t1)
+        (ma, ca, mem_a, ga, sa), (mb, cb, mem_b, gb, sb) = \
+            got["cuda"], got["cpu"]
+        diff = sorted(k for k in set(ma.ops) | set(mb.ops)
+                      if ma.ops.get(k) != mb.ops.get(k))
+        if diff:
+            raise AssertionError(
+                f"dry run (a) whole [{arch} x {shape}]: per-op counts on "
+                "cuda / cpu fakes differ: " + ", ".join(
+                    f"{k} {ma.ops.get(k, 0)} / {mb.ops.get(k, 0)}"
+                    for k in diff))
+        if (ca.flops, ca.vector_flops, ca.bytes, mem_a, ma.launches) != \
+                (cb.flops, cb.vector_flops, cb.bytes, mem_b, mb.launches):
+            raise AssertionError(
+                f"dry run (a) whole [{arch} x {shape}]: cuda fakes flops "
+                f"{ca.flops}, bytes {ca.bytes}, {mem_a}, launches "
+                f"{ma.launches} against cpu fakes {cb.flops}, {cb.bytes}, "
+                f"{mem_b}, {mb.launches}; " + first_difference(ga, gb))
+        log(f"dry run (a) whole [{arch} x {shape}, {cfg.n_layers} layers, "
+            f"unpartitioned]: cuda fakes = cpu fakes: "
+            f"{sum(ma.ops.values())} ops of {len(ma.ops)} kinds, launches "
+            f"{ma.launches}, flops {ca.flops:.6e}, bytes {ca.bytes:.6e}, "
+            f"the trace's peak {mem_a.peak / 1e9:.2f} GB; trace {sa:.1f} s "
+            f"(cuda) / {sb:.1f} s (cpu) on the host of {smi}")
+        del got, ga, gb
+        gc.collect()
+    log(f"phase 13 (a), whole: {time.perf_counter() - t0:.1f} s")
 
 
 def dryrun_vs_card(torch, smi: str, paths=None) -> None:
@@ -7769,14 +7927,16 @@ def dryrun_vs_card(torch, smi: str, paths=None) -> None:
     log(f"phase 13 (b): {time.perf_counter() - t0:.1f} s")
 
 
-# Phase 13 (a)'s worker: host work only (traces on fakes), run beside the
-# other phases from the start; its lines are printed after phase 12's.
+# A worker of phase 13 (a): host work only (traces on fakes), run beside
+# the other phases from the start, argv[2] "partitioned" or "whole"; its
+# lines are printed after phase 12's.
 _PHASE13A_WORKER = """
 import sys
 sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
 import torch
 import chip_smoke as cs
-cs.dryrun_devices(torch, cs.smi_line())
+(cs.dryrun_devices if sys.argv[2] == "partitioned" else cs.dryrun_whole)(
+    torch, cs.smi_line())
 """
 
 # Phase 5's nested conditional nodes in a process of their own, beside
@@ -7797,12 +7957,12 @@ cs.log(f"nested conditional nodes: {time.perf_counter() - t0:.1f} s, in a "
 """
 
 
-def start_side_worker(code: str):
-    """``code`` (with the checkout at argv[1]) in a process of its own
-    beside this one, its output kept in a file; killed at exit if it is
-    still running."""
+def start_side_worker(code: str, *args: str):
+    """``code`` (with the checkout at argv[1], ``args`` after it) in a
+    process of its own beside this one, its output kept in a file; killed
+    at exit if it is still running."""
     out = tempfile.TemporaryFile(mode="w+")
-    proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT)],
+    proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT), *args],
                             stdout=out, stderr=out, text=True)
     atexit.register(lambda: proc.poll() is None and proc.kill())
     return proc, out
@@ -7848,16 +8008,53 @@ for name in cs.PATHS:
         torch, cfg, torch.Generator(device="cuda").manual_seed(8765))
     rows += [["write_prefill_kv (main path), ms", name, w["ms"]],
              ["write_prefill_kv (main path), device ops", name, w["ops"]]]
+    if cfg.moe is None:
+        rows.append(["eager decode step, ms", name, mine.eager_decode_row(
+            torch, cfg, torch.Generator(device="cuda").manual_seed(4321))])
 print("AB " + json.dumps(rows))
 """
 
 
+def eager_decode_row(torch, cfg, gen) -> float:
+    """The model's eager decode step at full width and depth (bf16 weights
+    from ``gen``) through the model API over a float32 pool of 4 rows x
+    256 tokens after a 64-token prefill: the median ms of 24 steps after 4
+    of warm-up, each on the host's clock from the call to the card's end
+    (the step is host-bound: the Python of every layer).  Uses only entry
+    points every tree of the port has, so the same-card A/B times it on
+    both."""
+    from repro_torch.models import get_model
+
+    api = get_model(cfg)
+    params = api.init(gen, "cuda")
+    B, S = 4, 64
+    toks = torch.randint(0, cfg.vocab, (B, S), device="cuda", generator=gen)
+    ms = []
+    with torch.no_grad():
+        cache = api.init_cache(B, 256, dtype=torch.float32, device="cuda")
+        cache, lg = api.prefill(params, cache, {"tokens": toks})
+        for i in range(28):
+            nxt = lg.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, lg = api.decode(params, cache, nxt)
+            torch.cuda.synchronize()
+            if i >= 4:
+                ms.append((time.perf_counter() - t0) * 1e3)
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return statistics.median(ms)
+
+
 def same_card_ab(parent: Path) -> int:
-    """``python3 chip_smoke.py --ab PARENT``: phase 2's kernel times of a
-    checkout of another tree (``PARENT``, e.g. the parent commit unpacked
-    with ``git archive``) and of this one, on this card in one call, in
-    the order parent, this, this, parent, each in a process of its own.
-    Prints a row per kernel and path with the four times."""
+    """``python3 chip_smoke.py --ab PARENT``: phase 2's kernel times, the
+    main path's prefill write and the dense path's eager decode step
+    (:func:`eager_decode_row`) of a checkout of another tree (``PARENT``,
+    e.g. the parent commit unpacked with ``git archive``) and of this
+    one, on this card in one call, in the order parent, this, this,
+    parent, each in a process of its own.  Prints a row per kernel and
+    path with the four times."""
     order = [("parent", parent), ("this", ROOT), ("this", ROOT),
              ("parent", parent)]
     runs = []
@@ -7945,6 +8142,7 @@ def main() -> int:
         # a development switch: phase 2's 32k rows and phase 12 alone,
         # after the build
         bundle_kernel_rows(torch)
+        mesh_kernel_rows(torch)
         phase_worker(torch, 12, "paths = cs.bundles_phase(torch, smi)"
                      "\ncs.dryrun_vs_card(torch, smi, paths)")
         return 0
@@ -7952,6 +8150,7 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--dryrun":
         # a development switch: phase 13 alone, after the build
         dryrun_devices(torch, smi)
+        dryrun_whole(torch, smi)
         dryrun_vs_card(torch, smi)
         return 0
 
@@ -7963,8 +8162,9 @@ def main() -> int:
         return 0
 
     # phase 13 (a) (the dry run on cuda and cpu fakes: host work only) runs
-    # beside the other phases from here, in a process of its own
-    dryrun = start_side_worker(_PHASE13A_WORKER)
+    # beside the other phases from here, in processes of their own
+    dryrun = [start_side_worker(_PHASE13A_WORKER, part)
+              for part in ("partitioned", "whole")]
     t_phase = time.perf_counter()
     cfgs = [get_config(name) for name in PATHS]
     floor = launch_floor_ms(torch)
@@ -7981,6 +8181,7 @@ def main() -> int:
     rows += family_kernel_rows(torch)
     rows += fp8_kernel_rows(torch)
     rows += bundle_kernel_rows(torch)
+    rows += mesh_kernel_rows(torch)
     for r in rows:
         log(f"  {r['kernel']} [{r['path']}]: {r['ms']:.5f} ms = "
             f"{r['ms'] / floor:.2f}x the launch floor")
@@ -8053,7 +8254,8 @@ def main() -> int:
     paths.update(phase11)
     paths.update(phase12)
     # phase 13 (b) ran in phase 12's process; (a)'s lines now
-    finish_side_worker(dryrun, "phase 13 (a)", ("dry run", "phase 13"))
+    for worker in dryrun:
+        finish_side_worker(worker, "phase 13 (a)", ("dry run", "phase 13"))
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s since the build "
         "began")
 

@@ -1,6 +1,6 @@
 """Sharding rules — the logical-axis to mesh-axis mapping of
 ``repro/distributed/sharding.py`` (DP / FSDP / TP / EP / SP), for one
-card and for the reference's meshes reckoned as shapes.
+card and for the reference's meshes.
 
 Every parameter, cache field and batch input carries a tuple of *logical
 axis names*; :class:`ShardingRules` maps each name to a mesh axis (a name,
@@ -9,7 +9,11 @@ a tuple of names, or ``None``: replicated).  The port has no
 axes one would hold, and :meth:`ShardingRules.sharding` a
 :class:`NamedSharding` record of (mesh, spec).  On one card every mesh
 axis has size 1, so a placement says where a tensor would be split on the
-reference's meshes and nothing is split.
+reference's meshes and nothing is split.  On a ``DeviceMesh``
+(:meth:`repro_torch.launch.mesh.Mesh.open`) :func:`to_placements` turns a
+spec into DTensor placements and :func:`constrain` redistributes a
+DTensor to them, as the reference's ``with_sharding_constraint`` pins a
+value inside its partitioned program.
 
 Default production mapping (single pod, mesh ``(data=16, model=16)``):
 
@@ -128,12 +132,53 @@ def logical_sharding(mesh, rules: ShardingRules, tree):
     return tree_map(lambda axes: rules.sharding(mesh, axes), tree)
 
 
-def constrain(x, rules: ShardingRules,
+def to_placements(device_mesh, spec: Tuple[MeshAxis, ...]) -> list:
+    """A spec (per tensor dim a mesh axis, a tuple of them or None) as
+    DTensor placements over ``device_mesh``'s dims: ``Shard(d)`` on each
+    mesh dim that dim ``d`` is split over, ``Replicate()`` on the rest.  A
+    dim split over several mesh axes (``batch`` -> ``("pod", "data")``)
+    is split major to minor in the spec's order, the reference's
+    ``PartitionSpec`` order; that must be the mesh's own order (a
+    ``Shard`` on each dim then splits as the reference does, no
+    ``_StridedShard``), else it raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(device_mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, axis in enumerate(spec):
+        axes = () if axis is None else (axis,) if isinstance(axis, str) \
+            else tuple(axis)
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"spec {spec}: dim {d} split over {axes}, "
+                             f"not in the mesh's order {names}")
+        for m in dims:
+            out[m] = Shard(d)
+    return out
+
+
+def constrain(x, rules: Optional[ShardingRules],
               logical_axes: Tuple[Optional[str], ...]):
-    """The reference's ``with_sharding_constraint`` by logical axes, which
-    is the identity outside a mesh; on one card there is nothing to
-    constrain, so ``x`` comes back unchanged."""
-    return x
+    """The reference's ``with_sharding_constraint`` by logical axes: a
+    DTensor is redistributed to the rule's placements on its mesh, a dim
+    the mapped mesh axes do not divide left whole (as the step bundles
+    place an input: DTensor cannot reshape an uneven split); any other
+    tensor (one card, no mesh, ``rules`` None) comes back unchanged."""
+    import math
+
+    from repro_torch.distributed.partition import is_dtensor
+
+    if rules is None or not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    spec = tuple(
+        axis if axis is None or x.shape[d] % math.prod(
+            mesh.size(names.index(a)) for a in (
+                (axis,) if isinstance(axis, str) else axis)) == 0 else None
+        for d, axis in enumerate(rules.spec(logical_axes)))
+    pl = to_placements(mesh, spec)
+    return x if list(x.placements) == pl else x.redistribute(mesh, pl)
 
 
 # ---------------------------------------------------------------------------

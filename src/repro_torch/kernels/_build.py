@@ -239,3 +239,59 @@ def check_cuda(name: str, *tensors) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name}: operand of shape {tuple(t.shape)} "
                              "is not contiguous")
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules: the custom ops under DTensor (a partitioned trace)
+# ---------------------------------------------------------------------------
+
+#: (op, rule) of every kernel module, registered by
+#: :func:`repro_torch.kernels.register_sharding_rules`
+SHARDING_RULES: list = []
+
+
+def sharding_rule(op):
+    """Declare ``fn`` the DTensor sharding rule of ``op`` (the signature
+    of ``torch.distributed.tensor.experimental.register_sharding``: the
+    op's arguments, a tensor as its spec, give the acceptable ``(output
+    placements, input placements)`` of one mesh dimension).  Nothing is
+    imported or registered until a mesh opens
+    (:meth:`repro_torch.launch.mesh.Mesh.open`)."""
+    def declare(fn):
+        SHARDING_RULES.append((op, fn))
+        return fn
+    return declare
+
+
+def placements(*names):
+    """One mesh dimension's placement list from short names: ``"R"``
+    replicate, ``"P"`` a partial sum, ``"S<d>"`` shard of dim ``d``,
+    ``None`` for a non-tensor (or absent optional) argument."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    def one(n):
+        if n is None:
+            return None
+        if n == "R":
+            return Replicate()
+        if n == "P":
+            return Partial()
+        return Shard(int(n[1:]))
+    return [one(n) for n in names]
+
+
+def heads_pair(spec, heads: int, kv_heads: int) -> bool:
+    """A call split by heads pairs each rank's query heads with its own KV
+    heads: the KV heads are as many as the query heads (split alike, also
+    unevenly; :func:`repro_torch.distributed.partition.heads_like` makes
+    them so), or every dimension's size of the mesh of ``spec`` (a
+    DTensor's spec or a DTensor) divides both counts."""
+    if heads == kv_heads:
+        return True
+    mesh = spec.device_mesh if hasattr(spec, "device_mesh") else spec.mesh
+    return all(c % n == 0 for c in (heads, kv_heads) for n in mesh.shape)
+
+
+def opt(t, name):
+    """``name`` for a present optional tensor argument, else ``None``."""
+    return None if t is None else name

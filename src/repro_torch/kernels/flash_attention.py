@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import Kernel, check_cuda, check_device, \
-    dtype_code, ptr, stream_of
+    dtype_code, heads_pair, placements, ptr, sharding_rule, stream_of
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("flash_attention", "flash_attention.cu",
@@ -94,12 +94,54 @@ def _setup_context(ctx, inputs, output):
 
 
 def _backward(ctx, grad):
+    from repro_torch.distributed.partition import is_dtensor
+
     q, k, v = ctx.saved_tensors
+    if is_dtensor(q):
+        return (*_local_backward(q, k, v, grad, *ctx.mask), None, None)
     return (*ref.flash_attention_grad_ref(q, k, v, grad, *ctx.mask), None,
             None)
 
 
+def _local_backward(q, k, v, grad, causal, window):
+    """The backward on a partitioned trace: with q, k, v and the output's
+    gradient placed alike by batch or heads (the forward's rule, per mesh
+    dim), attention's gradient is each shard's own, so the PyTorch
+    backward runs on the local shards (DTensor would flatten the split
+    batch and head dims into strided shards it cannot multiply)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = q.device_mesh
+    heads = heads_pair(q, q.shape[2], k.shape[2])
+    pl = [p if isinstance(p, Shard) and (p.dim == 0 or p.dim == 2 and heads)
+          else Replicate() for p in q.placements]
+    local = [t.redistribute(mesh, pl).to_local() for t in (q, k, v, grad)]
+    grads = ref.flash_attention_grad_ref(*local, causal, window)
+    # the global shapes given: heads may split unevenly
+    return tuple(DTensor.from_local(g.contiguous(), mesh, pl,
+                                    run_check=False, shape=t.shape,
+                                    stride=t.stride())
+                 for g, t in zip(grads, (q, k, v)))
+
+
 flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+@sharding_rule(torch.ops.repro_torch.flash_attention.default)
+def _sharding(q, k, v, causal, window):
+    """Replicated; batch over a mesh dimension; or heads, q's and k / v's
+    split alike (:func:`~repro_torch.kernels._build.heads_pair`).  The
+    op's backward runs on the local shards, placed the same way
+    (:func:`_local_backward`).  This rule
+    takes the place of the reference's pins on its Pallas-free flash
+    loop's carries (``layers._c``): the port's loop is inside the one
+    op, so its operands' placements are the only ones to pin."""
+    out = [(placements("R"), placements("R", "R", "R", None, None)),
+           (placements("S0"), placements("S0", "S0", "S0", None, None))]
+    if heads_pair(q, q.shape[2], k.shape[2]):
+        out.append((placements("S2"), placements("S2", "S2", "S2", None,
+                                                 None)))
+    return out
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
@@ -111,4 +153,12 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     cross-attention (the reference's ``chunked_attention(causal=False)``)."""
     check_device("flash_attention", q)
     check_shapes(q, k, v, causal)
+    from repro_torch.distributed.partition import heads_like, \
+        heads_split, is_dtensor
+    if is_dtensor(q):
+        # a partitioned trace: each rank runs its share of the heads
+        q, H = heads_split(q, 2)
+        k, v = (heads_like(q, t, 2, 2, H) for t in (k, v))
+        out = flash_attention_op(q, k, v, bool(causal), int(window))
+        return out if out.shape[2] == H else out[:, :, :H]
     return flash_attention_op(q, k, v, bool(causal), int(window))

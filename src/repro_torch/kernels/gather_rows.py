@@ -27,8 +27,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import Kernel, check_cuda, check_device, \
-    dtype_code, fence_args, fence_operand, join_fence, ptr, split_fence, \
-    stream_of
+    dtype_code, fence_args, fence_operand, join_fence, opt, placements, \
+    ptr, sharding_rule, split_fence, stream_of
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("gather_rows", "gather_rows.cu",
@@ -105,6 +105,36 @@ def _backward(ctx, grad):
 
 
 gather_rows_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+@sharding_rule(torch.ops.repro_torch.gather_rows.default)
+def _sharding(table, idx, base_ids, mask_ids, base, mask):
+    """Replicated; ids over a mesh dimension (the rows they give with
+    them, the table whole); or the table's columns (the rows' columns
+    with them, the ids whole).  A table split by vocab row takes no
+    strategy here: :func:`repro_torch.models.layers.embed_tokens` gathers
+    from each rank's rows with local ids and masks the rest to zeros (a
+    partial sum), as the reference's partitioned ``take`` does."""
+    fences = lambda n: (opt(base_ids, n), opt(mask_ids, n))  # noqa: E731
+    return [(placements("R"), placements("R", "R", *fences("R"), None,
+                                         None)),
+            (placements("S0"), placements("R", "S0", *fences("S0"), None,
+                                          None)),
+            (placements("S1"), placements("S1", "R", *fences("R"), None,
+                                          None))]
+
+
+@sharding_rule(torch.ops.repro_torch.gather_rows_backward.default)
+def _sharding_backward(table, grad, idx, base_ids, mask_ids, base, mask):
+    """Replicated; ids and row gradients over a mesh dimension (each rank's
+    table gradient a partial sum); or the table's columns."""
+    fences = lambda n: (opt(base_ids, n), opt(mask_ids, n))  # noqa: E731
+    return [(placements("R"), placements("R", "R", "R", *fences("R"),
+                                         None, None)),
+            (placements("P"), placements("R", "S0", "S0", *fences("S0"),
+                                         None, None)),
+            (placements("S1"), placements("S1", "S1", "R", *fences("R"),
+                                          None, None))]
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor, fence_base,

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import Kernel, check_cuda, check_device, \
-    ptr, stream_of
+    placements, ptr, sharding_rule, stream_of
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("moe_histogram", "moe_histogram.cu",
@@ -61,6 +61,14 @@ def _cuda(expert_ids, num_experts, base, mask):
 @moe_histogram_op.register_fake
 def _fake(expert_ids, num_experts, base, mask):
     return expert_ids.new_empty((num_experts,), dtype=torch.int32)
+
+
+@sharding_rule(torch.ops.repro_torch.moe_histogram.default)
+def _sharding(expert_ids, num_experts, base, mask):
+    """Replicated; or the ids over a mesh dimension, each rank's counts a
+    partial sum of the bins."""
+    return [(placements("R"), placements("R", None, None, None)),
+            (placements("P"), placements("S0", None, None, None))]
 
 
 def moe_histogram(expert_ids: torch.Tensor, num_experts: int,

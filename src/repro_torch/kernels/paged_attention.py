@@ -18,8 +18,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import Kernel, check_cuda, check_device, \
-    dtype_code, fence_args, fence_operand, join_fence, ptr, sm_count, \
-    split_fence, stream_of
+    dtype_code, fence_args, fence_operand, heads_pair, join_fence, opt, \
+    placements, ptr, sharding_rule, sm_count, split_fence, stream_of
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("paged_attention", "paged_attention.cu",
@@ -118,6 +118,29 @@ def _fake(q, k_pages, v_pages, page_table, seq_lens, base_rows, mask_rows,
     return torch.empty_like(q)
 
 
+@sharding_rule(torch.ops.repro_torch.paged_attention.default)
+def _sharding(q, k_pages, v_pages, page_table, seq_lens, base_rows,
+              mask_rows, base, mask, page_map, window):
+    """Replicated; rows over a mesh dimension (q, the table, lengths and
+    per-row fences split by row, the pool view whole: pages are global
+    ids, so a pool split by slot is all-gathered first, as the
+    reference's partitioned slot gather replicates its pool slice); or
+    heads (q's heads and the pool's KV heads split alike, the rows whole;
+    :func:`~repro_torch.kernels._build.heads_pair`)."""
+    fences = lambda n: (opt(base_rows, n), opt(mask_rows, n))  # noqa: E731
+    pmap = opt(page_map, "R")
+    out = [(placements("R"), placements(
+        "R", "R", "R", "R", "R", *fences("R"), None, None, pmap, None)),
+        (placements("S0"), placements(
+            "S0", "R", "R", "S0", "S0", *fences("S0"), None, None, pmap,
+            None))]
+    if heads_pair(q, q.shape[1], k_pages.shape[2]):
+        out.append((placements("S1"), placements(
+            "S1", "S2", "S2", "R", "R", *fences("R"), None, None, pmap,
+            None)))
+    return out
+
+
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, fence_base,
                     fence_mask, page_map=None, window: int = 0):
     """q (B,H,D) float32 or bfloat16; pools (P,page,KH,D) (a layer view of
@@ -141,6 +164,17 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, fence_base,
     (base_rows, base), (mask_rows, mask) = (
         split_fence(fence_operand(v, B, q.device))
         for v in (fence_base, fence_mask))
+    from repro_torch.distributed.partition import heads_like, \
+        heads_split, is_dtensor
+    if is_dtensor(q):
+        # a partitioned trace: each rank runs its share of the heads
+        q, H = heads_split(q, 1)
+        k_pages, v_pages = (heads_like(q, t, 1, 2, H, whole=True)
+                            for t in (k_pages, v_pages))
+        out = paged_attention_op(q, k_pages, v_pages, page_table, seq_lens,
+                                 base_rows, mask_rows, base, mask, page_map,
+                                 int(window))
+        return out if out.shape[1] == H else out[:, :H]
     return paged_attention_op(q, k_pages, v_pages, page_table, seq_lens,
                               base_rows, mask_rows, base, mask, page_map,
                               int(window))

@@ -10,38 +10,43 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod
 
-The reference lowers and compiles each step on the 256- or 512-chip mesh
-and reads XLA's memory analysis and HLO.  The port compiles nothing ahead
-of time; it traces the bundle's step (``StepBundle.step``) over its
-``meta`` specs into an aten graph on fake tensors of ``--device``
-(:func:`repro_torch.launch.graph_analysis.trace_step`: nothing is
-allocated and no kernel is launched; ``cuda`` by default, the CPU only
-when asked) and reckons from it:
+The reference lowers and compiles each step on the 256- or 512-chip mesh,
+where XLA's SPMD partitioner splits it into one program per device, and
+reads XLA's memory analysis and the partitioned HLO.  The port compiles
+nothing ahead of time; it traces the bundle's step into an aten graph on
+fake tensors of ``--device`` (:func:`repro_torch.launch.graph_analysis.
+trace_step`: nothing is allocated and no kernel is launched; ``cuda`` by
+default, the CPU only when asked).  On a production mesh the step is
+partitioned first, by PyTorch's SPMD partitioner: the mesh opens a
+``DeviceMesh`` over a ``fake`` process group of ``mesh.size`` ranks
+(:meth:`repro_torch.launch.mesh.Mesh.open`), the step runs on DTensors
+placed by the bundle's shardings and its results are redistributed to
+its output shardings (:meth:`repro_torch.launch.steps.StepBundle.
+partitioned`), and the trace is rank 0's program: local shapes, with the
+collectives the partition needs as ``_c10d_functional`` nodes.  From the
+trace it reckons:
 
-* ``cost`` — FLOPs, vector FLOPs and bytes of the whole program
-  (:func:`~repro_torch.launch.graph_analysis.analyze_graph`); per device
-  on a production mesh as global / chips, an even split;
-* ``memory`` — on the one-card mesh (``--local``) the argument, output,
-  temp and alias bytes of a liveness walk over the graph
-  (:func:`~repro_torch.launch.graph_analysis.peak_live_bytes`); on a
-  production mesh (a shape only) the argument, output and alias bytes per
-  device from the placements, each leaf's bytes over its placement's
-  mesh-axis sizes, and temp ``null``;
-* ``collectives`` — zeros on one card, ``null`` on a production mesh (one
-  card has no SPMD partitioner to say what the mesh would exchange);
-* ``roofline`` — compute and memory terms against the NVIDIA H100 SXM
-  data sheet (989e12 dense bf16 FLOP/s, 3.35e12 B/s of HBM3), the
-  collective term 0 on one card and ``null`` on a production mesh, the
-  bottleneck over the terms that are not ``null``, ``model_flops`` (6·N·T
-  to train, 2·N·T to serve), ``useful_ratio`` and the MFU bound, as the
-  reference reckons them.
+* ``cost`` — FLOPs, vector FLOPs and bytes of one device's program
+  (:func:`~repro_torch.launch.graph_analysis.analyze_graph`);
+* ``memory`` — argument, output and alias bytes per device from the
+  placements (each leaf's bytes over its placement's mesh-axis sizes;
+  on the one-card mesh the specs' own), temp bytes from a liveness walk
+  over the device's graph (:func:`~repro_torch.launch.graph_analysis.
+  peak_live_bytes`), and the peak as the reference sums it;
+* ``collectives`` — operand bytes and counts of the device's collectives
+  by the reference's kind names, zeros on one card;
+* ``roofline`` — compute, memory and collective terms against the NVIDIA
+  H100 SXM data sheet (:data:`CONSTANTS`), the bottleneck,
+  ``model_flops`` (6·N·T to train, 2·N·T to serve), ``useful_ratio`` and
+  the MFU bound, as the reference reckons them.
 
 Each cell writes ``results/dryrun_torch/<mesh>/<arch>__<shape>[__tag].json``
-with the reference's keys; a value one card cannot reckon is ``null`` and
-the ``method`` block says how each block was reckoned.  ``lower_s`` is the
-trace's seconds; ``compile_s`` is ``null`` (a serve step's CUDA graph is
-captured at its first call, :mod:`repro_torch.core.stepgraph`; the train
-step runs eagerly).
+with the reference's keys; the ``method`` block says how each block was
+reckoned.  ``lower_s`` is the trace's seconds; ``compile_s`` is ``null``
+(nothing is compiled ahead of time: a serve step's CUDA graph is captured
+at its first call, :mod:`repro_torch.core.stepgraph`, and the train CLI
+captures one CUDA graph per batch shape at its first step,
+:func:`repro_torch.launch.steps.compile_train_step`).
 """
 
 from __future__ import annotations
@@ -55,13 +60,19 @@ import sys
 import time
 from typing import Any, Optional
 
-# NVIDIA H100 SXM data sheet: dense bf16 tensor-core FLOP/s, HBM3 bytes/s
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core FLOP/s, HBM3 bytes/s,
+# NVLink 4 bytes/s a GPU (900 GB/s, both directions together)
 PEAK_FLOPS = 989e12
 HBM_BW = 3.35e12
+NVLINK_BW = 900e9
 
 #: what the roofline's constants are
 CONSTANTS = ("NVIDIA H100 SXM data sheet: 989e12 dense bf16 FLOP/s, "
-             "3.35e12 B/s of HBM3")
+             "3.35e12 B/s of HBM3, 900e9 B/s of NVLink 4 a GPU (the "
+             "data sheet's total of both directions); the collective term "
+             "is a floor: a 16 x 16 mesh of H100s spans 32 eight-GPU "
+             "nodes, whose traffic between nodes runs far slower than "
+             "NVLink")
 
 
 def mesh_tag(multi_pod: bool, local: bool) -> str:
@@ -79,14 +90,6 @@ def model_flops(cfg, shape) -> int:
     return 2 * n_active * shape.global_batch
 
 
-def _is_placement(x) -> bool:
-    """A placement: per dim a mesh axis, a tuple of them, or None."""
-    return isinstance(x, tuple) and all(
-        a is None or isinstance(a, str) or (
-            isinstance(a, tuple) and all(isinstance(b, str) for b in a))
-        for a in x)
-
-
 def placed_bytes(mesh, placements, tree) -> list:
     """Each tensor leaf's bytes per device under its placement (per dim a
     mesh axis, a tuple of them or None: the leaf split over the product of
@@ -95,6 +98,7 @@ def placed_bytes(mesh, placements, tree) -> list:
     tensor)."""
     import torch
     from repro_torch.core.stepgraph import tree_flatten
+    from repro_torch.distributed.partition import is_spec
     from repro_torch.distributed.sharding import tree_map
     from repro_torch.launch.steps import _axis_size
 
@@ -106,7 +110,7 @@ def placed_bytes(mesh, placements, tree) -> list:
             shards *= _axis_size(mesh, a)
         return t.numel() * t.element_size() // shards
 
-    per = tree_map(one, placements, tree, is_leaf=_is_placement)
+    per = tree_map(one, placements, tree, is_leaf=is_spec)
     return [0 if v is None else v for v in tree_flatten(per)[1]]
 
 
@@ -122,36 +126,38 @@ def card_line() -> Optional[str]:
 
 
 def _memory(bundle, gm, mesh, local: bool) -> dict:
-    from repro_torch.core.stepgraph import tree_unflatten
+    """The reference's ``memory_analysis()`` block per device: on the
+    one-card mesh all of it from the liveness walk over the graph; on a
+    production mesh argument, output and alias bytes from the placements
+    and temp bytes from the liveness walk over the device's partitioned
+    graph (``gm``)."""
     from repro_torch.launch import graph_analysis as GA
 
+    mem = GA.peak_live_bytes(gm, bundle.donate_argnums)
     if local:
-        mem = GA.peak_live_bytes(gm, bundle.donate_argnums)
         return {"argument_bytes": mem.argument, "output_bytes": mem.output,
                 "temp_bytes": mem.temp, "alias_bytes": mem.alias,
                 "peak_live_bytes_per_device": mem.peak}
     args = sum(b for i, spec in enumerate(bundle.in_specs)
                for b in placed_bytes(mesh, bundle.in_shardings[i], spec))
-    # the results, rebuilt from the trace, and which alias a donated input
+    # the results, rebuilt from the trace (the device's shards), and which
+    # alias a donated input
     outs = GA.output_leaves(gm)
-    leaves: list = [None] * gm.meta["out_leaves"]
-    for i, t in zip(gm.meta["out_leaf"], outs):
-        leaves[i] = t
-    per_leaf = placed_bytes(mesh, bundle.out_shardings,
-                            tree_unflatten(gm.meta["out_struct"], leaves))
+    per_out = [t.numel() * t.element_size() for t in outs]
     aliased = GA.aliased_outputs(gm, bundle.donate_argnums)
-    alias = sum(per_leaf[i] for k, i in enumerate(gm.meta["out_leaf"])
-                if k in aliased)
-    return {"argument_bytes": args, "output_bytes": sum(per_leaf),
-            "temp_bytes": None, "alias_bytes": alias,
-            "peak_live_bytes_per_device": None}
+    alias = sum(b for k, b in enumerate(per_out) if k in aliased)
+    out = sum(per_out)
+    return {"argument_bytes": args, "output_bytes": out,
+            "temp_bytes": mem.temp, "alias_bytes": alias,
+            "peak_live_bytes_per_device": args + mem.temp + out - alias}
 
 
 @dataclasses.dataclass
 class Cell:
     """One traced cell: its config, shape, mesh and bundle, the traced
-    graph (:func:`~repro_torch.launch.graph_analysis.trace_step`), the
-    trace's seconds and the fakes' device."""
+    graph (:func:`~repro_torch.launch.graph_analysis.trace_step`; on a
+    production mesh rank 0's partitioned program), the trace's seconds
+    and the fakes' device."""
 
     arch: str
     cfg: Any
@@ -167,16 +173,15 @@ class Cell:
     policy: str
 
 
-def trace_cell(arch: str, shape_name: Optional[str] = None,
+def build_cell(arch: str, shape_name: Optional[str] = None,
                multi_pod: bool = False, guard_enabled: bool = True,
                policy_name: str = "bitwise", moe_dispatch: str = "einsum",
                remat_policy: str = "nothing", kv_dtype: str = "bf16",
-               device: str = "cuda", local: bool = False,
-               shape=None) -> Optional[Cell]:
-    """Build ``arch``'s bundle for the shape on its mesh and trace its step
-    on fakes of ``device``; None where the shape does not apply.  A train
-    step on CUDA fakes without a CUDA build of torch raises here, before
-    anything is traced."""
+               device: str = "cuda", local: bool = False, shape=None):
+    """``arch``'s config, the shape, its mesh and its step bundle, as
+    :func:`trace_cell` traces them; None where the shape does not apply.
+    A train step on CUDA fakes without a CUDA build of torch raises
+    here."""
     from repro_torch.configs import SHAPES, get_config, shape_applicable
     from repro_torch.core.fence import FencePolicy
     from repro_torch.launch import graph_analysis as GA
@@ -199,16 +204,44 @@ def trace_cell(arch: str, shape_name: Optional[str] = None,
                         policy=FencePolicy(policy_name),
                         moe_dispatch=moe_dispatch,
                         remat_policy=remat_policy, **kw)
+    return cfg, shape, mesh, bundle
+
+
+def trace_cell(arch: str, shape_name: Optional[str] = None,
+               multi_pod: bool = False, guard_enabled: bool = True,
+               policy_name: str = "bitwise", moe_dispatch: str = "einsum",
+               remat_policy: str = "nothing", kv_dtype: str = "bf16",
+               device: str = "cuda", local: bool = False,
+               shape=None) -> Optional[Cell]:
+    """Build ``arch``'s bundle for the shape on its mesh
+    (:func:`build_cell`) and trace its step on fakes of ``device``; on a
+    production mesh as rank 0 of the partitioned step, over a fake process
+    group opened for the trace and destroyed after it, also when it raises
+    (:meth:`~repro_torch.launch.mesh.Mesh.open`).  None where the shape
+    does not apply."""
+    from repro_torch.launch import graph_analysis as GA
+
+    built = build_cell(arch, shape_name, multi_pod, guard_enabled,
+                       policy_name, moe_dispatch, remat_policy, kv_dtype,
+                       device, local, shape)
+    if built is None:
+        return None
+    cfg, shape, mesh, bundle = built
     t0 = time.time()
-    gm = GA.trace_step(bundle.step, bundle.in_specs, device)
+    if local:
+        gm = GA.trace_step(bundle.step, bundle.in_specs, device)
+    else:
+        with mesh.open(device) as device_mesh:
+            fn, specs = bundle.partitioned(device_mesh)
+            gm = GA.trace_step(fn, specs, device)
     return Cell(arch, cfg, shape, mesh, local, multi_pod, bundle, gm,
                 time.time() - t0, device, guard_enabled, policy_name)
 
 
 def reckon(cell: Cell) -> dict:
-    """The reference's result for a traced cell (its keys, ``null`` where
-    one card cannot reckon a value) and the port's ``device``, ``method``
-    and ``trace`` blocks."""
+    """The reference's result for a traced cell (its keys; every value of
+    one device's program) and the port's ``device``, ``method`` and
+    ``trace`` blocks."""
     from repro_torch.launch import graph_analysis as GA
 
     chips = cell.mesh.size
@@ -216,20 +249,19 @@ def reckon(cell: Cell) -> dict:
     costs = model.analyze()
     memory = _memory(cell.bundle, cell.gm, cell.mesh, cell.local)
     local = cell.local
-    flops_dev = costs.flops / chips
-    bytes_dev = costs.bytes / chips
+    flops_dev, bytes_dev = costs.flops, costs.bytes
     coll = {"per_kind": {k: v for k, v in costs.collectives.items() if v},
             "counts": {k: v for k, v in costs.collective_counts.items()
                        if v},
-            "total": costs.collective_bytes} if local else None
+            "total": costs.collective_bytes}
     terms = {"compute_s": flops_dev / PEAK_FLOPS,
              "memory_s": bytes_dev / HBM_BW,
-             "collective_s": 0.0 if local else None}
-    known = {k: v for k, v in terms.items() if v is not None}
-    bottleneck = max(known, key=known.get)
-    step_time = max(known.values())
+             "collective_s": costs.collective_bytes / NVLINK_BW}
+    bottleneck = max(terms, key=terms.get)
+    step_time = max(terms.values())
     m_flops = model_flops(cell.cfg, cell.shape)
-    useful_ratio = m_flops / costs.flops if costs.flops else 0.0
+    hlo_total = flops_dev * chips
+    useful_ratio = m_flops / hlo_total if hlo_total else 0.0
     mfu = (m_flops / chips / step_time) / PEAK_FLOPS if step_time else 0
     card = card_line() if cell.device == "cuda" else None
     return {
@@ -243,7 +275,7 @@ def reckon(cell: Cell) -> dict:
         "compile_s": None,
         "memory": memory,
         "cost": {"flops_per_device": flops_dev,
-                 "vector_flops_per_device": costs.vector_flops / chips,
+                 "vector_flops_per_device": costs.vector_flops,
                  "bytes_per_device": bytes_dev,
                  "xla_flops_scan_body_once": None,
                  "xla_bytes_scan_body_once": None},
@@ -252,7 +284,7 @@ def reckon(cell: Cell) -> dict:
             **terms,
             "bottleneck": bottleneck.replace("_s", ""),
             "model_flops": m_flops,
-            "hlo_total_flops": costs.flops,
+            "hlo_total_flops": hlo_total,
             "useful_ratio": useful_ratio,
             "roofline_fraction_mfu": mfu,
         },
@@ -267,19 +299,28 @@ def reckon(cell: Cell) -> dict:
                      "(graph_analysis.trace_step): nothing allocated, "
                      "compiled or launched",
             "cost": "graph_analysis.analyze_graph over the traced aten "
-                    "graph (the whole program)",
-            "per_device": "one device" if local else "even split",
+                    "graph of one device's program",
+            "per_device": "one device" if local else
+                          "partitioned trace (DTensor over a fake group of "
+                          f"{chips} ranks): rank 0's program, local shapes",
             "memory": "liveness walk over the traced graph "
                       "(graph_analysis.peak_live_bytes)" if local else
                       "argument, output and alias bytes per device from "
-                      "the placements; temp not reckoned",
+                      "the placements; temp from a liveness walk over the "
+                      "device's partitioned graph "
+                      "(graph_analysis.peak_live_bytes)",
             "collectives": "one device: none" if local else
-                           "not reckoned: one card has no SPMD partitioner",
+                           "the _c10d_functional ops of the partitioned "
+                           "graph by the reference's kind names, operand "
+                           "bytes each (as hlo_analysis counts them); a "
+                           "cut loop's extrapolated",
             "roofline": CONSTANTS,
             "loops": {k: n for k, (n, _) in cell.gm.meta["loops"].items()},
             "compile": "nothing compiled ahead of time: a serve step's "
                        "CUDA graph is captured at its first call "
-                       "(core/stepgraph.py), the train step runs eagerly",
+                       "(core/stepgraph.py), the train CLI's step at its "
+                       "first step, one CUDA graph per batch shape "
+                       "(launch/steps.py compile_train_step)",
         },
         "trace": {"nodes": len(cell.gm.graph.nodes), "ops": dict(model.ops),
                   "launches": dict(model.launches)},

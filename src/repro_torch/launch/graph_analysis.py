@@ -18,13 +18,24 @@ that graph with the reference's rules, one for one:
                         pytree nodes are free, as the reference's
                         ``_SKIP_OPS`` are
     collective_bytes    operand bytes of ``_c10d_functional`` / ``c10d``
-                        ops, by kind (none on one card)
+                        ops, by the reference's kind names (none on one
+                        card)
 
 ``scan`` bodies count x their scanned length, ``while_loop`` bodies x the
 trip count (the largest int constant in the condition graph, as the
 reference reads a ``while``'s), ``cond`` as its worst branch.
 :func:`peak_live_bytes` is the counterpart of XLA's
 ``memory_analysis()``: a liveness walk over the graph's storages.
+
+On a production mesh the graph is one device's program: the step is
+partitioned by DTensor over a fake process group and traced as rank 0
+(:meth:`repro_torch.launch.steps.StepBundle.partitioned`), so every
+count is per device, as the reference reads its partitioned HLO, and the
+collectives the partition needs are ``_c10d_functional`` nodes
+(``all_gather_into_tensor`` -> all-gather, ``all_reduce`` -> all-reduce,
+``reduce_scatter_tensor`` -> reduce-scatter, DTensor's
+``_dtensor::shard_dim_alltoall`` -> all-to-all; ``wait_tensor`` is the
+reference's ``-done``, free).
 
 The model is deterministic and structural: counts from shapes, no clock
 and no device, so the dry run (:mod:`repro_torch.launch.dryrun`) and the
@@ -73,7 +84,8 @@ _WORKSPACE_RESULT = {aten.log_sigmoid_forward.default: 1}
 _WORKSPACE_OPERAND = {aten.log_sigmoid_backward.default: 2}
 
 #: a collective op's kind, by a word of its name (``_c10d_functional`` /
-#: ``c10d`` namespaces); ``wait_tensor`` is the reference's ``-done``
+#: ``c10d`` namespaces, and DTensor's ``_dtensor::shard_dim_alltoall``);
+#: ``wait_tensor`` is the reference's ``-done``
 _COLLECTIVE_WORDS = (("all_gather", "all-gather"), ("allgather", "all-gather"),
                      ("reduce_scatter", "reduce-scatter"),
                      ("all_reduce", "all-reduce"), ("allreduce", "all-reduce"),
@@ -335,7 +347,12 @@ def trace_step(fn: Callable, args: Sequence[Any],
     :func:`peak_live_bytes` extrapolate to the loop's steps: every step
     but the first and the last does what the third does (the reference's
     trip-count rule, applied to a loop the trace does not keep).  Nothing
-    is allocated on the device and no kernel is launched.  On CUDA fakes
+    is allocated on the device and no kernel is launched; the collectives
+    of a cut loop are extrapolated with the rest.  ``fn`` may make
+    DTensors of its arguments (a partitioned step: the arguments are one
+    rank's shards, :meth:`~repro_torch.launch.steps.StepBundle.
+    partitioned`, marked ``partitioned``); the trace is then that rank's
+    program, its dead nodes dropped.  On CUDA fakes
     without a CUDA build a backward pass raises :class:`RuntimeError`
     where it starts."""
     from repro_torch.core.stepgraph import tree_flatten
@@ -358,6 +375,12 @@ def trace_step(fn: Callable, args: Sequence[Any],
     def traced(trips):
         with cut_loops(trips) as steps:
             gm, dyn_pos = fake_trace(flat, args, flatten=True, device=dev)
+        if getattr(fn, "partitioned", False):
+            # some torch versions (2.11) also record each op over
+            # DTensors at the global level, on fresh global-shaped
+            # tensors whose results nothing reads: not the rank's work
+            gm.graph.eliminate_dead_code()
+            gm.recompile()
         return gm, dyn_pos, dict(steps)
 
     two = {kind: 2 for kind in LOOP_KINDS}
@@ -441,7 +464,8 @@ def _returns_written(target) -> bool:
 
 def _collective_kind(target) -> Optional[str]:
     ns = getattr(target, "namespace", "")
-    if ns not in ("_c10d_functional", "c10d", "c10d_functional"):
+    if ns not in ("_c10d_functional", "c10d", "c10d_functional",
+                  "_dtensor"):
         return None
     name = target.__name__.split(".")[0]
     if "wait" in name:

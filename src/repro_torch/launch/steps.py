@@ -314,13 +314,16 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, *,
                      moe_dispatch: str = "scatter",
                      remat_policy: str = "nothing",
                      schedule: Optional[Callable] = None,
-                     device="cuda") -> TrainStep:
+                     device="cuda",
+                     rules: Optional[ShardingRules] = None) -> TrainStep:
     """The reference's ``train_step`` (``repro/launch/steps.py``) on one
     device, without a mesh: the loss and its gradient through
     ``api.loss`` under :func:`make_guard`'s guard, AdamW under
     ``schedule`` (default: the reference's ``cosine(peak_lr, 2_000,
     100_000)``), the update applied.  ``device`` is where the step's
-    params live; the step itself runs wherever its operands are."""
+    params live; the step itself runs wherever its operands are.
+    ``rules`` are the models' sharding pins (a bundle's; they act only on
+    a partitioned trace)."""
     torch.device(device)          # an unknown device name raises here
     api = get_model(cfg)
     guard = make_guard(cfg, shape, policy, guard_enabled)
@@ -333,7 +336,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, *,
         with torch.enable_grad():
             req = [p.detach().requires_grad_() for p in leaves]
             loss = api.loss(tree_unflatten(struct, req), batch, guard=guard,
-                            remat=remat, **extra)
+                            rules=rules, remat=remat, **extra)
             grads = torch.autograd.grad(loss, req, materialize_grads=True)
         updates, opt_state = opt.update(tree_unflatten(struct, list(grads)),
                                         opt_state, params)
@@ -464,7 +467,12 @@ class StepBundle:
       placement, a tree of mesh-axis tuples (``()`` replicated);
     * ``donate_argnums`` — the inputs the step updates in place (the
       cache; params and optimizer state to train);
-    * ``rules``, ``api``."""
+    * ``rules``, ``api``.
+
+    On a ``DeviceMesh`` of the bundle's mesh (:meth:`repro_torch.launch.
+    mesh.Mesh.open`), :meth:`partitioned` is ``step`` as one rank's
+    program: the reference's ``jax.jit(fn, in_shardings=,
+    out_shardings=)`` after its SPMD partitioner."""
 
     fn: Callable
     step: Callable
@@ -474,6 +482,20 @@ class StepBundle:
     donate_argnums: Tuple[int, ...]
     rules: ShardingRules
     api: ModelAPI
+
+    def partitioned(self, device_mesh) -> Tuple[Callable, Tuple]:
+        """``(fn, specs)``: ``step`` over DTensors placed by
+        ``in_shardings`` on ``device_mesh``, its results redistributed to
+        ``out_shardings``, taking and returning rank 0's local shards
+        (:func:`repro_torch.distributed.partition.partitioned`), and its
+        inputs as ``meta`` tensors of those shards' shapes.  Donation is
+        the bundle's: the step writes the cache (params, moments) in
+        place, so a donated shard comes back as the same storage."""
+        from repro_torch.distributed.partition import local_specs, \
+            partitioned
+        return (partitioned(self.step, device_mesh, self.in_shardings,
+                            self.out_shardings, self.in_specs),
+                local_specs(device_mesh, self.in_shardings, self.in_specs))
 
 
 def _axis_size(mesh, axis) -> int:
@@ -594,9 +616,8 @@ def _cache_shape_for(api: ModelAPI, cfg: ModelConfig, shape: ShapeConfig,
 
 
 def _serve_bundle(cfg, shape, mesh, step, inputs_spec, inputs_axes,
-                  kv_dtype) -> StepBundle:
+                  kv_dtype, rules) -> StepBundle:
     api = get_model(cfg)
-    rules = make_rules(mesh, fsdp=False)    # serving: weights TP-only
     params_shape = params_spec(api)
     cache_shape = _cache_shape_for(api, cfg, shape, kv_dtype)
     p_shard = _shard_tree(mesh, rules, api.param_logical_axes(),
@@ -628,14 +649,15 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     place (the reference donates it); the cache is the slab layout of
     ``api.init_cache(global_batch, seq_len, dtype=kv_dtype)``."""
     api = get_model(cfg)
+    rules = make_rules(mesh, fsdp=False)    # serving: weights TP-only
     guard = make_guard(cfg, shape, policy, guard_enabled)
 
     def prefill_step(params, cache, batch):
-        return api.prefill(params, cache, batch, guard=guard)
+        return api.prefill(params, cache, batch, guard=guard, rules=rules)
 
     batch_specs = api.batch_specs(shape)
     return _serve_bundle(cfg, shape, mesh, prefill_step, batch_specs,
-                         _batch_axes(batch_specs), kv_dtype)
+                         _batch_axes(batch_specs), kv_dtype, rules)
 
 
 def build_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
@@ -646,15 +668,16 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     ``api.decode`` step under :func:`make_guard`'s guard, appending to the
     cache in place."""
     api = get_model(cfg)
+    rules = make_rules(mesh, fsdp=False)
     guard = make_guard(cfg, shape, policy, guard_enabled)
 
     def decode_step(params, cache, tokens):
-        return api.decode(params, cache, tokens, guard=guard)
+        return api.decode(params, cache, tokens, guard=guard, rules=rules)
 
     tokens_spec = torch.empty((shape.global_batch,), dtype=torch.int32,
                               device="meta")
     return _serve_bundle(cfg, shape, mesh, decode_step, tokens_spec,
-                         ("batch",), kv_dtype)
+                         ("batch",), kv_dtype, rules)
 
 
 def build_train_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
@@ -663,9 +686,9 @@ def build_train_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     and batch as ``meta`` tensors, each moment tree placed as the params
     are (the step counter, and a factored moment, replicated),
     ``donate_argnums=(0, 1)``.  ``kw`` are :func:`build_train_step`'s."""
-    step = build_train_step(cfg, shape, **kw)
-    api = step.api
     rules = make_rules(mesh, fsdp=fsdp)
+    step = build_train_step(cfg, shape, rules=rules, **kw)
+    api = step.api
     params_shape = params_spec(api)
     opt_shape = step.opt.init(params_shape)
     batch_specs = api.batch_specs(shape)

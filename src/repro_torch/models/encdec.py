@@ -29,6 +29,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.partition import matmul, split_heads
+from repro_torch.distributed.sharding import ShardingRules, constrain
 from repro_torch.kernels import paged_attention
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
@@ -96,7 +98,8 @@ def param_logical_axes(cfg: ModelConfig) -> Params:
 # ---------------------------------------------------------------------------
 
 def encode(cfg: ModelConfig, params: Params, src: torch.Tensor,
-           remat: bool = False) -> torch.Tensor:
+           remat: bool = False,
+           rules: Optional[ShardingRules] = None) -> torch.Tensor:
     """src: precomputed frame embeddings (B, S_src, d) -> memory, through
     the encoder's non-causal self-attention (K4, ``causal=False``)."""
     B, S, _ = src.shape
@@ -108,8 +111,8 @@ def encode(cfg: ModelConfig, params: Params, src: torch.Tensor,
                              L.apply_norm(cfg, p["norm1"], x))
         q, k = L.positions_rope(cfg, q, k, positions)
         x = x + L.out_proj(cfg, p["attn"], L.full_attention(q, k, v))
-        return (x + L.mlp_apply(cfg, p["mlp"],
-                                L.apply_norm(cfg, p["norm2"], x)),)
+        x = x + L.mlp_apply(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+        return (constrain(x, rules, ("batch", "seq", None)),)
 
     (x,) = run_layers(layer, params["enc"], src, remat=remat)
     return L.apply_norm(cfg, params["norm_enc"], x)
@@ -123,16 +126,13 @@ def _cross_kv(cfg: ModelConfig, p: Params, memory: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A decoder layer's cross-attention keys and values of ``memory``
     (B, S_src, d) -> (B, S_src, KH, D) each."""
-    B, S_src, _ = memory.shape
-    shape = (B, S_src, cfg.n_kv_heads, cfg.head_dim)
-    return ((memory @ p["cross"]["wk"]).reshape(shape),
-            (memory @ p["cross"]["wv"]).reshape(shape))
+    return tuple(split_heads(matmul(memory, p["cross"][w]), cfg.n_kv_heads)
+                 for w in ("wk", "wv"))
 
 
 def _cross_q(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    B, S, _ = x.shape
     xn = L.apply_norm(cfg, p["norm_x"], x)
-    return (xn @ p["cross"]["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    return split_heads(matmul(xn, p["cross"]["wq"]), cfg.n_heads)
 
 
 def _cross_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -146,6 +146,7 @@ def _cross_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 def decode_train(cfg: ModelConfig, params: Params, tgt: torch.Tensor,
                  memory: torch.Tensor, *, guard: Optional[GuardSpec] = None,
+                 rules: Optional[ShardingRules] = None,
                  remat: bool = False) -> torch.Tensor:
     """Teacher-forced decoder: tgt (B, S) over memory (B, S_src, d) ->
     logits (B, S, V)."""
@@ -158,8 +159,8 @@ def decode_train(cfg: ModelConfig, params: Params, tgt: torch.Tensor,
         q, k = L.positions_rope(cfg, q, k, positions)
         x = x + L.out_proj(cfg, p["attn"], L.prefill_attention(cfg, q, k, v))
         x = x + _cross_attn(cfg, p, x, memory)
-        return (x + L.mlp_apply(cfg, p["mlp"],
-                                L.apply_norm(cfg, p["norm2"], x)),)
+        x = x + L.mlp_apply(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+        return (constrain(x, rules, ("batch", "seq", None)),)
 
     (x,) = run_layers(layer, params["dec"], x, remat=remat)
     x = L.apply_norm(cfg, params["norm_f"], x)
@@ -168,13 +169,14 @@ def decode_train(cfg: ModelConfig, params: Params, tgt: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             guard: Optional[GuardSpec] = None,
+            rules: Optional[ShardingRules] = None,
             remat: bool = True) -> torch.Tensor:
     """Mean next-token NLL of ``batch["tgt"]`` (B, S + 1) given the frames
     ``batch["src"]``, masked by ``batch["mask"]`` when given."""
-    memory = encode(cfg, params, batch["src"], remat)
+    memory = encode(cfg, params, batch["src"], remat, rules)
     tgt = batch["tgt"]
     logits = decode_train(cfg, params, tgt[:, :-1], memory, guard=guard,
-                          remat=remat)
+                          rules=rules, remat=remat)
     return L.softmax_cross_entropy(logits, tgt[:, 1:], batch.get("mask"))
 
 
@@ -259,12 +261,13 @@ def cross_decode_attention(cache: EncDecCache, layer: int, q: torch.Tensor,
 
 def prefill(cfg: ModelConfig, params: Params, cache: EncDecCache,
             src: torch.Tensor, tgt: torch.Tensor, *,
-            guard: Optional[GuardSpec] = None
+            guard: Optional[GuardSpec] = None,
+            rules: Optional[ShardingRules] = None
             ) -> Tuple[EncDecCache, torch.Tensor]:
     """Encode ``src``, stash every layer's cross K/V at the rows' fenced
     slots and prefill the decoder's slabs with ``tgt`` (B, S), in place;
     return the last position's logits (B, V)."""
-    memory = encode(cfg, params, src)
+    memory = encode(cfg, params, src, rules=rules)
     B, S_src = memory.shape[:2]
     S = tgt.shape[1]
     positions = train_positions(tgt)
@@ -297,6 +300,7 @@ def prefill(cfg: ModelConfig, params: Params, cache: EncDecCache,
 
 def decode(cfg: ModelConfig, params: Params, cache: EncDecCache,
            tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None,
+           rules: Optional[ShardingRules] = None,
            positions: Optional[torch.Tensor] = None
            ) -> Tuple[EncDecCache, torch.Tensor]:
     """One decode step: tokens (B,) -> logits (B, V); appends to the slabs

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import ShardingRules, constrain
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
@@ -116,6 +117,7 @@ def _shared_out(cfg, sa, x, o):
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, *,
             guard: Optional[GuardSpec] = None,
+            rules: Optional[ShardingRules] = None,
             remat: bool = False) -> torch.Tensor:
     """Full-sequence logits (B, S, V).  The shared attention runs K4,
     causal, under the config's window.  ``remat`` recomputes each group
@@ -131,13 +133,15 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
     def group(blocks, x):
         for p in blocks:
-            x = x + M2.block_apply(cfg, p, x)[0]
+            x = constrain(x + M2.block_apply(cfg, p, x)[0], rules,
+                          ("batch", "seq", None))
         q, k, v = _shared_qkv(cfg, sa, x, positions)
         return (_shared_out(cfg, sa, x, L.prefill_attention(cfg, q, k, v)),)
 
     (x,) = TF.run_layers(group, params["mamba"], x, remat=remat)
     for p in params.get("mamba_tail", ()):
-        x = x + M2.block_apply(cfg, p, x)[0]
+        x = constrain(x + M2.block_apply(cfg, p, x)[0], rules,
+                      ("batch", "seq", None))
     x = L.apply_norm(cfg, params["norm_f"], x)
     return L.lm_logits(cfg, params["embed"], x)
 
@@ -195,7 +199,8 @@ def _layers(cfg: ModelConfig, params: Params):
 
 
 def prefill(cfg: ModelConfig, params: Params, cache: HybridCache,
-            tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None
+            tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None,
+            rules: Optional[ShardingRules] = None
             ) -> Tuple[HybridCache, torch.Tensor]:
     """Process the prompt: SSD blocks full-sequence, their final states
     written to the state pool; each shared-attention invocation's trailing
@@ -222,8 +227,10 @@ def prefill(cfg: ModelConfig, params: Params, cache: HybridCache,
         # stash the trailing window of KV for decode
         kw, vw = (t[:, -window:] if S >= window else t for t in (k, v))
         pad = window - kw.shape[1]
-        kw, vw = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (kw, vw))
+        if pad:
+            kw, vw = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (kw, vw))
         KV.write_prefill_kv(kvc, gi, kw, vw, guard, plan=plan)
+        x = constrain(x, rules, ("batch", "seq", None))
     kvc = dataclasses.replace(kvc, seq_lens=torch.clamp(kvc.seq_lens + S,
                                                         max=window))
     state = dataclasses.replace(state, seq_lens=state.seq_lens + S)
@@ -250,7 +257,8 @@ def _decode_shared_attn(cfg, params, cache: KV.PagedKVCache, x, lidx,
 
 
 def decode(cfg: ModelConfig, params: Params, cache: HybridCache,
-           tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None
+           tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None,
+           rules: Optional[ShardingRules] = None
            ) -> Tuple[HybridCache, torch.Tensor]:
     """One decode step through the hybrid stack: tokens (B,) -> logits
     (B, V); pools written in place."""

@@ -56,6 +56,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.partition import einsum, is_dtensor, \
+    rank_block, split_over
 from repro_torch.kernels import paged_attention, scatter_pages
 from repro_torch.kernels.ref import FP8, FP8_NAN, pool_bytes, to_pool
 from repro_torch.models.guard import GuardSpec, fence, fence_pages, \
@@ -74,8 +76,53 @@ def zeros(shape, dtype, device) -> torch.Tensor:
 
 def store(view: torch.Tensor, idx, value: torch.Tensor) -> None:
     """``view[idx] = value`` cast to the view's dtype (``to_pool``), in
-    place."""
+    place.  ``idx`` is a tuple of (N,) index tensors (or one) into the
+    leading dims of ``view``, ``value`` (N, *rest); on a partitioned trace
+    a view split by slot stores by :func:`_store_split`."""
+    if is_dtensor(view):
+        return _store_split(view, idx if isinstance(idx, tuple) else (idx,),
+                            value)
     pool_bytes(view)[idx] = pool_bytes(to_pool(value, view.dtype))
+
+
+def _store_split(view, idx: tuple, value) -> None:
+    """:func:`store` into a DTensor view, the masked local store the
+    reference's partitioner makes of a scatter into an operand split along
+    the scattered dim: the ids and values gathered over the mesh dims that
+    split the view's leading (slot) dim, so every rank sees every row's
+    store; each rank shifts the slot ids to its own block and keeps the
+    rows that land there.  A row landing elsewhere stores what its address
+    holds, or the value of the last kept row storing there (so the kept
+    stores win whatever order the device applies them in).  The value's
+    trailing dims take the view's placements (a KV head split over the
+    model axis stays split)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, n = view.device_mesh, len(idx)
+    split = split_over(view, 0)
+    rep = [Replicate()] * mesh.ndim
+    val_pl = [Shard(pl.dim - n + 1) if isinstance(pl, Shard) and pl.dim >= n
+              else Replicate() for pl in view.placements]
+    ids = [i.redistribute(mesh, rep).to_local() if is_dtensor(i) else i
+           for i in idx]
+    value = value.redistribute(mesh, val_pl).to_local() \
+        if is_dtensor(value) else value
+    local = view.to_local()
+    rows = local.shape[0]
+    slot = ids[0].long() - rank_block(mesh, split) * rows
+    kept = (slot >= 0) & (slot < rows)
+    lidx = (slot.clamp(0, rows - 1), *(i.long() for i in ids[1:]))
+    key = lidx[0]
+    for i, size in zip(lidx[1:], local.shape[1:n]):
+        key = key * size + i
+    order = torch.arange(key.numel(), device=key.device)
+    writer = torch.where((key[None, :] == key[:, None]) & kept[None, :],
+                         order[None, :], torch.full_like(order, -1)[None, :]
+                         ).amax(dim=1)
+    new = pool_bytes(to_pool(value, view.dtype))[writer.clamp(min=0)]
+    held = pool_bytes(local)[lidx]
+    take = (writer >= 0).reshape(-1, *(1,) * (new.dim() - 1))
+    pool_bytes(local)[lidx] = torch.where(take, new, held)
 
 
 def _pow2_at_least(n: int) -> int:
@@ -419,7 +466,17 @@ def _permute_write(pool: torch.Tensor, layer: int, new_pg: torch.Tensor,
     pool_l = pool[layer]
     old = pool_bytes(_take_fill(pool_l, plan.slots, 0))
     slab = torch.where(plan.wrote[:, :, None, None, None], slab_new, old)
-    if pool.dtype == FP8:
+    if is_dtensor(slab):
+        # a partitioned trace: the one-hot contraction over the rows with
+        # the pool's dims kept apart (a KV head split over the model axis
+        # stays split; a flattened row would mix split and whole dims)
+        dt = torch.float32 if pool.dtype == FP8 else pool.dtype
+        placed = einsum("bs,bpokd->spokd", plan.oh.to(dt),
+                        (slab.view(FP8) if pool.dtype == FP8
+                         else slab).to(dt))
+        placed = pool_bytes(to_pool(placed.half(), FP8)) \
+            if pool.dtype == FP8 else placed
+    elif pool.dtype == FP8:
         placed = plan.oh.float().t() @ slab.view(FP8).float().reshape(B, -1)
         placed = pool_bytes(to_pool(placed.half(), FP8))
     else:
@@ -463,8 +520,9 @@ def write_prefill_kv(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
     page = cache.page_size
     pad = plan.n_pages * page - S
     for pool, new in ((cache.k, k_new), (cache.v, v_new)):
-        new_pg = torch.nn.functional.pad(
-            pool_bytes(to_pool(new, pool.dtype)), (0, 0, 0, 0, 0, pad))
+        new_pg = pool_bytes(to_pool(new, pool.dtype))
+        if pad:
+            new_pg = torch.nn.functional.pad(new_pg, (0, 0, 0, 0, 0, pad))
         new_pg = new_pg.reshape(B, plan.n_pages, page, KH, D)
         if plan.mode == "scatter":
             pool_bytes(pool[layer])[plan.slots, plan.pages] = \

@@ -28,6 +28,9 @@ from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fence import FencePolicy
+from repro_torch.distributed.partition import along, einsum, \
+    is_dtensor, matmul, merge_heads, rank_block, settle, split_heads, \
+    split_over
 from repro_torch.kernels import flash_attention, gather_rows
 from repro_torch.models.guard import GuardSpec, fence
 
@@ -144,15 +147,15 @@ def embedding_init(gen, cfg: ModelConfig, device) -> Params:
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
+    var = settle(xf.square().mean(dim=-1, keepdim=True))
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    mu = settle(xf.mean(dim=-1, keepdim=True))
+    var = settle((xf - mu).square().mean(dim=-1, keepdim=True))
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
 
@@ -181,13 +184,19 @@ def _rope_freqs_on(head_dim: int, theta: float,
                            device=device)
 
 
+def _fake(x) -> bool:
+    """A fake tensor, or a DTensor over one (a partitioned trace): no
+    table may be cached for it."""
+    return is_fake(x.to_local() if is_dtensor(x) else x)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, S, H, D); positions: (B, S) int32.  A trace on fake tensors
     (the verifier's) records the table's shape only: it uploads nothing
     from the host and caches nothing (a cached fake would reach later real
     calls)."""
-    if is_fake(x):
+    if _fake(x):
         freqs = x.new_empty((x.shape[-1] // 2,), dtype=torch.float32)
     else:
         freqs = _rope_freqs_on(x.shape[-1], theta, x.device)
@@ -211,13 +220,14 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     ``sections``; each section rotates by its own position component."""
     half = x.shape[-1] // 2
     assert sum(sections) == half, (sections, half)
-    if is_fake(x):
+    if _fake(x):
         freqs = x.new_empty((half,), dtype=torch.float32)
         sec = x.new_empty((half,), dtype=torch.long)
     else:
         freqs = _rope_freqs_on(x.shape[-1], theta, x.device)
         sec = _mrope_section_ids_on(tuple(sections), x.device)
-    pos = positions3.float().index_select(-1, sec)          # (B, S, half)
+    pos = along(lambda p: p.float().index_select(
+        -1, sec.to_local() if is_dtensor(sec) else sec), positions3, -1)
     return _rotate(x, pos * freqs)
 
 
@@ -261,7 +271,7 @@ def positions_rope(cfg: ModelConfig, q, k, positions):
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """q: (B, Sq, KH, G, D)  k: (B, Skv, KH, D) -> (B, KH, G, Sq, Skv),
     float32 accumulation."""
-    return torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float())
+    return einsum("bqkgd,bskd->bkgqs", q.float(), k.float())
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -291,8 +301,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
         s = torch.where(mask, s, torch.full((), NEG_INF, device=dev))
         p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(),
-                         v.float())
+        o = einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
         outs.append(o.reshape(B, n, H, D))
     return torch.cat(outs, dim=1).to(q.dtype)
 
@@ -335,7 +344,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(mask[:, None, None, None, :], s,
                     torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
+    o = einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 
@@ -347,23 +356,28 @@ def qkv_proj(cfg: ModelConfig, p: Params, x: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B,S,d) -> q (B,S,H,D), k/v (B,S,KH,D)."""
     B, S, _ = x.shape
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q, k, v = matmul(x, p["wq"]), matmul(x, p["wk"]), matmul(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, cfg.n_heads, cfg.head_dim),
-            k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim))
+    return (split_heads(q, cfg.n_heads), split_heads(k, cfg.n_kv_heads),
+            split_heads(v, cfg.n_kv_heads))
 
 
 def out_proj(cfg: ModelConfig, p: Params, o: torch.Tensor) -> torch.Tensor:
-    B, S = o.shape[:2]
-    return o.reshape(B, S, cfg.q_dim) @ p["wo"]
+    """The output projection; on a partitioned trace its row-parallel
+    partial sums are reduced at once (:func:`~repro_torch.distributed.
+    partition.settle`)."""
+    return settle(matmul(merge_heads(o, cfg.n_heads), p["wo"]))
 
 
 def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The MLP; its down projection's partial sums reduced at once on a
+    partitioned trace, as :func:`out_proj`'s."""
     if cfg.act == "silu":
-        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
-    return F.gelu(x @ p["wu"], approximate="tanh") @ p["wd"]
+        h = F.silu(matmul(x, p["wg"])) * matmul(x, p["wu"])
+    else:
+        h = F.gelu(matmul(x, p["wu"]), approximate="tanh")
+    return settle(matmul(h, p["wd"]))
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor,
@@ -379,14 +393,71 @@ def embed_tokens(p: Params, tokens: torch.Tensor,
         base, mask = vocab.base, vocab.size - 1
     else:
         ids, base, mask = fence(guard, "vocab", ids), 0, -1
-    rows = gather_rows(p["table"], ids.contiguous(), base, mask)
+    if is_dtensor(p["table"]) and split_over(p["table"], 0):
+        rows = _gather_vocab_split(p["table"], ids, base, mask)
+    else:
+        rows = gather_rows(p["table"], ids.contiguous(), base, mask)
     return rows.reshape(*tokens.shape, rows.shape[-1])
+
+
+def _gather_vocab_split(table, ids, base: int, mask: int):
+    """K3 over a table split by vocab row, as the reference's partitioned
+    ``take`` runs it: the ids fenced on every rank, each rank gathering
+    the rows it holds by local id (the identity fence) and zeroing the
+    rest, then the rows summed over the table's vocab mesh dims (one
+    all-reduce)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh, split = table.device_mesh, split_over(table, 0)
+    ids = (ids & mask) | base
+    keep = [Replicate() if m in split else pl
+            for m, pl in enumerate(ids.placements)]
+    ids = ids.redistribute(mesh, keep) if keep != list(ids.placements) \
+        else ids
+    local = table.to_local()
+    rows = local.shape[0]
+    lid = ids.to_local() - rank_block(mesh, split) * rows
+    inside = (lid >= 0) & (lid < rows)
+    got = gather_rows(local, torch.where(inside, lid, 0).contiguous(), 0,
+                      -1)
+    got = torch.where(inside[:, None], got, torch.zeros((), dtype=got.dtype))
+    out = [Partial() if m in split else pl for m, pl in enumerate(keep)]
+    return DTensor.from_local(got, mesh, out, run_check=False).redistribute(
+        mesh, keep)
+
+
+def _vocab_split_terms(logits, lab):
+    """The log-sum-exp and the gold logit of logits split by vocab column
+    (a partitioned trace), as the reference's partitioner reckons them:
+    the row max and the exponentials' sum reduced over the vocab mesh dims
+    (an all-reduce each), the gold logit gathered from the rank holding
+    it by local column, zeros elsewhere, summed (one all-reduce)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh, split = logits.device_mesh, split_over(logits, -1)
+    top = settle(logits.amax(dim=-1, keepdim=True)).detach()
+    lse = settle((logits - top).exp().sum(dim=-1)).log() + top[..., 0]
+    keep = [Replicate() if m in split else pl
+            for m, pl in enumerate(logits.placements)]
+    lab = lab.redistribute(mesh, keep) if is_dtensor(lab) else \
+        DTensor.from_local(lab, mesh, [Replicate()] * mesh.ndim,
+                           run_check=False).redistribute(mesh, keep)
+    local = logits.to_local()
+    cols = local.shape[-1]
+    lid = lab.to_local() - rank_block(mesh, split) * cols
+    inside = (lid >= 0) & (lid < cols)
+    got = torch.gather(local, -1, torch.where(inside, lid, 0)[..., None]
+                       )[..., 0]
+    got = torch.where(inside, got, torch.zeros((), dtype=got.dtype))
+    part = [Partial() if m in split else pl for m, pl in enumerate(keep)]
+    return lse, DTensor.from_local(got, mesh, part, run_check=False
+                                   ).redistribute(mesh, keep)
 
 
 def lm_logits(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return x @ p["table"].T
-    return x @ p["head"]
+        return matmul(x, p["table"].T)
+    return matmul(x, p["head"])
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -398,11 +469,15 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     ``take_along_axis`` gives (a negative one wraps once)."""
     logits = logits.float()
     V = logits.shape[-1]
-    lse = torch.logsumexp(logits, dim=-1)
     lab = labels.long()
     lab = torch.where(lab < 0, lab + V, lab)
     ok = (lab >= 0) & (lab < V)
-    gold = torch.gather(logits, -1, lab.clamp(0, V - 1)[..., None])[..., 0]
+    if is_dtensor(logits) and split_over(logits, -1):
+        lse, gold = _vocab_split_terms(logits, lab.clamp(0, V - 1))
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            lab.clamp(0, V - 1)[..., None])[..., 0]
     nll = lse - torch.where(ok, gold, torch.full_like(gold, float("nan")))
     if mask is None:
         return nll.mean()

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.partition import matmul, merge_heads, \
+    settle, split_heads
 from repro_torch.models import layers as L
 from repro_torch.models.ssd import ssd_chunked, ssd_step
 
@@ -124,10 +126,10 @@ def block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     dm = dims(cfg)
     heads, n, pdim = dm["heads"], dm["n"], dm["p"]
     B, S, _ = x.shape
-    z, xbc, dt_raw = _split_proj(cfg, x @ p["in_proj"])
+    z, xbc, dt_raw = _split_proj(cfg, matmul(x, p["in_proj"], idle=True))
     xbc, new_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_tail)
     xbc = F.silu(xbc.float())
-    xs = xbc[..., :dm["d_in"]].reshape(B, S, heads, pdim)
+    xs = split_heads(xbc[..., :dm["d_in"]], heads)
     b_in = xbc[..., dm["d_in"]:dm["d_in"] + n]        # (B,S,N)
     c_in = xbc[..., dm["d_in"] + n:]                  # (B,S,N)
     dt, log_decay = _gates(p, dt_raw)                  # (B,S,H)
@@ -137,9 +139,9 @@ def block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     y, h_final = ssd_chunked(u, log_decay, bb, cc, h0=h0,
                              chunk=cfg.ssm.chunk)
     y = y + p["d_skip"][None, None, :, None] * xs
-    y = y.reshape(B, S, dm["d_in"]).to(x.dtype)
+    y = merge_heads(y, heads).to(x.dtype)
     y = _gated_rmsnorm(y, z, p["norm_g"])
-    return y @ p["out_proj"], h_final, new_tail
+    return settle(matmul(y, p["out_proj"])), h_final, new_tail
 
 
 def block_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -150,10 +152,10 @@ def block_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
     dm = dims(cfg)
     heads, n, pdim = dm["heads"], dm["n"], dm["p"]
     B = x.shape[0]
-    z, xbc, dt_raw = _split_proj(cfg, x @ p["in_proj"])
+    z, xbc, dt_raw = _split_proj(cfg, matmul(x, p["in_proj"], idle=True))
     xbc, new_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_tail)
     xbc = F.silu(xbc.float())
-    xs = xbc[:, 0, :dm["d_in"]].reshape(B, heads, pdim)
+    xs = split_heads(xbc[:, 0, :dm["d_in"]], heads)
     b_in = xbc[:, 0, dm["d_in"]:dm["d_in"] + n]
     c_in = xbc[:, 0, dm["d_in"] + n:]
     dt, log_decay = _gates(p, dt_raw[:, 0])            # (B,H)
@@ -162,9 +164,9 @@ def block_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
     cc = c_in[:, None, :].expand(B, heads, n)
     y, h_new = ssd_step(u, log_decay, bb, cc, h)
     y = y + p["d_skip"][None, :, None] * xs
-    y = y.reshape(B, 1, dm["d_in"]).to(x.dtype)
+    y = merge_heads(y, heads)[:, None].to(x.dtype)
     y = _gated_rmsnorm(y, z, p["norm_g"])
-    return y @ p["out_proj"], h_new, new_tail
+    return settle(matmul(y, p["out_proj"])), h_new, new_tail
 
 
 def state_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:

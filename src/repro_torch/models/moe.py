@@ -37,6 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.partition import einsum, matmul, whole
+from repro_torch.distributed.sharding import ShardingRules, constrain
 from repro_torch.core.fence import FencePolicy
 from repro_torch.kernels import moe_histogram
 from repro_torch.models import layers as L
@@ -152,7 +154,7 @@ def route(cfg: ModelConfig, p: Params, xf: torch.Tensor,
     m = cfg.moe
     T = xf.shape[0]
     E, K = m.num_experts, m.top_k
-    logits = xf.float() @ p["router"]                           # (T, E) f32
+    logits = matmul(xf.float(), p["router"])                    # (T, E) f32
     probs = torch.softmax(logits, dim=-1)
     gates, experts = _top_k(probs, K)
     experts, hist_ids, base, mask = _expert_fence(guard,
@@ -160,7 +162,8 @@ def route(cfg: ModelConfig, p: Params, xf: torch.Tensor,
     gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
     counts = moe_histogram(hist_ids.contiguous(), E, base, mask)  # K5
     capacity = max(int(capacity_factor * K * T / E), 8)
-    pos = dispatch_ranks(experts, counts, E)
+    pos = whole(functools.partial(dispatch_ranks, num_experts=E), experts,
+                counts)
     keep = pos < capacity
     return Routing(probs, gates * keep.to(gates.dtype), experts, counts,
                    pos, keep, capacity)
@@ -185,7 +188,8 @@ def _expert_mlps(cfg: ModelConfig, p: Params,
 
 
 def experts_einsum(cfg: ModelConfig, p: Params, xf: torch.Tensor,
-                   r: Routing) -> torch.Tensor:
+                   r: Routing,
+                   rules: Optional[ShardingRules] = None) -> torch.Tensor:
     """The reference's ``einsum`` dispatch of tokens xf (T, d): the
     (T, E, C) dispatch tensor one-hot on (expert, slot) — a dropped
     assignment's slot is class C, a zero row, and so is a fenced id past
@@ -201,16 +205,17 @@ def experts_einsum(cfg: ModelConfig, p: Params, xf: torch.Tensor,
     slot = torch.where(r.keep, r.pos.long(), torch.full_like(
         r.pos, C, dtype=torch.long))
     slot_oh = (slot[..., None] == torch.arange(C, device=xf.device)).to(dt)
-    disp = torch.einsum("tke,tkc->tec", onehot, slot_oh)
-    xin = torch.einsum("td,tec->ecd", xf, disp)
-    out_e = _expert_mlps(cfg, p, xin)
-    combine = disp * torch.einsum("tke,tk->te", onehot,
-                                  r.gates.to(dt))[..., None]
-    return torch.einsum("tec,ecd->td", combine, out_e)
+    disp = einsum("tke,tkc->tec", onehot, slot_oh)
+    xin = constrain(einsum("td,tec->ecd", xf, disp), rules,
+                    ("expert", None, None))
+    out_e = constrain(_expert_mlps(cfg, p, xin), rules,
+                      ("expert", None, None))
+    combine = disp * einsum("tke,tk->te", onehot, r.gates.to(dt))[..., None]
+    return einsum("tec,ecd->td", combine, out_e)
 
 
 def experts(cfg: ModelConfig, p: Params, xf: torch.Tensor,
-            r: Routing) -> torch.Tensor:
+            r: Routing, rules: Optional[ShardingRules] = None) -> torch.Tensor:
     """Dispatch tokens xf (T, d) into the (E, C, d) expert buffers, run
     the expert MLPs, and combine each token's kept outputs by its gates
     -> (T, d): the reference's ``scatter`` dispatch."""
@@ -223,13 +228,38 @@ def experts(cfg: ModelConfig, p: Params, xf: torch.Tensor,
     dest = dispatch_dest(r)
     dest_w = torch.where((dest >= 0) & (dest <= EC), dest,
                          torch.full_like(dest, EC))
-    src = xf[:, None, :].expand(T, K, d).reshape(T * K, d)
-    buf = torch.zeros((EC + 1, d), dtype=xf.dtype, device=xf.device)
-    buf.index_copy_(0, dest_w, src)
-    out_e = _expert_mlps(cfg, p, buf[:EC].reshape(E, r.capacity, d))
+    # the reference's pins: source rows token-major, the buffer's rows
+    # expert-major (the store across them is the dispatch all-to-all)
+    src = constrain(xf[:, None, :].expand(T, K, d).reshape(T * K, d), rules,
+                    ("batch", None))
+    buf = constrain(torch.zeros((EC + 1, d), dtype=xf.dtype,
+                                device=xf.device), rules, ("expert", None))
+    buf = constrain(_dispatch_store(buf, dest_w, src), rules,
+                    ("expert", None))
+    xin = constrain(buf[:EC].reshape(E, r.capacity, d), rules,
+                    ("expert", None, None))
+    out_e = constrain(_expert_mlps(cfg, p, xin), rules,
+                      ("expert", None, None))
+    flat = constrain(out_e.reshape(EC, d), rules, ("expert", None))
+    y_tk = constrain(_rows(flat, dest.clamp(0, EC - 1)).reshape(T, K, d),
+                     rules, ("batch", None, None))
+    return einsum("tkd,tk->td", y_tk, r.gates.to(xf.dtype))
 
-    y_tk = out_e.reshape(EC, d)[dest.clamp(0, EC - 1)].reshape(T, K, d)
-    return torch.einsum("tkd,tk->td", y_tk, r.gates.to(xf.dtype))
+
+def _dispatch_store(buf: torch.Tensor, dest: torch.Tensor,
+                    src: torch.Tensor) -> torch.Tensor:
+    """``buf`` with row ``dest[i]`` set to ``src[i]`` (in place).  On a
+    partitioned trace DTensor has no rule for a row store (into a split
+    buffer, or at all): the buffer and the rows are gathered whole (an
+    explicit redistribute), the store runs on every rank's copy, and the
+    pins around it split the buffer again."""
+    return whole(lambda b, d, s: b.index_copy_(0, d, s), buf, dest, src)
+
+
+def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``; on a partitioned trace over the table gathered whole
+    (an explicit redistribute: DTensor cannot index a split table)."""
+    return whole(lambda t, i: t[i], table, ids)
 
 
 def dispatch_experts(dispatch: str):
@@ -240,7 +270,8 @@ def dispatch_experts(dispatch: str):
 
 def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
               guard: Optional[GuardSpec] = None,
-              capacity_factor: float = 2.0, dispatch: str = "scatter"
+              capacity_factor: float = 2.0, dispatch: str = "scatter",
+              rules: Optional[ShardingRules] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d), aux_loss scalar): top-k routing with
     the capacity dispatch ``dispatch`` of ``repro/models/moe.py``."""
@@ -250,7 +281,8 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     # load-balancing aux loss (Switch-style); ce = counts / T
     aux = cfg.moe.num_experts * (
         r.probs.mean(dim=0) * (r.counts.float() / (B * S))).sum()
-    return dispatch_experts(dispatch)(cfg, p, xf, r).reshape(B, S, d), aux
+    return dispatch_experts(dispatch)(cfg, p, xf, r, rules).reshape(
+        B, S, d), aux
 
 
 # ---------------------------------------------------------------------------
@@ -291,29 +323,35 @@ def param_logical_axes(cfg: ModelConfig) -> Params:
 
 def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
             guard: Optional[GuardSpec] = None,
-            dispatch: str = "scatter") -> torch.Tensor:
+            dispatch: str = "scatter",
+            rules: Optional[ShardingRules] = None) -> torch.Tensor:
     """The MoE layer's feed-forward block: :func:`moe_apply` without the
     aux loss, a training quantity the reference's prefill/decode drop."""
     B, S, d = x.shape
     xf = L.apply_norm(cfg, p["norm2"], x).reshape(B * S, d)
     r = route(cfg, p["moe"], xf, guard)
-    return dispatch_experts(dispatch)(cfg, p["moe"], xf, r).reshape(B, S, d)
+    return dispatch_experts(dispatch)(cfg, p["moe"], xf, r, rules).reshape(
+        B, S, d)
 
 
 def prefill(cfg: ModelConfig, params: Params, cache, tokens: torch.Tensor,
-            *, dispatch: str = "scatter", **kw):
+            *, dispatch: str = "scatter",
+            rules: Optional[ShardingRules] = None, **kw):
     """The dense serving loop's prefill with the expert block
     (``dispatch`` as :func:`moe_apply`'s)."""
-    return TF.prefill(cfg, params, cache, tokens, ffn=functools.partial(
-        moe_ffn, dispatch=dispatch), **kw)
+    return TF.prefill(cfg, params, cache, tokens, rules=rules,
+                      ffn=functools.partial(moe_ffn, dispatch=dispatch,
+                                            rules=rules), **kw)
 
 
 def decode(cfg: ModelConfig, params: Params, cache, tokens: torch.Tensor,
-           *, dispatch: str = "scatter", **kw):
+           *, dispatch: str = "scatter",
+           rules: Optional[ShardingRules] = None, **kw):
     """The dense serving loop's decode step with the expert block
     (``dispatch`` as :func:`moe_apply`'s)."""
-    return TF.decode(cfg, params, cache, tokens, ffn=functools.partial(
-        moe_ffn, dispatch=dispatch), **kw)
+    return TF.decode(cfg, params, cache, tokens, rules=rules,
+                     ffn=functools.partial(moe_ffn, dispatch=dispatch,
+                                           rules=rules), **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +360,8 @@ def decode(cfg: ModelConfig, params: Params, cache, tokens: torch.Tensor,
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, *,
-            guard: Optional[GuardSpec] = None, remat: bool = False,
+            guard: Optional[GuardSpec] = None,
+            rules: Optional[ShardingRules] = None, remat: bool = False,
             dispatch: str = "scatter", remat_policy: str = "nothing"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V), the layers' mean aux loss).
@@ -335,8 +374,8 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     def layer(p, x, aux):
         x = x + TF.attn_block(cfg, p, x, positions)
         h, a = moe_apply(cfg, p["moe"], L.apply_norm(cfg, p["norm2"], x),
-                         guard, dispatch=dispatch)
-        return x + h, aux + a
+                         guard, dispatch=dispatch, rules=rules)
+        return constrain(x + h, rules, ("batch", "seq", None)), aux + a
 
     aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
     x, aux = TF.run_layers(layer, params["layers"], x, aux0, remat=remat,
@@ -346,14 +385,15 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            guard: Optional[GuardSpec] = None, remat: bool = True,
+            guard: Optional[GuardSpec] = None,
+            rules: Optional[ShardingRules] = None, remat: bool = True,
             aux_weight: float = 0.01, dispatch: str = "scatter",
             remat_policy: str = "nothing") -> torch.Tensor:
     """Mean next-token NLL plus ``aux_weight`` times the load-balancing
     aux loss."""
     tokens = batch["tokens"]
     logits, aux = forward(cfg, params, tokens[:, :-1], guard=guard,
-                          remat=remat, dispatch=dispatch,
+                          rules=rules, remat=remat, dispatch=dispatch,
                           remat_policy=remat_policy)
     return (L.softmax_cross_entropy(logits, tokens[:, 1:],
                                     batch.get("mask"))

@@ -36,6 +36,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.partition import along, contiguous, einsum
+
 NEG_INF = -1e30
 
 #: the loops a trace cuts: kind -> steps run, and kind -> the steps the
@@ -87,7 +89,7 @@ def segsum(a: torch.Tensor) -> torch.Tensor:
     """a: (..., Q) per-step log decays -> (..., Q, Q) lower-triangular
     L[t, s] = sum_{s < r <= t} a[r] (t >= s), -1e30 above the diagonal."""
     Q = a.shape[-1]
-    cs = torch.cumsum(a, dim=-1)
+    cs = along(lambda t: torch.cumsum(t, dim=-1), a, -1)
     diff = cs[..., :, None] - cs[..., None, :]
     mask = torch.ones((Q, Q), dtype=torch.bool, device=a.device).tril()
     return torch.where(mask, diff, torch.full((), NEG_INF, device=a.device))
@@ -118,13 +120,13 @@ def ssd_chunked(u: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     L = torch.exp(segsum(a_hq))                       # (B,nc,H,Q,Q)
 
     # intra-chunk: y[t] = sum_{s<=t} (c_t·b_s) L[t,s] u_s
-    cb = torch.einsum("bcqhn,bcshn->bchqs", c, b)
-    y_intra = torch.einsum("bchqs,bcshp->bcqhp", cb * L, u)
+    cb = einsum("bcqhn,bcshn->bchqs", c, b)
+    y_intra = einsum("bchqs,bcshp->bcqhp", cb * L, u)
 
     # chunk states: h_c = sum_s exp(A_end - A_s) b_s ⊗ u_s
-    cs = torch.cumsum(a_hq, dim=-1)                   # (B,nc,H,Q)
+    cs = along(lambda t: torch.cumsum(t, dim=-1), a_hq, -1)  # (B,nc,H,Q)
     d2e = torch.exp(cs[..., -1:] - cs).movedim(-1, -2)  # (B,nc,Q,H)
-    states = torch.einsum("bcshn,bcshp->bchnp", b * d2e[..., None], u)
+    states = einsum("bcshn,bcshp->bchnp", b * d2e[..., None], u)
 
     # inter-chunk recurrence over the nc chunks: each chunk reads the
     # state before it
@@ -139,10 +141,10 @@ def ssd_chunked(u: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
     # inter-chunk: y[t] += (c_t · H_{c-1}) * exp(A_t)
     state_decay_in = torch.exp(cs.movedim(-1, -2))    # (B,nc,Q,H)
-    y_inter = torch.einsum("bcqhn,bchnp->bcqhp", c, prev_states) \
+    y_inter = einsum("bcqhn,bchnp->bcqhp", c, prev_states) \
         * state_decay_in[..., None]
 
-    y = (y_intra + y_inter).reshape(B, Sp, H, P)[:, :S]
+    y = contiguous(y_intra + y_inter).reshape(B, Sp, H, P)[:, :S]
     return y, h
 
 
@@ -153,8 +155,8 @@ def ssd_step(u: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     (y (B,H,P), h')."""
     h = h.float()
     h_new = (torch.exp(a.float())[..., None, None] * h
-             + torch.einsum("bhn,bhp->bhnp", b.float(), u.float()))
-    y = torch.einsum("bhn,bhnp->bhp", c.float(), h_new)
+             + einsum("bhn,bhp->bhnp", b.float(), u.float()))
+    y = einsum("bhn,bhnp->bhp", c.float(), h_new)
     return y, h_new
 
 

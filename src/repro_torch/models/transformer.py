@@ -31,6 +31,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
     create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import ShardingRules, constrain
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
 from repro_torch.models.guard import GuardSpec
@@ -133,34 +134,41 @@ def run_layers(layer: Callable, layers, *carry, remat: bool = False,
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, *,
             guard: Optional[GuardSpec] = None,
+            rules: Optional[ShardingRules] = None,
             remat: bool = False,
             inputs_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V).  ``inputs_embeds`` (B, S, d)
     stands in for the token embedding (the vision family's fused patches;
     the tokens are then not gathered again); ``positions`` (B, S) or (B,
-    S, 3) default to ``arange(S)``."""
+    S, 3) default to ``arange(S)``.  ``rules`` pin the residual stream
+    after each layer and the logits, as the reference's ``constrain``
+    calls do (the identity off a partitioned trace)."""
     x = inputs_embeds if inputs_embeds is not None \
         else L.embed_tokens(params["embed"], tokens, guard)
     positions = train_positions(tokens, positions)
 
     def layer(p, x):
         x = x + attn_block(cfg, p, x, positions)
-        return (x + mlp_ffn(cfg, p, x, guard),)
+        x = x + mlp_ffn(cfg, p, x, guard)
+        return (constrain(x, rules, ("batch", "seq", None)),)
 
     (x,) = run_layers(layer, params["layers"], x, remat=remat)
     x = L.apply_norm(cfg, params["norm_f"], x)
-    return L.lm_logits(cfg, params["embed"], x)
+    return constrain(L.lm_logits(cfg, params["embed"], x), rules,
+                     ("batch", "seq", "vocab"))
 
 
 def next_token_loss(forward: Callable, cfg: ModelConfig, params: Params,
                     batch: Dict[str, Any], *,
                     guard: Optional[GuardSpec] = None,
+                    rules: Optional[ShardingRules] = None,
                     remat: bool = True) -> torch.Tensor:
     """Mean next-token NLL of ``batch["tokens"]`` (B, S + 1) under a
     family's ``forward``, masked by ``batch["mask"]`` when given: the
     ``loss_fn`` of the dense, hybrid and ssm families."""
     tokens = batch["tokens"]
-    logits = forward(cfg, params, tokens[:, :-1], guard=guard, remat=remat)
+    logits = forward(cfg, params, tokens[:, :-1], guard=guard, rules=rules,
+                     remat=remat)
     return L.softmax_cross_entropy(logits, tokens[:, 1:], batch.get("mask"))
 
 
@@ -173,6 +181,7 @@ loss_fn = functools.partial(next_token_loss, forward)
 
 def prefill(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
             tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None,
+            rules: Optional[ShardingRules] = None,
             ffn: FFN = mlp_ffn, positions: Optional[torch.Tensor] = None,
             inputs_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[KV.PagedKVCache, torch.Tensor]:
@@ -193,6 +202,7 @@ def prefill(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
         o = L.prefill_attention(cfg, q, k, v)
         x = x + L.out_proj(cfg, p["attn"], o)
         x = x + ffn(cfg, p, x, guard)
+        x = constrain(x, rules, ("batch", "seq", None))
     cache = KV.advance(cache, S)
     x = L.apply_norm(cfg, params["norm_f"], x[:, -1:])
     return cache, L.lm_logits(cfg, params["embed"], x)[:, 0]
@@ -200,6 +210,7 @@ def prefill(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
 
 def decode(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
            tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None,
+           rules: Optional[ShardingRules] = None,
            ffn: FFN = mlp_ffn, positions: Optional[torch.Tensor] = None
            ) -> Tuple[KV.PagedKVCache, torch.Tensor]:
     """One decode step: tokens (B,) -> logits (B, V); appends to the pool

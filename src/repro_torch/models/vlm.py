@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
@@ -42,23 +43,26 @@ def fuse_inputs(params: Params, tokens: torch.Tensor, patches: torch.Tensor,
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             patches: torch.Tensor, positions3: torch.Tensor, *,
             guard: Optional[GuardSpec] = None,
+            rules: Optional[ShardingRules] = None,
             remat: bool = False) -> torch.Tensor:
     """tokens (B, S), patches (B, n_patches, d), positions3 (B, S, 3) ->
     logits (B, S, V)."""
     x = fuse_inputs(params, tokens, patches, guard)
     return TF.forward(cfg, params, tokens, positions3, guard=guard,
-                      remat=remat, inputs_embeds=x)
+                      rules=rules, remat=remat, inputs_embeds=x)
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             guard: Optional[GuardSpec] = None,
+            rules: Optional[ShardingRules] = None,
             remat: bool = True) -> torch.Tensor:
     """Mean next-token NLL over the text positions only (a patch slot is
     an input, never a target): labels at index >= n_patches - 1."""
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     logits = forward(cfg, params, inputs, batch["patches"],
-                     batch["positions"], guard=guard, remat=remat)
+                     batch["positions"], guard=guard, rules=rules,
+                     remat=remat)
     n_patch = batch["patches"].shape[1]
     text_mask = (torch.arange(labels.shape[1], dtype=torch.int32,
                               device=labels.device)[None, :]
@@ -70,15 +74,17 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
 
 def prefill(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
             tokens: torch.Tensor, patches: torch.Tensor,
-            positions3: torch.Tensor, *, guard: Optional[GuardSpec] = None
+            positions3: torch.Tensor, *, guard: Optional[GuardSpec] = None,
+            rules: Optional[ShardingRules] = None
             ) -> Tuple[KV.PagedKVCache, torch.Tensor]:
     x = fuse_inputs(params, tokens, patches, guard)
-    return TF.prefill(cfg, params, cache, tokens, guard=guard,
+    return TF.prefill(cfg, params, cache, tokens, guard=guard, rules=rules,
                       positions=positions3, inputs_embeds=x)
 
 
 def decode(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
            tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None,
+           rules: Optional[ShardingRules] = None,
            positions: Optional[torch.Tensor] = None
            ) -> Tuple[KV.PagedKVCache, torch.Tensor]:
     """Text-only decode: the three M-RoPE components all equal the text
@@ -87,5 +93,5 @@ def decode(cfg: ModelConfig, params: Params, cache: KV.PagedKVCache,
         positions = cache.seq_lens[:, None]
     if positions.dim() == 2:
         positions = positions[..., None].expand(*positions.shape, 3)
-    return TF.decode(cfg, params, cache, tokens, guard=guard,
+    return TF.decode(cfg, params, cache, tokens, guard=guard, rules=rules,
                      positions=positions)

@@ -28,6 +28,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.partition import einsum, fit_split, \
+    is_dtensor, matmul, merge_heads, settle, split_heads
+from repro_torch.distributed.sharding import ShardingRules, constrain
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
@@ -67,19 +70,22 @@ def mlstm_axes(cfg: ModelConfig) -> Params:
 
 
 def _mlstm_gates(p, xn):
-    gates = xn @ p["w_if"]
+    gates = matmul(xn, p["w_if"])
     H2 = gates.shape[-1] // 2
     i_raw, f_raw = gates[..., :H2], gates[..., H2:]
-    return torch.sigmoid(i_raw.float()), \
-        torch.nn.functional.logsigmoid(f_raw.float())
+    f = f_raw.float()
+    # DTensor has no rule for log_sigmoid (its CPU op hands back a
+    # workspace): on a partitioned trace the same value as -softplus(-f)
+    log_f = -torch.nn.functional.softplus(-f) if is_dtensor(f) \
+        else torch.nn.functional.logsigmoid(f)
+    return torch.sigmoid(i_raw.float()), log_f
 
 
 def _mlstm_qkv(cfg, p, xn):
-    B, S, _ = xn.shape
-    H, D = cfg.n_heads, cfg.head_dim
-    q = (xn @ p["wq"]).reshape(B, S, H, D)
-    k = (xn @ p["wk"]).reshape(B, S, H, D) / math.sqrt(D)
-    v = (xn @ p["wv"]).reshape(B, S, H, D)
+    H = cfg.n_heads
+    q = split_heads(matmul(xn, p["wq"]), H)
+    k = split_heads(matmul(xn, p["wk"]), H) / math.sqrt(cfg.head_dim)
+    v = split_heads(matmul(xn, p["wv"]), H)
     return q, k, v
 
 
@@ -104,9 +110,9 @@ def mlstm_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     y_den, n_f = ssd_chunked(ones, log_f, b, q.float(), h0=n0,
                              chunk=_chunk(cfg))
     y = y_num / torch.clamp(torch.abs(y_den), min=1.0)
-    o_gate = torch.sigmoid((xn @ p["wo_gate"]).float())
-    y = (y.reshape(B, S, H * D) * o_gate).to(x.dtype)
-    return y @ p["wo"], h_f, n_f
+    o_gate = torch.sigmoid(matmul(xn, p["wo_gate"]).float())
+    y = (merge_heads(y, H) * o_gate).to(x.dtype)
+    return settle(matmul(y, p["wo"])), h_f, n_f
 
 
 def mlstm_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -124,9 +130,9 @@ def mlstm_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
     ones = torch.ones((B, H, 1), dtype=torch.float32, device=x.device)
     y_den, n_new = ssd_step(ones, log_f[:, 0], b, q[:, 0].float(), n)
     y = y_num / torch.clamp(torch.abs(y_den), min=1.0)
-    o_gate = torch.sigmoid((xn @ p["wo_gate"]).float())
-    y = (y.reshape(B, 1, H * D) * o_gate).to(x.dtype)
-    return y @ p["wo"], h_new, n_new
+    o_gate = torch.sigmoid(matmul(xn, p["wo_gate"]).float())
+    y = (merge_heads(y, H)[:, None] * o_gate).to(x.dtype)
+    return settle(matmul(y, p["wo"])), h_new, n_new
 
 
 # ---------------------------------------------------------------------------
@@ -161,13 +167,13 @@ def _slstm_cell(cfg, p, pre, state):
     d = pre.shape[-1] // 4
     hd = d // H
     c, n, h, m = state
-    rec = torch.einsum("bhx,hxy->bhy", h.reshape(B, H, hd).float(),
-                       p["r"].float()).reshape(B, 4 * d)
+    rec = einsum("bhx,hxy->bhy", fit_split(h, -1, H).reshape(B, H, hd)
+                 .float(), p["r"].float()).reshape(B, 4 * d)
     z_r, i_r, f_r, o_r = (pre.float() + rec).chunk(4, dim=-1)
     z = torch.tanh(z_r)
     o = torch.sigmoid(o_r)
-    i_h = i_r.reshape(B, H, hd)
-    f_h = f_r.reshape(B, H, hd)
+    i_h = fit_split(i_r, -1, H).reshape(B, H, hd)
+    f_h = fit_split(f_r, -1, H).reshape(B, H, hd)
     # exp gates with max-state stabilization (per head: the head max)
     i_s = i_h.amax(dim=-1)
     f_s = f_h.amax(dim=-1)
@@ -184,7 +190,7 @@ def slstm_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 state0=None) -> Tuple[torch.Tensor, Tuple]:
     B, S, d = x.shape
     xn = L.apply_norm(cfg, p["norm"], x)
-    pre = xn @ p["w_in"]                                    # (B,S,4d)
+    pre = matmul(xn, p["w_in"])                             # (B,S,4d)
     state = slstm_zero_state(cfg, B, x.device) if state0 is None \
         else state0
     hs = []
@@ -192,7 +198,7 @@ def slstm_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
         state = _slstm_cell(cfg, p, pre[:, t], state)
         hs.append(state[2])
     y = stack_steps(hs, S, 1).to(x.dtype)                   # (B,S,d)
-    return y @ p["wo"], state
+    return settle(matmul(y, p["wo"])), state
 
 
 def slstm_zero_state(cfg: ModelConfig, B: int, device="cuda"):
@@ -235,6 +241,7 @@ def param_logical_axes(cfg: ModelConfig) -> Params:
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, *,
             guard: Optional[GuardSpec] = None,
+            rules: Optional[ShardingRules] = None,
             remat: bool = False) -> torch.Tensor:
     """Full-sequence logits (B, S, V).  ``remat`` recomputes each
     (mLSTM, sLSTM) pair in the backward pass, as the reference's
@@ -244,7 +251,8 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     def pair(ps, x):
         pm, psl = ps
         x = x + mlstm_apply(cfg, pm, x)[0]
-        return (x + slstm_apply(cfg, psl, x)[0],)
+        x = x + slstm_apply(cfg, psl, x)[0]
+        return (constrain(x, rules, ("batch", "seq", None)),)
 
     (x,) = TF.run_layers(pair, list(zip(params["mlstm"], params["slstm"])),
                          x, remat=remat)
@@ -289,7 +297,8 @@ def init_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
 
 
 def prefill(cfg: ModelConfig, params: Params, cache: KV.StateCache,
-            tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None
+            tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None,
+            rules: Optional[ShardingRules] = None
             ) -> Tuple[KV.StateCache, torch.Tensor]:
     """Process the prompt full-sequence, write each layer's final
     recurrent state into the (fenced) state pool in place, return the
@@ -304,14 +313,15 @@ def prefill(cfg: ModelConfig, params: Params, cache: KV.StateCache,
         y, st = slstm_apply(cfg, psl, x)
         for name, value in zip(SLSTM_STATE, st):
             cache.write(name, li, value, guard)
-        x = x + y
+        x = constrain(x + y, rules, ("batch", "seq", None))
     cache = dataclasses.replace(cache, seq_lens=cache.seq_lens + S)
     x = L.apply_norm(cfg, params["norm_f"], x[:, -1:])
     return cache, L.lm_logits(cfg, params["embed"], x)[:, 0]
 
 
 def decode(cfg: ModelConfig, params: Params, cache: KV.StateCache,
-           tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None
+           tokens: torch.Tensor, *, guard: Optional[GuardSpec] = None,
+           rules: Optional[ShardingRules] = None
            ) -> Tuple[KV.StateCache, torch.Tensor]:
     """One decode step: tokens (B,) -> logits (B, V); the state pools are
     read and written in place."""
@@ -325,10 +335,10 @@ def decode(cfg: ModelConfig, params: Params, cache: KV.StateCache,
         x = x + y
         st = tuple(cache.read(name, li, guard) for name in SLSTM_STATE)
         xn = L.apply_norm(cfg, psl["norm"], x)
-        st = _slstm_cell(cfg, psl, (xn @ psl["w_in"])[:, 0], st)
+        st = _slstm_cell(cfg, psl, matmul(xn, psl["w_in"])[:, 0], st)
         for name, value in zip(SLSTM_STATE, st):
             cache.write(name, li, value, guard)
-        x = x + (st[2].to(x.dtype)[:, None, :] @ psl["wo"])
+        x = x + settle(matmul(st[2].to(x.dtype)[:, None, :], psl["wo"]))
     cache = dataclasses.replace(cache, seq_lens=cache.seq_lens + 1)
     x = L.apply_norm(cfg, params["norm_f"], x)
     return cache, L.lm_logits(cfg, params["embed"], x)[:, 0]

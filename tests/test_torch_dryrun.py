@@ -5,11 +5,13 @@ reference's (``repro/launch/dryrun.py``):
   reference's result;
 * ``model_flops`` and ``params`` equal the reference's for every arch,
   and ``--all`` enumerates the reference's 32 cells;
-* on both production meshes, one cell per family: argument and output
-  bytes per device equal those reckoned from the reference's own
-  placements (an abstract mesh, ``eval_shape``; nothing compiled), and
-  alias bytes too, less the donated leaves the port hands back as new
-  tensors (the per-row lengths, the optimizer's step counter);
+* on both production meshes, one cell per family, partitioned (rank 0's
+  program over a fake process group): argument and output bytes per
+  device equal those reckoned from the reference's own placements (an
+  abstract mesh, ``eval_shape``; nothing compiled), and alias bytes too,
+  less the donated leaves the port hands back as new tensors (the
+  per-row lengths, the optimizer's step counter); temp bytes from the
+  liveness walk over the device's graph;
 * the one-card mesh: the argument bytes of the specs, no collectives;
 * a train step on CUDA fakes without a CUDA build raises before anything
   is traced, and is not traced on the CPU instead.
@@ -72,12 +74,21 @@ def test_cli_runs_standalone_and_writes_the_reference_keys(tmp_path):
     for block, keys in REFERENCE_KEYS.items():
         if block is not None:
             assert keys <= set(res[block]), block
-    # what one card cannot reckon is null, and the method says so
-    assert res["compile_s"] is None and res["collectives"] is None
-    assert res["memory"]["temp_bytes"] is None
-    assert res["roofline"]["collective_s"] is None
-    assert res["roofline"]["bottleneck"] in ("compute", "memory")
-    assert res["method"]["per_device"] == "even split"
+    # the partitioned trace fills the collectives and the temp bytes
+    assert res["compile_s"] is None
+    assert res["collectives"]["total"] > 0
+    assert res["collectives"]["total"] == sum(
+        res["collectives"]["per_kind"].values())
+    assert res["memory"]["temp_bytes"] > 0
+    assert res["memory"]["peak_live_bytes_per_device"] == (
+        res["memory"]["argument_bytes"] + res["memory"]["temp_bytes"]
+        + res["memory"]["output_bytes"] - res["memory"]["alias_bytes"])
+    assert res["roofline"]["collective_s"] == \
+        res["collectives"]["total"] / DR.NVLINK_BW
+    assert res["roofline"]["bottleneck"] in ("compute", "memory",
+                                             "collective")
+    assert res["method"]["per_device"].startswith(
+        "partitioned trace (DTensor over a fake group of 256 ranks)")
     assert res["device"] == {"fakes": "cpu", "card": "traced on CPU fakes"}
     assert res["chips"] == 256 and res["trace"]["launches"] == {
         "gather_rows": 1}
@@ -143,7 +154,6 @@ def test_production_memory_equals_reference_placements(arch, shape_name):
     shape = SHAPES[shape_name]
     kw = {} if shape.kind == "train" else {"kv_dtype": "bf16"}
     cj, ct = _depth(get_config(arch)), _depth(get_config_t(arch))
-    gm = None
     for multi, dims, names in ((False, (16, 16), ("data", "model")),
                                (True, (2, 16, 16), ("pod", "data",
                                                     "model"))):
@@ -163,12 +173,15 @@ def test_production_memory_equals_reference_placements(arch, shape_name):
         mesh = MT.make_production_mesh(multi_pod=multi)
         bt = STT.build_step(ct, SHAPES_T[shape_name], mesh,
                             moe_dispatch="einsum", **kw)
-        gm = gm or GA.trace_step(bt.step, bt.in_specs, "cpu")
+        with mesh.open("cpu") as device_mesh:
+            fn, specs = bt.partitioned(device_mesh)
+            gm = GA.trace_step(fn, specs, "cpu")
         got = DR._memory(bt, gm, mesh, local=False)
         assert got["argument_bytes"] == args
         assert got["output_bytes"] == sum(b for _, b in out)
         assert fresh > 0 and got["alias_bytes"] == alias - fresh
-        assert got["temp_bytes"] is None
+        assert got["temp_bytes"] == GA.peak_live_bytes(
+            gm, bt.donate_argnums).temp > 0
 
 
 def test_local_mesh_memory_and_collectives():
