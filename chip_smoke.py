@@ -7696,6 +7696,66 @@ DRYRUN_CELLS = (("stablelm-3b", "train_4k", 8),
 #: phase 13 (b): the predicted peak against ``max_memory_allocated``
 DRYRUN_PEAK_TOL = 0.10
 
+#: phase 13 (a)'s (2, 4) rows: the reference's per-device FLOPs, total
+#: collective bytes and temp bytes (XLA's ``memory_analysis``) of each
+#: family x kind step bundle partitioned on (data=2, model=4), reduced
+#: configs at ``tests/test_torch_dryrun_mesh.py``'s shapes, as that test's
+#: reference subprocess gives them (jax on the CPU: the card has no JAX;
+#: the test holds these figures equal to its subprocess's)
+DRYRUN_REFERENCE_24 = {
+    ("dense", "train"): (15728640.0, 759136.0, 402656),
+    ("dense", "prefill"): (3170312.0, 114696.0, 107528),
+    ("dense", "decode"): (114688.0, 35968.0, 78920),
+    ("moe", "train"): (16580608.0, 927580.0, 453200),
+    ("moe", "prefill"): (4841480.0, 221704.0, 183920),
+    ("moe", "decode"): (265216.0, 40800.0, 82736),
+    ("hybrid", "train"): (16338944.0, 2029048.0, 1529904),
+    ("hybrid", "prefill"): (3391496.0, 326888.0, 291696),
+    ("hybrid", "decode"): (111104.0, 48176.0, 75424),
+    ("ssm", "train"): (12881920.0, 1105508.0, 927624),
+    ("ssm", "prefill"): (3929088.0, 37872.0, 116032),
+    ("ssm", "decode"): (136768.0, 14024.0, 14304),
+    ("vlm", "train"): (79691776.0, 1675856.0, 1621016),
+    ("vlm", "prefill"): (17866760.0, 655512.0, 751064),
+    ("vlm", "decode"): (155648.0, 115200.0, 145744),
+    ("encdec", "train"): (745537536.0, 5895084.0, 18749664),
+    ("encdec", "prefill"): (187719688.0, 1458216.0, 8964384),
+    ("encdec", "decode"): (376832.0, 561280.0, 1248584),
+}
+#: the test's bounds and pins for those rows (the test holds these equal
+#: to its own): per-device FLOPs within DRYRUN_FLOPS_TOL of the
+#: reference's, or at a pinned ratio (within 1 %); the collective and
+#: temp ratios torch 2.13 gives, printed beside this torch's
+DRYRUN_FLOPS_TOL = 0.02
+DRYRUN_FLOPS_PINNED = {
+    ("dense", "train"): 0.883, ("moe", "train"): 0.891,
+    ("vlm", "train"): 0.921, ("ssm", "decode"): 0.832,
+    ("vlm", "prefill"): 0.823934, ("encdec", "train"): 1.096262}
+DRYRUN_COLL_PINNED = {
+    ("dense", "train"): 0.662, ("dense", "decode"): 0.561,
+    ("moe", "prefill"): 0.781, ("moe", "decode"): 0.597,
+    ("hybrid", "train"): 0.474, ("hybrid", "prefill"): 0.949,
+    ("hybrid", "decode"): 1.262,
+    ("ssm", "train"): 1.353, ("ssm", "prefill"): 1.071,
+    ("ssm", "decode"): 1.442,
+    ("vlm", "train"): 1.131, ("vlm", "prefill"): 0.775,
+    ("vlm", "decode"): 0.895,
+    ("encdec", "train"): 0.927, ("encdec", "prefill"): 1.174,
+    ("encdec", "decode"): 0.505}
+DRYRUN_TEMP_PINNED = {
+    ("dense", "train"): 0.759, ("dense", "prefill"): 0.462,
+    ("dense", "decode"): 0.321,
+    ("moe", "train"): 0.883, ("moe", "prefill"): 0.642,
+    ("moe", "decode"): 0.306,
+    ("hybrid", "train"): 0.851, ("hybrid", "prefill"): 1.161,
+    ("hybrid", "decode"): 0.682,
+    ("ssm", "train"): 0.650, ("ssm", "prefill"): 1.068,
+    ("ssm", "decode"): 3.519,
+    ("vlm", "train"): 0.764, ("vlm", "prefill"): 0.305,
+    ("vlm", "decode"): 0.680,
+    ("encdec", "train"): 0.772, ("encdec", "prefill"): 0.089,
+    ("encdec", "decode"): 0.316}
+
 
 def first_difference(gm_a, gm_b) -> str:
     """The first node at which two traced graphs differ (its op and its
@@ -7773,6 +7833,87 @@ def dryrun_devices(torch, smi: str) -> None:
         del got, ca, cb
         gc.collect()
     log(f"phase 13 (a), partitioned: {time.perf_counter() - t0:.1f} s")
+    dryrun_partition_24(smi)
+
+
+def dryrun_partition_24(smi: str) -> None:
+    """Phase 13 (a), (2, 4), host work only: every family x kind step
+    bundle partitioned on a (data=2, model=4) mesh, run with real
+    collectives by 8 gloo ranks on the CPU (``tests/_partition_run.py``:
+    spawned processes over a ``FileStore`` in a temporary directory, the
+    loopback device) against the unpartitioned step, every float leaf
+    within its bound and ids equal, and the embedding gradient's block;
+    then each bundle traced as rank 0 over a fake group and its
+    per-device FLOPs, collective bytes and temp bytes printed against
+    :data:`DRYRUN_REFERENCE_24`.  A numeric mismatch, or FLOPs outside
+    the test's bound and off its pin, fails; collective and temp ratios
+    away from torch 2.13's pins are marked, not failed."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _partition_run as PR
+    from repro_torch.launch import graph_analysis as GA, mesh as MT
+
+    t0 = time.perf_counter()
+    cases = [("embed_grad",)] + [(f, k) for f in (*sorted(PR.FAMILIES),
+                                                  PR.FEW_EXPERTS)
+                                 for k in PR.KINDS]
+    with tempfile.TemporaryDirectory() as tmp:
+        got = PR.run(2, 4, cases, tmp)
+    worst = 0.0
+    for case, r in got.items():
+        if "error" in r:
+            raise AssertionError(f"dry run (a) (2, 4) [{case}]: a rank "
+                                 f"failed: {r['error'][-3000:]}")
+        bad = {k: v for k, v in r["leaves"].items()
+               if (v != 0 if isinstance(v, int) else v > PR.TOL)}
+        if bad:
+            raise AssertionError(f"dry run (a) (2, 4) [{case}]: partitioned "
+                                 f"against unpartitioned: {bad}")
+        worst = max([worst] + [v for v in r["leaves"].values()
+                               if isinstance(v, float)])
+    log(f"dry run (a) (2, 4), real collectives: {len(cases)} cases (every "
+        "family x train / prefill / decode, the 2-expert MoE, the "
+        "embedding gradient's block) on 8 gloo ranks equal to the "
+        f"unpartitioned steps: float leaves within {worst:.2e} of their "
+        f"largest entry (bound {PR.TOL}), ids and counts equal; "
+        f"{time.perf_counter() - t0:.1f} s on the host of {smi}")
+    mesh = MT.Mesh(("data", "model"), {"data": 2, "model": 4})
+    outside = []
+    for (fam, kind), (rf, rc, rt) in DRYRUN_REFERENCE_24.items():
+        bt = PR.bundle(fam, kind, 2, 4, kv_dtype="bf16")
+        with mesh.open("cpu") as dm:
+            fn, specs = bt.partitioned(dm)
+            gm = GA.trace_step(fn, specs, "cpu")
+        c = GA.GraphCostModel(gm).analyze()
+        temp = GA.peak_live_bytes(gm, bt.donate_argnums).temp
+        f, k, t = c.flops / rf, c.collective_bytes / rc, temp / rt
+        pin = DRYRUN_FLOPS_PINNED.get((fam, kind))
+        ok = abs(f - 1) < DRYRUN_FLOPS_TOL or (
+            pin is not None and abs(f / pin - 1) < 0.01)
+        if not ok:
+            outside.append(f"{fam}/{kind} {f:.4f}")
+
+        def was(ratio, pins, what):
+            pinned = pins.get((fam, kind))
+            if pinned is None:
+                return f"{what} {ratio:.4f}"
+            mark = "" if abs(ratio / pinned - 1) < 0.01 else \
+                ", differs from torch 2.13's"
+            return f"{what} {ratio:.4f} (2.13: {pinned}{mark})"
+
+        log(f"dry run (a) (2, 4) [{fam} x {kind}]: flops/dev {c.flops:.6e} "
+            f"/ reference {rf:.6e} = {f:.4f} ("
+            + (f"pin {pin}" if pin is not None else
+               f"bound {DRYRUN_FLOPS_TOL}") + ("" if ok else ", OUTSIDE")
+            + f"); collectives {c.collective_bytes:.6e} / {rc:.6e} B: "
+            + was(k, DRYRUN_COLL_PINNED, "ratio") + f"; temp {temp} / "
+            f"{rt} B: " + was(t, DRYRUN_TEMP_PINNED, "ratio"))
+        del gm
+        gc.collect()
+    if outside:
+        raise AssertionError("dry run (a) (2, 4): per-device FLOPs outside "
+                             "the test's bound and off its pin: "
+                             + ", ".join(outside))
+    log(f"phase 13 (a), (2, 4): {time.perf_counter() - t0:.1f} s")
 
 
 def dryrun_whole(torch, smi: str) -> None:

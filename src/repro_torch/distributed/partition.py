@@ -186,6 +186,33 @@ def _gathered(x, dims):
                                                              pl)
 
 
+def gathered(x, dim: int):
+    """``x`` with its dim ``dim`` whole: the mesh dims splitting it
+    gathered (an all-gather); any other tensor comes back as is."""
+    return _gathered(x, split_over(x, dim)) if is_dtensor(x) else x
+
+
+def split_like(x, dim: int, ref, ref_dim):
+    """DTensor ``x`` with its dim ``dim`` split over the mesh dims that
+    split ``ref``'s dim ``ref_dim`` (``ref_dim`` None: the mesh dims that
+    split no dim of ``ref``), where x is whole there and they divide it:
+    a local chunk, no collective.  Fixes a placement that DTensor's own
+    rules choose differently from one torch version to another.  Any
+    other tensor comes back as is."""
+    if not (is_dtensor(x) and is_dtensor(ref)):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = split_over(ref, ref_dim) if ref_dim is not None else [
+        m for m, p in enumerate(ref.placements) if not isinstance(p, Shard)]
+    dims = [m for m in dims if x.placements[m] == Replicate()]
+    if not dims or x.shape[dim] % _ranks(x.device_mesh, dims):
+        return x
+    d = dim % x.dim()
+    return x.redistribute(x.device_mesh, [
+        Shard(d) if m in dims else p for m, p in enumerate(x.placements)])
+
+
 def fit_split(x, dim: int, n: int):
     """``x`` ready for its dim ``dim`` to be split into ``n`` groups: where
     the mesh dims sharding that dim do not divide ``n``, gathered on them
@@ -231,6 +258,29 @@ class _FitGrad(torch.autograd.Function):
         return fit_split(grad, -1, ctx.n), None
 
 
+class _OwnGrad(torch.autograd.Function):
+    """The identity; its backward places the gradient as the input is."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if list(grad.placements) == list(ctx.placements):
+            return grad
+        return grad.redistribute(grad.device_mesh, ctx.placements)
+
+
+def own_grad(x):
+    """``x``; on a DTensor its gradient is placed as ``x`` is (a partial
+    sum reduced where it arises, as the reference's partitioner reduces a
+    weight's gradient into the weight's layout, and not left partial for
+    every later reader, the optimizer's norms, to gather whole)."""
+    return _OwnGrad.apply(x) if is_dtensor(x) else x
+
+
 def merge_heads(x, n: int):
     """x (..., n, p) -> (..., n * p), the heads merged; on a partitioned
     trace a split of the inner dim ``p``, or an uneven split of the heads
@@ -243,6 +293,10 @@ def merge_heads(x, n: int):
     mesh, heads = x.device_mesh, split_over(x, -2)
     x = _gathered(x, split_over(x, -1) + (
         heads if n % _ranks(mesh, heads) else []))
+    if not x.to_local().is_contiguous():
+        # the shard of a split moved by a redistribute (a (2, 2) mesh's
+        # batch) is strided: DTensor's reshape would view it
+        x = contiguous(x)
     flat = x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
     return _FitGrad.apply(flat, n)
 
@@ -436,8 +490,40 @@ def matmul(x, w, idle: bool = False):
     return y.reshape(*lead, w.shape[-1])
 
 
-__all__ = ["along", "contiguous", "einsum", "fit_split", "heads_like",
+def matmul_columns(x, w):
+    """``x @ w`` for x (..., d) and a matrix w (d, f), on DTensors as the
+    reference's partitioner runs a projection whose result its readers
+    take whole (the sLSTM's input projection in its train step): every
+    token and the whole weight on each rank (an all-gather of each split),
+    the product split by w's columns over the mesh dims that split neither
+    operand, each rank its block of the columns of every token (its input
+    gradient a partial sum there).  The result, split so, comes back with
+    x's lead dims whole; :func:`gathered` and a redistribute place it."""
+    if _DTENSOR is None or not (is_dtensor(x) or is_dtensor(w)):
+        return x @ w
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = (x if is_dtensor(x) else w).device_mesh
+    x, w = (t if is_dtensor(t) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False) for t in (x, w))
+    free = [m for m in range(mesh.ndim)
+            if not isinstance(x.placements[m], Shard)
+            and not isinstance(w.placements[m], Shard)]
+    rep = [Replicate()] * mesh.ndim
+    cols = [Shard(1) if m in free else Replicate() for m in range(mesh.ndim)]
+    local = x.redistribute(mesh, rep).to_local(grad_placements=[
+        Partial() if m in free else Replicate() for m in range(mesh.ndim)]) \
+        @ w.redistribute(mesh, cols).to_local()
+    shape = torch.Size((*x.shape[:-1], w.shape[-1]))
+    return DTensor.from_local(
+        local, mesh, [Shard(local.dim() - 1) if m in free else Replicate()
+                      for m in range(mesh.ndim)], run_check=False,
+        shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
+__all__ = ["along", "contiguous", "einsum", "fit_split", "gathered",
+           "heads_like",
            "heads_split", "is_dtensor",
-           "is_spec", "local_shape", "local_specs", "matmul", "merge_heads",
+           "is_spec", "local_shape", "local_specs", "matmul", "matmul_columns", "merge_heads", "own_grad",
            "partitioned", "rank_block", "settle", "split_heads",
-           "split_over", "whole"]
+           "split_like", "split_over", "whole"]

@@ -6,12 +6,15 @@ meshes are shapes only — they hold no device and allocate nothing — so
 that placements and cache axes can be reckoned for the reference's
 256- and 512-chip meshes on one card.
 
-:meth:`Mesh.open` is the one step that opens a process group: a ``fake``
-group of ``mesh.size`` ranks (this process rank 0; no collective moves a
-byte), under a ``torch.distributed.device_mesh.DeviceMesh`` of the mesh's
-shape and axis names, torn down when the context exits.  The dry run
-traces a step bundle there as rank 0 of the partitioned program
-(:mod:`repro_torch.launch.dryrun`); nothing else opens one.
+:meth:`Mesh.open` opens a ``fake`` process group of ``mesh.size`` ranks
+(this process rank 0; no collective moves a byte), under a
+``torch.distributed.device_mesh.DeviceMesh`` of the mesh's shape and axis
+names, torn down when the context exits.  The dry run traces a step
+bundle there as rank 0 of the partitioned program
+(:mod:`repro_torch.launch.dryrun`).  :meth:`Mesh.join` joins one rank
+to a real group of ``mesh.size`` processes, where the partitioned step
+runs with every collective moving its bytes (a check of its numbers
+against the unpartitioned step).  Serving and training open neither.
 """
 
 from __future__ import annotations
@@ -64,6 +67,39 @@ class Mesh:
                 tuple(self.shape[a] for a in self.axis_names))
             with _gpu_all_to_all(), opened():
                 yield DeviceMesh(torch.device(device).type, ranks,
+                                 mesh_dim_names=self.axis_names)
+        finally:
+            dist.destroy_process_group()
+
+    @contextlib.contextmanager
+    def join(self, rank: int, store, timeout=None) -> Iterator[object]:
+        """The mesh as a CPU ``DeviceMesh`` over a real gloo process group
+        of :attr:`size` ranks, this process ``rank``, rendezvous through
+        ``store`` (a ``dist.FileStore``: no network), with the kernels'
+        sharding rules and :func:`~repro_torch.distributed.partition.
+        opened` as :meth:`open` sets them; every collective moves its
+        bytes (gloo has no all-to-all: DTensor all-gathers and chunks in
+        its place); a collective waits ``timeout`` (a ``timedelta``) at
+        most.  The group is destroyed on exit."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from repro_torch.distributed.partition import opened
+        from repro_torch.kernels import register_sharding_rules
+
+        if dist.is_initialized():
+            raise RuntimeError(f"{describe(self)}: a process group is "
+                               "already open in this process")
+        register_sharding_rules()
+        dist.init_process_group("gloo", store=store, rank=rank,
+                                world_size=self.size,
+                                **({} if timeout is None else
+                                   {"timeout": timeout}))
+        try:
+            ranks = torch.arange(self.size).reshape(
+                tuple(self.shape[a] for a in self.axis_names))
+            with opened():
+                yield DeviceMesh("cpu", ranks,
                                  mesh_dim_names=self.axis_names)
         finally:
             dist.destroy_process_group()

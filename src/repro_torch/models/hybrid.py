@@ -216,7 +216,7 @@ def prefill(cfg: ModelConfig, params: Params, cache: HybridCache,
     sa = params["shared_attn"]
     K1 = cfg.ssm.conv_width - 1
     for lidx, p, gi in _layers(cfg, params):
-        y, h_f, tail_c = M2.block_apply(cfg, p, x)
+        y, h_f, tail_c = M2.block_apply(cfg, p, x, pad_heads=True)
         state.write("ssm", lidx, h_f, guard)
         state.write("conv", lidx, tail_c[:, -K1:], guard)
         x = x + y

@@ -29,8 +29,8 @@ from torch._subclasses.fake_tensor import is_fake
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fence import FencePolicy
 from repro_torch.distributed.partition import along, einsum, \
-    is_dtensor, matmul, merge_heads, rank_block, settle, split_heads, \
-    split_over
+    is_dtensor, matmul, merge_heads, own_grad, rank_block, settle, \
+    split_heads, split_over
 from repro_torch.kernels import flash_attention, gather_rows
 from repro_torch.models.guard import GuardSpec, fence
 
@@ -414,7 +414,12 @@ def _gather_vocab_split(table, ids, base: int, mask: int):
             for m, pl in enumerate(ids.placements)]
     ids = ids.redistribute(mesh, keep) if keep != list(ids.placements) \
         else ids
-    local = table.to_local()
+    # a rank's table gradient sums its own ids' rows only: a partial sum
+    # over the mesh dims that split the ids (the data axis), reduced into
+    # the table's own placement at once
+    local = own_grad(table).to_local(grad_placements=[
+        Partial() if isinstance(ip, Shard) and m not in split else tp
+        for m, (ip, tp) in enumerate(zip(keep, table.placements))])
     rows = local.shape[0]
     lid = ids.to_local() - rank_block(mesh, split) * rows
     inside = (lid >= 0) & (lid < rows)

@@ -18,8 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.partition import matmul, merge_heads, \
-    settle, split_heads
+from repro_torch.distributed.partition import gathered, heads_split, \
+    is_dtensor, matmul, merge_heads, settle, split_heads, split_like
 from repro_torch.models import layers as L
 from repro_torch.models.ssd import ssd_chunked, ssd_step
 
@@ -92,12 +92,20 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     previous (K-1, C) inputs (decode); returns (out, new_tail)."""
     K = w.shape[0]
     B, S, C = xbc.shape
+    # on a partitioned trace the inputs' channels are split as the
+    # weights' are (a local chunk) and the zeros placed as xbc (a
+    # factory's are whole on every rank): DTensor versions that would
+    # otherwise meet them by gathering xbc's batch keep it split
+    split = is_dtensor(xbc)
+    xbc = split_like(xbc, -1, w, -1)
     if tail is None:
-        tail_in = xbc.new_zeros((B, K - 1, C))
+        tail_in = torch.zeros_like(xbc[:, :1]).expand(B, K - 1, C) \
+            if split else xbc.new_zeros((B, K - 1, C))
     else:
-        tail_in = tail.to(xbc.dtype)
+        tail_in = split_like(tail.to(xbc.dtype), -1, w, -1)
     xp = torch.cat([tail_in, xbc], dim=1)             # (B, S+K-1, C)
-    out = torch.zeros((B, S, C), dtype=torch.float32, device=xbc.device)
+    out = torch.zeros_like(xbc, dtype=torch.float32) if split else \
+        torch.zeros((B, S, C), dtype=torch.float32, device=xbc.device)
     for i in range(K):
         out = out + xp[:, i:i + S].float() * w[i].float()
     out = out + b.float()
@@ -106,8 +114,10 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor,
                    g: torch.Tensor) -> torch.Tensor:
+    """On a partitioned trace the norm's scale is gathered whole first,
+    so the norm keeps y's batch split on every DTensor version."""
     y = y * F.silu(z.float()).to(y.dtype)
-    return L.rmsnorm(y, g)
+    return L.rmsnorm(y, gathered(g, 0))
 
 
 def _gates(p: Params, dt_raw: torch.Tensor):
@@ -117,12 +127,47 @@ def _gates(p: Params, dt_raw: torch.Tensor):
     return dt, dt * -torch.exp(p["a_log"])
 
 
+def _padded_heads(u: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor, h: Optional[torch.Tensor]):
+    """The chunked SSD's DTensor operands u (B, S, H, P), a (B, S, H), b / c
+    (B, S, H, N) and the state h (B, H, N, P) or None with their heads
+    padded with zero heads to a multiple of the ranks that split them and
+    split there, every operand placed as u (:func:`~repro_torch.
+    distributed.partition.heads_split`, as the reference's partitioner
+    pads them): a padded head has zero input, zero b / c, zero log decay
+    and zero state, so its output and state stay zero, and each rank runs
+    ``ceil(H / ranks)`` heads, none all of them."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    u = heads_split(u, 2)[0]
+    pl, n = u.placements, u.shape[2]
+    a, b, c = (_padded(t, 2, n, pl) for t in (a, b, c))
+    if h is not None:
+        h = _padded(h, 1, n, [Shard(1) if p == Shard(2) else p if p ==
+                              Shard(0) else Replicate() for p in pl])
+    return u, a, b, c, h
+
+
+def _padded(x: torch.Tensor, dim: int, n: int, placements) -> torch.Tensor:
+    """DTensor ``x`` with zeros appended to its dim ``dim`` up to ``n``,
+    placed by ``placements``."""
+    if x.shape[dim] < n:
+        shape = list(x.shape)
+        shape[dim] = n - x.shape[dim]
+        x = torch.cat([x, x.new_zeros(shape)], dim)
+    return x.redistribute(x.device_mesh, list(placements))
+
+
 def block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 h0: Optional[torch.Tensor] = None,
                 conv_tail: Optional[torch.Tensor] = None,
+                pad_heads: bool = False,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence SSD block.  x (B,S,d) -> (y (B,S,d), h_final,
-    conv_tail)."""
+    conv_tail).  ``pad_heads`` (the prefill's) pads the SSD's heads on a
+    partitioned trace (:func:`_padded_heads`), as the reference's
+    partitioner splits its prefill; its train step runs every head on
+    every model rank, and so does the port's (the default)."""
     dm = dims(cfg)
     heads, n, pdim = dm["heads"], dm["n"], dm["p"]
     B, S, _ = x.shape
@@ -136,8 +181,13 @@ def block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     u = xs * dt[..., None]                             # dt-scaled input
     bb = b_in[:, :, None, :].expand(B, S, heads, n)
     cc = c_in[:, :, None, :].expand(B, S, heads, n)
+    pad = pad_heads and is_dtensor(u)
+    if pad:
+        u, log_decay, bb, cc, h0 = _padded_heads(u, log_decay, bb, cc, h0)
     y, h_final = ssd_chunked(u, log_decay, bb, cc, h0=h0,
                              chunk=cfg.ssm.chunk)
+    if pad:         # the padded heads dropped
+        y, h_final = y.narrow(2, 0, heads), h_final.narrow(1, 0, heads)
     y = y + p["d_skip"][None, None, :, None] * xs
     y = merge_heads(y, heads).to(x.dtype)
     y = _gated_rmsnorm(y, z, p["norm_g"])
@@ -160,6 +210,9 @@ def block_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
     c_in = xbc[:, 0, dm["d_in"] + n:]
     dt, log_decay = _gates(p, dt_raw[:, 0])            # (B,H)
     u = xs * dt[..., None]
+    # the state split over the model axis by its N dim, as the reference
+    # keeps it (a local chunk where a DTensor version reads it whole)
+    h = split_like(h, 2, u, None)
     bb = b_in[:, None, :].expand(B, heads, n)
     cc = c_in[:, None, :].expand(B, heads, n)
     y, h_new = ssd_step(u, log_decay, bb, cc, h)

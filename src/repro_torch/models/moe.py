@@ -37,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.partition import einsum, matmul, whole
+from repro_torch.distributed.partition import einsum, is_dtensor, \
+    matmul, rank_block, settle, split_over, whole
 from repro_torch.distributed.sharding import ShardingRules, constrain
 from repro_torch.core.fence import FencePolicy
 from repro_torch.kernels import moe_histogram
@@ -177,14 +178,24 @@ def dispatch_dest(r: Routing) -> torch.Tensor:
     return torch.where(r.keep.reshape(-1), dest, torch.full_like(dest, E * C))
 
 
-def _expert_mlps(cfg: ModelConfig, p: Params,
-                 xin: torch.Tensor) -> torch.Tensor:
-    """The expert MLPs over the (E, C, d) buffers -> (E, C, d)."""
+def _expert_mlps(cfg: ModelConfig, p: Params, xin: torch.Tensor,
+                 product=torch.bmm) -> torch.Tensor:
+    """The expert MLPs over the (E, C, d) buffers -> (E, C, d), each
+    batched product ``product`` (a partitioned trace's own split:
+    :func:`_split_bmm`)."""
     if cfg.act == "silu":
-        h = F.silu(torch.bmm(xin, p["wg"])) * torch.bmm(xin, p["wu"])
+        h = F.silu(product(xin, p["wg"])) * product(xin, p["wu"])
     else:
-        h = F.gelu(torch.bmm(xin, p["wu"]), approximate="tanh")
-    return torch.bmm(h, p["wd"])
+        h = F.gelu(product(xin, p["wu"]), approximate="tanh")
+    return product(h, p["wd"])
+
+
+def _split_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm`` on DTensors split as the partitioner splits a dot
+    (:func:`~repro_torch.distributed.partition.einsum`): each weight's
+    gradient lands in the weight's own placement (its FSDP shard), where
+    DTensor's rule leaves it a partial sum for the optimizer to reduce."""
+    return einsum("eci,eio->eco", a, b)
 
 
 def experts_einsum(cfg: ModelConfig, p: Params, xf: torch.Tensor,
@@ -232,6 +243,10 @@ def experts(cfg: ModelConfig, p: Params, xf: torch.Tensor,
     # expert-major (the store across them is the dispatch all-to-all)
     src = constrain(xf[:, None, :].expand(T, K, d).reshape(T * K, d), rules,
                     ("batch", None))
+    blocks = _expert_blocks(src, rules, E, r.capacity)
+    if blocks is not None:
+        return _experts_by_block(cfg, p, src, dest, dest_w, r, blocks,
+                                 rules)
     buf = constrain(torch.zeros((EC + 1, d), dtype=xf.dtype,
                                 device=xf.device), rules, ("expert", None))
     buf = constrain(_dispatch_store(buf, dest_w, src), rules,
@@ -244,6 +259,124 @@ def experts(cfg: ModelConfig, p: Params, xf: torch.Tensor,
     y_tk = constrain(_rows(flat, dest.clamp(0, EC - 1)).reshape(T, K, d),
                      rules, ("batch", None, None))
     return einsum("tkd,tk->td", y_tk, r.gates.to(xf.dtype))
+
+
+def _expert_blocks(src, rules: Optional[ShardingRules], E: int, C: int):
+    """On a partitioned trace, the mesh dims the ``expert`` rule splits
+    the (E * C, d) buffer over, where each rank's block of its rows is
+    whole experts or lies inside one (rows per rank a multiple or a
+    divisor of C) and those dims split no token row of ``src``; else None
+    (the buffer is then gathered whole, :func:`_dispatch_store`)."""
+    if rules is None or not is_dtensor(src):
+        return None
+    axis = rules.lookup("expert")
+    names = (axis,) if isinstance(axis, str) else tuple(axis or ())
+    mesh = src.device_mesh
+    dims = [m for m, n in enumerate(mesh.mesh_dim_names) if n in names]
+    ranks = math.prod(mesh.size(m) for m in dims)
+    rows = E * C // ranks if dims and E * C % ranks == 0 else 0
+    if not rows or (rows % C and C % rows) or set(dims) & set(
+            split_over(src, 0)):
+        return None
+    return dims
+
+
+def _experts_by_block(cfg: ModelConfig, p: Params, src, dest, dest_w,
+                      r: Routing, dims, rules: ShardingRules
+                      ) -> torch.Tensor:
+    """:func:`experts` on a partitioned trace, the buffer split by rows
+    over the mesh dims ``dims`` (:func:`_expert_blocks`) and never whole
+    on a rank: each rank stores, from the token rows it holds (``src``'s
+    split over the data axis, whole on ``dims``), those whose destination
+    falls in its block, into its block alone; the blocks are summed over
+    the data axis (one all-reduce: each row is stored by one data rank's
+    token), so every rank of a data group holds the same block, as the
+    reference's pins place the buffer (experts over the model axis, whole
+    over data); the block's experts run their MLPs on it; each rank reads
+    back, for its tokens, the rows in its block, weighs them by the gates,
+    and the partial sums are reduced over ``dims`` (one all-reduce of the
+    (T, d) result).  Only a data rank's token rows, its block and the
+    result move.  Where a rank's block lies inside one expert (fewer
+    experts than ranks), that expert's weights stand for the rank's block
+    of a virtual (ranks, d, f) bank, its gradient a partial sum over
+    ``dims``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = src.device_mesh
+    E, K, C = cfg.moe.num_experts, cfg.moe.top_k, r.capacity
+    EC, d = E * C, src.shape[-1]
+    data = split_over(src, 0)
+    ranks = math.prod(mesh.size(m) for m in dims)
+    R, lo = EC // ranks, rank_block(mesh, dims) * (EC // ranks)
+    n = mesh.ndim
+
+    def placed(on_data, on_dims):
+        return [on_data if m in data else on_dims if m in dims
+                else Replicate() for m in range(n)]
+
+    def local(t, grad_on_dims):
+        """``t``'s rows of this data rank, whole on ``dims``."""
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * n,
+                                   run_check=False)
+        return t.redistribute(mesh, placed(Shard(0), Replicate())) \
+            .to_local(grad_placements=placed(Shard(0), grad_on_dims))
+
+    rows = local(src, Partial())                         # (T_loc * K, d)
+    at = local(dest_w, Replicate()) - lo
+    inside = (at >= 0) & (at < R)
+    blk = rows.new_zeros((R + 1, d)).index_copy(
+        0, torch.where(inside, at, torch.full_like(at, R)), rows)[:R]
+    blk = settle(DTensor.from_local(
+        blk, mesh, placed(Partial(), Shard(0)), run_check=False,
+        shape=torch.Size((EC, d)), stride=(d, 1))).to_local()
+    # the block as its rank's experts: E / ranks whole ones, or a block of
+    # one ((ranks, R, d), each rank's own expert's weights)
+    even = E % ranks == 0
+    shape = torch.Size((E, C, d) if even else (ranks, R, d))
+    xin = DTensor.from_local(
+        blk.reshape(-1, *shape[1:]), mesh, placed(Replicate(), Shard(0)),
+        run_check=False, shape=shape,
+        stride=(shape[1] * d, d, 1))
+    if even:
+        xin = constrain(xin, rules, ("expert", None, None))
+        out = constrain(_expert_mlps(cfg, p, xin, _split_bmm), rules,
+                        ("expert", None, None))
+    else:
+        out = _expert_mlps(cfg, {k: _block_expert(p[k], dims, lo // C, ranks)
+                                 for k in ("wg", "wu", "wd") if k in p}, xin,
+                           _split_bmm)
+    out = out.redistribute(mesh, placed(Replicate(), Shard(0))).to_local(
+        grad_placements=placed(Partial(), Shard(0))).reshape(R, d)
+    at = local(dest, Replicate()).clamp(0, EC - 1) - lo
+    inside = (at >= 0) & (at < R)
+    got = torch.where(inside[:, None], out[at.clamp(0, R - 1)],
+                      torch.zeros((), dtype=out.dtype))
+    gates = local(r.gates, Partial()).to(got.dtype)
+    y = torch.einsum("tkd,tk->td", got.reshape(-1, K, d), gates)
+    return settle(DTensor.from_local(
+        y, mesh, placed(Shard(0), Partial()), run_check=False,
+        shape=torch.Size((src.shape[0] // K, d)), stride=(d, 1)))
+
+
+def _block_expert(w, dims, expert: int, ranks: int):
+    """Expert ``expert`` of the bank ``w`` (E, ...), whole on the mesh dims
+    ``dims``, as this rank's block of a (ranks, ...) DTensor split over
+    them (each rank's own expert; its gradient a partial sum there)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = w.device_mesh
+    whole_on = [Replicate() if m in dims else pl
+                for m, pl in enumerate(w.placements)]
+    part = w.redistribute(mesh, whole_on).to_local(grad_placements=[
+        Partial() if m in dims else pl for m, pl in enumerate(whole_on)])
+    from torch.distributed.tensor import Shard
+    shape = torch.Size((ranks, *w.shape[1:]))
+    return DTensor.from_local(
+        part[expert:expert + 1], mesh,
+        [Shard(0) if m in dims else pl for m, pl in enumerate(whole_on)],
+        run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
 
 
 def _dispatch_store(buf: torch.Tensor, dest: torch.Tensor,

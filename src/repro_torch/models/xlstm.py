@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.partition import einsum, fit_split, \
-    is_dtensor, matmul, merge_heads, settle, split_heads
+    gathered, is_dtensor, matmul, matmul_columns, merge_heads, settle, split_heads
 from repro_torch.distributed.sharding import ShardingRules, constrain
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
@@ -187,10 +187,22 @@ def _slstm_cell(cfg, p, pre, state):
 
 
 def slstm_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                state0=None) -> Tuple[torch.Tensor, Tuple]:
+                state0=None, split_proj: bool = False
+                ) -> Tuple[torch.Tensor, Tuple]:
+    """x (B,S,d) -> (y, the last (c, n, h, m)).  ``split_proj`` (the train
+    step's): on a partitioned trace the (d, 4d) input projection runs as
+    the reference's partitioner runs it in its train step (not in its
+    prefill): every token on each rank, split by the result's columns
+    over the model axis (:func:`~repro_torch.distributed.partition.
+    matmul_columns`); ``pre`` is then gathered once and placed as x
+    before the per-position loop, which reads all four gate blocks."""
     B, S, d = x.shape
     xn = L.apply_norm(cfg, p["norm"], x)
-    pre = matmul(xn, p["w_in"])                             # (B,S,4d)
+    if split_proj and is_dtensor(xn):
+        pre = gathered(matmul_columns(xn, p["w_in"]), -1).redistribute(
+            xn.device_mesh, xn.placements)                  # (B,S,4d)
+    else:
+        pre = matmul(xn, p["w_in"])
     state = slstm_zero_state(cfg, B, x.device) if state0 is None \
         else state0
     hs = []
@@ -251,7 +263,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     def pair(ps, x):
         pm, psl = ps
         x = x + mlstm_apply(cfg, pm, x)[0]
-        x = x + slstm_apply(cfg, psl, x)[0]
+        x = x + slstm_apply(cfg, psl, x, split_proj=True)[0]
         return (constrain(x, rules, ("batch", "seq", None)),)
 
     (x,) = TF.run_layers(pair, list(zip(params["mlstm"], params["slstm"])),

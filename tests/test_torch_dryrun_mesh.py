@@ -9,18 +9,21 @@ out_shardings=)`` on a (data=2, model=4) mesh of 8 host devices, read by
   and counts by kind equal the reference's exactly;
 * every family x train / prefill / decode bundle on a reduced config
   (``test_torch_graph_analysis._bundle_specs``' shapes) on (2, 4):
-  per-device FLOPs within 2 % of the reference's and the dense rows'
-  collective bytes within 25 %, the rows that miss either bound held at
-  their measured ratio and listed as open (``FLOPS_UNMET``,
-  ``DENSE_COLL_UNMET``); the other rows' collective bytes and every
-  row's temp bytes (XLA's ``memory_analysis``) pinned (PERF.md §6
-  explains each);
+  per-device FLOPs within 2 % of the reference's and the dense rows' and
+  the MoE train step's collective bytes within 25 %, the rows that miss
+  either bound held at their measured ratio and listed as open
+  (``FLOPS_UNMET``, ``DENSE_COLL_UNMET``); the other rows' collective
+  bytes and every row's temp bytes (XLA's ``memory_analysis``) pinned
+  (PERF.md §6 explains each), and ``chip_smoke.py``'s copy of these
+  figures, which it holds the card host's torch to, equal to them;
 * a cut loop's collectives extrapolate to the unrolled trace's;
 * the process group is torn down after a trace, also one that raises, and
   none is open after a serve, train or one-card dry-run step;
 * a custom op without a sharding rule raises with its name;
 * heads the model axis does not divide are padded, each rank running its
-  share.
+  share: K4's, and the hybrid's SSD heads in prefill; the sLSTM's input
+  projection split by columns in the train step only; no collective of
+  the MoE train step moves the whole expert buffer.
 
 The reference's rows come from one subprocess (its device count is fixed
 at JAX's first use), started with the module (an autouse fixture) and
@@ -47,6 +50,7 @@ from repro_torch.distributed import partition as PT  # noqa: E402
 from repro_torch.launch import dryrun as DR, graph_analysis as GA, \
     mesh as MT, steps as STT  # noqa: E402
 from test_torch_graph_analysis import FAMILIES, PINNED  # noqa: E402
+import _partition_run as PR  # noqa: E402
 
 #: the reference's side: every family x kind bundle on (data=2, model=4)
 #: and the tensor-parallel MLP on (2, 2); one JSON object on stdout
@@ -151,34 +155,36 @@ FLOPS_TOL, DENSE_COLL_TOL = 0.02, 0.25
 #: cause).  Below 1 the reference's partitioner runs work on more ranks
 #: than the port does: the train step's attention on the whole batch on
 #: every data rank (dense, MoE, vision), the xLSTM decode's projections
-#: whole.  Above 1 the port does: the hybrid's SSD scan runs its two heads
-#: on every model rank (the reference pads them to one a rank), the
-#: xLSTM train runs the sLSTM's input projection whole on the model axis.
+#: whole.
 FLOPS_UNMET = {("dense", "train"): 0.883, ("moe", "train"): 0.891,
-               ("vlm", "train"): 0.921, ("hybrid", "prefill"): 1.118,
-               ("ssm", "train"): 1.320, ("ssm", "decode"): 0.832}
+               ("vlm", "train"): 0.921, ("ssm", "decode"): 0.832}
 
-#: Dense rows that miss the collectives bound, measured as above: the
-#: decode's K1 gathers the bf16 pool where the reference gathers it
-#: widened to f32; the train step gathers weights and reduce-scatters
-#: their gradients where the reference moves activations (all-to-all,
-#: then an all-reduce of each product's partial sums over the data axis).
-DENSE_COLL_UNMET = {("dense", "train"): 0.641, ("dense", "decode"): 0.561}
+#: Rows held to the collectives bound (DENSE_COLL_TOL): the dense rows and
+#: the MoE train step, whose dispatch stores and reads each model rank's
+#: block of the expert buffer, never the whole buffer.
+COLL_BOUNDED = {("dense", k) for k in ("train", "prefill", "decode")} | {
+    ("moe", "train")}
+
+#: Bounded rows that miss it, measured as above: the decode's K1 gathers
+#: the bf16 pool where the reference gathers it widened to f32; the train
+#: step gathers weights and reduce-scatters their gradients where the
+#: reference moves activations (all-to-all, then an all-reduce of each
+#: product's partial sums over the data axis).
+DENSE_COLL_UNMET = {("dense", "train"): 0.662, ("dense", "decode"): 0.561}
 
 #: Every other row's total collective bytes over the reference's,
 #: measured and pinned (PERF.md §6): the reference reshards with
 #: all-to-alls and collective-permutes the port does not make, and the
 #: port reduce-scatters FSDP gradients the reference all-reduces.
 COLL_PINNED = {
-    ("moe", "train"): 1.605, ("moe", "prefill"): 0.947,
-    ("moe", "decode"): 0.625,
-    ("hybrid", "train"): 0.507, ("hybrid", "prefill"): 0.835,
+    ("moe", "prefill"): 0.781, ("moe", "decode"): 0.597,
+    ("hybrid", "train"): 0.474, ("hybrid", "prefill"): 0.949,
     ("hybrid", "decode"): 1.262,
-    ("ssm", "train"): 1.264, ("ssm", "prefill"): 1.071,
+    ("ssm", "train"): 1.353, ("ssm", "prefill"): 1.071,
     ("ssm", "decode"): 1.442,
-    ("vlm", "train"): 1.121, ("vlm", "prefill"): 0.775,
+    ("vlm", "train"): 1.131, ("vlm", "prefill"): 0.775,
     ("vlm", "decode"): 0.895,
-    ("encdec", "train"): 0.924, ("encdec", "prefill"): 1.174,
+    ("encdec", "train"): 0.927, ("encdec", "prefill"): 1.174,
     ("encdec", "decode"): 0.505,
 }
 
@@ -191,11 +197,11 @@ COLL_PINNED = {
 TEMP_PINNED = {
     ("dense", "train"): 0.759, ("dense", "prefill"): 0.462,
     ("dense", "decode"): 0.321,
-    ("moe", "train"): 1.402, ("moe", "prefill"): 1.537,
+    ("moe", "train"): 0.883, ("moe", "prefill"): 0.642,
     ("moe", "decode"): 0.306,
-    ("hybrid", "train"): 0.888, ("hybrid", "prefill"): 1.176,
+    ("hybrid", "train"): 0.851, ("hybrid", "prefill"): 1.161,
     ("hybrid", "decode"): 0.682,
-    ("ssm", "train"): 0.927, ("ssm", "prefill"): 1.068,
+    ("ssm", "train"): 0.650, ("ssm", "prefill"): 1.068,
     ("ssm", "decode"): 3.519,
     ("vlm", "train"): 0.764, ("vlm", "prefill"): 0.305,
     ("vlm", "decode"): 0.680,
@@ -208,16 +214,8 @@ MESH_24 = MT.Mesh(("data", "model"), {"data": 2, "model": 4})
 
 def _bundle(family, kind):
     """The port's bundle of ``_bundle_specs``' shapes on the (2, 4) mesh
-    (the encoder-decoder's frames in float32, as there)."""
-    S, B = (256 if family == "vlm" else 64), (4 if kind == "decode" else 2)
-    ct = get_config_t(FAMILIES[family]).reduced()
-    bt = STT.build_step(ct, ShapeConfig("t", kind, S, B), MESH_24,
-                        **({"device": "cpu"} if kind == "train" else {}))
-    if family == "encdec" and kind != "decode":
-        src = bt.in_specs[2]["src"].shape
-        bt.in_specs = (*bt.in_specs[:2], {
-            **bt.in_specs[2], "src": torch.empty(src, device="meta")})
-    return bt
+    (the encoder-decoder's frames in float32, as there; bf16 pools)."""
+    return PR.bundle(family, kind, 2, 4, kv_dtype="bf16")
 
 
 def _partitioned_trace(bundle, mesh=MESH_24):
@@ -328,6 +326,84 @@ def test_uneven_heads_are_padded_not_run_whole():
     assert not dist.is_initialized()
 
 
+def test_ssd_heads_padded_one_a_rank(monkeypatch):
+    """The hybrid's Mamba2 block as its prefill runs it (``pad_heads``),
+    the reduced config's 2 SSD heads over a model axis of 4: the chunked
+    SSD takes its heads padded to 4, one a rank (the reference pads them
+    so), and the block's result comes back whole on the model axis.  The
+    train step's block (no padding, as the reference's train step) runs
+    both on every rank."""
+    from repro_torch.models import mamba2 as M2
+
+    cfg = get_config_t(FAMILIES["hybrid"]).reduced()
+    assert M2.dims(cfg)["heads"] == 2
+    seen = {}
+    ssd = M2.ssd_chunked
+
+    def spy(u, *a, **k):
+        seen.setdefault(pad, set()).add((u.shape[2], u.to_local().shape[2]))
+        return ssd(u, *a, **k)
+
+    monkeypatch.setattr(M2, "ssd_chunked", spy)
+    p = M2.block_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    specs = ({k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in p.items()},
+             torch.empty(2, 64, cfg.d_model, device="meta"))
+    shardings = ({k: (None,) * v.dim() for k, v in p.items()},
+                 ("data", None, None))
+    for pad in (True, False):
+        with MESH_24.open("cpu") as dm:
+            fn = PT.partitioned(
+                lambda q, x: M2.block_apply(cfg, q, x, pad_heads=pad)[0],
+                dm, shardings, ("data", None, None), specs)
+            gm = GA.trace_step(fn, PT.local_specs(dm, shardings, specs),
+                               "cpu")
+        out, = GA.output_leaves(gm)
+        assert tuple(out.shape) == (1, 64, cfg.d_model)
+    # (global heads, heads on rank 0)
+    assert seen == {True: {(4, 1)}, False: {(2, 2)}}
+
+
+def _products(gm):
+    """The (lhs, rhs) matrix shapes of every ``mm`` / ``bmm`` of a trace."""
+    aten = torch.ops.aten
+    return {tuple(tuple(GA._value(gm, a).shape)[-2:] for a in n.args[:2])
+            for n in gm.graph.nodes if n.op == "call_function"
+            and n.target in (aten.mm.default, aten.bmm.default)}
+
+
+def test_slstm_projection_split_in_train_not_in_prefill():
+    """The sLSTM's (d, 4d) input projection: in the train step every
+    token on each rank (2 x 64) times a quarter of the columns (the model
+    axis), none whole; in prefill each data rank's tokens times every
+    column, as the reference's partitioner runs each."""
+    cfg = get_config_t(FAMILIES["ssm"]).reduced()
+    d, tokens = cfg.d_model, 2 * 64
+    train = _products(_row("ssm", "train")[1])
+    assert ((tokens, d), (d, 4 * d // 4)) in train
+    assert not any(rhs == (d, 4 * d) for _, rhs in train)
+    assert ((tokens // 2, d), (d, 4 * d)) in _products(
+        _row("ssm", "prefill")[1])
+
+
+def test_moe_train_moves_no_whole_buffer():
+    """No collective of the partitioned MoE train step takes or gives as
+    many elements as the (E * C, d) expert buffer: each model rank stores
+    and reads its own block, and only token rows, blocks and results
+    move."""
+    cfg = get_config_t(FAMILIES["moe"]).reduced()
+    E, K, T = cfg.moe.num_experts, cfg.moe.top_k, 2 * 64
+    C = max(int(2.0 * K * T / E), 8)
+    buffer = E * C * cfg.d_model
+    gm = _row("moe", "train")[1]
+    sizes = [max([t.numel() for t in GA._tensors(
+        [GA._value(gm, a) for a in n.args])] + [
+        t.numel() for t in GA._tensors(n.meta.get("val"))])
+        for n in gm.graph.nodes if n.op == "call_function"
+        and GA._collective_kind(n.target)]
+    assert sizes and max(sizes) < buffer, (max(sizes), buffer)
+
+
 def test_every_kernel_op_of_the_bundles_has_a_rule():
     """K1, K3 (and its backward), K4 and K5 carry a rule; K2 (the global
     pool's write, no bundle's) has none."""
@@ -382,7 +458,7 @@ def test_partitioned_bundle_against_reference(family, kind, reference):
     coll = sum(got["coll"].values()) / sum(ref["coll"].values())
     if row in DENSE_COLL_UNMET:
         assert abs(coll / DENSE_COLL_UNMET[row] - 1) < 0.01, (coll, got, ref)
-    elif family == "dense":
+    elif row in COLL_BOUNDED:
         assert abs(coll - 1) < DENSE_COLL_TOL, (coll, got, ref)
     else:
         assert abs(coll / COLL_PINNED[row] - 1) < 0.01, (coll, got, ref)
@@ -390,6 +466,31 @@ def test_partitioned_bundle_against_reference(family, kind, reference):
     temp = GA.peak_live_bytes(gm, bt.donate_argnums).temp / ref["temp"]
     assert abs(temp / TEMP_PINNED[row] - 1) < 0.01, temp
     assert not dist.is_initialized()
+
+
+def test_chip_smoke_holds_these_rows(reference):
+    """``chip_smoke.py`` holds the card host's torch to the reference's
+    (2, 4) rows and to this file's bounds and pins (phase 13 (a); the
+    card has no JAX): its copies equal them."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_rows", os.path.join(os.path.dirname(__file__), "..",
+                                        "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    rows = {}
+    for family in FAMILIES:
+        for kind in ("train", "prefill", "decode"):
+            r = reference[f"{family}/{kind}"]
+            rows[family, kind] = (r["flops"], sum(r["coll"].values()),
+                                  r["temp"])
+    assert cs.DRYRUN_REFERENCE_24 == rows
+    assert cs.DRYRUN_FLOPS_TOL == FLOPS_TOL
+    assert cs.DRYRUN_FLOPS_PINNED == {**PINNED, **FLOPS_UNMET}
+    assert cs.DRYRUN_COLL_PINNED == {**COLL_PINNED, **DENSE_COLL_UNMET}
+    assert cs.DRYRUN_TEMP_PINNED == TEMP_PINNED
+    assert PR.FAMILIES == FAMILIES
 
 
 # ---------------------------------------------------------------------------
