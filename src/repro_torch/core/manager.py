@@ -107,21 +107,40 @@ class SharingMode(enum.Enum):
     SPATIAL = "spatial"         # concurrent streams, round-robin issue
 
 
+class RunningMean:
+    """A count and a sum: the mean of a series without keeping it."""
+
+    __slots__ = ("count", "total")
+
+    def __init__(self):
+        self.count = 0
+        self.total = 0
+
+    def add(self, value: int) -> None:
+        self.count += 1
+        self.total += value
+
+    @property
+    def mean(self) -> float:
+        return self.total / self.count if self.count else 0.0
+
+
 @dataclasses.dataclass
 class LaunchStats:
-    """Table 5 analogue: cycles -> nanoseconds on the host."""
+    """Table 5 analogue: cycles -> nanoseconds on the host, a running
+    count and sum per field (a server's lifetime of launches must not
+    grow a list)."""
 
-    lookup_ns: List[int] = dataclasses.field(default_factory=list)
-    augment_ns: List[int] = dataclasses.field(default_factory=list)
-    dispatch_ns: List[int] = dataclasses.field(default_factory=list)
+    lookup_ns: RunningMean = dataclasses.field(default_factory=RunningMean)
+    augment_ns: RunningMean = dataclasses.field(default_factory=RunningMean)
+    dispatch_ns: RunningMean = dataclasses.field(
+        default_factory=RunningMean)
 
     def summary(self) -> Dict[str, float]:
-        def avg(xs):
-            return float(np.mean(xs)) if xs else 0.0
         return {
-            "lookup_ns": avg(self.lookup_ns),
-            "augment_ns": avg(self.augment_ns),
-            "dispatch_ns": avg(self.dispatch_ns),
+            "lookup_ns": self.lookup_ns.mean,
+            "augment_ns": self.augment_ns.mean,
+            "dispatch_ns": self.dispatch_ns.mean,
         }
 
 
@@ -275,6 +294,8 @@ class GuardianManager:
         # every record path into a single-branch no-op (asserted
         # byte-identical in tests/test_telemetry.py).
         self.telemetry = Telemetry(self, enabled=telemetry)
+        # the compiled steps record their spans in the same trace
+        self._graphs.trace = self.telemetry.trace
 
         # Fault containment: device-side per-tenant violation telemetry
         # (filled by CHECK launches, in-kernel, no host sync) + the host-side
@@ -1070,7 +1091,7 @@ class GuardianManager:
                 "(application would fail to start, §4.1)")
         self.bounds.lookup(tenant_id)       # an unknown tenant raises
         t1 = time.perf_counter_ns()
-        self.launch_stats.lookup_ns.append(t1 - t0)
+        self.launch_stats.lookup_ns.add(t1 - t0)
 
         remap = self._ptr_remap.get(tenant_id)
         ptr_args = tuple(
@@ -1144,7 +1165,7 @@ class GuardianManager:
         else:
             new_arena, self.arenas[entry.pool_arena].buf, out = res
         self.arena.buf = new_arena
-        self.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t1)
+        self.launch_stats.dispatch_ns.add(time.perf_counter_ns() - t1)
         req.result = out
         return out
 
@@ -1292,14 +1313,14 @@ class GuardianManager:
             # kernel consumes them itself under every policy)
             lead = self._scalars_for(req.tenant_id, part)[:2]
         t2 = time.perf_counter_ns()
-        self.launch_stats.augment_ns.append(t2 - t1)
+        self.launch_stats.augment_ns.add(t2 - t1)
 
         # -- dispatch ----------------------------------------------------
         res = self._launch_compiled(
             entry.jit_cache, (mode, "graph", req.signature[2]),
             f"{entry.name} [{mode}]", lambda: fn, (self.arena.buf,),
             (*lead, *req.call_args))
-        self.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t2)
+        self.launch_stats.dispatch_ns.add(time.perf_counter_ns() - t2)
         if policy is FencePolicy.CHECK:
             (_, out), ok, counts, _ = res
             # attribute even on the raising path: the log row is what the
@@ -1383,7 +1404,16 @@ class GuardianManager:
         preemption included — so every result handle is filled when
         this returns.
         TIME_SHARE: drain each tenant fully then block (context switch).
+
+        With host spans on (``telemetry.trace.spans``) the whole call is a
+        ``manager.drain`` span; each cycle's ``drain_cycle`` event names it
+        as its parent, and the containment and elastic polls are a
+        ``manager.poll`` span.
         """
+        trace = self.telemetry.trace
+        spans = trace.spans
+        if spans:
+            drain = trace.open("manager.drain", self.scheduler._cycle)
         if self.mode is SharingMode.SPATIAL:
             tel = self.telemetry
             # hoisted bindings: this loop runs once per drain cycle and
@@ -1392,7 +1422,7 @@ class GuardianManager:
             # the drain (forget_tenant only drops tenant series).
             recording = tel.enabled
             if recording:
-                reg, trace = tel.registry, tel.trace
+                reg = tel.registry
                 drain_hist = reg.hist("drain_cycle_us", timing=True)
                 n_cycles = 0
             pending = True
@@ -1404,6 +1434,8 @@ class GuardianManager:
                         self._run_op(q.popleft())
                     pending = pending or bool(q)
                 self.scheduler.flush(drain=not pending)
+                if spans:
+                    poll = trace.open("manager.poll")
                 # containment check at the cycle boundary: a tenant crossing
                 # the violation threshold here has its remaining queued ops
                 # dropped while co-tenants keep draining (skipped entirely
@@ -1415,6 +1447,8 @@ class GuardianManager:
                 # with no remaining work is an *idle* cycle — the window
                 # background compaction is allowed to use.
                 self.elastic.maybe_poll(idle=not pending)
+                if spans:
+                    trace.close(poll)
                 if recording:
                     # dispatch wall time, not completion: nothing here
                     # blocks on the device (async dispatch stays async)
@@ -1425,7 +1459,8 @@ class GuardianManager:
                         "drain_cycle", DRAIN_TRACK,
                         self.scheduler._cycle,
                         dur_us=dur_us,
-                        ts_us=trace.now_us() - dur_us)
+                        ts_us=trace.now_us() - dur_us,
+                        parent=drain.sid if spans else None)
             if recording and n_cycles:
                 reg.inc("drain_cycles", n_cycles)
         else:
@@ -1434,8 +1469,14 @@ class GuardianManager:
                     self._run_op(q.popleft())
                 # context switch: full device sync between tenants
                 self._device_sync()
+            if spans:
+                poll = trace.open("manager.poll")
             self.quarantine.maybe_poll()
             self.elastic.maybe_poll()
+            if spans:
+                trace.close(poll)
+        if spans:
+            trace.close(drain)
 
     def synchronize(self, tenant_id: Optional[str] = None) -> None:
         """Drain all queues (:meth:`run_queued`) and block until the

@@ -528,7 +528,14 @@ class BatchedLaunchScheduler:
         lookahead hold.  ``drain=True`` ignores preemption entirely: a
         drain's final flush fills every result handle, class or no
         class.
+
+        With host spans on, the flush is a ``sched.flush`` span and each
+        batch it executes a ``sched.execute`` span (its width and kernel).
         """
+        trace = self.manager.telemetry.trace
+        spans = trace.spans
+        if spans:
+            flush = trace.open("sched.flush", self._cycle)
         if self._track_arrivals:
             # fold this cycle's arrivals into the EWMA before deciding
             # holds: the budget always reflects traffic through *this*
@@ -563,12 +570,19 @@ class BatchedLaunchScheduler:
                     tel.event(name, SCHEDULER_TRACK,
                               width=len(batch),
                               tenants=",".join(r.tenant_id for r in batch))
+            elif spans:
+                ex = trace.open("sched.execute", width=len(batch),
+                                kernel=batch[0].name)
+                self._execute(batch)
+                trace.close(ex)
             else:
                 self._execute(batch)
         self._pending = held
         if self._class_tracking:
             self._observe_class_queue_ages(held)
         self._cycle += 1
+        if spans:
+            trace.close(flush)
 
     # ------------------------------------------------------------------ #
     def _take_batch(
@@ -781,7 +795,7 @@ class BatchedLaunchScheduler:
             lambda: build(head.entry, head.signature[2], T),
             (mgr.arena.buf,),
             (table.magic if modulo else table.rows, *self._flat_dyn(batch)))
-        mgr.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t0)
+        mgr.launch_stats.dispatch_ns.add(time.perf_counter_ns() - t0)
         for req, out in zip(batch, outs):
             req.result = out
         self._record_step(T)
@@ -875,7 +889,7 @@ class BatchedLaunchScheduler:
         else:
             new_arena, mgr.arenas[entry.pool_arena].buf, outs = res
         mgr.arena.buf = new_arena
-        mgr.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t0)
+        mgr.launch_stats.dispatch_ns.add(time.perf_counter_ns() - t0)
         for req, out in zip(batch, outs):
             req.result = out
         self._record_step(T)
@@ -933,7 +947,7 @@ class BatchedLaunchScheduler:
             (self._staged_table(batch).rows, self._staged_vrows(batch),
              *self._flat_dyn(batch)))
         mgr.violog.dirty = True
-        mgr.launch_stats.dispatch_ns.append(time.perf_counter_ns() - t0)
+        mgr.launch_stats.dispatch_ns.add(time.perf_counter_ns() - t0)
         for req, out in zip(batch, outs):
             req.result = out
         self.stats.rollback_bytes += rollback_bytes

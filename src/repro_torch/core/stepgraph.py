@@ -160,14 +160,18 @@ class StepGraph:
     the warm-up and the capture run on (``None`` on the CPU); ``pool`` a
     memory pool shared with other graphs (``None``: a pool of its own);
     ``release`` empties the card's cache between the warm-up and the
-    capture."""
+    capture.  ``trace`` is the owner's event trace: with its host spans
+    on, each call is a ``step.run`` span holding a ``step.stage`` (the
+    staged copies) and a ``step.replay`` span, or at the first call a
+    ``step.capture`` span (warm-up and capture)."""
 
     def __init__(self, name: str, fn: Callable, ops: Operands,
                  device: torch.device,
                  stream: Optional["torch.cuda.Stream"] = None,
                  pool: Optional[Tuple[int, int]] = None,
-                 release: bool = False):
+                 release: bool = False, trace: Any = None):
         self.name = name
+        self.trace = trace
         self.fn = fn
         self.device = torch.device(device)
         self.stream = stream
@@ -232,14 +236,33 @@ class StepGraph:
 
     # ------------------------------------------------------------------ #
     def run(self, ops: Operands) -> Any:
+        trace = self.trace
+        if trace is not None and trace.spans:
+            step = trace.open("step.run", graph=self.name)
+            out = self._run(ops, trace)
+            trace.close(step)
+            return out
+        return self._run(ops, None)
+
+    def _run(self, ops: Operands, trace: Any) -> Any:
+        """One call; ``trace`` (None: no spans) records its parts."""
         if not self.ready:
             # set only once the first call (and on the card the capture)
             # succeeded: a step that failed to capture fails again, it
             # never falls through to an eager run
+            if trace is not None:
+                sp = trace.open("step.capture")
             out = self._first(ops)
+            if trace is not None:
+                trace.close(sp)
             self.ready = True
             return out
+        if trace is not None:
+            sp = trace.open("step.stage")
         self._stage(ops.leaves)
+        if trace is not None:
+            trace.close(sp)
+            sp = trace.open("step.replay")
         if self.graph is not None:
             self.graph.replay()
             for kernel, n in self.launches.items():
@@ -249,6 +272,8 @@ class StepGraph:
             for (kind, static), leaf in zip(self.out_spec, res):
                 if kind == "static" and leaf is not static:
                     static.copy_(leaf)
+        if trace is not None:
+            trace.close(sp)
         self.replays += 1
         return self._outputs(ops.leaves)
 
@@ -349,6 +374,8 @@ class GraphMaker:
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         self.stream: Optional["torch.cuda.Stream"] = None
+        #: the owner's event trace, handed to each graph (None: no spans)
+        self.trace = None
 
     def graph(self, name: str, fn: Callable, ops: Operands,
               pool: Optional[Tuple[int, int]] = None,
@@ -356,7 +383,7 @@ class GraphMaker:
         if self.device.type == "cuda" and self.stream is None:
             self.stream = torch.cuda.Stream(self.device)
         return StepGraph(name, fn, ops, self.device, self.stream, pool,
-                         release)
+                         release, self.trace)
 
     @staticmethod
     def run(graph: StepGraph, ops: Operands,

@@ -21,7 +21,12 @@ module unifies them behind two host-side primitives:
   clock, exportable as Chrome/Perfetto ``trace_event`` JSON (one track
   per tenant, one per scheduler, one per completed serve request) for
   ``ui.perfetto.dev``.  Ring overflow is counted (:attr:`EventTrace.
-  dropped`) and surfaced in ``metrics_report()`` / ``repro.top``.
+  dropped`) and surfaced in ``metrics_report()`` / ``repro.top``.  With
+  :attr:`EventTrace.spans` on (off by default) it also records nested
+  host spans at each layer boundary of a drain (serve driver, control
+  plane, compiled steps, the garbage collector) and exports every stamp
+  on the host's wall clock, the clock ``torch.profiler`` stamps the
+  card's operations with.
 * :class:`RequestSpan` / :class:`SpanLedger` — request-level tracing for
   the serving plane.  Every serve request owns a span whose lifetime is
   partitioned into phases (``queue``/``hold``/``prefill``/``decode``/
@@ -59,6 +64,8 @@ dashboard (:mod:`repro_torch.launch.dashboard`).
 from __future__ import annotations
 
 import bisect
+import gc
+import itertools
 import json
 import time
 from collections import deque
@@ -80,6 +87,7 @@ __all__ = [
     "E2E_CYCLE_BOUNDS",
     "SPAN_PHASES",
     "SLACK_PHASES",
+    "SPAN_TRACK",
 ]
 
 #: global (non-tenant) series key inside the registry maps — a plain
@@ -381,15 +389,21 @@ class TraceEvent:
     ``dur_us`` present for duration events (drain cycles, span phases).
     ``flow`` optionally attaches a Chrome flow-event record
     (``("s"|"t"|"f", flow_id)``) so e.g. a request's submit instant links
-    to its span slices across tracks with a Perfetto arrow."""
+    to its span slices across tracks with a Perfetto arrow.  A host span
+    (:meth:`EventTrace.open`) has its own id ``sid`` and its parent's
+    (``parent``, 0 for a root); an event emitted inside a span may name
+    that span as its ``parent`` too.  Both are None on every other
+    event."""
 
     __slots__ = ("name", "track", "cycle", "ts_us", "dur_us", "args",
-                 "flow")
+                 "flow", "sid", "parent")
 
     def __init__(self, name: str, track: str, cycle: int, ts_us: float,
                  dur_us: Optional[float] = None,
                  args: Optional[Dict[str, Any]] = None,
-                 flow: Optional[Tuple[str, int]] = None):
+                 flow: Optional[Tuple[str, int]] = None,
+                 sid: Optional[int] = None,
+                 parent: Optional[int] = None):
         self.name = name
         self.track = track
         self.cycle = cycle
@@ -397,16 +411,25 @@ class TraceEvent:
         self.dur_us = dur_us
         self.args = args or {}
         self.flow = flow
+        self.sid = sid
+        self.parent = parent
 
     def to_dict(self) -> Dict[str, Any]:
-        return {"name": self.name, "track": self.track,
-                "cycle": self.cycle, "ts_us": self.ts_us,
-                "dur_us": self.dur_us, "args": dict(self.args)}
+        out = {"name": self.name, "track": self.track,
+               "cycle": self.cycle, "ts_us": self.ts_us,
+               "dur_us": self.dur_us, "args": dict(self.args)}
+        if self.sid is not None:
+            out["id"] = self.sid
+        if self.parent is not None:
+            out["parent"] = self.parent
+        return out
 
 
 #: Perfetto track names of the manager-plane (non-tenant) timelines
 SCHEDULER_TRACK = "scheduler"
 DRAIN_TRACK = "drain-cycles"
+#: Perfetto track of the host spans (:attr:`EventTrace.spans`)
+SPAN_TRACK = "host"
 
 
 class EventTrace:
@@ -419,6 +442,23 @@ class EventTrace:
     emitted in wall order (drain duration events live on their own
     :data:`DRAIN_TRACK` — their *start* stamps are monotonic because
     drain cycles never overlap).
+
+    **Host spans.**  :attr:`spans` (off by default) makes the serve
+    driver, the manager's drain, the scheduler and the compiled steps
+    record nested duration events at their layer boundaries (see
+    ``docs/operator-guide.md`` for the tree), and the garbage collector a
+    ``host.gc`` span per collection.  A span is appended to the ring when
+    it closes, so the :data:`SPAN_TRACK` holds them in closing order.
+    While it is off each site costs one read of the switch and the ring
+    holds exactly what it holds without spans.
+
+    **The wall clock.**  Stamps stay on the monotonic clock; the trace
+    keeps anchor pairs ``(perf_counter_ns, time_ns)`` read together — one
+    at creation and one at each :meth:`anchor` — and :meth:`wall_ns` maps
+    a stamp onto ``time.time_ns`` (the clock ``torch.profiler`` stamps the
+    card's operations with) linearly between the two anchors around it,
+    so the two clocks' drift between anchors does not accumulate.  The
+    Chrome export gives every event's ``ts`` on that clock.
     """
 
     def __init__(self, capacity: int = 65536, enabled: bool = True):
@@ -428,6 +468,9 @@ class EventTrace:
         self.capacity = capacity
         self._events: Deque[TraceEvent] = deque(maxlen=capacity)
         self._t0 = time.perf_counter_ns()
+        #: ``(perf_counter_ns, time_ns)`` pairs, oldest first
+        self.anchors: List[Tuple[int, int]] = []
+        self.anchor()
         #: lifetime append count (ring drops are visible as
         #: ``emitted - len(events())``)
         self.emitted = 0
@@ -436,21 +479,29 @@ class EventTrace:
         #: ``repro.top`` warning so an undersized ring is never mistaken
         #: for a complete trace
         self.dropped = 0
+        self._spans = False
+        #: the open host spans, innermost last
+        self._open: List[TraceEvent] = []
+        self._next_sid = 1
+        self._gc_span: Optional[TraceEvent] = None
 
     def emit(self, name: str, track: str, cycle: int,
              dur_us: Optional[float] = None,
              ts_us: Optional[float] = None,
              flow: Optional[Tuple[str, int]] = None,
+             parent: Optional[int] = None,
              **args: Any) -> None:
         if not self.enabled:
             return
         if ts_us is None:
             ts_us = (time.perf_counter_ns() - self._t0) / 1000.0
+        self._append(TraceEvent(name, track, cycle, ts_us, dur_us=dur_us,
+                                args=args, flow=flow, parent=parent))
+
+    def _append(self, ev: TraceEvent) -> None:
         if len(self._events) == self.capacity:
             self.dropped += 1
-        self._events.append(TraceEvent(name, track, cycle, ts_us,
-                                       dur_us=dur_us, args=args,
-                                       flow=flow))
+        self._events.append(ev)
         self.emitted += 1
 
     def now_us(self) -> float:
@@ -461,11 +512,106 @@ class EventTrace:
     def events(self) -> List[TraceEvent]:
         return list(self._events)
 
+    def since(self, mark: int) -> List[TraceEvent]:
+        """The events appended after the first ``mark`` (a value
+        :attr:`emitted` had), oldest first.  Raises :class:`LookupError`
+        when the ring has already dropped some of them."""
+        n = self.emitted - mark
+        if n > len(self._events):
+            raise LookupError(f"the ring dropped {n - len(self._events)} "
+                              f"of the {n} events since {mark}")
+        out = list(itertools.islice(reversed(self._events), n))
+        out.reverse()
+        return out
+
     def clear(self) -> None:
         self._events.clear()
 
     def __len__(self) -> int:
         return len(self._events)
+
+    # -- host spans ----------------------------------------------------- #
+    @property
+    def spans(self) -> bool:
+        """Whether the layers record host spans (off by default)."""
+        return self._spans
+
+    @spans.setter
+    def spans(self, on: bool) -> None:
+        on = bool(on)
+        if on and not self.enabled:
+            raise ValueError("host spans need an enabled trace")
+        if on == self._spans:
+            return
+        self._spans = on
+        if on:
+            gc.callbacks.append(self._on_gc)
+        else:
+            gc.callbacks.remove(self._on_gc)
+            self._open.clear()
+            self._gc_span = None
+
+    def open(self, name: str, cycle: Optional[int] = None,
+             **args: Any) -> TraceEvent:
+        """Open a host span inside the innermost open one (call only
+        while :attr:`spans` is on).  ``cycle`` defaults to the parent's
+        (0 for a root)."""
+        stack = self._open
+        parent = stack[-1] if stack else None
+        if cycle is None:
+            cycle = parent.cycle if parent is not None else 0
+        ev = TraceEvent(name, SPAN_TRACK, cycle,
+                        (time.perf_counter_ns() - self._t0) / 1000.0,
+                        args=args, sid=self._next_sid,
+                        parent=parent.sid if parent is not None else 0)
+        self._next_sid += 1
+        stack.append(ev)
+        return ev
+
+    def close(self, ev: TraceEvent, **args: Any) -> None:
+        """Close ``ev`` (and any span left open inside it), adding
+        ``args``, and append it to the ring."""
+        ev.dur_us = (time.perf_counter_ns() - self._t0) / 1000.0 - ev.ts_us
+        stack = self._open
+        while stack and stack.pop() is not ev:
+            pass
+        if args:
+            ev.args.update(args)
+        self._append(ev)
+
+    def _on_gc(self, phase: str, info: Dict[str, Any]) -> None:
+        if phase == "start":
+            self._gc_span = self.open("host.gc",
+                                      generation=info["generation"])
+        elif self._gc_span is not None:
+            self.close(self._gc_span, collected=info["collected"])
+            self._gc_span = None
+
+    # -- the wall clock ------------------------------------------------- #
+    def anchor(self) -> Tuple[int, int]:
+        """Read the two clocks together and keep the pair (the midpoint
+        of two monotonic reads around the wall-clock read)."""
+        p0 = time.perf_counter_ns()
+        w = time.time_ns()
+        p1 = time.perf_counter_ns()
+        pair = ((p0 + p1) // 2, w)
+        self.anchors.append(pair)
+        return pair
+
+    def wall_ns(self, ts_us: float) -> int:
+        """``ts_us`` (microseconds from trace start) on ``time.time_ns``'s
+        clock: linear between the two anchors around it, outside them
+        the nearest anchor's offset."""
+        p = self._t0 + ts_us * 1000.0
+        a = self.anchors
+        i = bisect.bisect_right(a, (p, float("inf")))
+        if i == 0 or i == len(a):
+            ap, aw = a[0] if i == 0 else a[-1]
+            return round(aw + (p - ap))
+        (p0, w0), (p1, w1) = a[i - 1], a[i]
+        if p1 == p0:
+            return round(w0 + (p - p0))
+        return round(w0 + (p - p0) * (w1 - w0) / (p1 - p0))
 
     # -- Chrome/Perfetto export ----------------------------------------- #
     def to_chrome(self) -> Dict[str, Any]:
@@ -473,8 +619,11 @@ class EventTrace:
         :meth:`to_json`).  One pid ("guardian"), one tid per track in
         first-seen order, thread_name metadata rows, instant events
         (``ph: "i"``) for lifecycle transitions and complete events
-        (``ph: "X"``) for drain cycles.  Loadable in ``ui.perfetto.dev``
-        or ``chrome://tracing``."""
+        (``ph: "X"``) for drain cycles and host spans (their ids in
+        ``args``).  ``ts`` is wall microseconds on ``time.time_ns``'s
+        clock (:meth:`wall_ns`), so the export lines up with a
+        ``torch.profiler`` trace of the same run.  Loadable in
+        ``ui.perfetto.dev`` or ``chrome://tracing``."""
         pid = 1
         tids: Dict[str, int] = {}
         out: List[Dict[str, Any]] = [{
@@ -488,18 +637,23 @@ class EventTrace:
                 tid = tids[ev.track] = len(tids) + 1
                 out.append({"name": "thread_name", "ph": "M", "pid": pid,
                             "tid": tid, "args": {"name": ev.track}})
+            ts = self.wall_ns(ev.ts_us) / 1000.0
+            args = {"cycle": ev.cycle, **ev.args}
+            if ev.sid is not None:
+                args["id"] = ev.sid
+            if ev.parent is not None:
+                args["parent"] = ev.parent
             rec: Dict[str, Any] = {
                 "name": ev.name, "pid": pid, "tid": tid,
-                "cat": "guardian",
-                "args": {"cycle": ev.cycle, **ev.args},
+                "cat": "guardian", "args": args,
             }
             if ev.dur_us is not None:
                 rec["ph"] = "X"
-                rec["ts"] = ev.ts_us
+                rec["ts"] = ts
                 rec["dur"] = ev.dur_us
             else:
                 rec["ph"] = "i"
-                rec["ts"] = ev.ts_us
+                rec["ts"] = ts
                 rec["s"] = "t"
             body.append(rec)
             if ev.flow is not None:
@@ -507,7 +661,7 @@ class EventTrace:
                 frec: Dict[str, Any] = {
                     "name": "request", "cat": "guardian.flow",
                     "ph": letter, "id": fid, "pid": pid, "tid": tid,
-                    "ts": ev.ts_us,
+                    "ts": ts,
                 }
                 if letter == "f":
                     frec["bp"] = "e"

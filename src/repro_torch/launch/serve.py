@@ -366,6 +366,9 @@ class ServeEngine:
             self._pool.pages = PagePool(self._n_phys, n_slots)
         self.rejected: List[int] = []     # rids dropped by quarantine
         self._requests: List[Request] = []
+        #: the manager's event trace: its ``spans`` switch also counts
+        #: the request records each continuous cycle's scans visit
+        self._trace = self.manager.telemetry.trace
         #: rid -> RequestSpan handle (absent entirely when telemetry is
         #: off — every ledger call is None-tolerant)
         self._spans: Dict[int, Any] = {}
@@ -862,11 +865,18 @@ class ServeEngine:
         state = self.manager.quarantine.state_of(tenant)
         return state is None or state.admissible
 
+    def _scanned(self, n: int) -> None:
+        """Count ``n`` request records visited by a scan (host spans on:
+        the ``serve_requests_scanned`` counter)."""
+        self.manager.telemetry.registry.inc("serve_requests_scanned", n)
+
     def _used_pages(self, tenant: str) -> set:
         used: set = set()
         for r in self._requests:
             if r.tenant == tenant and not r.done:
                 used.update(r.pages)
+        if self._trace.spans:
+            self._scanned(len(self._requests))
         return used
 
     def _alloc_pages(self, tenant: str) -> Optional[List[int]]:
@@ -930,6 +940,8 @@ class ServeEngine:
                    if not r.done and not r.pages
                    and r.arrive <= st.cycles
                    and self._admissible(r.tenant)]
+        if self._trace.spans:
+            self._scanned(len(self._requests))
         tel = self.manager.telemetry
         if tel.enabled:
             # deferred spans (future-arrival submits) start their clock
@@ -1040,7 +1052,13 @@ class ServeEngine:
                                 "decode")
         pre_req = dec_req = None
         plen = 0
+        trace = self._trace
+        spans = trace.spans
         if joiners:
+            # the step's operands, built and copied to the device (a
+            # ``serve.stage`` span with host spans on)
+            if spans:
+                stage = trace.open("serve.stage")
             # per-step guard: rows parked for THIS step fence to the
             # engine's scratch extent (whose virtual ids resolve to the
             # garbage page) — fencing them with their tenant's extent
@@ -1052,13 +1070,17 @@ class ServeEngine:
             toks = np.zeros((self.max_batch, plen), np.int32)
             for i in joiners:
                 toks[i, :len(st.rows[i].prompt)] = st.rows[i].prompt
+            meta = self._cont_meta(st, set(joiners))
+            tokens = {"tokens": torch.as_tensor(toks).to(self.device)}
+            if spans:
+                trace.close(stage)
             pre_req = self._client.launch_kernel(
                 self._steps.prefill_name,
-                args=(self.params, self._cont_meta(st, set(joiners)),
-                      {"tokens": torch.as_tensor(toks).to(self.device)},
-                      guard))
+                args=(self.params, meta, tokens, guard))
             st.prefills += 1
         if continuers:
+            if spans:
+                stage = trace.open("serve.stage")
             guard = self._guard_for_rows(
                 [r if i in set(continuers) else None
                  for i, r in enumerate(st.rows)])
@@ -1067,6 +1089,8 @@ class ServeEngine:
             if self._sample_key is not None:
                 self._sample_key, sub = sampling.split(self._sample_key)
                 x = (st.nxt, sampling.key_tensor(sub, self.device))
+            if spans:
+                trace.close(stage)
             dec_req = self._client.launch_kernel(
                 self._steps.decode_name,
                 args=(self.params, meta, x, guard))
@@ -1109,10 +1133,19 @@ class ServeEngine:
             st.left[i] -= 1
         st.cycles += 1
 
-    def _cont_waiting(self, st: _ContState) -> bool:
-        return any(not r.done and not r.pages
-                   and self._admissible(r.tenant)
-                   for r in self._requests)
+    def _cont_waiting(self, st: _ContState, arrived: bool = False) -> bool:
+        """Whether a request waits to join: one not done, holding no
+        pages, of an admissible tenant (``arrived``: whose arrival cycle
+        has come)."""
+        by = st.cycles if arrived else None
+        reqs = self._requests
+        first = next((i for i, r in enumerate(reqs)
+                      if not r.done and not r.pages
+                      and (by is None or r.arrive <= by)
+                      and self._admissible(r.tenant)), -1)
+        if self._trace.spans:
+            self._scanned(first + 1 if first >= 0 else len(reqs))
+        return first >= 0
 
     def _cont_gauges(self, st: _ContState) -> None:
         tel = self.manager.telemetry
@@ -1223,26 +1256,44 @@ def serve_continuous(engines: List["ServeEngine"],
         raise ValueError("serve_continuous drives paged engines; slab "
                          "engines lockstep through serve_engines")
     states = [e._cont_begin(max_new_tokens) for e in engines]
+    trace = mgr.telemetry.trace
     stalled = 0
     try:
         while True:
+            # host spans (``trace.spans``): each iteration is a
+            # ``serve.cycle`` holding each engine's leave, join and
+            # dispatch, the manager's drain and the finish
+            spans = trace.spans
+            if spans:
+                cycle = trace.open("serve.cycle", mgr.telemetry.cycle)
             handles = []
             busy = False
             dispatched = False
             eligible_waiting = False
             for e, st in zip(engines, states):
+                if spans:
+                    sp = trace.open("serve.leave")
                 e._cont_leave(st)
+                if spans:
+                    trace.close(sp)
+                    sp = trace.open("serve.join")
                 joiners = e._cont_join(st)
-                handles.append((e, st) + e._cont_dispatch(st, joiners))
-                if handles[-1][2] is not None or handles[-1][3] is not None:
-                    dispatched = True
                 if any(r is not None for r in st.rows) \
                         or e._cont_waiting(st):
                     busy = True
-                eligible_waiting = eligible_waiting or any(
-                    not r.done and not r.pages and r.arrive <= st.cycles
-                    and e._admissible(r.tenant) for r in e._requests)
+                eligible_waiting = eligible_waiting \
+                    or e._cont_waiting(st, arrived=True)
+                if spans:
+                    trace.close(sp, joiners=len(joiners))
+                    sp = trace.open("serve.dispatch")
+                handles.append((e, st) + e._cont_dispatch(st, joiners))
+                if handles[-1][2] is not None or handles[-1][3] is not None:
+                    dispatched = True
+                if spans:
+                    trace.close(sp, rows=len(joiners) + len(handles[-1][5]))
             if not busy:
+                if spans:
+                    trace.close(cycle)
                 break
             # eligible requests exist but nothing could join or run for
             # several consecutive cycles: every tenant is page-full with
@@ -1254,10 +1305,21 @@ def serve_continuous(engines: List["ServeEngine"],
                     "serve_continuous stalled: waiting requests but no "
                     "tenant can allocate pages (extents too small?)")
             mgr.run_queued()
+            if spans:
+                sp = trace.open("serve.finish")
             for e, st, pre, dec, joiners, continuers, plen in handles:
                 e._cont_finish(st, pre, dec, joiners, continuers, plen)
                 e._cont_gauges(st)
-        return [e._cont_finalize(st) for e, st in zip(engines, states)]
+            if spans:
+                trace.close(sp)
+                trace.close(cycle)
+        spans = trace.spans
+        if spans:
+            sp = trace.open("serve.finalize")
+        out = [e._cont_finalize(st) for e, st in zip(engines, states)]
+        if spans:
+            trace.close(sp)
+        return out
     finally:
         for e in engines:
             e._in_run = False

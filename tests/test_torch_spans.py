@@ -603,3 +603,175 @@ def test_dashboard_renders_spans_ledger_and_overflow_warning(side):
     assert "dropped" not in text
     assert "7 dropped (ring overflow" in got["overflow"]
     assert_same_tree(ref, got)
+
+
+# --------------------------------------------------------------------- #
+# Host spans (the port's own: EventTrace.spans)                         #
+# --------------------------------------------------------------------- #
+
+def _serve_with_spans(side, n=6, on=True, hook=None):
+    """The staggered continuous workload on the port's ``side`` with the
+    host spans on (``on``) from the serve's start; ``hook(eng)`` runs
+    before it.  Returns the manager, the events the serve appended, the
+    wall clock read before and after, and the drains run."""
+    import time
+    serve = SERVE_SIDES[side]
+    mgr, eng = _paged(serve)
+    eng.register_tenant("t", 2)
+    for i, p in enumerate(_prompts(n)):
+        eng.submit("t", p, max_new=1 + i % 3, arrive=i // 2)
+    if hook is not None:
+        hook(eng)
+    drains = []
+    real = mgr.run_queued
+
+    def counted():
+        drains.append(1)
+        real()
+
+    mgr.run_queued = counted
+    trace = mgr.telemetry.trace
+    mark = trace.emitted
+    trace.anchor()
+    w0 = time.time_ns()
+    trace.spans = on
+    serve.continuous([eng], max_new_tokens=8)
+    trace.spans = False
+    w1 = time.time_ns()
+    return mgr, trace.since(mark), (w0, w1), len(drains)
+
+
+def _logical(ev):
+    d = ev.to_dict()
+    for k in ("ts_us", "dur_us", "parent"):
+        d.pop(k, None)
+    return d, ev.flow
+
+
+@SIDE
+def test_spans_off_ring_holds_todays_events(side):
+    """With the switch off the ring of a continuous serve holds no span
+    and no parent link, the same events as the reference's (the mirror
+    above); with it on, the same events again beside the spans, the
+    drain cycles now children of their drain."""
+    _, off, _, _ = _serve_with_spans(side, on=False)
+    assert all(ev.sid is None and ev.parent is None for ev in off)
+    _, on, _, _ = _serve_with_spans(side)
+    kept = [ev for ev in on if ev.sid is None]
+    assert [_logical(ev) for ev in kept] == [_logical(ev) for ev in off]
+    assert all(ev.parent is not None for ev in kept
+               if ev.name == "drain_cycle")
+    assert len(on) > len(off)
+
+
+@SIDE
+def test_spans_form_a_tree_per_cycle(side):
+    """Each span lies inside its parent, every serve cycle holds at most
+    one ``manager.drain`` and every drain lies in a serve cycle, one per
+    ``run_queued`` call; the layers nest as documented."""
+    _, evs, _, drains = _serve_with_spans(side)
+    spans = [ev for ev in evs if ev.sid is not None]
+    by = {ev.sid: ev for ev in spans}
+    for ev in spans:
+        assert ev.dur_us >= 0
+        if ev.parent:
+            p = by[ev.parent]
+            assert p.ts_us <= ev.ts_us
+            assert ev.ts_us + ev.dur_us <= p.ts_us + p.dur_us
+    names = lambda sid: [e.name for e in spans if e.parent == sid
+                         and e.name != "host.gc"]
+    cycles = [ev for ev in spans if ev.name == "serve.cycle"]
+    assert all(ev.parent == 0 for ev in cycles)
+    per = [names(c.sid).count("manager.drain") for c in cycles]
+    assert set(per) <= {0, 1} and sum(per) == drains > 0
+    assert per[-1] == 0                 # the last cycle finds no work
+    for c in cycles[:-1]:
+        kids = names(c.sid)
+        assert kids[:3] == ["serve.leave", "serve.join", "serve.dispatch"]
+        assert kids[-2:] == ["manager.drain", "serve.finish"]
+    parents = {ev.name: by[ev.parent].name for ev in spans if ev.parent
+               and ev.name != "host.gc"}
+    assert parents["serve.stage"] == "serve.dispatch"
+    assert parents["sched.flush"] == "manager.drain"
+    assert parents["manager.poll"] == "manager.drain"
+    assert parents["sched.execute"] == "sched.flush"
+    if side == "compiled":
+        assert parents["step.run"] == "sched.execute"
+        for child in ("step.stage", "step.replay", "step.capture"):
+            assert parents[child] == "step.run"
+    else:
+        assert not any(ev.name.startswith("step.") for ev in spans)
+    assert [ev.name for ev in spans if ev.parent == 0][-1] == \
+        "serve.finalize"
+
+
+@SIDE
+def test_spans_map_onto_the_wall_clock(side):
+    """Every span's bounds, mapped onto ``time.time_ns``, lie between the
+    wall clock read before and after the serve; so does every event the
+    Chrome export gives, and the spans carry their ids there."""
+    mgr, evs, (w0, w1), _ = _serve_with_spans(side)
+    trace = mgr.telemetry.trace
+    spans = [ev for ev in evs if ev.sid is not None]
+    assert spans
+    for ev in spans:
+        a, b = trace.wall_ns(ev.ts_us), trace.wall_ns(ev.ts_us + ev.dur_us)
+        assert w0 <= a <= b <= w1
+    x = [e for e in trace.to_chrome()["traceEvents"]
+         if e.get("ph") == "X" and "id" in e.get("args", {})]
+    assert len(x) == len(spans)
+    assert all(w0 / 1e3 - 1 <= e["ts"] <= w1 / 1e3 + 1 for e in x)
+
+
+@pytest.mark.parametrize("n,count", [(2, 16), (3, 36)])
+def test_requests_scanned_counts_by_hand(n, count):
+    """``serve_requests_scanned`` against a hand count.  Two rows, one
+    tenant of two pages, ``n`` requests of one token at cycle 0.  n = 2:
+    cycle 0 the join's list (2), two page scans (2 + 2), the arrived
+    check (2), the gauges' page scan (2); cycle 1 the list, the waiting
+    check and the arrived check (2 each): 16.  n = 3 (the third waits a
+    cycle): 15 + 12 + 9 = 36."""
+    serve = SERVE_SIDES["compiled"]
+    mgr, eng = _paged(serve)
+    eng.register_tenant("t", 2)
+    for p in _prompts(n):
+        eng.submit("t", p, max_new=1)
+    trace = mgr.telemetry.trace
+    trace.spans = True
+    serve.continuous([eng], max_new_tokens=4)
+    trace.spans = False
+    assert mgr.telemetry.registry.counter("serve_requests_scanned") == count
+    # off: counted nowhere
+    mgr2, eng2 = _paged(serve)
+    eng2.register_tenant("t", 2)
+    for p in _prompts(n):
+        eng2.submit("t", p, max_new=1)
+    serve.continuous([eng2], max_new_tokens=4)
+    assert "serve_requests_scanned" not in mgr2.telemetry.registry.counters
+
+
+@SIDE
+def test_forced_collection_is_a_host_gc_span(side):
+    """A ``gc.collect()`` inside a cycle (in the gauges, under
+    ``serve.finish``) shows as a ``host.gc`` span of generation 2 there;
+    the switch's callback is gone once it is off."""
+    import gc as _gc
+    calls = []
+
+    def hook(eng):
+        real = eng._cont_gauges
+
+        def gauges(st):
+            calls.append(_gc.collect())
+            real(st)
+
+        eng._cont_gauges = gauges
+
+    mgr, evs, _, _ = _serve_with_spans(side, hook=hook)
+    by = {ev.sid: ev for ev in evs if ev.sid is not None}
+    forced = [ev for ev in by.values() if ev.name == "host.gc"
+              and ev.args["generation"] == 2
+              and by[ev.parent].name == "serve.finish"]
+    assert calls and len(forced) >= len(calls)
+    assert all("collected" in ev.args for ev in forced)
+    assert mgr.telemetry.trace._on_gc not in _gc.callbacks

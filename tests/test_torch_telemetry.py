@@ -588,3 +588,141 @@ def test_format_report_tolerates_empty_report():
     text = DT.format_report({})
     assert text == DJ.format_report({})
     assert "guardian flight recorder" in text and "0 tenant(s)" in text
+
+
+# ---------------------------------------------------------------------------
+# The port's own: host spans, the wall clock, the launch stats
+# ---------------------------------------------------------------------------
+
+def test_wall_clock_is_linear_between_anchors():
+    """``wall_ns`` maps a stamp linearly between the two anchors around
+    it (the clocks' drift between them shared out), and outside them by
+    the nearest anchor's offset."""
+    T = module(PORT, "telemetry")
+    tr = T.EventTrace()
+    tr._t0 = 1_000
+    tr.anchors = [(1_000, 5_000_000), (11_000, 5_010_010),
+                  (21_000, 5_020_000)]
+    assert tr.wall_ns(0.0) == 5_000_000
+    assert tr.wall_ns(5.0) == 5_005_005          # midway, drift halved
+    assert tr.wall_ns(10.0) == 5_010_010
+    assert tr.wall_ns(15.0) == 5_015_005
+    assert tr.wall_ns(-0.5) == 4_999_500         # before: first offset
+    assert tr.wall_ns(30.0) == 5_030_000         # after: last offset
+    stamps = [tr.wall_ns(x / 10) for x in range(-20, 400)]
+    assert stamps == sorted(stamps)
+
+
+def test_anchor_reads_both_clocks_together():
+    import time
+    T = module(PORT, "telemetry")
+    tr = T.EventTrace()
+    assert len(tr.anchors) == 1                  # one at creation
+    w0 = time.time_ns()
+    p, w = tr.anchor()
+    w1 = time.time_ns()
+    assert w0 <= w <= w1 and len(tr.anchors) == 2
+    assert w0 - 1_000_000 <= tr.wall_ns(tr.now_us()) <= time.time_ns() \
+        + 1_000_000
+
+
+def test_open_close_nest_and_unwind():
+    """Spans nest on a stack (ids, parent ids, the parent's cycle), land
+    in the ring as they close, and closing an outer span drops what was
+    left open inside it."""
+    T = module(PORT, "telemetry")
+    tr = T.EventTrace()
+    tr.spans = True
+    try:
+        a = tr.open("a", 7, k=1)
+        b = tr.open("b")
+        assert tr._open == [a, b]
+        tr.close(b, n=2)
+        c = tr.open("c")
+        tr.open("left-open")
+        tr.close(c)
+        tr.close(a)
+        assert tr._open == []
+        got = [(e.name, e.sid, e.parent, e.cycle, e.track, e.args)
+               for e in tr.events()]
+        assert got == [("b", b.sid, a.sid, 7, T.SPAN_TRACK, {"n": 2}),
+                       ("c", c.sid, a.sid, 7, T.SPAN_TRACK, {}),
+                       ("a", a.sid, 0, 7, T.SPAN_TRACK, {"k": 1})]
+        assert all(e.dur_us >= 0 for e in tr.events())
+        assert a.ts_us <= b.ts_us and b.ts_us + b.dur_us <= \
+            a.ts_us + a.dur_us
+        assert tr.events()[0].to_dict()["parent"] == a.sid
+    finally:
+        tr.spans = False
+
+
+def test_spans_switch_owns_the_gc_callback():
+    import gc as _gc
+    T = module(PORT, "telemetry")
+    tr = T.EventTrace()
+    assert not tr.spans and tr._on_gc not in _gc.callbacks
+    tr.spans = True
+    assert tr._on_gc in _gc.callbacks
+    outer = tr.open("outer")
+    _gc.collect()
+    tr.close(outer)
+    tr.spans = False
+    assert tr._on_gc not in _gc.callbacks
+    gcs = [e for e in tr.events() if e.name == "host.gc"]
+    assert gcs and gcs[-1].parent == outer.sid
+    assert gcs[-1].args["generation"] == 2
+    n = len(tr)
+    _gc.collect()                               # off: nothing recorded
+    assert len(tr) == n
+    with pytest.raises(ValueError):
+        T.EventTrace(enabled=False).spans = True
+
+
+def test_since_takes_what_followed_a_mark_or_raises():
+    T = module(PORT, "telemetry")
+    tr = T.EventTrace(capacity=4)
+    tr.emit("a", "t", 0)
+    mark = tr.emitted
+    for n in "bcd":
+        tr.emit(n, "t", 0)
+    assert [e.name for e in tr.since(mark)] == ["b", "c", "d"]
+    assert tr.since(tr.emitted) == []
+    tr.emit("e", "t", 0)
+    tr.emit("f", "t", 0)                        # "b" dropped
+    with pytest.raises(LookupError):
+        tr.since(mark)
+    assert [e.name for e in tr.since(mark + 2)] == ["d", "e", "f"]
+
+
+@pytest.mark.parametrize("jit", [True, False])
+def test_launch_stats_means_match_the_series(jit, monkeypatch):
+    """``LaunchStats`` keeps a count and a sum a field, no list; its
+    ``summary()`` (what ``repro_torch.top`` reads) equals the mean of
+    every sample a serve fed it."""
+    from repro_torch.core import manager as M
+    seen = {}
+    real = M.RunningMean.add
+
+    def add(self, value):
+        seen.setdefault(id(self), []).append(value)
+        real(self, value)
+
+    monkeypatch.setattr(M.RunningMean, "add", add)
+    serve = SERVE_SIDES["compiled" if jit else "eager"]
+    mgr = serve.manager(1, max_batch=2, paged=True, max_len=64)
+    eng = serve.engine(max_batch=2, max_len=64, seed=0, manager=mgr,
+                       paged=True)
+    eng.register_tenant("t", 2)
+    for i in range(3):
+        eng.submit("t", [1 + i, 2, 3], max_new=2)
+    serve.continuous([eng], max_new_tokens=2)
+    stats = mgr.launch_stats
+    got = stats.summary()
+    assert set(got) == {"lookup_ns", "augment_ns", "dispatch_ns"}
+    for field in got:
+        series = seen.get(id(getattr(stats, field)), [])
+        want = float(np.mean(series)) if series else 0.0
+        assert got[field] == want
+        assert getattr(stats, field).count == len(series)
+        assert not isinstance(getattr(stats, field), list)
+    assert seen.get(id(stats.dispatch_ns))
