@@ -1963,7 +1963,7 @@ def probe_logits(torch, eng, compiled: bool, rounds: int):
     toks = torch.zeros((eng.max_batch, plen), dtype=torch.int32)
     for i in joiners:
         toks[i, :len(st.rows[i].prompt)] = torch.tensor(st.rows[i].prompt)
-    meta = eng._cont_meta(st, set(joiners))
+    meta = eng._cont_meta(rows)
     mgr.jit_trusted = compiled
     out = []
     for _ in range(rounds):
@@ -2110,13 +2110,13 @@ def check_compiled(torch, cfg, device: str = "cuda"):
     kept = [eng._pool.buf[n][:, phys].clone() for n in ("k", "v")]
     meta = eng._cont_meta
 
-    def forged(st, active):
-        m = meta(st, active)
-        rows = [i for i, r in enumerate(st.rows)
-                if r is not None and r.tenant == "forger" and i in active]
+    def forged(rows, lens=None):
+        m = meta(rows, lens)
+        at = [i for i, r in enumerate(rows)
+              if r is not None and r.tenant == "forger"]
         table = m.page_table.clone()
-        table[rows] = torch.arange(vp.base, vp.base + table.shape[1],
-                                   dtype=torch.int32, device=table.device)
+        table[at] = torch.arange(vp.base, vp.base + table.shape[1],
+                                 dtype=torch.int32, device=table.device)
         return dc.replace(m, page_table=table)
 
     eng._cont_meta = forged

@@ -1262,11 +1262,41 @@ class GuardianManager:
                ops.key())
         graph = entry.jit_cache.get(key)
         if graph is None:
-            if entry.verify:
-                self._verify_trusted(entry, call_args, key[1])
-            graph = self._step_graph(entry.name, entry.fn, ops)
-            entry.jit_cache[key] = graph
+            graph = self._trusted_graph(entry, call_args, key, ops)
         return self._run_compiled(graph, ops, self._trusted_resident(entry))
+
+    def _trusted_graph(self, entry: _KernelEntry, call_args: Tuple,
+                       key: Tuple, ops: Operands) -> StepGraph:
+        """A new graph of ``entry``'s step for ``call_args``, verified
+        where the step asks for it, in ``entry.jit_cache`` under
+        ``key``."""
+        if entry.verify:
+            self._verify_trusted(entry, call_args, key[1])
+        graph = self._step_graph(entry.name, entry.fn, ops)
+        entry.jit_cache[key] = graph
+        return graph
+
+    def precompile(self, name: str, args: Tuple) -> bool:
+        """Capture trusted kernel ``name``'s compiled step for the
+        operands ``args`` without running it (:meth:`StepGraph.capture`):
+        its graph joins the kernel's cache, where a later launch of that
+        signature replays it.  Call it once the step has run compiled at
+        another signature, whose first call loaded its kernels.  Nothing
+        runs, so nothing is written, and no launch is recorded: no
+        scheduler statistic or launch telemetry moves.  Returns whether a
+        graph was made: not where the kernel does not compile
+        (``jit_trusted`` off, a step declared eager) or where the graph
+        exists already."""
+        entry = self.pointer_to_symbol[name]
+        if not self._compiles(entry):
+            return False
+        args = tuple(args)
+        ops = self._trusted_operands(entry, [args])
+        key = ("trusted", _arg_signature(args), ops.key())
+        if key in entry.jit_cache:
+            return False
+        self._trusted_graph(entry, args, key, ops).capture(ops)
+        return True
 
     def _trusted_resident(self, entry: _KernelEntry) -> List[torch.Tensor]:
         """The tensors a compiled trusted step hands back first: the arena

@@ -277,7 +277,20 @@ class StepGraph:
         self.replays += 1
         return self._outputs(ops.leaves)
 
+    def capture(self, ops: Operands) -> None:
+        """Make the graph ready without running the step: on the card,
+        capture it at ``ops`` (nothing it would write is written), which
+        needs the step's kernel libraries loaded by an earlier first call
+        of the same step at another key; on the CPU nothing, and the
+        first call runs the step as always."""
+        if self.device.type == "cuda":
+            self._capture(ops)
+            self.ready = True
+
     def _first(self, ops: Operands) -> Any:
+        # the staged inputs hold the operands the graph was made with,
+        # which a graph made by :meth:`capture` on the CPU did not run on
+        self._stage(ops.leaves)
         args = self._inputs(ops.leaves)
         _, inputs = tree_flatten(args)
         if self.device.type != "cuda":

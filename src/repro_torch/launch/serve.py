@@ -53,7 +53,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Set
 
 import numpy as np
 import torch
@@ -271,6 +271,14 @@ class ServeEngine:
         self.max_batch = max_batch
         self.max_len = max_len
         self.paged = paged
+        #: a paged dense engine prefills only its joiners, rounded up to a
+        #: power of two (:meth:`_prefill_rows`); an MoE step's expert
+        #: capacity couples every row of it, so an MoE engine prefills all
+        #: ``max_batch`` rows, parked ones too
+        self._compact = paged and cfg.moe is None
+        #: prompt lengths whose prefill graphs exist at every row count
+        #: (:meth:`_precapture`)
+        self._precaptured: Set[int] = set()
         self.max_inflight = min(max_inflight or max_batch, max_batch)
         #: pages per request (= max_len / page size): virtual pages in
         #: paged mode, the slab's pages per slot otherwise
@@ -640,14 +648,18 @@ class ServeEngine:
     # ------------------------------------------------------------------ #
     def _guard_for_rows(self, rows: List[Optional[Request]]
                         ) -> Optional[GuardSpec]:
+        """The guard of a step over ``rows``, one per operand row.  A
+        row parked for this step (None) fences to the engine's scratch
+        extent, whose virtual ids resolve to the garbage page: fencing it
+        with its tenant's extent would wrap the scratch ids INTO the
+        tenant's live pages."""
         if not self.guard_enabled:
             return None
         table, row_of = self.manager.fence_table()
-        # tenant-id column: batch row b -> fence-table row of its tenant
+        # tenant-id column: operand row b -> fence-table row of its tenant
         # (idle rows park in the engine's scratch partition)
-        cols = np.full((self.max_batch,), row_of[self.engine_tenant],
-                       np.int32)
-        pol = np.full((self.max_batch,), self.policy.code, np.int32)
+        cols = np.full((len(rows),), row_of[self.engine_tenant], np.int32)
+        pol = np.full((len(rows),), self.policy.code, np.int32)
         for i, r in enumerate(rows):
             if r is not None:
                 cols[i] = row_of[r.tenant]
@@ -1012,36 +1024,90 @@ class ServeEngine:
                 seen[p] = r.tenant
         return joiners
 
-    def _cont_meta(self, st: _ContState, active: set):
-        """Host-authoritative meta for one step: rows in ``active`` carry
-        their real page table + seq len; every other row parks on the
-        engine's scratch page ids (which the PagePool maps to the
-        allocator-owned garbage page — parked writes land nowhere)."""
-        B, P = self.max_batch, self.pages_per_req
+    def _cont_meta(self, rows: List[Optional[Request]], lens=None):
+        """Host-authoritative meta for one step over ``rows``, one per
+        operand row: a request carries its real page table and its entry
+        of ``lens`` (None: every row starts at 0, as a prefill's does);
+        None parks the row on the engine's scratch page ids (which the
+        PagePool maps to the allocator-owned garbage page — parked writes
+        land nowhere)."""
+        B, P = len(rows), self.pages_per_req
         scratch = [self._scratch.base + (j % self._scratch.size)
                    for j in range(P)]
         pt = np.empty((B, P), np.int32)
-        lens = np.zeros((B,), np.int32)
-        for i, r in enumerate(st.rows):
-            if r is not None and i in active:
-                pt[i] = r.pages
-                lens[i] = int(st.lens[i])
-            else:
+        seq = np.zeros((B,), np.int32)
+        for i, r in enumerate(rows):
+            if r is None:
                 pt[i] = scratch
+            else:
+                pt[i] = r.pages
+                if lens is not None:
+                    seq[i] = int(lens[i])
         dev = self.device
         return dataclasses.replace(
             self._meta, page_table=torch.as_tensor(pt).to(dev),
             slot_ids=torch.zeros((B,), dtype=torch.int32, device=dev),
-            seq_lens=torch.as_tensor(lens).to(dev))
+            seq_lens=torch.as_tensor(seq).to(dev))
+
+    def _row_counts(self) -> List[int]:
+        """The row counts a compact prefill takes: the powers of two
+        below ``max_batch``, and ``max_batch``."""
+        counts, n = [], 1
+        while n < self.max_batch:
+            counts.append(n)
+            n *= 2
+        return counts + [self.max_batch]
+
+    def _prefill_rows(self, st: _ContState, joiners: List[int]
+                      ) -> List[Optional[Request]]:
+        """The prefill's operand rows.  Compact (dense): row ``j < k`` is
+        joiner ``joiners[j]``, padded with parked rows to the next power
+        of two (at most ``max_batch``), so a drain with k joiners computes
+        about k rows, not ``max_batch``.  MoE: every batch row at its own
+        index, the others parked, since the step's expert capacity counts
+        every token of it."""
+        if not self._compact:
+            js = set(joiners)
+            return [r if i in js else None for i, r in enumerate(st.rows)]
+        b = min(_pow2(len(joiners)), self.max_batch)
+        return [st.rows[i] for i in joiners] + [None] * (b - len(joiners))
+
+    def _prefill_args(self, rows: List[Optional[Request]], plen: int):
+        """The prefill step's operands over ``rows``: the prompts padded
+        to ``plen`` (parked rows all pads), the meta and the guard."""
+        toks = np.zeros((len(rows), plen), np.int32)
+        for i, r in enumerate(rows):
+            if r is not None:
+                toks[i, :len(r.prompt)] = r.prompt
+        return (self.params, self._cont_meta(rows),
+                {"tokens": torch.as_tensor(toks).to(self.device)},
+                self._guard_for_rows(rows))
+
+    def _precapture(self, plen: int, b: int) -> None:
+        """Once the first compact prefill at ``plen`` (of ``b`` rows) has
+        run, capture the prefill graph of every other row count at
+        ``plen`` (over parked rows; captured, never run: nothing is
+        written), so no later drain captures one.  The manager records no
+        launch for them."""
+        if not self._compact or plen in self._precaptured \
+                or not self.manager.jit_trusted:
+            return
+        self._precaptured.add(plen)
+        for n in self._row_counts():
+            if n != b:
+                self.manager.precompile(self._steps.prefill_name,
+                                        self._prefill_args([None] * n, plen))
 
     def _cont_dispatch(self, st: _ContState, joiners: List[int]):
         """Enqueue this cycle's steps: one prefill covering the joiner
-        rows and one decode covering the continuing rows (each step parks
-        the other set on scratch pages, so their pool writes are
-        disjoint and dispatch order is irrelevant).  Returns the result
-        handles + row sets for :meth:`_cont_finish`."""
+        rows (:meth:`_prefill_rows`) and one decode covering the
+        continuing rows (each step parks the other set on scratch pages,
+        so their pool writes are disjoint and dispatch order is
+        irrelevant).  Returns the result handles + row sets for
+        :meth:`_cont_finish`."""
+        js = set(joiners)
         continuers = [i for i, r in enumerate(st.rows)
-                      if r is not None and i not in set(joiners)]
+                      if r is not None and i not in js]
         tel = self.manager.telemetry
         if tel.enabled:
             for i in joiners:
@@ -1055,36 +1121,27 @@ class ServeEngine:
         trace = self._trace
         spans = trace.spans
         if joiners:
+            plen = max(len(st.rows[i].prompt) for i in joiners)
+            rows = self._prefill_rows(st, joiners)
             # the step's operands, built and copied to the device (a
             # ``serve.stage`` span with host spans on)
             if spans:
                 stage = trace.open("serve.stage")
-            # per-step guard: rows parked for THIS step fence to the
-            # engine's scratch extent (whose virtual ids resolve to the
-            # garbage page) — fencing them with their tenant's extent
-            # would wrap the scratch ids INTO the tenant's live pages
-            guard = self._guard_for_rows(
-                [r if i in set(joiners) else None
-                 for i, r in enumerate(st.rows)])
-            plen = max(len(st.rows[i].prompt) for i in joiners)
-            toks = np.zeros((self.max_batch, plen), np.int32)
-            for i in joiners:
-                toks[i, :len(st.rows[i].prompt)] = st.rows[i].prompt
-            meta = self._cont_meta(st, set(joiners))
-            tokens = {"tokens": torch.as_tensor(toks).to(self.device)}
+            args = self._prefill_args(rows, plen)
             if spans:
                 trace.close(stage)
+                reg = tel.registry
+                reg.inc("serve_prefill_rows", len(rows))
+                reg.inc("serve_prefill_joiners", len(joiners))
             pre_req = self._client.launch_kernel(
-                self._steps.prefill_name,
-                args=(self.params, meta, tokens, guard))
+                self._steps.prefill_name, args=args)
             st.prefills += 1
         if continuers:
             if spans:
                 stage = trace.open("serve.stage")
-            guard = self._guard_for_rows(
-                [r if i in set(continuers) else None
-                 for i, r in enumerate(st.rows)])
-            meta = self._cont_meta(st, set(continuers))
+            rows = [None if i in js else r for i, r in enumerate(st.rows)]
+            guard = self._guard_for_rows(rows)
+            meta = self._cont_meta(rows, st.lens)
             x = st.nxt
             if self._sample_key is not None:
                 self._sample_key, sub = sampling.split(self._sample_key)
@@ -1102,16 +1159,26 @@ class ServeEngine:
                      joiners: List[int], continuers: List[int],
                      plen: int) -> None:
         """Merge the cycle's results on device (no host sync), record the
-        emitted tokens, advance budgets/lens."""
-        if pre_req is not None and dec_req is not None:
+        emitted tokens, advance budgets/lens.  The prefill's next ids go
+        into the ``(max_batch,)`` vector at the joiner rows with one
+        scatter, over the decode's ids (or zeros where nothing decodes):
+        one copy of the joiner rows to the device."""
+        if pre_req is not None:
             _, pre_nxt = pre_req.result
-            _, dec_nxt = dec_req.result
-            mask = np.zeros((self.max_batch,), bool)
-            mask[joiners] = True
-            nxt = torch.where(torch.as_tensor(mask).to(self.device),
-                              pre_nxt, dec_nxt)
-        elif pre_req is not None:
-            _, nxt = pre_req.result
+            self._precapture(plen, pre_nxt.shape[0])
+            if dec_req is None and not self._compact:
+                # MoE: the full-width prefill's ids, parked rows' too
+                # (the next decode routes them, as the reference's does)
+                nxt = pre_nxt
+            else:
+                at = torch.as_tensor(joiners, dtype=torch.long).to(
+                    self.device)
+                base = dec_req.result[1] if dec_req is not None else \
+                    torch.zeros((self.max_batch,), dtype=torch.int32,
+                                device=self.device)
+                src = pre_nxt[:len(joiners)] if self._compact else \
+                    pre_nxt.index_select(0, at)
+                nxt = base.index_copy(0, at, src)
         elif dec_req is not None:
             _, nxt = dec_req.result
         else:
@@ -1236,9 +1303,12 @@ def serve_continuous(engines: List["ServeEngine"],
     prefill for the joining rows *and* a decode for the continuing rows;
     the two steps park each other's rows on scratch pages (all mapping to
     the allocator-owned garbage page), so their pool writes are disjoint
-    and the merged next-token vector is a single on-device ``where`` —
-    the loop never syncs to the host.  All engines' steps ride ONE
-    manager drain per cycle.
+    and the merged next-token vector is a single on-device scatter — the
+    loop never syncs to the host.  A dense engine's prefill computes its
+    joiners only, rounded up to a power of two; once its first prefill at
+    a prompt length has run, the other row counts' graphs at that length
+    are captured too (``ServeEngine._precapture``).  All engines' steps ride ONE manager
+    drain per cycle.
 
     Unlike the lockstep driver this one takes no elastic hold: paged
     resizes and compactions are page-table rewrites (host bookkeeping,

@@ -414,18 +414,21 @@ def test_serve_metrics_identical_compiled_vs_eager():
 def test_readme_trace_captures_one_graph_per_prefill_length_and_decode(
         params):
     """On the README snippet's trace every prefill shares the prompt
-    length 3: one prefill graph and one decode graph are captured, and
-    every later step replays them."""
+    length 3: the first prefill at it and the graphs made once it has
+    run give one prefill graph per row count a prefill of 4 rows can
+    take (1, 2 and 4), one decode graph is captured, and every later
+    step replays them."""
     mgr, eng = _engine(params, True)
     eng.register_tenant("api", 4)
     for i in range(3):
         eng.submit("api", [1 + i, 2 + i, 3 + i], max_new=2 + i, arrive=i)
     ST.serve_continuous([eng], max_new_tokens=4)
     stats = mgr.jit_cache_stats()
-    assert stats["graphs"] == 2 and stats["graph_evictions"] == 0
+    assert stats["graphs"] == 4 and stats["graph_evictions"] == 0
     per = {n: _graphs(mgr.pointer_to_symbol[n].jit_cache)
            for n in (eng._steps.prefill_name, eng._steps.decode_name)}
-    assert [len(g) for g in per.values()] == [1, 1]
+    assert [len(g) for g in per.values()] == [3, 1]
+    assert sum(g.replays for g in per[eng._steps.prefill_name]) == 2
     assert per[eng._steps.decode_name][0].replays > 0
 
 
@@ -583,13 +586,13 @@ def test_forged_page_table_stays_fenced_under_replay(params):
     assert k.abs().sum() > 0
     meta = eng._cont_meta
 
-    def forged(st, active):
-        m = meta(st, active)
-        rows = [i for i, r in enumerate(st.rows)
-                if r is not None and r.tenant == "forger" and i in active]
+    def forged(rows, lens=None):
+        m = meta(rows, lens)
+        at = [i for i, r in enumerate(rows)
+              if r is not None and r.tenant == "forger"]
         table = m.page_table.clone()
-        table[rows] = torch.arange(vp.base, vp.base + table.shape[1],
-                                   dtype=torch.int32) % vp.size + vp.base
+        table[at] = torch.arange(vp.base, vp.base + table.shape[1],
+                                 dtype=torch.int32) % vp.size + vp.base
         return dataclasses.replace(m, page_table=table)
 
     eng._cont_meta = forged
